@@ -1,0 +1,197 @@
+"""Paged KV pool: one preallocated device tensor for every layer of one model
+replica (the JAX package's ``cache/kv_pool.py``: ``SlotAllocator`` and
+``PagedKVPool``, bf16/f32 pools; int8 pools are not ported yet).
+
+- ``kv`` is ``[2, L, Hkv, num_slots, D]`` (K and V stacked, head-major),
+  allocated once; its pages view ``[2, L, Hkv, P, page, D]`` is a pure
+  reshape, the layout the paged-attention kernels read.
+- A host-side :class:`SlotAllocator` free list hands out whole pages of
+  token slots; the radix tree stores slot ids as node values and returns
+  them on eviction.
+- Writes update ``kv`` in place (index assignment), where the JAX package
+  donates the pool through jitted scatters.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["SlotAllocator", "PagedKVPool"]
+
+
+class SlotAllocator:
+    """Host-side free-list allocator of KV token slots, page-granular.
+
+    ``alloc(n)`` returns slot indices covering ``ceil(n/page_size)`` whole
+    pages. Freeing accepts any subset of slots and returns a page to the
+    free list once every slot in it is free.
+    """
+
+    def __init__(self, num_slots: int, page_size: int = 1):
+        if num_slots % page_size != 0:
+            raise ValueError("num_slots must be a multiple of page_size")
+        self.num_slots = num_slots
+        self.page_size = page_size
+        self.num_pages = num_slots // page_size
+        # LIFO free list of pages with zero allocated slots.
+        self._free_pages: list[int] = list(range(self.num_pages - 1, -1, -1))
+        # Per-slot allocation state and per-page count of allocated slots:
+        # a page re-enters the free list exactly when its count returns to
+        # zero, so the unused tail slots of a partial page go back with it.
+        self._slot_allocated = np.zeros(num_slots, dtype=bool)
+        self._page_alloc_count = np.zeros(self.num_pages, dtype=np.int32)
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free_pages) * self.page_size
+
+    def is_allocated(self, slots: np.ndarray) -> np.ndarray:
+        """Per-slot allocation state; out-of-range ids report False."""
+        slots = np.asarray(slots, dtype=np.int64)
+        ok = (slots >= 0) & (slots < self.num_slots)
+        out = np.zeros(len(slots), dtype=bool)
+        out[ok] = self._slot_allocated[slots[ok]]
+        return out
+
+    def alloc(self, n_tokens: int) -> np.ndarray | None:
+        """Slots for ``n_tokens`` tokens (whole pages), or ``None`` if the
+        pool can't satisfy the request (the caller evicts and retries)."""
+        if n_tokens <= 0:
+            return np.empty(0, dtype=np.int32)
+        n_pages = -(-n_tokens // self.page_size)
+        if n_pages > len(self._free_pages):
+            return None
+        pages = [self._free_pages.pop() for _ in range(n_pages)]
+        slots = (
+            np.asarray(pages, dtype=np.int32)[:, None] * self.page_size
+            + np.arange(self.page_size, dtype=np.int32)[None, :]
+        ).reshape(-1)[:n_tokens]
+        self._slot_allocated[slots] = True
+        pg, counts = np.unique(slots // self.page_size, return_counts=True)
+        self._page_alloc_count[pg] = counts.astype(np.int32)
+        return slots
+
+    def reserve(self, slots: np.ndarray) -> None:
+        """Claim specific slots; raises if any is already allocated."""
+        slots = np.asarray(slots, dtype=np.int32)
+        if slots.size == 0:
+            return
+        if np.any(self._slot_allocated[slots]):
+            raise ValueError("cannot reserve: slot(s) already allocated")
+        self._slot_allocated[slots] = True
+        pages, counts = np.unique(slots // self.page_size, return_counts=True)
+        newly_used = pages[self._page_alloc_count[pages] == 0]
+        self._page_alloc_count[pages] += counts.astype(np.int32)
+        used = set(int(p) for p in newly_used)
+        self._free_pages = [p for p in self._free_pages if p not in used]
+
+    def free(self, slots: np.ndarray) -> None:
+        slots = np.asarray(slots, dtype=np.int32)
+        if slots.size == 0:
+            return
+        if len(np.unique(slots)) != len(slots) or not np.all(
+            self._slot_allocated[slots]
+        ):
+            # Checked before any mutation so the allocator stays consistent.
+            raise ValueError("double free of KV slots")
+        self._slot_allocated[slots] = False
+        pages, counts = np.unique(slots // self.page_size, return_counts=True)
+        self._page_alloc_count[pages] -= counts.astype(np.int32)
+        for p in pages[self._page_alloc_count[pages] == 0]:
+            self._free_pages.append(int(p))
+
+
+class PagedKVPool:
+    """Preallocated paged KV storage for every layer of one model replica."""
+
+    def __init__(
+        self,
+        num_slots: int,
+        num_layers: int,
+        num_kv_heads: int,
+        head_dim: int,
+        page_size: int = 1,
+        dtype: torch.dtype = torch.bfloat16,
+        device: torch.device | str = "cpu",
+    ):
+        if dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(
+                f"pool dtype {dtype} is not ported (bf16/f32; int8 pools wait)"
+            )
+        self.num_slots = num_slots
+        self.num_layers = num_layers
+        self.num_kv_heads = num_kv_heads
+        self.head_dim = head_dim
+        self.page_size = page_size
+        self.dtype = dtype
+        self.allocator = SlotAllocator(num_slots, page_size)
+        self.kv = torch.zeros(
+            (2, num_layers, num_kv_heads, num_slots, head_dim),
+            dtype=dtype,
+            device=device,
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.kv.device
+
+    @property
+    def num_pages(self) -> int:
+        return self.allocator.num_pages
+
+    # ---- allocation (host side) ----
+
+    def alloc(self, n_tokens: int) -> np.ndarray | None:
+        return self.allocator.alloc(n_tokens)
+
+    def free(self, slots: np.ndarray) -> None:
+        self.allocator.free(slots)
+
+    def reserve(self, slots: np.ndarray) -> None:
+        self.allocator.reserve(slots)
+
+    @property
+    def free_slots(self) -> int:
+        return self.allocator.free_slots
+
+    # ---- device ops ----
+
+    def _index(self, slots) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(slots, dtype=np.int64), device=self.kv.device)
+
+    def write(self, slots, k: torch.Tensor, v: torch.Tensor) -> None:
+        """Write per-layer K/V for ``n`` tokens at ``slots``; ``k``/``v``
+        are ``[L, n, kv_heads, head_dim]``. Updates ``kv`` in place."""
+        if len(slots) == 0:
+            return
+        new_kv = torch.stack([k, v]).permute(0, 1, 3, 2, 4)  # [2, L, H, n, D]
+        self.kv[:, :, :, self._index(slots)] = new_kv.to(self.dtype)
+
+    def pages(self) -> torch.Tensor:
+        """Zero-copy pages view ``[2, L, Hkv, P, page, D]``."""
+        return self.kv.view(
+            2, self.num_layers, self.num_kv_heads, self.num_pages,
+            self.page_size, self.head_dim,
+        )
+
+    def pages_for_layer(self, layer: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """(k_pages, v_pages), each ``[Hkv, P, page, D]`` — views."""
+        p = self.pages()
+        return p[0, layer], p[1, layer]
+
+    def gather(self, slots) -> torch.Tensor:
+        """``[2, L, n, kv_heads, head_dim]`` for the given slots."""
+        return self.kv[:, :, :, self._index(slots)].permute(0, 1, 3, 2, 4)
+
+    def page_table(self, slots: np.ndarray) -> np.ndarray:
+        """Page ids covering a page-aligned run of slots."""
+        slots = np.asarray(slots, dtype=np.int32)
+        if slots.size == 0:
+            return np.empty(0, dtype=np.int32)
+        if self.page_size == 1:
+            return slots
+        heads = slots[:: self.page_size]
+        if np.any(heads % self.page_size != 0):
+            raise ValueError("slots are not page-aligned")
+        return heads // self.page_size

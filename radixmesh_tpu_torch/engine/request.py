@@ -1,0 +1,104 @@
+"""Request lifecycle state for the serving engine.
+
+This package's own copy of the JAX package's ``engine/request.py``, cut to
+the fields the legacy schedule uses: the port imports nothing of the JAX
+package. ``SamplingParams`` keeps its ``seed`` field so a seeded request can
+be refused loudly (seeded replay is not ported yet) instead of silently
+sampling from the engine stream.
+"""
+
+from __future__ import annotations
+
+import enum
+import itertools
+import threading
+from dataclasses import dataclass, field
+
+import numpy as np
+
+__all__ = ["Request", "RequestState", "SamplingParams"]
+
+_rid_counter = itertools.count()
+
+
+@dataclass(frozen=True)
+class SamplingParams:
+    temperature: float = 0.0  # 0 = greedy
+    top_p: float = 1.0
+    top_k: int = 0  # 0 = disabled
+    max_new_tokens: int = 16
+    stop_token_ids: tuple[int, ...] = ()
+    # Per-request sampling seed. Seeded replay is not ported: the engine
+    # refuses a request that sets it.
+    seed: int | None = None
+
+
+class RequestState(enum.Enum):
+    QUEUED = "queued"
+    RUNNING = "running"
+    FINISHED = "finished"
+
+
+@dataclass
+class Request:
+    prompt: np.ndarray  # int32 token ids
+    sampling: SamplingParams = field(default_factory=SamplingParams)
+    rid: int = field(default_factory=lambda: next(_rid_counter))
+
+    # -- engine-managed state --
+    state: RequestState = RequestState.QUEUED
+    output_tokens: list[int] = field(default_factory=list)
+    row: int = -1  # decode-batch row while RUNNING
+    kv_len: int = 0  # tokens whose KV is in the pool
+    prefix_len: int = 0  # tokens reused from the radix cache at prefill
+    # Slot index per token position [kv_len]: canonical (tree-owned) slots
+    # over the reused prefix, this request's slots after it.
+    token_slots: np.ndarray = field(
+        default_factory=lambda: np.empty(0, dtype=np.int32)
+    )
+    # Slots allocated by/for this request (whole pages; superset of the
+    # tail of token_slots until handed to the tree or freed).
+    own_slots: np.ndarray = field(
+        default_factory=lambda: np.empty(0, dtype=np.int32)
+    )
+    lock_node: object = None  # TreeNode protected while RUNNING
+    cancelled: bool = False  # aborted by Engine.cancel (output is partial)
+    submit_time: float = 0.0
+    first_token_time: float = 0.0
+    finish_time: float = 0.0
+    # Per-request progress wake (server/http_frontend.py): waiters block
+    # on this instead of polling. Notified by note_progress() on each
+    # appended token and — via __setattr__ — on ANY transition to
+    # FINISHED, so no finish site can strand a waiter.
+    cond: threading.Condition = field(
+        default_factory=threading.Condition, repr=False, compare=False
+    )
+
+    def note_progress(self) -> None:
+        """Wake every thread blocked on this request."""
+        with self.cond:
+            self.cond.notify_all()
+
+    def __setattr__(self, name, value):
+        object.__setattr__(self, name, value)
+        if name == "state" and value is RequestState.FINISHED:
+            # dict lookup, not attribute access: during dataclass
+            # __init__ the state field is assigned before cond exists.
+            cond = self.__dict__.get("cond")
+            if cond is not None:
+                with cond:
+                    cond.notify_all()
+
+    @property
+    def num_tokens(self) -> int:
+        return len(self.prompt) + len(self.output_tokens)
+
+    @property
+    def generated(self) -> list[int]:
+        return list(self.output_tokens)
+
+    def is_finished_by(self, token: int) -> bool:
+        return (
+            token in self.sampling.stop_token_ids
+            or len(self.output_tokens) >= self.sampling.max_new_tokens
+        )

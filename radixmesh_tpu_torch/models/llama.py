@@ -1,0 +1,362 @@
+"""Llama-3-family transformer in PyTorch (the JAX package's
+``models/llama.py``).
+
+- ``ModelConfig`` carries the same fields, with a torch dtype.
+- :class:`Llama` holds the JAX param tree's tensors in the JAX orientation:
+  every projection is ``[in, out]`` and applied as ``x @ W``, and per-layer
+  weights are stacked on a leading layer axis (``layers.wq`` is
+  ``[L, H, Hq*D]``), so the JAX tree converts leaf for leaf
+  (``models/convert.py``).
+- Three forwards, as in the JAX package: ``prefill_forward`` (new tokens
+  against an optional right-aligned cached prefix, plain attention),
+  ``prefill_chunk_paged`` (one chunk against the paged pool, through the
+  chunk kernel) and ``decode_step`` (one token per row, through the fused
+  decode kernel). The big products are plain ``torch.matmul``; logits are
+  float32 like the JAX ``_logits``.
+- The pool is updated in place where JAX donates it: ``decode_step``'s
+  kernel writes each layer's row, and ``prefill_chunk_paged`` writes the
+  chunk's K/V into layer ``l`` right after layer ``l``'s attention (the
+  chunk kernel reads only pool tokens below ``prior``, so per-layer writes
+  are safe; JAX writes once after its layer scan).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from radixmesh_tpu_torch.ops.attention import (
+    attend_prefill,
+    paged_chunk_attention,
+    paged_decode_attention,
+)
+from radixmesh_tpu_torch.ops.norm import rms_norm
+from radixmesh_tpu_torch.ops.rope import apply_rope, rope_frequencies
+
+__all__ = ["ModelConfig", "Llama", "init_params", "LAYER_PARAMS"]
+
+LAYER_PARAMS = (
+    "attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    vocab_size: int = 128256
+    hidden: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    head_dim: int = 128
+    intermediate: int = 14336
+    rope_theta: float = 500000.0
+    # Tuple of (key, value) pairs so the config hashes, as in the JAX one.
+    rope_scaling: tuple | None = None
+    rms_eps: float = 1e-5
+    qkv_bias: bool = False  # Qwen2 (not ported yet)
+    tie_embeddings: bool = False
+    max_seq_len: int = 8192
+    dtype: torch.dtype = torch.bfloat16
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def llama3_8b(cls) -> "ModelConfig":
+        """Meta-Llama-3-8B: no rope scaling (it arrives with 3.1), the 8k
+        window."""
+        return cls(rope_scaling=None)
+
+    @classmethod
+    def llama3_70b(cls) -> "ModelConfig":
+        return cls(
+            hidden=8192, n_layers=80, n_heads=64, n_kv_heads=8, head_dim=128,
+            intermediate=28672, rope_scaling=None,
+        )
+
+    @classmethod
+    def llama31_8b(cls) -> "ModelConfig":
+        return cls.llama3_8b().replace(
+            rope_scaling=(
+                ("factor", 8.0),
+                ("low_freq_factor", 1.0),
+                ("high_freq_factor", 4.0),
+                ("original_max_position_embeddings", 8192),
+            ),
+            max_seq_len=131072,
+        )
+
+    @classmethod
+    def llama31_70b(cls) -> "ModelConfig":
+        return cls.llama3_70b().replace(
+            rope_scaling=cls.llama31_8b().rope_scaling, max_seq_len=131072
+        )
+
+    @classmethod
+    def llama32_1b(cls) -> "ModelConfig":
+        return cls(
+            vocab_size=128256, hidden=2048, n_layers=16, n_heads=32,
+            n_kv_heads=8, head_dim=64, intermediate=8192, tie_embeddings=True,
+            rope_scaling=(
+                ("factor", 32.0),
+                ("low_freq_factor", 1.0),
+                ("high_freq_factor", 4.0),
+                ("original_max_position_embeddings", 8192),
+            ),
+            max_seq_len=131072,
+        )
+
+    @classmethod
+    def llama32_3b(cls) -> "ModelConfig":
+        return cls.llama32_1b().replace(
+            hidden=3072, n_layers=28, n_heads=24, n_kv_heads=8,
+            head_dim=128, intermediate=8192,
+        )
+
+    @classmethod
+    def tiny(cls) -> "ModelConfig":
+        """Test config: same architecture, toy dims."""
+        return cls(
+            vocab_size=512, hidden=128, n_layers=2, n_heads=4, n_kv_heads=2,
+            head_dim=32, intermediate=256, max_seq_len=512,
+        )
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """Leaf shapes of the param tree (JAX orientation)."""
+    L, H = cfg.n_layers, cfg.hidden
+    qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    shapes = {
+        "embed": (cfg.vocab_size, H),
+        "final_norm": (H,),
+        "layers": {
+            "attn_norm": (L, H),
+            "mlp_norm": (L, H),
+            "wq": (L, H, qd),
+            "wk": (L, H, kvd),
+            "wv": (L, H, kvd),
+            "wo": (L, qd, H),
+            "w_gate": (L, H, cfg.intermediate),
+            "w_up": (L, H, cfg.intermediate),
+            "w_down": (L, cfg.intermediate, H),
+        },
+    }
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (H, cfg.vocab_size)
+    return shapes
+
+
+def init_params(
+    cfg: ModelConfig, seed: int = 0, device: torch.device | str = "cpu"
+) -> dict:
+    """Random weights from a seeded ``torch.Generator``: the JAX package's
+    ``init_params`` scheme (normal scaled by 1/sqrt(fan_in), norms at one)
+    with other random numbers. Stacked tensors are drawn one layer at a
+    time, so the float32 scratch stays one layer's worth."""
+    if cfg.qkv_bias:
+        raise NotImplementedError("qkv_bias (Qwen2) is not ported yet")
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def dense(shape, fan_in):
+        out = torch.empty(shape, dtype=cfg.dtype, device=device)
+        for m in (out,) if len(shape) == 2 else out:  # one layer at a time
+            m.copy_(torch.randn(m.shape, generator=gen, device=device) / math.sqrt(fan_in))
+        return out
+
+    shapes = param_shapes(cfg)
+    ls = shapes["layers"]
+    params = {
+        "embed": dense(shapes["embed"], cfg.hidden),
+        "final_norm": torch.ones(shapes["final_norm"], dtype=cfg.dtype, device=device),
+        "layers": {
+            "attn_norm": torch.ones(ls["attn_norm"], dtype=cfg.dtype, device=device),
+            "mlp_norm": torch.ones(ls["mlp_norm"], dtype=cfg.dtype, device=device),
+            "wq": dense(ls["wq"], cfg.hidden),
+            "wk": dense(ls["wk"], cfg.hidden),
+            "wv": dense(ls["wv"], cfg.hidden),
+            "wo": dense(ls["wo"], ls["wo"][1]),
+            "w_gate": dense(ls["w_gate"], cfg.hidden),
+            "w_up": dense(ls["w_up"], cfg.hidden),
+            "w_down": dense(ls["w_down"], cfg.intermediate),
+        },
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense(shapes["lm_head"], cfg.hidden)
+    return params
+
+
+class Llama(nn.Module):
+    """Llama over a JAX-oriented param tree (no autograd: weights are
+    frozen parameters and every forward runs under ``inference_mode``)."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__()
+        if cfg.qkv_bias:
+            raise NotImplementedError("qkv_bias (Qwen2) is not ported yet")
+        self.cfg = cfg
+        shapes = param_shapes(cfg)
+
+        def frozen(t, shape):
+            if tuple(t.shape) != tuple(shape):
+                raise ValueError(f"param shape {tuple(t.shape)} != expected {shape}")
+            return nn.Parameter(t.to(cfg.dtype), requires_grad=False)
+
+        self.embed = frozen(params["embed"], shapes["embed"])
+        self.final_norm = frozen(params["final_norm"], shapes["final_norm"])
+        self.layers = nn.ParameterDict(
+            {n: frozen(params["layers"][n], shapes["layers"][n]) for n in LAYER_PARAMS}
+        )
+        self.lm_head = (
+            None if cfg.tie_embeddings else frozen(params["lm_head"], shapes["lm_head"])
+        )
+        self.register_buffer(
+            "inv_freq",
+            rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
+                             device=self.embed.device),
+            persistent=False,
+        )
+
+    # -- shared pieces ---------------------------------------------------
+
+    def _qkv(self, l: int, x: torch.Tensor):
+        """x [B, S, H] → q [B, S, Hq, D], k/v [B, S, Hkv, D]."""
+        cfg, lp = self.cfg, self.layers
+        B, S = x.shape[:2]
+        q = torch.matmul(x, lp["wq"][l]).view(B, S, cfg.n_heads, cfg.head_dim)
+        k = torch.matmul(x, lp["wk"][l]).view(B, S, cfg.n_kv_heads, cfg.head_dim)
+        v = torch.matmul(x, lp["wv"][l]).view(B, S, cfg.n_kv_heads, cfg.head_dim)
+        return q, k, v
+
+    def _attn_out_mlp(self, l: int, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+        """Residual ``wo`` projection of ``attn`` [B, S, Hq, D], then the
+        SwiGLU MLP block."""
+        lp = self.layers
+        B, S = x.shape[:2]
+        x = x + torch.matmul(attn.reshape(B, S, -1), lp["wo"][l])
+        h = rms_norm(x, lp["mlp_norm"][l], self.cfg.rms_eps)
+        gate = F.silu(torch.matmul(h, lp["w_gate"][l]))
+        up = torch.matmul(h, lp["w_up"][l])
+        return x + torch.matmul(gate * up, lp["w_down"][l])
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm + LM head, float32 logits (products accumulate in
+        float32 either way; a bf16 model rounds the product to bf16 before
+        the cast)."""
+        x = rms_norm(x, self.final_norm, self.cfg.rms_eps)
+        w = self.embed.t() if self.cfg.tie_embeddings else self.lm_head
+        return torch.matmul(x, w).float()
+
+    def _rope(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        return apply_rope(x, positions, self.inv_freq)
+
+    # -- forwards --------------------------------------------------------
+
+    @torch.inference_mode()
+    def prefill_forward(
+        self,
+        tokens: torch.Tensor,  # [B, S_new]
+        positions: torch.Tensor,  # [B, S_new] absolute positions
+        cached_k: torch.Tensor,  # [L, B, P_max, Hkv, D] rotated prefix, RIGHT-aligned
+        cached_v: torch.Tensor,
+        prefix_lengths: torch.Tensor,  # [B] valid cached tokens (<= P_max)
+    ):
+        """Prefill new tokens against an optional cached prefix, ragged
+        prefixes right-aligned in the ``P_max`` region (front padding is
+        masked). Returns ``(logits [B, S, V] f32, new_k [L, B, S, Hkv, D],
+        new_v)``; the caller writes new K/V into the pool."""
+        cfg = self.cfg
+        x = F.embedding(tokens, self.embed)
+        p_max = cached_k.shape[2]
+        s_new = tokens.shape[1]
+        pad = p_max - prefix_lengths
+        attn_pos = positions + pad[:, None]
+        kv_end = torch.full_like(prefix_lengths, p_max + s_new)
+        new_k, new_v = [], []
+        for l in range(cfg.n_layers):
+            h = rms_norm(x, self.layers["attn_norm"][l], cfg.rms_eps)
+            q, k, v = self._qkv(l, h)
+            q, k = self._rope(q, positions), self._rope(k, positions)
+            k_ctx = torch.cat([cached_k[l], k], dim=1)
+            v_ctx = torch.cat([cached_v[l], v], dim=1)
+            attn = attend_prefill(q, k_ctx, v_ctx, attn_pos, kv_end, kv_start=pad)
+            x = self._attn_out_mlp(l, x, attn)
+            new_k.append(k)
+            new_v.append(v)
+        return self._logits(x), torch.stack(new_k), torch.stack(new_v)
+
+    @torch.inference_mode()
+    def prefill_chunk_paged(
+        self,
+        tokens: torch.Tensor,  # [B, C] one chunk (tail-padded)
+        positions: torch.Tensor,  # [B, C] absolute positions
+        kv_pool: torch.Tensor,  # [2, L, Hkv, num_slots, D] — written in place
+        slots: torch.Tensor,  # [B, C] pool slot per chunk token (pad → scratch)
+        page_table: torch.Tensor,  # [B, max_pages] int32
+        kv_lengths: torch.Tensor,  # [B] int32 context valid after this chunk
+        page_size: int = 16,
+    ) -> torch.Tensor:
+        """One chunk of prefill against the paged pool: prior context
+        streams from pool pages through the chunk kernel, the chunk's own
+        K/V rides dense. Returns ``logits [B, C, V]`` (f32); the chunk's
+        K/V lands in the pool at ``slots``."""
+        cfg = self.cfg
+        L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        num_slots = kv_pool.shape[3]
+        kv_pages = kv_pool.view(2, L, Hkv, num_slots // page_size, page_size, D)
+        # Pool tokens BEFORE this chunk. Exhausted rows carry clipped
+        # positions; their outputs are discarded and stay finite.
+        prior = torch.minimum(positions[:, 0], kv_lengths).to(torch.int32)
+        kv_lengths = kv_lengths.to(torch.int32)
+        flat_slots = slots.reshape(-1).long()
+        x = F.embedding(tokens, self.embed)
+        B, C = tokens.shape
+        for l in range(L):
+            h = rms_norm(x, self.layers["attn_norm"][l], cfg.rms_eps)
+            q, k, v = self._qkv(l, h)
+            q, k = self._rope(q, positions), self._rope(k, positions)
+            k, v = k.to(kv_pool.dtype).contiguous(), v.to(kv_pool.dtype).contiguous()
+            attn = paged_chunk_attention(
+                q.contiguous(), k, v, kv_pages, page_table, prior, kv_lengths, l
+            )
+            # In-place chunk write for this layer ([Hkv, B*C, D] at slots).
+            kv_pool[0, l][:, flat_slots] = k.reshape(B * C, Hkv, D).transpose(0, 1)
+            kv_pool[1, l][:, flat_slots] = v.reshape(B * C, Hkv, D).transpose(0, 1)
+            x = self._attn_out_mlp(l, x, attn)
+        return self._logits(x)
+
+    @torch.inference_mode()
+    def decode_step(
+        self,
+        tokens: torch.Tensor,  # [B] current token per row
+        kv_pool: torch.Tensor,  # [2, L, Hkv, num_slots, D] — written in place
+        slots: torch.Tensor,  # [B] int32 pool slot for this token's K/V
+        page_table: torch.Tensor,  # [B, max_pages] int32
+        lengths: torch.Tensor,  # [B] int32 context length incl. this token
+        page_size: int = 16,
+    ) -> torch.Tensor:
+        """One decode step for a continuous batch: each layer's fused
+        kernel writes this token's K/V into the pool and attends over the
+        row's pages. Returns ``logits [B, V]`` (f32)."""
+        cfg = self.cfg
+        L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        num_slots = kv_pool.shape[3]
+        kv_pages = kv_pool.view(2, L, Hkv, num_slots // page_size, page_size, D)
+        positions = (lengths.long() - 1)[:, None]  # [B, 1]
+        x = F.embedding(tokens, self.embed)[:, None, :]  # [B, 1, H]
+        for l in range(L):
+            h = rms_norm(x, self.layers["attn_norm"][l], cfg.rms_eps)
+            q, k, v = self._qkv(l, h)
+            q, k = self._rope(q, positions), self._rope(k, positions)
+            attn, _ = paged_decode_attention(
+                q[:, 0].contiguous(),
+                k[:, 0].to(kv_pool.dtype).contiguous(),
+                v[:, 0].to(kv_pool.dtype).contiguous(),
+                kv_pages, slots, page_table, lengths, l,
+            )
+            x = self._attn_out_mlp(l, x, attn[:, None])
+        return self._logits(x)[:, 0]
+

@@ -1,0 +1,97 @@
+"""Build the CUDA kernels from ``ops/csrc/`` at first use.
+
+Each source compiles with ``nvcc`` into its own shared library with a plain
+C interface, loaded through ``ctypes`` — a file that includes no PyTorch
+header builds in seconds. Libraries land in ``ops/_build/`` (git-ignored),
+named by a hash of the source and the flags, so an edited source rebuilds
+and an unchanged one loads straight away. :func:`build_all` starts one
+``nvcc`` per source at once and waits for all of them.
+
+``nvcc`` is found through ``$CUDA_HOME``, then ``/usr/local/cuda``, then
+``PATH``. The target is ``sm_90a`` (Hopper).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["SOURCES", "build_all", "load_library", "BUILD_LOG"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("paged_decode", "paged_chunk")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+# name -> {"seconds": build time (0 if cached), "ptxas": compiler report}
+BUILD_LOG: dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the CUDA kernels build from "
+            "radixmesh_tpu_torch/ops/csrc at first use"
+        )
+    return found
+
+
+def _target(name: str) -> Path:
+    src = (_CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return _BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library is already built;
+    returns ``(process, temp path, target, t0)`` or None."""
+    target = _target(name)
+    if target.exists():
+        BUILD_LOG.setdefault(name, {"seconds": 0.0, "ptxas": ""})
+        return None
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return proc, tmp, target, time.monotonic()
+
+
+def _finish(name: str, started) -> None:
+    proc, tmp, target, t0 = started
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{out}")
+    os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    BUILD_LOG[name] = {"seconds": time.monotonic() - t0, "ptxas": out}
+
+
+def build_all() -> dict[str, dict]:
+    """Build every kernel library, one ``nvcc`` per source, all started
+    together. Returns :data:`BUILD_LOG`."""
+    started = {name: _start(name) for name in SOURCES}
+    for name, st in started.items():
+        if st is not None:
+            _finish(name, st)
+    return BUILD_LOG
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Load kernel library ``name``, building it first if needed."""
+    st = _start(name)
+    if st is not None:
+        _finish(name, st)
+    return ctypes.CDLL(str(_target(name)))

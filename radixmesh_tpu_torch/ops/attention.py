@@ -1,0 +1,211 @@
+"""Attention: dense prefill with cached-prefix reuse, the gather-based paged
+references, and the dispatchers the model calls (the JAX package's
+``ops/attention.py``).
+
+- ``attend_prefill`` is plain PyTorch: the JAX package runs it as plain XLA,
+  with no Pallas kernel behind it.
+- ``attend_decode_ref`` and ``attend_chunk_hybrid`` are the gather-based
+  references the JAX package holds its kernels against.
+- ``paged_decode_attention`` / ``paged_chunk_attention`` dispatch to the
+  wrappers in ``ops/paged_attention.py``: a CUDA tensor launches the
+  hand-written kernel (or raises), a CPU tensor takes the kernel's plain
+  version.
+
+Layouts are the JAX package's: queries ``[B, S, Hq, D]``, the pool's pages
+view ``[2, L, Hkv, P, page, D]``, page tables ``[B, max_pages]`` int32.
+Query head ``h`` belongs to kv head ``h // G`` (``G = Hq // Hkv``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from radixmesh_tpu_torch.ops.paged_attention import (
+    paged_chunk_attention_kernel,
+    paged_decode_fused_kernel,
+)
+
+__all__ = [
+    "attend_prefill",
+    "attend_decode_ref",
+    "attend_chunk_hybrid",
+    "paged_chunk_attention",
+    "paged_decode_attention",
+]
+
+_NEG_INF = -1e30
+
+
+def attend_prefill(
+    q: torch.Tensor,  # [B, S_new, Hq, D]
+    k: torch.Tensor,  # [B, S_ctx, Hkv, D] (cached prefix ++ new, rotated)
+    v: torch.Tensor,  # [B, S_ctx, Hkv, D]
+    q_positions: torch.Tensor,  # [B, S_new] index-space positions of q
+    kv_lengths: torch.Tensor,  # [B] valid context end (index space)
+    kv_start: torch.Tensor | None = None,  # [B] valid context begin
+) -> torch.Tensor:
+    """Causal attention where queries start mid-context: the query at
+    index-space position ``p`` attends to ``[kv_start, min(p+1,
+    kv_lengths))``. Queries are grouped per kv head instead of repeating
+    K/V; scores and softmax are float32. Returns ``[B, S_new, Hq, D]``."""
+    B, S_new, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qg = q.float().reshape(B, S_new, Hkv, G, D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    logits = logits * (1.0 / math.sqrt(D))
+    kv_pos = torch.arange(k.shape[1], device=q.device)
+    causal = kv_pos <= q_positions[:, None, None, :, None]  # [B,1,1,Q,K]
+    valid = kv_pos < kv_lengths[:, None, None, None, None]
+    if kv_start is not None:
+        valid = valid & (kv_pos >= kv_start[:, None, None, None, None])
+    logits = torch.where(causal & valid, logits, _NEG_INF)
+    weights = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", weights, v.float())
+    return out.reshape(B, S_new, Hq, D).to(q.dtype)
+
+
+def attend_decode_ref(
+    q: torch.Tensor,  # [B, Hq, D]
+    k_pages: torch.Tensor,  # [Hkv, P, page, D] one layer
+    v_pages: torch.Tensor,  # [Hkv, P, page, D]
+    page_table: torch.Tensor,  # [B, max_pages]
+    lengths: torch.Tensor,  # [B] context length incl. current token
+) -> torch.Tensor:
+    """Gather-based paged decode attention over ``lengths[b]`` pool tokens
+    (the JAX package's numerics reference)."""
+    B, Hq, D = q.shape
+    Hkv, _, page, _ = k_pages.shape
+    G = Hq // Hkv
+    max_ctx = page_table.shape[1] * page
+    pt = page_table.long()
+    k = k_pages[:, pt].reshape(Hkv, B, max_ctx, D).permute(1, 2, 0, 3).float()
+    v = v_pages[:, pt].reshape(Hkv, B, max_ctx, D).permute(1, 2, 0, 3).float()
+    qg = q.float().reshape(B, Hkv, G, D)
+    logits = torch.einsum("bhgd,bkhd->bhgk", qg, k) * (1.0 / math.sqrt(D))
+    valid = torch.arange(max_ctx, device=q.device) < lengths[:, None, None, None]
+    logits = torch.where(valid, logits, _NEG_INF)
+    weights = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", weights, v)
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def _page_block_softmax(
+    q: torch.Tensor,  # [B, C, Hq, D]
+    kv_pages: torch.Tensor,  # [2, L, Hkv, P, page, D]
+    page_table: torch.Tensor,  # [B, max_pages]
+    q_positions: torch.Tensor,  # [B, C]
+    kv_bound: torch.Tensor,  # [B] pool tokens to attend (< bound)
+    layer: int,
+    kv_block_pages: int,
+):
+    """Scan fixed-size page blocks of one layer's pool context with an
+    online softmax ``(m, l, acc)`` in ``[B, Hkv, G, C, ·]`` layout, causal
+    against ``q_positions`` and bounded by ``kv_bound``."""
+    B, C, Hq, D = q.shape
+    Hkv, page = kv_pages.shape[2], kv_pages.shape[4]
+    G = Hq // Hkv
+    max_pages = page_table.shape[1]
+    assert max_pages % kv_block_pages == 0, (max_pages, kv_block_pages)
+    bk = kv_block_pages * page
+    qg = (q.float() * (1.0 / math.sqrt(D))).reshape(B, C, Hkv, G, D).permute(0, 2, 3, 1, 4)
+    k_layer, v_layer = kv_pages[0, layer], kv_pages[1, layer]
+    qpos = q_positions[:, None, None, :, None]
+    bound = kv_bound[:, None, None, None, None]
+    m = torch.full((B, Hkv, G, C, 1), _NEG_INF, device=q.device)
+    l = torch.zeros((B, Hkv, G, C, 1), device=q.device)
+    acc = torch.zeros((B, Hkv, G, C, D), device=q.device)
+    pt = page_table.long()
+    for blk in range(max_pages // kv_block_pages):
+        pids = pt[:, blk * kv_block_pages:(blk + 1) * kv_block_pages]
+        k = k_layer[:, pids].reshape(Hkv, B, bk, D).transpose(0, 1).float()
+        v = v_layer[:, pids].reshape(Hkv, B, bk, D).transpose(0, 1).float()
+        s = torch.einsum("bhgcd,bhkd->bhgck", qg, k)
+        kv_pos = blk * bk + torch.arange(bk, device=q.device)
+        ok = (kv_pos <= qpos) & (kv_pos < bound)
+        s = torch.where(ok, s, _NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bhgck,bhkd->bhgcd", p, v)
+        m = m_new
+    return m, l, acc
+
+
+def attend_chunk_hybrid(
+    q: torch.Tensor,  # [B, C, Hq, D] one chunk of new tokens
+    k_cur: torch.Tensor,  # [B, C, Hkv, D] this chunk's K (post-rope)
+    v_cur: torch.Tensor,  # [B, C, Hkv, D]
+    kv_pages: torch.Tensor,  # [2, L, Hkv, P, page, D]
+    page_table: torch.Tensor,  # [B, max_pages]
+    q_positions: torch.Tensor,  # [B, C] absolute positions of the chunk
+    prior_lengths: torch.Tensor,  # [B] context tokens BEFORE this chunk
+    kv_lengths: torch.Tensor,  # [B] valid context incl. this chunk
+    layer: int,
+    kv_block_pages: int = 32,
+) -> torch.Tensor:
+    """Chunk attention with the chunk's own K/V taken dense from the layer
+    activations: prior context streams blockwise from pages, the chunk is
+    one causal dense block, merged through the online softmax (the JAX
+    package's reference for the chunk kernel). Returns ``[B, C, Hq, D]``."""
+    B, C, Hq, D = q.shape
+    Hkv = k_cur.shape[2]
+    m, l, acc = _page_block_softmax(
+        q, kv_pages, page_table, q_positions, prior_lengths, layer, kv_block_pages
+    )
+    qg = (q.float() * (1.0 / math.sqrt(D))).reshape(B, C, Hkv, Hq // Hkv, D).permute(0, 2, 3, 1, 4)
+    qpos = q_positions[:, None, None, :, None]
+    kc = k_cur.float().transpose(1, 2)  # [B, Hkv, C, D]
+    vc = v_cur.float().transpose(1, 2)
+    s2 = torch.einsum("bhgcd,bhkd->bhgck", qg, kc)
+    kv_abs = prior_lengths[:, None, None, None, None] + torch.arange(C, device=q.device)
+    ok2 = (kv_abs <= qpos) & (kv_abs < kv_lengths[:, None, None, None, None])
+    s2 = torch.where(ok2, s2, _NEG_INF)
+    m_f = torch.maximum(m, s2.amax(dim=-1, keepdim=True))
+    p2 = torch.exp(s2 - m_f)
+    corr = torch.exp(m - m_f)
+    l_f = l * corr + p2.sum(dim=-1, keepdim=True)
+    acc_f = acc * corr + torch.einsum("bhgck,bhkd->bhgcd", p2, vc)
+    out = torch.where(l_f > 0, acc_f / l_f.clamp_min(1e-30), 0.0)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, C, Hq, D).to(q.dtype)
+
+
+def paged_chunk_attention(
+    q: torch.Tensor,  # [B, C, Hq, D]
+    k_cur: torch.Tensor,  # [B, C, Hkv, D]
+    v_cur: torch.Tensor,  # [B, C, Hkv, D]
+    kv_pages: torch.Tensor,  # [2, L, Hkv, P, page, D]
+    page_table: torch.Tensor,  # [B, max_pages]
+    prior_lengths: torch.Tensor,  # [B]
+    kv_lengths: torch.Tensor,  # [B]
+    layer: int,
+) -> torch.Tensor:
+    """Chunk-prefill attention for canonical query positions
+    (``prior + arange(C)``, the only form the engine produces): the CUDA
+    chunk kernel for a CUDA tensor, its plain version for a CPU tensor."""
+    return paged_chunk_attention_kernel(
+        q, k_cur, v_cur, kv_pages, page_table, prior_lengths, kv_lengths, layer
+    )
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # [B, Hq, D]
+    k_new: torch.Tensor,  # [B, Hkv, D] this token's K (post-rope)
+    v_new: torch.Tensor,  # [B, Hkv, D]
+    kv_pages: torch.Tensor,  # [2, L, Hkv, P, page, D] — updated in place
+    slots: torch.Tensor,  # [B]
+    page_table: torch.Tensor,  # [B, max_pages]
+    lengths: torch.Tensor,  # [B] incl. current token
+    layer: int,
+):
+    """One decode step's KV write + paged attention, fused: the CUDA
+    decode kernel for a CUDA tensor, its plain version for a CPU tensor.
+    Returns ``(attn [B, Hq, D], kv_pages)`` — the pool is the same tensor,
+    updated in place (the JAX package's donated buffer)."""
+    attn = paged_decode_fused_kernel(
+        q, k_new, v_new, kv_pages, slots, page_table, lengths, layer
+    )
+    return attn, kv_pages

@@ -1,0 +1,324 @@
+// Paged chunk-prefill attention for Hopper (sm_90a).
+//
+// Replaces: radixmesh_tpu/ops/paged_attention.py,
+// paged_chunk_attention_kernel (Pallas body _chunk_kernel).
+//
+// What it computes, per row b, kv head h and block of Cblk queries: the
+// queries sit at canonical positions prior + arange(C). They attend to the
+// row's prior_lengths[b] pool tokens, found through the page table in any
+// page order, then to the chunk's own dense K/V, causal within the chunk
+// (key c_k <= query c_q) and bounded by kv_lengths[b] (prior + c_k <
+// kv_lengths). Online softmax in fp32, queries pre-scaled by 1/sqrt(D),
+// output [B, C, Hq, D] in the query's dtype, zeros where the softmax
+// denominator is 0. Masked keys are zero-filled in shared memory and their
+// probabilities set to exactly 0, so NaN or Inf in an unreferenced page or
+// a padded chunk position never reaches the accumulator.
+//
+// What bounds it on an H100: operations. It does 4*Hq*D*sum_b C*(prior +
+// C/2) flops against 2*Hkv*D*sum_b prior elements of pool K/V read — at
+// C = 512 some 256 flops per K/V element, well above the bytes line even
+// for the tensor cores.
+//
+// What the design does about it: one CTA per (row, kv head, query block),
+// with Cblk*G <= 64 query rows (all G heads of the group share each K/V
+// tile, so the pool streams once per query block, not once per head).
+// Queries stay in shared memory; 32-token K and V tiles are staged in
+// shared memory with 16-byte loads; each thread computes a 2x4 tile of
+// scores and a 2 x D/8 slice of the accumulator on the CUDA cores in
+// fp32. This is the simple form: the products run on the CUDA cores, not
+// the tensor cores, and loads are not overlapped with compute — wgmma with
+// bf16 operands and a TMA-fed pipeline are later work.
+
+#include "common.cuh"
+
+namespace radixmesh {
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTile = 32;  // keys per tile
+constexpr int kRows = 64;  // query rows (Cblk * G) per CTA, at most
+
+template <int D>
+constexpr size_t smem_bytes() {
+  // Qs [kRows][D+1], KVs [kTile][D+1], Ps [kRows][kTile+1], m/l/corr
+  // [kRows] floats, then key offsets [kTile] int64.
+  return sizeof(float) * (kRows * (D + 1) + kTile * (D + 1) + kRows * (kTile + 1) + 3 * kRows) +
+         sizeof(long long) * kTile;
+}
+
+// Stage one tile of keys (K or V) as float: row t < n from src + off[t],
+// zeros for t >= n.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src,
+                                          const long long* off, int n, float* KVs) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int DP = D + 1;
+  for (int e = threadIdx.x; e < kTile * D / VEC; e += kThreads) {
+    const int t = (e * VEC) / D, d = (e * VEC) % D;
+    float v[VEC];
+    if (t < n) {
+      load_vec<T, VEC>(src + off[t] + d, v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) v[i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) KVs[t * DP + d + i] = v[i];
+  }
+}
+
+// Key t of the tile is visible to query row r: r is a live row, t a loaded
+// key, and (dense tiles) causal in chunk coordinates.
+template <int G>
+__device__ __forceinline__ bool visible(int r, int t, int R, int n, bool causal,
+                                        int k0, int c0) {
+  return r < R && t < n && (!causal || k0 + t <= c0 + r / G);
+}
+
+// One tile of the online softmax: scores, row max/sum update, P·V.
+// Keys are already described by off[] (n valid); the tile is causal for
+// dense chunk keys starting at chunk offset k0.
+template <typename T, int D, int G>
+__device__ __forceinline__ void tile_step(const T* __restrict__ ksrc,
+                                          const T* __restrict__ vsrc, int n,
+                                          bool causal, int k0, int c0, int R,
+                                          const float* Qs, float* KVs, float* Ps,
+                                          float* m_s, float* l_s, float* c_s,
+                                          const long long* off,
+                                          float (&acc)[2][D / 8]) {
+  constexpr int DP = D + 1, PP = kTile + 1;
+  const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
+  load_tile<T, D>(ksrc, off, n, KVs);
+  __syncthreads();
+  // Scores for rows {ty, ty+32} x keys {tx, tx+8, tx+16, tx+24}.
+  float s[2][4] = {};
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    const float qa = Qs[ty * DP + d], qb = Qs[(ty + 32) * DP + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float k = KVs[(tx + 8 * j) * DP + d];
+      s[0][j] += qa * k;
+      s[1][j] += qb * k;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = ty + 32 * i, t = tx + 8 * j;
+      Ps[r * PP + t] = visible<G>(r, t, R, n, causal, k0, c0) ? s[i][j] : kMask;
+    }
+  __syncthreads();
+  // Row statistics (one thread per query row) while all threads stage V.
+  if (tid < kRows) {
+    const int r = tid;
+    float mx = kMask;
+    for (int t = 0; t < kTile; ++t) mx = fmaxf(mx, Ps[r * PP + t]);
+    const float m_old = m_s[r], m_new = fmaxf(m_old, mx);
+    float sum = 0.f;
+    for (int t = 0; t < kTile; ++t) {
+      const float p = visible<G>(r, t, R, n, causal, k0, c0) ? expf(Ps[r * PP + t] - m_new) : 0.f;
+      Ps[r * PP + t] = p;
+      sum += p;
+    }
+    const float corr = expf(m_old - m_new);
+    c_s[r] = corr;
+    l_s[r] = l_s[r] * corr + sum;
+    m_s[r] = m_new;
+  }
+  load_tile<T, D>(vsrc, off, n, KVs);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = ty + 32 * i;
+    const float corr = c_s[r];
+#pragma unroll
+    for (int k = 0; k < D / 8; ++k) acc[i][k] *= corr;
+    for (int t = 0; t < kTile; ++t) {
+      const float p = Ps[r * PP + t];
+#pragma unroll
+      for (int k = 0; k < D / 8; ++k) acc[i][k] += p * KVs[t * DP + tx + 8 * k];
+    }
+  }
+  __syncthreads();
+}
+
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
+    const T* __restrict__ q,              // [B, C, Hq, D]
+    const T* __restrict__ k_cur,          // [B, C, Hkv, D]
+    const T* __restrict__ v_cur,          // [B, C, Hkv, D]
+    const T* __restrict__ kv,             // [2, L, Hkv, num_slots, D]
+    const int* __restrict__ page_table,   // [B, max_pages]
+    const int* __restrict__ prior_lengths,  // [B]
+    const int* __restrict__ kv_lengths,   // [B]
+    T* __restrict__ out,                  // [B, C, Hq, D]
+    int C, int Hq, int Hkv, int L, int num_slots, int page, int max_pages,
+    int layer, int cblk) {
+  constexpr int DP = D + 1;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* KVs = Qs + kRows * DP;
+  float* Ps = KVs + kTile * DP;
+  float* m_s = Ps + kRows * (kTile + 1);
+  float* l_s = m_s + kRows;
+  float* c_s = l_s + kRows;
+  long long* off = reinterpret_cast<long long*>(c_s + kRows);
+
+  const int b = blockIdx.x, h = blockIdx.y, cb = blockIdx.z;
+  const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
+  const int R = cblk * G;
+  const int c0 = cb * cblk;
+  const int prior = min(max(prior_lengths[b], 0), max_pages * page);
+  const int n_dense = min(max(kv_lengths[b] - prior, 0), C);
+  const float scale = 1.0f / sqrtf((float)D);
+
+  // Query row r = (c - c0) * G + g, pre-scaled; rows >= R stay zero.
+  for (int e = tid; e < kRows * D; e += kThreads) {
+    const int r = e / D, d = e % D;
+    float v = 0.f;
+    if (r < R) {
+      const int c = c0 + r / G, g = r % G;
+      v = to_f(q[(((size_t)b * C + c) * Hq + (size_t)h * G + g) * D + d]) * scale;
+    }
+    Qs[r * DP + d] = v;
+  }
+  if (tid < kRows) {
+    m_s[tid] = kMask;
+    l_s[tid] = 0.f;
+  }
+  float acc[2][D / 8];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int k = 0; k < D / 8; ++k) acc[i][k] = 0.f;
+
+  // Prior context from the pool pages.
+  const size_t head_stride = (size_t)num_slots * D;
+  const T* k_pool = kv + ((size_t)layer * Hkv + h) * head_stride;
+  const T* v_pool = kv + ((size_t)(L + layer) * Hkv + h) * head_stride;
+  const int* pt = page_table + (size_t)b * max_pages;
+  for (int t0 = 0; t0 < prior; t0 += kTile) {
+    const int n = min(kTile, prior - t0);
+    __syncthreads();  // previous readers of off[] are done
+    if (tid < n) {
+      const int tok = t0 + tid;
+      off[tid] = ((long long)pt[tok / page] * page + tok % page) * D;
+    }
+    __syncthreads();
+    tile_step<T, D, G>(k_pool, v_pool, n, false, 0, c0, R, Qs, KVs, Ps, m_s, l_s,
+                       c_s, off, acc);
+  }
+  // The chunk itself, dense and causal: keys below min(c0 + cblk, n_dense).
+  const int k_end = min(c0 + cblk, n_dense);
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    const int n = min(kTile, k_end - k0);
+    __syncthreads();
+    if (tid < n) off[tid] = (((long long)b * C + k0 + tid) * Hkv + h) * D;
+    __syncthreads();
+    tile_step<T, D, G>(k_cur, v_cur, n, true, k0, c0, R, Qs, KVs, Ps, m_s, l_s,
+                       c_s, off, acc);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = ty + 32 * i;
+    if (r < R) {
+      const int c = c0 + r / G, g = r % G;
+      const float l = l_s[r];
+      T* o = out + (((size_t)b * C + c) * Hq + (size_t)h * G + g) * D;
+#pragma unroll
+      for (int k = 0; k < D / 8; ++k)
+        o[tx + 8 * k] = from_f<T>(l > 0.f ? acc[i][k] / l : 0.f);
+    }
+  }
+}
+
+template <typename T, int D, int G>
+cudaError_t launch(const void* q, const void* k_cur, const void* v_cur,
+                   const void* kv, const int* pt, const int* prior,
+                   const int* kvlen, void* out, int B, int C, int Hq, int Hkv,
+                   int L, int num_slots, int page, int max_pages, int layer,
+                   int cblk, cudaStream_t stream) {
+  constexpr size_t bytes = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(paged_chunk_kernel<T, D, G>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+  if (err != cudaSuccess) return err;
+  paged_chunk_kernel<T, D, G><<<dim3(B, Hkv, C / cblk), kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_cur),
+      static_cast<const T*>(v_cur), static_cast<const T*>(kv), pt, prior, kvlen,
+      static_cast<T*>(out), C, Hq, Hkv, L, num_slots, page, max_pages, layer, cblk);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_g(int G, const void* q, const void* k_cur, const void* v_cur,
+                     const void* kv, const int* pt, const int* prior,
+                     const int* kvlen, void* out, int B, int C, int Hq, int Hkv,
+                     int L, int num_slots, int page, int max_pages, int layer,
+                     int cblk, cudaStream_t stream) {
+#define RADIXMESH_CHUNK_G(GG)                                                     \
+  case GG:                                                                        \
+    return launch<T, D, GG>(q, k_cur, v_cur, kv, pt, prior, kvlen, out, B, C, Hq, \
+                            Hkv, L, num_slots, page, max_pages, layer, cblk,      \
+                            stream);
+  switch (G) {
+    RADIXMESH_CHUNK_G(1)
+    RADIXMESH_CHUNK_G(2)
+    RADIXMESH_CHUNK_G(4)
+    RADIXMESH_CHUNK_G(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef RADIXMESH_CHUNK_G
+}
+
+template <typename T>
+cudaError_t launch_d(int D, int G, const void* q, const void* k_cur,
+                     const void* v_cur, const void* kv, const int* pt,
+                     const int* prior, const int* kvlen, void* out, int B, int C,
+                     int Hq, int Hkv, int L, int num_slots, int page, int max_pages,
+                     int layer, int cblk, cudaStream_t stream) {
+  if (D == 64)
+    return launch_g<T, 64>(G, q, k_cur, v_cur, kv, pt, prior, kvlen, out, B, C, Hq,
+                           Hkv, L, num_slots, page, max_pages, layer, cblk, stream);
+  if (D == 128)
+    return launch_g<T, 128>(G, q, k_cur, v_cur, kv, pt, prior, kvlen, out, B, C, Hq,
+                            Hkv, L, num_slots, page, max_pages, layer, cblk, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+}  // namespace radixmesh
+
+// dtype: 0 = float32, 1 = bfloat16. cblk = queries per CTA (divides C,
+// cblk * (Hq / Hkv) <= 64). Returns the cudaError_t of the launch (0 on
+// success). Launches on `stream`; allocates nothing.
+extern "C" int paged_chunk_launch(int dtype, const void* q, const void* k_cur,
+                                  const void* v_cur, const void* kv,
+                                  const void* page_table, const void* prior_lengths,
+                                  const void* kv_lengths, void* out, int B, int C,
+                                  int Hq, int Hkv, int D, int L, int num_slots,
+                                  int page, int max_pages, int layer, int cblk,
+                                  void* stream) {
+  using namespace radixmesh;
+  if (B == 0 || C == 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv != 0 || cblk <= 0 || C % cblk != 0 ||
+      cblk * (Hq / Hkv) > kRows)
+    return (int)cudaErrorInvalidValue;
+  const int G = Hq / Hkv;
+  const int* pt = static_cast<const int*>(page_table);
+  const int* pr = static_cast<const int*>(prior_lengths);
+  const int* kl = static_cast<const int*>(kv_lengths);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_d<float>(D, G, q, k_cur, v_cur, kv, pt, pr, kl, out, B, C, Hq,
+                                Hkv, L, num_slots, page, max_pages, layer, cblk, s);
+  if (dtype == 1)
+    return (int)launch_d<__nv_bfloat16>(D, G, q, k_cur, v_cur, kv, pt, pr, kl, out,
+                                        B, C, Hq, Hkv, L, num_slots, page,
+                                        max_pages, layer, cblk, s);
+  return (int)cudaErrorInvalidValue;
+}

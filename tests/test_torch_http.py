@@ -1,0 +1,104 @@
+"""The port's HTTP frontend over a tiny CPU engine: ``/generate`` answers
+what ``Engine.generate`` answers on the same weights, ``/healthz`` and
+``/stats`` serve, and fields of features that are not ported yet (a
+``seed``, ``stream``) are refused with a 400 instead of being ignored."""
+
+import json
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+
+from radixmesh_tpu_torch.engine.engine import Engine
+from radixmesh_tpu_torch.engine.request import SamplingParams
+from radixmesh_tpu_torch.models.llama import ModelConfig, init_params
+from radixmesh_tpu_torch.server.http_frontend import ServingFrontend
+
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
+ENGINE_KW = dict(num_slots=512, page_size=4, max_batch=4, device="cpu")
+
+
+def _post(port, path, body):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _get(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.status, json.loads(r.read())
+
+
+@pytest.fixture(scope="module")
+def served():
+    cfg = ModelConfig.tiny().replace(dtype=torch.float32)
+    params = init_params(cfg, seed=3)
+    fe = ServingFrontend(Engine(cfg, params, **ENGINE_KW), port=0)
+    yield cfg, params, fe
+    fe.close(drain_s=0.0)
+
+
+def test_generate_matches_engine(served):
+    cfg, params, fe = served
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (9, 21)]
+    ref = Engine(cfg, params, **ENGINE_KW).generate(
+        prompts, SamplingParams(max_new_tokens=6)
+    )
+    for prompt, want in zip(prompts, ref):
+        code, body = _post(fe.port, "/generate", {"input_ids": prompt, "max_tokens": 6})
+        assert code == 200, body
+        assert body["output_ids"] == want
+        assert body["ttft_s"] > 0 and body["e2e_s"] >= body["ttft_s"]
+    # The same prompt again is a prefix-cache hit with the same tokens.
+    code, body = _post(fe.port, "/generate", {"input_ids": prompts[1], "max_tokens": 6})
+    assert code == 200 and body["cached_tokens"] > 0
+    assert body["output_ids"] == ref[1]
+
+
+def test_stop_token_and_sampling_fields(served):
+    cfg, _, fe = served
+    code, first = _post(fe.port, "/generate", {"input_ids": [1, 2, 3, 4, 5], "max_tokens": 4})
+    assert code == 200
+    stop = first["output_ids"][1]
+    code, body = _post(
+        fe.port, "/generate",
+        {"input_ids": [1, 2, 3, 4, 5], "max_tokens": 4, "stop_token_ids": [stop]},
+    )
+    assert code == 200 and body["output_ids"] == first["output_ids"][:1]
+    code, body = _post(
+        fe.port, "/generate",
+        {"input_ids": [7, 8, 9], "max_tokens": 3, "temperature": 0.9, "top_k": 5, "top_p": 0.8},
+    )
+    assert code == 200 and len(body["output_ids"]) == 3
+
+
+def test_health_stats_and_refusals(served):
+    _, _, fe = served
+    assert _get(fe.port, "/healthz") == (200, {"status": "ok"})
+    code, stats = _get(fe.port, "/stats")
+    assert code == 200 and {"hit_rate", "finished", "prefill_chunks"} <= set(stats)
+    for extra in ({"seed": 7}, {"stream": True}, {"tenant": "a"}):
+        code, body = _post(fe.port, "/generate", {"input_ids": [1, 2, 3], **extra})
+        assert code == 400 and "not supported" in body["error"], body
+    code, body = _post(fe.port, "/generate", {"input_ids": "nope"})
+    assert code == 400
+    code, body = _post(fe.port, "/generate", {"input_ids": [1, 10_000]})
+    assert code == 400
+
+
+def test_cancel_endpoint(served):
+    _, _, fe = served
+    assert _post(fe.port, "/cancel", {"rid": 10**9}) == (200, {"cancelled": False})
+    code, _ = _post(fe.port, "/cancel", {"id": 1})
+    assert code == 400
