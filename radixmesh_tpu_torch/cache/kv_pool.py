@@ -1,10 +1,14 @@
 """Paged KV pool: one preallocated device tensor for every layer of one model
 replica (the JAX package's ``cache/kv_pool.py``: ``SlotAllocator`` and
-``PagedKVPool``, bf16/f32 pools; int8 pools are not ported yet).
+``PagedKVPool``, bf16/f32 pools and int8 pools with per-token scales).
 
 - ``kv`` is ``[2, L, Hkv, num_slots, D]`` (K and V stacked, head-major),
   allocated once; its pages view ``[2, L, Hkv, P, page, D]`` is a pure
   reshape, the layout the paged-attention kernels read.
+- ``quant="int8"`` stores ``kv`` as int8 beside ``kv_scale`` float32
+  ``[2, L, Hkv, num_slots]`` (value ≈ int8 · scale, ``ops/quant.py``); its
+  pages view ``[2, L, Hkv, P, page]`` is again a reshape. ``write``
+  quantizes on store and ``gather`` dequantizes.
 - A host-side :class:`SlotAllocator` free list hands out whole pages of
   token slots; the radix tree stores slot ids as node values and returns
   them on eviction.
@@ -16,6 +20,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from radixmesh_tpu_torch.ops.quant import KV_QUANT_DTYPES, dequantize_kv, quantize_kv
 
 __all__ = ["SlotAllocator", "PagedKVPool"]
 
@@ -114,23 +120,32 @@ class PagedKVPool:
         page_size: int = 1,
         dtype: torch.dtype = torch.bfloat16,
         device: torch.device | str = "cpu",
+        quant: str | None = None,
     ):
-        if dtype not in (torch.bfloat16, torch.float32):
-            raise ValueError(
-                f"pool dtype {dtype} is not ported (bf16/f32; int8 pools wait)"
-            )
+        if quant is not None:
+            if quant not in KV_QUANT_DTYPES:
+                raise ValueError(f"unknown kv quantization {quant!r}")
+            dtype = KV_QUANT_DTYPES[quant]
+        elif dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"pool dtype {dtype} is not supported (bf16/f32, or quant='int8')")
         self.num_slots = num_slots
         self.num_layers = num_layers
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
         self.page_size = page_size
         self.dtype = dtype
+        self.quant = quant
         self.allocator = SlotAllocator(num_slots, page_size)
         self.kv = torch.zeros(
             (2, num_layers, num_kv_heads, num_slots, head_dim),
             dtype=dtype,
             device=device,
         )
+        self.kv_scale = None
+        if quant is not None:
+            self.kv_scale = torch.zeros(
+                (2, num_layers, num_kv_heads, num_slots), dtype=torch.float32, device=device
+            )
 
     @property
     def device(self) -> torch.device:
@@ -162,11 +177,18 @@ class PagedKVPool:
 
     def write(self, slots, k: torch.Tensor, v: torch.Tensor) -> None:
         """Write per-layer K/V for ``n`` tokens at ``slots``; ``k``/``v``
-        are ``[L, n, kv_heads, head_dim]``. Updates ``kv`` in place."""
+        are ``[L, n, kv_heads, head_dim]``. Updates ``kv`` (and, for int8
+        pools, ``kv_scale``) in place; int8 pools quantize on store."""
         if len(slots) == 0:
             return
         new_kv = torch.stack([k, v]).permute(0, 1, 3, 2, 4)  # [2, L, H, n, D]
-        self.kv[:, :, :, self._index(slots)] = new_kv.to(self.dtype)
+        idx = self._index(slots)
+        if self.quant is not None:
+            q, scale = quantize_kv(new_kv)
+            self.kv[:, :, :, idx] = q
+            self.kv_scale[:, :, :, idx] = scale
+        else:
+            self.kv[:, :, :, idx] = new_kv.to(self.dtype)
 
     def pages(self) -> torch.Tensor:
         """Zero-copy pages view ``[2, L, Hkv, P, page, D]``."""
@@ -175,14 +197,29 @@ class PagedKVPool:
             self.page_size, self.head_dim,
         )
 
+    def scale_pages(self) -> torch.Tensor | None:
+        """Zero-copy scales view ``[2, L, Hkv, P, page]`` (int8 pools), or
+        None."""
+        if self.kv_scale is None:
+            return None
+        return self.kv_scale.view(
+            2, self.num_layers, self.num_kv_heads, self.num_pages, self.page_size
+        )
+
     def pages_for_layer(self, layer: int) -> tuple[torch.Tensor, torch.Tensor]:
         """(k_pages, v_pages), each ``[Hkv, P, page, D]`` — views."""
         p = self.pages()
         return p[0, layer], p[1, layer]
 
     def gather(self, slots) -> torch.Tensor:
-        """``[2, L, n, kv_heads, head_dim]`` for the given slots."""
-        return self.kv[:, :, :, self._index(slots)].permute(0, 1, 3, 2, 4)
+        """``[2, L, n, kv_heads, head_dim]`` for the given slots,
+        dequantized to float32 for int8 pools."""
+        idx = self._index(slots)
+        if self.quant is not None:
+            kv = dequantize_kv(self.kv[:, :, :, idx], self.kv_scale[:, :, :, idx])
+        else:
+            kv = self.kv[:, :, :, idx]
+        return kv.permute(0, 1, 3, 2, 4)
 
     def page_table(self, slots: np.ndarray) -> np.ndarray:
         """Page ids covering a page-aligned run of slots."""

@@ -8,11 +8,14 @@ row. Prefill takes one of two routes, as in the JAX engine:
 
 - ``_prefill_dense``: a lone request of at most ``long_prefill_threshold``
   new tokens runs ``Llama.prefill_forward`` (plain attention) against its
-  gathered, right-aligned cached prefix.
+  gathered, right-aligned cached prefix (bf16/f32 pools only).
 - ``_prefill_group``: concurrent arrivals or long prompts run
   ``Llama.prefill_chunk_paged`` chunk by chunk (the chunk kernel), every
   row with its own positions and kv length; exhausted and padded rows ride
-  the scratch slot.
+  the scratch slot. Int8 pools (``kv_quant="int8"``) always take this
+  route: it attends the quantized K/V it stores, where the dense route
+  attends full precision and quantizes only at the write, which would
+  break the rule that a prefix is attended as it is stored.
 
 Decode runs ``Llama.decode_step`` (the fused decode kernel) over fixed
 ``[max_batch]`` rows: inactive rows carry ``length = 1`` and the reserved
@@ -21,8 +24,8 @@ back into the tree (``_publish``), which owns slot lifetime from then on.
 
 Not ported yet, and refused rather than ignored: speculative decode, mixed
 waves, multi-step and compact decode, seeded replay, host/disk tiers and KV
-transfer, the cache mesh, pp/sp/tp, int8 KV and W8A16 weights, SLO control
-and the observability planes.
+transfer, the cache mesh, pp/sp/tp, W8A16 weights, SLO control and the
+observability planes.
 """
 
 from __future__ import annotations
@@ -94,10 +97,13 @@ class Engine:
         prefill_wave_tokens: int = 4096,
         long_prefill_threshold: int = 1024,
         device: str | torch.device | None = None,
+        kv_quant: str | None = None,
     ):
         """``params`` is a param tree (``init_params`` / ``params_from_jax``)
         or a built :class:`Llama`. ``device`` defaults to CUDA and raises
-        where torch has none; pass ``"cpu"`` for the plain CPU path."""
+        where torch has none; pass ``"cpu"`` for the plain CPU path.
+        ``kv_quant="int8"`` stores the KV pool as int8 with per-token
+        scales."""
         if page_size & (page_size - 1):
             raise ValueError("page_size must be a power of two")
         self.device = resolve_device(device)
@@ -124,6 +130,7 @@ class Engine:
             page_size=page_size,
             dtype=cfg.dtype,
             device=self.device,
+            quant=kv_quant,
         )
         self.tree = RadixTree(page_size=page_size, on_free=self.pool.free)
         # Reserved scratch page: inactive decode rows write/read here.
@@ -320,7 +327,8 @@ class Engine:
                     subwaves.extend(sub[j : j + rows] for j in range(0, len(sub), rows))
             for sub in subwaves:
                 if (
-                    len(sub) == 1
+                    self.pool.quant is None
+                    and len(sub) == 1
                     and len(sub[0][0].prompt) - sub[0][2] <= self.long_prefill_threshold
                 ):
                     pending = [self._prefill_dense(*sub[0])]
@@ -498,6 +506,7 @@ class Engine:
                 pt_dev,
                 self._dev(kvlen),
                 page_size=ps,
+                kv_scale=self.pool.kv_scale,
             )
             for i in range(N):
                 if lastpos[i] >= 0:
@@ -622,6 +631,7 @@ class Engine:
             self._dev(np.ascontiguousarray(self._decode_pt_bucket(1))),
             self._dev(lengths),
             page_size=self.page_size,
+            kv_scale=self.pool.kv_scale,
         )
         sampled = sample_tokens(
             logits,

@@ -18,6 +18,11 @@
   chunk's K/V into layer ``l`` right after layer ``l``'s attention (the
   chunk kernel reads only pool tokens below ``prior``, so per-layer writes
   are safe; JAX writes once after its layer scan).
+- With an int8 pool (``kv_scale [2, L, Hkv, num_slots]`` beside it) the
+  chunk quantizes its K/V (``quantize_for_store``), attends the float32
+  dequantized copy and writes the int8 payload and scales; the decode
+  kernel receives the raw row and quantizes it itself. Either way a layer
+  attends exactly what the pool will hold.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from radixmesh_tpu_torch.ops.attention import (
     paged_decode_attention,
 )
 from radixmesh_tpu_torch.ops.norm import rms_norm
+from radixmesh_tpu_torch.ops.quant import quantize_for_store
 from radixmesh_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 __all__ = ["ModelConfig", "Llama", "init_params", "LAYER_PARAMS"]
@@ -298,15 +304,19 @@ class Llama(nn.Module):
         page_table: torch.Tensor,  # [B, max_pages] int32
         kv_lengths: torch.Tensor,  # [B] int32 context valid after this chunk
         page_size: int = 16,
+        kv_scale: torch.Tensor | None = None,  # [2, L, Hkv, num_slots] int8 pool
     ) -> torch.Tensor:
         """One chunk of prefill against the paged pool: prior context
         streams from pool pages through the chunk kernel, the chunk's own
         K/V rides dense. Returns ``logits [B, C, V]`` (f32); the chunk's
-        K/V lands in the pool at ``slots``."""
+        K/V (and for int8 pools its scales) lands in the pool at
+        ``slots``."""
         cfg = self.cfg
         L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
         num_slots = kv_pool.shape[3]
-        kv_pages = kv_pool.view(2, L, Hkv, num_slots // page_size, page_size, D)
+        P = num_slots // page_size
+        kv_pages = kv_pool.view(2, L, Hkv, P, page_size, D)
+        scale_pages = None if kv_scale is None else kv_scale.view(2, L, Hkv, P, page_size)
         # Pool tokens BEFORE this chunk. Exhausted rows carry clipped
         # positions; their outputs are discarded and stay finite.
         prior = torch.minimum(positions[:, 0], kv_lengths).to(torch.int32)
@@ -318,13 +328,20 @@ class Llama(nn.Module):
             h = rms_norm(x, self.layers["attn_norm"][l], cfg.rms_eps)
             q, k, v = self._qkv(l, h)
             q, k = self._rope(q, positions), self._rope(k, positions)
-            k, v = k.to(kv_pool.dtype).contiguous(), v.to(kv_pool.dtype).contiguous()
+            if kv_scale is not None:
+                k_st, v_st, k_sc, v_sc, k, v = quantize_for_store(k, v)
+            else:
+                k, v = k.to(kv_pool.dtype).contiguous(), v.to(kv_pool.dtype).contiguous()
+                k_st, v_st = k, v
             attn = paged_chunk_attention(
-                q.contiguous(), k, v, kv_pages, page_table, prior, kv_lengths, l
+                q.contiguous(), k, v, kv_pages, page_table, prior, kv_lengths, l, scale_pages
             )
             # In-place chunk write for this layer ([Hkv, B*C, D] at slots).
-            kv_pool[0, l][:, flat_slots] = k.reshape(B * C, Hkv, D).transpose(0, 1)
-            kv_pool[1, l][:, flat_slots] = v.reshape(B * C, Hkv, D).transpose(0, 1)
+            kv_pool[0, l][:, flat_slots] = k_st.reshape(B * C, Hkv, D).transpose(0, 1)
+            kv_pool[1, l][:, flat_slots] = v_st.reshape(B * C, Hkv, D).transpose(0, 1)
+            if kv_scale is not None:
+                kv_scale[0, l][:, flat_slots] = k_sc.reshape(B * C, Hkv).transpose(0, 1)
+                kv_scale[1, l][:, flat_slots] = v_sc.reshape(B * C, Hkv).transpose(0, 1)
             x = self._attn_out_mlp(l, x, attn)
         return self._logits(x)
 
@@ -337,25 +354,29 @@ class Llama(nn.Module):
         page_table: torch.Tensor,  # [B, max_pages] int32
         lengths: torch.Tensor,  # [B] int32 context length incl. this token
         page_size: int = 16,
+        kv_scale: torch.Tensor | None = None,  # [2, L, Hkv, num_slots] int8 pool
     ) -> torch.Tensor:
         """One decode step for a continuous batch: each layer's fused
-        kernel writes this token's K/V into the pool and attends over the
-        row's pages. Returns ``logits [B, V]`` (f32)."""
+        kernel writes this token's K/V (quantized, for int8 pools) into the
+        pool and attends over the row's pages. Returns ``logits [B, V]``
+        (f32)."""
         cfg = self.cfg
         L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
         num_slots = kv_pool.shape[3]
-        kv_pages = kv_pool.view(2, L, Hkv, num_slots // page_size, page_size, D)
+        P = num_slots // page_size
+        kv_pages = kv_pool.view(2, L, Hkv, P, page_size, D)
+        scale_pages = None if kv_scale is None else kv_scale.view(2, L, Hkv, P, page_size)
         positions = (lengths.long() - 1)[:, None]  # [B, 1]
         x = F.embedding(tokens, self.embed)[:, None, :]  # [B, 1, H]
         for l in range(L):
             h = rms_norm(x, self.layers["attn_norm"][l], cfg.rms_eps)
             q, k, v = self._qkv(l, h)
             q, k = self._rope(q, positions), self._rope(k, positions)
-            attn, _ = paged_decode_attention(
-                q[:, 0].contiguous(),
-                k[:, 0].to(kv_pool.dtype).contiguous(),
-                v[:, 0].to(kv_pool.dtype).contiguous(),
-                kv_pages, slots, page_table, lengths, l,
+            # The raw row in the model dtype: the kernel stores it (int8
+            # pools: quantizes it first).
+            attn = paged_decode_attention(
+                q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
+                kv_pages, slots, page_table, lengths, l, scale_pages,
             )
             x = self._attn_out_mlp(l, x, attn[:, None])
         return self._logits(x)[:, 0]

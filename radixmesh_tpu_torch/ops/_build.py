@@ -3,8 +3,9 @@
 Each source compiles with ``nvcc`` into its own shared library with a plain
 C interface, loaded through ``ctypes`` — a file that includes no PyTorch
 header builds in seconds. Libraries land in ``ops/_build/`` (git-ignored),
-named by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one loads straight away. :func:`build_all` starts one
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one loads
+straight away. :func:`build_all` starts one
 ``nvcc`` per source at once and waits for all of them.
 
 ``nvcc`` is found through ``$CUDA_HOME``, then ``/usr/local/cuda``, then
@@ -25,7 +26,7 @@ __all__ = ["SOURCES", "build_all", "load_library", "BUILD_LOG"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("paged_decode", "paged_chunk")
+SOURCES = ("paged_decode", "paged_pool", "paged_chunk")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,6 +50,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (_CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return _BUILD_DIR / f"lib{name}-{digest}.so"
 

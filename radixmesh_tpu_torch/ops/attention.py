@@ -6,10 +6,14 @@ references, and the dispatchers the model calls (the JAX package's
   with no Pallas kernel behind it.
 - ``attend_decode_ref`` and ``attend_chunk_hybrid`` are the gather-based
   references the JAX package holds its kernels against.
-- ``paged_decode_attention`` / ``paged_chunk_attention`` dispatch to the
-  wrappers in ``ops/paged_attention.py``: a CUDA tensor launches the
-  hand-written kernel (or raises), a CPU tensor takes the kernel's plain
-  version.
+- ``paged_decode_attention`` / ``paged_chunk_attention`` /
+  ``paged_attention_pool`` (with ``paged_attention_pool_bucketed`` and the
+  single-layer ``paged_attention``) dispatch to the wrappers in
+  ``ops/paged_attention.py``: a CUDA tensor launches the hand-written
+  kernel (or raises), a CPU tensor takes the kernel's plain version. No
+  argument selects the plain version for a CUDA tensor.
+- Every paged entry takes an int8 pool with ``kv_scales [2, L, Hkv, P,
+  page]`` float32 (``ops/quant.py``).
 
 Layouts are the JAX package's: queries ``[B, S, Hq, D]``, the pool's pages
 view ``[2, L, Hkv, P, page, D]``, page tables ``[B, max_pages]`` int32.
@@ -23,14 +27,20 @@ import math
 import torch
 
 from radixmesh_tpu_torch.ops.paged_attention import (
+    paged_attention_pool_kernel,
     paged_chunk_attention_kernel,
     paged_decode_fused_kernel,
 )
+from radixmesh_tpu_torch.ops.quant import dequantize_kv
 
 __all__ = [
     "attend_prefill",
     "attend_decode_ref",
     "attend_chunk_hybrid",
+    "batch_bucket",
+    "paged_attention",
+    "paged_attention_pool",
+    "paged_attention_pool_bucketed",
     "paged_chunk_attention",
     "paged_decode_attention",
 ]
@@ -73,9 +83,12 @@ def attend_decode_ref(
     v_pages: torch.Tensor,  # [Hkv, P, page, D]
     page_table: torch.Tensor,  # [B, max_pages]
     lengths: torch.Tensor,  # [B] context length incl. current token
+    k_scales: torch.Tensor | None = None,  # [Hkv, P, page] int8-pool scales
+    v_scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Gather-based paged decode attention over ``lengths[b]`` pool tokens
-    (the JAX package's numerics reference)."""
+    (the JAX package's numerics reference). With ``*_scales`` the pages are
+    int8 and value ≈ page · scale."""
     B, Hq, D = q.shape
     Hkv, _, page, _ = k_pages.shape
     G = Hq // Hkv
@@ -83,6 +96,10 @@ def attend_decode_ref(
     pt = page_table.long()
     k = k_pages[:, pt].reshape(Hkv, B, max_ctx, D).permute(1, 2, 0, 3).float()
     v = v_pages[:, pt].reshape(Hkv, B, max_ctx, D).permute(1, 2, 0, 3).float()
+    if k_scales is not None:
+        ks = k_scales[:, pt].reshape(Hkv, B, max_ctx).permute(1, 2, 0)
+        vs = v_scales[:, pt].reshape(Hkv, B, max_ctx).permute(1, 2, 0)
+        k, v = dequantize_kv(k, ks), dequantize_kv(v, vs)
     qg = q.float().reshape(B, Hkv, G, D)
     logits = torch.einsum("bhgd,bkhd->bhgk", qg, k) * (1.0 / math.sqrt(D))
     valid = torch.arange(max_ctx, device=q.device) < lengths[:, None, None, None]
@@ -182,12 +199,14 @@ def paged_chunk_attention(
     prior_lengths: torch.Tensor,  # [B]
     kv_lengths: torch.Tensor,  # [B]
     layer: int,
+    kv_scales: torch.Tensor | None = None,  # [2, L, Hkv, P, page] int8 pools
 ) -> torch.Tensor:
     """Chunk-prefill attention for canonical query positions
     (``prior + arange(C)``, the only form the engine produces): the CUDA
-    chunk kernel for a CUDA tensor, its plain version for a CPU tensor."""
+    chunk kernel for a CUDA tensor, its plain version for a CPU tensor.
+    For int8 pools ``k_cur``/``v_cur`` are the dequantized float32 rows."""
     return paged_chunk_attention_kernel(
-        q, k_cur, v_cur, kv_pages, page_table, prior_lengths, kv_lengths, layer
+        q, k_cur, v_cur, kv_pages, page_table, prior_lengths, kv_lengths, layer, kv_scales
     )
 
 
@@ -200,12 +219,76 @@ def paged_decode_attention(
     page_table: torch.Tensor,  # [B, max_pages]
     lengths: torch.Tensor,  # [B] incl. current token
     layer: int,
-):
+    kv_scales: torch.Tensor | None = None,  # [2, L, Hkv, P, page] — updated in place
+) -> torch.Tensor:
     """One decode step's KV write + paged attention, fused: the CUDA
     decode kernel for a CUDA tensor, its plain version for a CPU tensor.
-    Returns ``(attn [B, Hq, D], kv_pages)`` — the pool is the same tensor,
-    updated in place (the JAX package's donated buffer)."""
-    attn = paged_decode_fused_kernel(
-        q, k_new, v_new, kv_pages, slots, page_table, lengths, layer
+    Returns ``attn [B, Hq, D]``; ``kv_pages`` (and ``kv_scales`` for int8
+    pools) are updated in place. For int8 pools ``k_new``/``v_new`` are
+    the raw rows in q's dtype; the kernel quantizes them."""
+    return paged_decode_fused_kernel(
+        q, k_new, v_new, kv_pages, slots, page_table, lengths, layer, kv_scales
     )
-    return attn, kv_pages
+
+
+def batch_bucket(n: int, floor: int = 1) -> int:
+    """Batch bucket of a decode launch: the smallest power of two ``>= n``
+    (and ``>= floor``)."""
+    b = max(1, int(floor))
+    n = max(1, int(n))
+    while b < n:
+        b <<= 1
+    return b
+
+
+def paged_attention_pool(
+    q: torch.Tensor,  # [B, Hq, D]
+    kv_pages: torch.Tensor,  # [2, L, Hkv, P, page, D] full-pool pages view
+    page_table: torch.Tensor,  # [B, max_pages]
+    lengths: torch.Tensor,  # [B]
+    layer: int,
+    kv_scales: torch.Tensor | None = None,  # [2, L, Hkv, P, page] int8 pools
+) -> torch.Tensor:
+    """Decode attention over ``lengths[b]`` tokens of ``layer``'s pages,
+    read straight out of the whole multi-layer pool (no per-layer slice is
+    copied): the CUDA pool kernel for a CUDA tensor, its plain version for
+    a CPU tensor."""
+    return paged_attention_pool_kernel(q, kv_pages, page_table, lengths, layer, kv_scales)
+
+
+def paged_attention_pool_bucketed(
+    q: torch.Tensor,  # [B, Hq, D]
+    kv_pages: torch.Tensor,  # [2, L, Hkv, P, page, D]
+    page_table: torch.Tensor,  # [B, max_pages]
+    lengths: torch.Tensor,  # [B]
+    layer: int,
+    kv_scales: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``paged_attention_pool`` with the batch padded up to its power-of-two
+    bucket, as the JAX package does to bound its compiled variants. Pad
+    rows repeat row 0's query and page row with length 1 (one real token,
+    never an out-of-bounds page id) and are sliced off the result; a batch
+    already at a bucket passes through."""
+    B = q.shape[0]
+    nb = batch_bucket(B)
+    if nb == B:
+        return paged_attention_pool(q, kv_pages, page_table, lengths, layer, kv_scales)
+    pad = nb - B
+    q_p = torch.cat([q, q[:1].expand(pad, *q.shape[1:])]).contiguous()
+    pt_p = torch.cat([page_table, page_table[:1].expand(pad, -1)]).contiguous()
+    len_p = torch.cat([lengths, lengths.new_ones(pad)])
+    return paged_attention_pool(q_p, kv_pages, pt_p, len_p, layer, kv_scales)[:B]
+
+
+def paged_attention(
+    q: torch.Tensor,  # [B, Hq, D]
+    k_pages: torch.Tensor,  # [Hkv, P, page, D] one layer
+    v_pages: torch.Tensor,  # [Hkv, P, page, D]
+    page_table: torch.Tensor,  # [B, max_pages]
+    lengths: torch.Tensor,  # [B]
+) -> torch.Tensor:
+    """Single-layer decode attention over radix-cache pages (the JAX
+    package's ``paged_attention``): the pool kernel over a one-layer pool
+    stacked from ``k_pages``/``v_pages``."""
+    kv_pages = torch.stack([k_pages, v_pages])[:, None]  # [2, 1, Hkv, P, page, D]
+    return paged_attention_pool(q, kv_pages, page_table, lengths, 0)

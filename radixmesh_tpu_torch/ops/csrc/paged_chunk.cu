@@ -14,6 +14,11 @@
 // probabilities set to exactly 0, so NaN or Inf in an unreferenced page or
 // a padded chunk position never reaches the accumulator.
 //
+// int8 pools (kv_scale [2, L, Hkv, num_slots] f32): prior K/V tiles load
+// as int8 and are multiplied by their per-token scale while they are
+// staged to shared memory; the chunk's own K/V arrive already dequantized,
+// in float32 (what the pool will hold, not the full-precision rows).
+//
 // What bounds it on an H100: operations. It does 4*Hq*D*sum_b C*(prior +
 // C/2) flops against 2*Hkv*D*sum_b prior elements of pool K/V read — at
 // C = 512 some 256 flops per K/V element, well above the bytes line even
@@ -23,11 +28,14 @@
 // with Cblk*G <= 64 query rows (all G heads of the group share each K/V
 // tile, so the pool streams once per query block, not once per head).
 // Queries stay in shared memory; 32-token K and V tiles are staged in
-// shared memory with 16-byte loads; each thread computes a 2x4 tile of
+// shared memory with 16-byte loads (int8 tiles: 16 tokens' dims per
+// load, half the bytes of bf16); each thread computes a 2x4 tile of
 // scores and a 2 x D/8 slice of the accumulator on the CUDA cores in
 // fp32. This is the simple form: the products run on the CUDA cores, not
 // the tensor cores, and loads are not overlapped with compute — wgmma with
 // bf16 operands and a TMA-fed pipeline are later work.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -41,16 +49,18 @@ constexpr int kRows = 64;  // query rows (Cblk * G) per CTA, at most
 template <int D>
 constexpr size_t smem_bytes() {
   // Qs [kRows][D+1], KVs [kTile][D+1], Ps [kRows][kTile+1], m/l/corr
-  // [kRows] floats, then key offsets [kTile] int64.
-  return sizeof(float) * (kRows * (D + 1) + kTile * (D + 1) + kRows * (kTile + 1) + 3 * kRows) +
+  // [kRows], k/v scales [kTile] floats, then key offsets [kTile] int64.
+  return sizeof(float) * (kRows * (D + 1) + kTile * (D + 1) + kRows * (kTile + 1) +
+                          3 * kRows + 2 * kTile) +
          sizeof(long long) * kTile;
 }
 
-// Stage one tile of keys (K or V) as float: row t < n from src + off[t],
-// zeros for t >= n.
-template <typename T, int D>
+// Stage one tile of keys (K or V) as float: row t < n from src + off[t]
+// (times sc[t] when kScaled), zeros for t >= n.
+template <typename T, int D, bool kScaled>
 __device__ __forceinline__ void load_tile(const T* __restrict__ src,
-                                          const long long* off, int n, float* KVs) {
+                                          const long long* off, const float* sc, int n,
+                                          float* KVs) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int DP = D + 1;
   for (int e = threadIdx.x; e < kTile * D / VEC; e += kThreads) {
@@ -58,6 +68,11 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src,
     float v[VEC];
     if (t < n) {
       load_vec<T, VEC>(src + off[t] + d, v);
+      if constexpr (kScaled) {
+        const float s = sc[t];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) v[i] *= s;
+      }
     } else {
 #pragma unroll
       for (int i = 0; i < VEC; ++i) v[i] = 0.f;
@@ -76,19 +91,20 @@ __device__ __forceinline__ bool visible(int r, int t, int R, int n, bool causal,
 }
 
 // One tile of the online softmax: scores, row max/sum update, P·V.
-// Keys are already described by off[] (n valid); the tile is causal for
-// dense chunk keys starting at chunk offset k0.
-template <typename T, int D, int G>
+// Keys are already described by off[] (n valid, with their scales in
+// ks[]/vs[] when kScaled); the tile is causal for dense chunk keys
+// starting at chunk offset k0.
+template <typename T, int D, int G, bool kScaled>
 __device__ __forceinline__ void tile_step(const T* __restrict__ ksrc,
                                           const T* __restrict__ vsrc, int n,
                                           bool causal, int k0, int c0, int R,
                                           const float* Qs, float* KVs, float* Ps,
                                           float* m_s, float* l_s, float* c_s,
-                                          const long long* off,
-                                          float (&acc)[2][D / 8]) {
+                                          const long long* off, const float* ks,
+                                          const float* vs, float (&acc)[2][D / 8]) {
   constexpr int DP = D + 1, PP = kTile + 1;
   const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
-  load_tile<T, D>(ksrc, off, n, KVs);
+  load_tile<T, D, kScaled>(ksrc, off, ks, n, KVs);
   __syncthreads();
   // Scores for rows {ty, ty+32} x keys {tx, tx+8, tx+16, tx+24}.
   float s[2][4] = {};
@@ -127,7 +143,7 @@ __device__ __forceinline__ void tile_step(const T* __restrict__ ksrc,
     l_s[r] = l_s[r] * corr + sum;
     m_s[r] = m_new;
   }
-  load_tile<T, D>(vsrc, off, n, KVs);
+  load_tile<T, D, kScaled>(vsrc, off, vs, n, KVs);
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -144,18 +160,22 @@ __device__ __forceinline__ void tile_step(const T* __restrict__ ksrc,
   __syncthreads();
 }
 
-template <typename T, int D, int G>
+// TQ: queries and output; TP: the pool (int8_t with kv_scale); TC: the
+// chunk's dense K/V (the pool dtype for bf16/f32 pools, float for int8).
+template <typename TQ, typename TP, typename TC, int D, int G>
 __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
-    const T* __restrict__ q,              // [B, C, Hq, D]
-    const T* __restrict__ k_cur,          // [B, C, Hkv, D]
-    const T* __restrict__ v_cur,          // [B, C, Hkv, D]
-    const T* __restrict__ kv,             // [2, L, Hkv, num_slots, D]
+    const TQ* __restrict__ q,             // [B, C, Hq, D]
+    const TC* __restrict__ k_cur,         // [B, C, Hkv, D]
+    const TC* __restrict__ v_cur,         // [B, C, Hkv, D]
+    const TP* __restrict__ kv,            // [2, L, Hkv, num_slots, D]
+    const float* __restrict__ kv_scale,   // [2, L, Hkv, num_slots] (int8 pools)
     const int* __restrict__ page_table,   // [B, max_pages]
     const int* __restrict__ prior_lengths,  // [B]
     const int* __restrict__ kv_lengths,   // [B]
-    T* __restrict__ out,                  // [B, C, Hq, D]
+    TQ* __restrict__ out,                 // [B, C, Hq, D]
     int C, int Hq, int Hkv, int L, int num_slots, int page, int max_pages,
     int layer, int cblk) {
+  constexpr bool kQuant = std::is_same<TP, int8_t>::value;
   constexpr int DP = D + 1;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -164,7 +184,9 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
   float* m_s = Ps + kRows * (kTile + 1);
   float* l_s = m_s + kRows;
   float* c_s = l_s + kRows;
-  long long* off = reinterpret_cast<long long*>(c_s + kRows);
+  float* ks_s = c_s + kRows;
+  float* vs_s = ks_s + kTile;
+  long long* off = reinterpret_cast<long long*>(vs_s + kTile);
 
   const int b = blockIdx.x, h = blockIdx.y, cb = blockIdx.z;
   const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
@@ -196,19 +218,26 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
 
   // Prior context from the pool pages.
   const size_t head_stride = (size_t)num_slots * D;
-  const T* k_pool = kv + ((size_t)layer * Hkv + h) * head_stride;
-  const T* v_pool = kv + ((size_t)(L + layer) * Hkv + h) * head_stride;
+  const TP* k_pool = kv + ((size_t)layer * Hkv + h) * head_stride;
+  const TP* v_pool = kv + ((size_t)(L + layer) * Hkv + h) * head_stride;
+  const float* k_sc = kQuant ? kv_scale + ((size_t)layer * Hkv + h) * num_slots : nullptr;
+  const float* v_sc = kQuant ? kv_scale + ((size_t)(L + layer) * Hkv + h) * num_slots : nullptr;
   const int* pt = page_table + (size_t)b * max_pages;
   for (int t0 = 0; t0 < prior; t0 += kTile) {
     const int n = min(kTile, prior - t0);
     __syncthreads();  // previous readers of off[] are done
     if (tid < n) {
       const int tok = t0 + tid;
-      off[tid] = ((long long)pt[tok / page] * page + tok % page) * D;
+      const int slot = pt[tok / page] * page + tok % page;
+      off[tid] = (long long)slot * D;
+      if constexpr (kQuant) {
+        ks_s[tid] = k_sc[slot];
+        vs_s[tid] = v_sc[slot];
+      }
     }
     __syncthreads();
-    tile_step<T, D, G>(k_pool, v_pool, n, false, 0, c0, R, Qs, KVs, Ps, m_s, l_s,
-                       c_s, off, acc);
+    tile_step<TP, D, G, kQuant>(k_pool, v_pool, n, false, 0, c0, R, Qs, KVs, Ps, m_s,
+                                l_s, c_s, off, ks_s, vs_s, acc);
   }
   // The chunk itself, dense and causal: keys below min(c0 + cblk, n_dense).
   const int k_end = min(c0 + cblk, n_dense);
@@ -217,8 +246,8 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
     __syncthreads();
     if (tid < n) off[tid] = (((long long)b * C + k0 + tid) * Hkv + h) * D;
     __syncthreads();
-    tile_step<T, D, G>(k_cur, v_cur, n, true, k0, c0, R, Qs, KVs, Ps, m_s, l_s,
-                       c_s, off, acc);
+    tile_step<TC, D, G, false>(k_cur, v_cur, n, true, k0, c0, R, Qs, KVs, Ps, m_s, l_s,
+                               c_s, off, nullptr, nullptr, acc);
   }
   __syncthreads();
 #pragma unroll
@@ -227,98 +256,94 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
     if (r < R) {
       const int c = c0 + r / G, g = r % G;
       const float l = l_s[r];
-      T* o = out + (((size_t)b * C + c) * Hq + (size_t)h * G + g) * D;
+      TQ* o = out + (((size_t)b * C + c) * Hq + (size_t)h * G + g) * D;
 #pragma unroll
       for (int k = 0; k < D / 8; ++k)
-        o[tx + 8 * k] = from_f<T>(l > 0.f ? acc[i][k] / l : 0.f);
+        o[tx + 8 * k] = from_f<TQ>(l > 0.f ? acc[i][k] / l : 0.f);
     }
   }
 }
 
-template <typename T, int D, int G>
-cudaError_t launch(const void* q, const void* k_cur, const void* v_cur,
-                   const void* kv, const int* pt, const int* prior,
-                   const int* kvlen, void* out, int B, int C, int Hq, int Hkv,
-                   int L, int num_slots, int page, int max_pages, int layer,
-                   int cblk, cudaStream_t stream) {
+// Arguments of one launch; kv_scale only for int8 pools.
+struct ChunkArgs {
+  const void* q;
+  const void* k_cur;
+  const void* v_cur;
+  const void* kv;
+  const float* kv_scale;
+  const int* pt;
+  const int* prior;
+  const int* kvlen;
+  void* out;
+  int B, C, Hq, Hkv, D, L, num_slots, page, max_pages, layer, cblk;
+};
+
+template <typename TQ, typename TP, typename TC, int D, int G>
+cudaError_t launch(const ChunkArgs& a, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(paged_chunk_kernel<T, D, G>,
+  cudaError_t err = cudaFuncSetAttribute(paged_chunk_kernel<TQ, TP, TC, D, G>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return err;
-  paged_chunk_kernel<T, D, G><<<dim3(B, Hkv, C / cblk), kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_cur),
-      static_cast<const T*>(v_cur), static_cast<const T*>(kv), pt, prior, kvlen,
-      static_cast<T*>(out), C, Hq, Hkv, L, num_slots, page, max_pages, layer, cblk);
+  paged_chunk_kernel<TQ, TP, TC, D, G>
+      <<<dim3(a.B, a.Hkv, a.C / a.cblk), kThreads, bytes, stream>>>(
+          static_cast<const TQ*>(a.q), static_cast<const TC*>(a.k_cur),
+          static_cast<const TC*>(a.v_cur), static_cast<const TP*>(a.kv), a.kv_scale,
+          a.pt, a.prior, a.kvlen, static_cast<TQ*>(a.out), a.C, a.Hq, a.Hkv, a.L,
+          a.num_slots, a.page, a.max_pages, a.layer, a.cblk);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_g(int G, const void* q, const void* k_cur, const void* v_cur,
-                     const void* kv, const int* pt, const int* prior,
-                     const int* kvlen, void* out, int B, int C, int Hq, int Hkv,
-                     int L, int num_slots, int page, int max_pages, int layer,
-                     int cblk, cudaStream_t stream) {
-#define RADIXMESH_CHUNK_G(GG)                                                     \
-  case GG:                                                                        \
-    return launch<T, D, GG>(q, k_cur, v_cur, kv, pt, prior, kvlen, out, B, C, Hq, \
-                            Hkv, L, num_slots, page, max_pages, layer, cblk,      \
-                            stream);
-  switch (G) {
-    RADIXMESH_CHUNK_G(1)
-    RADIXMESH_CHUNK_G(2)
-    RADIXMESH_CHUNK_G(4)
-    RADIXMESH_CHUNK_G(8)
-    default:
-      return cudaErrorInvalidValue;
+template <typename TQ, typename TP, typename TC, int D>
+cudaError_t launch_g(const ChunkArgs& a, cudaStream_t stream) {
+  switch (a.Hq / a.Hkv) {
+    case 1: return launch<TQ, TP, TC, D, 1>(a, stream);
+    case 2: return launch<TQ, TP, TC, D, 2>(a, stream);
+    case 4: return launch<TQ, TP, TC, D, 4>(a, stream);
+    case 8: return launch<TQ, TP, TC, D, 8>(a, stream);
+    default: return cudaErrorInvalidValue;
   }
-#undef RADIXMESH_CHUNK_G
 }
 
-template <typename T>
-cudaError_t launch_d(int D, int G, const void* q, const void* k_cur,
-                     const void* v_cur, const void* kv, const int* pt,
-                     const int* prior, const int* kvlen, void* out, int B, int C,
-                     int Hq, int Hkv, int L, int num_slots, int page, int max_pages,
-                     int layer, int cblk, cudaStream_t stream) {
-  if (D == 64)
-    return launch_g<T, 64>(G, q, k_cur, v_cur, kv, pt, prior, kvlen, out, B, C, Hq,
-                           Hkv, L, num_slots, page, max_pages, layer, cblk, stream);
-  if (D == 128)
-    return launch_g<T, 128>(G, q, k_cur, v_cur, kv, pt, prior, kvlen, out, B, C, Hq,
-                            Hkv, L, num_slots, page, max_pages, layer, cblk, stream);
+template <typename TQ, typename TP, typename TC>
+cudaError_t launch_d(const ChunkArgs& a, cudaStream_t stream) {
+  if (a.D == 64) return launch_g<TQ, TP, TC, 64>(a, stream);
+  if (a.D == 128) return launch_g<TQ, TP, TC, 128>(a, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace radixmesh
 
-// dtype: 0 = float32, 1 = bfloat16. cblk = queries per CTA (divides C,
-// cblk * (Hq / Hkv) <= 64). Returns the cudaError_t of the launch (0 on
-// success). Launches on `stream`; allocates nothing.
-extern "C" int paged_chunk_launch(int dtype, const void* q, const void* k_cur,
-                                  const void* v_cur, const void* kv,
-                                  const void* page_table, const void* prior_lengths,
-                                  const void* kv_lengths, void* out, int B, int C,
-                                  int Hq, int Hkv, int D, int L, int num_slots,
-                                  int page, int max_pages, int layer, int cblk,
-                                  void* stream) {
+// q_dtype: 0 = float32, 1 = bfloat16; pool_dtype: the same (k_cur/v_cur
+// in that dtype too), or 2 = int8 with kv_scale [2, L, Hkv, num_slots]
+// f32 (else nullptr) and k_cur/v_cur in float32. cblk = queries per CTA
+// (divides C, cblk * (Hq / Hkv) <= 64). Returns the cudaError_t of the
+// launch (0 on success). Launches on `stream`; allocates nothing.
+extern "C" int paged_chunk_launch(int q_dtype, int pool_dtype, const void* q,
+                                  const void* k_cur, const void* v_cur, const void* kv,
+                                  const void* kv_scale, const void* page_table,
+                                  const void* prior_lengths, const void* kv_lengths,
+                                  void* out, int B, int C, int Hq, int Hkv, int D, int L,
+                                  int num_slots, int page, int max_pages, int layer,
+                                  int cblk, void* stream) {
   using namespace radixmesh;
   if (B == 0 || C == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || cblk <= 0 || C % cblk != 0 ||
       cblk * (Hq / Hkv) > kRows)
     return (int)cudaErrorInvalidValue;
-  const int G = Hq / Hkv;
-  const int* pt = static_cast<const int*>(page_table);
-  const int* pr = static_cast<const int*>(prior_lengths);
-  const int* kl = static_cast<const int*>(kv_lengths);
+  if ((pool_dtype == 2) != (kv_scale != nullptr)) return (int)cudaErrorInvalidValue;
+  const ChunkArgs a{q, k_cur, v_cur, kv, static_cast<const float*>(kv_scale),
+                    static_cast<const int*>(page_table),
+                    static_cast<const int*>(prior_lengths),
+                    static_cast<const int*>(kv_lengths), out, B, C, Hq, Hkv, D, L,
+                    num_slots, page, max_pages, layer, cblk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_d<float>(D, G, q, k_cur, v_cur, kv, pt, pr, kl, out, B, C, Hq,
-                                Hkv, L, num_slots, page, max_pages, layer, cblk, s);
-  if (dtype == 1)
-    return (int)launch_d<__nv_bfloat16>(D, G, q, k_cur, v_cur, kv, pt, pr, kl, out,
-                                        B, C, Hq, Hkv, L, num_slots, page,
-                                        max_pages, layer, cblk, s);
+  if (q_dtype == 0 && pool_dtype == 0) return (int)launch_d<float, float, float>(a, s);
+  if (q_dtype == 1 && pool_dtype == 1)
+    return (int)launch_d<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(a, s);
+  if (q_dtype == 0 && pool_dtype == 2) return (int)launch_d<float, int8_t, float>(a, s);
+  if (q_dtype == 1 && pool_dtype == 2)
+    return (int)launch_d<__nv_bfloat16, int8_t, float>(a, s);
   return (int)cudaErrorInvalidValue;
 }

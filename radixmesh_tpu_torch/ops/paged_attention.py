@@ -1,5 +1,5 @@
-"""The two paged-attention kernels of the serving path, with their plain
-PyTorch versions beside them.
+"""The paged-attention kernels of the serving path, with their plain PyTorch
+versions beside them.
 
 - ``paged_decode_fused_kernel`` replaces the JAX package's Pallas kernel of
   the same name (``radixmesh_tpu/ops/paged_attention.py``: bodies
@@ -14,18 +14,31 @@ PyTorch versions beside them.
   ``prior + arange(C)`` attend to ``prior_lengths[b]`` pool tokens, then to
   the chunk's dense K/V, causal within the chunk and bounded by
   ``kv_lengths[b]``. Rows whose softmax denominator is 0 output zeros.
+- ``paged_attention_pool_kernel`` replaces ``paged_attention_pool_kernel``
+  (bodies ``_kernel`` and ``_mh_kernel``): read-only GQA decode attention
+  over ``lengths[b]`` pool tokens of ``layer``, with no write and no
+  fold-in; rows with ``lengths[b] <= 0`` output zeros.
 
-Both keep the JAX kernels' masking rule: a masked position contributes an
+Each takes an int8 pool with its scales ``kv_scales [2, L, Hkv, P, page]``
+float32 (value ≈ int8 · scale, ``ops/quant.py``). The decode kernel then
+quantizes the current row itself, writes the int8 payload and the scale in
+place (bit-exact with ``quantize_kv``) and folds in the float32
+dequantized twin; the chunk kernel takes its dense K/V already dequantized,
+in float32.
+
+All keep the JAX kernels' masking rule: a masked position contributes an
 exact zero to both factors of ``p·v``, so NaN or Inf in an unreferenced or
-padded page never reaches the sum. Both are held in float32 and output the
-query's dtype.
+padded page (or its scale) never reaches the sum. All are held in float32
+and output the query's dtype.
 
 Dispatch is by the tensors' device alone: a CUDA tensor launches the
 hand-written CUDA kernel (``ops/csrc/``, built at first use by
 ``ops/_build.py``) or raises; a CPU tensor takes the plain version. There is
-no fallback from one to the other. Each wrapper counts its launches in a
-plain integer attribute (``<wrapper>.launches``) and each plain version its
-calls (``<plain>.calls``), so a run can show which path it took.
+no fallback from one to the other. Each wrapper counts its launches in plain
+integer attributes (``<wrapper>.launches`` for bf16/f32 pools,
+``<wrapper>.launches_int8`` for int8 pools) and each plain version its
+calls (``<plain>.calls`` / ``.calls_int8``), so a run can show which path
+it took.
 """
 
 from __future__ import annotations
@@ -35,24 +48,36 @@ import math
 
 import torch
 
+from radixmesh_tpu_torch.ops.quant import dequantize_kv, quantize_kv
+
 __all__ = [
     "paged_decode_fused_kernel",
     "paged_decode_fused_plain",
     "paged_chunk_attention_kernel",
     "paged_chunk_attention_plain",
+    "paged_attention_pool_kernel",
+    "paged_attention_pool_plain",
     "chunk_query_block",
     "reset_counters",
+    "plain_calls",
 ]
 
 # Finite mask value of the JAX kernels (exp(finite - MASK) == 0 without the
 # NaN of -inf - -inf).
 _MASK = -0.7 * torch.finfo(torch.float32).max
 
-# dtype codes of the C entry points.
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype codes of the C entry points (int8 for pools only).
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_Q_DTYPES = (torch.float32, torch.bfloat16)
 # Head dims and GQA group sizes the CUDA kernels are instantiated for.
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
+
+
+def _count(fn, attr: str, kv_scales) -> None:
+    """Add one to ``fn.<attr>`` (bf16/f32 pools) or ``fn.<attr>_int8``."""
+    name = attr if kv_scales is None else f"{attr}_int8"
+    setattr(fn, name, getattr(fn, name) + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -60,13 +85,37 @@ _GROUPS = (1, 2, 4, 8)
 # ---------------------------------------------------------------------------
 
 
-def _gather_rows(kv_pages, which, layer, page_table):
+def _gather_rows(kv_pages, which, layer, page_table, kv_scales=None):
     """``[B, max_pages*page, Hkv, D]`` float32 tokens of one layer's K or V
-    in page-table order."""
+    in page-table order, dequantized for int8 pools."""
     Hkv, page, D = kv_pages.shape[2], kv_pages.shape[4], kv_pages.shape[5]
     B, maxp = page_table.shape
-    pages = kv_pages[which, layer][:, page_table.long()]  # [Hkv, B, maxp, page, D]
-    return pages.reshape(Hkv, B, maxp * page, D).permute(1, 2, 0, 3).float()
+    pt = page_table.long()
+    rows = kv_pages[which, layer][:, pt].reshape(Hkv, B, maxp * page, D)
+    if kv_scales is not None:
+        sc = kv_scales[which, layer][:, pt].reshape(Hkv, B, maxp * page)
+        return dequantize_kv(rows, sc).permute(1, 2, 0, 3)
+    return rows.permute(1, 2, 0, 3).float()
+
+
+def _masked_attention(q, k, v, valid):
+    """GQA attention of ``q [B, Hq, D]`` over keys ``k``/``v [B, K, Hkv, D]``
+    (float32) where ``valid [B, K]``, in float32: masked keys get exact
+    zeros in both ``p`` and ``v``; rows with no valid key output zeros.
+    Returns ``[B, Hq, D]`` float32."""
+    B, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    v = torch.where(valid[:, :, None, None], v, 0.0)
+    qg = q.float().reshape(B, Hkv, G, D) * (1.0 / math.sqrt(D))
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k)
+    ok = valid[:, None, None, :]
+    s = torch.where(ok, s, _MASK)
+    p = torch.where(ok, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v)
+    out = torch.where(l > 0, out / l.clamp_min(1e-30), 0.0)
+    return out.reshape(B, Hq, D)
 
 
 def paged_decode_fused_plain(
@@ -78,48 +127,76 @@ def paged_decode_fused_plain(
     page_table: torch.Tensor,  # [B, max_pages]
     lengths: torch.Tensor,  # [B] incl. the current token
     layer: int,
+    kv_scales: torch.Tensor | None = None,  # [2, L, Hkv, P, page] — written in place
 ) -> torch.Tensor:
     """Plain version of the fused decode kernel, same semantics: attend the
     ``lengths-1`` pool tokens plus the current token taken from ``k_new`` /
     ``v_new`` (so rows that share the scratch slot each see their own
     token), then write the current row into the pool for rows with
-    ``lengths > 0``."""
-    paged_decode_fused_plain.calls += 1
-    B, Hq, D = q.shape
-    Hkv, page = kv_pages.shape[2], kv_pages.shape[4]
-    G = Hq // Hkv
+    ``lengths > 0``. With ``kv_scales`` the row is quantized first
+    (``quantize_kv``), the float32 dequantized twin is attended, and the
+    int8 payload and its scales are written."""
+    _count(paged_decode_fused_plain, "calls", kv_scales)
+    page = kv_pages.shape[4]
     n_ctx = page_table.shape[1] * page
     lengths = lengths.long()
     hbm_len = (lengths - 1).clamp(0, n_ctx)
-    k = _gather_rows(kv_pages, 0, layer, page_table)  # [B, ctx, Hkv, D]
-    v = _gather_rows(kv_pages, 1, layer, page_table)
+    if kv_scales is not None:
+        k_store, k_sc = quantize_kv(k_new)
+        v_store, v_sc = quantize_kv(v_new)
+        k_cur, v_cur = dequantize_kv(k_store, k_sc), dequantize_kv(v_store, v_sc)
+    else:
+        k_store, v_store = k_new.to(kv_pages.dtype), v_new.to(kv_pages.dtype)
+        k_cur, v_cur = k_new.float(), v_new.float()
+    k = _gather_rows(kv_pages, 0, layer, page_table, kv_scales)  # [B, ctx, Hkv, D]
+    v = _gather_rows(kv_pages, 1, layer, page_table, kv_scales)
     pos = torch.arange(n_ctx, device=q.device)
-    valid = pos[None, :] < hbm_len[:, None]  # [B, ctx]
     # Current token appended as one more key position, valid iff length>0.
-    k = torch.cat([k, k_new.float()[:, None]], dim=1)
-    v = torch.cat([v, v_new.float()[:, None]], dim=1)
-    valid = torch.cat([valid, (lengths > 0)[:, None]], dim=1)
-    v = torch.where(valid[:, :, None, None], v, 0.0)
-    qg = q.float().reshape(B, Hkv, G, D) * (1.0 / math.sqrt(D))
-    s = torch.einsum("bhgd,bkhd->bhgk", qg, k)
-    ok = valid[:, None, None, :]
-    s = torch.where(ok, s, _MASK)
-    p = torch.where(ok, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhgk,bkhd->bhgd", p, v)
-    out = torch.where(l > 0, out / l.clamp_min(1e-30), 0.0)
+    k = torch.cat([k, k_cur[:, None]], dim=1)
+    v = torch.cat([v, v_cur[:, None]], dim=1)
+    valid = torch.cat([pos[None, :] < hbm_len[:, None], (lengths > 0)[:, None]], dim=1)
+    out = _masked_attention(q, k, v, valid)
     live = lengths > 0
     if bool(live.any()):
         sl = slots.long()[live]
         pg, off = sl // page, sl % page
         # In-place pool update (the JAX kernel's aliased output): per-layer
         # views [Hkv, P, page, D] indexed at [:, pg, off] take [Hkv, n, D].
-        for which, new in ((0, k_new), (1, v_new)):
-            kv_pages[which, layer][:, pg, off] = new[live].to(kv_pages.dtype).transpose(0, 1)
-    return out.reshape(B, Hq, D).to(q.dtype)
+        for which, new in ((0, k_store), (1, v_store)):
+            kv_pages[which, layer][:, pg, off] = new[live].transpose(0, 1)
+        if kv_scales is not None:
+            for which, sc in ((0, k_sc), (1, v_sc)):
+                kv_scales[which, layer][:, pg, off] = sc[live].transpose(0, 1)
+    return out.to(q.dtype)
 
 
 paged_decode_fused_plain.calls = 0
+paged_decode_fused_plain.calls_int8 = 0
+
+
+def paged_attention_pool_plain(
+    q: torch.Tensor,  # [B, Hq, D]
+    kv_pages: torch.Tensor,  # [2, L, Hkv, P, page, D]
+    page_table: torch.Tensor,  # [B, max_pages]
+    lengths: torch.Tensor,  # [B]
+    layer: int,
+    kv_scales: torch.Tensor | None = None,  # [2, L, Hkv, P, page]
+) -> torch.Tensor:
+    """Plain version of the read-only pool kernel, same semantics: attend
+    ``lengths[b]`` pool tokens of ``layer``; rows with ``lengths <= 0``
+    output zeros (the Pallas kernel's rule, which ``attend_decode_ref``
+    does not follow)."""
+    _count(paged_attention_pool_plain, "calls", kv_scales)
+    n_ctx = page_table.shape[1] * kv_pages.shape[4]
+    n = lengths.long().clamp(0, n_ctx)
+    k = _gather_rows(kv_pages, 0, layer, page_table, kv_scales)
+    v = _gather_rows(kv_pages, 1, layer, page_table, kv_scales)
+    valid = torch.arange(n_ctx, device=q.device)[None, :] < n[:, None]
+    return _masked_attention(q, k, v, valid).to(q.dtype)
+
+
+paged_attention_pool_plain.calls = 0
+paged_attention_pool_plain.calls_int8 = 0
 
 
 def paged_chunk_attention_plain(
@@ -131,20 +208,22 @@ def paged_chunk_attention_plain(
     prior_lengths: torch.Tensor,  # [B]
     kv_lengths: torch.Tensor,  # [B]
     layer: int,
+    kv_scales: torch.Tensor | None = None,  # [2, L, Hkv, P, page]
 ) -> torch.Tensor:
     """Plain version of the chunk kernel, same semantics: gather the row's
-    pool context, keep tokens ``< prior``, append the chunk's dense keys
-    (valid while ``prior + c_k < kv_lengths``, causal ``c_k <= c_q``), one
-    masked softmax in float32 with exact zeros at masked positions."""
-    paged_chunk_attention_plain.calls += 1
+    pool context (dequantized for int8 pools), keep tokens ``< prior``,
+    append the chunk's dense keys (valid while ``prior + c_k < kv_lengths``,
+    causal ``c_k <= c_q``), one masked softmax in float32 with exact zeros
+    at masked positions."""
+    _count(paged_chunk_attention_plain, "calls", kv_scales)
     B, C, Hq, D = q.shape
     Hkv, page = kv_pages.shape[2], kv_pages.shape[4]
     G = Hq // Hkv
     n_ctx = page_table.shape[1] * page
     prior = prior_lengths.long().clamp(0, n_ctx)
     n_dense = (kv_lengths.long() - prior).clamp(0, C)
-    k = _gather_rows(kv_pages, 0, layer, page_table)
-    v = _gather_rows(kv_pages, 1, layer, page_table)
+    k = _gather_rows(kv_pages, 0, layer, page_table, kv_scales)
+    v = _gather_rows(kv_pages, 1, layer, page_table, kv_scales)
     pos = torch.arange(n_ctx, device=q.device)
     kv_ok = pos[None, :] < prior[:, None]  # [B, ctx]
     c = torch.arange(C, device=q.device)
@@ -170,6 +249,7 @@ def paged_chunk_attention_plain(
 
 
 paged_chunk_attention_plain.calls = 0
+paged_chunk_attention_plain.calls_int8 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -177,25 +257,29 @@ paged_chunk_attention_plain.calls = 0
 # ---------------------------------------------------------------------------
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# Argument types of each library's C entry point.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ENTRY = {
+    "paged_decode": ("paged_decode_launch", [_I, _I] + [_P] * 9 + [_I] * 9 + [_P]),
+    "paged_pool": ("paged_pool_launch", [_I, _I] + [_P] * 6 + [_I] * 9 + [_P]),
+    "paged_chunk": ("paged_chunk_launch", [_I, _I] + [_P] * 9 + [_I] * 11 + [_P]),
+}
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    """The kernel library ``name`` (built from ``ops/csrc/<name>.cu`` at
-    first use), with its C entry point's argument types declared."""
+def _entry(name: str):
+    """The C entry point of kernel library ``name`` (built from
+    ``ops/csrc/<name>.cu`` at first use), its argument types declared."""
     lib = _LIBS.get(name)
     if lib is None:
         from radixmesh_tpu_torch.ops._build import load_library
 
         lib = load_library(name)
-        P, I = ctypes.c_void_p, ctypes.c_int
-        if name == "paged_decode":
-            lib.paged_decode_launch.argtypes = [I] + [P] * 8 + [I] * 9 + [P]
-            lib.paged_decode_launch.restype = I
-        else:
-            lib.paged_chunk_launch.argtypes = [I] + [P] * 8 + [I] * 11 + [P]
-            lib.paged_chunk_launch.restype = I
+        fn_name, argtypes = _ENTRY[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = _I
         _LIBS[name] = lib
-    return lib
+    return getattr(lib, _ENTRY[name][0])
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -203,13 +287,19 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _check_common(name, q, kv_pages, page_table, int_vectors):
+def _check_common(name, q, kv_pages, page_table, int_vectors, kv_scales):
     dev = q.device
-    _check(q.dtype in _DTYPES, f"{name}: dtype {q.dtype} not supported (bf16/f32)")
-    _check(kv_pages.dtype == q.dtype, f"{name}: pool dtype {kv_pages.dtype} != q dtype {q.dtype}")
+    _check(q.dtype in _Q_DTYPES, f"{name}: q dtype {q.dtype} not supported (bf16/f32)")
     _check(kv_pages.dim() == 6, f"{name}: kv_pages must be [2, L, Hkv, P, page, D]")
     _check(kv_pages.is_contiguous(), f"{name}: kv_pages must be contiguous")
-    for t in (kv_pages, page_table, *int_vectors):
+    if kv_scales is None:
+        _check(kv_pages.dtype == q.dtype, f"{name}: pool dtype {kv_pages.dtype} != q dtype {q.dtype}")
+    else:
+        _check(kv_pages.dtype == torch.int8, f"{name}: kv_scales given for a {kv_pages.dtype} pool")
+        _check(kv_scales.dtype == torch.float32 and kv_scales.is_contiguous()
+               and tuple(kv_scales.shape) == tuple(kv_pages.shape[:5]),
+               f"{name}: kv_scales must be contiguous float32 [2, L, Hkv, P, page]")
+    for t in (kv_pages, page_table, *int_vectors) + (() if kv_scales is None else (kv_scales,)):
         _check(t.device == dev, f"{name}: every tensor must be on {dev}")
     for t in (page_table, *int_vectors):
         _check(t.dtype == torch.int32 and t.is_contiguous(),
@@ -220,55 +310,105 @@ def _check_common(name, q, kv_pages, page_table, int_vectors):
     _check(kv_pages[0, 0].numel() < 2 ** 31, f"{name}: pool layer too large")
 
 
-def _raise_on_error(name: str, rc: int) -> None:
+def _check_gqa(name, Hq, Hkv, layer, L):
+    _check(Hq % Hkv == 0 and Hq // Hkv in _GROUPS, f"{name}: GQA group Hq/Hkv={Hq}/{Hkv} unsupported")
+    _check(0 <= layer < L, f"{name}: layer {layer} out of range")
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(lib: str, q: torch.Tensor, *args) -> None:
+    """Call ``lib``'s entry point on q's current stream; raise on a
+    refused launch (a launch that never ran is not reported by a later
+    synchronize)."""
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _entry(lib)(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
+        raise RuntimeError(f"{_ENTRY[lib][0]}: CUDA launch failed with cudaError_t {rc}")
 
 
 def paged_decode_fused_kernel(
     q: torch.Tensor,  # [B, Hq, D]
-    k_new: torch.Tensor,  # [B, Hkv, D] pool dtype
+    k_new: torch.Tensor,  # [B, Hkv, D] q's dtype
     v_new: torch.Tensor,  # [B, Hkv, D]
     kv_pages: torch.Tensor,  # [2, L, Hkv, P, page, D] — written in place
     slots: torch.Tensor,  # [B] int32
     page_table: torch.Tensor,  # [B, max_pages] int32
     lengths: torch.Tensor,  # [B] int32, incl. the current token
     layer: int,
+    kv_scales: torch.Tensor | None = None,  # [2, L, Hkv, P, page] f32 — written in place
 ) -> torch.Tensor:
-    """Fused decode step: ``attn [B, Hq, D]`` in q's dtype; the pool
-    receives each live row's current K/V in place."""
+    """Fused decode step: ``attn [B, Hq, D]`` in q's dtype; the pool (and
+    for int8 pools its scales) receives each live row's current K/V in
+    place. ``k_new``/``v_new`` are in q's dtype, which is the pool's for
+    bf16/f32 pools; int8 pools quantize them in the kernel."""
     if q.device.type == "cpu":
         return paged_decode_fused_plain(
-            q, k_new, v_new, kv_pages, slots, page_table, lengths, layer
+            q, k_new, v_new, kv_pages, slots, page_table, lengths, layer, kv_scales
         )
     name = "paged_decode_fused_kernel"
     _check(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
-    _check_common(name, q, kv_pages, page_table, (slots, lengths))
+    _check_common(name, q, kv_pages, page_table, (slots, lengths), kv_scales)
     B, Hq, D = q.shape
     _, L, Hkv, P, page, _ = kv_pages.shape
-    _check(Hq % Hkv == 0 and Hq // Hkv in _GROUPS, f"{name}: GQA group Hq/Hkv={Hq}/{Hkv} unsupported")
-    _check(0 <= layer < L, f"{name}: layer {layer} out of range")
+    _check_gqa(name, Hq, Hkv, layer, L)
     for t, shape in ((q, (B, Hq, D)), (k_new, (B, Hkv, D)), (v_new, (B, Hkv, D))):
         _check(tuple(t.shape) == shape and t.dtype == q.dtype and t.is_contiguous()
                and t.device == q.device, f"{name}: expected contiguous {shape} {q.dtype} on {q.device}")
     _check(page_table.dim() == 2 and page_table.shape[0] == B, f"{name}: page_table must be [B, max_pages]")
     _check(tuple(slots.shape) == (B,) and tuple(lengths.shape) == (B,), f"{name}: slots/lengths must be [B]")
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _lib("paged_decode").paged_decode_launch(
-            _DTYPES[q.dtype], q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            kv_pages.data_ptr(), slots.data_ptr(), page_table.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, D, L, P * page, page, page_table.shape[1], int(layer),
-            stream,
-        )
-    _raise_on_error(name, rc)
-    paged_decode_fused_kernel.launches += 1
+    _launch(
+        "paged_decode", q, _DTYPES[q.dtype], _DTYPES[kv_pages.dtype], q.data_ptr(),
+        k_new.data_ptr(), v_new.data_ptr(), kv_pages.data_ptr(), _ptr(kv_scales),
+        slots.data_ptr(), page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        B, Hq, Hkv, D, L, P * page, page, page_table.shape[1], int(layer),
+    )
+    _count(paged_decode_fused_kernel, "launches", kv_scales)
     return out
 
 
 paged_decode_fused_kernel.launches = 0
+paged_decode_fused_kernel.launches_int8 = 0
+
+
+def paged_attention_pool_kernel(
+    q: torch.Tensor,  # [B, Hq, D]
+    kv_pages: torch.Tensor,  # [2, L, Hkv, P, page, D]
+    page_table: torch.Tensor,  # [B, max_pages] int32
+    lengths: torch.Tensor,  # [B] int32
+    layer: int,
+    kv_scales: torch.Tensor | None = None,  # [2, L, Hkv, P, page] f32 (int8 pools)
+) -> torch.Tensor:
+    """Read-only paged decode attention over ``lengths[b]`` pool tokens of
+    ``layer``: ``[B, Hq, D]`` in q's dtype, zeros for rows with
+    ``lengths <= 0``. Reads only ``layer``'s pages; writes nothing else."""
+    if q.device.type == "cpu":
+        return paged_attention_pool_plain(q, kv_pages, page_table, lengths, layer, kv_scales)
+    name = "paged_attention_pool_kernel"
+    _check(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
+    _check_common(name, q, kv_pages, page_table, (lengths,), kv_scales)
+    B, Hq, D = q.shape
+    _, L, Hkv, P, page, _ = kv_pages.shape
+    _check_gqa(name, Hq, Hkv, layer, L)
+    _check(q.dim() == 3 and q.is_contiguous(), f"{name}: q must be contiguous [B, Hq, D]")
+    _check(page_table.dim() == 2 and page_table.shape[0] == B, f"{name}: page_table must be [B, max_pages]")
+    _check(tuple(lengths.shape) == (B,), f"{name}: lengths must be [B]")
+    out = torch.empty_like(q)
+    _launch(
+        "paged_pool", q, _DTYPES[q.dtype], _DTYPES[kv_pages.dtype], q.data_ptr(),
+        kv_pages.data_ptr(), _ptr(kv_scales), page_table.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), B, Hq, Hkv, D, L, P * page, page, page_table.shape[1], int(layer),
+    )
+    _count(paged_attention_pool_kernel, "launches", kv_scales)
+    return out
+
+
+paged_attention_pool_kernel.launches = 0
+paged_attention_pool_kernel.launches_int8 = 0
 
 
 def chunk_query_block(C: int, G: int, max_rows: int = 64) -> int:
@@ -290,50 +430,62 @@ def paged_chunk_attention_kernel(
     prior_lengths: torch.Tensor,  # [B] int32
     kv_lengths: torch.Tensor,  # [B] int32
     layer: int,
+    kv_scales: torch.Tensor | None = None,  # [2, L, Hkv, P, page] f32 (int8 pools)
 ) -> torch.Tensor:
-    """Chunk-prefill attention ``[B, C, Hq, D]`` in q's dtype."""
+    """Chunk-prefill attention ``[B, C, Hq, D]`` in q's dtype. ``k_cur`` /
+    ``v_cur`` are in the pool dtype for bf16/f32 pools and float32 (already
+    dequantized) for int8 pools."""
     if q.device.type == "cpu":
         return paged_chunk_attention_plain(
-            q, k_cur, v_cur, kv_pages, page_table, prior_lengths, kv_lengths, layer
+            q, k_cur, v_cur, kv_pages, page_table, prior_lengths, kv_lengths, layer, kv_scales
         )
     name = "paged_chunk_attention_kernel"
     _check(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
-    _check_common(name, q, kv_pages, page_table, (prior_lengths, kv_lengths))
+    _check_common(name, q, kv_pages, page_table, (prior_lengths, kv_lengths), kv_scales)
     B, C, Hq, D = q.shape
     _, L, Hkv, P, page, _ = kv_pages.shape
-    _check(Hq % Hkv == 0 and Hq // Hkv in _GROUPS, f"{name}: GQA group Hq/Hkv={Hq}/{Hkv} unsupported")
-    _check(0 <= layer < L, f"{name}: layer {layer} out of range")
+    _check_gqa(name, Hq, Hkv, layer, L)
     _check(tuple(q.shape) == (B, C, Hq, D) and q.is_contiguous(), f"{name}: q must be contiguous [B, C, Hq, D]")
+    cur_dtype = q.dtype if kv_scales is None else torch.float32
     for t in (k_cur, v_cur):
-        _check(tuple(t.shape) == (B, C, Hkv, D) and t.dtype == q.dtype and t.is_contiguous()
-               and t.device == q.device, f"{name}: k_cur/v_cur must be contiguous [B, C, Hkv, D] {q.dtype}")
+        _check(tuple(t.shape) == (B, C, Hkv, D) and t.dtype == cur_dtype and t.is_contiguous()
+               and t.device == q.device, f"{name}: k_cur/v_cur must be contiguous [B, C, Hkv, D] {cur_dtype}")
     _check(page_table.dim() == 2 and page_table.shape[0] == B, f"{name}: page_table must be [B, max_pages]")
     _check(tuple(prior_lengths.shape) == (B,) and tuple(kv_lengths.shape) == (B,),
            f"{name}: prior_lengths/kv_lengths must be [B]")
-    G = Hq // Hkv
-    cblk = chunk_query_block(C, G)
+    cblk = chunk_query_block(C, Hq // Hkv)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _lib("paged_chunk").paged_chunk_launch(
-            _DTYPES[q.dtype], q.data_ptr(), k_cur.data_ptr(), v_cur.data_ptr(),
-            kv_pages.data_ptr(), page_table.data_ptr(), prior_lengths.data_ptr(),
-            kv_lengths.data_ptr(), out.data_ptr(),
-            B, C, Hq, Hkv, D, L, P * page, page, page_table.shape[1], int(layer),
-            cblk, stream,
-        )
-    _raise_on_error(name, rc)
-    paged_chunk_attention_kernel.launches += 1
+    _launch(
+        "paged_chunk", q, _DTYPES[q.dtype], _DTYPES[kv_pages.dtype], q.data_ptr(),
+        k_cur.data_ptr(), v_cur.data_ptr(), kv_pages.data_ptr(), _ptr(kv_scales),
+        page_table.data_ptr(), prior_lengths.data_ptr(), kv_lengths.data_ptr(), out.data_ptr(),
+        B, C, Hq, Hkv, D, L, P * page, page, page_table.shape[1], int(layer), cblk,
+    )
+    _count(paged_chunk_attention_kernel, "launches", kv_scales)
     return out
 
 
 paged_chunk_attention_kernel.launches = 0
+paged_chunk_attention_kernel.launches_int8 = 0
+
+_COUNTED = (
+    (paged_decode_fused_kernel, "launches"),
+    (paged_chunk_attention_kernel, "launches"),
+    (paged_attention_pool_kernel, "launches"),
+    (paged_decode_fused_plain, "calls"),
+    (paged_chunk_attention_plain, "calls"),
+    (paged_attention_pool_plain, "calls"),
+)
 
 
 def reset_counters() -> None:
-    """Zero every wrapper's launch count and every plain version's call
-    count."""
-    paged_decode_fused_kernel.launches = 0
-    paged_chunk_attention_kernel.launches = 0
-    paged_decode_fused_plain.calls = 0
-    paged_chunk_attention_plain.calls = 0
+    """Zero every wrapper's launch counts and every plain version's call
+    counts (bf16/f32 and int8 pools)."""
+    for fn, attr in _COUNTED:
+        setattr(fn, attr, 0)
+        setattr(fn, f"{attr}_int8", 0)
+
+
+def plain_calls() -> int:
+    """Calls of every plain version since the last :func:`reset_counters`."""
+    return sum(getattr(fn, a) + getattr(fn, f"{a}_int8") for fn, a in _COUNTED[3:])

@@ -2,7 +2,8 @@
 over the port's ``Engine`` at full model width.
 
     python -m radixmesh_tpu_torch.serve_profile [--model llama3-8b]
-        [--shapes 4x600,8x2000] [--decode-steps 8] [--out chip_out]
+        [--shapes 4x600,8x2000] [--decode-steps 8] [--kv-quant int8]
+        [--out chip_out]
 
 For each ``BxN`` shape, ``B`` distinct random prompts of ``N`` tokens are
 queued at once. The first ``step()`` admits them (group prefill through the
@@ -15,10 +16,11 @@ every operation the profiler saw, grouped as decode attention / chunk
 attention / matrix products / other, the device busy share (union of
 device intervals over that wall time) and the device operations per step.
 The profiler adds host time per operation, so the busy share it gives is a
-lower bound. Random bf16 weights from ``--seed``; CUDA only.
+lower bound. Random bf16 weights from ``--seed``; ``--kv-quant int8``
+profiles an int8 KV pool. CUDA only.
 
 Prints one JSON line per shape; the profiler's per-kernel table goes to
-``<out>/serve_profile.txt``.
+``<out>/serve_profile.txt`` (``serve_profile_int8.txt`` with an int8 pool).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ __all__ = ["main", "profile_shape"]
 # Kernel-name fragments of each group (cuBLAS/CUTLASS GEMM names vary by
 # version: gemm, gemv, xmma, cutlass, nvjet).
 _GROUPS = (
-    ("decode_attention", ("paged_decode_kernel",)),
+    ("decode_attention", ("paged_attend_kernel",)),
     ("chunk_attention", ("paged_chunk_kernel",)),
     ("matmul", ("gemm", "gemv", "xmma", "cutlass", "nvjet")),
 )
@@ -131,6 +133,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--decode-steps", type=int, default=8)
     ap.add_argument("--kv-slots", type=int, default=65536)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kv-quant", choices=("int8",), default=None)
     ap.add_argument("--out", default="chip_out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -148,7 +151,7 @@ def main(argv: list[str] | None = None) -> int:
         params = init_params(cfg, seed=args.seed, device=dev)
     max_batch = max(b for b, _ in shapes)
     engine = Engine(cfg, params, num_slots=args.kv_slots, page_size=16,
-                    max_batch=max_batch, device=dev)
+                    max_batch=max_batch, device=dev, kv_quant=args.kv_quant)
     build_all()
     # Warm-up outside the windows: a concurrent pair (group prefill, both
     # kernels loaded), cuBLAS handles, the caching allocator.
@@ -158,12 +161,14 @@ def main(argv: list[str] | None = None) -> int:
     tables = []
     for i, (b, n) in enumerate(shapes):
         summary, profs = profile_shape(engine, b, n, args.decode_steps, args.seed + 1 + i)
-        summary.update(model=args.model, device=torch.cuda.get_device_name(0))
+        summary.update(model=args.model, kv_quant=args.kv_quant,
+                       device=torch.cuda.get_device_name(0))
         print(json.dumps(summary), flush=True)
         for name, prof in zip(("prefill", "decode"), profs):
             tables.append(f"== {b}x{n} {name}\n" + prof.key_averages().table(
                 sort_by="self_device_time_total", row_limit=25))
-    (out_dir / "serve_profile.txt").write_text("\n\n".join(tables))
+    name = "serve_profile.txt" if args.kv_quant is None else f"serve_profile_{args.kv_quant}.txt"
+    (out_dir / name).write_text("\n\n".join(tables))
     return 0
 
 

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``radixmesh_tpu_torch``
 and everything ``chip_smoke.py`` imports pulls in neither ``jax`` nor the
 JAX package; entry points default to CUDA and raise without it; the
-launcher refuses flags of features that are not ported yet."""
+launcher refuses flags of features that are not ported yet and parses
+those that are."""
 
 import pathlib
 import subprocess
@@ -54,7 +55,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert len(out[0]) == 16
 
 
-@pytest.mark.parametrize("flag", ["--kv-quant=int8", "--spec-decode-tokens", "--slo"])
+@pytest.mark.parametrize("flag", ["--weight-quant", "--spec-decode-tokens", "--slo"])
 def test_launcher_refuses_unported_flags(flag, capsys):
     from radixmesh_tpu_torch.launch import main
 
@@ -62,3 +63,11 @@ def test_launcher_refuses_unported_flags(flag, capsys):
         main(["serve", "--model", "llama3-tiny", flag, "2"])
     assert e.value.code == 2
     assert "not supported by the PyTorch port" in capsys.readouterr().err
+
+
+def test_launcher_parses_kv_quant_int8():
+    from radixmesh_tpu_torch.launch import parse_args
+
+    args = parse_args(["serve", "--kv-quant", "int8", "--device", "cpu"])
+    assert (args.kv_quant, args.device, args.cmd) == ("int8", "cpu", "serve")
+    assert parse_args(["serve"]).kv_quant is None

@@ -116,7 +116,7 @@ class TestPlainFusedDecode:
         case = _decode_case(6, [3, 17, 30, 8], poison=True)
         want_attn, _ = j_decode_kernel(*(jnp.asarray(a) for a in case), 1, interpret=True)
         assert np.isfinite(np.asarray(want_attn)).all()
-        got, _ = paged_decode_attention(*(_t(a) for a in case), 1)
+        got = paged_decode_attention(*(_t(a) for a in case), 1)
         assert torch.isfinite(got).all()
         _close(got, want_attn)
 
