@@ -7,20 +7,31 @@ card:
 
 Phases (any failure raises and exits non-zero):
 
-1. Environment: the card's name and power limit, torch/CUDA versions, and
-   the build of every CUDA kernel from ``radixmesh_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, all started together).
-2. Kernels: each kernel and int8 variant against its plain PyTorch version
-   on the card at the Llama-3-8B attention shapes (Hq 32, Hkv 8, D 128,
-   page 16): batch 1 and 8, ragged lengths up to 4096, permuted page
+1. Environment: the card's name and power limit, torch/CUDA versions, the
+   build of every CUDA kernel from ``radixmesh_tpu_torch/ops/csrc`` (one
+   ``nvcc`` per source, all started together; ``ptxas`` reports to
+   ``chip_out/ptxas.txt``), and ``cuobjdump -sass`` of the tensor-core
+   chunk library, which must hold HGMMA (wgmma) instructions.
+2. Kernels: each kernel body and pool dtype against its plain PyTorch
+   version on the card at the Llama-3-8B attention shapes (Hq 32, Hkv 8,
+   D 128, page 16): the split decode and pool kernels at B=1 and B=8 over a
+   256-page table (many splits) and at B=8 over a 4-page table (one
+   split), ragged lengths up to 4096; the chunk kernel's tensor-core body
+   (bf16 queries) and CUDA-core body (float32 queries) at C = 512 (priors
+   0, 2500 and B=8 ragged) and C = 64 with priors > 0. Permuted page
    tables, a NaN-poisoned page behind every page-table pad and page tail
-   (for int8 pools the NaN sits in the scales), length-0 and length-1 rows
-   on the scratch slot, chunk priors 0 and > 0 at C = 512. float32 (atol
-   1e-4), bf16 and int8 pools with bf16 queries (atol 2e-2 on the bf16
-   output); the decode pool contents (int8: payload and scales, each
-   bit-equal) after the write. Times with CUDA events (L2 flushed before
-   each launch) beside the bound, the plain version and one library call
-   (``scaled_dot_product_attention`` over the gathered dense K/V).
+   (for int8 pools the NaN sits in the scales), length-0 and length-1
+   rows on the scratch slot. float32 (atol 1e-4), bf16 and int8 pools
+   with bf16 queries (atol 2e-2 on the bf16 output, and row by row
+   ||got - want|| <= 2e-2 ||want|| over each query head's D values),
+   int8 pools with float32 queries (atol 1e-4); the decode pool contents
+   (int8: payload and scales, each bit-equal) after the write. Three
+   faults planted in the tensor-core chunk cases' inputs (a skipped prior
+   key, a skipped 64-key prior tile, one wrong prior page) must each fail
+   the row check. Times with CUDA events (L2 flushed before each launch,
+   the host's launch time kept out) beside the bound, the plain version
+   and one library call (``scaled_dot_product_attention`` over the
+   gathered dense K/V).
 3. Serving, twice on one set of weights: Llama-3-8B at full width, random
    bf16 weights from a seed, a 65536-slot pool, behind the HTTP frontend —
    first with a bf16 pool, then with an int8 pool (``kv_quant="int8"``).
@@ -28,9 +39,9 @@ Phases (any failure raises and exits non-zero):
    ~3000-token prompt (chunks with prior > 0), a follow-up that must hit
    the cache, and a repeated greedy request that must return the same
    tokens. Kernel launch counts are zeroed just before and read just
-   after; the pool's decode and chunk kernels (the int8 variants for the
-   int8 pool) must have run on every layer of every step, and no plain
-   attention version at all.
+   after; the pool's split decode and tensor-core chunk kernels (the int8
+   variants for the int8 pool) must have run on every layer of every step,
+   the CUDA-core chunk body and the plain attention versions never.
 4. Pool path over the served state: after each serving run, the read-only
    pool kernel (``paged_attention_pool_bucketed``) over every layer of the
    published prefixes' pages, counted alone and held against its plain
@@ -39,7 +50,8 @@ Phases (any failure raises and exits non-zero):
    ``Engine`` on the card and on the CPU with the same weights, with a
    float32 pool (first-token logits within atol 1e-3) and with an int8
    pool (atol 1e-2: a float32 difference upstream can flip one int8 value
-   by one step); identical greedy tokens either way.
+   by one step); identical greedy tokens either way. The card runs count
+   the launches of the CUDA-core chunk body (float32 queries).
 
 Prints a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to ``chip_out/``.
@@ -74,6 +86,13 @@ from radixmesh_tpu_torch.utils.cuda_timing import bound, dense_context, kv_bytes
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chip_out"
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# bf16 outputs are also held row by row (one query head's D values):
+# ||got - want|| <= ROW_RTOL ||want||, a limit that scales with outputs of
+# a few hundredths at long contexts, where 2e-2 is about a typical value.
+# P rounded to bf16 for the P.V products moves an output by up to 2^-8 of
+# the attended |v|, which where few keys cancel exceeds any per-element
+# limit relative to the output; per row it stays under 1 %.
+ROW_RTOL = 2e-2
 HQ, HKV, D, PAGE, LAYERS = 32, 8, 128, 16, 2
 
 
@@ -130,6 +149,26 @@ def _pool_and_tables(rng, row_tokens, maxp, dtype, dev, quant=False):
     return kv, scales, torch.as_tensor(pt, device=dev), scratch_page, nan_page
 
 
+def _row_rel_err(got, want) -> float:
+    """The largest ||got - want|| / ||want|| over rows of the last axis (a
+    zero row of ``want`` must come back zero)."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm(dim=-1) / (want.norm(dim=-1) + 1e-6)).max().item()
+
+
+def _check_close(name, got, want, dtype) -> dict:
+    """Hold a kernel's output to its plain version: atol ATOL[dtype], and
+    for bf16 outputs the row limit ROW_RTOL too. Returns the readings."""
+    err = (got.float() - want.float()).abs().max().item()
+    check(err <= ATOL[dtype], f"{name}: max |kernel - plain| = {err} > {ATOL[dtype]}")
+    res = {"max_abs_err": err}
+    if dtype == torch.bfloat16:
+        res["row_rel_err"] = _row_rel_err(got, want)
+        check(res["row_rel_err"] <= ROW_RTOL, f"{name}: a row's ||kernel - plain|| is "
+              f"{res['row_rel_err']} of ||plain|| > {ROW_RTOL}")
+    return res
+
+
 def _equal(a, b):
     eq = a == b
     if a.is_floating_point():
@@ -137,10 +176,10 @@ def _equal(a, b):
     return eq
 
 
-def decode_case(name, lengths, dtype, dev, timed, seed, quant=False):
+def decode_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256):
     rng = np.random.default_rng(seed)
     lengths = np.asarray(lengths, np.int32)
-    B, layer, maxp = len(lengths), 1, 256
+    B, layer = len(lengths), 1
     # Pool tokens per row: the context before the current token plus the
     # current token's own slot (it lands in the row's pages).
     kv, sc, pt, scratch_page, _ = _pool_and_tables(rng, np.maximum(lengths, 0), maxp, dtype, dev, quant)
@@ -163,8 +202,7 @@ def decode_case(name, lengths, dtype, dev, timed, seed, quant=False):
     got = pa.paged_decode_fused_kernel(q, k_new, v_new, kv_k, sl, pt, ln, layer, sc_k)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite kernel output")
-    err = (got.float() - want.float()).abs().max().item()
-    check(err <= ATOL[dtype], f"{name}: max |kernel - plain| = {err} > {ATOL[dtype]}")
+    close = _check_close(name, got, want, dtype)
     zero_rows = torch.as_tensor(lengths == 0, device=dev)
     check(torch.count_nonzero(got[zero_rows]).item() == 0, f"{name}: length-0 rows must output zeros")
     # Pool (and scales): bit-equal everywhere but the scratch page, whose
@@ -188,7 +226,8 @@ def decode_case(name, lengths, dtype, dev, timed, seed, quant=False):
             for what, values in wrote.items():
                 hit = torch.stack([held[what] == x for x in values]).any(dim=0)
                 check(bool(hit.all()), f"{name}: scratch slot {what} holds a value no writer wrote")
-    res = {"case": name, "dtype": _dtype_name(dtype, quant), "max_abs_err": err}
+    res = {"case": name, "dtype": _dtype_name(dtype, quant), "q_dtype": str(dtype),
+           "splits": pa.decode_splits(maxp * PAGE, B * HKV, pa.sm_count(dev))[0], **close}
     if timed:
         es = q.element_size()
         live = lengths > 0
@@ -220,10 +259,10 @@ def decode_case(name, lengths, dtype, dev, timed, seed, quant=False):
     return res
 
 
-def pool_case(name, lengths, dtype, dev, timed, seed, quant=False):
+def pool_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256):
     rng = np.random.default_rng(seed)
     lengths = np.asarray(lengths, np.int32)
-    B, layer, maxp = len(lengths), 1, 256
+    B, layer = len(lengths), 1
     kv, sc, pt, _, _ = _pool_and_tables(rng, np.maximum(lengths, 0), maxp, dtype, dev, quant)
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, HQ, D, generator=g, device=dev).to(dtype)
@@ -233,12 +272,12 @@ def pool_case(name, lengths, dtype, dev, timed, seed, quant=False):
     got = pa.paged_attention_pool_kernel(q, kv, pt, ln, layer, sc)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite kernel output")
-    err = (got.float() - want.float()).abs().max().item()
-    check(err <= ATOL[dtype], f"{name}: max |kernel - plain| = {err} > {ATOL[dtype]}")
+    close = _check_close(name, got, want, dtype)
     zero_rows = torch.as_tensor(lengths <= 0, device=dev)
     check(torch.count_nonzero(got[zero_rows]).item() == 0, f"{name}: length-0 rows must output zeros")
     check(bool(_equal(kv, kv_before).all()), f"{name}: the read-only kernel changed the pool")
-    res = {"case": name, "dtype": _dtype_name(dtype, quant), "max_abs_err": err}
+    res = {"case": name, "dtype": _dtype_name(dtype, quant), "q_dtype": str(dtype),
+           "splits": pa.decode_splits(maxp * PAGE, B * HKV, pa.sm_count(dev))[0], **close}
     if timed:
         es = q.element_size()
         n = np.maximum(lengths, 0)
@@ -265,7 +304,7 @@ def chunk_case(name, prior, n_dense, dtype, dev, timed, seed, C=512, quant=False
     n_dense = np.asarray(n_dense, np.int32)
     B, layer = len(prior), 1
     maxp = 1 << int(math.ceil(math.log2(max(32, -(-int((prior + C).max()) // PAGE)))))
-    kv, sc, pt, _, _ = _pool_and_tables(rng, prior, maxp, dtype, dev, quant)
+    kv, sc, pt, scratch_page, _ = _pool_and_tables(rng, prior, maxp, dtype, dev, quant)
     g = torch.Generator(device=dev).manual_seed(seed)
     # int8 pools take the chunk's K/V already dequantized, in float32.
     cur_dtype = torch.float32 if quant else dtype
@@ -278,9 +317,13 @@ def chunk_case(name, prior, n_dense, dtype, dev, timed, seed, C=512, quant=False
     got = pa.paged_chunk_attention_kernel(q, kc, vc, kv, pt, pr, kl, layer, sc)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite kernel output")
-    err = (got.float() - want.float()).abs().max().item()
-    check(err <= ATOL[dtype], f"{name}: max |kernel - plain| = {err} > {ATOL[dtype]}")
-    res = {"case": name, "dtype": _dtype_name(dtype, quant), "max_abs_err": err}
+    res = {"case": name, "dtype": _dtype_name(dtype, quant), "q_dtype": str(dtype),
+           "body": "tensor cores" if dtype == torch.bfloat16 else "CUDA cores",
+           **_check_close(name, got, want, dtype)}
+    if dtype == torch.bfloat16 and prior.max() >= 64:
+        res["planted_faults"] = planted_faults(
+            name, want, (q, kc, vc, kv, pt, pr, kl, layer, sc), int(np.argmax(prior)),
+            int(prior.max()), scratch_page)
     if timed:
         es = q.element_size()
         nbytes = (
@@ -313,38 +356,99 @@ def chunk_case(name, prior, n_dense, dtype, dev, timed, seed, C=512, quant=False
     return res
 
 
+def planted_faults(name, want, args, b, prior_b, scratch_page) -> dict:
+    """The row check must tell a wrong tensor-core chunk body from a
+    right one: three faults, made in the inputs of the row ``b`` with the
+    longest prior — its last prior key skipped, its last 64 prior keys
+    skipped (one K tile), or one page in the middle of its prior read from
+    the wrong page — must each fail it. Returns each fault's readings."""
+    q, kc, vc, kv, pt, pr, kl, layer, sc = args
+
+    def cut(n):
+        c = torch.zeros_like(pr)
+        c[b] = n
+        return c
+
+    wrong = pt.clone()
+    wrong[b, prior_b // PAGE // 2] = scratch_page
+    faults = {"last prior key skipped": (pt, pr - cut(1), kl - cut(1)),
+              "last 64 prior keys skipped": (pt, pr - cut(64), kl - cut(64)),
+              "one prior page wrong": (wrong, pr, kl)}
+    out = {}
+    for fault, (pt_f, pr_f, kl_f) in faults.items():
+        got = pa.paged_chunk_attention_kernel(q, kc, vc, kv, pt_f, pr_f, kl_f, layer, sc)
+        rel = _row_rel_err(got, want)
+        check(rel > ROW_RTOL, f"{name}: the row check misses a planted fault ({fault}): "
+              f"row error {rel}")
+        out[fault] = {"row_rel_err": rel,
+                      "max_abs_err": (got.float() - want.float()).abs().max().item()}
+    return out
+
+
 def kernel_phase(dev) -> dict:
-    results = {k: [] for k in ("paged_decode_fused", "paged_chunk_attention",
-                               "paged_decode_fused[int8]", "paged_chunk_attention[int8]",
-                               "paged_attention_pool")}
+    results: dict[str, list] = {}
 
     def run(kernel, case_fn, *args, **kw):
         r = case_fn(*args, **kw)
         print(f"[kernel] {kernel}: " + json.dumps(r), flush=True)
-        results[kernel].append(r)
+        results.setdefault(kernel, []).append(r)
 
+    f32, bf16 = torch.float32, torch.bfloat16
     ragged = [0, 1, 1, 17, 513, 1500, 3001, 4096]
+    short = [0, 1, 17, 33, 48, 64, 5, 60]  # a 4-page table: one split
     chunk_prior = [0, 16, 300, 1000, 1777, 2500, 3000, 3500]
     chunk_fill = [512, 512, 200, 512, 1, 512, 0, 333]
-    for dtype in (torch.float32, torch.bfloat16):
-        timed = dtype == torch.bfloat16
-        run("paged_decode_fused", decode_case, "decode B=1", [4001], dtype, dev, timed, 1)
-        run("paged_decode_fused", decode_case, "decode B=8 ragged", ragged, dtype, dev, timed, 2)
-        run("paged_chunk_attention", chunk_case, "chunk B=1 prior=0", [0], [512], dtype, dev, timed, 3)
-        run("paged_chunk_attention", chunk_case, "chunk B=1 prior=2500", [2500], [512],
-            dtype, dev, timed, 4)
-        run("paged_chunk_attention", chunk_case, "chunk B=8 ragged", chunk_prior, chunk_fill,
-            dtype, dev, timed, 5)
-        run("paged_attention_pool", pool_case, "pool B=8 ragged", ragged, dtype, dev, timed, 6)
-    bf16 = torch.bfloat16
-    run("paged_attention_pool", pool_case, "pool B=1", [4001], bf16, dev, True, 7)
-    run("paged_attention_pool", pool_case, "pool B=8 ragged int8", ragged, bf16, dev, True, 8, quant=True)
-    run("paged_decode_fused[int8]", decode_case, "decode B=1 int8", [4001], bf16, dev, True, 9, quant=True)
-    run("paged_decode_fused[int8]", decode_case, "decode B=8 ragged int8", ragged, bf16, dev, True, 10,
-        quant=True)
-    run("paged_chunk_attention[int8]", chunk_case, "chunk B=8 ragged int8", chunk_prior, chunk_fill,
-        bf16, dev, True, 11, quant=True)
+    # Decode and pool: splits > 1 at B=1 and B=8 over a 256-page table, one
+    # split over a 4-page table; float32, bf16 and int8 pools (bf16 and
+    # float32 queries for int8).
+    for quant, dtypes in ((False, (f32, bf16)), (True, (bf16, f32))):
+        sfx = "[int8]" if quant else ""
+        for dtype in dtypes:
+            tag = (" int8" if quant else "") + (" f32 queries" if quant and dtype == f32 else "")
+            timed = dtype == bf16
+            run("paged_decode_fused" + sfx, decode_case, "decode B=1" + tag, [4001], dtype, dev,
+                timed, 1, quant=quant)
+            run("paged_decode_fused" + sfx, decode_case, "decode B=8 ragged" + tag, ragged, dtype,
+                dev, timed, 2, quant=quant)
+            run("paged_decode_fused" + sfx, decode_case, "decode B=8 one split" + tag, short, dtype,
+                dev, False, 3, quant=quant, maxp=4)
+            run("paged_attention_pool" + sfx, pool_case, "pool B=1" + tag, [4001], dtype, dev, timed,
+                6, quant=quant)
+            run("paged_attention_pool" + sfx, pool_case, "pool B=8 ragged" + tag, ragged, dtype, dev,
+                timed, 7, quant=quant)
+            run("paged_attention_pool" + sfx, pool_case, "pool B=8 one split" + tag, short, dtype,
+                dev, False, 8, quant=quant, maxp=4)
+    # Chunk: the tensor-core body (bf16 queries; bf16 and int8 pools) and
+    # the CUDA-core body (float32 queries; float32 and int8 pools), at
+    # C = 512 (prior 0, prior 2500, B=8 ragged) and the engine's small
+    # bucket C = 64 with prior > 0.
+    for quant in (False, True):
+        for dtype in (bf16, f32):
+            tag = (" int8" if quant else "") + (" f32 queries" if quant and dtype == f32 else "")
+            name = ("paged_chunk_attention" + ("[int8]" if quant else "") if dtype == bf16
+                    else "paged_chunk_attention[f32]")
+            timed = dtype == bf16 or not quant
+            run(name, chunk_case, "chunk B=1 prior=0" + tag, [0], [512], dtype, dev, False, 3,
+                quant=quant)
+            run(name, chunk_case, "chunk B=1 prior=2500" + tag, [2500], [512], dtype, dev, timed, 4,
+                quant=quant)
+            run(name, chunk_case, "chunk B=8 ragged" + tag, chunk_prior, chunk_fill, dtype, dev,
+                timed, 5, quant=quant)
+            run(name, chunk_case, "chunk C=64 prior" + tag, [0, 37, 300, 1000], [64, 20, 64, 0],
+                dtype, dev, False, 12, C=64, quant=quant)
     return results
+
+
+def sass_check() -> dict:
+    """The tensor-core chunk body issues wgmma: ``cuobjdump -sass`` of its
+    library shows HGMMA instructions (saved to ``chip_out/hgmma.txt``)."""
+    lines = [line.strip() for line in _build.sass("paged_chunk_tc").splitlines()
+             if "HGMMA" in line]
+    (OUT_DIR / "hgmma.txt").write_text("\n".join(lines) + "\n")
+    check(len(lines) > 0, "no HGMMA instruction in the tensor-core chunk library")
+    print(f"[env] cuobjdump -sass paged_chunk_tc: {len(lines)} HGMMA instructions, e.g. "
+          f"{lines[0]}", flush=True)
+    return {"hgmma_instructions": len(lines), "example": lines[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -452,6 +556,7 @@ def serving_phase(dev, model, kv_quant=None) -> dict:
         other = "launches_int8" if kv_quant is None else "launches"
         other_launches = (getattr(pa.paged_decode_fused_kernel, other)
                           + getattr(pa.paged_chunk_attention_kernel, other))
+        f32_body = pa.paged_chunk_attention_kernel.launches_f32_body
         plain_calls = pa.plain_calls()
         decode_steps = engine.stats.decode_steps - stats0[0]
         chunks = engine.stats.prefill_chunks - stats0[1]
@@ -467,6 +572,7 @@ def serving_phase(dev, model, kv_quant=None) -> dict:
         check(n == max_tokens, f"{tag} {name}: {n} tokens, expected {max_tokens}")
         check(all(0 <= t < cfg.vocab_size for t in r["output_ids"]), f"{tag} {name}: token out of range")
     print(f"[serve {tag}] launches={launches} other_pool_dtype_launches={other_launches} "
+          f"cuda_core_chunk_body_launches={f32_body} "
           f"plain_calls={plain_calls} decode_steps={decode_steps} prefill_chunks={chunks} "
           f"chunks_with_prior={chunks_prior} "
           f"group_cached={[results[k]['cached_tokens'] for k in group]}", flush=True)
@@ -475,6 +581,7 @@ def serving_phase(dev, model, kv_quant=None) -> dict:
     check(launches["paged_chunk_attention" + suffix] == cfg.n_layers * chunks > 0,
           f"{tag}: chunk kernel must launch once per layer per prefill chunk")
     check(other_launches == 0, f"{tag}: kernels of the other pool dtype launched")
+    check(f32_body == 0, f"{tag}: bf16 queries ran the CUDA-core chunk body")
     check(chunks_prior >= 1, f"{tag}: no prefill chunk attended pool context (prior > 0)")
     check(plain_calls == 0, f"{tag}: {plain_calls} plain attention calls on the card")
     check(results["followup"]["cached_tokens"] > 0, f"{tag}: follow-up did not hit the cache")
@@ -516,7 +623,14 @@ def whole_path_check(dev, kv_quant=None) -> dict:
     for name, device in (("cuda", dev), ("cpu", "cpu")):
         eng = Engine(cfg, params, device=device, **kw)
         eng.on_first_logits = lambda req, row, name=name: logits.__setitem__(name, row.float().cpu())
+        if name == "cuda":
+            pa.reset_counters()
         out[name] = eng.generate([prompt])[0]
+        if name == "cuda":
+            torch.cuda.synchronize()
+            attr = "launches" if kv_quant is None else "launches_int8"
+            launches = {"decode": getattr(pa.paged_decode_fused_kernel, attr),
+                        "chunk_cuda_core_body": pa.paged_chunk_attention_kernel.launches_f32_body}
         keep = torch.ones(eng.pool.num_slots, dtype=torch.bool)
         keep[eng._scratch_page * eng.page_size : (eng._scratch_page + 1) * eng.page_size] = False
         pools[name] = eng.pool.kv.cpu()[:, :, :, keep]
@@ -532,10 +646,13 @@ def whole_path_check(dev, kv_quant=None) -> dict:
           f"max|cuda-cpu|={diff:.3e} (atol {atol}); pool elements that differ card vs CPU "
           f"(scratch page excluded) per layer: {per_layer} of {delta[:, 0].numel()}, "
           f"max |diff| {pool_max:.3g}; tokens cuda={out['cuda']} cpu={out['cpu']}", flush=True)
+    print(f"[whole-path {tag}] card launches: {launches}", flush=True)
     check(diff <= atol, f"{tag}: card vs CPU first-token logits differ by {diff}")
     check(out["cuda"] == out["cpu"], f"{tag}: card vs CPU greedy tokens differ")
+    check(launches["decode"] > 0 and launches["chunk_cuda_core_body"] > 0,
+          f"{tag}: the card run did not launch the split decode and the CUDA-core chunk body")
     return {"logits_max_abs_diff": diff, "atol": atol, "pool_elements_differing": per_layer,
-            "pool_max_abs_diff": pool_max, "tokens": out["cuda"]}
+            "pool_max_abs_diff": pool_max, "tokens": out["cuda"], "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -565,6 +682,7 @@ def main() -> int:
     print(f"[env] ptxas: max registers/thread {max(regs) if regs else 'n/a'}; "
           f"{len(spills)} kernel(s) spill" + "".join(f"\n  {x.strip()}" for x in spills), flush=True)
 
+    sass = sass_check()
     t = time.monotonic()
     kernels = kernel_phase(dev)
     print(f"[time] kernel phase {time.monotonic() - t:.1f}s", flush=True)
@@ -581,22 +699,33 @@ def main() -> int:
     whole = {tag: whole_path_check(dev, quant) for tag, quant in (("float32", None), ("int8", "int8"))}
 
     launches = {**serving["bf16"]["launches"], **serving["int8"]["launches"],
-                "paged_attention_pool": sum(s["pool_path"]["launches"] for s in serving.values())}
+                "paged_attention_pool": serving["bf16"]["pool_path"]["launches"],
+                "paged_attention_pool[int8]": serving["int8"]["pool_path"]["launches"],
+                "paged_chunk_attention[f32]": sum(w["launches"]["chunk_cuda_core_body"]
+                                                  for w in whole.values())}
+    csrc = "radixmesh_tpu_torch/ops/csrc/"
+    jax_src = "radixmesh_tpu/ops/paged_attention.py:"
+    # name: (source, replaces, the kernel-phase case of the entry, its dtype)
     meta = {
-        "paged_decode_fused": ("radixmesh_tpu_torch/ops/csrc/paged_decode.cu",
-                               "radixmesh_tpu/ops/paged_attention.py:1246", "bfloat16"),
-        "paged_chunk_attention": ("radixmesh_tpu_torch/ops/csrc/paged_chunk.cu",
-                                  "radixmesh_tpu/ops/paged_attention.py:1550", "bfloat16"),
-        "paged_decode_fused[int8]": ("radixmesh_tpu_torch/ops/csrc/paged_decode.cu",
-                                     "radixmesh_tpu/ops/paged_attention.py:1246", "int8"),
-        "paged_chunk_attention[int8]": ("radixmesh_tpu_torch/ops/csrc/paged_chunk.cu",
-                                        "radixmesh_tpu/ops/paged_attention.py:1550", "int8"),
-        "paged_attention_pool": ("radixmesh_tpu_torch/ops/csrc/paged_pool.cu",
-                                 "radixmesh_tpu/ops/paged_attention.py:912", "bfloat16"),
+        "paged_decode_fused": (csrc + "paged_decode.cu", jax_src + "1246",
+                               "decode B=8 ragged", "bfloat16"),
+        "paged_decode_fused[int8]": (csrc + "paged_decode.cu", jax_src + "1246",
+                                     "decode B=8 ragged int8", "int8"),
+        "paged_chunk_attention": (csrc + "paged_chunk_tc.cu", jax_src + "1550",
+                                  "chunk B=8 ragged", "bfloat16"),
+        "paged_chunk_attention[int8]": (csrc + "paged_chunk_tc.cu", jax_src + "1550",
+                                        "chunk B=8 ragged int8", "int8"),
+        "paged_chunk_attention[f32]": (csrc + "paged_chunk.cu", jax_src + "1550",
+                                       "chunk B=8 ragged", "float32"),
+        "paged_attention_pool": (csrc + "paged_pool.cu", jax_src + "912",
+                                 "pool B=8 ragged", "bfloat16"),
+        "paged_attention_pool[int8]": (csrc + "paged_pool.cu", jax_src + "912",
+                                       "pool B=8 ragged int8", "int8"),
     }
     entries = []
-    for name, (source, replaces, dtype) in meta.items():
-        main_row = [r for r in kernels[name] if r["dtype"] == dtype and "B=8" in r["case"]][0]
+    for name, (source, replaces, case, dtype) in meta.items():
+        main_row = [r for r in kernels[name]
+                    if r["case"] == case and r["dtype"] == dtype and "ms" in r][0]
         entries.append({
             "name": name,
             "route": "cuda",
@@ -605,6 +734,7 @@ def main() -> int:
             "launches": launches[name],
             "max_abs_err": main_row["max_abs_err"],
             "max_abs_diff": main_row["max_abs_err"],
+            "row_rel_err": main_row.get("row_rel_err"),
             "ms": main_row["ms"],
             "kernel_ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
@@ -614,7 +744,7 @@ def main() -> int:
             "shape": main_row["shape"],
         })
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "build": {k: v["seconds"] for k, v in log.items()}, "kernels": kernels,
+              "build": {k: v["seconds"] for k, v in log.items()}, "sass": sass, "kernels": kernels,
               "serving": serving, "whole_path": whole}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": entries}), flush=True)

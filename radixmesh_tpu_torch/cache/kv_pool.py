@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from radixmesh_tpu_torch.ops.quant import KV_QUANT_DTYPES, dequantize_kv, quantize_kv
+from radixmesh_tpu_torch.utils.device import resolve_device
 
 __all__ = ["SlotAllocator", "PagedKVPool"]
 
@@ -119,9 +120,10 @@ class PagedKVPool:
         head_dim: int,
         page_size: int = 1,
         dtype: torch.dtype = torch.bfloat16,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
         quant: str | None = None,
     ):
+        device = resolve_device(device)
         if quant is not None:
             if quant not in KV_QUANT_DTYPES:
                 raise ValueError(f"unknown kv quantization {quant!r}")

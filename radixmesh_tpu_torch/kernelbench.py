@@ -16,8 +16,10 @@ tokens, ``--hq``/``--hkv``/``--head-dim``/``--page``; chunks of
 tokens) and again at Llama-3-8B's attention shape (Hq 32, Hkv 8, D 128,
 page 16; B 8, 2048 tokens of context).
 
-Times are CUDA events with the L2 flushed before each launch
-(``utils/cuda_timing.py``). Each case carries its bound (the larger of its
+Times are CUDA events with the L2 flushed before each launch and the
+host's launch time kept out (``utils/cuda_timing.py``); ``host_us`` is the
+host's own time per wrapper call, read with the card kept busy. Each case
+carries its bound (the larger of its
 bytes at the HBM rate and its operations at the dense bf16 peak) and one
 ``scaled_dot_product_attention`` yardstick over the same K/V gathered dense
 (dequantized for int8 pools) — timed here, used nowhere in the port.
@@ -49,10 +51,11 @@ def _card() -> str:
 
 def run_shape(B, ctx, Hq, Hkv, D, page, C, Bc, iters, seed=0) -> dict:
     """Time every (kernel, pool dtype, page-table layout) case at one shape;
-    returns ``{case: {ms, bound_ms, bound_by, library_ms}}``."""
+    returns ``{case: {ms, host_us, bound_ms, bound_by, library_ms}}``."""
     from radixmesh_tpu_torch.ops import paged_attention as pa
     from radixmesh_tpu_torch.ops.quant import quantize_kv
-    from radixmesh_tpu_torch.utils.cuda_timing import bound, dense_context, kv_bytes, sdpa_inputs, time_ms
+    from radixmesh_tpu_torch.utils.cuda_timing import (
+        bound, dense_context, host_us, kv_bytes, sdpa_inputs, time_ms)
 
     if ctx % page:
         raise ValueError(f"ctx ({ctx}) must be a multiple of page ({page})")
@@ -127,6 +130,7 @@ def run_shape(B, ctx, Hq, Hkv, D, page, C, Bc, iters, seed=0) -> dict:
                 b_ms, b_by = bound(nbytes, flops, bf16)
                 out[f"{kname}_{dname}_{tname}"] = {
                     "ms": time_ms(fn, iters, dev),
+                    "host_us": host_us(fn, device=dev),
                     "bound_ms": b_ms,
                     "bound_by": b_by,
                     "library_ms": time_ms(lib, iters, dev),
@@ -169,8 +173,10 @@ def main(argv: list[str] | None = None) -> int:
             # > 1.0: the second case is faster.
             summary[f"{sname}_int8_vs_bf16_{k}"] = ms[f"{k}_bf16_run"] / ms[f"{k}_int8_run"]
             summary[f"{sname}_run_vs_perm_{k}"] = ms[f"{k}_bf16_perm"] / ms[f"{k}_bf16_run"]
+        # bf16 K/V bytes the pool and fused cases read, over their times.
         shape_ctx = shape["B"] * shape["ctx"] * shape["Hkv"] * 2 * shape["D"] * 2
-        summary[f"{sname}_pool_bf16_run_gbps"] = shape_ctx / (ms["pool_bf16_run"] / 1e3) / 1e9
+        for k in ("pool", "fused"):
+            summary[f"{sname}_{k}_bf16_run_gbps"] = shape_ctx / (ms[f"{k}_bf16_run"] / 1e3) / 1e9
     result["summary"] = summary
     line = json.dumps(result)
     print(line, flush=True)

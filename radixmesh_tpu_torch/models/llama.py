@@ -42,6 +42,7 @@ from radixmesh_tpu_torch.ops.attention import (
 from radixmesh_tpu_torch.ops.norm import rms_norm
 from radixmesh_tpu_torch.ops.quant import quantize_for_store
 from radixmesh_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from radixmesh_tpu_torch.utils.device import resolve_device
 
 __all__ = ["ModelConfig", "Llama", "init_params", "LAYER_PARAMS"]
 
@@ -157,14 +158,16 @@ def param_shapes(cfg: ModelConfig) -> dict:
 
 
 def init_params(
-    cfg: ModelConfig, seed: int = 0, device: torch.device | str = "cpu"
+    cfg: ModelConfig, seed: int = 0, device: torch.device | str | None = None
 ) -> dict:
     """Random weights from a seeded ``torch.Generator``: the JAX package's
     ``init_params`` scheme (normal scaled by 1/sqrt(fan_in), norms at one)
     with other random numbers. Stacked tensors are drawn one layer at a
-    time, so the float32 scratch stays one layer's worth."""
+    time, so the float32 scratch stays one layer's worth. ``device``: CUDA
+    unless ``"cpu"`` is asked for (``resolve_device``)."""
     if cfg.qkv_bias:
         raise NotImplementedError("qkv_bias (Qwen2) is not ported yet")
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def dense(shape, fan_in):

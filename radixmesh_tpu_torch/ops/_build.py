@@ -22,11 +22,11 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "load_library", "BUILD_LOG"]
+__all__ = ["SOURCES", "build_all", "load_library", "sass", "BUILD_LOG"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("paged_decode", "paged_pool", "paged_chunk")
+SOURCES = ("paged_decode", "paged_pool", "paged_chunk", "paged_chunk_tc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -91,9 +91,21 @@ def build_all() -> dict[str, dict]:
     return BUILD_LOG
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Load kernel library ``name``, building it first if needed."""
+def _ensure_built(name: str) -> Path:
     st = _start(name)
     if st is not None:
         _finish(name, st)
-    return ctypes.CDLL(str(_target(name)))
+    return _target(name)
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Load kernel library ``name``, building it first if needed."""
+    return ctypes.CDLL(str(_ensure_built(name)))
+
+
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of kernel library ``name`` (built first if
+    needed): the machine code the card runs."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(_ensure_built(name))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout

@@ -1,4 +1,10 @@
-// Paged chunk-prefill attention for Hopper (sm_90a).
+// Paged chunk-prefill attention for Hopper (sm_90a), on the CUDA cores in
+// fp32: the body for float32 queries (float32 pools, and int8 pools with
+// float32 queries). Nothing serves those; they exist for the float32
+// whole-path check (card vs CPU at atol 1e-3, kernel vs plain at 1e-4),
+// which bf16 operands on the tensor cores (or TF32) would not meet. bf16
+// queries, the serving path, take the tensor-core body in
+// paged_chunk_tc.cu.
 //
 // Replaces: radixmesh_tpu/ops/paged_attention.py,
 // paged_chunk_attention_kernel (Pallas body _chunk_kernel).
@@ -9,31 +15,26 @@
 // page order, then to the chunk's own dense K/V, causal within the chunk
 // (key c_k <= query c_q) and bounded by kv_lengths[b] (prior + c_k <
 // kv_lengths). Online softmax in fp32, queries pre-scaled by 1/sqrt(D),
-// output [B, C, Hq, D] in the query's dtype, zeros where the softmax
-// denominator is 0. Masked keys are zero-filled in shared memory and their
-// probabilities set to exactly 0, so NaN or Inf in an unreferenced page or
-// a padded chunk position never reaches the accumulator.
+// output [B, C, Hq, D] in float32, zeros where the softmax denominator is
+// 0. Masked keys are zero-filled in shared memory and their probabilities
+// set to exactly 0, so NaN or Inf in an unreferenced page or a padded
+// chunk position never reaches the accumulator.
 //
 // int8 pools (kv_scale [2, L, Hkv, num_slots] f32): prior K/V tiles load
 // as int8 and are multiplied by their per-token scale while they are
 // staged to shared memory; the chunk's own K/V arrive already dequantized,
 // in float32 (what the pool will hold, not the full-precision rows).
 //
-// What bounds it on an H100: operations. It does 4*Hq*D*sum_b C*(prior +
-// C/2) flops against 2*Hkv*D*sum_b prior elements of pool K/V read — at
-// C = 512 some 256 flops per K/V element, well above the bytes line even
-// for the tensor cores.
+// What bounds it on an H100: operations, at the 67 TFLOP/s float32 rate
+// of the CUDA cores. It does 4*Hq*D*sum_b C*(prior + C/2) flops against
+// 2*Hkv*D*sum_b prior elements of pool K/V read.
 //
-// What the design does about it: one CTA per (row, kv head, query block),
+// The design is the simple form: one CTA per (row, kv head, query block),
 // with Cblk*G <= 64 query rows (all G heads of the group share each K/V
-// tile, so the pool streams once per query block, not once per head).
-// Queries stay in shared memory; 32-token K and V tiles are staged in
-// shared memory with 16-byte loads (int8 tiles: 16 tokens' dims per
-// load, half the bytes of bf16); each thread computes a 2x4 tile of
-// scores and a 2 x D/8 slice of the accumulator on the CUDA cores in
-// fp32. This is the simple form: the products run on the CUDA cores, not
-// the tensor cores, and loads are not overlapped with compute — wgmma with
-// bf16 operands and a TMA-fed pipeline are later work.
+// tile). Queries stay in shared memory; 32-token K and V tiles are staged
+// in shared memory with 16-byte loads; each thread computes a 2x4 tile of
+// scores and a 2 x D/8 slice of the accumulator in fp32; loads are not
+// overlapped with compute.
 
 #include <type_traits>
 
@@ -281,9 +282,8 @@ struct ChunkArgs {
 template <typename TQ, typename TP, typename TC, int D, int G>
 cudaError_t launch(const ChunkArgs& a, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(paged_chunk_kernel<TQ, TP, TC, D, G>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
+  static SmemOptIn opt_in;
+  cudaError_t err = opt_in.ensure(paged_chunk_kernel<TQ, TP, TC, D, G>, (int)bytes);
   if (err != cudaSuccess) return err;
   paged_chunk_kernel<TQ, TP, TC, D, G>
       <<<dim3(a.B, a.Hkv, a.C / a.cblk), kThreads, bytes, stream>>>(
@@ -315,9 +315,10 @@ cudaError_t launch_d(const ChunkArgs& a, cudaStream_t stream) {
 }  // namespace
 }  // namespace radixmesh
 
-// q_dtype: 0 = float32, 1 = bfloat16; pool_dtype: the same (k_cur/v_cur
-// in that dtype too), or 2 = int8 with kv_scale [2, L, Hkv, num_slots]
-// f32 (else nullptr) and k_cur/v_cur in float32. cblk = queries per CTA
+// q_dtype: must be 0 (float32; bfloat16 queries take
+// paged_chunk_tc_launch); pool_dtype: 0 = float32 (k_cur/v_cur float32),
+// or 2 = int8 with kv_scale [2, L, Hkv, num_slots] f32 (else nullptr) and
+// k_cur/v_cur in float32. cblk = queries per CTA
 // (divides C, cblk * (Hq / Hkv) <= 64). Returns the cudaError_t of the
 // launch (0 on success). Launches on `stream`; allocates nothing.
 extern "C" int paged_chunk_launch(int q_dtype, int pool_dtype, const void* q,
@@ -340,10 +341,6 @@ extern "C" int paged_chunk_launch(int q_dtype, int pool_dtype, const void* q,
                     num_slots, page, max_pages, layer, cblk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && pool_dtype == 0) return (int)launch_d<float, float, float>(a, s);
-  if (q_dtype == 1 && pool_dtype == 1)
-    return (int)launch_d<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(a, s);
   if (q_dtype == 0 && pool_dtype == 2) return (int)launch_d<float, int8_t, float>(a, s);
-  if (q_dtype == 1 && pool_dtype == 2)
-    return (int)launch_d<__nv_bfloat16, int8_t, float>(a, s);
   return (int)cudaErrorInvalidValue;
 }

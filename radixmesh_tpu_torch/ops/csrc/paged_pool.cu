@@ -1,25 +1,29 @@
 // Read-only paged pool attention for Hopper (sm_90a): the C entry point of
 // the kFused = false instances of paged_decode.cuh (B3 of the port),
-// which documents what the kernel computes, what it replaces and what
-// bounds it. Built as its own library so that it compiles in parallel
-// with the fused decode kernel.
+// which documents what the kernels compute, what they replace and what
+// bounds them. Built as its own library so that it compiles in parallel
+// with the fused decode kernels.
 
 #include "paged_decode.cuh"
 
 // q_dtype: 0 = float32, 1 = bfloat16; pool_dtype: the same, or 2 = int8
 // with kv_scale [2, L, Hkv, num_slots] f32 (else nullptr). Attends
 // lengths[b] pool tokens of `layer` per row; rows with lengths[b] <= 0
-// output zeros. Returns the cudaError_t of the launch (0 on success).
-// Launches on `stream`; allocates nothing and writes only `out`.
+// output zeros. ws: float32 workspace of B * Hq * splits * (D + 2)
+// elements. Launches the worker and the combine on `stream`; allocates
+// nothing and writes only `out` and `ws`. Returns the cudaError_t of the
+// launches (0 on success).
 extern "C" int paged_pool_launch(int q_dtype, int pool_dtype, const void* q,
                                  const void* kv, const void* kv_scale,
                                  const void* page_table, const void* lengths, void* out,
-                                 int B, int Hq, int Hkv, int D, int L, int num_slots,
-                                 int page, int max_pages, int layer, void* stream) {
+                                 void* ws, int B, int Hq, int Hkv, int D, int L,
+                                 int num_slots, int page, int max_pages, int layer,
+                                 int splits, int span, void* stream) {
   using namespace radixmesh;
   const AttendArgs a{q, nullptr, nullptr, const_cast<void*>(kv),
                      static_cast<float*>(const_cast<void*>(kv_scale)), nullptr,
                      static_cast<const int*>(page_table), static_cast<const int*>(lengths),
-                     out, B, Hq, Hkv, D, L, num_slots, page, max_pages, layer};
+                     out, static_cast<float*>(ws), B, Hq, Hkv, D, L, num_slots, page,
+                     max_pages, layer, splits, span};
   return attend_dispatch<false>(q_dtype, pool_dtype, a, stream);
 }

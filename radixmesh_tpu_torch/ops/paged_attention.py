@@ -3,12 +3,12 @@ versions beside them.
 
 - ``paged_decode_fused_kernel`` replaces the JAX package's Pallas kernel of
   the same name (``radixmesh_tpu/ops/paged_attention.py``: bodies
-  ``_mh_fused_kernel`` and ``_fused_kernel``). It writes each row's current
-  K/V into the pool slot ``slots[b]`` of ``layer`` in place, then runs GQA
-  attention of the row's queries over its ``lengths[b] - 1`` pool tokens
-  plus the current token, which it folds in from registers — never read
-  back from the pool. Rows with ``lengths[b] == 0`` output zeros and write
-  nothing.
+  ``_mh_fused_kernel`` and ``_fused_kernel``). It runs GQA attention of
+  each row's queries over its ``lengths[b] - 1`` pool tokens plus the
+  current token, which it folds in from registers — never read back from
+  the pool — and writes the row's current K/V into the pool slot
+  ``slots[b]`` of ``layer`` in place. Rows with ``lengths[b] == 0`` output
+  zeros and write nothing.
 - ``paged_chunk_attention_kernel`` replaces ``paged_chunk_attention_kernel``
   (body ``_chunk_kernel``): ``C`` queries per row at canonical positions
   ``prior + arange(C)`` attend to ``prior_lengths[b]`` pool tokens, then to
@@ -18,6 +18,14 @@ versions beside them.
   (bodies ``_kernel`` and ``_mh_kernel``): read-only GQA decode attention
   over ``lengths[b]`` pool tokens of ``layer``, with no write and no
   fold-in; rows with ``lengths[b] <= 0`` output zeros.
+
+On the card, the two decode kernels split each row's context over
+``decode_splits`` CTAs (flash-decoding): a worker launch writes float32
+partials and a combine launch merges them (and, fused, writes the current
+row and folds it in) — two launches per call, counted as one. The chunk
+kernel has two bodies: bfloat16 queries run on the tensor cores
+(``csrc/paged_chunk_tc.cu``, wgmma), float32 queries on the CUDA cores
+(``csrc/paged_chunk.cu``), counted apart in ``launches_f32_body``.
 
 Each takes an int8 pool with its scales ``kv_scales [2, L, Hkv, P, page]``
 float32 (value ≈ int8 · scale, ``ops/quant.py``). The decode kernel then
@@ -58,6 +66,7 @@ __all__ = [
     "paged_attention_pool_kernel",
     "paged_attention_pool_plain",
     "chunk_query_block",
+    "decode_splits",
     "reset_counters",
     "plain_calls",
 ]
@@ -260,9 +269,10 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 # Argument types of each library's C entry point.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY = {
-    "paged_decode": ("paged_decode_launch", [_I, _I] + [_P] * 9 + [_I] * 9 + [_P]),
-    "paged_pool": ("paged_pool_launch", [_I, _I] + [_P] * 6 + [_I] * 9 + [_P]),
+    "paged_decode": ("paged_decode_launch", [_I, _I] + [_P] * 10 + [_I] * 11 + [_P]),
+    "paged_pool": ("paged_pool_launch", [_I, _I] + [_P] * 7 + [_I] * 11 + [_P]),
     "paged_chunk": ("paged_chunk_launch", [_I, _I] + [_P] * 9 + [_I] * 11 + [_P]),
+    "paged_chunk_tc": ("paged_chunk_tc_launch", [_I, _I] + [_P] * 9 + [_I] * 11 + [_P]),
 }
 
 
@@ -330,6 +340,48 @@ def _launch(lib: str, q: torch.Tensor, *args) -> None:
         raise RuntimeError(f"{_ENTRY[lib][0]}: CUDA launch failed with cudaError_t {rc}")
 
 
+# Split selection of the decode kernels: the block loop's tile, the CTAs
+# per SM a split aims for, and the fewest tiles per split.
+_DECODE_TILE = 32
+_CTAS_PER_SM = 16
+_MIN_SPLIT_TILES = 2
+_SM_COUNTS: dict[torch.device, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA ``device`` (read once per
+    device)."""
+    n = _SM_COUNTS.get(device)
+    if n is None:
+        n = _SM_COUNTS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
+def decode_splits(n_ctx: int, rows: int, sms: int) -> tuple[int, int]:
+    """``(splits, span)`` of the decode kernels' context split, from shapes
+    alone: ``n_ctx`` is the page table's width in tokens (``max_pages *
+    page``, which the engine buckets to a power of two), ``rows`` is ``B *
+    Hkv`` and ``sms`` the card's SM count (``sm_count``). Split ``s``
+    attends tokens ``[s * span, (s + 1) * span)``; ``span`` is a multiple
+    of the 32-token tile, ``splits * span >= n_ctx`` and every split starts
+    below ``n_ctx``. The grid aims at about ``_CTAS_PER_SM`` CTAs per SM
+    with at least two tiles per split, so ``rows >= 16 * sms`` takes one
+    split. Never reads ``lengths``: choosing from them would cost a
+    host-device sync per decode step."""
+    tiles = max(1, -(-n_ctx // _DECODE_TILE))
+    want = -(-(sms * _CTAS_PER_SM) // max(rows, 1))
+    splits = max(1, min(want, tiles // _MIN_SPLIT_TILES))
+    span = -(-tiles // splits) * _DECODE_TILE
+    return -(-max(n_ctx, 1) // span), span
+
+
+def _split_workspace(q: torch.Tensor, splits: int) -> torch.Tensor:
+    """Float32 partials of the split decode: m, l ``[B, Hq, S]`` then acc
+    ``[B, Hq, S, D]``, in one allocation."""
+    B, Hq, D = q.shape
+    return torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32, device=q.device)
+
+
 def paged_decode_fused_kernel(
     q: torch.Tensor,  # [B, Hq, D]
     k_new: torch.Tensor,  # [B, Hkv, D] q's dtype
@@ -360,12 +412,15 @@ def paged_decode_fused_kernel(
                and t.device == q.device, f"{name}: expected contiguous {shape} {q.dtype} on {q.device}")
     _check(page_table.dim() == 2 and page_table.shape[0] == B, f"{name}: page_table must be [B, max_pages]")
     _check(tuple(slots.shape) == (B,) and tuple(lengths.shape) == (B,), f"{name}: slots/lengths must be [B]")
+    splits, span = decode_splits(page_table.shape[1] * page, B * Hkv, sm_count(q.device))
+    ws = _split_workspace(q, splits)
     out = torch.empty_like(q)
     _launch(
         "paged_decode", q, _DTYPES[q.dtype], _DTYPES[kv_pages.dtype], q.data_ptr(),
         k_new.data_ptr(), v_new.data_ptr(), kv_pages.data_ptr(), _ptr(kv_scales),
         slots.data_ptr(), page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, Hq, Hkv, D, L, P * page, page, page_table.shape[1], int(layer),
+        ws.data_ptr(), B, Hq, Hkv, D, L, P * page, page, page_table.shape[1], int(layer),
+        splits, span,
     )
     _count(paged_decode_fused_kernel, "launches", kv_scales)
     return out
@@ -397,11 +452,14 @@ def paged_attention_pool_kernel(
     _check(q.dim() == 3 and q.is_contiguous(), f"{name}: q must be contiguous [B, Hq, D]")
     _check(page_table.dim() == 2 and page_table.shape[0] == B, f"{name}: page_table must be [B, max_pages]")
     _check(tuple(lengths.shape) == (B,), f"{name}: lengths must be [B]")
+    splits, span = decode_splits(page_table.shape[1] * page, B * Hkv, sm_count(q.device))
+    ws = _split_workspace(q, splits)
     out = torch.empty_like(q)
     _launch(
         "paged_pool", q, _DTYPES[q.dtype], _DTYPES[kv_pages.dtype], q.data_ptr(),
         kv_pages.data_ptr(), _ptr(kv_scales), page_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, Hq, Hkv, D, L, P * page, page, page_table.shape[1], int(layer),
+        out.data_ptr(), ws.data_ptr(), B, Hq, Hkv, D, L, P * page, page,
+        page_table.shape[1], int(layer), splits, span,
     )
     _count(paged_attention_pool_kernel, "launches", kv_scales)
     return out
@@ -411,10 +469,16 @@ paged_attention_pool_kernel.launches = 0
 paged_attention_pool_kernel.launches_int8 = 0
 
 
-def chunk_query_block(C: int, G: int, max_rows: int = 64) -> int:
+# Query rows (Cblk * G) per CTA of the chunk kernel's two bodies: two
+# 64-row warpgroups on the tensor cores (bf16 queries), one 64-row tile on
+# the CUDA cores (float32 queries).
+CHUNK_ROWS = {torch.bfloat16: 128, torch.float32: 64}
+
+
+def chunk_query_block(C: int, G: int, max_rows: int = 128) -> int:
     """Queries per CTA of the chunk kernel: the largest power-of-two
-    divisor of ``C`` whose row count ``Cblk * G`` fits the kernel's 64-row
-    tile."""
+    divisor of ``C`` whose row count ``Cblk * G`` fits ``max_rows`` (the
+    body's rows per CTA, ``CHUNK_ROWS``)."""
     cblk = 1
     while C % (cblk * 2) == 0 and cblk * 2 * G <= max_rows:
         cblk *= 2
@@ -453,20 +517,26 @@ def paged_chunk_attention_kernel(
     _check(page_table.dim() == 2 and page_table.shape[0] == B, f"{name}: page_table must be [B, max_pages]")
     _check(tuple(prior_lengths.shape) == (B,) and tuple(kv_lengths.shape) == (B,),
            f"{name}: prior_lengths/kv_lengths must be [B]")
-    cblk = chunk_query_block(C, Hq // Hkv)
+    cblk = chunk_query_block(C, Hq // Hkv, CHUNK_ROWS[q.dtype])
+    lib = "paged_chunk_tc" if q.dtype == torch.bfloat16 else "paged_chunk"
     out = torch.empty_like(q)
     _launch(
-        "paged_chunk", q, _DTYPES[q.dtype], _DTYPES[kv_pages.dtype], q.data_ptr(),
+        lib, q, _DTYPES[q.dtype], _DTYPES[kv_pages.dtype], q.data_ptr(),
         k_cur.data_ptr(), v_cur.data_ptr(), kv_pages.data_ptr(), _ptr(kv_scales),
         page_table.data_ptr(), prior_lengths.data_ptr(), kv_lengths.data_ptr(), out.data_ptr(),
         B, C, Hq, Hkv, D, L, P * page, page, page_table.shape[1], int(layer), cblk,
     )
     _count(paged_chunk_attention_kernel, "launches", kv_scales)
+    if lib == "paged_chunk":
+        paged_chunk_attention_kernel.launches_f32_body += 1
     return out
 
 
 paged_chunk_attention_kernel.launches = 0
 paged_chunk_attention_kernel.launches_int8 = 0
+# Launches of the CUDA-core body (float32 queries, any pool); the rest of
+# ``launches`` + ``launches_int8`` ran on the tensor cores.
+paged_chunk_attention_kernel.launches_f32_body = 0
 
 _COUNTED = (
     (paged_decode_fused_kernel, "launches"),
@@ -484,6 +554,7 @@ def reset_counters() -> None:
     for fn, attr in _COUNTED:
         setattr(fn, attr, 0)
         setattr(fn, f"{attr}_int8", 0)
+    paged_chunk_attention_kernel.launches_f32_body = 0
 
 
 def plain_calls() -> int:

@@ -8,10 +8,12 @@ over the port's ``Engine`` at full model width.
 For each ``BxN`` shape, ``B`` distinct random prompts of ``N`` tokens are
 queued at once. The first ``step()`` admits them (group prefill through the
 chunk kernel) and runs one decode step; it is profiled as the "prefill"
-window. The next ``--decode-steps`` steps are pure decode, timed without
-the profiler (``decode_wall_ms_per_step_unprofiled``), and the ones after
-them form the profiled "decode" window. Each window reports its host wall
-time under the profiler (ending in a synchronize), the device time of
+window. Then five windows of ``--decode-steps`` pure decode steps each
+are timed without the profiler (per window in
+``decode_wall_ms_per_step_unprofiled_windows``, their median in
+``decode_wall_ms_per_step_unprofiled``), and the ``--decode-steps`` steps
+after them form the profiled "decode" window. Each profiled window reports
+its host wall time (ending in a synchronize), the device time of
 every operation the profiler saw, grouped as decode attention / chunk
 attention / matrix products / other, the device busy share (union of
 device intervals over that wall time) and the device operations per step.
@@ -28,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import statistics
 import sys
 import time
 
@@ -37,10 +40,12 @@ import torch
 __all__ = ["main", "profile_shape"]
 
 # Kernel-name fragments of each group (cuBLAS/CUTLASS GEMM names vary by
-# version: gemm, gemv, xmma, cutlass, nvjet).
+# version: gemm, gemv, xmma, cutlass, nvjet). ``paged_attend_kernel`` is
+# the one-launch decode kernel of earlier commits, so that a copy of this
+# script profiles them the same way.
 _GROUPS = (
-    ("decode_attention", ("paged_attend_kernel",)),
-    ("chunk_attention", ("paged_chunk_kernel",)),
+    ("decode_attention", ("paged_split_kernel", "paged_combine_kernel", "paged_attend_kernel")),
+    ("chunk_attention", ("paged_chunk_tc_kernel", "paged_chunk_kernel")),
     ("matmul", ("gemm", "gemv", "xmma", "cutlass", "nvjet")),
 )
 
@@ -86,9 +91,15 @@ def _window(prof, wall_s: float, steps: int) -> dict:
     }
 
 
+# Unprofiled decode windows per shape: a host-clock wall per step varies
+# from window to window, so one window alone cannot tell two commits apart.
+_DECODE_WINDOWS = 5
+
+
 def profile_shape(engine, batch: int, prompt_len: int, decode_steps: int, seed: int):
-    """Profile one prefill window, time ``decode_steps`` steps without the
-    profiler, then profile as many; returns ``(summary dict, [profiler,
+    """Profile one prefill window, time ``_DECODE_WINDOWS`` windows of
+    ``decode_steps`` steps without the profiler, then profile
+    ``decode_steps`` more; returns ``(summary dict, [profiler,
     profiler])``."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -96,18 +107,22 @@ def profile_shape(engine, batch: int, prompt_len: int, decode_steps: int, seed: 
     for _ in range(batch):
         engine.add_request(
             rng.integers(0, engine.cfg.vocab_size, size=prompt_len).tolist(),
-            _sampling(2 * decode_steps + 4),
+            _sampling((_DECODE_WINDOWS + 1) * decode_steps + 4),
         )
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     out, profs = {"batch": batch, "prompt_len": prompt_len}, []
     for name, steps in (("prefill", 1), ("decode", decode_steps)):
         torch.cuda.synchronize()
         if name == "decode":
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                engine.step()
-            torch.cuda.synchronize()
-            out["decode_wall_ms_per_step_unprofiled"] = (time.perf_counter() - t0) * 1e3 / steps
+            walls = []
+            for _ in range(_DECODE_WINDOWS):
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    engine.step()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3 / steps)
+            out["decode_wall_ms_per_step_unprofiled"] = statistics.median(walls)
+            out["decode_wall_ms_per_step_unprofiled_windows"] = walls
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):

@@ -1,6 +1,7 @@
 """Kernel timing on the card, shared by ``chip_smoke.py`` and
 ``radixmesh_tpu_torch.kernelbench``: CUDA-event times with the L2 cache
-flushed before each launch, the least time the card could take for the
+flushed before each launch, the host's time per call of a wrapper, the
+least time the card could take for the
 same work (its bound, with the bytes of paged K/V rows), and the dense K/V
 that the ``scaled_dot_product_attention`` yardstick reads.
 
@@ -11,9 +12,12 @@ the CUDA cores. They assume the card's full 700 W power limit.
 
 from __future__ import annotations
 
+import statistics
+import time
+
 import torch
 
-__all__ = ["HBM_BYTES_PER_S", "PEAK_FLOPS", "time_ms", "bound", "kv_bytes", "dense_context",
+__all__ = ["HBM_BYTES_PER_S", "PEAK_FLOPS", "time_ms", "host_us", "bound", "kv_bytes", "dense_context",
            "sdpa_inputs"]
 
 HBM_BYTES_PER_S = 3.35e12
@@ -22,10 +26,18 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 _FLUSH: dict[torch.device, torch.Tensor] = {}
 
 
+# Cycles of the spin kernel queued after each flush: ~0.5 ms at the H100's
+# boost clock, longer than the host takes to enqueue a wrapper's launches.
+_SPIN_CYCLES = 1_000_000
+
+
 def time_ms(fn, iters: int, device: torch.device | str = "cuda") -> float:
     """Mean device time of ``fn`` over ``iters`` calls, each timed alone by
     CUDA events after a 256 MB write that evicts the 50 MB L2 (the serving
-    path reads each layer's pages cold). One untimed call warms up first."""
+    path reads each layer's pages cold). A spin kernel queued before the
+    start event keeps the card busy while the host enqueues ``fn``, so the
+    events bracket device work only, not the host's launch time. One
+    untimed call warms up first."""
     dev = torch.device(device)
     flush = _FLUSH.get(dev)
     if flush is None:
@@ -35,6 +47,7 @@ def time_ms(fn, iters: int, device: torch.device | str = "cuda") -> float:
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(_SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -43,6 +56,32 @@ def time_ms(fn, iters: int, device: torch.device | str = "cuda") -> float:
         torch.cuda.synchronize(dev)
         total += start.elapsed_time(end)
     return total / iters
+
+
+# ``host_us``: the calls per mean, the means per reading, and the cycles of
+# the spin kernel that holds the card meanwhile (~50 ms at the H100's boost
+# clock, longer than the calls take to enqueue; 200 calls stay well inside
+# the launch queue).
+_HOST_CALLS, _HOST_REPS, _HOST_SPIN_CYCLES = 200, 5, 100_000_000
+
+
+def host_us(fn, device: torch.device | str = "cuda") -> float:
+    """Host time of one call of ``fn`` in µs (the median of five means
+    over 200 calls): the calls are enqueued behind a spin kernel, so the
+    host never waits for the card and the clock reads what the host does
+    per call — argument checks, allocations, launches."""
+    dev = torch.device(device)
+    fn()
+    torch.cuda.synchronize(dev)
+    means = []
+    for _ in range(_HOST_REPS):
+        torch.cuda._sleep(_HOST_SPIN_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(_HOST_CALLS):
+            fn()
+        means.append((time.perf_counter() - t0) / _HOST_CALLS * 1e6)
+        torch.cuda.synchronize(dev)
+    return statistics.median(means)
 
 
 def bound(nbytes: float, flops: float, dtype: torch.dtype) -> tuple[float, str]:

@@ -42,7 +42,7 @@ def _get(port, path):
 @pytest.fixture(scope="module")
 def served():
     cfg = ModelConfig.tiny().replace(dtype=torch.float32)
-    params = init_params(cfg, seed=3)
+    params = init_params(cfg, seed=3, device="cpu")
     fe = ServingFrontend(Engine(cfg, params, **ENGINE_KW), port=0)
     yield cfg, params, fe
     fe.close(drain_s=0.0)

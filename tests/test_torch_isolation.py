@@ -45,7 +45,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ModelConfig.tiny().replace(dtype=torch.float32)
-    params = init_params(cfg, seed=0)
+    params = init_params(cfg, seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA was requested"):
         Engine(cfg, params)
     with pytest.raises(RuntimeError, match="CUDA was requested"):

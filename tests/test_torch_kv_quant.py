@@ -96,7 +96,7 @@ class TestQuantPool:
     def test_write_gather_match_jax_pool(self):
         rng = np.random.default_rng(1)
         kw = dict(num_slots=64, num_layers=2, num_kv_heads=2, head_dim=16, page_size=4)
-        jp, tp = JPool(quant="int8", **kw), TPool(quant="int8", **kw)
+        jp, tp = JPool(quant="int8", **kw), TPool(quant="int8", device="cpu", **kw)
         assert tp.kv.dtype == torch.int8 and tp.kv_scale.shape == (2, 2, 2, 64)
         slots = tp.alloc(10)
         np.testing.assert_array_equal(slots, jp.alloc(10))
@@ -118,7 +118,7 @@ class TestQuantPool:
 
     def test_rejects_unknown_quant(self):
         with pytest.raises(ValueError, match="unknown kv quantization"):
-            TPool(num_slots=8, num_layers=1, num_kv_heads=1, head_dim=8, quant="fp4")
+            TPool(num_slots=8, num_layers=1, num_kv_heads=1, head_dim=8, quant="fp4", device="cpu")
 
 
 def _int8_pool(rng, L, Hkv, P, page, D, nan_page=None):

@@ -192,11 +192,16 @@ class TestPlainChunk:
         _close(got, want)
 
     def test_query_block_choice(self):
-        assert tpa.chunk_query_block(512, 4) == 16
-        assert tpa.chunk_query_block(16, 4) == 16
-        assert tpa.chunk_query_block(8, 2) == 8
+        # The CUDA-core body (float32 queries): 64 rows per CTA.
+        rows = tpa.CHUNK_ROWS[torch.float32]
+        assert tpa.chunk_query_block(512, 4, rows) == 16
+        assert tpa.chunk_query_block(16, 4, rows) == 16
+        assert tpa.chunk_query_block(8, 2, rows) == 8
+        assert tpa.chunk_query_block(24, 8, rows) == 8
+        assert tpa.chunk_query_block(1, 4, rows) == 1
+        # The tensor-core body (bf16 queries): 128 rows per CTA.
+        assert tpa.chunk_query_block(512, 4) == 32
         assert tpa.chunk_query_block(24, 8) == 8
-        assert tpa.chunk_query_block(1, 4) == 1
 
 
 class TestKernelWrappersOnCuda:
