@@ -28,20 +28,32 @@ Phases (any failure raises and exits non-zero):
    (int8: payload and scales, each bit-equal) after the write. Three
    faults planted in the tensor-core chunk cases' inputs (a skipped prior
    key, a skipped 64-key prior tile, one wrong prior page) must each fail
-   the row check. Times with CUDA events (L2 flushed before each launch,
-   the host's launch time kept out) beside the bound, the plain version
-   and one library call (``scaled_dot_product_attention`` over the
-   gathered dense K/V).
-3. Serving, twice on one set of weights: Llama-3-8B at full width, random
-   bf16 weights from a seed, a 65536-slot pool, behind the HTTP frontend —
-   first with a bf16 pool, then with an int8 pool (``kv_quant="int8"``).
-   Each: 4 concurrent prompts (group prefill through the chunk kernel), a
+   the row check. The fast schedules' shapes: the chunk kernel at C = 5
+   (a γ = 4 speculative verify: one query per CTA, 4 of 128 rows live) and
+   C = 16 (a mixed wave's floor: 64 rows), bf16 and int8 pools, ragged
+   priors, live windows w in {1, 3, 5, 16} and an all-padding row, with
+   the longest row's last prior page read from the scratch page as a
+   planted fault at C = 5; the decode kernel over a 16-page compact
+   sub-pool. Times with CUDA events (L2 flushed before each launch, the
+   host's launch time kept out, the median of the timed calls) beside the
+   bound, the plain version and one library call
+   (``scaled_dot_product_attention`` over the gathered dense K/V).
+3. Serving, three times on one set of weights: Llama-3-8B at full width,
+   random bf16 weights from a seed, a 65536-slot pool, behind the HTTP
+   frontend — with a bf16 pool, with an int8 pool (``kv_quant="int8"``),
+   and with a bf16 pool and the fast schedules on (``SCHEDULES``:
+   speculative decode γ = 4, mixed waves with a 64-token budget, 4 decode
+   steps per launch, one-row waves on the compact leg). Each: 4
+   concurrent prompts (group prefill through the chunk kernel), a
    ~3000-token prompt (chunks with prior > 0), a follow-up that must hit
    the cache, and a repeated greedy request that must return the same
-   tokens. Kernel launch counts are zeroed just before and read just
+   tokens; the scheduled run adds a 3000-token prompt that arrives while
+   the 4 rows decode (mixed waves) and must accept tree drafts on the
+   repeat. Kernel launch counts are zeroed just before and read just
    after; the pool's split decode and tensor-core chunk kernels (the int8
-   variants for the int8 pool) must have run on every layer of every step,
-   the CUDA-core chunk body and the plain attention versions never.
+   variants for the int8 pool) must have run once per layer per decode
+   pass and per chunk launch, the CUDA-core chunk body and the plain
+   attention versions never.
 4. Pool path over the served state: after each serving run, the read-only
    pool kernel (``paged_attention_pool_bucketed``) over every layer of the
    published prefixes' pages, counted alone and held against its plain
@@ -50,10 +62,14 @@ Phases (any failure raises and exits non-zero):
    ``Engine`` on the card and on the CPU with the same weights, with a
    float32 pool (first-token logits within atol 1e-3) and with an int8
    pool (atol 1e-2: a float32 difference upstream can flip one int8 value
-   by one step); identical greedy tokens either way. The card runs count
-   the launches of the CUDA-core chunk body (float32 queries).
+   by one step); identical greedy tokens either way. A third float32 run
+   has the fast schedules on (multi-step, compact, speculative verify and
+   mixed-wave launches each > 0 on the card). The card runs count the
+   launches of the CUDA-core chunk body (float32 queries).
 
-Prints a ``{"kernels": [...]}`` line, the card line, and last
+Prints a ``{"kernels": [...]}`` line (each kernel's launches per path in
+``launches_by_path``, their sum in ``launches``, the fast schedules'
+shapes in ``other_shapes``), the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to ``chip_out/``.
 Exits 2 without printing a result where torch has no CUDA device.
 """
@@ -94,6 +110,17 @@ ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # limit relative to the output; per row it stays under 1 %.
 ROW_RTOL = 2e-2
 HQ, HKV, D, PAGE, LAYERS = 32, 8, 128, 16, 2
+# Live windows per row of the verify (C = 5) and mixed-wave (C = 16) chunk
+# cases over the ragged priors [0, 16, 300, 1000, 1777, 2500, 3000, 3500]:
+# row 3 is all padding (kv_lengths = prior).
+VERIFY_FILL = [1, 3, 5, 0, 5, 3, 1, 5]
+MIXED_FILL = [16, 1, 3, 0, 5, 16, 5, 3]
+# Decode over a compact working set: 14 pages of rows and a scratch and a
+# NaN page make a 16-page pool (two rows inactive).
+COMPACT_LENGTHS = [1, 17, 33, 40, 5, 60, 0, 0]
+# The fast schedules' flags for the whole-path and serving checks.
+SCHEDULES = dict(spec_decode_tokens=4, prefill_inline_budget=64, decode_steps_per_launch=4,
+                 paged_min_batch=2)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -176,13 +203,14 @@ def _equal(a, b):
     return eq
 
 
-def decode_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256):
+def decode_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256, pool_pages=None):
     rng = np.random.default_rng(seed)
     lengths = np.asarray(lengths, np.int32)
     B, layer = len(lengths), 1
     # Pool tokens per row: the context before the current token plus the
     # current token's own slot (it lands in the row's pages).
     kv, sc, pt, scratch_page, _ = _pool_and_tables(rng, np.maximum(lengths, 0), maxp, dtype, dev, quant)
+    check(pool_pages is None or kv.shape[3] == pool_pages, f"{name}: pool of {kv.shape[3]} pages")
     pos = np.maximum(lengths - 1, 0)
     pt_np = pt.cpu().numpy()
     slots = pt_np[np.arange(B), pos // PAGE] * PAGE + pos % PAGE
@@ -227,7 +255,8 @@ def decode_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256):
                 hit = torch.stack([held[what] == x for x in values]).any(dim=0)
                 check(bool(hit.all()), f"{name}: scratch slot {what} holds a value no writer wrote")
     res = {"case": name, "dtype": _dtype_name(dtype, quant), "q_dtype": str(dtype),
-           "splits": pa.decode_splits(maxp * PAGE, B * HKV, pa.sm_count(dev))[0], **close}
+           "splits": pa.decode_splits(maxp * PAGE, B * HKV, pa.sm_count(dev))[0],
+           "pool_pages": int(kv.shape[3]), **close}
     if timed:
         es = q.element_size()
         live = lengths > 0
@@ -298,7 +327,7 @@ def pool_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256):
     return res
 
 
-def chunk_case(name, prior, n_dense, dtype, dev, timed, seed, C=512, quant=False):
+def chunk_case(name, prior, n_dense, dtype, dev, timed, seed, C=512, quant=False, faults=None):
     rng = np.random.default_rng(seed)
     prior = np.asarray(prior, np.int32)
     n_dense = np.asarray(n_dense, np.int32)
@@ -320,10 +349,11 @@ def chunk_case(name, prior, n_dense, dtype, dev, timed, seed, C=512, quant=False
     res = {"case": name, "dtype": _dtype_name(dtype, quant), "q_dtype": str(dtype),
            "body": "tensor cores" if dtype == torch.bfloat16 else "CUDA cores",
            **_check_close(name, got, want, dtype)}
+    res["cblk"] = pa.chunk_query_block(C, HQ // HKV, pa.CHUNK_ROWS[dtype])
     if dtype == torch.bfloat16 and prior.max() >= 64:
         res["planted_faults"] = planted_faults(
             name, want, (q, kc, vc, kv, pt, pr, kl, layer, sc), int(np.argmax(prior)),
-            int(prior.max()), scratch_page)
+            int(prior.max()), scratch_page, faults or FAULTS[:3])
     if timed:
         es = q.element_size()
         nbytes = (
@@ -356,12 +386,17 @@ def chunk_case(name, prior, n_dense, dtype, dev, timed, seed, C=512, quant=False
     return res
 
 
-def planted_faults(name, want, args, b, prior_b, scratch_page) -> dict:
+FAULTS = ("last prior key skipped", "last 64 prior keys skipped", "one prior page wrong",
+          "last prior page wrong")
+
+
+def planted_faults(name, want, args, b, prior_b, scratch_page, which) -> dict:
     """The row check must tell a wrong tensor-core chunk body from a
-    right one: three faults, made in the inputs of the row ``b`` with the
-    longest prior — its last prior key skipped, its last 64 prior keys
-    skipped (one K tile), or one page in the middle of its prior read from
-    the wrong page — must each fail it. Returns each fault's readings."""
+    right one: faults (``which``, of ``FAULTS``) made in the inputs of the
+    row ``b`` with the longest prior — its last prior key skipped, its last
+    64 prior keys skipped (one K tile), one page in the middle of its prior
+    or its last prior page read from the scratch page — must each fail it.
+    Returns each fault's readings."""
     q, kc, vc, kv, pt, pr, kl, layer, sc = args
 
     def cut(n):
@@ -369,13 +404,18 @@ def planted_faults(name, want, args, b, prior_b, scratch_page) -> dict:
         c[b] = n
         return c
 
-    wrong = pt.clone()
-    wrong[b, prior_b // PAGE // 2] = scratch_page
-    faults = {"last prior key skipped": (pt, pr - cut(1), kl - cut(1)),
-              "last 64 prior keys skipped": (pt, pr - cut(64), kl - cut(64)),
-              "one prior page wrong": (wrong, pr, kl)}
+    def wrong_page(i):
+        t = pt.clone()
+        t[b, i] = scratch_page
+        return t
+
+    faults = {"last prior key skipped": lambda: (pt, pr - cut(1), kl - cut(1)),
+              "last 64 prior keys skipped": lambda: (pt, pr - cut(64), kl - cut(64)),
+              "one prior page wrong": lambda: (wrong_page(prior_b // PAGE // 2), pr, kl),
+              "last prior page wrong": lambda: (wrong_page((prior_b - 1) // PAGE), pr, kl)}
     out = {}
-    for fault, (pt_f, pr_f, kl_f) in faults.items():
+    for fault in which:
+        pt_f, pr_f, kl_f = faults[fault]()
         got = pa.paged_chunk_attention_kernel(q, kc, vc, kv, pt_f, pr_f, kl_f, layer, sc)
         rel = _row_rel_err(got, want)
         check(rel > ROW_RTOL, f"{name}: the row check misses a planted fault ({fault}): "
@@ -436,6 +476,21 @@ def kernel_phase(dev) -> dict:
                 timed, 5, quant=quant)
             run(name, chunk_case, "chunk C=64 prior" + tag, [0, 37, 300, 1000], [64, 20, 64, 0],
                 dtype, dev, False, 12, C=64, quant=quant)
+    # The fast schedules' shapes. Chunk: a γ=4 speculative verify (C = 5,
+    # one query per CTA: R = 4 rows of 128) and a mixed wave's floor
+    # (C = 16: R = 64), bf16 and int8 pools, ragged priors, live windows
+    # w in {1, 3, 5, 16} and one all-padding row (w = 0); the R = 4 bf16
+    # case must also fail the row check with the longest row's last prior
+    # page read from the scratch page. Decode: a compact working set, the
+    # whole pool 16 pages (the dense leg's sub-pool).
+    for quant in (False, True):
+        sfx, tag = ("[int8]", " int8") if quant else ("", "")
+        run("paged_chunk_attention" + sfx, chunk_case, "chunk verify C=5" + tag, chunk_prior,
+            VERIFY_FILL, bf16, dev, True, 21, C=5, quant=quant, faults=("last prior page wrong",))
+        run("paged_chunk_attention" + sfx, chunk_case, "chunk mixed C=16" + tag, chunk_prior,
+            MIXED_FILL, bf16, dev, True, 22, C=16, quant=quant)
+        run("paged_decode_fused" + sfx, decode_case, "decode B=8 compact 16 pages" + tag, COMPACT_LENGTHS,
+            bf16, dev, True, 23, quant=quant, maxp=4, pool_pages=16)
     return results
 
 
@@ -505,11 +560,33 @@ def pool_path_phase(engine, seqs, tag, dev) -> dict:
     return {"launches": launches, "lengths": lengths, "max_abs_err": err}
 
 
-def serving_phase(dev, model, kv_quant=None) -> dict:
+_SCHED_FIELDS = ("decode_steps", "decode_forwards", "prefill_chunks", "prefill_chunks_with_prior",
+                 "spec_proposed", "spec_accepted", "spec_rejected", "multi_step_launches",
+                 "compact_launches", "verify_launches", "mixed_launches", "inline_launches")
+
+
+def _counts(engine) -> dict:
+    """The engine's path counters (``EngineStats``) that the checks read."""
+    return {k: getattr(engine.stats, k) for k in _SCHED_FIELDS}
+
+
+def _b2_by_schedule(counts, n_layers) -> dict:
+    """Chunk-kernel launches by the schedule that made them: group prefill
+    chunks, speculative verify, mixed waves, inline-only waves."""
+    return {"group prefill": n_layers * counts["prefill_chunks"],
+            "verify": n_layers * counts["verify_launches"],
+            "mixed": n_layers * counts["mixed_launches"], "inline": n_layers * counts["inline_launches"]}
+
+
+def serving_phase(dev, model, kv_quant=None, schedules=None, legacy=None) -> dict:
+    """One serving run over HTTP. ``schedules`` (``SCHEDULES``) turns on
+    the fast schedules: the group then decodes 48 tokens, a 3000-token
+    prompt arrives while its 4 rows decode (mixed waves), and the run's
+    outputs are compared with ``legacy``'s (information only)."""
     cfg = model.cfg
-    tag = kv_quant or "bf16"
+    tag = (kv_quant or "bf16") + (" schedules" if schedules else "")
     engine = Engine(cfg, model, num_slots=65536, page_size=16, max_batch=8, device=dev,
-                    kv_quant=kv_quant)
+                    kv_quant=kv_quant, **(schedules or {}))
     torch.cuda.synchronize()
     print(f"[serve {tag}] llama3-8b engine ready; "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
@@ -520,25 +597,40 @@ def serving_phase(dev, model, kv_quant=None) -> dict:
         return rng.integers(0, cfg.vocab_size, size=n).tolist()
 
     max_tokens = 16
+    group_tokens = 48 if schedules else max_tokens
     results: dict[str, dict] = {}
 
-    def send(name, ids):
+    def send(name, ids, n=max_tokens):
         t = time.monotonic()
-        r = _post(fe.port, {"input_ids": ids, "max_tokens": max_tokens})
+        r = _post(fe.port, {"input_ids": ids, "max_tokens": n})
         r["client_s"] = time.monotonic() - t
         r["prompt_tokens"] = len(ids)
         r["ids"] = ids
+        r["max_tokens"] = n
         results[name] = r
+
+    def late_arrival(ids, prefills):
+        # Sent once the four group requests are prefilled, while their rows
+        # decode, so it is admitted into the inline backlog of a running
+        # batch.
+        deadline = time.monotonic() + 120
+        while engine.stats.prefills < prefills + 4 and time.monotonic() < deadline:
+            time.sleep(0.002)
+        send("late3000", ids)
 
     suffix = "" if kv_quant is None else f"[{kv_quant}]"
     try:
         # Warm-up outside the counted window (cuBLAS handles, allocator).
         send("warmup", prompt(64))
+        torch.cuda.synchronize()
         pa.reset_counters()
-        stats0 = (engine.stats.decode_steps, engine.stats.prefill_chunks,
-                  engine.stats.prefill_chunks_with_prior)
+        counts0 = _counts(engine)
         group = {f"group{i}": prompt(600 + 10 * i) for i in range(4)}
-        threads = [threading.Thread(target=send, args=(k, v)) for k, v in group.items()]
+        threads = [threading.Thread(target=send, args=(k, v, group_tokens)) for k, v in group.items()]
+        if schedules:
+            # Its own generator, so every other prompt is the legacy run's.
+            late = np.random.default_rng(1).integers(0, cfg.vocab_size, size=3000).tolist()
+            threads.append(threading.Thread(target=late_arrival, args=(late, engine.stats.prefills)))
         for t in threads:
             t.start()
         for t in threads:
@@ -546,8 +638,11 @@ def serving_phase(dev, model, kv_quant=None) -> dict:
         send("long3000", prompt(3000))
         follow = group["group0"] + results["group0"]["output_ids"] + prompt(40)
         send("followup", follow)
-        send("repeat_a", group["group1"])
-        send("repeat_b", group["group1"])
+        accepted0 = engine.stats.spec_accepted
+        send("repeat_a", group["group1"], group_tokens)
+        repeat_accepted = engine.stats.spec_accepted - accepted0
+        send("repeat_b", group["group1"], group_tokens)
+        torch.cuda.synchronize()
         attr = "launches" if kv_quant is None else "launches_int8"
         launches = {
             "paged_decode_fused" + suffix: getattr(pa.paged_decode_fused_kernel, attr),
@@ -558,9 +653,8 @@ def serving_phase(dev, model, kv_quant=None) -> dict:
                           + getattr(pa.paged_chunk_attention_kernel, other))
         f32_body = pa.paged_chunk_attention_kernel.launches_f32_body
         plain_calls = pa.plain_calls()
-        decode_steps = engine.stats.decode_steps - stats0[0]
-        chunks = engine.stats.prefill_chunks - stats0[1]
-        chunks_prior = engine.stats.prefill_chunks_with_prior - stats0[2]
+        st = {k: v - counts0[k] for k, v in _counts(engine).items()}
+        waves = None if engine.waves is None else engine.waves.snapshot()
     finally:
         fe.close(drain_s=0.0)
     for name, r in results.items():
@@ -569,40 +663,73 @@ def serving_phase(dev, model, kv_quant=None) -> dict:
         print(f"[serve {tag}] {name}: prompt={r['prompt_tokens']} cached={r['cached_tokens']} "
               f"out={n} ttft_s={r['ttft_s']:.4f} e2e_s={r['e2e_s']:.4f} "
               f"decode_tok_s={tps if tps is None else round(tps, 2)}", flush=True)
-        check(n == max_tokens, f"{tag} {name}: {n} tokens, expected {max_tokens}")
+        check(n == r["max_tokens"], f"{tag} {name}: {n} tokens, expected {r['max_tokens']}")
         check(all(0 <= t < cfg.vocab_size for t in r["output_ids"]), f"{tag} {name}: token out of range")
+    L = cfg.n_layers
+    b2 = _b2_by_schedule(st, L)
     print(f"[serve {tag}] launches={launches} other_pool_dtype_launches={other_launches} "
           f"cuda_core_chunk_body_launches={f32_body} "
-          f"plain_calls={plain_calls} decode_steps={decode_steps} prefill_chunks={chunks} "
-          f"chunks_with_prior={chunks_prior} "
+          f"plain_calls={plain_calls} decode_steps={st['decode_steps']} decode_forwards={st['decode_forwards']} "
+          f"prefill_chunks={st['prefill_chunks']} chunks_with_prior={st['prefill_chunks_with_prior']} "
           f"group_cached={[results[k]['cached_tokens'] for k in group]}", flush=True)
-    check(launches["paged_decode_fused" + suffix] == cfg.n_layers * decode_steps > 0,
-          f"{tag}: decode kernel must launch once per layer per decode step")
-    check(launches["paged_chunk_attention" + suffix] == cfg.n_layers * chunks > 0,
-          f"{tag}: chunk kernel must launch once per layer per prefill chunk")
+    check(launches["paged_decode_fused" + suffix] == L * st["decode_forwards"] > 0,
+          f"{tag}: decode kernel must launch once per layer per decode pass")
+    check(launches["paged_chunk_attention" + suffix] == sum(b2.values()) > 0,
+          f"{tag}: chunk kernel must launch once per layer per chunk launch ({b2})")
     check(other_launches == 0, f"{tag}: kernels of the other pool dtype launched")
     check(f32_body == 0, f"{tag}: bf16 queries ran the CUDA-core chunk body")
-    check(chunks_prior >= 1, f"{tag}: no prefill chunk attended pool context (prior > 0)")
+    check(st["prefill_chunks_with_prior"] >= 1, f"{tag}: no prefill chunk attended pool context (prior > 0)")
     check(plain_calls == 0, f"{tag}: {plain_calls} plain attention calls on the card")
     check(results["followup"]["cached_tokens"] > 0, f"{tag}: follow-up did not hit the cache")
     check(results["repeat_a"]["cached_tokens"] == results["repeat_b"]["cached_tokens"] > 0,
           f"{tag}: repeats should hit the same cached prefix")
-    check(results["repeat_a"]["output_ids"] == results["repeat_b"]["output_ids"],
-          f"{tag}: repeated greedy request returned different tokens")
-    # Not asserted: with a bf16 pool the cold run prefilled through the
-    # chunk kernel and the cached repeat through the dense path, which
-    # round differently in bf16 and can flip a near-tie of random weights'
-    # logits (int8 pools always prefill through the chunk path).
-    print(f"[serve {tag}] cold run vs cached repeat identical (informational): "
-          f"{results['group1']['output_ids'] == results['repeat_a']['output_ids']}", flush=True)
+    if not schedules:
+        check(results["repeat_a"]["output_ids"] == results["repeat_b"]["output_ids"],
+              f"{tag}: repeated greedy request returned different tokens")
+    sched = None
+    if schedules:
+        sched = {**st, "repeat_a_spec_accepted": repeat_accepted, "waves": waves,
+                 "b2_launches_by_schedule": b2, "b1_launches": launches["paged_decode_fused" + suffix],
+                 "spec_report": engine.spec_report()}
+        print(f"[serve {tag}] spec proposed={st['spec_proposed']} accepted={st['spec_accepted']} "
+              f"rejected={st['spec_rejected']} (repeat_a accepted {repeat_accepted}); waves={waves['counts']} "
+              f"inline_tokens={waves['inline_tokens']}; multi-step launches={st['multi_step_launches']} "
+              f"compact launches={st['compact_launches']}; B2 launches by schedule={b2}", flush=True)
+        check(st["spec_proposed"] == st["spec_accepted"] + st["spec_rejected"], f"{tag}: draft counts not conserved")
+        check(repeat_accepted > 0, f"{tag}: the repeat of a finished request accepted no tree draft")
+        check(waves["counts"]["mixed"] > 0 and st["mixed_launches"] > 0, f"{tag}: no mixed wave ran")
+        check(st["multi_step_launches"] > 0, f"{tag}: no multi-step decode launch")
+        # Information only: a token may come from the decode kernel in one
+        # run and from a verify or mixed-wave chunk launch in another, and
+        # the two round differently in bf16, which can flip a near-tie of
+        # random weights' logits; token-exactness of the schedules is
+        # checked in float32 (the whole path, and the CPU tests).
+        def first_diff(a, b):
+            return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+        same = {k: first_diff(r["output_ids"], legacy["requests"][k]["output_ids"])
+                for k, r in results.items() if k in legacy["requests"]}
+        repeats = {k: first_diff(results[k]["output_ids"], results["group1"]["output_ids"])
+                   for k in ("repeat_a", "repeat_b")}
+        print(f"[serve {tag}] first differing token against the legacy run's (None: equal): {same}; "
+              f"repeats against group1: {repeats}", flush=True)
+        sched["first_diff_vs_legacy"] = same
+        sched["repeat_first_diff_vs_group1"] = repeats
+    else:
+        # Not asserted: with a bf16 pool the cold run prefilled through the
+        # chunk kernel and the cached repeat through the dense path, which
+        # round differently in bf16 and can flip a near-tie of random
+        # weights' logits (int8 pools always prefill through the chunk path).
+        print(f"[serve {tag}] cold run vs cached repeat identical (informational): "
+              f"{results['group1']['output_ids'] == results['repeat_a']['output_ids']}", flush=True)
     published = [r["ids"] + r["output_ids"] for k, r in results.items()
                  if k.startswith("group") or k in ("long3000", "followup")]
-    pool_path = pool_path_phase(engine, published, tag, dev)
+    pool_path = None if schedules else pool_path_phase(engine, published, tag, dev)
     del engine
     torch.cuda.empty_cache()
     for r in results.values():
         del r["ids"]
-    return {"launches": launches, "requests": results, "pool_path": pool_path}
+    return {"launches": launches, "requests": results, "pool_path": pool_path, "schedules": sched}
 
 
 # ---------------------------------------------------------------------------
@@ -610,49 +737,97 @@ def serving_phase(dev, model, kv_quant=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def whole_path_check(dev, kv_quant=None) -> dict:
+def _whole_path_script(eng, cfg, schedules) -> list[list[int]]:
+    """The whole path's requests. Legacy: one 150-token prompt. With the
+    fast schedules: a random prompt alone (multi-step decode), a 2-token
+    request alone (its one decode step a one-row wave: the compact leg), a
+    prompt that arrives while another row decodes (mixed waves; its
+    repeated 12-token pattern gives n-gram drafts, so speculative verify),
+    and a replay of the first (tree drafts)."""
+    from radixmesh_tpu_torch.engine.request import SamplingParams
+
+    rng = np.random.default_rng(1)
+    first = rng.integers(0, cfg.vocab_size, size=150).tolist()
+    if not schedules:
+        return eng.generate([first])
+
+    def drain():
+        while eng.has_work():
+            eng.step()
+
+    sp = SamplingParams(max_new_tokens=16)
+    reqs = [eng.add_request(first, sp)]
+    drain()
+    reqs.append(eng.add_request(rng.integers(0, cfg.vocab_size, size=40).tolist(),
+                                SamplingParams(max_new_tokens=2)))
+    drain()
+    reqs.append(eng.add_request(rng.integers(0, cfg.vocab_size, size=100).tolist(),
+                                SamplingParams(max_new_tokens=24)))
+    for _ in range(2):
+        eng.step()
+    reqs.append(eng.add_request((rng.integers(0, cfg.vocab_size, size=12).tolist() * 13)[:150], sp))
+    drain()
+    reqs.append(eng.add_request(first, sp))
+    drain()
+    return [r.generated for r in reqs]
+
+
+def whole_path_check(dev, kv_quant=None, schedules=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config("llama3-8b", n_layers=2, dtype=torch.float32)
     params = init_params(cfg, seed=1, device="cpu")
-    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, size=150).tolist()
     kw = dict(num_slots=1024, page_size=16, max_batch=2, long_prefill_threshold=16,
-              prefill_chunk=64, kv_quant=kv_quant)
+              prefill_chunk=64, kv_quant=kv_quant, **(schedules or {}))
     atol = 1e-3 if kv_quant is None else 1e-2
-    out, logits, pools = {}, {}, {}
+    out, logits, pools = {}, {"cuda": [], "cpu": []}, {}
     for name, device in (("cuda", dev), ("cpu", "cpu")):
         eng = Engine(cfg, params, device=device, **kw)
-        eng.on_first_logits = lambda req, row, name=name: logits.__setitem__(name, row.float().cpu())
+        eng.on_first_logits = lambda req, row, name=name: logits[name].append(row.float().cpu())
         if name == "cuda":
             pa.reset_counters()
-        out[name] = eng.generate([prompt])[0]
+        out[name] = _whole_path_script(eng, cfg, schedules)
         if name == "cuda":
             torch.cuda.synchronize()
             attr = "launches" if kv_quant is None else "launches_int8"
             launches = {"decode": getattr(pa.paged_decode_fused_kernel, attr),
-                        "chunk_cuda_core_body": pa.paged_chunk_attention_kernel.launches_f32_body}
+                        "chunk_cuda_core_body": pa.paged_chunk_attention_kernel.launches_f32_body,
+                        "plain_calls": pa.plain_calls()}
+            counts = _counts(eng)
         keep = torch.ones(eng.pool.num_slots, dtype=torch.bool)
         keep[eng._scratch_page * eng.page_size : (eng._scratch_page + 1) * eng.page_size] = False
         pools[name] = eng.pool.kv.cpu()[:, :, :, keep]
         del eng
-    diff = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    diff = max((a - b).abs().max().item() for a, b in zip(logits["cuda"], logits["cpu"]))
     # Pool elements that differ card vs CPU, per layer, and by how much
     # (for an int8 pool: how many payload bytes, and by how many steps).
     delta = (pools["cuda"].float() - pools["cpu"].float()).abs()
     per_layer = [int(n) for n in (delta > 0).sum(dim=(0, 2, 3, 4)).tolist()]
     pool_max = delta.max().item()
-    tag = kv_quant or "float32"
-    print(f"[whole-path {tag}] 2-layer f32 llama3-8b widths: first-token logits "
-          f"max|cuda-cpu|={diff:.3e} (atol {atol}); pool elements that differ card vs CPU "
-          f"(scratch page excluded) per layer: {per_layer} of {delta[:, 0].numel()}, "
+    tag = (kv_quant or "float32") + (" schedules" if schedules else "")
+    print(f"[whole-path {tag}] 2-layer f32 llama3-8b widths: first-token logits of "
+          f"{len(logits['cuda'])} requests max|cuda-cpu|={diff:.3e} (atol {atol}); pool elements that "
+          f"differ card vs CPU (scratch page excluded) per layer: {per_layer} of {delta[:, 0].numel()}, "
           f"max |diff| {pool_max:.3g}; tokens cuda={out['cuda']} cpu={out['cpu']}", flush=True)
-    print(f"[whole-path {tag}] card launches: {launches}", flush=True)
+    print(f"[whole-path {tag}] card launches: {launches}; engine counts: {counts}", flush=True)
+    check(len(logits["cuda"]) == len(logits["cpu"]) > 0, f"{tag}: first tokens sampled differ in number")
     check(diff <= atol, f"{tag}: card vs CPU first-token logits differ by {diff}")
     check(out["cuda"] == out["cpu"], f"{tag}: card vs CPU greedy tokens differ")
     check(launches["decode"] > 0 and launches["chunk_cuda_core_body"] > 0,
           f"{tag}: the card run did not launch the split decode and the CUDA-core chunk body")
+    check(launches["plain_calls"] == 0, f"{tag}: plain attention calls on the card")
+    check(launches["decode"] == cfg.n_layers * counts["decode_forwards"],
+          f"{tag}: decode kernel launches != layers x decode passes")
+    b2 = cfg.n_layers * (counts["prefill_chunks"] + counts["verify_launches"] + counts["mixed_launches"]
+                         + counts["inline_launches"])
+    check(launches["chunk_cuda_core_body"] == b2, f"{tag}: chunk launches != layers x chunk launches")
+    if schedules:
+        for k in ("verify_launches", "mixed_launches", "multi_step_launches", "compact_launches",
+                  "spec_accepted"):
+            check(counts[k] > 0, f"{tag}: {k} is 0 on the card")
     return {"logits_max_abs_diff": diff, "atol": atol, "pool_elements_differing": per_layer,
-            "pool_max_abs_diff": pool_max, "tokens": out["cuda"], "launches": launches}
+            "pool_max_abs_diff": pool_max, "tokens": out["cuda"], "launches": launches,
+            "engine_counts": counts}
 
 
 # ---------------------------------------------------------------------------
@@ -693,16 +868,31 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[serve] llama3-8b weights built in {time.monotonic() - t:.1f}s", flush=True)
     serving = {tag: serving_phase(dev, model, quant) for tag, quant in (("bf16", None), ("int8", "int8"))}
+    serving["bf16 schedules"] = serving_phase(dev, model, None, SCHEDULES, legacy=serving["bf16"])
     del model
     torch.cuda.empty_cache()
     print(f"[time] serving phases {time.monotonic() - t:.1f}s", flush=True)
-    whole = {tag: whole_path_check(dev, quant) for tag, quant in (("float32", None), ("int8", "int8"))}
+    t = time.monotonic()
+    whole = {tag: whole_path_check(dev, quant, sched) for tag, quant, sched in
+             (("float32", None, None), ("int8", "int8", None), ("float32 schedules", None, SCHEDULES))}
+    print(f"[time] whole-path checks {time.monotonic() - t:.1f}s", flush=True)
 
-    launches = {**serving["bf16"]["launches"], **serving["int8"]["launches"],
-                "paged_attention_pool": serving["bf16"]["pool_path"]["launches"],
-                "paged_attention_pool[int8]": serving["int8"]["pool_path"]["launches"],
-                "paged_chunk_attention[f32]": sum(w["launches"]["chunk_cuda_core_body"]
-                                                  for w in whole.values())}
+    # Launches of each kernel entry on each path that ran it (counts zeroed
+    # just before each path and read just after); ``launches`` sums them.
+    by_path = {
+        "paged_decode_fused": {f"serving {k}": v["launches"]["paged_decode_fused"]
+                               for k, v in serving.items() if "paged_decode_fused" in v["launches"]},
+        "paged_decode_fused[int8]": {"serving int8": serving["int8"]["launches"]["paged_decode_fused[int8]"]},
+        "paged_chunk_attention": {f"serving {k}": v["launches"]["paged_chunk_attention"]
+                                  for k, v in serving.items() if "paged_chunk_attention" in v["launches"]},
+        "paged_chunk_attention[int8]": {
+            "serving int8": serving["int8"]["launches"]["paged_chunk_attention[int8]"]},
+        "paged_chunk_attention[f32]": {f"whole path {k}": w["launches"]["chunk_cuda_core_body"]
+                                       for k, w in whole.items()},
+        "paged_attention_pool": {"pool path bf16": serving["bf16"]["pool_path"]["launches"]},
+        "paged_attention_pool[int8]": {"pool path int8": serving["int8"]["pool_path"]["launches"]},
+    }
+    launches = {name: sum(paths.values()) for name, paths in by_path.items()}
     csrc = "radixmesh_tpu_torch/ops/csrc/"
     jax_src = "radixmesh_tpu/ops/paged_attention.py:"
     # name: (source, replaces, the kernel-phase case of the entry, its dtype)
@@ -726,12 +916,19 @@ def main() -> int:
     for name, (source, replaces, case, dtype) in meta.items():
         main_row = [r for r in kernels[name]
                     if r["case"] == case and r["dtype"] == dtype and "ms" in r][0]
+        # The entry's other timed cases: the fast schedules' shapes (verify
+        # and mixed-wave chunks, decode over a compact sub-pool).
+        shapes = [{k: r.get(k) for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                          "max_abs_err", "row_rel_err", "cblk", "shape")}
+                  for r in kernels[name] if "ms" in r and r is not main_row and r["dtype"] == dtype
+                  and any(w in r["case"] for w in ("verify", "mixed", "compact"))]
         entries.append({
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
             "launches": launches[name],
+            "launches_by_path": by_path[name],
             "max_abs_err": main_row["max_abs_err"],
             "max_abs_diff": main_row["max_abs_err"],
             "row_rel_err": main_row.get("row_rel_err"),
@@ -742,6 +939,7 @@ def main() -> int:
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
             "shape": main_row["shape"],
+            "other_shapes": shapes,
         })
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build": {k: v["seconds"] for k, v in log.items()}, "sass": sass, "kernels": kernels,

@@ -1,9 +1,11 @@
-"""Continuous-batching serving engine over the radix prefix cache (the
-legacy schedule of the JAX package's ``engine/engine.py``).
+"""Continuous-batching serving engine over the radix prefix cache (the JAX
+package's ``engine/engine.py``: the legacy schedule and its fast
+schedules).
 
-One ``step()`` is one compute wave: admit queued requests (prefix match in
-the radix tree, lock, page allocation with LRU eviction under pressure),
-prefill them to completion, then one batched decode step for every running
+One ``step()`` is one compute wave. The legacy schedule (every schedule
+argument at its default) admits queued requests (prefix match in the radix
+tree, lock, page allocation with LRU eviction under pressure), prefills
+them to completion, then runs one batched decode step for every running
 row. Prefill takes one of two routes, as in the JAX engine:
 
 - ``_prefill_dense``: a lone request of at most ``long_prefill_threshold``
@@ -22,10 +24,33 @@ Decode runs ``Llama.decode_step`` (the fused decode kernel) over fixed
 scratch slot, and their outputs are ignored. Finished sequences publish
 back into the tree (``_publish``), which owns slot lifetime from then on.
 
-Not ported yet, and refused rather than ignored: speculative decode, mixed
-waves, multi-step and compact decode, seeded replay, host/disk tiers and KV
-transfer, the cache mesh, pp/sp/tp, W8A16 weights, SLO control and the
-observability planes.
+The fast schedules, each off by default:
+
+- ``decode_steps_per_launch = k > 1``: multi-step decode
+  (``Llama.decode_multi``), k tokens per row per host round trip, k shrunk
+  to the binding row's budget and headroom, and no fusing while a waiting
+  request could admit.
+- ``paged_min_batch``: the paged-vs-dense crossover (``select_paged``).
+  Narrower decode waves, and every wave where ``default_use_kernel`` is
+  false (the CPU; head dims that are not a multiple of 128), take the
+  compact working set (``Llama.decode_multi_compact``), which on the card
+  still runs the decode kernel, over the gathered sub-pool.
+- ``spec_decode_tokens = γ > 0``: speculative decode. Drafts come from
+  the radix tree's published continuation (a replayed request) or from
+  the row's n-gram tail; one ``prefill_chunk_paged`` call verifies every
+  row's ``[fed token, draft...]`` window (C = γ + 1) and
+  ``spec_verify_sample`` accepts per row, exactly. ``spec_adaptive``
+  steers γ per request class (``obs/spec_ledger.py``).
+- ``prefill_inline_budget > 0``: mixed waves (``engine/waves.py``). While
+  decode rows run, admitted prompts park in an inline backlog and ride
+  budget-bounded slices of their prefill on the decode launch itself (one
+  chunk call, C a power of two ≥ 16), so a long prompt no longer convoys
+  running streams; boost waves catch a deep backlog up, at most
+  ``prefill_inline_max_defer`` in a row.
+
+Not ported yet, and refused rather than ignored: seeded replay, host/disk
+tiers and KV transfer, the cache mesh, pp/sp/tp, W8A16 weights, SLO
+control and the observability planes other than the speculation ledger.
 """
 
 from __future__ import annotations
@@ -40,8 +65,12 @@ import torch
 from radixmesh_tpu_torch.cache.kv_pool import PagedKVPool
 from radixmesh_tpu_torch.cache.radix_tree import RadixTree
 from radixmesh_tpu_torch.engine.request import Request, RequestState, SamplingParams
+from radixmesh_tpu_torch.engine.waves import WaveScheduler
 from radixmesh_tpu_torch.models.llama import Llama, ModelConfig
-from radixmesh_tpu_torch.ops.sampling import sample_tokens
+from radixmesh_tpu_torch.obs.attribution import shape_bucket
+from radixmesh_tpu_torch.obs.spec_ledger import SpecLedger
+from radixmesh_tpu_torch.ops.attention import default_use_kernel, last_dispatch, select_paged
+from radixmesh_tpu_torch.ops.sampling import sample_tokens, spec_verify_sample
 from radixmesh_tpu_torch.utils.device import resolve_device
 
 __all__ = ["Engine", "EngineStats"]
@@ -58,8 +87,29 @@ _KV_BLOCK_PAGES = 32
 
 
 @dataclass
+class _InlineJob:
+    """One partially prefilled request of the mixed-wave backlog. Its
+    slots and batch row were acquired up front by admission
+    (``_acquire_prompt_slots``); only the compute advances chunk by chunk.
+    ``pos`` is the exact resume offset: prompt tokens whose K/V is in the
+    pool."""
+
+    req: Request
+    row: int
+    reuse: int
+    own: np.ndarray
+    token_slots: np.ndarray  # slot per prompt position (prefix + own)
+    pos: int  # next prompt offset to prefill (starts at reuse)
+    total: int  # len(prompt)
+
+
+@dataclass
 class EngineStats:
-    """Hit-rate, throughput and path counters."""
+    """Hit-rate, throughput and path counters. ``decode_steps`` counts
+    decode iterations as the JAX engine does (a k-step launch adds k, a
+    verify launch one); ``decode_forwards`` counts the decode passes that
+    ran the decode kernel (``decode_step``, and each step of
+    ``decode_multi``/``_compact``), each one launch per layer."""
 
     prompt_tokens: int = 0
     cached_tokens: int = 0  # reused from the radix cache at prefill
@@ -69,8 +119,20 @@ class EngineStats:
     finished: int = 0
     preemptions: int = 0
     evicted_tokens: int = 0  # tree tokens evicted under pool pressure
-    prefill_chunks: int = 0  # prefill_chunk_paged launches
+    prefill_chunks: int = 0  # prefill_chunk_paged launches of group prefill
     prefill_chunks_with_prior: int = 0  # ... where some row had pool context
+    spec_proposed: int = 0  # draft tokens offered for verification
+    spec_accepted: int = 0  # draft tokens accepted (KV kept, step skipped)
+    spec_rejected: int = 0  # draft tokens rejected by verification
+    decode_forwards: int = 0  # decode passes through the decode kernel
+    multi_step_launches: int = 0  # decode_multi calls over the whole pool
+    compact_launches: int = 0  # decode_multi_compact calls
+    # Fused chunk launches (_decode_spec_once), by what rode them: decode
+    # rows only (speculative verify), decode rows and inline prefill
+    # (mixed waves), inline prefill only (prefill and boost waves).
+    verify_launches: int = 0
+    mixed_launches: int = 0
+    inline_launches: int = 0
     ttft_s: list[float] = field(default_factory=list)
 
     @property
@@ -96,6 +158,13 @@ class Engine:
         prefill_chunk: int = 512,
         prefill_wave_tokens: int = 4096,
         long_prefill_threshold: int = 1024,
+        decode_steps_per_launch: int = 1,
+        prefill_inline_budget: int = 0,
+        prefill_inline_max_defer: int = 2,
+        paged_min_batch: int = 0,
+        spec_decode_tokens: int = 0,
+        spec_ngram: int = 3,
+        spec_adaptive: bool = False,
         device: str | torch.device | None = None,
         kv_quant: str | None = None,
     ):
@@ -103,7 +172,8 @@ class Engine:
         or a built :class:`Llama`. ``device`` defaults to CUDA and raises
         where torch has none; pass ``"cpu"`` for the plain CPU path.
         ``kv_quant="int8"`` stores the KV pool as int8 with per-token
-        scales."""
+        scales. The schedule arguments take the JAX engine's defaults,
+        which run the legacy schedule (module docstring)."""
         if page_size & (page_size - 1):
             raise ValueError("page_size must be a power of two")
         self.device = resolve_device(device)
@@ -122,6 +192,24 @@ class Engine:
         # so a cold burst finalizes first tokens as slices complete.
         self.prefill_wave_tokens = prefill_wave_tokens
         self.long_prefill_threshold = long_prefill_threshold
+        # Multi-step decode: k decode steps per launch, sampled on the
+        # device (1 = one step per launch).
+        self.decode_steps_per_launch = decode_steps_per_launch
+        # Speculative decode: draft up to γ tokens (tree continuation, then
+        # n-gram prompt lookup) and verify them in one chunk launch.
+        self.spec_decode_tokens = spec_decode_tokens
+        self.spec_ngram = max(2, spec_ngram)
+        # Mixed waves: > 0 parks prompts admitted while decode rows run in
+        # an inline backlog that rides up to this many prefill tokens per
+        # wave on the decode launch.
+        self.prefill_inline_budget = max(0, prefill_inline_budget)
+        self.prefill_inline_max_defer = max(0, prefill_inline_max_defer)
+        # Paged-vs-dense crossover: decode waves narrower than this take
+        # the compact working set (0 = always paged where the policy
+        # allows).
+        self.paged_min_batch = max(0, paged_min_batch)
+        # The last decode dispatch decision (select_paged), for /stats.
+        self._last_dispatch: dict | None = None
         self.pool = PagedKVPool(
             num_slots=num_slots,
             num_layers=cfg.n_layers,
@@ -161,6 +249,25 @@ class Engine:
         self._top_ks = np.zeros(max_batch, dtype=np.int64)
         self._gen = torch.Generator(device=self.device).manual_seed(rng_seed)
         self.stats = EngineStats()
+        # Speculative acceptance per prompt-length bucket ([proposed,
+        # accepted]) for spec_report(), and the per-class ledger with the
+        # adaptive-γ controller (it always exists: its counts must stay
+        # conserved whether or not the controller steers).
+        self._spec_shape: dict[str, list[int]] = {}
+        self.spec_ledger = SpecLedger(adaptive=spec_adaptive)
+        # Mixed-wave state: the inline prefill backlog and the batch rows
+        # it reserves (kept out of _rows until install, so every decode
+        # path over _rows stays oblivious to them).
+        self._inline: list[_InlineJob] = []
+        self._inline_rows: set[int] = set()
+        self.waves = None
+        if self.prefill_inline_budget > 0:
+            self.waves = WaveScheduler(
+                inline_budget=self.prefill_inline_budget,
+                max_defer=self.prefill_inline_max_defer,
+                chunk=self.prefill_chunk,
+                boost_tokens=self.prefill_wave_tokens,
+            )
 
     # ------------------------------------------------------------------
     # public API
@@ -216,25 +323,90 @@ class Engine:
                 self._release(req)
                 self._pressure = False  # freed a row: resume admission
                 return True
+        for i, job in enumerate(self._inline):
+            if job.req.rid == rid:
+                # Mid-inline prefill: nothing was published, so release the
+                # row reservation, the prefix lock and the acquired pages
+                # (their partial chunk K/V goes with them).
+                self._inline.pop(i)
+                self._inline_rows.discard(job.row)
+                req = job.req
+                if job.own.size:
+                    self.pool.free(job.own)
+                if req.lock_node is not None:
+                    self.tree.dec_lock_ref(req.lock_node)
+                    req.lock_node = None
+                req.cancelled = True
+                req.state = RequestState.FINISHED
+                self.stats.finished += 1
+                return True
         return False
 
     def cancel_all(self) -> int:
-        """Abort every queued and running request; returns the count."""
-        rids = [r.rid for r in self.waiting] + [
-            r.rid for r in self._rows if r is not None
-        ]
+        """Abort every queued, running and inline-prefilling request;
+        returns the count."""
+        rids = (
+            [r.rid for r in self.waiting]
+            + [r.rid for r in self._rows if r is not None]
+            + [j.req.rid for j in self._inline]
+        )
         return sum(1 for rid in rids if self.cancel(rid))
 
     def step(self) -> None:
-        """One scheduler iteration: admit + prefill queued requests, then
-        one batched decode step for everything running."""
+        """One scheduler iteration, one compute wave. Legacy schedule
+        (``prefill_inline_budget == 0``): admit and prefill queued requests
+        to completion, then one decode launch for everything running.
+        Mixed schedule: while decode rows run, admission parks new prompts
+        in the inline backlog and each wave packs the decode step and a
+        budget-bounded slice of their prefill into one chunk launch."""
         with torch.inference_mode():
             self._admit()
-            if any(r is not None for r in self._rows):
+            if self._inline:
+                self._wave_step()
+            elif any(r is not None for r in self._rows):
                 self._decode_once()
 
     def has_work(self) -> bool:
-        return bool(self.waiting) or any(r is not None for r in self._rows)
+        return (
+            bool(self.waiting)
+            or bool(self._inline)
+            or any(r is not None for r in self._rows)
+        )
+
+    def _wave_step(self) -> None:
+        """One wave while the inline backlog is non-empty: the wave
+        scheduler decides its composition. Decode-bearing plans fuse the
+        inline chunks into the decode launch; prefill and boost plans
+        advance the backlog alone (boost waves count against the
+        starvation bound). Seeded rows, which the JAX engine runs as two
+        launches here, wait for seeded replay (refused at admission)."""
+        decode_rows = sum(1 for r in self._rows if r is not None)
+        plan = self.waves.plan(decode_rows, [j.total - j.pos for j in self._inline])
+        if plan.decode and decode_rows:
+            self._decode_once(inline_allot=plan.allot)
+        else:
+            self._inline_advance(plan.allot)
+        self.waves.note(plan)
+
+    def _inline_advance(self, allot: list[int]) -> None:
+        """Advance the inline backlog without a decode step (prefill and
+        boost waves): the same fused chunk builder, decode off."""
+        if any(allot):
+            self._decode_spec_once(0, {}, None, inline=allot, decode=False)
+
+    def spec_report(self) -> dict:
+        """Speculative acceptance per prompt-length bucket: proposed and
+        accepted draft tokens and their ratio. Snapshots the dict before
+        iterating (the scheduler thread grows it)."""
+        cells = list(self._spec_shape.items())
+        return {
+            shape: {
+                "proposed": int(p),
+                "accepted": int(a),
+                "acceptance": round(a / p, 4) if p else 0.0,
+            }
+            for shape, (p, a) in sorted(cells)
+        }
 
     def generate(
         self,
@@ -262,7 +434,9 @@ class Engine:
 
     def _free_row(self) -> int:
         for i, r in enumerate(self._rows):
-            if r is None:
+            # A row reserved by an inline prefill job holds a batch seat
+            # but no Request until its final chunk installs it.
+            if r is None and i not in self._inline_rows:
                 return i
         return -1
 
@@ -284,6 +458,10 @@ class Engine:
         self._pressure = False  # batch drained: safe to admit again
         made_progress = True
         while self.waiting and made_progress:
+            # Mixed waves: while decode rows run, acquired prompts park in
+            # the inline backlog instead of prefilling here; with no decode
+            # rows the bulk sub-wave path below keeps its full-width TTFT.
+            mix = self.waves is not None and any(r is not None for r in self._rows)
             group: list[tuple] = []
             idx = 0
             while idx < len(self.waiting):
@@ -309,6 +487,19 @@ class Engine:
             made_progress = bool(group)
             if not group:
                 break
+            if mix:
+                for req, row, reuse, prefix_slots, own in group:
+                    total = len(req.prompt)
+                    self._inline.append(_InlineJob(
+                        req=req, row=row, reuse=reuse, own=own,
+                        token_slots=np.concatenate([prefix_slots, own[: total - reuse]]),
+                        pos=reuse, total=total,
+                    ))
+                    # The seat is reserved without a Request in it: the
+                    # request stays QUEUED until its final chunk installs
+                    # it RUNNING.
+                    self._inline_rows.add(row)
+                continue
 
             # Sub-waves by prefill-size bucket, shortest first, each sliced
             # at the compute-saturating width and finalized on its own.
@@ -341,9 +532,10 @@ class Engine:
     ) -> bool:
         """True if ``req`` shares at least one page of not-yet-cached
         prefix (beyond its ``cached`` match) with a request already
-        collected this wave: that one publishes it, so waiting turns the
-        recompute into a hit."""
-        if not group:
+        collected this wave or parked in the inline backlog: that one
+        publishes it, so waiting turns the recompute into a hit."""
+        peers = [g[0] for g in group] + [j.req for j in self._inline]
+        if not peers:
             return False
         prompt = req.prompt
         span = cached - cached % self.page_size + self.page_size
@@ -351,8 +543,8 @@ class Engine:
             return False
         head = prompt[:span]
         return any(
-            len(g[0].prompt) >= span and np.array_equal(g[0].prompt[:span], head)
-            for g in group
+            len(p.prompt) >= span and np.array_equal(p.prompt[:span], head)
+            for p in peers
         )
 
     def _acquire_prompt_slots(
@@ -401,9 +593,9 @@ class Engine:
         sampled = sample_tokens(
             logits,
             self._gen,
-            temperature=self._dev(np.asarray([r.sampling.temperature for r in reqs], np.float32)),
-            top_p=self._dev(np.asarray([r.sampling.top_p for r in reqs], np.float32)),
-            top_k=self._dev(np.asarray([r.sampling.top_k for r in reqs], np.int64)),
+            temperature=np.asarray([r.sampling.temperature for r in reqs], np.float32),
+            top_p=np.asarray([r.sampling.top_p for r in reqs], np.float32),
+            top_k=np.asarray([r.sampling.top_k for r in reqs], np.int64),
         ).cpu().numpy()
         now = time.monotonic()
         for (req, logit), tok in zip(pending, sampled):
@@ -598,7 +790,49 @@ class Engine:
         maxp = min(_pow2_at_least(need, floor=floor), self._page_table_padded.shape[1])
         return self._page_table_padded[:, :maxp]
 
-    def _decode_once(self) -> None:
+    def _decode_once(self, inline_allot: list[int] | None = None) -> None:
+        """One decode launch for every running row, by the first schedule
+        that applies: the fused chunk launch (speculative verify with at
+        least one draft, or a mixed wave's ``inline_allot``), multi-step
+        decode, the compact dense leg of the crossover, or one
+        ``decode_step``."""
+        g = self.spec_decode_tokens
+        spec = g > 0 and self._spec_ok()
+        if spec or inline_allot is not None:
+            # Draft before committing to the wide verify launch: with no
+            # draft anywhere the plain path emits the same tokens cheaper.
+            # A mixed wave always takes the fused launch: drafted rows
+            # verify, undrafted rows ride as width-1 windows and the inline
+            # chunks fill the rest of the width.
+            drafts: dict[int, np.ndarray] = {}
+            sources: dict[int, str] = {}
+            for row, req in enumerate(self._rows):
+                if req is None:
+                    continue
+                if spec and self._spec_row_ok(req, g):
+                    drafts[row], sources[row] = self._draft_for(req)
+                else:
+                    drafts[row], sources[row] = req.prompt[:0], "none"
+            if inline_allot is not None or any(len(d) for d in drafts.values()):
+                self._decode_spec_once(g if spec else 0, drafts, sources, inline=inline_allot)
+                return
+        k = self.decode_steps_per_launch
+        if k > 1:
+            k_eff = self._multi_step_k(k)
+            if k_eff > 1:
+                self._decode_multi_once(k_eff)
+                return
+        n_rows = sum(1 for r in self._rows if r is not None)
+        use_paged = select_paged(
+            n_rows, self.cfg.head_dim, self.device, min_batch=self.paged_min_batch,
+            max_len=max((r.kv_len for r in self._rows if r is not None), default=0),
+        )
+        self._last_dispatch = last_dispatch()
+        if not use_paged:
+            # The dense leg: one step over the compact working set (the
+            # decode kernel over a gathered sub-pool on the card).
+            self._decode_multi_once(1, force_compact=True)
+            return
         slots = np.full(self.max_batch, self._scratch_slot, dtype=np.int32)
         lengths = np.ones(self.max_batch, dtype=np.int32)
         preempted: list[Request] = []
@@ -634,15 +868,341 @@ class Engine:
             kv_scale=self.pool.kv_scale,
         )
         sampled = sample_tokens(
-            logits,
-            self._gen,
-            temperature=self._dev(self._temps),
-            top_p=self._dev(self._top_ps),
-            top_k=self._dev(self._top_ks),
+            logits, self._gen, temperature=self._temps, top_p=self._top_ps, top_k=self._top_ks
         ).cpu().numpy()
         self.stats.decode_steps += 1
+        self.stats.decode_forwards += 1
         for row, req in active:
             self._consume_token(req, row, int(slots[row]), int(sampled[row]))
+
+    def _multi_step_k(self, k: int) -> int:
+        """The largest fusable step count ≤ ``k`` for this launch, bounded
+        by every active row's sequence and page headroom and its remaining
+        output budget (a row past its budget would discard the launch's
+        tail). 1 while a waiting request could admit: admission happens
+        between launches."""
+        if self.waiting and self._free_row() >= 0:
+            return 1
+        for req in self._rows:
+            if req is None:
+                continue
+            k = min(k, self.max_seq_len - req.kv_len)
+            k = min(k, self.max_pages * self.page_size - req.kv_len)
+            k = min(k, req.sampling.max_new_tokens - len(req.output_tokens))
+            if k <= 1:
+                return 1
+        return k
+
+    def _compact_decode_tables(self, active: list[tuple], k: int) -> tuple[np.ndarray, np.ndarray]:
+        """The compact working set of ``decode_multi_compact``: the unique
+        live pages of every active row (with ``k`` tokens of headroom) and
+        the scratch page, padded to a power of two (≥ 8) by duplicating the
+        scratch page — the one page where duplicate scatter-back targets
+        are harmless — and the bucketed page table rewritten into compact
+        indices (inactive rows on the scratch page's)."""
+        ps = self.page_size
+        need = [(row, (req.kv_len + k - 1) // ps + 1) for row, req in active]
+        uniq = np.unique(np.concatenate(
+            [self._page_table[row, :n] for row, n in need]
+            + [np.asarray([self._scratch_page], dtype=np.int32)]
+        )).astype(np.int32)
+        n_c = _pow2_at_least(len(uniq), floor=8)
+        compact = np.full(n_c, self._scratch_page, dtype=np.int32)
+        compact[: len(uniq)] = uniq
+        scratch_idx = int(np.searchsorted(uniq, self._scratch_page))
+        maxp = self._decode_pt_bucket(k).shape[1]
+        pt_c = np.full((self.max_batch, maxp), scratch_idx, dtype=np.int32)
+        for row, n in need:
+            pt_c[row, :n] = np.searchsorted(uniq, self._page_table[row, :n])
+        return compact, pt_c
+
+    def _decode_multi_once(self, k: int, force_compact: bool = False) -> None:
+        """One ``decode_multi`` launch: ``k`` tokens per active row with a
+        single host round trip. ``force_compact`` (the crossover's dense
+        leg), or a device/head dim outside ``default_use_kernel``, runs it
+        over the compact working set."""
+        lengths = np.ones(self.max_batch, dtype=np.int32)
+        active = self._provision_rows(k - 1)
+        if not active:
+            return
+        for row, req in active:
+            lengths[row] = req.kv_len + 1
+        common = dict(
+            generator=self._gen, temperatures=self._temps, top_ps=self._top_ps,
+            page_size=self.page_size, k_steps=k, kv_scale=self.pool.kv_scale,
+            top_ks=self._top_ks,
+        )
+        if force_compact or not default_use_kernel(self.cfg.head_dim, self.device):
+            compact, pt_c = self._compact_decode_tables(active, k)
+            sampled = self.model.decode_multi_compact(
+                self._dev(self._tokens), self.pool.kv, self._dev(compact), self._dev(pt_c),
+                self._dev(lengths), **common,
+            )
+            self.stats.compact_launches += 1
+        else:
+            sampled = self.model.decode_multi(
+                self._dev(self._tokens), self.pool.kv,
+                self._dev(np.ascontiguousarray(self._decode_pt_bucket(k))),
+                self._dev(lengths), **common,
+            )
+            self.stats.multi_step_launches += 1
+        sampled = sampled.cpu().numpy()  # [k, B]: the one round trip
+        self.stats.decode_steps += k
+        self.stats.decode_forwards += k
+        ps = self.page_size
+        for row, req in active:
+            base = req.kv_len
+            for i in range(k):
+                pos = base + i
+                slot = int(self._page_table[row, pos // ps] * ps + pos % ps)
+                if self._consume_token(req, row, slot, int(sampled[i, row])):
+                    break  # finished mid-launch: the surplus is discarded
+
+    def _spec_ok(self) -> bool:
+        """Speculation is considered whenever rows run and no request
+        waits for admission (a wide verify launch would delay its
+        prefill). Stochastic rows verify by exact rejection sampling, so
+        temperature does not turn it off; per-row limits are
+        ``_spec_row_ok``'s. Seeded rows wait for seeded replay (refused at
+        admission)."""
+        if self.waiting:
+            return False
+        return any(req is not None for req in self._rows)
+
+    def _spec_row_ok(self, req: Request, g: int) -> bool:
+        """Per-row gate: the verify window needs γ + 1 positions of
+        sequence and page-table headroom, and a row within one token of its
+        budget gains nothing from a draft. A failing row rides the launch
+        with an empty draft (exactly a plain step for it)."""
+        if req.kv_len + g + 1 > self.max_seq_len:
+            return False
+        if (req.kv_len + g) // self.page_size >= self.max_pages:
+            return False
+        return req.sampling.max_new_tokens - len(req.output_tokens) >= 2
+
+    # Draft lookup scans at most this many trailing history tokens, so a
+    # long generation puts no O(context) host work between launches.
+    _SPEC_WINDOW = 1024
+
+    def _draft_for(self, req: Request) -> tuple[np.ndarray, str]:
+        """``(draft, source)``, source one of ``DRAFT_SOURCES``: the radix
+        tree's published continuation of the row's history first (a
+        replayed request finds its previous generation), then the n-gram
+        tail. The tree walk is O(context), so it runs only for requests
+        admitted as near-full prefix hits (or re-armed by a newer
+        ``draft_ready_epoch``) and stops the first time it comes back
+        empty. γ is the class's (``spec_ledger.gamma_for``)."""
+        gamma = self.spec_ledger.gamma_for(
+            req.tenant, shape_bucket(len(req.prompt)), self.spec_decode_tokens
+        )
+        hist = self._sequence_key(req, req.kv_len + 1)
+        # Nothing in the port bumps the epoch yet (the KV-transfer plane
+        # does so in the JAX package); the re-arm is kept for it.
+        epoch = getattr(self.tree, "draft_ready_epoch", 0)
+        promoted = epoch > req.draft_epoch
+        if promoted:
+            req.tree_draft_ok = True
+            req.draft_epoch = epoch
+        if req.tree_draft_ok and (
+            promoted or req.prefix_len >= max(0, len(req.prompt) - self.page_size)
+        ):
+            cont = self.tree.peek_continuation(hist, gamma)
+            if len(cont):
+                return cont, "tree"
+            req.tree_draft_ok = False
+        draft = self._ngram_draft(hist[-self._SPEC_WINDOW :], gamma, self.spec_ngram)
+        return draft, ("ngram" if len(draft) else "none")
+
+    @staticmethod
+    def _ngram_draft(hist: np.ndarray, gamma: int, n: int) -> np.ndarray:
+        """Prompt-lookup draft: the ``gamma`` tokens that followed the most
+        recent previous occurrence of the tail n-gram (falling back to
+        shorter n-grams, down to bigrams). Empty when the history never
+        repeats its tail."""
+        L = len(hist)
+        for nn in range(n, 1, -1):
+            if L <= nn:
+                continue
+            tail = hist[L - nn :]
+            win = np.lib.stride_tricks.sliding_window_view(hist, nn)
+            hits = np.nonzero((win[: L - nn] == tail).all(axis=1))[0]
+            if hits.size:
+                j = int(hits[-1]) + nn  # the continuation of the match
+                return hist[j : j + gamma]
+        return hist[:0]
+
+    def _provision_rows(self, extra: int, extras: dict[int, int] | None = None) -> list[tuple[int, Request]]:
+        """Make every active row's page table cover positions ``kv_len ..
+        kv_len + extra`` (``extras`` overrides the bound per row, so a row
+        with an empty draft is never preempted for headroom it will not
+        write); preempt rows the pool cannot cover. Returns the surviving
+        ``(row, request)`` pairs."""
+        ps = self.page_size
+        preempted: list[Request] = []
+        for row, req in enumerate(self._rows):
+            if req is None:
+                continue
+            row_extra = extra if extras is None else extras.get(row, extra)
+            for p_idx in range(req.kv_len // ps, (req.kv_len + row_extra) // ps + 1):
+                if self._page_table[row, p_idx] != self._scratch_page:
+                    continue  # page already provisioned
+                new = self._alloc_pages(1)
+                if new is None:
+                    preempted.append(req)
+                    break
+                req.own_slots = np.concatenate([req.own_slots, new])
+                self._page_table[row, p_idx] = new[0] // ps
+        for req in preempted:
+            self._preempt(req)
+        return [(row, r) for row, r in enumerate(self._rows) if r is not None]
+
+    def _decode_spec_once(
+        self,
+        g: int,
+        drafts: dict[int, np.ndarray],
+        sources: dict[int, str] | None = None,
+        inline: list[int] | None = None,
+        decode: bool = True,
+    ) -> None:
+        """One fused chunk launch (``prefill_chunk_paged``): decode rows
+        verify ``[fed token, draft...]`` (``w = len(draft) + 1`` live
+        positions; ``w = 1`` is a plain step) and inline prefill jobs ride
+        the same call with their allotted prompt slice as the live window
+        (``inline``, tokens per backlog job). Decode rows accept through
+        ``spec_verify_sample`` and emit one bonus token. The pass writes
+        the fed positions' K/V itself; rejected positions hold stale K/V
+        that a later launch overwrites and attention never reads (masked
+        by length); positions past a row's window write to the scratch
+        slot. A job whose final chunk lands here installs and samples its
+        first token in the same wave. ``decode=False`` advances the
+        backlog alone (prefill and boost waves)."""
+        ps = self.page_size
+        jobs = (
+            [(job, w) for job, w in zip(self._inline, inline) if w > 0 and job.pos < job.total]
+            if inline is not None
+            else []
+        )
+        if inline is None:
+            C = g + 1  # a pure verify launch
+        else:
+            # Wide enough for the widest live window this wave, a power of
+            # two (the group prefill's chunk floor).
+            C = _pow2_at_least(max([g + 1] + [w for _, w in jobs]), floor=16)
+        # Provision only each row's own verify window; inline jobs acquired
+        # all their pages at admission.
+        active = (
+            self._provision_rows(g, extras={row: len(d) for row, d in drafts.items()})
+            if decode
+            else []
+        )
+        if not active and not jobs:
+            return
+
+        B = self.max_batch
+        maxp = _pow2_at_least(
+            max(
+                [(r.kv_len + len(drafts.get(row, r.prompt[:0]))) // ps + 1 for row, r in active]
+                + [(job.pos + w) // ps + 1 for job, w in jobs]
+            ),
+            floor=_KV_BLOCK_PAGES,
+        )
+        toks = np.zeros((B, C), dtype=np.int64)
+        draft_len = np.zeros((B,), dtype=np.int64)
+        sl = np.full((B, C), self._scratch_slot, dtype=np.int64)
+        poss = np.zeros((B, C), dtype=np.int32)
+        kvlen = np.zeros((B,), dtype=np.int32)
+        pt = np.full((B, maxp), self._scratch_page, dtype=np.int32)
+        for row, req in active:
+            draft = drafts.get(row, req.prompt[:0])
+            drafts[row] = draft
+            w = len(draft) + 1  # this row's live verify window
+            toks[row, 0] = self._tokens[row]
+            toks[row, 1:w] = draft
+            pos = req.kv_len + np.arange(C)
+            poss[row] = np.minimum(pos, self.max_seq_len - 1)
+            n_pages = min((req.kv_len + len(draft)) // ps + 1, self.max_pages)
+            pt[row, :n_pages] = self._page_table[row, :n_pages]
+            sl[row, :w] = pt[row, pos[:w] // ps] * ps + pos[:w] % ps
+            kvlen[row] = req.kv_len + w
+            draft_len[row] = len(draft)
+            # Conservation: a draft counts as proposed iff its row survived
+            # provisioning to this verify, where every proposed token is
+            # then accounted accepted or rejected.
+            self.stats.spec_proposed += len(draft)
+            if len(draft):
+                self._spec_shape.setdefault(shape_bucket(len(req.prompt)), [0, 0])[0] += len(draft)
+        for job, w in jobs:
+            # An inline row's live window is its allotted slice [pos, pos+w)
+            # of the prompt: one _prefill_group chunk for one row. Its
+            # draft_len stays 0, and its bonus sample is never consumed.
+            row, pos, prompt = job.row, job.pos, job.req.prompt
+            toks[row, :w] = prompt[pos : pos + w]
+            poss[row] = np.minimum(pos + np.arange(C), self.max_seq_len - 1)
+            sl[row, :w] = job.token_slots[pos : pos + w]
+            kvlen[row] = pos + w
+            npg = min(-(-job.total // ps), maxp)
+            pt[row, :npg] = job.token_slots[::ps][:npg] // ps
+
+        logits = self.model.prefill_chunk_paged(
+            self._dev(toks), self._dev(poss), self.pool.kv, self._dev(sl), self._dev(pt),
+            self._dev(kvlen), page_size=ps, kv_scale=self.pool.kv_scale,
+        )
+        if active and jobs:
+            self.stats.mixed_launches += 1
+        elif active:
+            self.stats.verify_launches += 1
+        else:
+            self.stats.inline_launches += 1
+        if active:
+            accept_len, bonus = spec_verify_sample(
+                logits, self._dev(toks[:, 1:]), self._dev(draft_len), self._gen,
+                self._dev(self._temps), self._dev(self._top_ps), self._dev(self._top_ks),
+            )
+            accept_len = accept_len.cpu().numpy()  # one sync
+            bonus = bonus.cpu().numpy()
+            self.stats.decode_steps += 1
+
+        for row, req in active:
+            draft = drafts[row]
+            a = int(accept_len[row])
+            rejected = len(draft) - a
+            self.stats.spec_accepted += a
+            self.stats.spec_rejected += rejected
+            req.spec_miss = rejected
+            if a:
+                self._spec_shape.setdefault(shape_bucket(len(req.prompt)), [0, 0])[1] += a
+            if len(draft):
+                self.spec_ledger.note_wave(
+                    req.tenant, shape_bucket(len(req.prompt)),
+                    sources.get(row, "ngram") if sources else "ngram",
+                    len(draft), a, len(draft),
+                )
+            base = req.kv_len
+            for i in range(a + 1):  # a accepted drafts, then the bonus token
+                pos = base + i
+                slot = int(self._page_table[row, pos // ps] * ps + pos % ps)
+                token = int(draft[i]) if i < a else int(bonus[row])
+                if self._consume_token(req, row, slot, token):
+                    break
+        pending: list[tuple] = []
+        for job, w in jobs:
+            job.pos += w  # the exact resume offset for the next wave
+            if job.pos >= job.total:
+                # Final chunk: install, and hand the last prompt position's
+                # logits to the first-token sampler (one batched sample for
+                # every job finishing this wave).
+                req = job.req
+                req.output_tokens = []
+                req.kv_len = job.total
+                req.token_slots = job.token_slots
+                req.own_slots = job.own
+                self._inline_rows.discard(job.row)
+                self._install_prefilled(req, job.row, job.reuse)
+                pending.append((req, logits[job.row, w - 1]))
+        if jobs:
+            self._inline = [j for j in self._inline if j.pos < j.total]
+        if pending:
+            self._finalize_first_tokens(pending)
 
     def _consume_token(self, req: Request, row: int, slot: int, token: int) -> bool:
         """Account one decode iteration for ``req``: the fed token's KV
@@ -679,4 +1239,8 @@ class Engine:
         req.kv_len = 0
         req.prefix_len = 0
         req.token_slots = np.empty(0, dtype=np.int32)
+        req.spec_miss = 0
+        # The retry re-admits against its own just-published generation,
+        # the ideal tree-draft replay: re-arm tree drafting.
+        req.tree_draft_ok = True
         self.waiting.insert(0, req)

@@ -1,8 +1,8 @@
 """Request lifecycle state for the serving engine.
 
 This package's own copy of the JAX package's ``engine/request.py``, cut to
-the fields the legacy schedule uses: the port imports nothing of the JAX
-package. ``SamplingParams`` keeps its ``seed`` field so a seeded request can
+the fields the ported schedules use (legacy, mixed waves, multi-step and
+speculative decode): the port imports nothing of the JAX package. ``SamplingParams`` keeps its ``seed`` field so a seeded request can
 be refused loudly (seeded replay is not ported yet) instead of silently
 sampling from the engine stream.
 """
@@ -63,6 +63,18 @@ class Request:
     )
     lock_node: object = None  # TreeNode protected while RUNNING
     cancelled: bool = False  # aborted by Engine.cancel (output is partial)
+    # Request-class key of the speculation ledger (the JAX package's SLO
+    # tenant). The HTTP edge does not accept it yet.
+    tenant: str = "default"
+    # Tree drafting stays on only while it pays: cleared the first time
+    # the tree has no continuation for this request, so novel generations
+    # never re-walk the whole history every launch.
+    tree_draft_ok: bool = True
+    # The tree's ``draft_ready_epoch`` this request last peeked at: a
+    # later epoch re-arms tree drafting (``Engine._draft_for``).
+    draft_epoch: int = 0
+    # Draft tokens the last speculative wave rejected for this row.
+    spec_miss: int = 0
     submit_time: float = 0.0
     first_token_time: float = 0.0
     finish_time: float = 0.0

@@ -14,7 +14,9 @@ case. Every case runs at the script's shape (``--batch`` rows of ``--ctx``
 tokens, ``--hq``/``--hkv``/``--head-dim``/``--page``; chunks of
 ``--chunk`` queries over ``--chunk-batch`` rows with ``--ctx`` prior
 tokens) and again at Llama-3-8B's attention shape (Hq 32, Hkv 8, D 128,
-page 16; B 8, 2048 tokens of context).
+page 16; B 8, 2048 tokens of context). The chunk kernel also runs at the
+fast schedules' shapes at 8B widths, B 8 over 2048 prior tokens: C = 5 (a
+γ = 4 speculative verify) and C = 16 (a mixed wave's floor).
 
 Times are CUDA events with the L2 flushed before each launch and the
 host's launch time kept out (``utils/cuda_timing.py``); ``host_us`` is the
@@ -49,9 +51,10 @@ def _card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def run_shape(B, ctx, Hq, Hkv, D, page, C, Bc, iters, seed=0) -> dict:
-    """Time every (kernel, pool dtype, page-table layout) case at one shape;
-    returns ``{case: {ms, host_us, bound_ms, bound_by, library_ms}}``."""
+def run_shape(B, ctx, Hq, Hkv, D, page, C, Bc, iters, seed=0, kernels=("pool", "fused", "chunk")) -> dict:
+    """Time every (kernel, pool dtype, page-table layout) case of
+    ``kernels`` at one shape; returns ``{case: {ms, host_us, bound_ms,
+    bound_by, library_ms}}``."""
     from radixmesh_tpu_torch.ops import paged_attention as pa
     from radixmesh_tpu_torch.ops.quant import quantize_kv
     from radixmesh_tpu_torch.utils.cuda_timing import (
@@ -126,7 +129,7 @@ def run_shape(B, ctx, Hq, Hkv, D, page, C, Bc, iters, seed=0) -> dict:
                     sdpa(qc.permute(0, 2, 1, 3).contiguous(), pt, Bc, kv, sc, chunk_kv=kc),
                 ),
             }
-            for kname, (fn, nbytes, flops, lib) in cases.items():
+            for kname, (fn, nbytes, flops, lib) in ((k, cases[k]) for k in kernels):
                 b_ms, b_by = bound(nbytes, flops, bf16)
                 out[f"{kname}_{dname}_{tname}"] = {
                     "ms": time_ms(fn, iters, dev),
@@ -162,6 +165,10 @@ def main(argv: list[str] | None = None) -> int:
         "default": dict(B=args.batch, ctx=args.ctx, Hq=args.hq, Hkv=args.hkv, D=args.head_dim,
                         page=args.page, C=args.chunk, Bc=args.chunk_batch),
         "llama3_8b": dict(B=8, ctx=2048, Hq=32, Hkv=8, D=128, page=16, C=512, Bc=8),
+        "llama3_8b_verify": dict(B=8, ctx=2048, Hq=32, Hkv=8, D=128, page=16, C=5, Bc=8,
+                                 kernels=("chunk",)),
+        "llama3_8b_mixed": dict(B=8, ctx=2048, Hq=32, Hkv=8, D=128, page=16, C=16, Bc=8,
+                                kernels=("chunk",)),
     }
     result = {"device": torch.cuda.get_device_name(0), "card": _card(), "shapes": shapes, "ms": {}}
     summary = {}
@@ -169,13 +176,14 @@ def main(argv: list[str] | None = None) -> int:
         cases = run_shape(**shape, iters=args.iters)
         result["ms"][sname] = cases
         ms = {k: v["ms"] for k, v in cases.items()}
-        for k in ("pool", "fused", "chunk"):
+        kernels = shape.get("kernels", ("pool", "fused", "chunk"))
+        for k in kernels:
             # > 1.0: the second case is faster.
             summary[f"{sname}_int8_vs_bf16_{k}"] = ms[f"{k}_bf16_run"] / ms[f"{k}_int8_run"]
             summary[f"{sname}_run_vs_perm_{k}"] = ms[f"{k}_bf16_perm"] / ms[f"{k}_bf16_run"]
         # bf16 K/V bytes the pool and fused cases read, over their times.
         shape_ctx = shape["B"] * shape["ctx"] * shape["Hkv"] * 2 * shape["D"] * 2
-        for k in ("pool", "fused"):
+        for k in sorted(set(kernels) & {"pool", "fused"}):
             summary[f"{sname}_{k}_bf16_run_gbps"] = shape_ctx / (ms[f"{k}_bf16_run"] / 1e3) / 1e9
     result["summary"] = summary
     line = json.dumps(result)

@@ -2,6 +2,8 @@
 
     python -m radixmesh_tpu_torch.launch serve --model llama3-8b --device cuda
     python -m radixmesh_tpu_torch.launch serve --model llama3-8b --kv-quant int8
+    python -m radixmesh_tpu_torch.launch serve --spec-decode-tokens 4 \
+        --prefill-inline-budget 64 --decode-steps-per-launch 4 --paged-min-batch 2
 
 ``serve`` builds one :class:`~radixmesh_tpu_torch.engine.engine.Engine`
 (random weights from ``--seed``: no checkpoint loading yet) behind a
@@ -9,8 +11,11 @@
 serves until SIGINT/SIGTERM. The device defaults to CUDA and the launcher
 exits with an error where torch has none; ``--device cpu`` runs the plain
 PyTorch path. ``--kv-quant int8`` stores the KV pool as int8 with per-token
-scales. Flags of the JAX launcher whose features are not ported yet are
-refused by name.
+scales. The schedule flags (``--decode-steps-per-launch``,
+``--prefill-inline-budget``, ``--prefill-inline-max-defer``,
+``--paged-min-batch``, ``--spec-decode-tokens``, ``--spec-adaptive``) take
+the JAX launcher's defaults, which run the legacy schedule. Flags of the
+JAX launcher whose features are not ported yet are refused by name.
 """
 
 from __future__ import annotations
@@ -24,9 +29,7 @@ __all__ = ["main", "parse_args"]
 
 # ``serve`` flags of the JAX launcher whose features are not ported yet.
 _NOT_PORTED_FLAGS = (
-    "--weights", "--tokenizer", "--host-cache-slots", "--decode-steps-per-launch",
-    "--prefill-inline-budget", "--prefill-inline-max-defer", "--paged-min-batch",
-    "--spec-decode-tokens", "--spec-adaptive", "--weight-quant",
+    "--weights", "--tokenizer", "--host-cache-slots", "--weight-quant",
     "--kv-transfer-async", "--kv-transfer-chunk", "--kv-transfer-min-restore",
     "--kv-tier-dir", "--kv-tier-capacity-gb", "--stream-publish",
     "--step-accounting", "--peak-tflops", "--slo", "--slo-ttft-ms", "--slo-tenant",
@@ -66,6 +69,12 @@ def _run_serve(args: argparse.Namespace) -> int:
         page_size=args.page_size,
         max_batch=args.max_batch,
         rng_seed=args.seed,
+        decode_steps_per_launch=args.decode_steps_per_launch,
+        prefill_inline_budget=args.prefill_inline_budget,
+        prefill_inline_max_defer=args.prefill_inline_max_defer,
+        paged_min_batch=args.paged_min_batch,
+        spec_decode_tokens=args.spec_decode_tokens,
+        spec_adaptive=args.spec_adaptive,
         device=device,
         kv_quant=args.kv_quant,
     )
@@ -98,6 +107,23 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     serve.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     serve.add_argument("--kv-quant", choices=("int8",), default=None,
                        help="store the KV pool as int8 with per-token scales")
+    serve.add_argument("--decode-steps-per-launch", type=int, default=1,
+                       help="fuse k decode steps per launch (sampling on the device)")
+    serve.add_argument("--prefill-inline-budget", type=int, default=0,
+                       help="mixed waves: ride up to N prefill tokens of queued prompts on each "
+                       "decode launch (0 = legacy alternating schedule)")
+    serve.add_argument("--prefill-inline-max-defer", type=int, default=2,
+                       help="mixed waves' starvation bound: at most N consecutive prefill-only "
+                       "waves before a decode-bearing wave")
+    serve.add_argument("--paged-min-batch", type=int, default=0,
+                       help="decode waves below N rows take the compact working set "
+                       "(0 = always paged where the kernel policy allows)")
+    serve.add_argument("--spec-decode-tokens", type=int, default=0,
+                       help="speculative decode: draft up to N tokens (radix tree, then n-gram) "
+                       "and verify them in one chunk launch")
+    serve.add_argument("--spec-adaptive", action="store_true",
+                       help="adapt the draft width per request class to its acceptance, "
+                       "within [1, --spec-decode-tokens]")
     serve.set_defaults(fn=_run_serve)
     argv = sys.argv[1:] if argv is None else argv
     for arg in argv:

@@ -13,6 +13,10 @@
   chunk kernel) and ``decode_step`` (one token per row, through the fused
   decode kernel). The big products are plain ``torch.matmul``; logits are
   float32 like the JAX ``_logits``.
+- ``decode_multi`` runs ``k`` decode steps in one call, sampling on the
+  device and feeding each token to the next step, with no host sync;
+  ``decode_multi_compact`` runs it over a sub-pool gathered from the live
+  pages and scatters the pages back once.
 - The pool is updated in place where JAX donates it: ``decode_step``'s
   kernel writes each layer's row, and ``prefill_chunk_paged`` writes the
   chunk's K/V into layer ``l`` right after layer ``l``'s attention (the
@@ -42,6 +46,7 @@ from radixmesh_tpu_torch.ops.attention import (
 from radixmesh_tpu_torch.ops.norm import rms_norm
 from radixmesh_tpu_torch.ops.quant import quantize_for_store
 from radixmesh_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from radixmesh_tpu_torch.ops.sampling import any_stochastic, sample_stochastic, sampling_tensors
 from radixmesh_tpu_torch.utils.device import resolve_device
 
 __all__ = ["ModelConfig", "Llama", "init_params", "LAYER_PARAMS"]
@@ -384,3 +389,92 @@ class Llama(nn.Module):
             x = self._attn_out_mlp(l, x, attn[:, None])
         return self._logits(x)[:, 0]
 
+    @torch.inference_mode()
+    def decode_multi(
+        self,
+        tokens: torch.Tensor,  # [B] current token per row
+        kv_pool: torch.Tensor,  # [2, L, Hkv, num_slots, D] — written in place
+        page_table: torch.Tensor,  # [B, max_pages] int32, pages provisioned k ahead
+        lengths: torch.Tensor,  # [B] int32 context incl. the first fed token
+        generator: torch.Generator | None,
+        temperatures,  # [B] host array (a tensor costs one sync to decide greedy)
+        top_ps,  # [B]
+        page_size: int = 16,
+        k_steps: int = 8,
+        kv_scale: torch.Tensor | None = None,
+        top_ks=0,  # [B] (0 = off)
+    ) -> torch.Tensor:
+        """``k_steps`` decode steps in one call: step ``i`` feeds the token
+        sampled at step ``i - 1`` at position ``lengths + i - 1``, its slot
+        derived on the device from the page table, which must cover
+        positions ``lengths - 1 .. lengths + k - 2`` of every row. Sampling
+        stays on the device, so the host syncs once, on the result: the
+        sampled tokens ``[k, B]`` (int64). Stop tokens and budgets are the
+        caller's: tokens past a row's stop are surplus. The decode kernel
+        runs ``n_layers`` times per step, in stream order, so each step's
+        writes land before the next step reads them."""
+        B = tokens.shape[0]
+        rows = torch.arange(B, device=tokens.device)
+        lengths = lengths.to(torch.int32)
+        pt = page_table.long()
+        stochastic = any_stochastic(temperatures)
+        if stochastic:
+            params = sampling_tensors((B,), tokens.device, temperatures, top_ks, top_ps)
+        toks, out = tokens, []
+        for i in range(k_steps):
+            lens = lengths + i
+            pos = (lens - 1).long()
+            slots = (pt[rows, pos // page_size] * page_size + pos % page_size).to(torch.int32)
+            logits = self.decode_step(toks, kv_pool, slots, page_table, lens, page_size, kv_scale)
+            toks = sample_stochastic(logits, generator, *params) if stochastic else logits.argmax(-1)
+            out.append(toks)
+        return torch.stack(out)
+
+    @torch.inference_mode()
+    def decode_multi_compact(
+        self,
+        tokens: torch.Tensor,  # [B]
+        kv_pool: torch.Tensor,  # [2, L, Hkv, num_slots, D] — written in place
+        compact_pages: torch.Tensor,  # [n_c] unique pool page ids (pad = scratch page)
+        page_table_c: torch.Tensor,  # [B, maxp] int32 indices into compact_pages
+        lengths: torch.Tensor,  # [B] int32 context incl. the first fed token
+        generator: torch.Generator | None,
+        temperatures,
+        top_ps,
+        page_size: int = 16,
+        k_steps: int = 8,
+        kv_scale: torch.Tensor | None = None,
+        top_ks=0,
+    ) -> torch.Tensor:
+        """``decode_multi`` over a compact working set: the pages named by
+        ``compact_pages`` (and their int8 scales) are gathered into a
+        sub-pool of ``n_c`` pages, the steps run over it with
+        ``page_table_c`` (the decode kernel takes the pool's page count
+        from the tensor), and the pages are scattered back once.
+
+        Contract (the JAX package's): ``compact_pages`` entries are unique
+        except for padding, which duplicates the engine's scratch page —
+        the one page whose contents are never read unmasked, so the
+        scatter's duplicate targets may land in any order there and only
+        there. ``page_table_c`` maps every row's pages, and inactive rows
+        entirely, to compact indices. Returns the sampled tokens
+        ``[k, B]``."""
+        cfg = self.cfg
+        L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        P = kv_pool.shape[3] // page_size
+        n_c = compact_pages.shape[0]
+        idx = compact_pages.long()
+        pages = kv_pool.view(2, L, Hkv, P, page_size, D)
+        sub_pool = pages[:, :, :, idx].reshape(2, L, Hkv, n_c * page_size, D)
+        sub_scale = scale_pages = None
+        if kv_scale is not None:
+            scale_pages = kv_scale.view(2, L, Hkv, P, page_size)
+            sub_scale = scale_pages[:, :, :, idx].reshape(2, L, Hkv, n_c * page_size)
+        sampled = self.decode_multi(
+            tokens, sub_pool, page_table_c, lengths, generator, temperatures, top_ps,
+            page_size=page_size, k_steps=k_steps, kv_scale=sub_scale, top_ks=top_ks,
+        )
+        pages[:, :, :, idx] = sub_pool.view(2, L, Hkv, n_c, page_size, D)
+        if kv_scale is not None:
+            scale_pages[:, :, :, idx] = sub_scale.view(2, L, Hkv, n_c, page_size)
+        return sampled

@@ -14,6 +14,10 @@ references, and the dispatchers the model calls (the JAX package's
   argument selects the plain version for a CUDA tensor.
 - Every paged entry takes an int8 pool with ``kv_scales [2, L, Hkv, P,
   page]`` float32 (``ops/quant.py``).
+- ``select_paged`` is the engine's per-wave paged-vs-dense crossover for
+  decode (``--paged-min-batch``), recorded for ``last_dispatch``. Its dense
+  leg is the compact working set (``Llama.decode_multi_compact``), which on
+  the card still runs the decode kernel, over the gathered sub-pool.
 
 Layouts are the JAX package's: queries ``[B, S, Hq, D]``, the pool's pages
 view ``[2, L, Hkv, P, page, D]``, page tables ``[B, max_pages]`` int32.
@@ -38,11 +42,15 @@ __all__ = [
     "attend_decode_ref",
     "attend_chunk_hybrid",
     "batch_bucket",
+    "default_use_kernel",
+    "last_dispatch",
+    "note_dispatch",
     "paged_attention",
     "paged_attention_pool",
     "paged_attention_pool_bucketed",
     "paged_chunk_attention",
     "paged_decode_attention",
+    "select_paged",
 ]
 
 _NEG_INF = -1e30
@@ -239,6 +247,47 @@ def batch_bucket(n: int, floor: int = 1) -> int:
     while b < n:
         b <<= 1
     return b
+
+
+def default_use_kernel(head_dim: int, device: torch.device | str) -> bool:
+    """The backend/shape policy of the paged decode path: a CUDA device and
+    a ``head_dim`` that is a multiple of 128 (every production Llama-3
+    width). Elsewhere the engine decodes over the compact working set."""
+    return torch.device(device).type == "cuda" and head_dim % 128 == 0
+
+
+# The last ``select_paged`` decision in this process (a plain dict, read
+# without a lock by the frontend's ``/stats``).
+_LAST_DISPATCH: dict = {}
+
+
+def note_dispatch(path: str, batch: int, bucket: int, max_len: int) -> None:
+    """Record one dispatch decision."""
+    _LAST_DISPATCH.update(path=path, batch=int(batch), bucket=int(bucket), max_len=int(max_len))
+
+
+def last_dispatch() -> dict | None:
+    """A copy of the latest ``select_paged`` decision, or None before the
+    first."""
+    return dict(_LAST_DISPATCH) if _LAST_DISPATCH else None
+
+
+def select_paged(
+    batch: int,
+    head_dim: int,
+    device: torch.device | str,
+    min_batch: int = 0,
+    max_len: int = 0,
+) -> bool:
+    """The per-wave paged-vs-dense crossover for decode launches: True for
+    the paged path (``decode_step`` over the whole pool), False for the
+    dense leg (``decode_multi_compact`` over the gathered live pages) —
+    taken where ``default_use_kernel`` is false, or the batch has fewer
+    than ``min_batch`` rows (0 = always paged where the policy allows).
+    Records the decision for ``last_dispatch``."""
+    paged = default_use_kernel(head_dim, device) and not (0 < min_batch and batch < min_batch)
+    note_dispatch("paged" if paged else "dense", batch, batch_bucket(batch), max_len)
+    return paged
 
 
 def paged_attention_pool(

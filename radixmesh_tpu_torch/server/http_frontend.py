@@ -5,7 +5,10 @@
   ``temperature``, ``top_p``, ``top_k``, ``stop_token_ids``, optional
   ``timeout`` (seconds). Replies ``{"output_ids", "cached_tokens", "rid",
   "ttft_s", "e2e_s"}`` (plus ``"cancelled": true`` when cancelled).
-- ``POST /cancel`` ``{"rid"}``; ``GET /healthz``; ``GET /stats``.
+- ``POST /cancel`` ``{"rid"}``; ``GET /healthz``; ``GET /stats`` (the
+  engine's counters; ``spec``, speculative acceptance per prompt-length
+  bucket; ``waves``, the wave mix under mixed waves; ``decode_dispatch``,
+  the last paged-vs-dense decision — the JAX frontend's key names).
 
 Fields of the JAX API whose features are not ported yet — ``seed``
 (seeded replay), ``stream`` (SSE), ``resume_tokens``, ``trace_id``,
@@ -20,6 +23,7 @@ wait on their per-request condition.
 from __future__ import annotations
 
 import json
+import queue
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -46,11 +50,18 @@ _NOT_PORTED_FIELDS = {
 
 class EngineRunner:
     """Exclusive owner of an :class:`Engine`: a single thread steps the
-    scheduler while work exists; other threads submit and wait."""
+    scheduler while work exists; other threads submit and wait.
+    Submissions pass through an inbox the runner drains before every
+    step, so a request that arrives while the engine is busy joins the
+    next step (a mixed wave, with ``prefill_inline_budget``) instead of
+    waiting for the engine lock, which the runner takes back between
+    steps before a waiting thread can."""
 
     def __init__(self, engine: Engine):
         self.engine = engine
         self._lock = threading.Lock()
+        self._inbox: queue.SimpleQueue[Request] = queue.SimpleQueue()
+        self._inbox_lock = threading.Lock()  # orders submit against close
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._closed = False
@@ -68,11 +79,14 @@ class EngineRunner:
         deadline = time.monotonic() + drain_s
         while drain_s > 0 and time.monotonic() < deadline:
             with self._lock:
+                self._take_inbox()
                 if not self.engine.has_work():
                     break
             time.sleep(0.02)
-        with self._lock:
+        with self._inbox_lock:
             self._closed = True
+        with self._lock:
+            self._take_inbox()
             self.engine.cancel_all()
         self._stop.set()
         self._wake.set()
@@ -80,16 +94,27 @@ class EngineRunner:
             self._thread.join(timeout=5)
 
     def submit(self, prompt: Sequence[int], sampling: SamplingParams | None = None) -> Request:
-        with self._lock:
+        # make_request only validates and reads the engine's configuration.
+        req = self.engine.make_request(prompt, sampling)
+        with self._inbox_lock:
             if self._closed:
                 raise RuntimeError("engine runner is shut down")
-            req = self.engine.add_request(prompt, sampling)
+            self._inbox.put(req)
         self._wake.set()
         return req
 
     def cancel(self, rid: int) -> bool:
         with self._lock:
+            self._take_inbox()
             return self.engine.cancel(rid)
+
+    def _take_inbox(self) -> None:
+        """Queue every submitted request on the engine (hold ``_lock``)."""
+        while True:
+            try:
+                self.engine.enqueue(self._inbox.get_nowait())
+            except queue.Empty:
+                return
 
     def wait(self, req: Request, timeout: float | None = None) -> list[int]:
         """Block until ``req`` finishes; returns its generated tokens."""
@@ -105,6 +130,7 @@ class EngineRunner:
     def _run(self) -> None:
         while not self._stop.is_set():
             with self._lock:
+                self._take_inbox()
                 has_work = self.engine.has_work()
                 if has_work:
                     try:
@@ -143,6 +169,32 @@ def _int_list(x, what: str) -> list[int]:
     return x
 
 
+def _stats(engine: Engine) -> dict:
+    """``GET /stats``: lock-free snapshot reads of the engine's counters."""
+    s = engine.stats
+    out = {
+        "hit_rate": s.hit_rate,
+        "p50_ttft_s": s.p50_ttft_s,
+        "prompt_tokens": s.prompt_tokens,
+        "cached_tokens": s.cached_tokens,
+        "generated_tokens": s.generated_tokens,
+        "finished": s.finished,
+        "preemptions": s.preemptions,
+        "evicted_tokens": s.evicted_tokens,
+        "decode_steps": s.decode_steps,
+        "prefill_chunks": s.prefill_chunks,
+        "spec_proposed": s.spec_proposed,
+        "spec_accepted": s.spec_accepted,
+        "spec_rejected": s.spec_rejected,
+        "spec": engine.spec_report(),
+    }
+    if engine.waves is not None:
+        out["waves"] = {**engine.waves.snapshot(), "inline_backlog": len(engine._inline)}
+    if engine._last_dispatch is not None:
+        out["decode_dispatch"] = engine._last_dispatch
+    return out
+
+
 class _FrontendServer(ThreadingHTTPServer):
     daemon_threads = True
     allow_reuse_address = True
@@ -165,23 +217,7 @@ class ServingFrontend:
                 if self.path == "/healthz":
                     _json_response(self, 200, {"status": "ok"})
                 elif self.path == "/stats":
-                    s = frontend.runner.engine.stats
-                    _json_response(
-                        self,
-                        200,
-                        {
-                            "hit_rate": s.hit_rate,
-                            "p50_ttft_s": s.p50_ttft_s,
-                            "prompt_tokens": s.prompt_tokens,
-                            "cached_tokens": s.cached_tokens,
-                            "generated_tokens": s.generated_tokens,
-                            "finished": s.finished,
-                            "preemptions": s.preemptions,
-                            "evicted_tokens": s.evicted_tokens,
-                            "decode_steps": s.decode_steps,
-                            "prefill_chunks": s.prefill_chunks,
-                        },
-                    )
+                    _json_response(self, 200, _stats(frontend.runner.engine))
                 else:
                     _json_response(self, 404, {"error": "not found"})
 

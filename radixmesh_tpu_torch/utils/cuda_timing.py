@@ -32,19 +32,20 @@ _SPIN_CYCLES = 1_000_000
 
 
 def time_ms(fn, iters: int, device: torch.device | str = "cuda") -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, each timed alone by
-    CUDA events after a 256 MB write that evicts the 50 MB L2 (the serving
-    path reads each layer's pages cold). A spin kernel queued before the
-    start event keeps the card busy while the host enqueues ``fn``, so the
-    events bracket device work only, not the host's launch time. One
-    untimed call warms up first."""
+    """Median device time of ``fn`` over ``iters`` calls, each timed alone
+    by CUDA events after a 256 MB write that evicts the 50 MB L2 (the
+    serving path reads each layer's pages cold). A spin kernel queued
+    before the start event keeps the card busy while the host enqueues
+    ``fn``, so the events bracket device work only, not the host's launch
+    time; the median keeps a call that a host stall outlasted the spin
+    from moving the reading. One untimed call warms up first."""
     dev = torch.device(device)
     flush = _FLUSH.get(dev)
     if flush is None:
         flush = _FLUSH[dev] = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     fn()
     torch.cuda.synchronize(dev)
-    total = 0.0
+    times = []
     for _ in range(iters):
         flush.zero_()
         torch.cuda._sleep(_SPIN_CYCLES)
@@ -54,8 +55,8 @@ def time_ms(fn, iters: int, device: torch.device | str = "cuda") -> float:
         fn()
         end.record()
         torch.cuda.synchronize(dev)
-        total += start.elapsed_time(end)
-    return total / iters
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 # ``host_us``: the calls per mean, the means per reading, and the cycles of

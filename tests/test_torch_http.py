@@ -1,9 +1,12 @@
 """The port's HTTP frontend over a tiny CPU engine: ``/generate`` answers
 what ``Engine.generate`` answers on the same weights, ``/healthz`` and
 ``/stats`` serve, and fields of features that are not ported yet (a
-``seed``, ``stream``) are refused with a 400 instead of being ignored."""
+``seed``, ``stream``) are refused with a 400 instead of being ignored. A
+frontend over an engine with speculative decode and mixed waves answers
+the JAX engine's greedy tokens and reports both in ``/stats``."""
 
 import json
+import time
 import urllib.error
 import urllib.request
 
@@ -102,3 +105,58 @@ def test_cancel_endpoint(served):
     assert _post(fe.port, "/cancel", {"rid": 10**9}) == (200, {"cancelled": False})
     code, _ = _post(fe.port, "/cancel", {"id": 1})
     assert code == 400
+
+
+def test_spec_and_mixed_waves_over_http():
+    import jax
+    import jax.numpy as jnp
+
+    from radixmesh_tpu.engine.engine import Engine as JEngine
+    from radixmesh_tpu.engine.request import SamplingParams as JSampling
+    from radixmesh_tpu.models import llama as jl
+    from radixmesh_tpu_torch.models.convert import params_from_jax
+
+    jcfg = jl.ModelConfig.tiny().replace(dtype=jnp.float32)
+    jparams = jl.init_params(jcfg, jax.random.PRNGKey(7))
+    cfg = ModelConfig.tiny().replace(dtype=torch.float32)
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg, "cpu")
+    kw = dict(ENGINE_KW, spec_decode_tokens=2, prefill_inline_budget=32)
+    fe = ServingFrontend(Engine(cfg, params, **kw), port=0)
+    try:
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(1, 512, 5).tolist() * 3, rng.integers(1, 512, 70).tolist()]
+        kw.pop("device")
+        want = JEngine(jcfg, jparams, **kw).generate(prompts, JSampling(max_new_tokens=12))
+        for prompt, w in zip(prompts, want):
+            code, body = _post(fe.port, "/generate", {"input_ids": prompt, "max_tokens": 12})
+            assert code == 200 and body["output_ids"] == w, body
+        code, stats = _get(fe.port, "/stats")
+        assert code == 200
+        assert stats["spec_proposed"] > 0
+        assert stats["spec_proposed"] == stats["spec_accepted"] + stats["spec_rejected"]
+        assert sum(c["proposed"] for c in stats["spec"].values()) == stats["spec_proposed"]
+        assert {"budget", "counts", "inline_tokens", "inline_backlog"} <= set(stats["waves"])
+        assert stats["decode_dispatch"]["path"] in ("dense", "paged")
+    finally:
+        fe.close(drain_s=0.0)
+
+
+def test_submission_joins_a_busy_engine():
+    """A request submitted while the runner steps a long decode is queued
+    on the engine at the next step, not after the engine goes idle."""
+    from radixmesh_tpu_torch.server.http_frontend import EngineRunner
+
+    cfg = ModelConfig.tiny().replace(dtype=torch.float32)
+    engine = Engine(cfg, init_params(cfg, seed=3, device="cpu"), **ENGINE_KW)
+    runner = EngineRunner(engine).start()
+    try:
+        long = runner.submit(list(range(1, 20)), SamplingParams(max_new_tokens=400))
+        while len(long.output_tokens) < 2:
+            time.sleep(0.001)
+        short = runner.submit([5, 6, 7], SamplingParams(max_new_tokens=1))
+        runner.wait(short, timeout=60)
+        assert long.state.value == "running", "the short request waited for the long one"
+        runner.wait(long, timeout=120)
+        assert len(long.output_tokens) == 400
+    finally:
+        runner.close()

@@ -23,7 +23,7 @@ for m in mods:
 import chip_smoke  # noqa: F401  (module import only; main() is not run)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "radixmesh_tpu" or m.startswith("radixmesh_tpu."))
-print(len(mods), bad)
+print(len(mods), bad, " ".join(mods))
 assert not bad, bad
 """
 
@@ -36,6 +36,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert r.returncode == 0, r.stdout + r.stderr
     n_mods = int(r.stdout.split()[0])
     assert n_mods >= 20, r.stdout
+    walked = set(r.stdout.split())
+    assert {"radixmesh_tpu_torch.engine.waves", "radixmesh_tpu_torch.obs.spec_ledger",
+            "radixmesh_tpu_torch.obs.attribution"} <= walked, r.stdout
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -55,7 +58,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert len(out[0]) == 16
 
 
-@pytest.mark.parametrize("flag", ["--weight-quant", "--spec-decode-tokens", "--slo"])
+@pytest.mark.parametrize("flag", ["--weight-quant", "--host-cache-slots", "--slo"])
 def test_launcher_refuses_unported_flags(flag, capsys):
     from radixmesh_tpu_torch.launch import main
 
@@ -71,3 +74,18 @@ def test_launcher_parses_kv_quant_int8():
     args = parse_args(["serve", "--kv-quant", "int8", "--device", "cpu"])
     assert (args.kv_quant, args.device, args.cmd) == ("int8", "cpu", "serve")
     assert parse_args(["serve"]).kv_quant is None
+
+
+def test_launcher_parses_the_schedule_flags():
+    from radixmesh_tpu_torch.launch import parse_args
+
+    args = parse_args([
+        "serve", "--device", "cpu", "--decode-steps-per-launch", "4", "--prefill-inline-budget", "64",
+        "--prefill-inline-max-defer", "3", "--paged-min-batch", "2", "--spec-decode-tokens", "4",
+        "--spec-adaptive",
+    ])
+    assert (args.decode_steps_per_launch, args.prefill_inline_budget, args.prefill_inline_max_defer,
+            args.paged_min_batch, args.spec_decode_tokens, args.spec_adaptive) == (4, 64, 3, 2, 4, True)
+    d = parse_args(["serve"])
+    assert (d.decode_steps_per_launch, d.prefill_inline_budget, d.prefill_inline_max_defer,
+            d.paged_min_batch, d.spec_decode_tokens, d.spec_adaptive) == (1, 0, 2, 0, 0, False)
