@@ -67,6 +67,31 @@ Phases (any failure raises and exits non-zero):
    mixed-wave launches each > 0 on the card). The card runs count the
    launches of the CUDA-core chunk body (float32 queries).
 
+6. Tiers: Llama-3-8B at full width on an 8192-slot pool with a pinned
+   32768-slot host tier, the async KV-movement plane and a disk tier in a
+   temporary directory, with a bf16 pool and then an int8 pool. A
+   3000-token prompt served alone as a miss, as a device hit (twice: the
+   first warms the dense path at that prefix), as a host hit
+   after three other 3000-token prompts evicted it, and as a disk hit on a
+   new ``Engine`` over the same directory after ``drain_flush_hot`` and
+   ``drain_flush_disk`` (cold-cell resurrection): its pages (int8: payload
+   and scales) bit-equal after the host and the disk restore to what they
+   were before eviction, and the same greedy tokens from the device, host
+   and disk hits. A second host restore while a 1000-token request
+   decodes: decode steps are taken while it is parked in ``RESTORING``,
+   and their wall is printed beside the same batch's steps with no restore
+   in flight. Rates: a 3008-token write-back (gather, copy to the pinned
+   arena) and restore (arena → pinned ring → copy stream → scatter) in
+   GB/s beside a plain pinned ``copy_`` of the same bytes each way, and
+   the gather's and the scatter's device time. Then ``launch.py serve``
+   with ``--host-cache-slots``, ``--kv-transfer-async`` and
+   ``--kv-tier-dir`` (bf16, then ``--kv-quant int8``) in a child process
+   must start, answer ``/generate`` (the repeat a cache hit) and report
+   the tiers in ``/stats``. The decode and chunk
+   kernels' launches are counted, and no plain attention version may run.
+   The float32 whole path (phase 5) gains a run with a host tier and the
+   async plane, card vs CPU.
+
 Prints a ``{"kernels": [...]}`` line (each kernel's launches per path in
 ``launches_by_path``, their sum in ``launches``, the fast schedules'
 shapes in ``other_shapes``), the card line, and last
@@ -79,8 +104,10 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -89,7 +116,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from radixmesh_tpu_torch.cache.kv_transfer import kv_token_bytes
 from radixmesh_tpu_torch.engine.engine import Engine
+from radixmesh_tpu_torch.engine.request import RequestState, SamplingParams
 from radixmesh_tpu_torch.models import get_config
 from radixmesh_tpu_torch.models.llama import Llama, init_params
 from radixmesh_tpu_torch.ops import _build
@@ -733,21 +762,381 @@ def serving_phase(dev, model, kv_quant=None, schedules=None, legacy=None) -> dic
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the KV tiers (host RAM, disk) and the async KV-movement plane
+# ---------------------------------------------------------------------------
+
+TIER_KW = dict(num_slots=8192, page_size=16, max_batch=8, host_cache_slots=32768,
+               kv_transfer_async=True, kv_tier_capacity_bytes=16 << 30,
+               # No write-behind destage in the run: drain_flush_disk spills.
+               kv_tier_watermark=2.0)
+TIER_PROMPT = 3000
+TIER_BUSY = 1000  # the prompt that decodes while a restore is parked
+TIER_DRILL = 3008  # tokens of the write-back and restore rate drill
+
+
+def _serve_alone(engine, prompt, max_new=16):
+    """One request through ``Engine.step`` until it finishes; returns
+    ``(tokens, cached tokens, TTFT s, parked, TTFT parts)``. The parts split
+    a parked request's TTFT at step boundaries: the step that parked it,
+    the steps that waited for its restore, and the step that re-admitted
+    it (the pump landing the last chunks, then its prefill)."""
+    req = engine.add_request(prompt, SamplingParams(max_new_tokens=max_new))
+    parked = False
+    parts = {"park_step_s": 0.0, "wait_steps": 0, "wait_s": 0.0, "admit_step_s": 0.0,
+             "admit_pump_s": 0.0}
+    # The host wall of each step's plane pump (its first call, at the top of
+    # admission): the re-admitting step's share that lands the last chunks.
+    pump_walls = []
+
+    def timed_pump(_pump=engine._pump_kv_transfer):
+        t0 = time.perf_counter()
+        _pump()
+        pump_walls.append(time.perf_counter() - t0)
+
+    engine._pump_kv_transfer = timed_pump
+    try:
+        while req.state is not RequestState.FINISHED:
+            was_parked = req.state is RequestState.RESTORING
+            t = time.perf_counter()
+            engine.step()
+            wall = time.perf_counter() - t
+            now_parked = req.state is RequestState.RESTORING
+            if now_parked and not was_parked:
+                parts["park_step_s"] = wall
+            elif now_parked:
+                parts["wait_steps"] += 1
+                parts["wait_s"] += wall
+            elif was_parked:
+                parts["admit_step_s"] = wall
+                parts["admit_pump_s"] = pump_walls[-1]
+            parked |= now_parked
+    finally:
+        del engine._pump_kv_transfer
+    return (list(req.generated), int(req.prefix_len), req.first_token_time - req.submit_time, parked,
+            parts)
+
+
+def _raw_pages(engine, prompt):
+    """``(n, kv, scales)``: the pool's stored K/V of the prompt's matched
+    prefix, brought to the host, and the match length."""
+    m = engine.tree.match_prefix(np.asarray(prompt, np.int32))
+    kv, sc = engine.pool.gather_raw(m.indices()[: m.length])
+    return m.length, kv.cpu(), None if sc is None else sc.cpu()
+
+
+def _bit_equal(a, b) -> bool:
+    return a[0] == b[0] and torch.equal(a[1].view(torch.uint8), b[1].view(torch.uint8)) and (
+        (a[2] is None and b[2] is None) or torch.equal(a[2], b[2]))
+
+
+def _timed_wall(fn) -> float:
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def _lane_rates(engine, dev) -> dict:
+    """A ``TIER_DRILL``-token write-back and restore through the plane, wall-clocked
+    from the engine thread (gather + copy + arena write; ring copy + copy
+    stream + scatter), beside a plain pinned ``copy_`` of the same bytes
+    each way and the gather's and scatter's device time. The synthetic
+    prefix is the only device-resident node when it runs."""
+    tree, plane, pool = engine.tree, engine.kv_transfer, engine.pool
+    n = TIER_DRILL
+    key = np.random.default_rng(9).integers(0, engine.cfg.vocab_size, size=n).astype(np.int32)
+    slots = pool.alloc(n)
+    g = torch.Generator(device=dev).manual_seed(9)
+    shape = (2, pool.num_layers, n, pool.num_kv_heads, pool.head_dim)
+    if pool.quant is None:
+        kv = torch.randn(shape, generator=g, device=dev).to(pool.dtype)
+        sc = None
+    else:
+        kv = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+        sc = torch.rand(shape[:-1], generator=g, device=dev)
+    pool.write_raw(slots, kv, sc)
+    tree.insert(key, slots)
+    check(tree.evictable_size_ == n, f"lane drill: {tree.evictable_size_} evictable tokens, not {n}")
+    nbytes = n * kv_token_bytes(pool)
+    wb_s = _timed_wall(lambda: (tree.evict(n), plane.wait_host_ready()))
+    m = tree.match_prefix(key)
+    check(m.length == 0 and m.host_length == n, "lane drill: the write-back did not land in the host tier")
+
+    def restore():
+        ticket = plane.begin_restore(tree, m, alloc=engine._restore_alloc, auto_release=True)
+        while not ticket.released:
+            plane.pump(tree)
+            plane.wait_progress(0.0005)
+
+    rs_s = _timed_wall(restore)
+    m2 = tree.match_prefix(key)
+    kv2, sc2 = pool.gather_raw(m2.indices()[: m2.length])
+    check(m2.length == n and torch.equal(kv2.view(torch.uint8), kv.view(torch.uint8))
+          and (sc is None or torch.equal(sc2, sc)), "lane drill: restored pages differ")
+    h = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    d = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    idx = m2.indices()[: m2.length]
+    out = {
+        "tokens": n, "bytes": nbytes, "token_bytes": kv_token_bytes(pool),
+        "writeback_s": wb_s, "writeback_GBps": nbytes / wb_s / 1e9,
+        "restore_s": rs_s, "restore_GBps": nbytes / rs_s / 1e9,
+        "pinned_h2d_ms": time_ms(lambda: d.copy_(h, non_blocking=True), 5),
+        "pinned_d2h_ms": time_ms(lambda: h.copy_(d, non_blocking=True), 5),
+        # Device time of one gather / scatter, the slot list's upload included.
+        "gather_ms": time_ms(lambda: pool.gather_raw(idx), 5),
+        "scatter_ms": time_ms(lambda: pool.write_raw(idx, kv, sc), 5),
+        "plane_lane_seconds": plane.stats()["lane_seconds"],
+    }
+    out["pinned_h2d_GBps"] = nbytes / out["pinned_h2d_ms"] / 1e6
+    out["pinned_d2h_GBps"] = nbytes / out["pinned_d2h_ms"] / 1e6
+    return out
+
+
+def tier_phase(dev, model, kv_quant=None) -> dict:
+    """Phase 6 for one pool dtype (module docstring)."""
+    cfg = model.cfg
+    tag = kv_quant or "bf16"
+    OUT_DIR.mkdir(exist_ok=True)
+    tier_dir = tempfile.mkdtemp(prefix="kv-tier-", dir=OUT_DIR)
+    rng = np.random.default_rng(3)
+    p, q1, q2, q3 = (rng.integers(0, cfg.vocab_size, size=TIER_PROMPT).tolist() for _ in range(4))
+    bg = rng.integers(0, cfg.vocab_size, size=TIER_BUSY).tolist()
+    out: dict = {}
+    try:
+        t = time.monotonic()
+        engine = Engine(cfg, model, device=dev, kv_quant=kv_quant, kv_tier_dir=tier_dir, **TIER_KW)
+        out["engine_build_s"] = time.monotonic() - t
+        check(engine.tree.host.pinned and engine.kv_transfer.pinned and
+              engine.kv_transfer.stats()["copy_stream"], f"tiers {tag}: arena or ring not pinned")
+        torch.cuda.synchronize()
+        pa.reset_counters()
+        counts0 = _counts(engine)
+        hits = {}
+        hits["miss"] = _serve_alone(engine, p)
+        # Two device hits: the first is the first dense prefill over a
+        # 2992-token prefix in the process (bf16: allocations, GEMM shapes);
+        # the second is the one compared with the host and disk hits.
+        hits["device_first"] = _serve_alone(engine, p)
+        hits["device"] = _serve_alone(engine, p)
+        before = _raw_pages(engine, p)
+        for q in (q1, q2, q3):
+            _serve_alone(engine, q)
+        m = engine.tree.match_prefix(np.asarray(p, np.int32))
+        check(m.length == 0 and m.host_length >= before[0],
+              f"tiers {tag}: pool pressure did not move the prompt to the host tier ({m.length}, {m.host_length})")
+        hits["host"] = _serve_alone(engine, p)
+        after_host = _raw_pages(engine, p)
+        check(_bit_equal(before, after_host), f"tiers {tag}: pages differ after the host restore")
+        # A host restore while a 1000-token request decodes.
+        engine.drain_flush_hot()
+        check(engine.kv_transfer.wait_host_ready(), f"tiers {tag}: write-back barrier failed")
+        busy = engine.add_request(bg, SamplingParams(max_new_tokens=48))
+        while len(busy.output_tokens) < 2:
+            engine.step()
+        plain_walls = [_timed_wall(engine.step) for _ in range(8)]
+        # The engine thread's share of the parking step: begin_restore's wall.
+        plane = engine.kv_transfer
+        begin_s = []
+
+        def timed_begin(*a, _begin=plane.begin_restore, **k):
+            t0 = time.perf_counter()
+            ticket = _begin(*a, **k)
+            begin_s.append(time.perf_counter() - t0)
+            return ticket
+
+        plane.begin_restore = timed_begin
+        req = engine.add_request(p, SamplingParams(max_new_tokens=16))
+        parked_walls, parked_steps = [], 0
+        while req.state is not RequestState.FINISHED:
+            d0 = engine.stats.decode_steps
+            wall = _timed_wall(engine.step)
+            # The restore was in flight through this whole step: the pump at
+            # its start did not land it (the step that parks counts too).
+            if req.state is RequestState.RESTORING:
+                parked_walls.append(wall)
+                parked_steps += engine.stats.decode_steps - d0
+        del plane.begin_restore
+        check(parked_steps > 0, f"tiers {tag}: no decode step while the restore was parked")
+        hits["host_while_decoding"] = (list(req.generated), int(req.prefix_len),
+                                       req.first_token_time - req.submit_time, True, None)
+        while engine.has_work():
+            engine.step()
+        out["decode_during_restore"] = {
+            "decode_steps_while_parked": parked_steps, "step_walls_parked_s": parked_walls,
+            "step_walls_no_restore_s": plain_walls,
+            "median_parked_s": float(np.median(parked_walls)),
+            "median_no_restore_s": float(np.median(plain_walls)),
+            "begin_restore_s": begin_s,
+        }
+        engine.drain_flush_hot()
+        check(engine.kv_transfer.wait_host_ready(), f"tiers {tag}: write-back barrier failed")
+        out["lanes"] = _lane_rates(engine, dev)
+        engine.drain_flush_hot()
+        check(engine.kv_transfer.wait_host_ready(), f"tiers {tag}: write-back barrier failed")
+        t = time.monotonic()
+        spilled, committed = engine.drain_flush_disk(timeout_s=120.0)
+        out["drain_flush_disk"] = {"spills": spilled, "committed": committed,
+                                   "seconds": time.monotonic() - t, **engine._kv_tier.stats()}
+        check(spilled > 0 and committed, f"tiers {tag}: drain_flush_disk did not commit ({spilled})")
+        out["host_tier"] = engine.tree.stats()
+        out["plane"] = engine.kv_transfer.stats()
+        counts = {k: v - counts0[k] for k, v in _counts(engine).items()}
+        engine.close()
+        del engine
+        torch.cuda.empty_cache()
+        # Cold-cell resurrection: a new engine on the same directory.
+        engine = Engine(cfg, model, device=dev, kv_quant=kv_quant, kv_tier_dir=tier_dir, **TIER_KW)
+        res = {k: v for k, v in engine.resurrected.items() if k != "keys"}
+        m = engine.tree.match_prefix(np.asarray(p, np.int32))
+        check(res["grafted_nodes"] > 0 and m.disk_length >= before[0],
+              f"tiers {tag}: the prompt was not resurrected from disk ({res}, {m.disk_length})")
+        hits["disk"] = _serve_alone(engine, p)
+        # Where the disk hit's time went: the extent reads with their CRC
+        # checks and decode, and the worker's whole staging of the units.
+        out["disk_hit"] = {"tier": engine._kv_tier.stats(),
+                           "restore_lane_s": engine.kv_transfer.stats()["lane_seconds"]["restore"]}
+        after_disk = _raw_pages(engine, p)
+        check(_bit_equal(before, after_disk), f"tiers {tag}: pages differ after the disk restore")
+        counts2 = _counts(engine)
+        counts = {k: counts[k] + counts2[k] for k in counts}
+        out["resurrected"] = res
+        engine.close()
+        del engine
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(tier_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    attr = "launches" if kv_quant is None else "launches_int8"
+    suffix = "" if kv_quant is None else f"[{kv_quant}]"
+    launches = {"paged_decode_fused" + suffix: getattr(pa.paged_decode_fused_kernel, attr),
+                "paged_chunk_attention" + suffix: getattr(pa.paged_chunk_attention_kernel, attr)}
+    plain_calls = pa.plain_calls()
+    L = cfg.n_layers
+    check(plain_calls == 0, f"tiers {tag}: {plain_calls} plain attention calls on the card")
+    check(launches["paged_decode_fused" + suffix] == L * counts["decode_forwards"] > 0,
+          f"tiers {tag}: decode kernel launches != layers x decode passes")
+    check(launches["paged_chunk_attention" + suffix] == L * counts["prefill_chunks"] > 0,
+          f"tiers {tag}: chunk kernel launches != layers x chunk launches")
+    for name in ("host", "disk"):
+        check(hits[name][3] and hits[name][1] >= before[0] - 16,
+              f"tiers {tag}: the {name} hit did not park and restore ({hits[name][1]} cached)")
+    check(hits["host_while_decoding"][1] >= before[0] - 16, f"tiers {tag}: the restore under decode missed")
+    check(hits["device_first"][0] == hits["device"][0] == hits["host"][0] == hits["disk"][0],
+          f"tiers {tag}: device, host and disk hits returned different tokens")
+    ttft = {k: v[2] for k, v in hits.items()}
+    parts = {k: hits[k][4] for k in ("host", "disk")}
+    lanes = out["lanes"]
+    dd = out["decode_during_restore"]
+    print(f"[tiers {tag}] TTFT of a {TIER_PROMPT}-token prompt alone: miss {ttft['miss']:.4f}s, "
+          f"device hit {ttft['device']:.4f}s (first {ttft['device_first']:.4f}s), host hit {ttft['host']:.4f}s, disk hit {ttft['disk']:.4f}s; "
+          f"cached {[v[1] for v in hits.values()]}; same tokens device/host/disk: True; the restore "
+          f"under decode (its decode steps batched with another row) the same tokens too (informational): "
+          f"{hits['host_while_decoding'][0] == hits['device'][0]}", flush=True)
+    for k, v in parts.items():
+        print(f"[tiers {tag}] the {k} hit's TTFT at step boundaries: park step {v['park_step_s'] * 1e3:.2f} ms, "
+              f"{v['wait_steps']} waiting steps {v['wait_s'] * 1e3:.2f} ms, re-admitting step "
+              f"{v['admit_step_s'] * 1e3:.2f} ms (its pump {v['admit_pump_s'] * 1e3:.2f} ms, then the "
+              f"prefill)", flush=True)
+    print(f"[tiers {tag}] {lanes['token_bytes']} B/token; {lanes['tokens']} tokens = {lanes['bytes']} B: "
+          f"write-back {lanes['writeback_GBps']:.2f} GB/s ({lanes['writeback_s'] * 1e3:.2f} ms), "
+          f"restore {lanes['restore_GBps']:.2f} GB/s ({lanes['restore_s'] * 1e3:.2f} ms); pinned copy_ "
+          f"H2D {lanes['pinned_h2d_GBps']:.2f} GB/s ({lanes['pinned_h2d_ms']:.3f} ms), D2H "
+          f"{lanes['pinned_d2h_GBps']:.2f} GB/s ({lanes['pinned_d2h_ms']:.3f} ms); gather "
+          f"{lanes['gather_ms']:.3f} ms, scatter {lanes['scatter_ms']:.3f} ms (device)", flush=True)
+    dh = out["disk_hit"]
+    print(f"[tiers {tag}] decode while a {TIER_PROMPT}-token restore was parked: "
+          f"{dd['decode_steps_while_parked']} steps, median wall {dd['median_parked_s'] * 1e3:.2f} ms/step "
+          f"({len(dd['step_walls_parked_s'])} steps; begin_restore {sum(dd['begin_restore_s']) * 1e3:.2f} ms "
+          f"of them) vs {dd['median_no_restore_s'] * 1e3:.2f} ms/step with no restore; disk hit: extent "
+          f"read + verify {dh['tier']['io_seconds']['read']:.3f}s for {dh['tier']['bytes_read']} B, worker "
+          f"staging {dh['restore_lane_s']:.3f}s; drain_flush_disk {out['drain_flush_disk']['spills']} extents, "
+          f"{out['drain_flush_disk']['bytes_written']} B in {out['drain_flush_disk']['seconds']:.2f}s; "
+          f"resurrected {out['resurrected']}; launches {launches}, plain calls {plain_calls}", flush=True)
+    out.update(ttft_s=ttft, ttft_parts=parts, cached={k: v[1] for k, v in hits.items()}, launches=launches,
+               engine_counts=counts, tokens=hits["device"][0])
+    return out
+
+
+def launcher_phase(kv_quant=None) -> dict:
+    """``python -m radixmesh_tpu_torch.launch serve`` with the three tiers
+    (``--host-cache-slots``, ``--kv-transfer-async``, ``--kv-tier-dir``) in
+    a child process: it must start on the card, answer ``/generate`` (the
+    repeat a cache hit) and report the tiers in
+    ``/stats``; it is terminated after."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    tier_dir = tempfile.mkdtemp(prefix="kv-tier-serve-", dir=OUT_DIR)
+    cmd = [sys.executable, "-m", "radixmesh_tpu_torch.launch", "serve", "--model", "llama3-8b",
+           "--http-port", str(port), "--kv-slots", "8192", "--host-cache-slots", "8192",
+           "--kv-transfer-async", "--kv-tier-dir", tier_dir]
+    if kv_quant:
+        cmd += ["--kv-quant", kv_quant]
+    tag = kv_quant or "bf16"
+    log = open(OUT_DIR / f"serve_{tag}.log", "w")
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    t0 = time.monotonic()
+    try:
+        while True:
+            check(proc.poll() is None, f"serve {tag} exited with {proc.returncode} (chip_out/serve_{tag}.log)")
+            check(time.monotonic() - t0 < 240, f"serve {tag} did not answer /healthz in 240 s")
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=2) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                time.sleep(0.5)
+        ready_s = time.monotonic() - t0
+        ids = np.random.default_rng(4).integers(0, 128256, size=600).tolist()
+        first = _post(port, {"input_ids": ids, "max_tokens": 8})
+        again = _post(port, {"input_ids": ids, "max_tokens": 8})
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+        shutil.rmtree(tier_dir, ignore_errors=True)
+    check(len(first["output_ids"]) == 8 and again["cached_tokens"] > 0,
+          f"serve {tag}: /generate answered {first} / {again}")
+    check({"host_fill", "host_tier", "kv_transfer", "kv_tier"} <= set(stats)
+          and stats["host_tier"]["pinned"] and stats["kv_transfer"]["pinned"],
+          f"serve {tag}: /stats lacks the tiers or they are not pinned: {sorted(stats)}")
+    print(f"[serve-cli {tag}] launch.py serve with --host-cache-slots 8192 --kv-transfer-async "
+          f"--kv-tier-dir: /healthz after {ready_s:.1f}s; /generate cached {first['cached_tokens']} then "
+          f"{again['cached_tokens']} (same tokens, informational: {again['output_ids'] == first['output_ids']}); "
+          f"/stats host_fill {stats['host_fill']:.4f}, pinned arena and ring", flush=True)
+    return {"ready_s": ready_s, "cached": [first["cached_tokens"], again["cached_tokens"]],
+            "kv_transfer": stats["kv_transfer"], "host_tier": stats["host_tier"]}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the whole path, card vs CPU
 # ---------------------------------------------------------------------------
 
 
-def _whole_path_script(eng, cfg, schedules) -> list[list[int]]:
+def _whole_path_script(eng, cfg, schedules, tiers=False) -> list[list[int]]:
     """The whole path's requests. Legacy: one 150-token prompt. With the
     fast schedules: a random prompt alone (multi-step decode), a 2-token
     request alone (its one decode step a one-row wave: the compact leg), a
     prompt that arrives while another row decodes (mixed waves; its
     repeated 12-token pattern gives n-gram drafts, so speculative verify),
-    and a replay of the first (tree drafts)."""
-    from radixmesh_tpu_torch.engine.request import SamplingParams
-
+    and a replay of the first (tree drafts). With the tiers: three
+    150-token prompts one after another (the third evicts the first to the
+    host tier), then the first again (a staged host restore)."""
     rng = np.random.default_rng(1)
     first = rng.integers(0, cfg.vocab_size, size=150).tolist()
+    if tiers:
+        prompts = [first] + [rng.integers(0, cfg.vocab_size, size=150).tolist() for _ in range(2)]
+        out = [eng.generate([p])[0] for p in prompts + [first]]
+        return out + [[eng.stats.cached_tokens]]
     if not schedules:
         return eng.generate([first])
 
@@ -772,21 +1161,29 @@ def _whole_path_script(eng, cfg, schedules) -> list[list[int]]:
     return [r.generated for r in reqs]
 
 
-def whole_path_check(dev, kv_quant=None, schedules=None) -> dict:
+def whole_path_check(dev, kv_quant=None, schedules=None, tiers=False) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config("llama3-8b", n_layers=2, dtype=torch.float32)
     params = init_params(cfg, seed=1, device="cpu")
     kw = dict(num_slots=1024, page_size=16, max_batch=2, long_prefill_threshold=16,
               prefill_chunk=64, kv_quant=kv_quant, **(schedules or {}))
+    if tiers:
+        # A 23-page pool (the third prompt evicts the first), a host tier
+        # and the async plane.
+        kw.update(num_slots=384, host_cache_slots=4096, kv_transfer_async=True,
+                  kv_transfer_chunk_tokens=64)
     atol = 1e-3 if kv_quant is None else 1e-2
-    out, logits, pools = {}, {"cuda": [], "cpu": []}, {}
+    out, logits, pools, restored = {}, {"cuda": [], "cpu": []}, {}, {}
     for name, device in (("cuda", dev), ("cpu", "cpu")):
         eng = Engine(cfg, params, device=device, **kw)
         eng.on_first_logits = lambda req, row, name=name: logits[name].append(row.float().cpu())
         if name == "cuda":
             pa.reset_counters()
-        out[name] = _whole_path_script(eng, cfg, schedules)
+        out[name] = _whole_path_script(eng, cfg, schedules, tiers)
+        if tiers:
+            eng.close()
+            restored[name] = eng.kv_transfer.stats()["restored_tokens"]
         if name == "cuda":
             torch.cuda.synchronize()
             attr = "launches" if kv_quant is None else "launches_int8"
@@ -804,7 +1201,7 @@ def whole_path_check(dev, kv_quant=None, schedules=None) -> dict:
     delta = (pools["cuda"].float() - pools["cpu"].float()).abs()
     per_layer = [int(n) for n in (delta > 0).sum(dim=(0, 2, 3, 4)).tolist()]
     pool_max = delta.max().item()
-    tag = (kv_quant or "float32") + (" schedules" if schedules else "")
+    tag = (kv_quant or "float32") + (" schedules" if schedules else "") + (" tiers" if tiers else "")
     print(f"[whole-path {tag}] 2-layer f32 llama3-8b widths: first-token logits of "
           f"{len(logits['cuda'])} requests max|cuda-cpu|={diff:.3e} (atol {atol}); pool elements that "
           f"differ card vs CPU (scratch page excluded) per layer: {per_layer} of {delta[:, 0].numel()}, "
@@ -825,6 +1222,9 @@ def whole_path_check(dev, kv_quant=None, schedules=None) -> dict:
         for k in ("verify_launches", "mixed_launches", "multi_step_launches", "compact_launches",
                   "spec_accepted"):
             check(counts[k] > 0, f"{tag}: {k} is 0 on the card")
+    if tiers:
+        print(f"[whole-path {tag}] tokens restored by the plane: {restored}", flush=True)
+        check(restored["cuda"] == restored["cpu"] > 0, f"{tag}: no host restore, or card and CPU differ")
     return {"logits_max_abs_diff": diff, "atol": atol, "pool_elements_differing": per_layer,
             "pool_max_abs_diff": pool_max, "tokens": out["cuda"], "launches": launches,
             "engine_counts": counts}
@@ -869,24 +1269,35 @@ def main() -> int:
     print(f"[serve] llama3-8b weights built in {time.monotonic() - t:.1f}s", flush=True)
     serving = {tag: serving_phase(dev, model, quant) for tag, quant in (("bf16", None), ("int8", "int8"))}
     serving["bf16 schedules"] = serving_phase(dev, model, None, SCHEDULES, legacy=serving["bf16"])
-    del model
-    torch.cuda.empty_cache()
     print(f"[time] serving phases {time.monotonic() - t:.1f}s", flush=True)
     t = time.monotonic()
-    whole = {tag: whole_path_check(dev, quant, sched) for tag, quant, sched in
-             (("float32", None, None), ("int8", "int8", None), ("float32 schedules", None, SCHEDULES))}
+    tiers = {tag: tier_phase(dev, model, quant) for tag, quant in (("bf16", None), ("int8", "int8"))}
+    print(f"[time] tier phases {time.monotonic() - t:.1f}s", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    t = time.monotonic()
+    serve_cli = {tag: launcher_phase(quant) for tag, quant in (("bf16", None), ("int8", "int8"))}
+    print(f"[time] serve launcher phases {time.monotonic() - t:.1f}s", flush=True)
+    t = time.monotonic()
+    whole = {tag: whole_path_check(dev, quant, sched, tiered) for tag, quant, sched, tiered in
+             (("float32", None, None, False), ("int8", "int8", None, False),
+              ("float32 schedules", None, SCHEDULES, False), ("float32 tiers", None, None, True))}
     print(f"[time] whole-path checks {time.monotonic() - t:.1f}s", flush=True)
 
     # Launches of each kernel entry on each path that ran it (counts zeroed
     # just before each path and read just after); ``launches`` sums them.
     by_path = {
-        "paged_decode_fused": {f"serving {k}": v["launches"]["paged_decode_fused"]
-                               for k, v in serving.items() if "paged_decode_fused" in v["launches"]},
-        "paged_decode_fused[int8]": {"serving int8": serving["int8"]["launches"]["paged_decode_fused[int8]"]},
-        "paged_chunk_attention": {f"serving {k}": v["launches"]["paged_chunk_attention"]
-                                  for k, v in serving.items() if "paged_chunk_attention" in v["launches"]},
+        "paged_decode_fused": {**{f"serving {k}": v["launches"]["paged_decode_fused"]
+                                  for k, v in serving.items() if "paged_decode_fused" in v["launches"]},
+                               "tiers bf16": tiers["bf16"]["launches"]["paged_decode_fused"]},
+        "paged_decode_fused[int8]": {"serving int8": serving["int8"]["launches"]["paged_decode_fused[int8]"],
+                                     "tiers int8": tiers["int8"]["launches"]["paged_decode_fused[int8]"]},
+        "paged_chunk_attention": {**{f"serving {k}": v["launches"]["paged_chunk_attention"]
+                                     for k, v in serving.items() if "paged_chunk_attention" in v["launches"]},
+                                  "tiers bf16": tiers["bf16"]["launches"]["paged_chunk_attention"]},
         "paged_chunk_attention[int8]": {
-            "serving int8": serving["int8"]["launches"]["paged_chunk_attention[int8]"]},
+            "serving int8": serving["int8"]["launches"]["paged_chunk_attention[int8]"],
+            "tiers int8": tiers["int8"]["launches"]["paged_chunk_attention[int8]"]},
         "paged_chunk_attention[f32]": {f"whole path {k}": w["launches"]["chunk_cuda_core_body"]
                                        for k, w in whole.items()},
         "paged_attention_pool": {"pool path bf16": serving["bf16"]["pool_path"]["launches"]},
@@ -943,7 +1354,7 @@ def main() -> int:
         })
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build": {k: v["seconds"] for k, v in log.items()}, "sass": sass, "kernels": kernels,
-              "serving": serving, "whole_path": whole}
+              "serving": serving, "tiers": tiers, "serve_cli": serve_cli, "whole_path": whole}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -14,6 +14,9 @@ replica (the JAX package's ``cache/kv_pool.py``: ``SlotAllocator`` and
   them on eviction.
 - Writes update ``kv`` in place (index assignment), where the JAX package
   donates the pool through jitted scatters.
+- ``gather_raw``/``write_raw`` move the stored representation (int8 with
+  its scales) in the token-major ``[2, L, n, Hkv, D]`` format that the
+  host and disk tiers keep (``cache/host_cache.py``, ``cache/kv_tier.py``).
 """
 
 from __future__ import annotations
@@ -222,6 +225,43 @@ class PagedKVPool:
         else:
             kv = self.kv[:, :, :, idx]
         return kv.permute(0, 1, 3, 2, 4)
+
+    def gather_raw(self, slots) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """``(kv [2, L, n, H, D] in the POOL dtype, scales [2, L, n, H] |
+        None)`` on the pool's device: the exact stored representation, in
+        the token-major interchange format of the host and disk tiers (an
+        int8 pool ships its ints and scales, never a dequantized copy).
+        One indexing gather, enqueued on the current stream. The result is
+        a token-major VIEW of slot-major storage (``permute(2, 0, 1, 3, 4)``
+        of it is contiguous ``[n, 2, L, H, D]``): each token's K/V is one
+        contiguous block, so a run of tokens moves to or from the host
+        arena as one copy."""
+        idx = self._index(slots)
+        kv = self.kv.permute(3, 0, 1, 2, 4)[idx].permute(1, 2, 0, 3, 4)
+        if self.quant is None:
+            return kv, None
+        return kv, self.kv_scale.permute(3, 0, 1, 2)[idx].permute(1, 2, 0, 3)
+
+    def write_raw(self, slots, kv: torch.Tensor, scales: torch.Tensor | None = None) -> None:
+        """Store a token-major ``[2, L, n, H, D]`` block verbatim at
+        ``slots`` (inverse of :meth:`gather_raw`; ``scales`` ``[2, L, n,
+        H]`` for int8 pools). No cast and no quantization: ``kv`` must be
+        in the pool dtype, so a round trip is bit-exact. Unlike the JAX
+        package's ``write_raw`` (int8 pools only) it serves every pool
+        dtype, which the tiers' restores use. The JAX package pads the
+        token count to a power-of-two bucket for its jit cache; eager
+        PyTorch compiles nothing per shape, so the write is exactly ``n``
+        tokens. Any strides are taken (the tiers pass views)."""
+        if len(slots) == 0:
+            return
+        if kv.dtype != self.dtype:
+            raise ValueError(f"write_raw takes the pool dtype {self.dtype}, got {kv.dtype}")
+        if (scales is None) != (self.quant is None):
+            raise ValueError("write_raw takes scales exactly for quantized pools")
+        idx = self._index(slots)
+        self.kv[:, :, :, idx] = kv.to(self.kv.device).permute(0, 1, 3, 2, 4)
+        if scales is not None:
+            self.kv_scale[:, :, :, idx] = scales.to(self.kv.device).permute(0, 1, 3, 2)
 
     def page_table(self, slots: np.ndarray) -> np.ndarray:
         """Page ids covering a page-aligned run of slots."""

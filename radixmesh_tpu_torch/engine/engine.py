@@ -48,8 +48,26 @@ The fast schedules, each off by default:
   running streams; boost waves catch a deep backlog up, at most
   ``prefill_inline_max_defer`` in a row.
 
-Not ported yet, and refused rather than ignored: seeded replay, host/disk
-tiers and KV transfer, the cache mesh, pp/sp/tp, W8A16 weights, SLO
+The KV tiers, each off by default (``cache/host_cache.py``,
+``cache/kv_transfer.py``, ``cache/kv_tier.py``):
+
+- ``host_cache_slots > 0``: a host-RAM tier (pinned behind a CUDA pool).
+  Eviction writes device KV back to it, and a later hit restores it
+  instead of recomputing the prefix.
+- ``kv_transfer_async``: the async KV-movement plane. An admission whose
+  match extends into the host or disk tier parks in ``RESTORING`` while the
+  plane stages the pages on its copy stream and the engine keeps decoding;
+  write-backs leave the engine thread. Restores shorter than
+  ``kv_transfer_min_restore_tokens`` stay synchronous.
+- ``kv_tier_dir``: a durable disk tier below the host tier (it needs one,
+  and arms the plane). Cold host copies spill to checksummed extent files
+  past ``kv_tier_watermark``; at construction the directory is scanned and
+  every verified prefix is grafted back (cold-cell resurrection).
+  ``drain_flush_hot`` and ``drain_flush_disk`` push the working set down
+  the tiers before a node leaves.
+
+Not ported yet, and refused rather than ignored: seeded replay, the cache
+mesh (and with it routed prefetch hints), pp/sp/tp, W8A16 weights, SLO
 control and the observability planes other than the speculation ledger.
 """
 
@@ -62,7 +80,10 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
+from radixmesh_tpu_torch.cache.host_cache import HierarchicalCache, HostKVStore
 from radixmesh_tpu_torch.cache.kv_pool import PagedKVPool
+from radixmesh_tpu_torch.cache.kv_tier import DiskKVTier
+from radixmesh_tpu_torch.cache.kv_transfer import KVTransferPlane
 from radixmesh_tpu_torch.cache.radix_tree import RadixTree
 from radixmesh_tpu_torch.engine.request import Request, RequestState, SamplingParams
 from radixmesh_tpu_torch.engine.waves import WaveScheduler
@@ -72,6 +93,7 @@ from radixmesh_tpu_torch.obs.spec_ledger import SpecLedger
 from radixmesh_tpu_torch.ops.attention import default_use_kernel, last_dispatch, select_paged
 from radixmesh_tpu_torch.ops.sampling import sample_tokens, spec_verify_sample
 from radixmesh_tpu_torch.utils.device import resolve_device
+from radixmesh_tpu_torch.utils.logging import get_logger
 
 __all__ = ["Engine", "EngineStats"]
 
@@ -167,15 +189,32 @@ class Engine:
         spec_adaptive: bool = False,
         device: str | torch.device | None = None,
         kv_quant: str | None = None,
+        host_cache_slots: int = 0,
+        kv_transfer_async: bool = False,
+        kv_transfer_chunk_tokens: int = 512,
+        kv_transfer_min_restore_tokens: int = 0,
+        kv_tier_dir: str | None = None,
+        kv_tier_capacity_bytes: int = 1 << 30,
+        kv_tier_watermark: float = 0.7,
+        kv_tier_min_heat: float = 0.0,
+        kv_tier_destage_budget: int = 16,
+        kv_tier_destage_interval_s: float = 0.25,
     ):
         """``params`` is a param tree (``init_params`` / ``params_from_jax``)
         or a built :class:`Llama`. ``device`` defaults to CUDA and raises
         where torch has none; pass ``"cpu"`` for the plain CPU path.
         ``kv_quant="int8"`` stores the KV pool as int8 with per-token
-        scales. The schedule arguments take the JAX engine's defaults,
-        which run the legacy schedule (module docstring)."""
+        scales. The schedule and tier arguments take the JAX engine's
+        defaults, which run the legacy schedule with one tier (module
+        docstring)."""
         if page_size & (page_size - 1):
             raise ValueError("page_size must be a power of two")
+        if kv_tier_dir is not None and host_cache_slots <= 0:
+            raise ValueError(
+                "kv_tier_dir requires a host tier (host_cache_slots > 0): the disk tier "
+                "demotes from and restores through host RAM"
+            )
+        self.log = get_logger("engine")
         self.device = resolve_device(device)
         self.cfg = cfg
         model = params if isinstance(params, Llama) else Llama(cfg, params)
@@ -220,7 +259,62 @@ class Engine:
             device=self.device,
             quant=kv_quant,
         )
-        self.tree = RadixTree(page_size=page_size, on_free=self.pool.free)
+        self._kv_tier = None
+        if host_cache_slots > 0:
+            # Hierarchical cache: evicted prefixes fall back to a host-RAM
+            # arena (pinned behind a CUDA pool) and are restored on a hit.
+            host_store = HostKVStore(
+                num_slots=host_cache_slots,
+                num_layers=cfg.n_layers,
+                num_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.head_dim,
+                page_size=page_size,
+                dtype=self.pool.dtype,
+                quant=self.pool.quant,
+                pin_memory=self.device.type == "cuda",
+            )
+            if kv_tier_dir is not None:
+                self._kv_tier = DiskKVTier(
+                    kv_tier_dir, capacity_bytes=kv_tier_capacity_bytes, page_size=page_size
+                )
+                # Disk I/O runs only on the plane's worker: a tier without
+                # the plane would be write-only, so arm it.
+                if not kv_transfer_async:
+                    kv_transfer_async = True
+                    self.log.info(
+                        "kv_tier_dir set: arming the async KV-movement plane (disk restores "
+                        "and spills are staged only)"
+                    )
+            self.tree: RadixTree = HierarchicalCache(self.pool, host_store, disk_tier=self._kv_tier)
+        else:
+            self.tree = RadixTree(page_size=page_size, on_free=self.pool.free)
+        self._kv_tier_watermark = float(kv_tier_watermark)
+        self._kv_tier_min_heat = float(kv_tier_min_heat)
+        self._kv_tier_destage_budget = int(kv_tier_destage_budget)
+        # The destage walk is O(tree nodes) of engine-thread Python, so it
+        # runs at most this often (0 = every pump).
+        self._kv_tier_destage_interval_s = float(kv_tier_destage_interval_s)
+        self._kv_tier_last_destage = 0.0
+        # Async KV-movement plane: staged restores (requests park in
+        # RESTORING), write-backs off the engine thread, prefetch hints.
+        self.kv_transfer = None
+        self._kv_min_restore = max(0, kv_transfer_min_restore_tokens)
+        self._restoring: list[tuple[Request, object]] = []
+        # Set while the node drains: prefetch hints stop opening restores.
+        self.draining = False
+        if kv_transfer_async:
+            self.kv_transfer = KVTransferPlane(chunk_tokens=kv_transfer_chunk_tokens)
+            # The pinned staging ring and the copy stream, allocated now
+            # rather than inside the first restore.
+            self.kv_transfer.bind(self.pool)
+            if isinstance(self.tree, HierarchicalCache):
+                self.tree.plane = self.kv_transfer
+        # Cold-cell resurrection: graft the directory's verified extents
+        # back as disk-resident nodes (boot-time file I/O, a cold path).
+        self.resurrected = {"extents": 0, "grafted_nodes": 0, "grafted_tokens": 0,
+                            "orphaned": 0, "keys": []}
+        if self._kv_tier is not None:
+            self.resurrected = self.tree.resurrect_from_disk()
         # Reserved scratch page: inactive decode rows write/read here.
         scratch = self.pool.alloc(page_size)
         assert scratch is not None
@@ -323,6 +417,17 @@ class Engine:
                 self._release(req)
                 self._pressure = False  # freed a row: resume admission
                 return True
+        for i, (req, ticket) in enumerate(self._restoring):
+            if req.rid == rid:
+                # Mid-restore: unlink the request; the ticket runs to
+                # completion (the landed KV is a valid cache entry) and the
+                # pump auto-releases its eviction shields.
+                req.cancelled = True
+                req.state = RequestState.FINISHED
+                self.stats.finished += 1
+                ticket.auto_release = True
+                self._restoring.pop(i)
+                return True
         for i, job in enumerate(self._inline):
             if job.req.rid == rid:
                 # Mid-inline prefill: nothing was published, so release the
@@ -343,14 +448,83 @@ class Engine:
         return False
 
     def cancel_all(self) -> int:
-        """Abort every queued, running and inline-prefilling request;
-        returns the count."""
+        """Abort every queued, running, parked and inline-prefilling
+        request; returns the count."""
         rids = (
             [r.rid for r in self.waiting]
             + [r.rid for r in self._rows if r is not None]
+            + [r.rid for r, _ in self._restoring]
             + [j.req.rid for j in self._inline]
         )
         return sum(1 for rid in rids if self.cancel(rid))
+
+    def close(self) -> None:
+        """Stop the KV-transfer plane's worker (its staging buffers go with
+        the plane). The engine is not used afterwards."""
+        if self.kv_transfer is not None:
+            self.kv_transfer.close()
+
+    # ------------------------------------------------------------------
+    # graceful drain
+    # ------------------------------------------------------------------
+
+    def drain_requeue_waiting(self) -> int:
+        """Cancel and flag for requeue every QUEUED, parked (RESTORING) and
+        mid-inline-prefill request: none has produced a token, so bouncing
+        it to another node loses no work. RUNNING rows are left to finish.
+        Restore tickets flip to auto-release (the cancel path)."""
+        victims = list(self.waiting) + [r for r, _ in self._restoring] + [j.req for j in self._inline]
+        n = 0
+        for req in victims:
+            req.shed = True
+            req.shed_reason = "drain_requeue"
+            if self.cancel(req.rid):
+                n += 1
+        return n
+
+    def drain_flush_hot(self) -> int:
+        """Write every unlocked device-resident prefix back to the host tier
+        (the fused write-back lane does the moving), so a warm rejoin finds
+        the working set. Returns tokens written back; 0 without a host
+        tier. Run after in-flight decodes finish: eviction skips locked
+        entries."""
+        tree = self.tree
+        if not isinstance(tree, HierarchicalCache):
+            return 0
+        total = 0
+        while tree.evictable_size_ > 0:
+            freed = tree.evict(tree.evictable_size_)
+            if freed <= 0:
+                break
+            total += freed
+        return total
+
+    def drain_flush_disk(self, timeout_s: float = 30.0) -> tuple[int, bool]:
+        """Force-destage every host-resident prefix to extents and wait for
+        the commits, so the working set survives a whole-cell power loss.
+        Returns ``(spills submitted, all committed)``; ``(0, True)`` without
+        a disk tier. Run after :meth:`drain_flush_hot`."""
+        plane = self.kv_transfer
+        if self._kv_tier is None or plane is None:
+            return 0, True
+        submitted = self.tree.destage_cold(force=True, budget=1 << 30)
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            plane.pump(self.tree)  # spill commits land on this thread
+            if plane.spills_idle():
+                return submitted, True
+            plane.wait_progress(0.02)
+        plane.pump(self.tree)
+        return submitted, plane.spills_idle()
+
+    def telemetry(self) -> dict:
+        """The tier signals of the JAX engine's ``telemetry()``: host-arena
+        fill and the disk tier's ``stats()`` (None without one)."""
+        host = getattr(self.tree, "host", None)
+        return {
+            "host_fill": 0.0 if host is None else 1.0 - host.free_slots / host.num_slots,
+            "kv_tier": None if self._kv_tier is None else self._kv_tier.stats(),
+        }
 
     def step(self) -> None:
         """One scheduler iteration, one compute wave. Legacy schedule
@@ -365,12 +539,22 @@ class Engine:
                 self._wave_step()
             elif any(r is not None for r in self._rows):
                 self._decode_once()
+            elif not self.waiting and (
+                self._restoring
+                or (self.kv_transfer is not None and self.kv_transfer.has_engine_work())
+            ):
+                # Nothing to decode or admit: the only live work is an
+                # in-flight restore. Yield to the plane's worker instead of
+                # spinning against it.
+                self.kv_transfer.wait_progress()
 
     def has_work(self) -> bool:
         return (
             bool(self.waiting)
             or bool(self._inline)
+            or bool(self._restoring)
             or any(r is not None for r in self._rows)
+            or (self.kv_transfer is not None and self.kv_transfer.has_engine_work())
         )
 
     def _wave_step(self) -> None:
@@ -452,7 +636,10 @@ class Engine:
     def _admit(self) -> None:
         """Admit waiting requests into free rows. Concurrent arrivals
         prefill as one batched chunked-paged group + one batched sample; a
-        lone short request keeps the dense path."""
+        lone short request keeps the dense path. A match that extends into
+        the host or disk tier parks the request for a staged restore (with
+        the plane) or restores it synchronously."""
+        self._pump_kv_transfer()
         if self._pressure and any(r is not None for r in self._rows):
             return
         self._pressure = False  # batch drained: safe to admit again
@@ -469,7 +656,31 @@ class Engine:
                 if row < 0:
                     break
                 req = self.waiting[idx]
-                match = self.tree.match_prefix(req.prompt)
+                if isinstance(self.tree, HierarchicalCache):
+                    match = None
+                    if self.kv_transfer is not None:
+                        match = self.tree.match_prefix(req.prompt)
+                        if match.host_nodes or match.disk_nodes:
+                            # Disk extensions always park (extent reads are
+                            # staged only); host-only ones past the
+                            # min-restore threshold.
+                            if match.disk_nodes or (
+                                match.host_length + match.disk_length >= self._kv_min_restore
+                            ):
+                                if self._park_for_restore(req, match):
+                                    self.waiting.pop(idx)
+                                    continue  # parked; don't advance idx
+                                # begin_restore may have evicted for room:
+                                # the walked match can be stale, re-walk.
+                                match = None
+                            else:
+                                # Small restore, tree untouched since the
+                                # walk: the synchronous path reuses it.
+                                match = self.tree.match_and_load(req.prompt, match=match)
+                    if match is None:
+                        match = self.tree.match_and_load(req.prompt)
+                else:
+                    match = self.tree.match_prefix(req.prompt)
                 if self._defer_for_prefix_wave(req, match.length, group):
                     # A groupmate is about to publish this prefix: next
                     # wave it is a cache hit instead of a recompute.
@@ -526,6 +737,85 @@ class Engine:
                 else:
                     pending = self._prefill_group(sub)
                 self._finalize_first_tokens(pending)
+
+    # ------------------------------------------------------------------
+    # async KV-movement plane seams (cache/kv_transfer.py)
+    # ------------------------------------------------------------------
+
+    def _pump_kv_transfer(self) -> None:
+        """The plane's engine-thread service point, at the top of every
+        admission pass: apply staged restore chunks whose copies have
+        landed, convert prefetch hints, run the write-behind destage, and
+        re-queue parked requests whose pages are in."""
+        plane = self.kv_transfer
+        if plane is None:
+            return
+        plane.pump(self.tree)
+        for key in plane.take_hints():
+            self._apply_prefetch_hint(key)
+        if self._kv_tier is not None and not self.draining:
+            # Past the arena watermark, cold host prefixes spill to disk on
+            # the worker, so later arena pressure demotes instead of
+            # dropping them. Submission only, cadence-throttled.
+            now = time.monotonic()
+            if now - self._kv_tier_last_destage >= self._kv_tier_destage_interval_s:
+                self._kv_tier_last_destage = now
+                self.tree.destage_cold(
+                    watermark=self._kv_tier_watermark,
+                    min_heat=self._kv_tier_min_heat,
+                    budget=self._kv_tier_destage_budget,
+                )
+        if not self._restoring:
+            return
+        still: list[tuple[Request, object]] = []
+        for req, ticket in self._restoring:
+            if not ticket.done:
+                still.append((req, ticket))
+                continue
+            plane.finish_ticket(self.tree, ticket)
+            req.state = RequestState.QUEUED
+            self.waiting.insert(0, req)
+        self._restoring = still
+
+    def _restore_alloc(self, n_tokens: int) -> np.ndarray | None:
+        """Pool slots for a staged restore, evicting (plain drop, no
+        write-back: ``evict_no_writeback``) under pressure."""
+        dev = self.pool.alloc(n_tokens)
+        if dev is None:
+            self.stats.evicted_tokens += self.tree.evict_no_writeback(
+                n_tokens - self.pool.free_slots
+            )
+            dev = self.pool.alloc(n_tokens)
+        return dev
+
+    def _park_for_restore(self, req: Request, match) -> bool:
+        """Move ``req`` into RESTORING behind a staged-restore ticket. False
+        when nothing could be restored (the caller takes the synchronous
+        path, which degrades to a shorter hit)."""
+        ticket = self.kv_transfer.begin_restore(self.tree, match, alloc=self._restore_alloc)
+        if ticket is None:
+            return False
+        req.state = RequestState.RESTORING
+        self._restoring.append((req, ticket))
+        return True
+
+    def _apply_prefetch_hint(self, key: np.ndarray) -> None:
+        """Start a no-request restore of a prefix hinted ahead of its
+        request. Hints are weaker than admissions: a read-only match (no
+        node splits), allocation from the free list only (never evicts),
+        joined with any in-flight restore of the same nodes."""
+        plane = self.kv_transfer
+        if not isinstance(self.tree, HierarchicalCache):
+            return
+        if self.draining:
+            plane.count_hint("draining")
+            return
+        match = self.tree.match_prefix(key, split_partial=False)
+        if not match.host_nodes and not match.disk_nodes:
+            plane.count_hint("noop")
+            return
+        ticket = plane.begin_restore(self.tree, match, alloc=self.pool.alloc, auto_release=True)
+        plane.count_hint("started" if ticket is not None else "noop")
 
     def _defer_for_prefix_wave(
         self, req: Request, cached: int, group: list[tuple]
@@ -996,8 +1286,8 @@ class Engine:
             req.tenant, shape_bucket(len(req.prompt)), self.spec_decode_tokens
         )
         hist = self._sequence_key(req, req.kv_len + 1)
-        # Nothing in the port bumps the epoch yet (the KV-transfer plane
-        # does so in the JAX package); the re-arm is kept for it.
+        # The KV-transfer plane bumps the epoch when a restore installs
+        # continuation KV this request's earlier peek did not see.
         epoch = getattr(self.tree, "draft_ready_epoch", 0)
         promoted = epoch > req.draft_epoch
         if promoted:

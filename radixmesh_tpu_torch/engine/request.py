@@ -2,7 +2,8 @@
 
 This package's own copy of the JAX package's ``engine/request.py``, cut to
 the fields the ported schedules use (legacy, mixed waves, multi-step and
-speculative decode): the port imports nothing of the JAX package. ``SamplingParams`` keeps its ``seed`` field so a seeded request can
+speculative decode) and the staged KV restore (``RESTORING``): the port
+imports nothing of the JAX package. ``SamplingParams`` keeps its ``seed`` field so a seeded request can
 be refused loudly (seeded replay is not ported yet) instead of silently
 sampling from the engine stream.
 """
@@ -35,6 +36,10 @@ class SamplingParams:
 
 class RequestState(enum.Enum):
     QUEUED = "queued"
+    # Parked while the async KV plane (cache/kv_transfer.py) restores the
+    # request's host- or disk-tier prefix into the pool; the engine keeps
+    # decoding and re-queues the request when its pages land.
+    RESTORING = "restoring"
     RUNNING = "running"
     FINISHED = "finished"
 
@@ -63,6 +68,10 @@ class Request:
     )
     lock_node: object = None  # TreeNode protected while RUNNING
     cancelled: bool = False  # aborted by Engine.cancel (output is partial)
+    # Dropped by a drain for the client to resubmit elsewhere
+    # (``Engine.drain_requeue_waiting``: reason "drain_requeue").
+    shed: bool = False
+    shed_reason: str = ""
     # Request-class key of the speculation ledger (the JAX package's SLO
     # tenant). The HTTP edge does not accept it yet.
     tenant: str = "default"

@@ -4,6 +4,8 @@
     python -m radixmesh_tpu_torch.launch serve --model llama3-8b --kv-quant int8
     python -m radixmesh_tpu_torch.launch serve --spec-decode-tokens 4 \
         --prefill-inline-budget 64 --decode-steps-per-launch 4 --paged-min-batch 2
+    python -m radixmesh_tpu_torch.launch serve --host-cache-slots 32768 \
+        --kv-transfer-async --kv-tier-dir /var/tmp/kv-tier
 
 ``serve`` builds one :class:`~radixmesh_tpu_torch.engine.engine.Engine`
 (random weights from ``--seed``: no checkpoint loading yet) behind a
@@ -14,8 +16,12 @@ PyTorch path. ``--kv-quant int8`` stores the KV pool as int8 with per-token
 scales. The schedule flags (``--decode-steps-per-launch``,
 ``--prefill-inline-budget``, ``--prefill-inline-max-defer``,
 ``--paged-min-batch``, ``--spec-decode-tokens``, ``--spec-adaptive``) take
-the JAX launcher's defaults, which run the legacy schedule. Flags of the
-JAX launcher whose features are not ported yet are refused by name.
+the JAX launcher's defaults, which run the legacy schedule. The tier flags
+(``--host-cache-slots``, ``--kv-transfer-async``, ``--kv-transfer-chunk``,
+``--kv-transfer-min-restore``, ``--kv-tier-dir``, ``--kv-tier-capacity-gb``)
+add a pinned host-RAM tier, the async KV-movement plane and a durable disk
+tier, as the JAX launcher does. Flags of the JAX launcher whose features are
+not ported yet are refused by name.
 """
 
 from __future__ import annotations
@@ -29,9 +35,7 @@ __all__ = ["main", "parse_args"]
 
 # ``serve`` flags of the JAX launcher whose features are not ported yet.
 _NOT_PORTED_FLAGS = (
-    "--weights", "--tokenizer", "--host-cache-slots", "--weight-quant",
-    "--kv-transfer-async", "--kv-transfer-chunk", "--kv-transfer-min-restore",
-    "--kv-tier-dir", "--kv-tier-capacity-gb", "--stream-publish",
+    "--weights", "--tokenizer", "--weight-quant", "--stream-publish",
     "--step-accounting", "--peak-tflops", "--slo", "--slo-ttft-ms", "--slo-tenant",
     "--profile-dir", "--trace-capacity", "--trace-sample", "--trace-dir",
     "--token-timeline-capacity", "--token-stall-threshold-ms",
@@ -77,6 +81,16 @@ def _run_serve(args: argparse.Namespace) -> int:
         spec_adaptive=args.spec_adaptive,
         device=device,
         kv_quant=args.kv_quant,
+        host_cache_slots=args.host_cache_slots,
+        kv_transfer_async=args.kv_transfer_async,
+        kv_transfer_chunk_tokens=args.kv_transfer_chunk or 512,
+        kv_transfer_min_restore_tokens=args.kv_transfer_min_restore or 0,
+        kv_tier_dir=args.kv_tier_dir,
+        kv_tier_capacity_bytes=(
+            int(args.kv_tier_capacity_gb * (1 << 30))
+            if args.kv_tier_capacity_gb is not None
+            else 1 << 30
+        ),
     )
     frontend = ServingFrontend(engine, host=args.host, port=args.http_port)
     print(f"serving {args.model} on http://{args.host}:{frontend.port}", flush=True)
@@ -124,6 +138,22 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     serve.add_argument("--spec-adaptive", action="store_true",
                        help="adapt the draft width per request class to its acceptance, "
                        "within [1, --spec-decode-tokens]")
+    serve.add_argument("--host-cache-slots", type=int, default=0,
+                       help="host-RAM KV tier of N token slots (pinned on the card): evicted "
+                       "prefixes are written back and restored on a hit")
+    serve.add_argument("--kv-transfer-async", action="store_true",
+                       help="stage host-tier restores and write-backs off the scheduling thread "
+                       "(requests with host-tier prefixes park in RESTORING while decode steps)")
+    serve.add_argument("--kv-transfer-chunk", type=int, default=None, metavar="TOKENS",
+                       help="restore staging chunk in tokens (default 512)")
+    serve.add_argument("--kv-transfer-min-restore", type=int, default=None, metavar="TOKENS",
+                       help="restores shorter than this stay synchronous (default 0: always staged)")
+    serve.add_argument("--kv-tier-dir", default=None, metavar="DIR",
+                       help="durable KV spill tier: checksummed fsynced extent files below the "
+                       "host tier (needs --host-cache-slots; arms the async plane); scanned and "
+                       "resurrected at boot")
+    serve.add_argument("--kv-tier-capacity-gb", type=float, default=None, metavar="GB",
+                       help="extent-store disk budget (default 1 GiB); oldest extents drop past it")
     serve.set_defaults(fn=_run_serve)
     argv = sys.argv[1:] if argv is None else argv
     for arg in argv:

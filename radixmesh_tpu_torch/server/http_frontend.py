@@ -8,7 +8,10 @@
 - ``POST /cancel`` ``{"rid"}``; ``GET /healthz``; ``GET /stats`` (the
   engine's counters; ``spec``, speculative acceptance per prompt-length
   bucket; ``waves``, the wave mix under mixed waves; ``decode_dispatch``,
-  the last paged-vs-dense decision — the JAX frontend's key names).
+  the last paged-vs-dense decision; with KV tiers, ``host_fill``,
+  ``host_tier`` (arena occupancy, write-back and restore counters),
+  ``kv_transfer`` (the plane's ``stats()`` and its parked requests) and
+  ``kv_tier`` — the JAX frontend's key names).
 
 Fields of the JAX API whose features are not ported yet — ``seed``
 (seeded replay), ``stream`` (SSE), ``resume_tokens``, ``trace_id``,
@@ -192,6 +195,16 @@ def _stats(engine: Engine) -> dict:
         out["waves"] = {**engine.waves.snapshot(), "inline_backlog": len(engine._inline)}
     if engine._last_dispatch is not None:
         out["decode_dispatch"] = engine._last_dispatch
+    tel = engine.telemetry()
+    if hasattr(engine.tree, "host"):
+        out["host_fill"] = tel["host_fill"]
+        out["host_tier"] = engine.tree.stats()
+    if engine.kv_transfer is not None:
+        out["kv_transfer"] = {
+            **engine.kv_transfer.stats(), "restoring_requests": len(engine._restoring),
+        }
+    if tel["kv_tier"] is not None:
+        out["kv_tier"] = tel["kv_tier"]
     return out
 
 
@@ -293,3 +306,4 @@ class ServingFrontend:
         self._server.shutdown()
         self._server.server_close()
         self.runner.close(drain_s=drain_s)
+        self.runner.engine.close()

@@ -3,7 +3,9 @@ what ``Engine.generate`` answers on the same weights, ``/healthz`` and
 ``/stats`` serve, and fields of features that are not ported yet (a
 ``seed``, ``stream``) are refused with a 400 instead of being ignored. A
 frontend over an engine with speculative decode and mixed waves answers
-the JAX engine's greedy tokens and reports both in ``/stats``."""
+the JAX engine's greedy tokens and reports both in ``/stats``. A frontend
+over an engine with the three KV tiers serves a prefix evicted under pool
+pressure as a host hit and reports the tiers in ``/stats``."""
 
 import json
 import time
@@ -160,3 +162,35 @@ def test_submission_joins_a_busy_engine():
         assert len(long.output_tokens) == 400
     finally:
         runner.close()
+
+
+def test_tiered_engine_reports_a_host_hit(tmp_path):
+    """Pool pressure evicts the first prompt to the host tier;
+    its repeat parks for a staged restore and answers the same tokens with
+    ``cached_tokens`` > 0; ``/stats`` carries ``host_fill``, ``host_tier``,
+    ``kv_transfer`` and ``kv_tier`` (the JAX key names)."""
+    cfg = ModelConfig.tiny().replace(dtype=torch.float32)
+    kw = dict(ENGINE_KW, num_slots=160, max_batch=2, host_cache_slots=1024,
+              kv_transfer_async=True, kv_transfer_chunk_tokens=16, kv_tier_dir=str(tmp_path))
+    fe = ServingFrontend(Engine(cfg, init_params(cfg, seed=3, device="cpu"), **kw), port=0)
+    try:
+        rng = np.random.default_rng(2)
+        a, b, c = (rng.integers(0, cfg.vocab_size, size=60).tolist() for _ in range(3))
+        replies = []
+        for prompt in (a, b, c, a):
+            code, body = _post(fe.port, "/generate", {"input_ids": prompt, "max_tokens": 8})
+            assert code == 200, body
+            replies.append(body)
+        assert replies[0]["cached_tokens"] == 0
+        assert replies[3]["cached_tokens"] > 0, "the repeat should hit through the host tier"
+        assert replies[3]["output_ids"] == replies[0]["output_ids"]
+        code, stats = _get(fe.port, "/stats")
+        assert code == 200
+        assert 0.0 < stats["host_fill"] <= 1.0
+        assert stats["host_tier"]["backup_tokens"] > 0
+        assert stats["host_tier"]["restore_tokens"] >= replies[3]["cached_tokens"]
+        assert stats["kv_transfer"]["restored_tokens"] >= replies[3]["cached_tokens"]
+        assert stats["kv_transfer"]["restoring_requests"] == 0
+        assert stats["kv_tier"]["dir"] == str(tmp_path)
+    finally:
+        fe.close(drain_s=0.0)

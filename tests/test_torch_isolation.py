@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``radixmesh_tpu_torch``
-and everything ``chip_smoke.py`` imports pulls in neither ``jax`` nor the
-JAX package; entry points default to CUDA and raise without it; the
+and everything ``chip_smoke.py`` imports pulls in neither ``jax``, the JAX
+package nor ``ml_dtypes`` (absent on the card's machine: the disk tier
+encodes bf16 from torch's own bit patterns); entry points default to CUDA and raise without it; the
 launcher refuses flags of features that are not ported yet and parses
 those that are."""
 
@@ -22,7 +23,7 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke  # noqa: F401  (module import only; main() is not run)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "radixmesh_tpu" or m.startswith("radixmesh_tpu."))
+             or m == "radixmesh_tpu" or m.startswith("radixmesh_tpu.") or m == "ml_dtypes")
 print(len(mods), bad, " ".join(mods))
 assert not bad, bad
 """
@@ -38,7 +39,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert n_mods >= 20, r.stdout
     walked = set(r.stdout.split())
     assert {"radixmesh_tpu_torch.engine.waves", "radixmesh_tpu_torch.obs.spec_ledger",
-            "radixmesh_tpu_torch.obs.attribution"} <= walked, r.stdout
+            "radixmesh_tpu_torch.obs.attribution", "radixmesh_tpu_torch.cache.host_cache",
+            "radixmesh_tpu_torch.cache.kv_transfer", "radixmesh_tpu_torch.cache.kv_tier"} <= walked, r.stdout
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -58,7 +60,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert len(out[0]) == 16
 
 
-@pytest.mark.parametrize("flag", ["--weight-quant", "--host-cache-slots", "--slo"])
+@pytest.mark.parametrize("flag", ["--weight-quant", "--stream-publish", "--slo"])
 def test_launcher_refuses_unported_flags(flag, capsys):
     from radixmesh_tpu_torch.launch import main
 
@@ -89,3 +91,23 @@ def test_launcher_parses_the_schedule_flags():
     d = parse_args(["serve"])
     assert (d.decode_steps_per_launch, d.prefill_inline_budget, d.prefill_inline_max_defer,
             d.paged_min_batch, d.spec_decode_tokens, d.spec_adaptive) == (1, 0, 2, 0, 0, False)
+
+
+def test_launcher_parses_the_tier_flags():
+    from radixmesh_tpu_torch.launch import _NOT_PORTED_FLAGS, parse_args
+
+    tier_flags = ("--host-cache-slots", "--kv-transfer-async", "--kv-transfer-chunk",
+                  "--kv-transfer-min-restore", "--kv-tier-dir", "--kv-tier-capacity-gb")
+    assert not set(tier_flags) & set(_NOT_PORTED_FLAGS)
+    args = parse_args([
+        "serve", "--device", "cpu", "--host-cache-slots", "4096", "--kv-transfer-async",
+        "--kv-transfer-chunk", "64", "--kv-transfer-min-restore", "32", "--kv-tier-dir", "/d",
+        "--kv-tier-capacity-gb", "2.5",
+    ])
+    assert (args.host_cache_slots, args.kv_transfer_async, args.kv_transfer_chunk,
+            args.kv_transfer_min_restore, args.kv_tier_dir, args.kv_tier_capacity_gb) == (
+        4096, True, 64, 32, "/d", 2.5)
+    d = parse_args(["serve"])
+    assert (d.host_cache_slots, d.kv_transfer_async, d.kv_transfer_chunk,
+            d.kv_transfer_min_restore, d.kv_tier_dir, d.kv_tier_capacity_gb) == (
+        0, False, None, None, None, None)
