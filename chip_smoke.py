@@ -91,18 +91,45 @@ Phases (any failure raises and exits non-zero):
    kernels' launches are counted, and no plain attention version may run.
    The float32 whole path (phase 5) gains a run with a host tier and the
    async plane, card vs CPU.
+7. GQA groups that are not powers of two: every kernel at G 3 (Hq 24 over
+   Hkv 8, llama3.2-3b) and G 7 (Hq 28 over Hkv 4, Qwen2-7B) against its
+   plain version with phase 2's tolerances, row check and planted faults:
+   decode and pool at B=8 ragged, the tensor-core chunk body at C = 512,
+   verify C = 5 and mixed C = 16 (bf16 and int8 pools), the CUDA-core body
+   at G 7; the chunk body at G 4 and G 8 over 4 kv heads is timed beside
+   G 7 per query row (at G 3 and 7 a CTA's 128 rows are not all live, and
+   every tile takes the masked path).
+8. Qwen2-7B at full width and depth (28 layers, random bf16 weights with
+   planted QKV biases) served over HTTP as in phase 3 with a bf16 pool,
+   then the pool kernel over its pages: the decode and chunk kernels run at
+   G 7 and no plain attention version.
+9. An HF checkpoint: Qwen2-7B at full width and 2 layers written by the
+   port's ``save_hf_state_dict`` in 256 MiB shards with an index, read
+   back by ``load_hf_checkpoint``: params bit-equal, the same greedy tokens.
+10. ``launch.py serve --model llama3.2-3b --weights DIR --tokenizer byte``
+   over a full llama3.2-3b checkpoint the port writes: a ``text`` request
+   answered with ``text``, its repeat a prefix hit, and ``/stats`` showing
+   the decode and chunk kernels launched (G 3) and no plain call.
+11. A 2-layer float32 Qwen2-7B (planted biases) through the ``Engine`` on
+   the card and on the CPU, as phase 5: the same greedy tokens, the decode
+   kernel and the CUDA-core chunk body at G 7.
+Checkpoints are written under ``chip_out/`` and removed.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches per path in
 ``launches_by_path``, their sum in ``launches``, the fast schedules'
-shapes in ``other_shapes``), the card line, and last
+shapes in ``other_shapes``; the entries named ``... G=7`` and ``... G=3``
+are the kernels at those groups, launched by phases 8, 10 and 11), the
+card line, and last
 ``{"ok": true, "device": {...}}``. Details go to ``chip_out/``.
 Exits 2 without printing a result where torch has no CUDA device.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
+import os
 import pathlib
 import shutil
 import subprocess
@@ -120,6 +147,8 @@ from radixmesh_tpu_torch.cache.kv_transfer import kv_token_bytes
 from radixmesh_tpu_torch.engine.engine import Engine
 from radixmesh_tpu_torch.engine.request import RequestState, SamplingParams
 from radixmesh_tpu_torch.models import get_config
+from radixmesh_tpu_torch.models.convert import hf_state_dict
+from radixmesh_tpu_torch.models.hf_io import load_hf_checkpoint, save_hf_state_dict
 from radixmesh_tpu_torch.models.llama import Llama, init_params
 from radixmesh_tpu_torch.ops import _build
 from radixmesh_tpu_torch.ops import paged_attention as pa
@@ -173,7 +202,7 @@ def _dtype_name(dtype, quant) -> str:
 # ---------------------------------------------------------------------------
 
 
-def _pool_and_tables(rng, row_tokens, maxp, dtype, dev, quant=False):
+def _pool_and_tables(rng, row_tokens, maxp, dtype, dev, quant=False, hkv=HKV):
     """A random 2-layer pool with disjoint, permuted pages per row. Returns
     (kv_pages, kv_scales or None, page_table, scratch_page, nan_page);
     page-table pads point at the NaN page, and every slot of a row's last
@@ -183,7 +212,7 @@ def _pool_and_tables(rng, row_tokens, maxp, dtype, dev, quant=False):
     P = sum(need) + 2
     perm = rng.permutation(P)
     scratch_page, nan_page = int(perm[0]), int(perm[1])
-    kv = torch.randn(2, LAYERS, HKV, P, PAGE, D, generator=torch.Generator().manual_seed(int(rng.integers(1 << 30))))
+    kv = torch.randn(2, LAYERS, hkv, P, PAGE, D, generator=torch.Generator().manual_seed(int(rng.integers(1 << 30))))
     scales = None
     if quant:
         kv, scales = quantize_kv(kv)
@@ -232,13 +261,15 @@ def _equal(a, b):
     return eq
 
 
-def decode_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256, pool_pages=None):
+def decode_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256, pool_pages=None,
+                heads=(HQ, HKV)):
+    hq, hkv = heads
     rng = np.random.default_rng(seed)
     lengths = np.asarray(lengths, np.int32)
     B, layer = len(lengths), 1
     # Pool tokens per row: the context before the current token plus the
     # current token's own slot (it lands in the row's pages).
-    kv, sc, pt, scratch_page, _ = _pool_and_tables(rng, np.maximum(lengths, 0), maxp, dtype, dev, quant)
+    kv, sc, pt, scratch_page, _ = _pool_and_tables(rng, np.maximum(lengths, 0), maxp, dtype, dev, quant, hkv)
     check(pool_pages is None or kv.shape[3] == pool_pages, f"{name}: pool of {kv.shape[3]} pages")
     pos = np.maximum(lengths - 1, 0)
     pt_np = pt.cpu().numpy()
@@ -248,9 +279,9 @@ def decode_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256, p
     pt_np[lengths <= 1] = scratch_page
     pt = torch.as_tensor(pt_np, device=dev)
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(B, HQ, D, generator=g, device=dev).to(dtype)
-    k_new = torch.randn(B, HKV, D, generator=g, device=dev).to(dtype)
-    v_new = torch.randn(B, HKV, D, generator=g, device=dev).to(dtype)
+    q = torch.randn(B, hq, D, generator=g, device=dev).to(dtype)
+    k_new = torch.randn(B, hkv, D, generator=g, device=dev).to(dtype)
+    v_new = torch.randn(B, hkv, D, generator=g, device=dev).to(dtype)
     sl, ln = torch.as_tensor(slots, device=dev), torch.as_tensor(lengths, device=dev)
 
     kv_p, kv_k = kv.clone(), kv.clone()
@@ -284,7 +315,7 @@ def decode_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256, p
                 hit = torch.stack([held[what] == x for x in values]).any(dim=0)
                 check(bool(hit.all()), f"{name}: scratch slot {what} holds a value no writer wrote")
     res = {"case": name, "dtype": _dtype_name(dtype, quant), "q_dtype": str(dtype),
-           "splits": pa.decode_splits(maxp * PAGE, B * HKV, pa.sm_count(dev))[0],
+           "splits": pa.decode_splits(maxp * PAGE, B * hkv, pa.sm_count(dev))[0],
            "pool_pages": int(kv.shape[3]), **close}
     if timed:
         es = q.element_size()
@@ -296,7 +327,7 @@ def decode_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256, p
             + kv_bytes(int(ctx.sum()), kv, quant)  # K/V pages read
             + 4 * int(np.sum(-(-ctx // PAGE))) + 8 * B  # page table, slots, lengths
         )
-        flops = 4 * HQ * D * int(lengths[live].sum())
+        flops = 4 * hq * D * int(lengths[live].sum())
         res["bound_ms"], res["bound_by"] = bound(nbytes, flops, dtype)
         res["ms"] = time_ms(lambda: pa.paged_decode_fused_kernel(q, k_new, v_new, kv_k, sl, pt, ln, layer, sc_k), 20)
         res["plain_ms"] = time_ms(lambda: pa.paged_decode_fused_plain(q, k_new, v_new, kv_p, sl, pt, ln, layer, sc_p), 5)
@@ -308,22 +339,23 @@ def decode_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256, p
             if lengths[b] > 0:
                 kd[b, ctx[b]], vd[b, ctx[b]] = k_new[b], v_new[b]
             mask[b, 0, 0, : max(int(lengths[b]), 1)] = True
-        kx, vx = sdpa_inputs(kd, vd, HQ // HKV)
+        kx, vx = sdpa_inputs(kd, vd, hq // hkv)
         qx = q[:, :, None, :]
         res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask), 20)
         lib = F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask)[:, :, 0]
         res["library_max_abs_diff"] = (lib.float() - want.float())[torch.as_tensor(live, device=dev)].abs().max().item()
-        res["shape"] = f"B={B} Hq={HQ} Hkv={HKV} D={D} page={PAGE} lengths={lengths.tolist()}"
+        res["shape"] = f"B={B} Hq={hq} Hkv={hkv} D={D} page={PAGE} lengths={lengths.tolist()}"
     return res
 
 
-def pool_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256):
+def pool_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256, heads=(HQ, HKV)):
+    hq, hkv = heads
     rng = np.random.default_rng(seed)
     lengths = np.asarray(lengths, np.int32)
     B, layer = len(lengths), 1
-    kv, sc, pt, _, _ = _pool_and_tables(rng, np.maximum(lengths, 0), maxp, dtype, dev, quant)
+    kv, sc, pt, _, _ = _pool_and_tables(rng, np.maximum(lengths, 0), maxp, dtype, dev, quant, hkv)
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(B, HQ, D, generator=g, device=dev).to(dtype)
+    q = torch.randn(B, hq, D, generator=g, device=dev).to(dtype)
     ln = torch.as_tensor(lengths, device=dev)
     kv_before = kv.clone()
     want = pa.paged_attention_pool_plain(q, kv, pt, ln, layer, sc)
@@ -335,13 +367,13 @@ def pool_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256):
     check(torch.count_nonzero(got[zero_rows]).item() == 0, f"{name}: length-0 rows must output zeros")
     check(bool(_equal(kv, kv_before).all()), f"{name}: the read-only kernel changed the pool")
     res = {"case": name, "dtype": _dtype_name(dtype, quant), "q_dtype": str(dtype),
-           "splits": pa.decode_splits(maxp * PAGE, B * HKV, pa.sm_count(dev))[0], **close}
+           "splits": pa.decode_splits(maxp * PAGE, B * hkv, pa.sm_count(dev))[0], **close}
     if timed:
         es = q.element_size()
         n = np.maximum(lengths, 0)
         nbytes = (2 * q.numel() * es + kv_bytes(int(n.sum()), kv, quant)
                   + 4 * int(np.sum(-(-n // PAGE))) + 4 * B)
-        flops = 4 * HQ * D * int(n.sum())
+        flops = 4 * hq * D * int(n.sum())
         res["bound_ms"], res["bound_by"] = bound(nbytes, flops, dtype)
         res["ms"] = time_ms(lambda: pa.paged_attention_pool_kernel(q, kv, pt, ln, layer, sc), 20)
         res["plain_ms"] = time_ms(lambda: pa.paged_attention_pool_plain(q, kv, pt, ln, layer, sc), 5)
@@ -349,26 +381,28 @@ def pool_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256):
         mask = torch.zeros(B, 1, 1, kd.shape[1], dtype=torch.bool, device=dev)
         for b in range(B):
             mask[b, 0, 0, : max(int(n[b]), 1)] = True
-        kx, vx = sdpa_inputs(kd, vd, HQ // HKV)
+        kx, vx = sdpa_inputs(kd, vd, hq // hkv)
         qx = q[:, :, None, :]
         res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask), 20)
-        res["shape"] = f"B={B} Hq={HQ} Hkv={HKV} D={D} page={PAGE} lengths={lengths.tolist()}"
+        res["shape"] = f"B={B} Hq={hq} Hkv={hkv} D={D} page={PAGE} lengths={lengths.tolist()}"
     return res
 
 
-def chunk_case(name, prior, n_dense, dtype, dev, timed, seed, C=512, quant=False, faults=None):
+def chunk_case(name, prior, n_dense, dtype, dev, timed, seed, C=512, quant=False, faults=None,
+               heads=(HQ, HKV)):
+    hq, hkv = heads
     rng = np.random.default_rng(seed)
     prior = np.asarray(prior, np.int32)
     n_dense = np.asarray(n_dense, np.int32)
     B, layer = len(prior), 1
     maxp = 1 << int(math.ceil(math.log2(max(32, -(-int((prior + C).max()) // PAGE)))))
-    kv, sc, pt, scratch_page, _ = _pool_and_tables(rng, prior, maxp, dtype, dev, quant)
+    kv, sc, pt, scratch_page, _ = _pool_and_tables(rng, prior, maxp, dtype, dev, quant, hkv)
     g = torch.Generator(device=dev).manual_seed(seed)
     # int8 pools take the chunk's K/V already dequantized, in float32.
     cur_dtype = torch.float32 if quant else dtype
-    q = torch.randn(B, C, HQ, D, generator=g, device=dev).to(dtype)
-    kc = torch.randn(B, C, HKV, D, generator=g, device=dev).to(cur_dtype)
-    vc = torch.randn(B, C, HKV, D, generator=g, device=dev).to(cur_dtype)
+    q = torch.randn(B, C, hq, D, generator=g, device=dev).to(dtype)
+    kc = torch.randn(B, C, hkv, D, generator=g, device=dev).to(cur_dtype)
+    vc = torch.randn(B, C, hkv, D, generator=g, device=dev).to(cur_dtype)
     pr = torch.as_tensor(prior, device=dev)
     kl = torch.as_tensor(prior + n_dense, device=dev)
     want = pa.paged_chunk_attention_plain(q, kc, vc, kv, pt, pr, kl, layer, sc)
@@ -378,7 +412,7 @@ def chunk_case(name, prior, n_dense, dtype, dev, timed, seed, C=512, quant=False
     res = {"case": name, "dtype": _dtype_name(dtype, quant), "q_dtype": str(dtype),
            "body": "tensor cores" if dtype == torch.bfloat16 else "CUDA cores",
            **_check_close(name, got, want, dtype)}
-    res["cblk"] = pa.chunk_query_block(C, HQ // HKV, pa.CHUNK_ROWS[dtype])
+    res["cblk"] = pa.chunk_query_block(C, hq // hkv, pa.CHUNK_ROWS[dtype])
     if dtype == torch.bfloat16 and prior.max() >= 64:
         res["planted_faults"] = planted_faults(
             name, want, (q, kc, vc, kv, pt, pr, kl, layer, sc), int(np.argmax(prior)),
@@ -392,7 +426,7 @@ def chunk_case(name, prior, n_dense, dtype, dev, timed, seed, C=512, quant=False
         )
         n = n_dense.astype(np.int64)
         keys = int(np.sum(n * prior + n * (n + 1) // 2))
-        flops = 4 * HQ * D * keys
+        flops = 4 * hq * D * keys
         res["bound_ms"], res["bound_by"] = bound(nbytes, flops, dtype)
         res["ms"] = time_ms(lambda: pa.paged_chunk_attention_kernel(q, kc, vc, kv, pt, pr, kl, layer, sc), 10)
         res["plain_ms"] = time_ms(lambda: pa.paged_chunk_attention_plain(q, kc, vc, kv, pt, pr, kl, layer, sc), 3)
@@ -407,10 +441,10 @@ def chunk_case(name, prior, n_dense, dtype, dev, timed, seed, C=512, quant=False
         prior_ok = (kpos[None, :] < pr[:, None])[:, None, :].expand(B, C, ctx)
         dense_ok = (c[None, None, :] <= c[None, :, None]) & (c[None, None, :] < (kl - pr)[:, None, None])
         mask = torch.cat([prior_ok, dense_ok], dim=2)[:, None]
-        kx, vx = sdpa_inputs(kd, vd, HQ // HKV)
+        kx, vx = sdpa_inputs(kd, vd, hq // hkv)
         qx = q.permute(0, 2, 1, 3).contiguous()
         res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask), 10)
-        res["shape"] = (f"B={B} C={C} Hq={HQ} Hkv={HKV} D={D} page={PAGE} "
+        res["shape"] = (f"B={B} C={C} Hq={hq} Hkv={hkv} D={D} page={PAGE} "
                         f"prior={prior.tolist()} chunk_valid={n_dense.tolist()}")
     return res
 
@@ -454,19 +488,27 @@ def planted_faults(name, want, args, b, prior_b, scratch_page, which) -> dict:
     return out
 
 
-def kernel_phase(dev) -> dict:
-    results: dict[str, list] = {}
+# The B=8 ragged shapes of the kernel phases: decode and pool lengths,
+# chunk priors and live chunk tokens per row (C = 512).
+RAGGED = [0, 1, 1, 17, 513, 1500, 3001, 4096]
+CHUNK_PRIOR = [0, 16, 300, 1000, 1777, 2500, 3000, 3500]
+CHUNK_FILL = [512, 512, 200, 512, 1, 512, 0, 333]
 
+
+def _runner(results: dict, tag: str):
     def run(kernel, case_fn, *args, **kw):
         r = case_fn(*args, **kw)
-        print(f"[kernel] {kernel}: " + json.dumps(r), flush=True)
+        print(f"[{tag}] {kernel}: " + json.dumps(r), flush=True)
         results.setdefault(kernel, []).append(r)
+    return run
 
+
+def kernel_phase(dev) -> dict:
+    results: dict[str, list] = {}
+    run = _runner(results, "kernel")
     f32, bf16 = torch.float32, torch.bfloat16
-    ragged = [0, 1, 1, 17, 513, 1500, 3001, 4096]
+    ragged, chunk_prior, chunk_fill = RAGGED, CHUNK_PRIOR, CHUNK_FILL
     short = [0, 1, 17, 33, 48, 64, 5, 60]  # a 4-page table: one split
-    chunk_prior = [0, 16, 300, 1000, 1777, 2500, 3000, 3500]
-    chunk_fill = [512, 512, 200, 512, 1, 512, 0, 333]
     # Decode and pool: splits > 1 at B=1 and B=8 over a 256-page table, one
     # split over a 4-page table; float32, bf16 and int8 pools (bf16 and
     # float32 queries for int8).
@@ -520,6 +562,58 @@ def kernel_phase(dev) -> dict:
             MIXED_FILL, bf16, dev, True, 22, C=16, quant=quant)
         run("paged_decode_fused" + sfx, decode_case, "decode B=8 compact 16 pages" + tag, COMPACT_LENGTHS,
             bf16, dev, True, 23, quant=quant, maxp=4, pool_pages=16)
+    return results
+
+
+# GQA groups that are not powers of two: llama3.2-3b's (Hq 24, Hkv 8: G 3)
+# and Qwen2-7B's (Hq 28, Hkv 4: G 7). Groups 4 and 8 over 4 kv heads are
+# the yardstick of the chunk body's cost per query row at G 7 (cblk 16:
+# 112 of 128 rows live, every tile masked) against full CTAs.
+GROUP_HEADS = {3: (24, 8), 7: (28, 4)}
+ROW_COST_HEADS = {4: (16, 4), 8: (32, 4)}
+
+
+def group_kernel_phase(dev) -> dict:
+    """Each kernel at G 3 and G 7 against its plain version, with the
+    kernel phase's tolerances, row check and planted faults: the decode
+    (B1) and pool (B3) kernels at B=8 ragged, the tensor-core chunk body
+    (B2) at C = 512, verify C = 5 and mixed C = 16, bf16 and int8 pools;
+    the CUDA-core chunk body at G 7. Then the chunk body at G 4 and G 8
+    over 4 kv heads, timed beside G 7 per query row."""
+    results: dict[str, list] = {}
+    run = _runner(results, "kernel G")
+    f32, bf16 = torch.float32, torch.bfloat16
+    for G, heads in GROUP_HEADS.items():
+        for quant in (False, True):
+            sfx = "[int8]" if quant else ""
+            tag = f" G={G}" + (" int8" if quant else "")
+            run("paged_decode_fused" + sfx, decode_case, "decode B=8 ragged" + tag, RAGGED, bf16, dev,
+                True, 31, quant=quant, heads=heads)
+            run("paged_attention_pool" + sfx, pool_case, "pool B=8 ragged" + tag, RAGGED, bf16, dev,
+                True, 32, quant=quant, heads=heads)
+            run("paged_chunk_attention" + sfx, chunk_case, "chunk B=8 ragged" + tag, CHUNK_PRIOR,
+                CHUNK_FILL, bf16, dev, True, 33, quant=quant, heads=heads)
+            run("paged_chunk_attention" + sfx, chunk_case, "chunk verify C=5" + tag, CHUNK_PRIOR,
+                VERIFY_FILL, bf16, dev, True, 34, C=5, quant=quant, heads=heads,
+                faults=("last prior page wrong",))
+            run("paged_chunk_attention" + sfx, chunk_case, "chunk mixed C=16" + tag, CHUNK_PRIOR,
+                MIXED_FILL, bf16, dev, True, 35, C=16, quant=quant, heads=heads)
+    run("paged_chunk_attention[f32]", chunk_case, "chunk B=8 ragged G=7", CHUNK_PRIOR, CHUNK_FILL, f32,
+        dev, True, 36, heads=GROUP_HEADS[7])
+    run("paged_chunk_attention[f32]", chunk_case, "chunk B=8 ragged G=7 int8 f32 queries", CHUNK_PRIOR,
+        CHUNK_FILL, f32, dev, False, 37, quant=True, heads=GROUP_HEADS[7])
+    for G, heads in ROW_COST_HEADS.items():
+        for C, fill in ((512, CHUNK_FILL), (5, VERIFY_FILL)):
+            run("paged_chunk_attention", chunk_case, f"chunk {'B=8 ragged' if C == 512 else 'verify C=5'} "
+                f"G={G} Hkv=4", CHUNK_PRIOR, fill, bf16, dev, True, 33 if C == 512 else 34, C=C,
+                heads=heads)
+    # Cost per query row (Hq * B * C rows; every CTA runs its prior tiles).
+    for rows in results["paged_chunk_attention"]:
+        hq = int(rows["shape"].split("Hq=")[1].split()[0])
+        C = int(rows["shape"].split("C=")[1].split()[0])
+        rows["us_per_query_row"] = rows["ms"] * 1e3 / (hq * len(CHUNK_PRIOR) * C)
+    print("[kernel G] chunk body, us per query row: " + ", ".join(
+        f"{r['case']} {r['us_per_query_row']:.5f}" for r in results["paged_chunk_attention"]), flush=True)
     return results
 
 
@@ -607,17 +701,19 @@ def _b2_by_schedule(counts, n_layers) -> dict:
             "mixed": n_layers * counts["mixed_launches"], "inline": n_layers * counts["inline_launches"]}
 
 
-def serving_phase(dev, model, kv_quant=None, schedules=None, legacy=None) -> dict:
-    """One serving run over HTTP. ``schedules`` (``SCHEDULES``) turns on
-    the fast schedules: the group then decodes 48 tokens, a 3000-token
-    prompt arrives while its 4 rows decode (mixed waves), and the run's
-    outputs are compared with ``legacy``'s (information only)."""
+def serving_phase(dev, model, kv_quant=None, schedules=None, legacy=None, name="llama3-8b") -> dict:
+    """One serving run of model ``name`` over HTTP. ``schedules``
+    (``SCHEDULES``) turns on the fast schedules: the group then decodes 48
+    tokens, a 3000-token prompt arrives while its 4 rows decode (mixed
+    waves), and the run's outputs are compared with ``legacy``'s
+    (information only)."""
     cfg = model.cfg
-    tag = (kv_quant or "bf16") + (" schedules" if schedules else "")
+    tag = ("" if name == "llama3-8b" else name + " ") + (kv_quant or "bf16") + (
+        " schedules" if schedules else "")
     engine = Engine(cfg, model, num_slots=65536, page_size=16, max_batch=8, device=dev,
                     kv_quant=kv_quant, **(schedules or {}))
     torch.cuda.synchronize()
-    print(f"[serve {tag}] llama3-8b engine ready; "
+    print(f"[serve {tag}] {name} engine ready; "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
     fe = ServingFrontend(engine, port=0)
     rng = np.random.default_rng(0)
@@ -1118,6 +1214,177 @@ def launcher_phase(kv_quant=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 8-10: Qwen2-7B served; an HF checkpoint written and read back; the
+# launcher serving a checkpoint with text
+# ---------------------------------------------------------------------------
+
+
+def plant_biases(params: dict, seed: int, scale: float = 0.5) -> dict:
+    """Non-zero QKV biases in place (``init_params`` starts them at zero,
+    as the JAX package does, which would leave the bias path untested)."""
+    g = torch.Generator(device=params["layers"]["bq"].device).manual_seed(seed)
+    for name in ("bq", "bk", "bv"):
+        leaf = params["layers"][name]
+        leaf.copy_(torch.randn(leaf.shape, generator=g, device=leaf.device) * scale)
+    return params
+
+
+def qwen2_serving_phase(dev) -> dict:
+    """Qwen2-7B at full width and depth (28 layers, Hq 28 over Hkv 4: GQA
+    group 7), random bf16 weights from a seed with planted QKV biases,
+    served over HTTP on a 65536-slot bf16 pool as phase 3 serves Llama-3-8B
+    (4 concurrent ~600-token prompts, a 3000-token prompt, a follow-up that
+    hits the prefix, repeats), then the pool kernel over its pages."""
+    # Earlier phases' frontends sit in reference cycles (handler closures):
+    # collect them so their engines release the Llama-3-8B weights first.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.monotonic()
+    cfg = get_config("qwen2-7b")
+    with torch.inference_mode():
+        model = Llama(cfg, plant_biases(init_params(cfg, seed=0, device=dev), 0))
+    torch.cuda.synchronize()
+    weights_s = time.monotonic() - t
+    print(f"[serve qwen2-7b] weights built in {weights_s:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+    out = serving_phase(dev, model, name="qwen2-7b")
+    del model
+    torch.cuda.empty_cache()
+    return {**out, "weights_s": weights_s}
+
+
+def _leaves(params: dict):
+    for name, t in params.items():
+        if name == "layers":
+            yield from ((f"layers.{k}", v) for k, v in t.items())
+        else:
+            yield name, t
+
+
+def checkpoint_phase(dev) -> dict:
+    """Qwen2-7B at full width and 2 layers (bf16, planted biases) written by
+    the port's ``save_hf_state_dict`` in 256 MiB shards with an index, under
+    ``chip_out/`` (removed after), and read back by ``load_hf_checkpoint``
+    onto the card: every param bit-equal to what was written, and the same
+    greedy tokens from the loaded weights as from the in-memory ones
+    (a 700-token prompt through the chunk kernel, then 16 decode steps)."""
+    cfg = get_config("qwen2-7b", n_layers=2)
+    params = plant_biases(init_params(cfg, seed=3, device=dev), 3)
+    ckpt = tempfile.mkdtemp(prefix="hf-ckpt-", dir=OUT_DIR)
+    try:
+        t = time.monotonic()
+        save_hf_state_dict(hf_state_dict(cfg, params), ckpt, max_shard_bytes=256 << 20)
+        write_s = time.monotonic() - t
+        files = sorted(os.listdir(ckpt))
+        nbytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in files)
+        t = time.monotonic()
+        loaded = load_hf_checkpoint(ckpt, cfg, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    shards = [f for f in files if f.endswith(".safetensors")]
+    check("model.safetensors.index.json" in files and len(shards) > 1,
+          f"checkpoint: expected an index and several shards, got {files}")
+    want, got = dict(_leaves(params)), dict(_leaves(loaded))
+    check(set(want) == set(got), f"checkpoint: leaves {sorted(got)} != {sorted(want)}")
+    for name, t in want.items():
+        check(got[name].dtype == t.dtype and torch.equal(got[name].view(torch.int16), t.view(torch.int16)),
+              f"checkpoint: {name} not bit-equal after the round trip")
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, size=700).tolist()
+    tokens = {}
+    for tag, p in (("in-memory", params), ("loaded", loaded)):
+        eng = Engine(cfg, p, num_slots=4096, page_size=16, max_batch=2, device=dev,
+                     long_prefill_threshold=256)
+        tokens[tag] = eng.generate([prompt], SamplingParams(max_new_tokens=16))[0]
+        del eng
+    check(tokens["loaded"] == tokens["in-memory"], f"checkpoint: greedy tokens differ: {tokens}")
+    print(f"[checkpoint] qwen2-7b 2 layers: {len(shards)} shards + index, {nbytes} B written in "
+          f"{write_s:.2f}s, loaded onto the card in {load_s:.2f}s; {len(want)} leaves bit-equal; "
+          f"greedy tokens equal: {tokens['loaded']}", flush=True)
+    del params, loaded
+    torch.cuda.empty_cache()
+    return {"files": files, "bytes": nbytes, "write_s": write_s, "load_s": load_s, "tokens": tokens["loaded"]}
+
+
+# A ~1500-byte text: over the launcher's 1024-token dense threshold, so the
+# byte tokenizer's tokens prefill in chunks through the chunk kernel.
+LAUNCH_TEXT = "The radix cache keeps every prefix that it has served, on every node. " * 22
+
+
+def launcher_text_phase() -> dict:
+    """``python -m radixmesh_tpu_torch.launch serve --model llama3.2-3b
+    --weights DIR --tokenizer byte`` in a child process, over a full
+    llama3.2-3b checkpoint (tied embeddings, Hq 24 over Hkv 8: GQA group 3)
+    that the port wrote under ``chip_out/`` (removed after): a ``text``
+    request is answered with ``text``, its repeat hits the prefix, and
+    ``/stats`` shows the decode and chunk kernels launched and no plain
+    attention call."""
+    import socket
+
+    from radixmesh_tpu_torch.server.tokenizer import ByteTokenizer
+
+    cfg = get_config("llama3.2-3b")
+    ckpt = tempfile.mkdtemp(prefix="hf-ckpt-3b-", dir=OUT_DIR)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    log = open(OUT_DIR / "serve_text.log", "w")
+    proc = None
+    try:
+        t = time.monotonic()
+        params = init_params(cfg, seed=5, device="cuda")
+        save_hf_state_dict(hf_state_dict(cfg, params), ckpt)
+        write_s = time.monotonic() - t
+        nbytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+        del params
+        torch.cuda.empty_cache()
+        cmd = [sys.executable, "-m", "radixmesh_tpu_torch.launch", "serve", "--model", "llama3.2-3b",
+               "--http-port", str(port), "--kv-slots", "16384", "--weights", ckpt, "--tokenizer", "byte"]
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        t0 = time.monotonic()
+        while True:
+            check(proc.poll() is None, f"serve text exited with {proc.returncode} (chip_out/serve_text.log)")
+            check(time.monotonic() - t0 < 300, "serve text did not answer /healthz in 300 s")
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=2) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                time.sleep(0.5)
+        ready_s = time.monotonic() - t0
+        first = _post(port, {"text": LAUNCH_TEXT, "max_tokens": 8})
+        again = _post(port, {"text": LAUNCH_TEXT, "max_tokens": 8})
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+    finally:
+        if proc is not None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        log.close()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    k = stats["kernels"]
+    plain = sum(v for name, v in k.items() if "_plain" in name)
+    tok = ByteTokenizer()
+    for r in (first, again):
+        check(isinstance(r.get("text"), str) and r["text"] == tok.decode(r["output_ids"])
+              and 0 < len(r["output_ids"]) <= 8, f"serve text: /generate answered {r}")
+    check(again["cached_tokens"] > 0, f"serve text: the repeat hit no prefix ({again['cached_tokens']})")
+    check(k["paged_decode_fused_kernel"] > 0 and k["paged_chunk_attention_kernel"] > 0 and plain == 0,
+          f"serve text: /stats kernels {k}")
+    print(f"[serve-text] launch.py serve --model llama3.2-3b --weights ({nbytes} B written in {write_s:.1f}s) "
+          f"--tokenizer byte: /healthz after {ready_s:.1f}s; text of {len(tok.encode(LAUNCH_TEXT))} tokens "
+          f"-> {len(first['output_ids'])} tokens, text {first['text']!r}; repeat cached "
+          f"{again['cached_tokens']}; /stats kernels {k}", flush=True)
+    return {"ready_s": ready_s, "write_s": write_s, "bytes": nbytes, "cached": again["cached_tokens"],
+            "kernels": k, "first": first, "again": again}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the whole path, card vs CPU
 # ---------------------------------------------------------------------------
 
@@ -1161,11 +1428,13 @@ def _whole_path_script(eng, cfg, schedules, tiers=False) -> list[list[int]]:
     return [r.generated for r in reqs]
 
 
-def whole_path_check(dev, kv_quant=None, schedules=None, tiers=False) -> dict:
+def whole_path_check(dev, kv_quant=None, schedules=None, tiers=False, model="llama3-8b") -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("llama3-8b", n_layers=2, dtype=torch.float32)
+    cfg = get_config(model, n_layers=2, dtype=torch.float32)
     params = init_params(cfg, seed=1, device="cpu")
+    if cfg.qkv_bias:
+        plant_biases(params, 1)
     kw = dict(num_slots=1024, page_size=16, max_batch=2, long_prefill_threshold=16,
               prefill_chunk=64, kv_quant=kv_quant, **(schedules or {}))
     if tiers:
@@ -1201,8 +1470,9 @@ def whole_path_check(dev, kv_quant=None, schedules=None, tiers=False) -> dict:
     delta = (pools["cuda"].float() - pools["cpu"].float()).abs()
     per_layer = [int(n) for n in (delta > 0).sum(dim=(0, 2, 3, 4)).tolist()]
     pool_max = delta.max().item()
-    tag = (kv_quant or "float32") + (" schedules" if schedules else "") + (" tiers" if tiers else "")
-    print(f"[whole-path {tag}] 2-layer f32 llama3-8b widths: first-token logits of "
+    tag = ("" if model == "llama3-8b" else model + " ") + (kv_quant or "float32") + (
+        " schedules" if schedules else "") + (" tiers" if tiers else "")
+    print(f"[whole-path {tag}] 2-layer f32 {model} widths: first-token logits of "
           f"{len(logits['cuda'])} requests max|cuda-cpu|={diff:.3e} (atol {atol}); pool elements that "
           f"differ card vs CPU (scratch page excluded) per layer: {per_layer} of {delta[:, 0].numel()}, "
           f"max |diff| {pool_max:.3g}; tokens cuda={out['cuda']} cpu={out['cpu']}", flush=True)
@@ -1262,6 +1532,9 @@ def main() -> int:
     kernels = kernel_phase(dev)
     print(f"[time] kernel phase {time.monotonic() - t:.1f}s", flush=True)
     t = time.monotonic()
+    groups = group_kernel_phase(dev)
+    print(f"[time] kernel phase at GQA groups 3 and 7 {time.monotonic() - t:.1f}s", flush=True)
+    t = time.monotonic()
     cfg = get_config("llama3-8b")
     with torch.inference_mode():
         model = Llama(cfg, init_params(cfg, seed=0, device=dev))
@@ -1279,9 +1552,20 @@ def main() -> int:
     serve_cli = {tag: launcher_phase(quant) for tag, quant in (("bf16", None), ("int8", "int8"))}
     print(f"[time] serve launcher phases {time.monotonic() - t:.1f}s", flush=True)
     t = time.monotonic()
-    whole = {tag: whole_path_check(dev, quant, sched, tiered) for tag, quant, sched, tiered in
-             (("float32", None, None, False), ("int8", "int8", None, False),
-              ("float32 schedules", None, SCHEDULES, False), ("float32 tiers", None, None, True))}
+    qwen = qwen2_serving_phase(dev)
+    print(f"[time] qwen2-7b serving phase {time.monotonic() - t:.1f}s", flush=True)
+    t = time.monotonic()
+    ckpt = checkpoint_phase(dev)
+    print(f"[time] checkpoint phase {time.monotonic() - t:.1f}s", flush=True)
+    t = time.monotonic()
+    serve_text = launcher_text_phase()
+    print(f"[time] serve launcher with a checkpoint and text {time.monotonic() - t:.1f}s", flush=True)
+    t = time.monotonic()
+    whole = {tag: whole_path_check(dev, quant, sched, tiered, name) for tag, quant, sched, tiered, name in
+             (("float32", None, None, False, "llama3-8b"), ("int8", "int8", None, False, "llama3-8b"),
+              ("float32 schedules", None, SCHEDULES, False, "llama3-8b"),
+              ("float32 tiers", None, None, True, "llama3-8b"),
+              ("qwen2-7b float32", None, None, False, "qwen2-7b"))}
     print(f"[time] whole-path checks {time.monotonic() - t:.1f}s", flush=True)
 
     # Launches of each kernel entry on each path that ran it (counts zeroed
@@ -1299,7 +1583,7 @@ def main() -> int:
             "serving int8": serving["int8"]["launches"]["paged_chunk_attention[int8]"],
             "tiers int8": tiers["int8"]["launches"]["paged_chunk_attention[int8]"]},
         "paged_chunk_attention[f32]": {f"whole path {k}": w["launches"]["chunk_cuda_core_body"]
-                                       for k, w in whole.items()},
+                                       for k, w in whole.items() if not k.startswith("qwen2")},
         "paged_attention_pool": {"pool path bf16": serving["bf16"]["pool_path"]["launches"]},
         "paged_attention_pool[int8]": {"pool path int8": serving["int8"]["pool_path"]["launches"]},
     }
@@ -1323,16 +1607,51 @@ def main() -> int:
         "paged_attention_pool[int8]": (csrc + "paged_pool.cu", jax_src + "912",
                                        "pool B=8 ragged int8", "int8"),
     }
+    summary_keys = ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+                    "row_rel_err", "cblk", "us_per_query_row", "shape")
+    # The GQA groups 7 (Qwen2-7B) and 3 (llama3.2-3b): each entry's main
+    # row is its G case of the group kernel phase, its launches those of
+    # the path that served that group; its other shapes are the group's
+    # other timed cases (int8, verify, mixed; for B2 also the G 4 and G 8
+    # yardsticks over 4 kv heads, for B3 also G 3).
+    group_meta = {
+        "paged_decode_fused G=7": ("paged_decode_fused", "decode B=8 ragged G=7", "bfloat16",
+                                   {"serving qwen2-7b": qwen["launches"]["paged_decode_fused"]}, ("G=7",)),
+        "paged_chunk_attention G=7": ("paged_chunk_attention", "chunk B=8 ragged G=7", "bfloat16",
+                                      {"serving qwen2-7b": qwen["launches"]["paged_chunk_attention"]},
+                                      ("G=7", "Hkv=4")),
+        "paged_attention_pool G=7": ("paged_attention_pool", "pool B=8 ragged G=7", "bfloat16",
+                                     {"pool path qwen2-7b": qwen["pool_path"]["launches"]}, ("G=7", "G=3")),
+        "paged_chunk_attention[f32] G=7": ("paged_chunk_attention[f32]", "chunk B=8 ragged G=7", "float32",
+                                           {"whole path qwen2-7b float32":
+                                            whole["qwen2-7b float32"]["launches"]["chunk_cuda_core_body"]},
+                                           ("G=7",)),
+        "paged_decode_fused G=3": ("paged_decode_fused", "decode B=8 ragged G=3", "bfloat16",
+                                   {"serve text llama3.2-3b": serve_text["kernels"]["paged_decode_fused_kernel"]},
+                                   ("G=3",)),
+        "paged_chunk_attention G=3": ("paged_chunk_attention", "chunk B=8 ragged G=3", "bfloat16",
+                                      {"serve text llama3.2-3b":
+                                       serve_text["kernels"]["paged_chunk_attention_kernel"]}, ("G=3",)),
+    }
+    for name, (kernel, case, dtype, paths, tags) in group_meta.items():
+        rows = [r for k in (kernel, kernel + "[int8]") for r in groups.get(k, []) if "ms" in r]
+        main_row = [r for r in rows if r["case"] == case and r["dtype"] == dtype][0]
+        source, replaces = meta[kernel][:2]
+        meta[name] = (source, replaces, case, dtype)
+        kernels[name] = [main_row] + [r for r in rows if r is not main_row and any(t in r["case"] for t in tags)]
+        by_path[name] = paths
+        launches[name] = sum(paths.values())
     entries = []
     for name, (source, replaces, case, dtype) in meta.items():
         main_row = [r for r in kernels[name]
                     if r["case"] == case and r["dtype"] == dtype and "ms" in r][0]
         # The entry's other timed cases: the fast schedules' shapes (verify
-        # and mixed-wave chunks, decode over a compact sub-pool).
-        shapes = [{k: r.get(k) for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                          "max_abs_err", "row_rel_err", "cblk", "shape")}
-                  for r in kernels[name] if "ms" in r and r is not main_row and r["dtype"] == dtype
-                  and any(w in r["case"] for w in ("verify", "mixed", "compact"))]
+        # and mixed-wave chunks, decode over a compact sub-pool); a group
+        # entry's other cases at its group.
+        shapes = [{k: r.get(k) for k in summary_keys}
+                  for r in kernels[name] if "ms" in r and r is not main_row
+                  and (name in group_meta or r["dtype"] == dtype
+                       and any(w in r["case"] for w in ("verify", "mixed", "compact")))]
         entries.append({
             "name": name,
             "route": "cuda",
@@ -1352,9 +1671,15 @@ def main() -> int:
             "shape": main_row["shape"],
             "other_shapes": shapes,
         })
+    check(all(e["launches"] > 0 for e in entries),
+          "a kernel entry was not launched on its main path: "
+          + str({e["name"]: e["launches_by_path"] for e in entries if not e["launches"] > 0}))
+    for name in group_meta:  # group rows stay under ``groups`` in the report
+        del kernels[name]
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build": {k: v["seconds"] for k, v in log.items()}, "sass": sass, "kernels": kernels,
-              "serving": serving, "tiers": tiers, "serve_cli": serve_cli, "whole_path": whole}
+              "groups": groups, "serving": serving, "tiers": tiers, "serve_cli": serve_cli,
+              "qwen2_serving": qwen, "checkpoint": ckpt, "serve_text": serve_text, "whole_path": whole}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

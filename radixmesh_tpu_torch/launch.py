@@ -6,11 +6,19 @@
         --prefill-inline-budget 64 --decode-steps-per-launch 4 --paged-min-batch 2
     python -m radixmesh_tpu_torch.launch serve --host-cache-slots 32768 \
         --kv-transfer-async --kv-tier-dir /var/tmp/kv-tier
+    python -m radixmesh_tpu_torch.launch serve --model qwen2-7b \
+        --weights /ckpt/Qwen2-7B --tokenizer /ckpt/Qwen2-7B
+    python -m radixmesh_tpu_torch.launch serve --model llama3.2-3b \
+        --weights /ckpt/llama3.2-3b --tokenizer byte
 
 ``serve`` builds one :class:`~radixmesh_tpu_torch.engine.engine.Engine`
-(random weights from ``--seed``: no checkpoint loading yet) behind a
-:class:`~radixmesh_tpu_torch.server.http_frontend.ServingFrontend` and
-serves until SIGINT/SIGTERM. The device defaults to CUDA and the launcher
+behind a :class:`~radixmesh_tpu_torch.server.http_frontend.ServingFrontend`
+and serves until SIGINT/SIGTERM. Its weights come from ``--weights``, a
+local HF checkpoint directory (safetensors, one file or shards with an
+index; ``models/hf_io.py``) whose shapes must match ``--model``, or else
+are random from ``--seed``. ``--tokenizer`` (``byte``, or a local HF
+tokenizer directory, which needs ``transformers``) lets requests send
+``text``. The device defaults to CUDA and the launcher
 exits with an error where torch has none; ``--device cpu`` runs the plain
 PyTorch path. ``--kv-quant int8`` stores the KV pool as int8 with per-token
 scales. The schedule flags (``--decode-steps-per-launch``,
@@ -35,7 +43,7 @@ __all__ = ["main", "parse_args"]
 
 # ``serve`` flags of the JAX launcher whose features are not ported yet.
 _NOT_PORTED_FLAGS = (
-    "--weights", "--tokenizer", "--weight-quant", "--stream-publish",
+    "--weight-quant", "--stream-publish",
     "--step-accounting", "--peak-tflops", "--slo", "--slo-ttft-ms", "--slo-tenant",
     "--profile-dir", "--trace-capacity", "--trace-sample", "--trace-dir",
     "--token-timeline-capacity", "--token-stall-threshold-ms",
@@ -62,10 +70,22 @@ def _run_serve(args: argparse.Namespace) -> int:
         # one inside the first requests.
         log.info("building the CUDA kernels ...")
         build_all()
+    tokenizer = None
+    if args.tokenizer:
+        from radixmesh_tpu_torch.server.tokenizer import load_tokenizer
+
+        # Before the weights: a tokenizer that cannot load fails at once.
+        tokenizer = load_tokenizer(args.tokenizer)
     cfg = get_config(args.model)
     log.info("initializing %s (%d layers) on %s ...", args.model, cfg.n_layers, device)
     with torch.inference_mode():
-        params = init_params(cfg, seed=args.seed, device=device)
+        if args.weights:
+            from radixmesh_tpu_torch.models.hf_io import load_hf_checkpoint
+
+            log.info("loading HF checkpoint from %s", args.weights)
+            params = load_hf_checkpoint(args.weights, cfg, device)
+        else:
+            params = init_params(cfg, seed=args.seed, device=device)
     engine = Engine(
         cfg,
         params,
@@ -92,7 +112,7 @@ def _run_serve(args: argparse.Namespace) -> int:
             else 1 << 30
         ),
     )
-    frontend = ServingFrontend(engine, host=args.host, port=args.http_port)
+    frontend = ServingFrontend(engine, host=args.host, port=args.http_port, tokenizer=tokenizer)
     print(f"serving {args.model} on http://{args.host}:{frontend.port}", flush=True)
     stop = threading.Event()
     signal.signal(signal.SIGINT, lambda *_: stop.set())
@@ -119,6 +139,11 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     serve.add_argument("--max-batch", type=int, default=8)
     serve.add_argument("--seed", type=int, default=0)
     serve.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    serve.add_argument("--weights", default=None, metavar="DIR",
+                       help="local HF checkpoint directory (safetensors) to serve instead of "
+                       "random weights")
+    serve.add_argument("--tokenizer", default=None, metavar="SPEC",
+                       help="'byte', or a local HF tokenizer directory: enables the text field")
     serve.add_argument("--kv-quant", choices=("int8",), default=None,
                        help="store the KV pool as int8 with per-token scales")
     serve.add_argument("--decode-steps-per-launch", type=int, default=1,

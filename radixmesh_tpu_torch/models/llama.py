@@ -6,7 +6,9 @@
   every projection is ``[in, out]`` and applied as ``x @ W``, and per-layer
   weights are stacked on a leading layer axis (``layers.wq`` is
   ``[L, H, Hq*D]``), so the JAX tree converts leaf for leaf
-  (``models/convert.py``).
+  (``models/convert.py``). With ``qkv_bias`` (the Qwen2 family,
+  ``models/qwen2.py``) the layers also hold ``bq [L, Hq*D]``, ``bk`` and
+  ``bv [L, Hkv*D]``, added to the projections before RoPE.
 - Three forwards, as in the JAX package: ``prefill_forward`` (new tokens
   against an optional right-aligned cached prefix, plain attention),
   ``prefill_chunk_paged`` (one chunk against the paged pool, through the
@@ -49,11 +51,13 @@ from radixmesh_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from radixmesh_tpu_torch.ops.sampling import any_stochastic, sample_stochastic, sampling_tensors
 from radixmesh_tpu_torch.utils.device import resolve_device
 
-__all__ = ["ModelConfig", "Llama", "init_params", "LAYER_PARAMS"]
+__all__ = ["ModelConfig", "Llama", "init_params", "LAYER_PARAMS", "BIAS_PARAMS", "layer_params"]
 
 LAYER_PARAMS = (
     "attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
 )
+# The QKV biases of configs with ``qkv_bias`` (Qwen2).
+BIAS_PARAMS = ("bq", "bk", "bv")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +73,7 @@ class ModelConfig:
     # Tuple of (key, value) pairs so the config hashes, as in the JAX one.
     rope_scaling: tuple | None = None
     rms_eps: float = 1e-5
-    qkv_bias: bool = False  # Qwen2 (not ported yet)
+    qkv_bias: bool = False  # True for Qwen2
     tie_embeddings: bool = False
     max_seq_len: int = 8192
     dtype: torch.dtype = torch.bfloat16
@@ -138,6 +142,11 @@ class ModelConfig:
         )
 
 
+def layer_params(cfg: ModelConfig) -> tuple[str, ...]:
+    """Names of the stacked per-layer leaves of ``cfg``'s param tree."""
+    return LAYER_PARAMS + (BIAS_PARAMS if cfg.qkv_bias else ())
+
+
 def param_shapes(cfg: ModelConfig) -> dict:
     """Leaf shapes of the param tree (JAX orientation)."""
     L, H = cfg.n_layers, cfg.hidden
@@ -157,6 +166,8 @@ def param_shapes(cfg: ModelConfig) -> dict:
             "w_down": (L, cfg.intermediate, H),
         },
     }
+    if cfg.qkv_bias:
+        shapes["layers"].update(bq=(L, qd), bk=(L, kvd), bv=(L, kvd))
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (H, cfg.vocab_size)
     return shapes
@@ -168,10 +179,9 @@ def init_params(
     """Random weights from a seeded ``torch.Generator``: the JAX package's
     ``init_params`` scheme (normal scaled by 1/sqrt(fan_in), norms at one)
     with other random numbers. Stacked tensors are drawn one layer at a
-    time, so the float32 scratch stays one layer's worth. ``device``: CUDA
+    time, so the float32 scratch stays one layer's worth. QKV biases
+    (``qkv_bias``) start at zero, as in the JAX package. ``device``: CUDA
     unless ``"cpu"`` is asked for (``resolve_device``)."""
-    if cfg.qkv_bias:
-        raise NotImplementedError("qkv_bias (Qwen2) is not ported yet")
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -198,6 +208,9 @@ def init_params(
             "w_down": dense(ls["w_down"], cfg.intermediate),
         },
     }
+    if cfg.qkv_bias:
+        for name in BIAS_PARAMS:
+            params["layers"][name] = torch.zeros(ls[name], dtype=cfg.dtype, device=device)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense(shapes["lm_head"], cfg.hidden)
     return params
@@ -209,8 +222,6 @@ class Llama(nn.Module):
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
-        if cfg.qkv_bias:
-            raise NotImplementedError("qkv_bias (Qwen2) is not ported yet")
         self.cfg = cfg
         shapes = param_shapes(cfg)
 
@@ -222,7 +233,7 @@ class Llama(nn.Module):
         self.embed = frozen(params["embed"], shapes["embed"])
         self.final_norm = frozen(params["final_norm"], shapes["final_norm"])
         self.layers = nn.ParameterDict(
-            {n: frozen(params["layers"][n], shapes["layers"][n]) for n in LAYER_PARAMS}
+            {n: frozen(params["layers"][n], shapes["layers"][n]) for n in layer_params(cfg)}
         )
         self.lm_head = (
             None if cfg.tie_embeddings else frozen(params["lm_head"], shapes["lm_head"])
@@ -237,13 +248,19 @@ class Llama(nn.Module):
     # -- shared pieces ---------------------------------------------------
 
     def _qkv(self, l: int, x: torch.Tensor):
-        """x [B, S, H] → q [B, S, Hq, D], k/v [B, S, Hkv, D]."""
+        """x [B, S, H] → q [B, S, Hq, D], k/v [B, S, Hkv, D]; with
+        ``qkv_bias`` the biases are added before RoPE (every forward passes
+        through here)."""
         cfg, lp = self.cfg, self.layers
         B, S = x.shape[:2]
-        q = torch.matmul(x, lp["wq"][l]).view(B, S, cfg.n_heads, cfg.head_dim)
-        k = torch.matmul(x, lp["wk"][l]).view(B, S, cfg.n_kv_heads, cfg.head_dim)
-        v = torch.matmul(x, lp["wv"][l]).view(B, S, cfg.n_kv_heads, cfg.head_dim)
-        return q, k, v
+        q = torch.matmul(x, lp["wq"][l])
+        k = torch.matmul(x, lp["wk"][l])
+        v = torch.matmul(x, lp["wv"][l])
+        if cfg.qkv_bias:
+            q, k, v = q + lp["bq"][l], k + lp["bk"][l], v + lp["bv"][l]
+        return (q.view(B, S, cfg.n_heads, cfg.head_dim),
+                k.view(B, S, cfg.n_kv_heads, cfg.head_dim),
+                v.view(B, S, cfg.n_kv_heads, cfg.head_dim))
 
     def _attn_out_mlp(self, l: int, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
         """Residual ``wo`` projection of ``attn`` [B, S, Hq, D], then the

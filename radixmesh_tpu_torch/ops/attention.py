@@ -5,7 +5,11 @@ references, and the dispatchers the model calls (the JAX package's
 - ``attend_prefill`` is plain PyTorch: the JAX package runs it as plain XLA,
   with no Pallas kernel behind it.
 - ``attend_decode_ref`` and ``attend_chunk_hybrid`` are the gather-based
-  references the JAX package holds its kernels against.
+  references the JAX package holds its kernels against;
+  ``attend_prefill_paged`` is the blockwise chunk attention over pages
+  alone (the chunk already written to the pool), the oracle of
+  ``attend_chunk_hybrid``'s merge. All three are plain PyTorch, as the JAX
+  package runs them as plain XLA.
 - ``paged_decode_attention`` / ``paged_chunk_attention`` /
   ``paged_attention_pool`` (with ``paged_attention_pool_bucketed`` and the
   single-layer ``paged_attention``) dispatch to the wrappers in
@@ -41,6 +45,7 @@ __all__ = [
     "attend_prefill",
     "attend_decode_ref",
     "attend_chunk_hybrid",
+    "attend_prefill_paged",
     "batch_bucket",
     "default_use_kernel",
     "last_dispatch",
@@ -125,10 +130,12 @@ def _page_block_softmax(
     kv_bound: torch.Tensor,  # [B] pool tokens to attend (< bound)
     layer: int,
     kv_block_pages: int,
+    kv_scales: torch.Tensor | None = None,  # [2, L, Hkv, P, page] int8 pools
 ):
     """Scan fixed-size page blocks of one layer's pool context with an
     online softmax ``(m, l, acc)`` in ``[B, Hkv, G, C, ·]`` layout, causal
-    against ``q_positions`` and bounded by ``kv_bound``."""
+    against ``q_positions`` and bounded by ``kv_bound``; int8 pages are
+    dequantized by their scales."""
     B, C, Hq, D = q.shape
     Hkv, page = kv_pages.shape[2], kv_pages.shape[4]
     G = Hq // Hkv
@@ -147,6 +154,10 @@ def _page_block_softmax(
         pids = pt[:, blk * kv_block_pages:(blk + 1) * kv_block_pages]
         k = k_layer[:, pids].reshape(Hkv, B, bk, D).transpose(0, 1).float()
         v = v_layer[:, pids].reshape(Hkv, B, bk, D).transpose(0, 1).float()
+        if kv_scales is not None:
+            ks = kv_scales[0, layer][:, pids].reshape(Hkv, B, bk).transpose(0, 1)
+            vs = kv_scales[1, layer][:, pids].reshape(Hkv, B, bk).transpose(0, 1)
+            k, v = k * ks[..., None], v * vs[..., None]
         s = torch.einsum("bhgcd,bhkd->bhgck", qg, k)
         kv_pos = blk * bk + torch.arange(bk, device=q.device)
         ok = (kv_pos <= qpos) & (kv_pos < bound)
@@ -158,6 +169,30 @@ def _page_block_softmax(
         acc = acc * corr + torch.einsum("bhgck,bhkd->bhgcd", p, v)
         m = m_new
     return m, l, acc
+
+
+def attend_prefill_paged(
+    q: torch.Tensor,  # [B, C, Hq, D] one chunk of new tokens
+    kv_pages: torch.Tensor,  # [2, L, Hkv, P, page, D]
+    page_table: torch.Tensor,  # [B, max_pages] this request's pages, in order
+    q_positions: torch.Tensor,  # [B, C] absolute positions of the chunk
+    kv_lengths: torch.Tensor,  # [B] valid context tokens (incl. this chunk)
+    layer: int,
+    kv_block_pages: int = 32,
+    kv_scales: torch.Tensor | None = None,  # [2, L, Hkv, P, page] int8 pools
+) -> torch.Tensor:
+    """Blockwise causal attention for chunked prefill over the paged pool:
+    a chunk of C queries attends to the whole context so far (cached prefix
+    plus chunk K/V already written to the pool) by scanning blocks of
+    ``kv_block_pages`` pages with an online softmax, so memory stays
+    O(C · block). ``max_pages`` must be a multiple of ``kv_block_pages``.
+    Returns ``[B, C, Hq, D]`` (zeros where the softmax sum is 0)."""
+    B, C, Hq, D = q.shape
+    _, l, acc = _page_block_softmax(
+        q, kv_pages, page_table, q_positions, kv_lengths, layer, kv_block_pages, kv_scales
+    )
+    out = torch.where(l > 0, acc / l.clamp_min(1e-30), 0.0)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, C, Hq, D).to(q.dtype)
 
 
 def attend_chunk_hybrid(

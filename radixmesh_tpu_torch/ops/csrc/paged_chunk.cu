@@ -299,7 +299,11 @@ cudaError_t launch_g(const ChunkArgs& a, cudaStream_t stream) {
   switch (a.Hq / a.Hkv) {
     case 1: return launch<TQ, TP, TC, D, 1>(a, stream);
     case 2: return launch<TQ, TP, TC, D, 2>(a, stream);
+    case 3: return launch<TQ, TP, TC, D, 3>(a, stream);
     case 4: return launch<TQ, TP, TC, D, 4>(a, stream);
+    case 5: return launch<TQ, TP, TC, D, 5>(a, stream);
+    case 6: return launch<TQ, TP, TC, D, 6>(a, stream);
+    case 7: return launch<TQ, TP, TC, D, 7>(a, stream);
     case 8: return launch<TQ, TP, TC, D, 8>(a, stream);
     default: return cudaErrorInvalidValue;
   }

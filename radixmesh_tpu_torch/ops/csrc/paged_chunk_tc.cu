@@ -424,6 +424,8 @@ __global__ void __launch_bounds__(kThreads, 1) paged_chunk_tc_kernel(
 
       // A tile whose keys every row sees, with no int8 scale (most prior
       // tiles): no masks, and the scale folds into one FFMA per score.
+      // Only a full CTA (R == 128 rows) takes it: at GQA groups that do
+      // not divide 128 (3, 5, 6, 7) every tile runs the masked path.
       const bool open_tile = !scaled && !causal && n == kKeys && R == kRows;
       float mxA = mA, mxB = mB;
       if (open_tile) {
@@ -578,7 +580,11 @@ cudaError_t launch_g(const ChunkArgs& a, cudaStream_t stream) {
   switch (a.Hq / a.Hkv) {
     case 1: return launch<TP, TC, D, 1>(a, stream);
     case 2: return launch<TP, TC, D, 2>(a, stream);
+    case 3: return launch<TP, TC, D, 3>(a, stream);
     case 4: return launch<TP, TC, D, 4>(a, stream);
+    case 5: return launch<TP, TC, D, 5>(a, stream);
+    case 6: return launch<TP, TC, D, 6>(a, stream);
+    case 7: return launch<TP, TC, D, 7>(a, stream);
     case 8: return launch<TP, TC, D, 8>(a, stream);
     default: return cudaErrorInvalidValue;
   }

@@ -437,7 +437,11 @@ cudaError_t launch_g(const AttendArgs& a, cudaStream_t stream) {
   switch (a.Hq / a.Hkv) {
     case 1: return launch<TQ, TP, D, 1, kFused>(a, stream);
     case 2: return launch<TQ, TP, D, 2, kFused>(a, stream);
+    case 3: return launch<TQ, TP, D, 3, kFused>(a, stream);
     case 4: return launch<TQ, TP, D, 4, kFused>(a, stream);
+    case 5: return launch<TQ, TP, D, 5, kFused>(a, stream);
+    case 6: return launch<TQ, TP, D, 6, kFused>(a, stream);
+    case 7: return launch<TQ, TP, D, 7, kFused>(a, stream);
     case 8: return launch<TQ, TP, D, 8, kFused>(a, stream);
     default: return cudaErrorInvalidValue;
   }

@@ -69,6 +69,7 @@ __all__ = [
     "decode_splits",
     "reset_counters",
     "plain_calls",
+    "launch_counts",
 ]
 
 # Finite mask value of the JAX kernels (exp(finite - MASK) == 0 without the
@@ -78,9 +79,10 @@ _MASK = -0.7 * torch.finfo(torch.float32).max
 # dtype codes of the C entry points (int8 for pools only).
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _Q_DTYPES = (torch.float32, torch.bfloat16)
-# Head dims and GQA group sizes the CUDA kernels are instantiated for.
+# Head dims and GQA group sizes (Hq / Hkv) the CUDA kernels are
+# instantiated for: every group of the Llama-3 and Qwen2 presets (1 to 8).
 _HEAD_DIMS = (64, 128)
-_GROUPS = (1, 2, 4, 8)
+_GROUPS = tuple(range(1, 9))
 
 
 def _count(fn, attr: str, kv_scales) -> None:
@@ -321,7 +323,9 @@ def _check_common(name, q, kv_pages, page_table, int_vectors, kv_scales):
 
 
 def _check_gqa(name, Hq, Hkv, layer, L):
-    _check(Hq % Hkv == 0 and Hq // Hkv in _GROUPS, f"{name}: GQA group Hq/Hkv={Hq}/{Hkv} unsupported")
+    _check(Hkv > 0 and Hq % Hkv == 0 and Hq // Hkv in _GROUPS,
+           f"{name}: GQA group Hq/Hkv={Hq}/{Hkv} unsupported (the kernels take groups "
+           f"{_GROUPS[0]}..{_GROUPS[-1]})")
     _check(0 <= layer < L, f"{name}: layer {layer} out of range")
 
 
@@ -560,3 +564,16 @@ def reset_counters() -> None:
 def plain_calls() -> int:
     """Calls of every plain version since the last :func:`reset_counters`."""
     return sum(getattr(fn, a) + getattr(fn, f"{a}_int8") for fn, a in _COUNTED[3:])
+
+
+def launch_counts() -> dict:
+    """Every wrapper's launches and every plain version's calls since the
+    last :func:`reset_counters`, by name (``<name>`` for bf16/f32 pools,
+    ``<name>[int8]`` for int8 pools), plus the CUDA-core chunk body's
+    launches: what ``/stats`` reports as ``kernels``."""
+    out = {}
+    for fn, attr in _COUNTED:
+        out[fn.__name__] = getattr(fn, attr)
+        out[f"{fn.__name__}[int8]"] = getattr(fn, f"{attr}_int8")
+    out["paged_chunk_attention_kernel[f32 body]"] = paged_chunk_attention_kernel.launches_f32_body
+    return out

@@ -1,21 +1,26 @@
 """HTTP serving frontend over the port's engine (the JAX package's
 ``server/http_frontend.py``: ``EngineRunner`` and ``ServingFrontend``).
 
-- ``POST /generate``: ``input_ids`` (list of ints), ``max_tokens``,
-  ``temperature``, ``top_p``, ``top_k``, ``stop_token_ids``, optional
-  ``timeout`` (seconds). Replies ``{"output_ids", "cached_tokens", "rid",
-  "ttft_s", "e2e_s"}`` (plus ``"cancelled": true`` when cancelled).
+- ``POST /generate``: ``input_ids`` (list of ints) or ``text`` (a string,
+  tokenized server-side; needs a frontend built with a ``tokenizer``, else
+  400), ``max_tokens``, ``temperature``, ``top_p``, ``top_k``,
+  ``stop_token_ids`` (``text`` callers stop at the tokenizer's EOS unless
+  they send their own, even an empty list), optional ``timeout`` (seconds).
+  Replies ``{"output_ids", "cached_tokens", "rid", "ttft_s", "e2e_s"}``,
+  plus ``"text"`` (the output decoded) with a tokenizer and ``"cancelled":
+  true`` when cancelled.
 - ``POST /cancel`` ``{"rid"}``; ``GET /healthz``; ``GET /stats`` (the
   engine's counters; ``spec``, speculative acceptance per prompt-length
   bucket; ``waves``, the wave mix under mixed waves; ``decode_dispatch``,
   the last paged-vs-dense decision; with KV tiers, ``host_fill``,
   ``host_tier`` (arena occupancy, write-back and restore counters),
   ``kv_transfer`` (the plane's ``stats()`` and its parked requests) and
-  ``kv_tier`` — the JAX frontend's key names).
+  ``kv_tier`` — the JAX frontend's key names; ``kernels``, the attention
+  kernels' launches and their plain versions' calls in this process).
 
 Fields of the JAX API whose features are not ported yet — ``seed``
 (seeded replay), ``stream`` (SSE), ``resume_tokens``, ``trace_id``,
-``text`` (tokenizer), and the SLO fields ``tenant``, ``ttft_deadline_ms``,
+and the SLO fields ``tenant``, ``ttft_deadline_ms``,
 ``deadline_ms`` — are refused with a 400, never ignored.
 
 Threading model: one :class:`EngineRunner` thread owns the engine and
@@ -34,6 +39,7 @@ from typing import Sequence
 
 from radixmesh_tpu_torch.engine.engine import Engine
 from radixmesh_tpu_torch.engine.request import Request, RequestState, SamplingParams
+from radixmesh_tpu_torch.ops.paged_attention import launch_counts
 from radixmesh_tpu_torch.utils.logging import get_logger
 
 __all__ = ["EngineRunner", "ServingFrontend"]
@@ -44,7 +50,6 @@ _NOT_PORTED_FIELDS = {
     "stream": "SSE streaming",
     "resume_tokens": "resume admission",
     "trace_id": "request tracing",
-    "text": "server-side tokenization",
     "tenant": "SLO control",
     "ttft_deadline_ms": "SLO control",
     "deadline_ms": "SLO control",
@@ -172,6 +177,20 @@ def _int_list(x, what: str) -> list[int]:
     return x
 
 
+def _ids_from_body(body: dict, tokenizer) -> list[int]:
+    """Token ids from a request body: ``text`` (tokenized server-side) or
+    raw ``input_ids``."""
+    if "text" in body:
+        if tokenizer is None:
+            raise ValueError(
+                "server has no tokenizer (start with --tokenizer); send input_ids instead"
+            )
+        if not isinstance(body["text"], str):
+            raise ValueError("text must be a string")
+        return tokenizer.encode(body["text"])
+    return _int_list(body["input_ids"], "input_ids")
+
+
 def _stats(engine: Engine) -> dict:
     """``GET /stats``: lock-free snapshot reads of the engine's counters."""
     s = engine.stats
@@ -205,6 +224,7 @@ def _stats(engine: Engine) -> dict:
         }
     if tel["kv_tier"] is not None:
         out["kv_tier"] = tel["kv_tier"]
+    out["kernels"] = launch_counts()
     return out
 
 
@@ -215,9 +235,12 @@ class _FrontendServer(ThreadingHTTPServer):
 
 class ServingFrontend:
     """HTTP API over one serving engine. ``port=0`` binds a free port
-    (read it back from ``.port``)."""
+    (read it back from ``.port``). ``tokenizer`` (``server/tokenizer.py``)
+    lets clients send ``text`` and get ``text`` back."""
 
-    def __init__(self, engine: Engine, host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, engine: Engine, host: str = "127.0.0.1", port: int = 0,
+                 tokenizer=None):
+        self.tokenizer = tokenizer
         self.runner = EngineRunner(engine).start()
         self.log = get_logger("http.serve")
         frontend = self
@@ -254,15 +277,23 @@ class ServingFrontend:
                             "not supported by the PyTorch port yet: "
                             + ", ".join(f"{k} ({_NOT_PORTED_FIELDS[k]})" for k in refused)
                         )
-                    ids = _int_list(body["input_ids"], "input_ids")
+                    ids = _ids_from_body(body, frontend.tokenizer)
+                    stop_ids = tuple(_int_list(body.get("stop_token_ids", []), "stop_token_ids"))
+                    if (
+                        "text" in body
+                        and "stop_token_ids" not in body
+                        and frontend.tokenizer.eos_id is not None
+                    ):
+                        # Text callers expect generation to end at EOS
+                        # without knowing the id space; an explicit (even
+                        # empty) stop_token_ids opts out.
+                        stop_ids = (frontend.tokenizer.eos_id,)
                     sampling = SamplingParams(
                         temperature=float(body.get("temperature", 0.0)),
                         top_p=float(body.get("top_p", 1.0)),
                         top_k=int(body.get("top_k", 0)),
                         max_new_tokens=int(body.get("max_tokens", 16)),
-                        stop_token_ids=tuple(
-                            _int_list(body.get("stop_token_ids", []), "stop_token_ids")
-                        ),
+                        stop_token_ids=stop_ids,
                     )
                     timeout = float(body.get("timeout", 300.0))
                     req = frontend.runner.submit(ids, sampling)
@@ -290,6 +321,8 @@ class ServingFrontend:
                         req.finish_time - req.submit_time if req.finish_time else None
                     ),
                 }
+                if frontend.tokenizer is not None:
+                    reply["text"] = frontend.tokenizer.decode(tokens)
                 if req.cancelled:
                     reply["cancelled"] = True
                 _json_response(self, 200, reply)

@@ -1,7 +1,9 @@
 """The port's HTTP frontend over a tiny CPU engine: ``/generate`` answers
 what ``Engine.generate`` answers on the same weights, ``/healthz`` and
-``/stats`` serve, and fields of features that are not ported yet (a
-``seed``, ``stream``) are refused with a 400 instead of being ignored. A
+``/stats`` serve (with the kernels' launch counts), fields of features
+that are not ported yet (a ``seed``, ``stream``) are refused with a 400
+instead of being ignored, and ``text`` is answered 400 without a
+tokenizer and with ``text`` by a frontend that has one. A
 frontend over an engine with speculative decode and mixed waves answers
 the JAX engine's greedy tokens and reports both in ``/stats``. A frontend
 over an engine with the three KV tiers serves a prefix evicted under pool
@@ -92,10 +94,15 @@ def test_health_stats_and_refusals(served):
     _, _, fe = served
     assert _get(fe.port, "/healthz") == (200, {"status": "ok"})
     code, stats = _get(fe.port, "/stats")
-    assert code == 200 and {"hit_rate", "finished", "prefill_chunks"} <= set(stats)
+    assert code == 200 and {"hit_rate", "finished", "prefill_chunks", "kernels"} <= set(stats)
+    # CPU tensors: the plain versions ran, no kernel launched.
+    assert stats["kernels"]["paged_decode_fused_kernel"] == 0
     for extra in ({"seed": 7}, {"stream": True}, {"tenant": "a"}):
         code, body = _post(fe.port, "/generate", {"input_ids": [1, 2, 3], **extra})
         assert code == 400 and "not supported" in body["error"], body
+    # text without a tokenizer: 400, with the JAX frontend's message.
+    code, body = _post(fe.port, "/generate", {"text": "hello"})
+    assert code == 400 and "no tokenizer" in body["error"], body
     code, body = _post(fe.port, "/generate", {"input_ids": "nope"})
     assert code == 400
     code, body = _post(fe.port, "/generate", {"input_ids": [1, 10_000]})
@@ -192,5 +199,25 @@ def test_tiered_engine_reports_a_host_hit(tmp_path):
         assert stats["kv_transfer"]["restored_tokens"] >= replies[3]["cached_tokens"]
         assert stats["kv_transfer"]["restoring_requests"] == 0
         assert stats["kv_tier"]["dir"] == str(tmp_path)
+    finally:
+        fe.close(drain_s=0.0)
+
+
+def test_text_with_a_tokenizer():
+    from radixmesh_tpu_torch.server.tokenizer import ByteTokenizer
+
+    cfg = ModelConfig.tiny().replace(dtype=torch.float32)
+    tok = ByteTokenizer()
+    fe = ServingFrontend(Engine(cfg, init_params(cfg, seed=4, device="cpu"), **ENGINE_KW), port=0,
+                         tokenizer=tok)
+    try:
+        code, body = _post(fe.port, "/generate", {"text": "hello over http", "max_tokens": 5,
+                                                  "stop_token_ids": []})
+        assert code == 200 and len(body["output_ids"]) == 5
+        assert body["text"] == tok.decode(body["output_ids"])
+        code, again = _post(fe.port, "/generate", {"input_ids": tok.encode("hello over http"),
+                                                   "max_tokens": 5})
+        assert code == 200 and again["output_ids"] == body["output_ids"]
+        assert again["cached_tokens"] > 0
     finally:
         fe.close(drain_s=0.0)

@@ -1,9 +1,12 @@
 """The port stands alone: importing every module of ``radixmesh_tpu_torch``
 and everything ``chip_smoke.py`` imports pulls in neither ``jax``, the JAX
 package nor ``ml_dtypes`` (absent on the card's machine: the disk tier
-encodes bf16 from torch's own bit patterns); entry points default to CUDA and raise without it; the
-launcher refuses flags of features that are not ported yet and parses
-those that are."""
+encodes bf16 from torch's own bit patterns), nor ``safetensors``,
+``transformers`` or ``tokenizers`` (the port reads and writes safetensors
+itself, and imports ``transformers`` only when an HF tokenizer directory
+is loaded); entry points default to CUDA and raise
+without it; the launcher refuses flags of features that are not ported yet
+and parses those that are."""
 
 import pathlib
 import subprocess
@@ -23,7 +26,8 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke  # noqa: F401  (module import only; main() is not run)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "radixmesh_tpu" or m.startswith("radixmesh_tpu.") or m == "ml_dtypes")
+             or m == "radixmesh_tpu" or m.startswith("radixmesh_tpu.") or m == "ml_dtypes"
+             or m.split(".")[0] in ("safetensors", "transformers", "tokenizers"))
 print(len(mods), bad, " ".join(mods))
 assert not bad, bad
 """
@@ -40,7 +44,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     walked = set(r.stdout.split())
     assert {"radixmesh_tpu_torch.engine.waves", "radixmesh_tpu_torch.obs.spec_ledger",
             "radixmesh_tpu_torch.obs.attribution", "radixmesh_tpu_torch.cache.host_cache",
-            "radixmesh_tpu_torch.cache.kv_transfer", "radixmesh_tpu_torch.cache.kv_tier"} <= walked, r.stdout
+            "radixmesh_tpu_torch.cache.kv_transfer", "radixmesh_tpu_torch.cache.kv_tier",
+            "radixmesh_tpu_torch.models.hf_io", "radixmesh_tpu_torch.models.qwen2",
+            "radixmesh_tpu_torch.server.tokenizer"} <= walked, r.stdout
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -111,3 +117,67 @@ def test_launcher_parses_the_tier_flags():
     assert (d.host_cache_slots, d.kv_transfer_async, d.kv_transfer_chunk,
             d.kv_transfer_min_restore, d.kv_tier_dir, d.kv_tier_capacity_gb) == (
         0, False, None, None, None, None)
+
+
+def test_launcher_parses_weights_and_tokenizer():
+    from radixmesh_tpu_torch.launch import _NOT_PORTED_FLAGS, parse_args
+
+    assert not {"--weights", "--tokenizer"} & set(_NOT_PORTED_FLAGS)
+    args = parse_args(["serve", "--model", "qwen2-7b", "--weights", "/ckpt", "--tokenizer", "byte"])
+    assert (args.model, args.weights, args.tokenizer) == ("qwen2-7b", "/ckpt", "byte")
+    d = parse_args(["serve"])
+    assert (d.weights, d.tokenizer) == (None, None)
+
+
+def test_launcher_serves_a_checkpoint_with_text(tmp_path):
+    """``serve --weights DIR --tokenizer byte --device cpu``: the launcher
+    loads a checkpoint written by ``save_hf_state_dict`` and answers
+    ``text`` with ``text``; a repeat hits the prefix cache."""
+    import json
+    import socket
+    import time
+    import urllib.request
+
+    from radixmesh_tpu_torch.models import get_config
+    from radixmesh_tpu_torch.models.convert import hf_state_dict
+    from radixmesh_tpu_torch.models.hf_io import save_hf_state_dict
+    from radixmesh_tpu_torch.models.llama import init_params
+
+    cfg = get_config("qwen2-tiny")
+    params = init_params(cfg, seed=2, device="cpu")
+    params["layers"]["bk"].normal_(generator=torch.Generator().manual_seed(2))
+    save_hf_state_dict(hf_state_dict(cfg, params), str(tmp_path / "ck"), max_shard_bytes=1 << 18)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    log = open(tmp_path / "serve.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "radixmesh_tpu_torch.launch", "serve", "--model", "qwen2-tiny",
+         "--device", "cpu", "--kv-slots", "512", "--page-size", "4", "--http-port", str(port),
+         "--weights", str(tmp_path / "ck"), "--tokenizer", "byte"],
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+
+    def post(body):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/generate", data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return json.loads(r.read())
+
+    try:
+        deadline = time.monotonic() + 90
+        while True:
+            assert proc.poll() is None, (tmp_path / "serve.log").read_text()
+            assert time.monotonic() < deadline, (tmp_path / "serve.log").read_text()
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=2).close()
+                break
+            except OSError:
+                time.sleep(0.2)
+        body = {"text": "a prompt long enough to share a page", "max_tokens": 4, "stop_token_ids": []}
+        first, again = post(body), post(body)
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+        log.close()
+    assert isinstance(first["text"], str) and len(first["output_ids"]) == 4
+    assert again["cached_tokens"] > 0 and again["output_ids"] == first["output_ids"]

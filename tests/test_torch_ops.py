@@ -125,6 +125,62 @@ class TestAttention:
         want = jattn.attend_chunk_hybrid(*(jnp.asarray(a) for a in args), 1, kv_block_pages=kvb)
         _close(got, want)
 
+    @staticmethod
+    def _paged_case(seed, quant=False):
+        """Two rows with ragged, mid-page priors; the second row's chunk is
+        partial. Returns numpy inputs, the chunk written into its slots
+        (int8 pools: quantized, with scales)."""
+        rng = np.random.default_rng(seed)
+        B, C, Hq, Hkv, D, page, L, maxp = 2, 8, 8, 2, 32, 4, 2, 8
+        prior = np.array([9, 17])
+        n_valid = np.array([C, C - 3])
+        kv = rng.normal(size=(2, L, Hkv, 64, page, D)).astype(np.float32)
+        q = rng.normal(size=(B, C, Hq, D)).astype(np.float32)
+        k_cur = rng.normal(size=(B, C, Hkv, D)).astype(np.float32)
+        v_cur = rng.normal(size=(B, C, Hkv, D)).astype(np.float32)
+        pt = rng.permutation(64)[: B * maxp].reshape(B, maxp).astype(np.int32)
+        positions = (prior[:, None] + np.arange(C)[None]).astype(np.int32)
+        kv_len = (prior + n_valid).astype(np.int32)
+        kv_o = kv.copy()
+        for b in range(B):
+            for j in range(int(n_valid[b])):
+                pos = prior[b] + j
+                pg, off = pt[b, pos // page], pos % page
+                kv_o[0, 1, :, pg, off] = k_cur[b, j]
+                kv_o[1, 1, :, pg, off] = v_cur[b, j]
+        sc = None
+        if quant:
+            from radixmesh_tpu.ops.quant import quantize_kv
+
+            q8, sc = quantize_kv(jnp.asarray(kv_o), axis=-1)
+            kv_o, sc = np.array(q8), np.array(sc)
+        return q, k_cur, v_cur, kv, kv_o, sc, pt, positions, prior.astype(np.int32), kv_len
+
+    @pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+    def test_attend_prefill_paged_matches_jax(self, quant):
+        """The blockwise paged chunk attention over the pool (the chunk
+        already written) against the JAX function, float32 and int8 pools
+        (twin of tests/test_ops.py's TestChunkHybrid oracle)."""
+        q, _, _, _, kv_o, sc, pt, positions, _, kv_len = self._paged_case(11, quant)
+        got = tattn.attend_prefill_paged(_t(q), _t(kv_o), _t(pt), _t(positions), _t(kv_len), 1,
+                                         kv_block_pages=4, kv_scales=None if sc is None else _t(sc))
+        want = jattn.attend_prefill_paged(
+            *(jnp.asarray(a) for a in (q, kv_o, pt, positions, kv_len)), 1, kv_block_pages=4,
+            kv_scales=None if sc is None else jnp.asarray(sc))
+        _close(got, want)
+
+    def test_hybrid_matches_paged_oracle(self):
+        """attend_chunk_hybrid (the chunk dense, the prior from pages) equals
+        attend_prefill_paged with the chunk written to the pool, on every
+        valid query."""
+        q, kc, vc, kv, kv_o, _, pt, positions, prior, kv_len = self._paged_case(11)
+        got = tattn.attend_chunk_hybrid(*(_t(a) for a in (q, kc, vc, kv, pt, positions, prior, kv_len)),
+                                        1, kv_block_pages=4)
+        want = tattn.attend_prefill_paged(_t(q), _t(kv_o), _t(pt), _t(positions), _t(kv_len), 1,
+                                          kv_block_pages=4)
+        valid = np.arange(q.shape[1])[None, :] < (kv_len - prior)[:, None]
+        _close(got.numpy()[valid], want.numpy()[valid])
+
 
 class TestSampling:
     def test_greedy_exact(self):
