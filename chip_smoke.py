@@ -11,7 +11,10 @@ Phases (any failure raises and exits non-zero):
    build of every CUDA kernel from ``radixmesh_tpu_torch/ops/csrc`` (one
    ``nvcc`` per source, all started together; ``ptxas`` reports to
    ``chip_out/ptxas.txt``), and ``cuobjdump -sass`` of the tensor-core
-   chunk library, which must hold HGMMA (wgmma) instructions.
+   chunk library, which must hold HGMMA (wgmma) instructions, and of the
+   CUDA-core chunk body's, which must hold LDGSTS (cp.async) and LDS.128.
+   The CUDA-core body's registers, spill bytes and shared memory are
+   printed per instantiation; at D 128 none may spill.
 2. Kernels: each kernel body and pool dtype against its plain PyTorch
    version on the card at the Llama-3-8B attention shapes (Hq 32, Hkv 8,
    D 128, page 16): the split decode and pool kernels at B=1 and B=8 over a
@@ -26,13 +29,14 @@ Phases (any failure raises and exits non-zero):
    ||got - want|| <= 2e-2 ||want|| over each query head's D values),
    int8 pools with float32 queries (atol 1e-4); the decode pool contents
    (int8: payload and scales, each bit-equal) after the write. Three
-   faults planted in the tensor-core chunk cases' inputs (a skipped prior
+   faults planted in the chunk cases' inputs at C = 512 (a skipped prior
    key, a skipped 64-key prior tile, one wrong prior page) must each fail
-   the row check. The fast schedules' shapes: the chunk kernel at C = 5
-   (a γ = 4 speculative verify: one query per CTA, 4 of 128 rows live) and
-   C = 16 (a mixed wave's floor: 64 rows), bf16 and int8 pools, ragged
-   priors, live windows w in {1, 3, 5, 16} and an all-padding row, with
-   the longest row's last prior page read from the scratch page as a
+   the row check (tensor cores) or the 1e-4 check (CUDA cores). The fast
+   schedules' shapes: the chunk kernel at C = 5 (a γ = 4 speculative
+   verify: one query per CTA, 4 of 128 rows live) and C = 16 (a mixed
+   wave's floor: 64 rows), both bodies, float32, bf16 and int8 pools,
+   ragged priors, live windows w in {1, 3, 5, 16} and an all-padding row,
+   with the longest row's last prior page read from the scratch page as a
    planted fault at C = 5; the decode kernel over a 16-page compact
    sub-pool. Times with CUDA events (L2 flushed before each launch, the
    host's launch time kept out, the median of the timed calls) beside the
@@ -96,9 +100,10 @@ Phases (any failure raises and exits non-zero):
    plain version with phase 2's tolerances, row check and planted faults:
    decode and pool at B=8 ragged, the tensor-core chunk body at C = 512,
    verify C = 5 and mixed C = 16 (bf16 and int8 pools), the CUDA-core body
-   at G 7; the chunk body at G 4 and G 8 over 4 kv heads is timed beside
-   G 7 per query row (at G 3 and 7 a CTA's 128 rows are not all live, and
-   every tile takes the masked path).
+   at the same three shapes (float32 and int8 pools, timed, with the
+   planted faults); the tensor-core body at G 4 and G 8 over 4 kv heads is
+   timed beside G 7 per query row (at G 3 and 7 a CTA's 128 rows are not
+   all live, and every tile takes the masked path).
 8. Qwen2-7B at full width and depth (28 layers, random bf16 weights with
    planted QKV biases) served over HTTP as in phase 3 with a bf16 pool,
    then the pool kernel over its pages: the decode and chunk kernels run at
@@ -126,11 +131,13 @@ Exits 2 without printing a result where torch has no CUDA device.
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import math
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -413,7 +420,7 @@ def chunk_case(name, prior, n_dense, dtype, dev, timed, seed, C=512, quant=False
            "body": "tensor cores" if dtype == torch.bfloat16 else "CUDA cores",
            **_check_close(name, got, want, dtype)}
     res["cblk"] = pa.chunk_query_block(C, hq // hkv, pa.CHUNK_ROWS[dtype])
-    if dtype == torch.bfloat16 and prior.max() >= 64:
+    if prior.max() >= 64 and (dtype == torch.bfloat16 or C == 512 or faults):
         res["planted_faults"] = planted_faults(
             name, want, (q, kc, vc, kv, pt, pr, kl, layer, sc), int(np.argmax(prior)),
             int(prior.max()), scratch_page, faults or FAULTS[:3])
@@ -454,11 +461,12 @@ FAULTS = ("last prior key skipped", "last 64 prior keys skipped", "one prior pag
 
 
 def planted_faults(name, want, args, b, prior_b, scratch_page, which) -> dict:
-    """The row check must tell a wrong tensor-core chunk body from a
-    right one: faults (``which``, of ``FAULTS``) made in the inputs of the
-    row ``b`` with the longest prior — its last prior key skipped, its last
-    64 prior keys skipped (one K tile), one page in the middle of its prior
-    or its last prior page read from the scratch page — must each fail it.
+    """The check must tell a wrong chunk body from a right one: faults
+    (``which``, of ``FAULTS``) made in the inputs of the row ``b`` with the
+    longest prior — its last prior key skipped, its last 64 prior keys
+    skipped (one K tile), one page in the middle of its prior or its last
+    prior page read from the scratch page — must each fail it: the row
+    check for bf16 outputs, max |kernel - plain| <= ATOL for float32 ones.
     Returns each fault's readings."""
     q, kc, vc, kv, pt, pr, kl, layer, sc = args
 
@@ -481,10 +489,14 @@ def planted_faults(name, want, args, b, prior_b, scratch_page, which) -> dict:
         pt_f, pr_f, kl_f = faults[fault]()
         got = pa.paged_chunk_attention_kernel(q, kc, vc, kv, pt_f, pr_f, kl_f, layer, sc)
         rel = _row_rel_err(got, want)
-        check(rel > ROW_RTOL, f"{name}: the row check misses a planted fault ({fault}): "
-              f"row error {rel}")
-        out[fault] = {"row_rel_err": rel,
-                      "max_abs_err": (got.float() - want.float()).abs().max().item()}
+        err = (got.float() - want.float()).abs().max().item()
+        if q.dtype == torch.bfloat16:
+            check(rel > ROW_RTOL, f"{name}: the row check misses a planted fault ({fault}): "
+                  f"row error {rel}")
+        else:
+            check(err > ATOL[q.dtype], f"{name}: the {ATOL[q.dtype]} check misses a planted "
+                  f"fault ({fault}): max |kernel - plain| {err}")
+        out[fault] = {"row_rel_err": rel, "max_abs_err": err}
     return out
 
 
@@ -538,28 +550,32 @@ def kernel_phase(dev) -> dict:
             tag = (" int8" if quant else "") + (" f32 queries" if quant and dtype == f32 else "")
             name = ("paged_chunk_attention" + ("[int8]" if quant else "") if dtype == bf16
                     else "paged_chunk_attention[f32]")
-            timed = dtype == bf16 or not quant
             run(name, chunk_case, "chunk B=1 prior=0" + tag, [0], [512], dtype, dev, False, 3,
                 quant=quant)
-            run(name, chunk_case, "chunk B=1 prior=2500" + tag, [2500], [512], dtype, dev, timed, 4,
+            run(name, chunk_case, "chunk B=1 prior=2500" + tag, [2500], [512], dtype, dev, True, 4,
                 quant=quant)
             run(name, chunk_case, "chunk B=8 ragged" + tag, chunk_prior, chunk_fill, dtype, dev,
-                timed, 5, quant=quant)
+                True, 5, quant=quant)
             run(name, chunk_case, "chunk C=64 prior" + tag, [0, 37, 300, 1000], [64, 20, 64, 0],
                 dtype, dev, False, 12, C=64, quant=quant)
     # The fast schedules' shapes. Chunk: a γ=4 speculative verify (C = 5,
     # one query per CTA: R = 4 rows of 128) and a mixed wave's floor
-    # (C = 16: R = 64), bf16 and int8 pools, ragged priors, live windows
-    # w in {1, 3, 5, 16} and one all-padding row (w = 0); the R = 4 bf16
-    # case must also fail the row check with the longest row's last prior
-    # page read from the scratch page. Decode: a compact working set, the
-    # whole pool 16 pages (the dense leg's sub-pool).
+    # (C = 16: R = 64), both bodies, bf16, float32 and int8 pools, ragged
+    # priors, live windows w in {1, 3, 5, 16} and one all-padding row
+    # (w = 0); the R = 4 cases must also fail their check with the longest
+    # row's last prior page read from the scratch page. Decode: a compact
+    # working set, the whole pool 16 pages (the dense leg's sub-pool).
     for quant in (False, True):
         sfx, tag = ("[int8]", " int8") if quant else ("", "")
         run("paged_chunk_attention" + sfx, chunk_case, "chunk verify C=5" + tag, chunk_prior,
             VERIFY_FILL, bf16, dev, True, 21, C=5, quant=quant, faults=("last prior page wrong",))
         run("paged_chunk_attention" + sfx, chunk_case, "chunk mixed C=16" + tag, chunk_prior,
             MIXED_FILL, bf16, dev, True, 22, C=16, quant=quant)
+        tag += " f32 queries" if quant else ""
+        run("paged_chunk_attention[f32]", chunk_case, "chunk verify C=5" + tag, chunk_prior,
+            VERIFY_FILL, f32, dev, True, 21, C=5, quant=quant, faults=("last prior page wrong",))
+        run("paged_chunk_attention[f32]", chunk_case, "chunk mixed C=16" + tag, chunk_prior,
+            MIXED_FILL, f32, dev, True, 22, C=16, quant=quant)
         run("paged_decode_fused" + sfx, decode_case, "decode B=8 compact 16 pages" + tag, COMPACT_LENGTHS,
             bf16, dev, True, 23, quant=quant, maxp=4, pool_pages=16)
     return results
@@ -576,10 +592,11 @@ ROW_COST_HEADS = {4: (16, 4), 8: (32, 4)}
 def group_kernel_phase(dev) -> dict:
     """Each kernel at G 3 and G 7 against its plain version, with the
     kernel phase's tolerances, row check and planted faults: the decode
-    (B1) and pool (B3) kernels at B=8 ragged, the tensor-core chunk body
-    (B2) at C = 512, verify C = 5 and mixed C = 16, bf16 and int8 pools;
-    the CUDA-core chunk body at G 7. Then the chunk body at G 4 and G 8
-    over 4 kv heads, timed beside G 7 per query row."""
+    (B1) and pool (B3) kernels at B=8 ragged, both chunk bodies (B2) at
+    C = 512, verify C = 5 and mixed C = 16 (the tensor cores over bf16 and
+    int8 pools, the CUDA cores over float32 and int8 pools). Then the
+    tensor-core body at G 4 and G 8 over 4 kv heads, timed beside G 7 per
+    query row."""
     results: dict[str, list] = {}
     run = _runner(results, "kernel G")
     f32, bf16 = torch.float32, torch.bfloat16
@@ -598,10 +615,14 @@ def group_kernel_phase(dev) -> dict:
                 faults=("last prior page wrong",))
             run("paged_chunk_attention" + sfx, chunk_case, "chunk mixed C=16" + tag, CHUNK_PRIOR,
                 MIXED_FILL, bf16, dev, True, 35, C=16, quant=quant, heads=heads)
-    run("paged_chunk_attention[f32]", chunk_case, "chunk B=8 ragged G=7", CHUNK_PRIOR, CHUNK_FILL, f32,
-        dev, True, 36, heads=GROUP_HEADS[7])
-    run("paged_chunk_attention[f32]", chunk_case, "chunk B=8 ragged G=7 int8 f32 queries", CHUNK_PRIOR,
-        CHUNK_FILL, f32, dev, False, 37, quant=True, heads=GROUP_HEADS[7])
+            tag += " f32 queries" if quant else ""
+            run("paged_chunk_attention[f32]", chunk_case, "chunk B=8 ragged" + tag, CHUNK_PRIOR,
+                CHUNK_FILL, f32, dev, True, 36, quant=quant, heads=heads)
+            run("paged_chunk_attention[f32]", chunk_case, "chunk verify C=5" + tag, CHUNK_PRIOR,
+                VERIFY_FILL, f32, dev, True, 37, C=5, quant=quant, heads=heads,
+                faults=("last prior page wrong",))
+            run("paged_chunk_attention[f32]", chunk_case, "chunk mixed C=16" + tag, CHUNK_PRIOR,
+                MIXED_FILL, f32, dev, True, 38, C=16, quant=quant, heads=heads)
     for G, heads in ROW_COST_HEADS.items():
         for C, fill in ((512, CHUNK_FILL), (5, VERIFY_FILL)):
             run("paged_chunk_attention", chunk_case, f"chunk {'B=8 ragged' if C == 512 else 'verify C=5'} "
@@ -619,14 +640,54 @@ def group_kernel_phase(dev) -> dict:
 
 def sass_check() -> dict:
     """The tensor-core chunk body issues wgmma: ``cuobjdump -sass`` of its
-    library shows HGMMA instructions (saved to ``chip_out/hgmma.txt``)."""
+    library shows HGMMA instructions (saved to ``chip_out/hgmma.txt``).
+    The CUDA-core body copies K/V tiles with cp.async and reads its
+    fragments 16 bytes at a time: its library shows LDGSTS and LDS.128
+    (those lines saved to ``chip_out/f32_body_sass.txt``)."""
     lines = [line.strip() for line in _build.sass("paged_chunk_tc").splitlines()
              if "HGMMA" in line]
     (OUT_DIR / "hgmma.txt").write_text("\n".join(lines) + "\n")
     check(len(lines) > 0, "no HGMMA instruction in the tensor-core chunk library")
     print(f"[env] cuobjdump -sass paged_chunk_tc: {len(lines)} HGMMA instructions, e.g. "
           f"{lines[0]}", flush=True)
-    return {"hgmma_instructions": len(lines), "example": lines[0]}
+    f32_body = _build.sass("paged_chunk")
+    ops = {op: f32_body.count(op) for op in ("LDGSTS", "LDS.128", "FFMA ", "SHFL.BFLY")}
+    (OUT_DIR / "f32_body_sass.txt").write_text("".join(
+        line.strip() + "\n" for line in f32_body.splitlines() if "LDGSTS" in line or "LDS.128" in line))
+    check(ops["LDGSTS"] > 0 and ops["LDS.128"] > 0,
+          f"the CUDA-core chunk library lacks LDGSTS or LDS.128: {ops}")
+    print(f"[env] cuobjdump -sass paged_chunk: {ops}", flush=True)
+    return {"hgmma_instructions": len(lines), "example": lines[0], "f32_body": ops}
+
+
+def f32_body_resources(ptxas: str) -> dict:
+    """Registers, spill bytes and shared memory of each instantiation of
+    the CUDA-core chunk body, from its ``ptxas -v`` report and the
+    library's own count of the dynamic shared memory it launches with; no
+    instantiation at D 128 may spill."""
+    lib = _build.load_library("paged_chunk")
+    lib.paged_chunk_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.paged_chunk_smem_bytes.restype = ctypes.c_int
+    out, name = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"paged_chunk_kernelIf([fa])fLi(\d+)ELi(\d+)E", m.group(1))
+            name = None if k is None else (("int8" if k.group(1) == "a" else "float32"),
+                                           int(k.group(2)), int(k.group(3)))
+            if name:
+                out[name] = {"smem_bytes": lib.paged_chunk_smem_bytes(name[1], 2 if name[0] == "int8" else 0)}
+        elif name and "spill stores" in line:
+            out[name]["spill_bytes"] = sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))
+        elif name and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    check(len(out) == 32, f"ptxas reported {len(out)} CUDA-core chunk instantiations, not 32")
+    for (pool, d, g), r in sorted(out.items()):
+        print(f"[env] ptxas paged_chunk {pool} pool D {d} G {g}: {r['registers']} registers, "
+              f"{r['spill_bytes']} bytes spilled, {r['smem_bytes']} bytes of shared memory", flush=True)
+    spills = {k: v for k, v in out.items() if k[1] == 128 and v["spill_bytes"]}
+    check(not spills, f"the CUDA-core chunk body spills at D 128: {spills}")
+    return {f"{pool} D{d} G{g}": r for (pool, d, g), r in out.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1528,6 +1589,7 @@ def main() -> int:
           f"{len(spills)} kernel(s) spill" + "".join(f"\n  {x.strip()}" for x in spills), flush=True)
 
     sass = sass_check()
+    sass["f32_body_resources"] = f32_body_resources(log["paged_chunk"]["ptxas"])
     t = time.monotonic()
     kernels = kernel_phase(dev)
     print(f"[time] kernel phase {time.monotonic() - t:.1f}s", flush=True)
@@ -1625,7 +1687,7 @@ def main() -> int:
         "paged_chunk_attention[f32] G=7": ("paged_chunk_attention[f32]", "chunk B=8 ragged G=7", "float32",
                                            {"whole path qwen2-7b float32":
                                             whole["qwen2-7b float32"]["launches"]["chunk_cuda_core_body"]},
-                                           ("G=7",)),
+                                           ("G=7", "G=3")),
         "paged_decode_fused G=3": ("paged_decode_fused", "decode B=8 ragged G=3", "bfloat16",
                                    {"serve text llama3.2-3b": serve_text["kernels"]["paged_decode_fused_kernel"]},
                                    ("G=3",)),
@@ -1647,10 +1709,11 @@ def main() -> int:
                     if r["case"] == case and r["dtype"] == dtype and "ms" in r][0]
         # The entry's other timed cases: the fast schedules' shapes (verify
         # and mixed-wave chunks, decode over a compact sub-pool); a group
-        # entry's other cases at its group.
+        # entry's other cases at its group; every timed case of the
+        # CUDA-core chunk body (float32 and int8 pools).
         shapes = [{k: r.get(k) for k in summary_keys}
                   for r in kernels[name] if "ms" in r and r is not main_row
-                  and (name in group_meta or r["dtype"] == dtype
+                  and (name in group_meta or "[f32]" in name or r["dtype"] == dtype
                        and any(w in r["case"] for w in ("verify", "mixed", "compact")))]
         entries.append({
             "name": name,

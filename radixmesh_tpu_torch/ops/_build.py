@@ -31,7 +31,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# name -> {"seconds": build time (0 if cached), "ptxas": compiler report}
+# name -> {"seconds": build time (0 if cached), "ptxas": compiler report
+# (kept beside the library, so a cached build reports it too)}
 BUILD_LOG: dict[str, dict] = {}
 
 
@@ -60,7 +61,9 @@ def _start(name: str):
     returns ``(process, temp path, target, t0)`` or None."""
     target = _target(name)
     if target.exists():
-        BUILD_LOG.setdefault(name, {"seconds": 0.0, "ptxas": ""})
+        report = target.with_suffix(".ptxas.txt")
+        BUILD_LOG.setdefault(name, {"seconds": 0.0,
+                                    "ptxas": report.read_text() if report.exists() else ""})
         return None
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
@@ -77,6 +80,7 @@ def _finish(name: str, started) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{out}")
+    target.with_suffix(".ptxas.txt").write_text(out)  # for later loads of this build
     os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
     BUILD_LOG[name] = {"seconds": time.monotonic() - t0, "ptxas": out}
 

@@ -473,10 +473,10 @@ paged_attention_pool_kernel.launches = 0
 paged_attention_pool_kernel.launches_int8 = 0
 
 
-# Query rows (Cblk * G) per CTA of the chunk kernel's two bodies: two
-# 64-row warpgroups on the tensor cores (bf16 queries), one 64-row tile on
-# the CUDA cores (float32 queries).
-CHUNK_ROWS = {torch.bfloat16: 128, torch.float32: 64}
+# Query rows (Cblk * G) per CTA of the chunk kernel's two bodies (``kRows``
+# in each source): two 64-row warpgroups on the tensor cores (bf16
+# queries), 256 threads of 8 rows each on the CUDA cores (float32 queries).
+CHUNK_ROWS = {torch.bfloat16: 128, torch.float32: 128}
 
 
 def chunk_query_block(C: int, G: int, max_rows: int = 128) -> int:

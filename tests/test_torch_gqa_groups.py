@@ -4,8 +4,8 @@ chunk, B3 pool), on the CPU.
 - The wrappers' group check takes every group the kernels are instantiated
   for (1..8) and refuses a larger one by name.
 - ``chunk_query_block`` at groups 3, 5, 6 and 7: the largest power-of-two
-  divisor of C whose rows fit the body's CTA (128 rows on the tensor cores,
-  64 on the CUDA cores).
+  divisor of C whose rows fit the body's CTA (128 rows on either body; the
+  64-row cases keep the rule pinned at another width).
 - The plain versions against the JAX package's Pallas kernels in interpret
   mode at G 3, 5 and 7 (Qwen2-7B's 7, Qwen2.5-14B/32B's 5, llama3.2-3b's 3)
   over float32, bf16 and int8 pools, with length-0 and length-1 rows,

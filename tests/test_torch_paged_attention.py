@@ -192,9 +192,11 @@ class TestPlainChunk:
         _close(got, want)
 
     def test_query_block_choice(self):
-        # The CUDA-core body (float32 queries): 64 rows per CTA.
+        # The CUDA-core body (float32 queries): 128 rows per CTA.
         rows = tpa.CHUNK_ROWS[torch.float32]
-        assert tpa.chunk_query_block(512, 4, rows) == 16
+        assert rows == 128
+        assert tpa.chunk_query_block(512, 4, rows) == 32
+        assert tpa.chunk_query_block(512, 7, rows) == 16
         assert tpa.chunk_query_block(16, 4, rows) == 16
         assert tpa.chunk_query_block(8, 2, rows) == 8
         assert tpa.chunk_query_block(24, 8, rows) == 8
