@@ -118,7 +118,21 @@ Phases (any failure raises and exits non-zero):
 11. A 2-layer float32 Qwen2-7B (planted biases) through the ``Engine`` on
    the card and on the CPU, as phase 5: the same greedy tokens, the decode
    kernel and the CUDA-core chunk body at G 7.
-Checkpoints are written under ``chip_out/`` and removed.
+12. Seeded replay, resume admission and the observability planes. In
+   phase 5's configuration (2-layer float32): a seeded stochastic stream
+   resumed on new card engines at crash points 1 and 5 must continue
+   token for token, and greedy seeded rows must give the CPU's tokens.
+   Decode-step walls (4 rows of 600 tokens, the median of five 8-step
+   windows, two rounds): unseeded with every plane off, at the defaults
+   (the token timeline), with every plane on, and seeded. Llama-3-8B bf16
+   over HTTP with the planes on: 4 seeded requests at once (temperature
+   0.9, top-p 0.95), each seed alone twice (the same tokens), each resumed
+   at crash points 1 and 5 (the share of continuations equal to the alone
+   run's is printed, not asserted), one ``/profile`` window whose Chrome
+   trace must name the decode and chunk kernels, ``/metrics`` counters
+   equal to ``/stats``, ``/debug/tokens`` gaps, and the MFU reading over
+   the card's peak.
+Checkpoints and profiles are written under ``chip_out/`` and removed.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches per path in
 ``launches_by_path``, their sum in ``launches``, the fast schedules'
@@ -152,7 +166,7 @@ import torch.nn.functional as F
 
 from radixmesh_tpu_torch.cache.kv_transfer import kv_token_bytes
 from radixmesh_tpu_torch.engine.engine import Engine
-from radixmesh_tpu_torch.engine.request import RequestState, SamplingParams
+from radixmesh_tpu_torch.engine.request import Request, RequestState, SamplingParams
 from radixmesh_tpu_torch.models import get_config
 from radixmesh_tpu_torch.models.convert import hf_state_dict
 from radixmesh_tpu_torch.models.hf_io import load_hf_checkpoint, save_hf_state_dict
@@ -1446,6 +1460,336 @@ def launcher_text_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: seeded replay, resume admission and the observability planes
+# ---------------------------------------------------------------------------
+
+REPLAY_SAMPLING = dict(temperature=0.9, top_p=0.95)
+# The decode-wall configurations: (engine kwargs, recorder sample rate,
+# seeded rows).
+WALL_CONFIGS = {
+    "unseeded, planes off": (dict(token_timeline_capacity=0), 0.0, False),
+    "unseeded, planes default": ({}, 0.0, False),
+    "unseeded, planes on": (dict(step_accounting=True), 1.0, False),
+    "seeded, planes default": ({}, 0.0, True),
+}
+
+
+def _drain(engine):
+    while engine.has_work():
+        engine.step()
+
+
+def _http(port, path, body=None, timeout=120):
+    """GET (``body`` None) or POST JSON; returns the decoded body (JSON, or
+    text for ``/metrics``)."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        check(r.status == 200, f"{path} returned {r.status}")
+        raw = r.read().decode()
+    return raw if path == "/metrics" else json.loads(raw)
+
+
+def _metric(text: str, series: str) -> float:
+    """The value of one exposition series line (``name{labels}``)."""
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.split()[-1])
+    raise RuntimeError(f"chip_smoke check failed: /metrics has no series {series}")
+
+
+def replay_f32_phase(dev) -> dict:
+    """Phase 5's configuration (2-layer float32 Llama-3-8B widths): a seeded
+    stochastic stream on the card, resumed on a new card engine at crash
+    points 1 and 5 (the continuation must be token-exact: its first token
+    comes from a prefill's last row, not a decode step), and greedy seeded
+    rows on the card and on the CPU (the same tokens)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama3-8b", n_layers=2, dtype=torch.float32)
+    params = init_params(cfg, seed=1, device="cpu")
+    kw = dict(num_slots=1024, page_size=16, max_batch=2, long_prefill_threshold=16, prefill_chunk=64)
+    rng = np.random.default_rng(2)
+    prompt = rng.integers(0, cfg.vocab_size, size=150).tolist()
+    seeded = SamplingParams(max_new_tokens=16, seed=4242, **REPLAY_SAMPLING)
+    greedy_prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (40, 90)]
+    greedy = SamplingParams(max_new_tokens=12, seed=7)
+    pa.reset_counters()
+    e1 = Engine(cfg, params, device=dev, name="replay-f32-a", **kw)
+    first = e1.add_request(prompt, seeded)
+    _drain(e1)
+    full = first.generated
+    resumed = {}
+    for k in (1, 5):
+        e2 = Engine(cfg, params, device=dev, name=f"replay-f32-b{k}", **kw)
+        r = e2.add_request(prompt, seeded, resume_tokens=full[:k])
+        _drain(e2)
+        resumed[k] = r.generated
+        check(e2.stats.resurrections == 1, f"replay f32: crash point {k} not counted as a resume")
+    greedy_out = {}
+    eng = Engine(cfg, params, device=dev, name="replay-f32-greedy", **kw)
+    reqs = [eng.add_request(p, greedy) for p in greedy_prompts]
+    _drain(eng)
+    greedy_out["cuda"] = [r.generated for r in reqs]
+    counts = _counts(eng)
+    torch.cuda.synchronize()
+    launches = {"decode": pa.paged_decode_fused_kernel.launches,
+                "chunk_cuda_core_body": pa.paged_chunk_attention_kernel.launches_f32_body,
+                "plain_calls": pa.plain_calls()}
+    cpu = Engine(cfg, params, device="cpu", name="replay-f32-cpu", **kw)
+    reqs = [cpu.add_request(p, greedy) for p in greedy_prompts]
+    _drain(cpu)
+    greedy_out["cpu"] = [r.generated for r in reqs]
+    print(f"[replay f32] seeded stream {full}; resumed at 1: {resumed[1]}; at 5: {resumed[5]}; "
+          f"greedy seeded cuda={greedy_out['cuda']} cpu={greedy_out['cpu']}; card launches {launches}",
+          flush=True)
+    check(len(full) == 16, f"replay f32: {len(full)} tokens, expected 16")
+    for k, got in resumed.items():
+        check(got == full[k:], f"replay f32: the seeded continuation diverged at crash point {k}")
+    check(greedy_out["cuda"] == greedy_out["cpu"], "replay f32: greedy seeded rows differ card vs CPU")
+    check(launches["decode"] > 0 and launches["chunk_cuda_core_body"] > 0 and launches["plain_calls"] == 0,
+          "replay f32: the decode kernel and the CUDA-core chunk body must run, no plain version")
+    check(counts["compact_launches"] == counts["multi_step_launches"] == 0,
+          "replay f32: a seeded batch took a compact or multi-step launch")
+    del e1, e2, eng, cpu
+    return {"stream": full, "resumed": resumed, "greedy": greedy_out, "launches": launches}
+
+
+def decode_wall_phase(dev, model) -> dict:
+    """Decode-step wall of 4 rows of 600-token prompts (temperature 0.9):
+    unseeded with every plane off, with the planes at their defaults (the
+    token timeline), with every plane on (timeline, step accounting, the
+    recorder tracing every request) and seeded with the defaults. Per
+    configuration, the median of five 8-step windows; after one discarded
+    warm-up run, three rounds with the order reversed in the middle one."""
+    from radixmesh_tpu_torch.obs.trace_plane import FlightRecorder, get_recorder, set_recorder
+
+    cfg = model.cfg
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=600).tolist() for _ in range(4)]
+    out: dict[str, dict] = {name: {"medians_ms": [], "windows_ms": []} for name in WALL_CONFIGS}
+    names = list(WALL_CONFIGS)
+    order = [names[:1]] + [names, names[::-1], names]  # warm-up, then three rounds
+    old = get_recorder()
+    try:
+        for rnd, round_names in enumerate(order):
+            for name in round_names:
+                kw, sample, seeded = WALL_CONFIGS[name]
+                set_recorder(FlightRecorder(capacity=1 << 16, sample=sample))
+                eng = Engine(cfg, model, num_slots=8192, page_size=16, max_batch=4, device=dev,
+                             name=f"wall-{rnd}-{name}", **kw)
+                for i, p in enumerate(prompts):
+                    eng.add_request(p, SamplingParams(max_new_tokens=48, seed=100 + i if seeded else None,
+                                                      **REPLAY_SAMPLING))
+                eng.step()  # admission, the group prefill, a first decode step
+                eng.step()
+                walls = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    for _ in range(8):
+                        eng.step()
+                    walls.append((time.perf_counter() - t) / 8 * 1e3)
+                check(sum(r is not None for r in eng._rows) == 4, f"decode walls {name}: a row finished early")
+                mfu = None if eng.step_acct is None else eng.step_acct.report()["decode"]
+                _drain(eng)
+                if rnd > 0:
+                    out[name]["medians_ms"].append(float(np.median(walls)))
+                    out[name]["windows_ms"].append(walls)
+                if mfu is not None:
+                    out[name]["step_accounting_decode"] = mfu
+                del eng
+                torch.cuda.empty_cache()
+    finally:
+        set_recorder(old)
+    base = out["unseeded, planes off"]["medians_ms"]
+    for name, r in out.items():
+        r["vs_planes_off"] = [m / b for m, b in zip(r["medians_ms"], base)]
+        r["median_ms"] = float(np.median(r["medians_ms"]))
+        print(f"[decode walls] {name}: {r['median_ms']:.3f} ms/step (median of rounds "
+              f"{[round(m, 3) for m in r['medians_ms']]}; x{[round(v, 3) for v in r['vs_planes_off']]} "
+              f"of planes off in the same round); windows "
+              f"{[[round(w, 2) for w in ws] for ws in r['windows_ms']]}", flush=True)
+    acct = out["unseeded, planes on"]["step_accounting_decode"]
+    print(f"[decode walls] step accounting (planes on, decode): mfu {acct['mfu']:.6f} over "
+          f"{acct['waves']} waves, pad fraction {acct['pad_fraction']}", flush=True)
+    out["sampler_ms"] = _sampler_walls(dev, cfg.vocab_size)
+    print(f"[decode walls] the draw of 4 rows (host + device wall, median of 30): "
+          f"{out['sampler_ms']}", flush=True)
+    return out
+
+
+def _sampler_walls(dev, vocab: int) -> dict:
+    """What a step's draw costs for 4 rows at temperature 0.9 / top-p 0.95:
+    one batched ``sample_tokens`` call (unseeded rows), the four ``[1, V]``
+    seeded draws (``Engine._sample_seeded_rows``), and its parts (the
+    top-k/top-p filter alone, four generators built and seeded)."""
+    from radixmesh_tpu_torch.ops.sampling import _filtered_logits, sample_tokens
+
+    logits = torch.randn(4, vocab, device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+    reqs = [Request(prompt=np.ones(600 + i, np.int32), sampling=SamplingParams(seed=100 + i, **REPLAY_SAMPLING))
+            for i in range(4)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t = torch.full((1,), 0.9, device=dev)
+    p = torch.full((1,), 0.95, device=dev)
+    k = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def wall(fn, n=30):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        ws = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ws.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ws))
+
+    def generators():
+        for r in reqs:
+            torch.Generator(device=dev).manual_seed(Engine._seed_key(r))
+
+    return {
+        "batched_unseeded": wall(lambda: sample_tokens(
+            logits, gen, temperature=np.full(4, 0.9, np.float32), top_p=np.full(4, 0.95, np.float32),
+            top_k=np.zeros(4, np.int64)).cpu()),
+        "seeded_rows": wall(lambda: Engine._sample_seeded_rows(list(zip(reqs, logits)))),
+        "filter_x4": wall(lambda: [_filtered_logits(logits[i][None], t, p, k) for i in range(4)]),
+        "generators_x4": wall(generators),
+    }
+
+
+def replay_http_phase(dev, model, card) -> dict:
+    """Llama-3-8B bf16 over HTTP with the planes on (the recorder tracing
+    every request, step accounting, a profile directory): 4 seeded
+    requests at once (temperature 0.9, top-p 0.95), each seed alone twice
+    (the same tokens, asserted), each resumed at crash points 1 and 5 (the
+    share of continuations equal to the alone run's is printed, not
+    asserted: bf16 logits of a prefill's last row and of a decode step
+    differ). Then one ``/profile`` window over a decode and a chunked
+    prefill, ``/metrics`` against ``/stats``, ``/debug/tokens`` and the
+    MFU reading of ``/debug/state``."""
+    from radixmesh_tpu_torch.obs.step_plane import detect_peak_tflops
+    from radixmesh_tpu_torch.obs.trace_plane import FlightRecorder, get_recorder, set_recorder
+
+    cfg = model.cfg
+    prof_dir = OUT_DIR / "profile"
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    old = get_recorder()
+    set_recorder(FlightRecorder(capacity=1 << 16, sample=1.0, node="chip"))
+    engine = Engine(cfg, model, num_slots=65536, page_size=16, max_batch=8, device=dev,
+                    name="replay-bf16", step_accounting=True)
+    fe = ServingFrontend(engine, port=0, profile_dir=str(prof_dir))
+    rng = np.random.default_rng(3)
+    prompts = {s: rng.integers(0, cfg.vocab_size, size=600 + 10 * s).tolist() for s in (1, 2, 3, 4)}
+    n_tok = 32
+
+    def body(seed, **extra):
+        return {"input_ids": prompts[seed], "max_tokens": n_tok, "seed": seed, **REPLAY_SAMPLING, **extra}
+
+    try:
+        _post(fe.port, {"input_ids": rng.integers(0, cfg.vocab_size, size=64).tolist()})  # warm-up
+        torch.cuda.synchronize()
+        pa.reset_counters()
+        batch: dict[int, list] = {}
+        threads = [threading.Thread(target=lambda s=s: batch.__setitem__(s, _post(fe.port, body(s))))
+                   for s in prompts]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        alone = {s: [_post(fe.port, body(s))["output_ids"] for _ in range(2)] for s in prompts}
+        resumed = {k: {} for k in (1, 5)}
+        for k in resumed:
+            for s in prompts:
+                r = _post(fe.port, body(s, resume_tokens=alone[s][0][:k]))
+                check(r["resumed_from"] == k and len(r["output_ids"]) == n_tok - k,
+                      f"replay bf16: resume at {k} answered {r.get('resumed_from')}, "
+                      f"{len(r['output_ids'])} tokens")
+                resumed[k][s] = r["output_ids"]
+        share = {k: sum(resumed[k][s] == alone[s][0][k:] for s in prompts) / len(prompts) for k in resumed}
+        token_share = {k: float(np.mean([np.mean(np.asarray(resumed[k][s]) == np.asarray(alone[s][0][k:]))
+                                         for s in prompts])) for k in resumed}
+        batch_vs_alone = {s: batch[s]["output_ids"] == alone[s][0] for s in prompts}
+
+        # One profile window over a decode stream and a chunked prefill.
+        prof: dict = {}
+        t_prof = threading.Thread(target=lambda: prof.update(_http(fe.port, "/profile", {"seconds": 2.0})))
+        t_prof.start()
+        time.sleep(0.5)
+        load = [threading.Thread(target=_post, args=(fe.port, {"input_ids": p, "max_tokens": 48}))
+                for p in (rng.integers(0, cfg.vocab_size, size=3000).tolist(), prompts[1][:500])]
+        for t in load:
+            t.start()
+        for t in load + [t_prof]:
+            t.join()
+        torch.cuda.synchronize()
+        launches = {"paged_decode_fused": pa.paged_decode_fused_kernel.launches,
+                    "paged_chunk_attention": pa.paged_chunk_attention_kernel.launches,
+                    "cuda_core_chunk_body": pa.paged_chunk_attention_kernel.launches_f32_body,
+                    "plain_calls": pa.plain_calls()}
+        with open(prof["trace"]) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        named = {k: sum(k in n for n in kernels) for k in ("paged_split_kernel", "paged_combine_kernel",
+                                                           "paged_chunk_tc_kernel")}
+        metrics = _http(fe.port, "/metrics")
+        stats = _http(fe.port, "/stats")
+        state = _http(fe.port, "/debug/state")
+        tokens = _http(fe.port, "/debug/tokens?limit=32")
+        trace = _http(fe.port, "/debug/trace")
+    finally:
+        fe.close(drain_s=0.0)
+        set_recorder(old)
+    lbl = '{engine="replay-bf16"}'
+    scraped = {k: _metric(metrics, f"radixmesh_engine_{k}_total{lbl}")
+               for k in ("prompt_tokens", "cached_tokens", "generated_tokens", "preemptions")}
+    scraped["ttft_count"] = _metric(metrics, f"radixmesh_engine_ttft_seconds_count{lbl}")
+    acct = state["step_accounting"]
+    peak = acct["peak_tflops"]
+    print(f"[replay bf16] batch of 4 seeded vs each alone (information only): {batch_vs_alone}; "
+          f"resumed continuations equal to the alone run's at crash points 1 / 5: "
+          f"{share[1]:.2f} / {share[5]:.2f} of requests, {token_share[1]:.3f} / {token_share[5]:.3f} "
+          f"of tokens", flush=True)
+    print(f"[replay bf16] profile {prof.get('logdir')}: {len(kernels)} kernel events, by name {named}, "
+          f"device events {prof.get('device_events')}; launches {launches}", flush=True)
+    print(f"[replay bf16] /metrics {scraped} vs /stats prompt={stats['prompt_tokens']} "
+          f"cached={stats['cached_tokens']} generated={stats['generated_tokens']} "
+          f"preemptions={stats['preemptions']} finished={stats['finished']}", flush=True)
+    print(f"[replay bf16] /debug/tokens: appends {tokens['timeline']['appends']}, itl "
+          f"{tokens['timeline']['itl']}, stalls {tokens['timeline']['stalls']}, goodput "
+          f"{tokens['goodput']['tokens_per_second']} tokens/s", flush=True)
+    print(f"[replay bf16] MFU (analytic 2*n_params FLOPs/token over {peak} TFLOP/s, {card}): decode "
+          f"{acct['decode']['mfu']:.6f} over {acct['decode']['waves']} waves, prefill "
+          f"{acct['prefill']['mfu']:.6f} over {acct['prefill']['waves']} waves", flush=True)
+    for s in prompts:
+        check(alone[s][0] == alone[s][1], f"replay bf16: seed {s} alone twice gave different tokens")
+        check(len(batch[s]["output_ids"]) == n_tok, f"replay bf16: seed {s} returned too few tokens")
+    check(named["paged_split_kernel"] > 0 and named["paged_chunk_tc_kernel"] > 0,
+          f"replay bf16: the profile's Chrome trace does not name the decode and chunk kernels ({named})")
+    check(launches["paged_decode_fused"] > 0 and launches["paged_chunk_attention"] > 0
+          and launches["plain_calls"] == 0 and launches["cuda_core_chunk_body"] == 0,
+          f"replay bf16: kernel launches {launches}")
+    check(scraped["prompt_tokens"] == stats["prompt_tokens"] and scraped["cached_tokens"] == stats["cached_tokens"]
+          and scraped["generated_tokens"] == stats["generated_tokens"]
+          and scraped["preemptions"] == stats["preemptions"], "replay bf16: /metrics disagrees with /stats")
+    check(scraped["ttft_count"] == stats["finished"], "replay bf16: TTFT observations != finished requests")
+    check(tokens["timeline"]["appends"] > 0 and tokens["timeline"]["recent"]
+          and all(e["itl_s"] > 0 for e in tokens["timeline"]["recent"]), "replay bf16: /debug/tokens has no gaps")
+    check(peak == detect_peak_tflops(dev) and (peak > 1.0 or "H100" not in card),
+          f"replay bf16: MFU peak {peak} is not the card's")
+    check(acct["decode"]["mfu"] > 0 and acct["prefill"]["mfu"] > 0, "replay bf16: no MFU reading")
+    span_names = {e["name"] for e in trace["traceEvents"] if e.get("ph") == "X"}
+    check({"prefix_match", "prefill_wave", "decode_chunk", "first_token", "http_request"} <= span_names,
+          f"replay bf16: /debug/trace spans {sorted(span_names)}")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    return {"batch_vs_alone": batch_vs_alone, "resume_match_share": share, "resume_token_share": token_share,
+            "profile_kernels": named, "launches": launches, "metrics": scraped, "mfu": acct,
+            "tokens": {k: v for k, v in tokens["timeline"].items() if k != "recent"}}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the whole path, card vs CPU
 # ---------------------------------------------------------------------------
 
@@ -1608,6 +1952,11 @@ def main() -> int:
     t = time.monotonic()
     tiers = {tag: tier_phase(dev, model, quant) for tag, quant in (("bf16", None), ("int8", "int8"))}
     print(f"[time] tier phases {time.monotonic() - t:.1f}s", flush=True)
+    t = time.monotonic()
+    replay = {"f32": replay_f32_phase(dev)}
+    replay["decode walls"] = decode_wall_phase(dev, model)
+    replay["bf16 http"] = replay_http_phase(dev, model, card)
+    print(f"[time] replay and observability phases {time.monotonic() - t:.1f}s", flush=True)
     del model
     torch.cuda.empty_cache()
     t = time.monotonic()
@@ -1635,17 +1984,20 @@ def main() -> int:
     by_path = {
         "paged_decode_fused": {**{f"serving {k}": v["launches"]["paged_decode_fused"]
                                   for k, v in serving.items() if "paged_decode_fused" in v["launches"]},
-                               "tiers bf16": tiers["bf16"]["launches"]["paged_decode_fused"]},
+                               "tiers bf16": tiers["bf16"]["launches"]["paged_decode_fused"],
+                               "replay bf16 http": replay["bf16 http"]["launches"]["paged_decode_fused"]},
         "paged_decode_fused[int8]": {"serving int8": serving["int8"]["launches"]["paged_decode_fused[int8]"],
                                      "tiers int8": tiers["int8"]["launches"]["paged_decode_fused[int8]"]},
         "paged_chunk_attention": {**{f"serving {k}": v["launches"]["paged_chunk_attention"]
                                      for k, v in serving.items() if "paged_chunk_attention" in v["launches"]},
-                                  "tiers bf16": tiers["bf16"]["launches"]["paged_chunk_attention"]},
+                                  "tiers bf16": tiers["bf16"]["launches"]["paged_chunk_attention"],
+                                  "replay bf16 http": replay["bf16 http"]["launches"]["paged_chunk_attention"]},
         "paged_chunk_attention[int8]": {
             "serving int8": serving["int8"]["launches"]["paged_chunk_attention[int8]"],
             "tiers int8": tiers["int8"]["launches"]["paged_chunk_attention[int8]"]},
-        "paged_chunk_attention[f32]": {f"whole path {k}": w["launches"]["chunk_cuda_core_body"]
-                                       for k, w in whole.items() if not k.startswith("qwen2")},
+        "paged_chunk_attention[f32]": {**{f"whole path {k}": w["launches"]["chunk_cuda_core_body"]
+                                          for k, w in whole.items() if not k.startswith("qwen2")},
+                                       "replay f32": replay["f32"]["launches"]["chunk_cuda_core_body"]},
         "paged_attention_pool": {"pool path bf16": serving["bf16"]["pool_path"]["launches"]},
         "paged_attention_pool[int8]": {"pool path int8": serving["int8"]["pool_path"]["launches"]},
     }
@@ -1742,7 +2094,8 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build": {k: v["seconds"] for k, v in log.items()}, "sass": sass, "kernels": kernels,
               "groups": groups, "serving": serving, "tiers": tiers, "serve_cli": serve_cli,
-              "qwen2_serving": qwen, "checkpoint": ckpt, "serve_text": serve_text, "whole_path": whole}
+              "qwen2_serving": qwen, "checkpoint": ckpt, "serve_text": serve_text, "whole_path": whole,
+              "replay": replay}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -44,6 +44,7 @@ import torch
 from radixmesh_tpu_torch.cache.kv_pool import PagedKVPool, SlotAllocator
 from radixmesh_tpu_torch.cache.kv_tier import node_heat
 from radixmesh_tpu_torch.cache.radix_tree import MatchResult, RadixTree, TreeNode, match_len
+from radixmesh_tpu_torch.obs.metrics import get_registry
 from radixmesh_tpu_torch.ops.quant import KV_QUANT_DTYPES
 from radixmesh_tpu_torch.utils.logging import get_logger
 
@@ -190,7 +191,8 @@ class HierarchicalCache(RadixTree):
         self.plane = None
         # Current sweep's write-back batch [(node, dev_slots, host_slots)],
         # lifetime sweep/gather counts (gathers per sweep <= 1), and the
-        # JAX package's radixmesh_hicache_* series as plain counters.
+        # JAX package's radixmesh_hicache_* series, on the registry and as
+        # plain counters for stats() (/stats).
         self._wb_batch: list[tuple[TreeNode, np.ndarray, np.ndarray]] = []
         self.wb_sweeps = 0
         self.wb_gathers = 0
@@ -199,6 +201,23 @@ class HierarchicalCache(RadixTree):
         self.host_evicted_tokens = 0
         self.restore_stall_count = 0
         self.restore_stall_s = 0.0
+        reg = get_registry()
+        self._m_backup = reg.counter(
+            "radixmesh_hicache_backup_tokens_total", "tokens written back HBM → host RAM"
+        )
+        self._m_restore = reg.counter(
+            "radixmesh_hicache_restore_tokens_total", "tokens restored host RAM → HBM"
+        )
+        self._m_host_evicted = reg.counter(
+            "radixmesh_hicache_host_evicted_tokens_total",
+            "host-resident tokens dropped when the host arena filled",
+        )
+        self._m_restore_stall = reg.histogram(
+            "radixmesh_hicache_restore_stall_seconds",
+            "host-side time spent reading the arena + dispatching "
+            "restore writes per match_and_load (device execution "
+            "overlaps later admission work; this is the blocking part)",
+        )
         super().__init__(
             page_size=pool.page_size if page_size is None else page_size,
             on_free=pool.free,
@@ -267,6 +286,7 @@ class HierarchicalCache(RadixTree):
         node.host_value = host_slots
         self._wb_batch.append((node, slots, host_slots))
         self.backup_tokens += len(slots)
+        self._m_backup.inc(len(slots))
         return True
 
     def _flush_writeback_batch(self) -> None:
@@ -340,6 +360,7 @@ class HierarchicalCache(RadixTree):
             node = heapq.heappop(candidates)
             freed += len(node.host_value)
             self.host_evicted_tokens += len(node.host_value)
+            self._m_host_evicted.inc(len(node.host_value))
             self._remove_node(node, freed_host)
             parent = node.parent
             if (
@@ -557,6 +578,7 @@ class HierarchicalCache(RadixTree):
                 node.value = dev
                 self.evictable_size_ += len(node.key)
                 self.restore_tokens += n
+                self._m_restore.inc(n)
                 res.values.append(node.value)
                 res.last_node = node
                 self.inc_lock_ref(node)
@@ -568,8 +590,10 @@ class HierarchicalCache(RadixTree):
         finally:
             if locked:
                 self.dec_lock_ref(anchor)
+            stall = time.monotonic() - stall_t0
             self.restore_stall_count += 1
-            self.restore_stall_s += time.monotonic() - stall_t0
+            self.restore_stall_s += stall
+            self._m_restore_stall.observe(stall)
         res.host_values = []
         res.host_nodes = []
         return res

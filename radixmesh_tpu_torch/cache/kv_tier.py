@@ -45,6 +45,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from radixmesh_tpu_torch.obs.metrics import TRANSFER_SECONDS_BUCKETS, get_registry
 from radixmesh_tpu_torch.utils.logging import get_logger
 
 __all__ = [
@@ -134,7 +135,8 @@ class DiskKVTier:
     (:meth:`write_extent`, :meth:`read_extent`, :meth:`scan`,
     :meth:`drain_retired`) run on the plane worker or a cold path."""
 
-    def __init__(self, dir: str, *, capacity_bytes: int = 1 << 30, page_size: int = 1):
+    def __init__(self, dir: str, *, capacity_bytes: int = 1 << 30, page_size: int = 1,
+                 name: str = "tier"):
         self.dir = os.path.abspath(dir)
         os.makedirs(self.dir, exist_ok=True)
         self.capacity_bytes = int(capacity_bytes)
@@ -145,7 +147,8 @@ class DiskKVTier:
         self._extents: dict[str, ExtentRef] = {}
         self._resident_bytes = 0
         self._retired: deque[ExtentRef] = deque()
-        # The JAX package's radixmesh_kv_tier_* series, as plain counters.
+        # The JAX package's radixmesh_kv_tier_* series, on the registry and
+        # as plain counters for stats() (/stats).
         self.spilled_tokens = 0
         self.restored_tokens = 0
         self.bytes_written = 0
@@ -153,25 +156,78 @@ class DiskKVTier:
         self.io_seconds = {"write": 0.0, "read": 0.0}
         self.corrupt_by = {c: 0 for c in _CORRUPT_CAUSES}
         self.moves = {"demote": 0, "promote": 0, "drop": 0}
+        reg = get_registry()
+        lbl = {"tier": name}
+        self._m_spilled = reg.counter(
+            "radixmesh_kv_tier_spilled_tokens_total",
+            "tokens demoted host RAM -> disk extents (committed writes)",
+            ("tier",),
+        ).labels(**lbl)
+        self._m_restored = reg.counter(
+            "radixmesh_kv_tier_restored_tokens_total",
+            "tokens read back from verified disk extents",
+            ("tier",),
+        ).labels(**lbl)
+        nbytes = reg.counter(
+            "radixmesh_kv_tier_bytes_total", "extent bytes moved, by direction", ("tier", "op")
+        )
+        self._m_bytes_rw = {op: nbytes.labels(op=op, **lbl) for op in ("write", "read")}
+        corrupt = reg.counter(
+            "radixmesh_kv_tier_corrupt_extents_total",
+            "extents dropped instead of served: torn tails, checksum "
+            "mismatches, future schemas, unreadable files",
+            ("tier", "cause"),
+        )
+        self._m_corrupt_by = {c: corrupt.labels(cause=c, **lbl) for c in _CORRUPT_CAUSES}
+        self._m_moves = reg.counter(
+            "radixmesh_kv_tier_moves_total",
+            "tier transitions by direction and subtree shard: demote = "
+            "host->disk spill committed, promote = disk->HBM restore "
+            "applied, drop = extent evicted for disk capacity",
+            ("tier", "dir", "shard"),
+        )
+        self._m_moves_lbl = lbl
+        self._m_resident = reg.gauge(
+            "radixmesh_kv_tier_resident_bytes", "bytes held in committed extents", ("tier",)
+        ).labels(**lbl)
+        self._m_extents = reg.gauge(
+            "radixmesh_kv_tier_extents", "committed extent files currently live", ("tier",)
+        ).labels(**lbl)
+        io = reg.histogram(
+            "radixmesh_kv_tier_io_seconds",
+            "one extent write (incl. fsync) or verified read",
+            ("tier", "op"),
+            buckets=TRANSFER_SECONDS_BUCKETS,
+        )
+        self._m_io_rw = {op: io.labels(op=op, **lbl) for op in ("write", "read")}
 
     # ------------------------------------------------------------------
     # bookkeeping
     # ------------------------------------------------------------------
 
-    def _note_move(self, direction: str) -> None:
+    def _note_move(self, direction: str, shard: int) -> None:
         with self._lock:
             self.moves[direction] += 1
+        self._m_moves.labels(dir=direction, shard=str(int(shard)), **self._m_moves_lbl).inc()
 
     def _count_corrupt(self, cause: str) -> None:
         with self._lock:
             self.corrupt_by[cause] += 1
+        self._m_corrupt_by[cause].inc()
+
+    def _set_gauges(self) -> None:
+        """Resident bytes and live extents onto the registry (hold
+        ``_lock``)."""
+        self._m_resident.set(self._resident_bytes)
+        self._m_extents.set(len(self._extents))
 
     def note_promote(self, ref: ExtentRef) -> None:
         """Count one applied disk→pool restore (engine thread, at unit
         apply: in-memory accounting only)."""
         with self._lock:
             self.restored_tokens += ref.n_seg
-        self._note_move("promote")
+        self._m_restored.inc(ref.n_seg)
+        self._note_move("promote", ref.shard)
 
     def stats(self) -> dict:
         """The JAX tier's ``stats()`` keys, plus its counters."""
@@ -327,8 +383,13 @@ class DiskKVTier:
             self._resident_bytes += len(data) - (replaced.nbytes if replaced else 0)
             self.spilled_tokens += ref.n_seg
             self.bytes_written += len(data)
-            self.io_seconds["write"] += time.monotonic() - t0
-        self._note_move("demote")
+            dur = time.monotonic() - t0
+            self.io_seconds["write"] += dur
+            self._set_gauges()
+        self._m_spilled.inc(ref.n_seg)
+        self._m_bytes_rw["write"].inc(len(data))
+        self._m_io_rw["write"].observe(dur)
+        self._note_move("demote", shard)
         self._enforce_capacity(protect=path)
         return ref
 
@@ -350,7 +411,7 @@ class DiskKVTier:
             if self.has(victim):  # identity: skip since-replaced paths
                 excess -= victim.nbytes
                 self._unlink(victim)
-                self._note_move("drop")
+                self._note_move("drop", victim.shard)
 
     def has(self, ref: ExtentRef) -> bool:
         """True while THIS ref is the live extent at its path (identity,
@@ -366,6 +427,7 @@ class DiskKVTier:
                 return
             self._extents.pop(ref.path, None)
             self._resident_bytes -= ref.nbytes
+            self._set_gauges()
         try:
             os.remove(ref.path)
         except OSError:
@@ -403,9 +465,12 @@ class DiskKVTier:
             self._count_corrupt("schema")
             self._unlink(ref)
             return None
+        dur = time.monotonic() - t0
         with self._lock:
             self.bytes_read += len(raw)
-            self.io_seconds["read"] += time.monotonic() - t0
+            self.io_seconds["read"] += dur
+        self._m_bytes_rw["read"].inc(len(raw))
+        self._m_io_rw["read"].observe(dur)
         return kv, scales
 
     def _forget(self, ref: ExtentRef) -> None:
@@ -413,6 +478,7 @@ class DiskKVTier:
             if self._extents.get(ref.path) is ref:
                 self._extents.pop(ref.path, None)
                 self._resident_bytes -= ref.nbytes
+                self._set_gauges()
 
     # ------------------------------------------------------------------
     # retire queue (engine thread enqueues; worker unlinks)
@@ -488,6 +554,7 @@ class DiskKVTier:
                 if full not in self._extents:
                     self._extents[full] = ref
                     self._resident_bytes += ref.nbytes
+                    self._set_gauges()
             metas.append(ExtentMeta(ref=ref, prefix_tokens=prefix, seg_tokens=seg))
         metas.sort(key=lambda m: len(m.prefix_tokens) + len(m.seg_tokens))
         return metas

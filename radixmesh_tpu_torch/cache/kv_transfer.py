@@ -78,6 +78,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from radixmesh_tpu_torch.obs.metrics import TRANSFER_SECONDS_BUCKETS, get_registry
 from radixmesh_tpu_torch.utils.logging import get_logger
 
 __all__ = ["KVTransferPlane", "RestoreTicket", "kv_token_bytes"]
@@ -155,13 +156,15 @@ class RestoreTicket:
     or skipped because it raced, split or detached: the request then
     re-matches a shorter hit)."""
 
-    __slots__ = ("units", "anchor", "auto_release", "released")
+    __slots__ = ("units", "anchor", "t0", "auto_release", "released", "tokens")
 
     def __init__(self, units, anchor, auto_release: bool):
         self.units = units
         self.anchor = anchor
+        self.t0 = time.monotonic()  # the request's kv_restore span starts here
         self.auto_release = auto_release
         self.released = False
+        self.tokens = int(sum(u.n_tokens for u in units))
 
     @property
     def done(self) -> bool:
@@ -193,7 +196,7 @@ class KVTransferPlane:
     staging buffers, the copy stream and fresh device staging tensors.
     Other threads may only enqueue hints and handoff tasks."""
 
-    def __init__(self, *, chunk_tokens: int = 512, stage_depth: int = 16):
+    def __init__(self, *, chunk_tokens: int = 512, stage_depth: int = 16, name: str = "plane"):
         if chunk_tokens <= 0 or stage_depth <= 0:
             raise ValueError("chunk_tokens and stage_depth must be positive")
         self.chunk_tokens = int(chunk_tokens)
@@ -235,11 +238,43 @@ class KVTransferPlane:
         self.stage_barrier: threading.Event | None = None
         self.hints_seen = 0
         self.hints_joined = 0  # admissions that found a hint's restore in flight
-        # The JAX package's radixmesh_kv_transfer_* series.
+        # The JAX package's radixmesh_kv_transfer_* series, on the registry
+        # and as plain counters for stats() (/stats).
         self.lane_bytes = {ln: 0 for ln in _LANES}
         self.lane_seconds = {ln: 0.0 for ln in _LANES}
         self.restored_tokens = 0
         self.hint_outcomes = {o: 0 for o in _HINT_OUTCOMES}
+        reg = get_registry()
+        lbl = {"plane": name}
+        bytes_total = reg.counter(
+            "radixmesh_kv_transfer_bytes_total",
+            "bulk KV bytes moved by the async plane, by lane",
+            ("plane", "lane"),
+        )
+        seconds = reg.histogram(
+            "radixmesh_kv_transfer_seconds",
+            "blocking-side duration of one plane operation (arena "
+            "read/write, gather materialization, handoff stage), by lane",
+            ("plane", "lane"),
+            buckets=TRANSFER_SECONDS_BUCKETS,
+        )
+        self._m_bytes = {ln: bytes_total.labels(lane=ln, **lbl) for ln in _LANES}
+        self._m_seconds = {ln: seconds.labels(lane=ln, **lbl) for ln in _LANES}
+        self._m_restored = reg.counter(
+            "radixmesh_kv_transfer_restored_tokens_total",
+            "host-tier tokens restored to HBM by the staged lane",
+            ("plane",),
+        ).labels(**lbl)
+        hints = reg.counter(
+            "radixmesh_kv_transfer_prefetch_hints_total",
+            "prefetch hints by outcome (started = restore launched, "
+            "noop = already device-resident/unknown, joined = an "
+            "admission found the hinted restore already in flight, "
+            "dropped = hint queue overflow, draining = discarded "
+            "because the node is mid-drain)",
+            ("plane", "outcome"),
+        )
+        self._m_hint = {o: hints.labels(outcome=o, **lbl) for o in _HINT_OUTCOMES}
         self._worker = threading.Thread(target=self._run, daemon=True, name="kv-transfer")
         self._worker.start()
 
@@ -368,6 +403,8 @@ class KVTransferPlane:
         with self._lock:
             self.lane_bytes[lane] += int(nbytes)
             self.lane_seconds[lane] += seconds
+        self._m_bytes[lane].inc(int(nbytes))
+        self._m_seconds[lane].observe(seconds)
 
     # ------------------------------------------------------------------
     # restore lane (engine thread: begin/pump/finish; worker: staging)
@@ -478,6 +515,7 @@ class KVTransferPlane:
             if joined_hint:
                 self.hints_joined += 1
                 self.hint_outcomes["joined"] += 1
+                self._m_hint["joined"].inc()
         self._work_evt.set()
         return ticket
 
@@ -583,6 +621,7 @@ class KVTransferPlane:
             n = unit.n_tokens
             with self._lock:
                 self.restored_tokens += n
+            self._m_restored.inc(n)
             if unit.extent is not None:
                 disk = getattr(tree, "disk", None)
                 if disk is not None:
@@ -594,6 +633,7 @@ class KVTransferPlane:
                 note()
             if hasattr(tree, "restore_tokens"):
                 tree.restore_tokens += n
+                tree._m_restore.inc(n)
         unit.applied = True
         self._progress.set()
 
@@ -754,6 +794,7 @@ class KVTransferPlane:
             self.hints_seen += 1
             if len(self._hints) == self._hints.maxlen:
                 self.hint_outcomes["dropped"] += 1
+                self._m_hint["dropped"].inc()
             self._hints.append(np.asarray(key, dtype=np.int32))
         self._progress.set()
 
@@ -766,6 +807,7 @@ class KVTransferPlane:
     def count_hint(self, outcome: str) -> None:
         with self._lock:
             self.hint_outcomes[outcome] += 1
+        self._m_hint[outcome].inc()
 
     # ------------------------------------------------------------------
     # worker

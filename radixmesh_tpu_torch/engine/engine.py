@@ -66,15 +66,49 @@ The KV tiers, each off by default (``cache/host_cache.py``,
   ``drain_flush_hot`` and ``drain_flush_disk`` push the working set down
   the tiers before a node leaves.
 
-Not ported yet, and refused rather than ignored: seeded replay, the cache
-mesh (and with it routed prefetch hints), pp/sp/tp, W8A16 weights, SLO
-control and the observability planes other than the speculation ledger.
+Seeded replay and resume admission (crash recovery):
+
+- ``SamplingParams(seed=...)``: a seeded row's token is a pure function of
+  (seed, absolute position) whenever every row of the launch is seeded.
+  The key material is the JAX engine's, bit for bit (``_mix64``); each
+  draw is one ``[1, V]`` ``sample_tokens`` call on a ``torch.Generator``
+  seeded with it. The generator is not JAX's threefry, and the CPU's
+  MT19937 and CUDA's Philox differ, so replay is exact within the port on
+  one device type, not against the JAX package or between CPU and card.
+  An all-seeded batch takes no speculation, no multi-step fusing and not
+  the compact dense leg (each draws from the engine's stream), and its
+  mixed waves run as two launches, decode then the inline slice. Mixed
+  batches draw from the engine's stream (best-effort, as in JAX).
+- Routing: the JAX engine sends a seeded decode step through the chunk
+  path at C = 1 because its decode step does not return logits; the
+  port's ``decode_step`` does, so a seeded decode keeps the decode kernel.
+  Every row's token is drawn on the device and the step copies them to
+  the host once, as the unseeded path does.
+- ``make_request(resume_tokens=...)``: tokens a prior life delivered ride
+  in the prompt (a cache hit where that life published them, from any
+  tier) and are never re-emitted; the output budget is conserved across
+  lives. ``stream_publish_tokens = N`` publishes prompt + generated tokens
+  every N tokens, so a crash loses at most N tokens of that hit.
+
+Observability (``obs/``): the engine registers the JAX engine's series on
+the port's registry (``obs/metrics.py``: TTFT, TPOT, prompt, cached and
+generated tokens, prefix-hit length, speculation, preemptions, evictions
+by cause), records request-flight spans when the recorder samples
+(``obs/trace_plane.py``), feeds the token timeline and goodput ledger
+(``token_timeline_capacity > 0``, the default; ``obs/token_timeline.py``)
+and, with ``step_accounting``, per-wave MFU and padding
+(``obs/step_plane.py``). Each is one ``is not None`` branch when off.
+
+Not ported yet, and refused rather than ignored: the cache mesh (and with
+it routed prefetch hints), pp/sp/tp, W8A16 weights and SLO control.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass, field
+from dataclasses import replace as dataclass_replace
 from typing import Iterable, Sequence
 
 import numpy as np
@@ -89,13 +123,33 @@ from radixmesh_tpu_torch.engine.request import Request, RequestState, SamplingPa
 from radixmesh_tpu_torch.engine.waves import WaveScheduler
 from radixmesh_tpu_torch.models.llama import Llama, ModelConfig
 from radixmesh_tpu_torch.obs.attribution import shape_bucket
+from radixmesh_tpu_torch.obs.evictions import eviction_counters
+from radixmesh_tpu_torch.obs.metrics import TOKEN_LEN_BUCKETS, get_registry
 from radixmesh_tpu_torch.obs.spec_ledger import SpecLedger
+from radixmesh_tpu_torch.obs.step_plane import StepAccounting
+from radixmesh_tpu_torch.obs.token_timeline import STALL_CAUSES, GoodputLedger, TokenTimeline
+from radixmesh_tpu_torch.obs.trace_plane import get_recorder
 from radixmesh_tpu_torch.ops.attention import default_use_kernel, last_dispatch, select_paged
 from radixmesh_tpu_torch.ops.sampling import sample_tokens, spec_verify_sample
 from radixmesh_tpu_torch.utils.device import resolve_device
 from radixmesh_tpu_torch.utils.logging import get_logger
 
 __all__ = ["Engine", "EngineStats"]
+
+# Per-process engine sequence: each engine's registry series carry its
+# name, so engines in one process keep separate series.
+_engine_seq = itertools.count()
+
+_M64 = (1 << 64) - 1
+
+
+def _mix64(x: int) -> int:
+    """splitmix64 finalizer (the JAX engine's, bit for bit): turns (seed,
+    position) into sampling-key material."""
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
 
 
 def _pow2_at_least(n: int, floor: int = 8) -> int:
@@ -155,6 +209,9 @@ class EngineStats:
     verify_launches: int = 0
     mixed_launches: int = 0
     inline_launches: int = 0
+    resurrections: int = 0  # resume-mode admissions (crash recovery)
+    replayed_tokens: int = 0  # already-delivered tokens re-prefilled
+    replayed_cached_tokens: int = 0  # ... of which the cache served
     ttft_s: list[float] = field(default_factory=list)
 
     @property
@@ -199,6 +256,12 @@ class Engine:
         kv_tier_min_heat: float = 0.0,
         kv_tier_destage_budget: int = 16,
         kv_tier_destage_interval_s: float = 0.25,
+        name: str | None = None,
+        stream_publish_tokens: int = 0,
+        token_timeline_capacity: int = 4096,
+        token_stall_threshold_s: float = 0.05,
+        step_accounting: bool = False,
+        peak_tflops: float | None = None,
     ):
         """``params`` is a param tree (``init_params`` / ``params_from_jax``)
         or a built :class:`Llama`. ``device`` defaults to CUDA and raises
@@ -206,7 +269,9 @@ class Engine:
         ``kv_quant="int8"`` stores the KV pool as int8 with per-token
         scales. The schedule and tier arguments take the JAX engine's
         defaults, which run the legacy schedule with one tier (module
-        docstring)."""
+        docstring). ``name`` labels the engine's registry series (default
+        ``engine<N>``); ``stream_publish_tokens``, the token timeline and
+        step accounting are as in the JAX engine."""
         if page_size & (page_size - 1):
             raise ValueError("page_size must be a power of two")
         if kv_tier_dir is not None and host_cache_slots <= 0:
@@ -215,6 +280,7 @@ class Engine:
                 "demotes from and restores through host RAM"
             )
         self.log = get_logger("engine")
+        self.name = name or f"engine{next(_engine_seq)}"
         self.device = resolve_device(device)
         self.cfg = cfg
         model = params if isinstance(params, Llama) else Llama(cfg, params)
@@ -275,7 +341,8 @@ class Engine:
             )
             if kv_tier_dir is not None:
                 self._kv_tier = DiskKVTier(
-                    kv_tier_dir, capacity_bytes=kv_tier_capacity_bytes, page_size=page_size
+                    kv_tier_dir, capacity_bytes=kv_tier_capacity_bytes, page_size=page_size,
+                    name=self.name,
                 )
                 # Disk I/O runs only on the plane's worker: a tier without
                 # the plane would be write-only, so arm it.
@@ -303,7 +370,8 @@ class Engine:
         # Set while the node drains: prefetch hints stop opening restores.
         self.draining = False
         if kv_transfer_async:
-            self.kv_transfer = KVTransferPlane(chunk_tokens=kv_transfer_chunk_tokens)
+            self.kv_transfer = KVTransferPlane(chunk_tokens=kv_transfer_chunk_tokens,
+                                               name=self.name)
             # The pinned staging ring and the copy stream, allocated now
             # rather than inside the first restore.
             self.kv_transfer.bind(self.pool)
@@ -342,13 +410,49 @@ class Engine:
         self._top_ps = np.ones(max_batch, dtype=np.float32)
         self._top_ks = np.zeros(max_batch, dtype=np.int64)
         self._gen = torch.Generator(device=self.device).manual_seed(rng_seed)
+        # Mid-decode publish cadence (crash recovery): every N generated
+        # tokens the request's grown prefix publishes to the tree, so a
+        # resumed request's re-prefill is a near-pure hit. 0 = publish only
+        # at finish and preemption.
+        self.stream_publish_tokens = max(0, stream_publish_tokens)
         self.stats = EngineStats()
+        self._register_series()
+        # Token-level speed plane: the per-token ITL ring with stall
+        # attribution and the per-tenant goodput ledger (one branch in
+        # _consume_token when off).
+        self.timeline = None
+        self.goodput = None
+        if token_timeline_capacity > 0:
+            self.timeline = TokenTimeline(
+                capacity=token_timeline_capacity,
+                stall_threshold_s=token_stall_threshold_s,
+                node=self.name,
+            )
+            self.goodput = GoodputLedger(node=self.name)
+        # Stall-attribution hints: the instant the last whole prefill wave
+        # and the last inline prefill chunk ran, and a one-shot cause latch
+        # external planes set through hint_stall().
+        self._last_prefill_t = 0.0
+        self._last_inline_prefill_t = 0.0
+        self._stall_hint: str | None = None
+        # Flight-recorder lane for engine-scope events (evictions).
+        self._trace_lane = f"engine:{self.name}"
+        # Step attribution (per-wave tokens, padding, MFU estimate), off by
+        # default; _wave_padded is the padded token count of the last
+        # prefill launch, stamped by whichever prefill path ran.
+        self.step_acct = None
+        self._wave_padded = 0
+        if step_accounting:
+            n_params = sum(p.numel() for p in self.model.parameters())
+            self.step_acct = StepAccounting(
+                self.name, n_params, peak_tflops=peak_tflops, device=self.device
+            )
         # Speculative acceptance per prompt-length bucket ([proposed,
         # accepted]) for spec_report(), and the per-class ledger with the
         # adaptive-γ controller (it always exists: its counts must stay
         # conserved whether or not the controller steers).
         self._spec_shape: dict[str, list[int]] = {}
-        self.spec_ledger = SpecLedger(adaptive=spec_adaptive)
+        self.spec_ledger = SpecLedger(adaptive=spec_adaptive, node=self.name)
         # Mixed-wave state: the inline prefill backlog and the batch rows
         # it reserves (kept out of _rows until install, so every decode
         # path over _rows stays oblivious to them).
@@ -361,7 +465,72 @@ class Engine:
                 max_defer=self.prefill_inline_max_defer,
                 chunk=self.prefill_chunk,
                 boost_tokens=self.prefill_wave_tokens,
+                node=self.name,
             )
+
+    def _register_series(self) -> None:
+        """The JAX engine's registry series, labeled by this engine's name
+        (the per-tenant request histograms by tenant)."""
+        reg = get_registry()
+        lbl = {"engine": self.name}
+
+        def counter(name, help):
+            return reg.counter(name, help, ("engine",)).labels(**lbl)
+
+        self._m_prompt = counter("radixmesh_engine_prompt_tokens_total", "prompt tokens admitted")
+        self._m_cached = counter(
+            "radixmesh_engine_cached_tokens_total", "prompt tokens served from the radix cache"
+        )
+        self._m_generated = counter(
+            "radixmesh_engine_generated_tokens_total", "tokens produced by decode"
+        )
+        self._m_preempt = counter(
+            "radixmesh_engine_preemptions_total", "requests preempted under pool pressure"
+        )
+        self._m_spec_proposed = counter(
+            "radixmesh_engine_spec_proposed_tokens_total",
+            "draft tokens offered to speculative verification",
+        )
+        self._m_spec_accepted = counter(
+            "radixmesh_engine_spec_accepted_tokens_total",
+            "draft tokens accepted by speculative verification",
+        )
+        self._m_spec_rejected = counter(
+            "radixmesh_engine_spec_rejected_tokens_total",
+            "draft tokens rejected by speculative verification "
+            "(conservation: proposed == accepted + rejected)",
+        )
+        self._m_ttft = reg.histogram(
+            "radixmesh_engine_ttft_seconds", "submit-to-first-token latency", ("engine",)
+        ).labels(**lbl)
+        self._m_tpot = reg.histogram(
+            "radixmesh_engine_tpot_seconds",
+            "batched decode step latency (== per-token latency for each active request)",
+            ("engine",),
+        ).labels(**lbl)
+        # Per-tenant request latency, observed with the request's trace id
+        # as exemplar.
+        self._m_req_ttft = reg.histogram(
+            "radixmesh_request_ttft_seconds",
+            "submit-to-first-token latency per tenant (fleet-mergeable "
+            "buckets; exemplars carry trace ids)",
+            ("tenant",),
+        )
+        self._m_req_e2e = reg.histogram(
+            "radixmesh_request_e2e_seconds",
+            "submit-to-finish latency per tenant (fleet-mergeable "
+            "buckets; exemplars carry trace ids)",
+            ("tenant",),
+        )
+        self._m_hit_len = reg.histogram(
+            "radixmesh_engine_prefix_hit_tokens",
+            "prefix-cache hit length per admitted request (tokens)",
+            ("engine",),
+            buckets=TOKEN_LEN_BUCKETS,
+        ).labels(**lbl)
+        # Evictions by cause: the engine evicts for admission (capacity)
+        # and for mid-decode page growth (preempt).
+        self._m_evicted = eviction_counters(self.name)
 
     # ------------------------------------------------------------------
     # public API
@@ -371,31 +540,67 @@ class Engine:
         return torch.as_tensor(a, device=self.device)
 
     def make_request(
-        self, prompt: Sequence[int], sampling: SamplingParams | None = None
+        self,
+        prompt: Sequence[int],
+        sampling: SamplingParams | None = None,
+        *,
+        resume_tokens: Sequence[int] | None = None,
+        trace_id: int | None = None,
     ) -> Request:
-        """Build + validate a request without queueing it."""
+        """Build + validate a request without queueing it.
+
+        ``resume_tokens`` switches on resume admission: the tokens are
+        output a prior life of this request already delivered. They are
+        appended to the prompt, so prefill replays them against the radix
+        cache and the first sampled token is the continuation at position
+        ``len(prompt) + len(resume_tokens)``, but they are never re-emitted:
+        ``output_tokens`` starts empty and ``max_new_tokens`` is debited by
+        the tokens delivered, so the output budget is the same across
+        lives. ``trace_id`` adopts an upstream 64-bit trace id for this
+        request's spans."""
         sampling = sampling or SamplingParams()
-        if sampling.seed is not None:
-            raise ValueError(
-                "seeded sampling (per-request replay) is not ported to the "
-                "PyTorch engine yet"
+        prompt = np.asarray(prompt, dtype=np.int32)
+        resume_offset = 0
+        if resume_tokens is not None and len(resume_tokens) > 0:
+            resume = np.asarray(resume_tokens, dtype=np.int32)
+            resume_offset = len(resume)
+            if resume_offset >= sampling.max_new_tokens:
+                # The delivered tokens cover the whole budget: admitting
+                # would sample a token past the requested cap.
+                raise ValueError(
+                    f"resume_tokens ({resume_offset}) cover the full "
+                    f"max_new_tokens budget ({sampling.max_new_tokens}) "
+                    "— the stream is already complete"
+                )
+            prompt = np.concatenate([prompt, resume])
+            sampling = dataclass_replace(
+                sampling, max_new_tokens=sampling.max_new_tokens - resume_offset
             )
-        req = Request(prompt=np.asarray(prompt, dtype=np.int32), sampling=sampling)
+        req = Request(prompt=prompt, sampling=sampling, resume_offset=resume_offset)
         if not (0 < len(req.prompt) < self.max_seq_len):
             raise ValueError(f"prompt length {len(req.prompt)} out of range")
         if int(req.prompt.min()) < 0 or int(req.prompt.max()) >= self.cfg.vocab_size:
             raise ValueError(f"token ids must lie in [0, {self.cfg.vocab_size})")
         req.submit_time = time.monotonic()
+        # None when tracing is off or the request lost the sampling coin
+        # flip: every span site is then one ``is not None`` branch.
+        req.trace = get_recorder().trace(f"req:{req.rid}", trace_id=trace_id, node=self.name)
         return req
 
     def enqueue(self, req: Request) -> Request:
+        """Queue a built request (the engine thread, or its runner's lock)."""
+        if req.resume_offset:
+            self.stats.resurrections += 1
+            # The whole resumed prompt is replay: the original prompt and
+            # the delivered tokens all re-prefill here.
+            self.stats.replayed_tokens += len(req.prompt)
         self.waiting.append(req)
         return req
 
     def add_request(
-        self, prompt: Sequence[int], sampling: SamplingParams | None = None
+        self, prompt: Sequence[int], sampling: SamplingParams | None = None, **kw
     ) -> Request:
-        return self.enqueue(self.make_request(prompt, sampling))
+        return self.enqueue(self.make_request(prompt, sampling, **kw))
 
     def cancel(self, rid: int) -> bool:
         """Abort a queued or running request. Running requests release
@@ -532,7 +737,9 @@ class Engine:
         to completion, then one decode launch for everything running.
         Mixed schedule: while decode rows run, admission parks new prompts
         in the inline backlog and each wave packs the decode step and a
-        budget-bounded slice of their prefill into one chunk launch."""
+        budget-bounded slice of their prefill into one chunk launch (two
+        launches, decode then the slice, when every decode row is
+        seeded)."""
         with torch.inference_mode():
             self._admit()
             if self._inline:
@@ -562,19 +769,25 @@ class Engine:
         scheduler decides its composition. Decode-bearing plans fuse the
         inline chunks into the decode launch; prefill and boost plans
         advance the backlog alone (boost waves count against the
-        starvation bound). Seeded rows, which the JAX engine runs as two
-        launches here, wait for seeded replay (refused at admission)."""
+        starvation bound). An all-seeded batch keeps its canonical per-row
+        decode draw, so its wave runs as two launches: decode, then the
+        budgeted inline slice."""
         decode_rows = sum(1 for r in self._rows if r is not None)
         plan = self.waves.plan(decode_rows, [j.total - j.pos for j in self._inline])
         if plan.decode and decode_rows:
-            self._decode_once(inline_allot=plan.allot)
+            if self._seeded_launch(self._rows):
+                self._decode_once()
+                self._inline_advance(plan.allot)
+            else:
+                self._decode_once(inline_allot=plan.allot)
         else:
             self._inline_advance(plan.allot)
         self.waves.note(plan)
 
     def _inline_advance(self, allot: list[int]) -> None:
         """Advance the inline backlog without a decode step (prefill and
-        boost waves): the same fused chunk builder, decode off."""
+        boost waves, and the second launch of an all-seeded mixed wave):
+        the same fused chunk launch, decode off."""
         if any(allot):
             self._decode_spec_once(0, {}, None, inline=allot, decode=False)
 
@@ -624,13 +837,25 @@ class Engine:
                 return i
         return -1
 
-    def _alloc_pages(self, n_pages: int) -> np.ndarray | None:
-        """Whole-page allocation with evict-under-pressure retry."""
+    def _alloc_pages(self, n_pages: int, cause: str = "capacity") -> np.ndarray | None:
+        """Whole-page allocation with evict-under-pressure retry. ``cause``
+        labels any eviction it forces: "capacity" (admission) or
+        "preempt" (mid-decode page growth)."""
         n = n_pages * self.page_size
         slots = self.pool.alloc(n)
         if slots is None:
-            self.stats.evicted_tokens += self.tree.evict(n - self.pool.free_slots)
+            rec = get_recorder()
+            t_ev = time.monotonic() if rec.enabled else 0.0
+            freed = self.tree.evict(n - self.pool.free_slots)
+            self.stats.evicted_tokens += freed
+            if freed:
+                self._m_evicted[cause].inc(freed)
             slots = self.pool.alloc(n)
+            if rec.enabled:
+                rec.event(
+                    self._trace_lane, "evict", t_ev, time.monotonic() - t_ev, cat="cache",
+                    need_slots=int(n), satisfied=bool(slots is not None),
+                )
         return slots
 
     def _admit(self) -> None:
@@ -656,6 +881,8 @@ class Engine:
                 if row < 0:
                     break
                 req = self.waiting[idx]
+                tr = req.trace
+                t_match = time.monotonic() if tr is not None else 0.0
                 if isinstance(self.tree, HierarchicalCache):
                     match = None
                     if self.kv_transfer is not None:
@@ -681,6 +908,11 @@ class Engine:
                         match = self.tree.match_and_load(req.prompt)
                 else:
                     match = self.tree.match_prefix(req.prompt)
+                if tr is not None:
+                    tr.add(
+                        "prefix_match", t_match, time.monotonic() - t_match,
+                        cached_tokens=int(match.length), prompt_tokens=len(req.prompt),
+                    )
                 if self._defer_for_prefix_wave(req, match.length, group):
                     # A groupmate is about to publish this prefix: next
                     # wave it is a cache hit instead of a recompute.
@@ -690,6 +922,11 @@ class Engine:
                 if acquired is None:
                     break  # pool exhausted even after evict: wait for finishes
                 self.waiting.pop(idx)
+                if tr is not None:
+                    # Queue wait: from submission or the preemption requeue,
+                    # whichever was last, to the instant a row was secured.
+                    t_start = max(req.requeue_time, req.submit_time)
+                    tr.add("admission_wait", t_start, time.monotonic() - t_start, cat="queue")
                 reuse, prefix_slots, own = acquired
                 self._rows[row] = req  # reserve the row; re-set on install
                 group.append((req, row, reuse, prefix_slots, own))
@@ -728,6 +965,10 @@ class Engine:
                     rows = max(1, self.prefill_wave_tokens // per_chunk)
                     subwaves.extend(sub[j : j + rows] for j in range(0, len(sub), rows))
             for sub in subwaves:
+                traced = [m[0].trace for m in sub if m[0].trace is not None]
+                acct = self.step_acct
+                t_wave = time.monotonic() if traced or acct is not None else 0.0
+                self._wave_padded = 0
                 if (
                     self.pool.quant is None
                     and len(sub) == 1
@@ -737,6 +978,16 @@ class Engine:
                 else:
                     pending = self._prefill_group(sub)
                 self._finalize_first_tokens(pending)
+                if traced or acct is not None:
+                    # The first-token copy synchronized: the wall covers
+                    # the sub-wave's device work.
+                    dur = time.monotonic() - t_wave
+                    new_tok = sum(len(m[0].prompt) - m[2] for m in sub)
+                    if acct is not None:
+                        acct.note_wave("prefill", new_tok, self._wave_padded, dur, rows=len(sub))
+                    for tr in traced:
+                        tr.add("prefill_wave", t_wave, dur, cat="prefill", wave_rows=len(sub),
+                               wave_new_tokens=int(new_tok))
 
     # ------------------------------------------------------------------
     # async KV-movement plane seams (cache/kv_transfer.py)
@@ -775,6 +1026,10 @@ class Engine:
             plane.finish_ticket(self.tree, ticket)
             req.state = RequestState.QUEUED
             self.waiting.insert(0, req)
+            tr = req.trace
+            if tr is not None:
+                tr.add("kv_restore", ticket.t0, time.monotonic() - ticket.t0, cat="kv",
+                       tokens=int(ticket.tokens))
         self._restoring = still
 
     def _restore_alloc(self, n_tokens: int) -> np.ndarray | None:
@@ -782,9 +1037,10 @@ class Engine:
         write-back: ``evict_no_writeback``) under pressure."""
         dev = self.pool.alloc(n_tokens)
         if dev is None:
-            self.stats.evicted_tokens += self.tree.evict_no_writeback(
-                n_tokens - self.pool.free_slots
-            )
+            freed = self.tree.evict_no_writeback(n_tokens - self.pool.free_slots)
+            self.stats.evicted_tokens += freed
+            if freed:
+                self._m_evicted["capacity"].inc(freed)
             dev = self.pool.alloc(n_tokens)
         return dev
 
@@ -857,15 +1113,28 @@ class Engine:
             return None
         return reuse, prefix_slots, own
 
-    def _install_prefilled(self, req: Request, row: int, reuse: int) -> None:
+    def _install_prefilled(self, req: Request, row: int, reuse: int, inline: bool = False) -> None:
         """Mark RUNNING, record stats, publish the prompt, wire the decode
-        row. ``req.kv_len``/``token_slots``/``own_slots`` must be set."""
+        row. ``req.kv_len``/``token_slots``/``own_slots`` must be set.
+        ``inline``: the final chunk rode a mixed wave."""
         req.prefix_len = reuse
         req.state = RequestState.RUNNING
         req.row = row
         self.stats.prefills += 1
+        # Stall attribution: a decode gap spanning this instant is a
+        # prefill convoy, or an inline chunk's bounded cost.
+        if inline:
+            self._last_inline_prefill_t = time.monotonic()
+        else:
+            self._last_prefill_t = time.monotonic()
         self.stats.prompt_tokens += len(req.prompt)
         self.stats.cached_tokens += reuse
+        self._m_prompt.inc(len(req.prompt))
+        self._m_cached.inc(reuse)
+        self._m_hit_len.observe(reuse)
+        if req.resume_offset:
+            # The whole resumed prompt is replay; the cache served reuse.
+            self.stats.replayed_cached_tokens += reuse
         self._publish(req, len(req.prompt))
         self._rows[row] = req
         self._temps[row] = req.sampling.temperature
@@ -875,18 +1144,76 @@ class Engine:
         n_pages = -(-req.kv_len // self.page_size)
         self._page_table[row, :n_pages] = req.token_slots[:: self.page_size] // self.page_size
 
+    @staticmethod
+    def _seeded_launch(rows: Iterable[Request | None]) -> bool:
+        """True when every row is seeded: the replay contract's scope. A
+        mixed batch samples from the engine's stream (best-effort): the
+        contract is per launch, never an entanglement across requests."""
+        rows = [r for r in rows if r is not None]
+        return bool(rows) and all(r.sampling.seed is not None for r in rows)
+
+    @staticmethod
+    def _seed_key(req: Request) -> int:
+        """The canonical per-row key material, the JAX engine's bit for bit:
+        a pure function of (seed, absolute position of the token about to
+        be drawn). A resumed request's delivered tokens ride in the prompt,
+        so positions line up across lives. The seed is mixed before the
+        position, so its top bits matter."""
+        return _mix64(_mix64(int(req.sampling.seed) & _M64) ^ req.num_tokens)
+
+    @staticmethod
+    def _sample_seeded_row(req: Request, logit_row: torch.Tensor) -> torch.Tensor:
+        """The canonical seeded draw: one ``[1, V]`` ``sample_tokens`` call
+        on a generator seeded with ``_seed_key``, the same shape at every
+        site (first token, each decode step), so a request resumed on
+        another engine of the same device type redraws the same
+        continuation. Returns the token as a 0-d device tensor (the caller
+        copies every row's to the host at once); a greedy row draws
+        nothing."""
+        sp = req.sampling
+        gen = None
+        if sp.temperature > 0:
+            gen = torch.Generator(device=logit_row.device)
+            gen.manual_seed(Engine._seed_key(req))
+        return sample_tokens(
+            logit_row[None, :], gen,
+            temperature=np.float32(sp.temperature), top_p=np.float32(sp.top_p),
+            top_k=np.int64(sp.top_k),
+        )[0]
+
+    @staticmethod
+    def _sample_seeded_rows(pending: list[tuple[Request, torch.Tensor]]) -> np.ndarray:
+        """``_sample_seeded_row`` for every ``(request, logit row)``, copied
+        to the host in one transfer."""
+        return torch.stack([Engine._sample_seeded_row(r, logit) for r, logit in pending]).cpu().numpy()
+
+    def _record_first_token(self, req: Request) -> None:
+        ttft = req.first_token_time - req.submit_time
+        self.stats.ttft_s.append(ttft)
+        self._m_ttft.observe(ttft)
+        self._m_req_ttft.labels(tenant=req.tenant).observe(
+            ttft, trace_id=getattr(req.trace, "trace_id", None)
+        )
+        tr = req.trace
+        if tr is not None:
+            tr.add("first_token", req.first_token_time, 0.0, cat="scheduler",
+                   ttft_s=round(ttft, 6))
+
     def _finalize_first_tokens(self, pending: list[tuple]) -> None:
         """One batched sample + one device→host copy for every request of
-        the sub-wave."""
-        logits = torch.stack([logit for _, logit in pending])
+        the sub-wave; an all-seeded sub-wave draws each row through the
+        canonical ``(seed, position)`` path instead (still one copy)."""
         reqs = [r for r, _ in pending]
-        sampled = sample_tokens(
-            logits,
-            self._gen,
-            temperature=np.asarray([r.sampling.temperature for r in reqs], np.float32),
-            top_p=np.asarray([r.sampling.top_p for r in reqs], np.float32),
-            top_k=np.asarray([r.sampling.top_k for r in reqs], np.int64),
-        ).cpu().numpy()
+        if self._seeded_launch(reqs):
+            sampled = self._sample_seeded_rows(pending)
+        else:
+            sampled = sample_tokens(
+                torch.stack([logit for _, logit in pending]),
+                self._gen,
+                temperature=np.asarray([r.sampling.temperature for r in reqs], np.float32),
+                top_p=np.asarray([r.sampling.top_p for r in reqs], np.float32),
+                top_k=np.asarray([r.sampling.top_k for r in reqs], np.int64),
+            ).cpu().numpy()
         now = time.monotonic()
         for (req, logit), tok in zip(pending, sampled):
             if self.on_first_logits is not None:
@@ -894,7 +1221,12 @@ class Engine:
             req.first_token_time = now
             req.output_tokens = [int(tok)]
             self._tokens[req.row] = int(tok)
-            self.stats.ttft_s.append(now - req.submit_time)
+            # The inter-token clock starts here: the first token's latency
+            # is TTFT, but it is useful output.
+            if self.goodput is not None:
+                req.last_token_time = now
+                self.goodput.note_token(req.tenant)
+            self._record_first_token(req)
             req.note_progress()
 
     def _prefill_dense(
@@ -910,6 +1242,7 @@ class Engine:
         tokens = np.zeros((1, s_b), dtype=np.int64)
         tokens[0, :n_new] = prompt[reuse:]
         positions = (reuse + np.arange(s_b, dtype=np.int64))[None]
+        self._wave_padded = s_b  # launch shape (step accounting)
         kv_shape = (cfg.n_layers, 1, p_b, cfg.n_kv_heads, cfg.head_dim)
         cached_k = torch.zeros(kv_shape, dtype=cfg.dtype, device=self.device)
         cached_v = torch.zeros(kv_shape, dtype=cfg.dtype, device=self.device)
@@ -957,6 +1290,7 @@ class Engine:
             n_pages = -(-totals[i] // ps)
             pt[i, :n_pages] = ts[::ps] // ps
         pt_dev = self._dev(pt)
+        self._wave_padded = B * C * -(-n_new_max // C)  # launch shape (step accounting)
 
         final_logits: list = [None] * N
         for ci in range(-(-n_new_max // C)):
@@ -1022,6 +1356,8 @@ class Engine:
         """Insert the first ``key_len`` tokens (whose KV is in the pool)
         into the tree; canonicalize shared prefixes; move the lock to the
         deepest published node."""
+        tr = req.trace
+        t_pub = time.monotonic() if tr is not None else 0.0
         key = self._sequence_key(req, key_len)
         matched = self.tree.insert(key, req.token_slots[:key_len].copy())
         m2 = self.tree.match_prefix(key)
@@ -1048,6 +1384,8 @@ class Engine:
             if req.lock_node is not None:
                 self.tree.dec_lock_ref(req.lock_node)
             req.lock_node = new_lock
+        if tr is not None:
+            tr.add("publish", t_pub, time.monotonic() - t_pub, cat="cache", tokens=int(key_len))
 
     def _release(self, req: Request) -> None:
         """Publish the full sequence, free unpublished residue, release the
@@ -1085,7 +1423,9 @@ class Engine:
         that applies: the fused chunk launch (speculative verify with at
         least one draft, or a mixed wave's ``inline_allot``), multi-step
         decode, the compact dense leg of the crossover, or one
-        ``decode_step``."""
+        ``decode_step``. An all-seeded batch takes none of the first three
+        (each draws from the engine's stream) and draws each row through
+        ``_sample_seeded_row`` from the ``decode_step`` logits."""
         g = self.spec_decode_tokens
         spec = g > 0 and self._spec_ok()
         if spec or inline_allot is not None:
@@ -1112,15 +1452,18 @@ class Engine:
             if k_eff > 1:
                 self._decode_multi_once(k_eff)
                 return
+        seeded = self._seeded_launch(self._rows)
         n_rows = sum(1 for r in self._rows if r is not None)
         use_paged = select_paged(
             n_rows, self.cfg.head_dim, self.device, min_batch=self.paged_min_batch,
             max_len=max((r.kv_len for r in self._rows if r is not None), default=0),
         )
         self._last_dispatch = last_dispatch()
-        if not use_paged:
+        if not use_paged and not seeded:
             # The dense leg: one step over the compact working set (the
-            # decode kernel over a gathered sub-pool on the card).
+            # decode kernel over a gathered sub-pool on the card). Seeded
+            # batches skip it: its sampler draws inside the fused loop from
+            # the engine's stream.
             self._decode_multi_once(1, force_compact=True)
             return
         slots = np.full(self.max_batch, self._scratch_slot, dtype=np.int32)
@@ -1131,7 +1474,7 @@ class Engine:
                 continue
             page_idx, offset = divmod(req.kv_len, self.page_size)
             if offset == 0:  # crossing into a fresh page
-                new = self._alloc_pages(1)
+                new = self._alloc_pages(1, cause="preempt")
                 if new is None:
                     preempted.append(req)
                     continue
@@ -1148,6 +1491,7 @@ class Engine:
         active = [(row, r) for row, r in enumerate(self._rows) if r is not None]
         if not active:
             return
+        step_t0 = time.monotonic()
         logits = self.model.decode_step(
             self._dev(self._tokens),
             self.pool.kv,
@@ -1157,11 +1501,29 @@ class Engine:
             page_size=self.page_size,
             kv_scale=self.pool.kv_scale,
         )
-        sampled = sample_tokens(
-            logits, self._gen, temperature=self._temps, top_p=self._top_ps, top_k=self._top_ks
-        ).cpu().numpy()
+        if seeded:
+            sampled = np.zeros(self.max_batch, dtype=np.int64)
+            sampled[[row for row, _ in active]] = self._sample_seeded_rows(
+                [(req, logits[row]) for row, req in active]
+            )
+        else:
+            sampled = sample_tokens(
+                logits, self._gen, temperature=self._temps, top_p=self._top_ps, top_k=self._top_ks
+            ).cpu().numpy()
         self.stats.decode_steps += 1
         self.stats.decode_forwards += 1
+        # The sampled tokens reached the host: this spans the step's
+        # dispatch and device time, the TPOT every active request sees.
+        elapsed = time.monotonic() - step_t0
+        self._m_tpot.observe(elapsed)
+        if self.step_acct is not None:
+            self.step_acct.note_wave("decode", len(active), self.max_batch, elapsed,
+                                     rows=len(active))
+        for _, req in active:
+            tr = req.trace
+            if tr is not None:
+                tr.add("decode_chunk", step_t0, elapsed, cat="decode", k_steps=1,
+                       batch_rows=len(active))
         for row, req in active:
             self._consume_token(req, row, int(slots[row]), int(sampled[row]))
 
@@ -1170,12 +1532,15 @@ class Engine:
         by every active row's sequence and page headroom and its remaining
         output budget (a row past its budget would discard the launch's
         tail). 1 while a waiting request could admit: admission happens
-        between launches."""
+        between launches; 1 when any row is seeded: the fused launch draws
+        its tokens from one in-launch stream, not per (seed, position)."""
         if self.waiting and self._free_row() >= 0:
             return 1
         for req in self._rows:
             if req is None:
                 continue
+            if req.sampling.seed is not None:
+                return 1
             k = min(k, self.max_seq_len - req.kv_len)
             k = min(k, self.max_pages * self.page_size - req.kv_len)
             k = min(k, req.sampling.max_new_tokens - len(req.output_tokens))
@@ -1217,6 +1582,7 @@ class Engine:
             return
         for row, req in active:
             lengths[row] = req.kv_len + 1
+        step_t0 = time.monotonic()
         common = dict(
             generator=self._gen, temperatures=self._temps, top_ps=self._top_ps,
             page_size=self.page_size, k_steps=k, kv_scale=self.pool.kv_scale,
@@ -1239,6 +1605,17 @@ class Engine:
         sampled = sampled.cpu().numpy()  # [k, B]: the one round trip
         self.stats.decode_steps += k
         self.stats.decode_forwards += k
+        elapsed = time.monotonic() - step_t0
+        for _ in range(k):
+            self._m_tpot.observe(elapsed / k)
+        if self.step_acct is not None:
+            self.step_acct.note_wave("decode", k * len(active), k * self.max_batch, elapsed,
+                                     rows=len(active))
+        for _, req in active:
+            tr = req.trace
+            if tr is not None:
+                tr.add("decode_chunk", step_t0, elapsed, cat="decode", k_steps=k,
+                       batch_rows=len(active))
         ps = self.page_size
         for row, req in active:
             base = req.kv_len
@@ -1253,9 +1630,12 @@ class Engine:
         waits for admission (a wide verify launch would delay its
         prefill). Stochastic rows verify by exact rejection sampling, so
         temperature does not turn it off; per-row limits are
-        ``_spec_row_ok``'s. Seeded rows wait for seeded replay (refused at
-        admission)."""
+        ``_spec_row_ok``'s. Off when any row is seeded: the verify
+        resample draws from the launch-wide stream, not per (seed,
+        position)."""
         if self.waiting:
+            return False
+        if any(r is not None and r.sampling.seed is not None for r in self._rows):
             return False
         return any(req is not None for req in self._rows)
 
@@ -1336,7 +1716,7 @@ class Engine:
             for p_idx in range(req.kv_len // ps, (req.kv_len + row_extra) // ps + 1):
                 if self._page_table[row, p_idx] != self._scratch_page:
                     continue  # page already provisioned
-                new = self._alloc_pages(1)
+                new = self._alloc_pages(1, cause="preempt")
                 if new is None:
                     preempted.append(req)
                     break
@@ -1387,6 +1767,7 @@ class Engine:
         )
         if not active and not jobs:
             return
+        step_t0 = time.monotonic()
 
         B = self.max_batch
         maxp = _pow2_at_least(
@@ -1419,6 +1800,7 @@ class Engine:
             # provisioning to this verify, where every proposed token is
             # then accounted accepted or rejected.
             self.stats.spec_proposed += len(draft)
+            self._m_spec_proposed.inc(len(draft))
             if len(draft):
                 self._spec_shape.setdefault(shape_bucket(len(req.prompt)), [0, 0])[0] += len(draft)
         for job, w in jobs:
@@ -1452,12 +1834,18 @@ class Engine:
             bonus = bonus.cpu().numpy()
             self.stats.decode_steps += 1
 
+        emitted_total = 0
         for row, req in active:
             draft = drafts[row]
             a = int(accept_len[row])
             rejected = len(draft) - a
             self.stats.spec_accepted += a
             self.stats.spec_rejected += rejected
+            self._m_spec_accepted.inc(a)
+            if rejected:
+                self._m_spec_rejected.inc(rejected)
+            # The rejected tail: the gap before this row's next token
+            # re-decodes it (the spec_verify_miss stall cause).
             req.spec_miss = rejected
             if a:
                 self._spec_shape.setdefault(shape_bucket(len(req.prompt)), [0, 0])[1] += a
@@ -1472,11 +1860,19 @@ class Engine:
                 pos = base + i
                 slot = int(self._page_table[row, pos // ps] * ps + pos % ps)
                 token = int(draft[i]) if i < a else int(bonus[row])
+                emitted_total += 1
                 if self._consume_token(req, row, slot, token):
                     break
+        inline_tok = 0
         pending: list[tuple] = []
         for job, w in jobs:
+            start = job.pos
             job.pos += w  # the exact resume offset for the next wave
+            inline_tok += w
+            tr = job.req.trace
+            if tr is not None:
+                tr.add("prefill_inline", step_t0, time.monotonic() - step_t0, cat="prefill",
+                       chunk_tokens=int(w), resume_offset=int(start))
             if job.pos >= job.total:
                 # Final chunk: install, and hand the last prompt position's
                 # logits to the first-token sampler (one batched sample for
@@ -1487,12 +1883,78 @@ class Engine:
                 req.token_slots = job.token_slots
                 req.own_slots = job.own
                 self._inline_rows.discard(job.row)
-                self._install_prefilled(req, job.row, job.reuse)
+                self._install_prefilled(req, job.row, job.reuse, inline=True)
                 pending.append((req, logits[job.row, w - 1]))
         if jobs:
+            # Stall attribution: an inline chunk advanced in this wave, so
+            # a decode gap spanning it is prefill_inline.
+            self._last_inline_prefill_t = time.monotonic()
             self._inline = [j for j in self._inline if j.pos < j.total]
         if pending:
             self._finalize_first_tokens(pending)
+        elapsed = time.monotonic() - step_t0
+        if active:
+            for _ in range(max(emitted_total, 1)):
+                self._m_tpot.observe(elapsed / max(emitted_total, 1))
+        if self.step_acct is not None:
+            # B·C positions launched; useful work is the decode tokens
+            # emitted plus the inline prefill tokens advanced.
+            self.step_acct.note_wave("decode" if active else "prefill",
+                                     emitted_total + inline_tok, B * C, elapsed,
+                                     rows=len(active) + len(jobs))
+        for row, req in active:
+            tr = req.trace
+            if tr is not None:
+                tr.add("decode_chunk", step_t0, elapsed, cat="decode", k_steps=1,
+                       batch_rows=len(active), speculative=True,
+                       draft_tokens=int(draft_len[row]), accepted_tokens=int(accept_len[row]))
+
+    def hint_stall(self, cause: str) -> None:
+        """One-shot stall-cause latch for external planes: the next
+        over-threshold inter-token gap is attributed to ``cause``."""
+        if cause not in STALL_CAUSES:
+            raise ValueError(f"unknown stall cause {cause!r}")
+        self._stall_hint = cause
+
+    def _stall_cause(self, req: Request, now: float, gap_s: float) -> str:
+        """Attribute one over-threshold inter-token gap to its single most
+        likely cause, in ``STALL_CAUSES`` priority order."""
+        hint = self._stall_hint
+        if hint is not None:
+            self._stall_hint = None
+            return hint
+        if self._restoring:
+            return "restore_park"
+        if now - self._last_prefill_t <= gap_s:
+            return "prefill_convoy"  # a whole prefill wave ran in the gap
+        if now - self._last_inline_prefill_t <= gap_s:
+            return "prefill_inline"  # a budget-bounded inline chunk did
+        if req.spec_miss:
+            req.spec_miss = 0
+            return "spec_verify_miss"
+        return "scheduler_wait"
+
+    def _note_token_time(self, req: Request) -> None:
+        """Per-emitted-token timeline and goodput accounting: the gap since
+        the request's previous token (its first token only stamps the
+        clock), with over-threshold gaps attributed to a stall cause. The
+        stamp is the host's, after the step's device-to-host copy; the
+        tokens of one multi-step or speculative launch share it."""
+        now = time.monotonic()
+        prev = req.last_token_time
+        req.last_token_time = now
+        self.goodput.note_token(req.tenant)
+        if not prev:
+            return
+        gap = now - prev
+        cause = None
+        if gap >= self.timeline.stall_threshold_s:
+            cause = self._stall_cause(req, now, gap)
+            self.goodput.note_stall(req.tenant, gap)
+        self.timeline.note_token(
+            req.rid, req.tenant, gap, cause,
+            trace_id=getattr(req.trace, "trace_id", None), now=now,
+        )
 
     def _consume_token(self, req: Request, row: int, slot: int, token: int) -> bool:
         """Account one decode iteration for ``req``: the fed token's KV
@@ -1502,18 +1964,37 @@ class Engine:
         req.kv_len += 1
         req.output_tokens.append(token)
         self.stats.generated_tokens += 1
+        if self.timeline is not None:  # one branch when off
+            self._note_token_time(req)
         if req.is_finished_by(token) or req.num_tokens >= self.max_seq_len:
             # Don't count the terminal token as output if it's a stop.
             if token in req.sampling.stop_token_ids:
                 req.output_tokens.pop()
                 self.stats.generated_tokens -= 1
+            else:
+                self._m_generated.inc()
             req.finish_time = time.monotonic()
+            if req.submit_time:
+                self._m_req_e2e.labels(tenant=req.tenant).observe(
+                    req.finish_time - req.submit_time,
+                    trace_id=getattr(req.trace, "trace_id", None),
+                )
             req.state = RequestState.FINISHED
             self.stats.finished += 1
             self._release(req)
             self._pressure = False  # freed memory: resume admission
             return True
+        self._m_generated.inc()
         self._tokens[row] = token
+        if (
+            self.stream_publish_tokens > 0
+            and len(req.output_tokens) % self.stream_publish_tokens == 0
+        ):
+            # Mid-decode publish: the grown prefix (prompt + generated so
+            # far) lands in the tree every N tokens, so a crash loses at
+            # most N tokens of a resumed request's cache hit. Idempotent
+            # for prefixes already published.
+            self._publish(req, req.kv_len)
         req.note_progress()
         return False
 
@@ -1522,10 +2003,19 @@ class Engine:
         have, free the row, and requeue from scratch (generated tokens are
         discarded; the published KV makes the retry a long prefix hit)."""
         self.stats.preemptions += 1
+        self._m_preempt.inc()
         self._pressure = True
+        req.requeue_time = time.monotonic()
+        tr = req.trace
+        if tr is not None:
+            tr.add("preempt", req.requeue_time, 0.0, cat="scheduler", kv_len=int(req.kv_len),
+                   output_tokens=len(req.output_tokens))
         self._release(req)
         req.state = RequestState.QUEUED
         req.output_tokens = []
+        # The timeline's clock restarts with the life: the retry's first
+        # token is TTFT again, not a long gap.
+        req.last_token_time = 0.0
         req.kv_len = 0
         req.prefix_len = 0
         req.token_slots = np.empty(0, dtype=np.int32)

@@ -2,10 +2,10 @@
 
 This package's own copy of the JAX package's ``engine/request.py``, cut to
 the fields the ported schedules use (legacy, mixed waves, multi-step and
-speculative decode) and the staged KV restore (``RESTORING``): the port
-imports nothing of the JAX package. ``SamplingParams`` keeps its ``seed`` field so a seeded request can
-be refused loudly (seeded replay is not ported yet) instead of silently
-sampling from the engine stream.
+speculative decode), the staged KV restore (``RESTORING``), seeded replay
+and resume admission, and the observability planes (request traces and
+the token timeline): the port imports nothing of the JAX package. The SLO
+fields (deadlines, admission and degradation bookkeeping) are not ported.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import enum
 import itertools
 import threading
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -29,8 +30,11 @@ class SamplingParams:
     top_k: int = 0  # 0 = disabled
     max_new_tokens: int = 16
     stop_token_ids: tuple[int, ...] = ()
-    # Per-request sampling seed. Seeded replay is not ported: the engine
-    # refuses a request that sets it.
+    # Per-request sampling seed (None = the engine's global stream). With
+    # a seed, a sampled token depends only on (seed, absolute position)
+    # whenever every row of the launch is seeded — so a request resumed on
+    # another engine redraws exactly the continuation its first life drew
+    # (``Engine._sample_seeded_row``).
     seed: int | None = None
 
 
@@ -67,6 +71,12 @@ class Request:
         default_factory=lambda: np.empty(0, dtype=np.int32)
     )
     lock_node: object = None  # TreeNode protected while RUNNING
+    # Resume admission (``Engine.make_request(resume_tokens=...)``): the
+    # last ``resume_offset`` tokens of ``prompt`` are output a prior life of
+    # this request already delivered — replayed through prefill (a cache
+    # hit where that life published them) but never re-emitted:
+    # ``output_tokens`` holds only post-resume tokens.
+    resume_offset: int = 0
     cancelled: bool = False  # aborted by Engine.cancel (output is partial)
     # Dropped by a drain for the client to resubmit elsewhere
     # (``Engine.drain_requeue_waiting``: reason "drain_requeue").
@@ -82,8 +92,20 @@ class Request:
     # The tree's ``draft_ready_epoch`` this request last peeked at: a
     # later epoch re-arms tree drafting (``Engine._draft_for``).
     draft_epoch: int = 0
-    # Draft tokens the last speculative wave rejected for this row.
+    # Draft tokens the last speculative wave rejected for this row: the
+    # spec_verify_miss stall attribution, consumed by Engine._stall_cause.
     spec_miss: int = 0
+    # Monotonic stamp of the last emitted token (0 = none yet this life):
+    # the token timeline's inter-token clock. Reset by Engine._preempt, so
+    # a requeued life's first token reads as TTFT, not as a long gap.
+    last_token_time: float = 0.0
+    # Request-flight tracing (obs/trace_plane.py): a TraceContext when this
+    # request won the sampling coin flip, else None; every span site
+    # guards with one ``is not None`` branch.
+    trace: object = None
+    # Stamped by Engine._preempt on requeue: the second admission's queue
+    # wait starts here, not at the original submit.
+    requeue_time: float = 0.0
     submit_time: float = 0.0
     first_token_time: float = 0.0
     finish_time: float = 0.0
@@ -109,6 +131,28 @@ class Request:
             if cond is not None:
                 with cond:
                     cond.notify_all()
+            # Every finish path (stop token, length cap, cancel, drain)
+            # assigns FINISHED here, so a traced request's terminal
+            # ``request_done`` span cannot be missed by a new finish site.
+            # One ``is not None`` branch when untraced; the _retired guard
+            # keeps a double transition from recording it twice.
+            tr = self.__dict__.get("trace")
+            if (
+                tr is not None
+                and self.__dict__.get("submit_time")
+                and not self.__dict__.get("_retired")
+            ):
+                object.__setattr__(self, "_retired", True)
+                tr.add(
+                    "request_done",
+                    self.submit_time,
+                    time.monotonic() - self.submit_time,
+                    cat="scheduler",
+                    prompt_tokens=len(self.prompt),
+                    output_tokens=len(self.output_tokens),
+                    cancelled=bool(self.cancelled),
+                    shed=bool(self.shed),
+                )
 
     @property
     def num_tokens(self) -> int:

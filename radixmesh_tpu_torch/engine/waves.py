@@ -28,15 +28,17 @@ groupmate's remaining chunks.
 
 The scheduler holds no references to requests or device state; the
 engine feeds it integer remaining-token counts and applies the returned
-per-job allotments. The port has no metrics registry yet, so the wave mix
-is kept in plain counters (``counts``, ``inline_tokens``,
-``max_defer_observed``) that ``snapshot()`` and the frontend's ``/stats``
-read.
+per-job allotments. The wave mix lands on the registry's
+``radixmesh_wave_*`` families, as in the JAX package, and in plain
+counters (``counts``, ``inline_tokens``, ``max_defer_observed``) that
+``snapshot()`` and the frontend's ``/stats`` read.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+from radixmesh_tpu_torch.obs.metrics import get_registry
 
 __all__ = ["WaveScheduler", "WavePlan", "WAVE_KINDS"]
 
@@ -73,6 +75,7 @@ class WaveScheduler:
         max_defer: int = 2,
         chunk: int = 512,
         boost_tokens: int = 4096,
+        node: str = "",
     ):
         if inline_budget <= 0:
             raise ValueError("inline_budget must be > 0 (0 disables mixing)")
@@ -89,6 +92,25 @@ class WaveScheduler:
         # lock by the frontend's /stats.
         self.counts = dict.fromkeys(WAVE_KINDS, 0)
         self.inline_tokens = 0
+        reg = get_registry()
+        engine = node or "engine"
+        waves = reg.counter(
+            "radixmesh_wave_total",
+            "compute waves by kind (decode / prefill / mixed / boost)",
+            ("engine", "kind"),
+        )
+        self._m_waves = {kind: waves.labels(engine=engine, kind=kind) for kind in WAVE_KINDS}
+        self._m_inline_tokens = reg.counter(
+            "radixmesh_wave_inline_tokens_total",
+            "prefill tokens advanced inside mixed/boost waves",
+            ("engine",),
+        ).labels(engine=engine)
+        self._m_defer = reg.gauge(
+            "radixmesh_wave_decode_defer_waves",
+            "consecutive waves the decode step has been deferred "
+            "(bounded by --prefill-inline-max-defer)",
+            ("engine",),
+        ).labels(engine=engine)
 
     # ------------------------------------------------------------------
     # policy
@@ -146,10 +168,13 @@ class WaveScheduler:
             self.max_defer_observed = max(self.max_defer_observed, self._defer)
         else:
             self._defer = 0
+        self._m_defer.set(self._defer)
         self.counts[plan.kind] += 1
+        self._m_waves[plan.kind].inc()
         inline = sum(plan.allot)
         if inline:
             self.inline_tokens += inline
+            self._m_inline_tokens.inc(inline)
 
     # ------------------------------------------------------------------
     # observability

@@ -10,6 +10,8 @@
         --weights /ckpt/Qwen2-7B --tokenizer /ckpt/Qwen2-7B
     python -m radixmesh_tpu_torch.launch serve --model llama3.2-3b \
         --weights /ckpt/llama3.2-3b --tokenizer byte
+    python -m radixmesh_tpu_torch.launch serve --stream-publish 16 \
+        --step-accounting --profile-dir /var/tmp/prof --trace-sample 0.1
 
 ``serve`` builds one :class:`~radixmesh_tpu_torch.engine.engine.Engine`
 behind a :class:`~radixmesh_tpu_torch.server.http_frontend.ServingFrontend`
@@ -28,8 +30,15 @@ the JAX launcher's defaults, which run the legacy schedule. The tier flags
 (``--host-cache-slots``, ``--kv-transfer-async``, ``--kv-transfer-chunk``,
 ``--kv-transfer-min-restore``, ``--kv-tier-dir``, ``--kv-tier-capacity-gb``)
 add a pinned host-RAM tier, the async KV-movement plane and a durable disk
-tier, as the JAX launcher does. Flags of the JAX launcher whose features are
-not ported yet are refused by name.
+tier, as the JAX launcher does. ``--stream-publish N`` publishes a request's
+grown prefix every N tokens (crash recovery). The observability flags are
+the JAX launcher's: ``--trace-capacity``, ``--trace-sample`` and
+``--trace-dir`` (the flight recorder, dumped under the directory on exit),
+``--token-timeline-capacity`` and ``--token-stall-threshold-ms`` (the token
+timeline), ``--step-accounting`` and ``--peak-tflops`` (per-wave MFU; the
+peak defaults to the card's) and ``--profile-dir`` (``/profile``
+captures). Flags of the JAX launcher whose features are not ported yet are
+refused by name.
 """
 
 from __future__ import annotations
@@ -43,12 +52,42 @@ __all__ = ["main", "parse_args"]
 
 # ``serve`` flags of the JAX launcher whose features are not ported yet.
 _NOT_PORTED_FLAGS = (
-    "--weight-quant", "--stream-publish",
-    "--step-accounting", "--peak-tflops", "--slo", "--slo-ttft-ms", "--slo-tenant",
-    "--profile-dir", "--trace-capacity", "--trace-sample", "--trace-dir",
-    "--token-timeline-capacity", "--token-stall-threshold-ms",
+    "--weight-quant", "--slo", "--slo-ttft-ms", "--slo-tenant",
     "--telemetry-history-interval", "--blackbox-dir", "--blackbox-watchdog",
 )
+
+
+def _configure_tracing(args: argparse.Namespace, node: str = "") -> None:
+    """Enable the flight recorder when asked: ``--trace-sample`` gates
+    recording; ``--trace-dir`` with the sample unset implies 1.0, but an
+    explicit ``--trace-sample 0`` wins."""
+    sample = args.trace_sample
+    if sample is None:
+        sample = 1.0 if args.trace_dir else 0.0
+    if sample > 0:
+        from radixmesh_tpu_torch.obs.trace_plane import configure
+
+        configure(capacity=args.trace_capacity, sample=sample, node=node)
+
+
+def _dump_trace(args: argparse.Namespace, log) -> None:
+    """Exit-time flight-recorder dump: one Chrome trace-event file under
+    ``--trace-dir`` (nothing when tracing is off)."""
+    if not args.trace_dir:
+        return
+    import os
+    import time
+
+    from radixmesh_tpu_torch.obs.trace_plane import get_recorder, write_trace
+
+    if not get_recorder().enabled:
+        return
+    try:
+        os.makedirs(args.trace_dir, exist_ok=True)
+        path = os.path.join(args.trace_dir, f"trace-{int(time.time())}.json")
+        log.info("wrote %d trace spans to %s", write_trace(path), path)
+    except OSError:
+        log.exception("trace dump failed")
 
 
 def _run_serve(args: argparse.Namespace) -> int:
@@ -63,6 +102,7 @@ def _run_serve(args: argparse.Namespace) -> int:
     configure_logger("serve")
     log = get_logger("launch")
     device = resolve_device(args.device)
+    _configure_tracing(args, node="serve")
     if device.type == "cuda":
         from radixmesh_tpu_torch.ops._build import build_all
 
@@ -111,8 +151,15 @@ def _run_serve(args: argparse.Namespace) -> int:
             if args.kv_tier_capacity_gb is not None
             else 1 << 30
         ),
+        name="serve",
+        stream_publish_tokens=args.stream_publish or 0,
+        token_timeline_capacity=args.token_timeline_capacity,
+        token_stall_threshold_s=args.token_stall_threshold_ms / 1e3,
+        step_accounting=args.step_accounting,
+        peak_tflops=args.peak_tflops,
     )
-    frontend = ServingFrontend(engine, host=args.host, port=args.http_port, tokenizer=tokenizer)
+    frontend = ServingFrontend(engine, host=args.host, port=args.http_port, tokenizer=tokenizer,
+                               profile_dir=args.profile_dir)
     print(f"serving {args.model} on http://{args.host}:{frontend.port}", flush=True)
     stop = threading.Event()
     signal.signal(signal.SIGINT, lambda *_: stop.set())
@@ -122,6 +169,7 @@ def _run_serve(args: argparse.Namespace) -> int:
             stop.wait(1.0)
     finally:
         frontend.close()
+        _dump_trace(args, log)
     return 0
 
 
@@ -179,6 +227,33 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                        "resurrected at boot")
     serve.add_argument("--kv-tier-capacity-gb", type=float, default=None, metavar="GB",
                        help="extent-store disk budget (default 1 GiB); oldest extents drop past it")
+    serve.add_argument("--stream-publish", type=int, default=None, metavar="TOKENS",
+                       help="publish a request's grown prefix to the tree every N generated tokens "
+                       "(crash recovery: bounds a resumed request's cache-hit loss to N tokens; "
+                       "default 0 = publish only at finish and preemption)")
+    serve.add_argument("--trace-capacity", type=int, default=8192,
+                       help="flight-recorder span bound (drop-oldest past it)")
+    serve.add_argument("--trace-sample", type=float, default=None,
+                       help="fraction of requests to trace (0 disables, the default; spans on "
+                       "GET /debug/trace as Perfetto-loadable JSON)")
+    serve.add_argument("--trace-dir", default=None,
+                       help="also dump the flight recorder to this directory on exit (implies "
+                       "--trace-sample 1.0 unless set explicitly)")
+    serve.add_argument("--token-timeline-capacity", type=int, default=4096,
+                       help="per-token ITL ring entries for /debug/tokens (change-compressed, "
+                       "drop-oldest; 0 disables the token timeline and the goodput ledger)")
+    serve.add_argument("--token-stall-threshold-ms", type=float, default=50.0,
+                       help="inter-token gap above which the timeline attributes a stall to a "
+                       "cause")
+    serve.add_argument("--step-accounting", action="store_true",
+                       help="per-wave token and padding accounting with an analytic-FLOPs MFU "
+                       "estimate (radixmesh_step_mfu, radixmesh_wave_pad_fraction, /debug/state)")
+    serve.add_argument("--peak-tflops", type=float, default=None,
+                       help="nominal peak for the MFU estimate (default: the card's dense bf16 "
+                       "peak by name; 1.0 on the CPU)")
+    serve.add_argument("--profile-dir", default=None,
+                       help="enable POST /profile and GET /debug/profile?seconds=N torch.profiler "
+                       "captures into this directory")
     serve.set_defaults(fn=_run_serve)
     argv = sys.argv[1:] if argv is None else argv
     for arg in argv:

@@ -7,12 +7,16 @@ rejected draft tokens, a per-wave acceptance EWMA and the γ actually used.
 With ``adaptive=True`` each (tenant, shape) class's γ shrinks by one when
 its acceptance EWMA sits below ``accept_floor`` and grows by one when it
 clears ``accept_ceil``, clamped to [1, base γ]; a base γ of 0 (speculation
-off) always wins. The port has no metrics registry yet, so the ledger
-keeps no registry series: ``report()`` and ``totals()`` are its read side.
-The token timeline and the goodput ledger of the JAX module are not ported.
+off) always wins. Each cell's counts also land on the registry's
+``radixmesh_spec_*`` families (labels tenant, shape, source), as in the JAX
+package; ``report()`` and ``totals()`` read the ledger itself. The token
+timeline and the goodput ledger of the JAX module are in
+``obs/token_timeline.py``.
 """
 
 from __future__ import annotations
+
+from radixmesh_tpu_torch.obs.metrics import get_registry
 
 __all__ = ["SpecLedger", "DRAFT_SOURCES"]
 
@@ -45,8 +49,8 @@ class SpecLedger:
 
     Written by the scheduler thread (one ``note_wave`` per row per
     verify launch); read lock-free. Classes are bounded: past
-    ``max_classes`` the least-recently-waved cell is evicted, totals and
-    EWMA with it."""
+    ``max_classes`` the least-recently-waved cell is evicted (its
+    registry counters keep their totals — only the EWMA state goes)."""
 
     def __init__(
         self,
@@ -55,6 +59,7 @@ class SpecLedger:
         adaptive: bool = False,
         accept_floor: float = 0.5,
         accept_ceil: float = 0.8,
+        node: str = "",
     ):
         if not 0 < alpha <= 1:
             raise ValueError("alpha must be in (0, 1]")
@@ -65,10 +70,43 @@ class SpecLedger:
         self.adaptive = bool(adaptive)
         self.accept_floor = float(accept_floor)
         self.accept_ceil = float(accept_ceil)
+        self.node = node
         self._cells: dict[tuple[str, str, str], _SpecClass] = {}
         # (tenant, shape) -> current adaptive γ (absent = base).
         self._gamma: dict[tuple[str, str], int] = {}
         self._wave_seq = 0
+
+        reg = get_registry()
+        labels = ("tenant", "shape", "source")
+        self._m_proposed = reg.counter(
+            "radixmesh_spec_proposed_tokens_total",
+            "draft tokens offered to verification, by request class "
+            "and draft source",
+            labels,
+        )
+        self._m_accepted = reg.counter(
+            "radixmesh_spec_accepted_tokens_total",
+            "draft tokens accepted by verification, by request class "
+            "and draft source",
+            labels,
+        )
+        self._m_rejected = reg.counter(
+            "radixmesh_spec_rejected_tokens_total",
+            "draft tokens rejected by verification, by request class "
+            "and draft source",
+            labels,
+        )
+        self._m_ratio = reg.gauge(
+            "radixmesh_spec_accept_ratio",
+            "per-wave acceptance EWMA by request class and draft source",
+            labels,
+        )
+        self._m_gamma = reg.gauge(
+            "radixmesh_spec_gamma_used_tokens",
+            "draft window actually used last wave, by request class "
+            "and draft source",
+            labels,
+        )
 
     # -- write path (scheduler thread) ---------------------------------
 
@@ -106,6 +144,13 @@ class SpecLedger:
             cell.ewma = rate
         else:
             cell.ewma += self.alpha * (rate - cell.ewma)
+        lbl = {"tenant": tenant, "shape": shape, "source": source}
+        self._m_proposed.labels(**lbl).inc(proposed)
+        self._m_accepted.labels(**lbl).inc(accepted)
+        if rejected:
+            self._m_rejected.labels(**lbl).inc(rejected)
+        self._m_ratio.labels(**lbl).set(cell.ewma)
+        self._m_gamma.labels(**lbl).set(gamma)
         if self.adaptive:
             self._steer(tenant, shape, cell.ewma, gamma)
 
@@ -136,7 +181,6 @@ class SpecLedger:
         if g is None:
             return base
         return max(1, min(base, g))
-
 
     # -- read path -----------------------------------------------------
 

@@ -5,9 +5,15 @@
   tokenized server-side; needs a frontend built with a ``tokenizer``, else
   400), ``max_tokens``, ``temperature``, ``top_p``, ``top_k``,
   ``stop_token_ids`` (``text`` callers stop at the tokenizer's EOS unless
-  they send their own, even an empty list), optional ``timeout`` (seconds).
-  Replies ``{"output_ids", "cached_tokens", "rid", "ttft_s", "e2e_s"}``,
-  plus ``"text"`` (the output decoded) with a tokenizer and ``"cancelled":
+  they send their own, even an empty list), optional ``timeout`` (seconds),
+  ``seed`` (an int: seeded replay, ``engine/engine.py``),
+  ``resume_tokens`` (a list of ints a prior life of the request already
+  delivered: replayed through prefill, never re-emitted) and ``trace_id``
+  (a nonzero 64-bit int, or its ``0x`` hex string, adopted for this
+  request's spans). Replies ``{"output_ids", "cached_tokens", "rid",
+  "ttft_s", "e2e_s"}``, plus ``"resumed_from"`` (the tokens delivered
+  before) for a resumed request, ``"trace_id"`` for a traced one,
+  ``"text"`` (the output decoded) with a tokenizer and ``"cancelled":
   true`` when cancelled.
 - ``POST /cancel`` ``{"rid"}``; ``GET /healthz``; ``GET /stats`` (the
   engine's counters; ``spec``, speculative acceptance per prompt-length
@@ -17,10 +23,23 @@
   ``kv_transfer`` (the plane's ``stats()`` and its parked requests) and
   ``kv_tier`` — the JAX frontend's key names; ``kernels``, the attention
   kernels' launches and their plain versions' calls in this process).
+- ``GET /metrics``: the port's registry (``obs/metrics.py``) in Prometheus
+  text exposition: the engine's, the KV tiers' and the wave scheduler's
+  series under the JAX package's names.
+- ``GET /debug/trace`` (the flight recorder as Chrome trace-event JSON;
+  ``?drain=1`` consumes it, ``?format=spans`` serves the raw span export),
+  ``GET /debug/requests`` (the in-flight request table), ``GET
+  /debug/state`` (the engine-side planes: scheduler, pool, tiers,
+  speculation ledger, waves, step accounting, recorder) and ``GET
+  /debug/tokens`` (the token timeline, speculation ledger and goodput;
+  ``?limit=N``; 404 with the timeline off).
+- ``POST /profile`` ``{"seconds": N}`` and ``GET /debug/profile?seconds=N``:
+  one ``torch.profiler`` window (CUDA activity on the card) written as a
+  Chrome trace into a fresh numbered directory under the frontend's
+  ``profile_dir`` (403 without one: clients never choose paths).
 
-Fields of the JAX API whose features are not ported yet — ``seed``
-(seeded replay), ``stream`` (SSE), ``resume_tokens``, ``trace_id``,
-and the SLO fields ``tenant``, ``ttft_deadline_ms``,
+Fields of the JAX API whose features are not ported yet — ``stream``
+(SSE) and the SLO fields ``tenant``, ``ttft_deadline_ms``,
 ``deadline_ms`` — are refused with a 400, never ignored.
 
 Threading model: one :class:`EngineRunner` thread owns the engine and
@@ -31,14 +50,18 @@ wait on their per-request condition.
 from __future__ import annotations
 
 import json
+import os
 import queue
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Sequence
+from urllib.parse import parse_qs, urlsplit
 
 from radixmesh_tpu_torch.engine.engine import Engine
 from radixmesh_tpu_torch.engine.request import Request, RequestState, SamplingParams
+from radixmesh_tpu_torch.obs.metrics import get_registry
+from radixmesh_tpu_torch.obs.trace_plane import get_recorder
 from radixmesh_tpu_torch.ops.paged_attention import launch_counts
 from radixmesh_tpu_torch.utils.logging import get_logger
 
@@ -46,10 +69,7 @@ __all__ = ["EngineRunner", "ServingFrontend"]
 
 # /generate fields of features that are not ported yet.
 _NOT_PORTED_FIELDS = {
-    "seed": "seeded replay",
     "stream": "SSE streaming",
-    "resume_tokens": "resume admission",
-    "trace_id": "request tracing",
     "tenant": "SLO control",
     "ttft_deadline_ms": "SLO control",
     "deadline_ms": "SLO control",
@@ -101,9 +121,18 @@ class EngineRunner:
         if self._thread.ident is not None:
             self._thread.join(timeout=5)
 
-    def submit(self, prompt: Sequence[int], sampling: SamplingParams | None = None) -> Request:
-        # make_request only validates and reads the engine's configuration.
-        req = self.engine.make_request(prompt, sampling)
+    def submit(
+        self,
+        prompt: Sequence[int],
+        sampling: SamplingParams | None = None,
+        resume_tokens: Sequence[int] | None = None,
+        trace_id: int | None = None,
+    ) -> Request:
+        # make_request only validates, reads the engine's configuration
+        # and opens the request's trace (the recorder locks itself).
+        req = self.engine.make_request(
+            prompt, sampling, resume_tokens=resume_tokens, trace_id=trace_id
+        )
         with self._inbox_lock:
             if self._closed:
                 raise RuntimeError("engine runner is shut down")
@@ -191,6 +220,137 @@ def _ids_from_body(body: dict, tokenizer) -> list[int]:
     return _int_list(body["input_ids"], "input_ids")
 
 
+def _trace_id_from_body(body: dict) -> int | None:
+    """``trace_id``: an int or its string form (``0x`` hex allowed),
+    nonzero and below 2**64."""
+    trace_id = body.get("trace_id")
+    if trace_id is None:
+        return None
+    if isinstance(trace_id, bool) or not isinstance(trace_id, (int, str)):
+        raise ValueError("trace_id must be an int or a string")
+    trace_id = int(str(trace_id), 0)
+    if not 0 < trace_id < (1 << 64):
+        raise ValueError("trace_id must be a nonzero 64-bit int")
+    return trace_id
+
+
+def _request_row(req: Request, now: float) -> dict:
+    """One ``/debug/requests`` row: identity and per-phase elapsed times
+    from the stamps the scheduler keeps."""
+    ft = req.first_token_time
+    return {
+        "rid": req.rid,
+        "state": req.state.value,
+        "tenant": req.tenant,
+        "prompt_tokens": len(req.prompt),
+        "output_tokens": len(req.output_tokens),
+        "kv_len": req.kv_len,
+        "prefix_hit_tokens": req.prefix_len,
+        "resume_offset": req.resume_offset,
+        "row": req.row,
+        "trace_id": getattr(req.trace, "trace_id", None),
+        "elapsed_s": {
+            "total": round(now - req.submit_time, 6) if req.submit_time else None,
+            "to_first_token": round(ft - req.submit_time, 6) if ft else None,
+            "decoding": (
+                round(now - ft, 6) if ft and req.state is RequestState.RUNNING else None
+            ),
+        },
+    }
+
+
+def _debug_requests(engine: Engine) -> dict:
+    """``GET /debug/requests``: lock-free snapshots of the queues (a torn
+    read costs a beat of staleness, never a wedge behind a long step)."""
+    now = time.monotonic()
+    waiting = list(engine.waiting)
+    restoring = [r for r, _ in list(engine._restoring)]
+    inline = [j.req for j in list(engine._inline)]
+    running = [r for r in list(engine._rows) if r is not None]
+    return {
+        "requests": [_request_row(r, now) for r in waiting + restoring + inline + running],
+        "waiting": len(waiting),
+        "restoring": len(restoring),
+        "inline": len(inline),
+        "running": len(running),
+    }
+
+
+def _debug_state(engine: Engine) -> dict:
+    """``GET /debug/state``: the engine-side planes (the JAX frontend's
+    sections without the mesh, fleet, SLO and lifecycle ones)."""
+    tree = engine.tree
+    state = {
+        "engine": {
+            "name": engine.name,
+            "batch_rows_active": sum(1 for r in engine._rows if r is not None),
+            "max_batch": engine.max_batch,
+            "waiting": len(engine.waiting),
+            "pressure": engine._pressure,
+            "prefills": engine.stats.prefills,
+            "decode_steps": engine.stats.decode_steps,
+            "finished": engine.stats.finished,
+            "preemptions": engine.stats.preemptions,
+            "hit_rate": round(engine.stats.hit_rate, 4),
+            # Histogram-derived (interpolated within buckets).
+            "p50_ttft_s": round(engine._m_ttft.quantile(0.5), 6),
+            "p99_ttft_s": round(engine._m_ttft.quantile(0.99), 6),
+            "p50_tpot_s": round(engine._m_tpot.quantile(0.5), 6),
+        },
+        "pool": {
+            "num_slots": engine.pool.num_slots,
+            "free_slots": engine.pool.free_slots,
+            "page_size": engine.pool.page_size,
+            "quant": engine.pool.quant,
+        },
+        "cache": {
+            "evictable_tokens": getattr(tree, "evictable_size_", None),
+            "protected_tokens": getattr(tree, "protected_size_", None),
+        },
+        "spec": engine.spec_ledger.report(),
+        "trace": get_recorder().stats(),
+        "exemplars": get_registry().exemplars(),
+    }
+    if hasattr(tree, "host"):
+        state["host_tier"] = tree.stats()
+    if engine.kv_transfer is not None:
+        state["kv_transfer"] = {
+            **engine.kv_transfer.stats(), "restoring_requests": len(engine._restoring),
+        }
+    tel = engine.telemetry()
+    if tel["kv_tier"] is not None:
+        state["kv_tier"] = tel["kv_tier"]
+    if engine.step_acct is not None:
+        state["step_accounting"] = engine.step_acct.report()
+    if engine.waves is not None:
+        state["waves"] = {**engine.waves.snapshot(), "inline_backlog": len(engine._inline)}
+    if engine._last_dispatch is not None:
+        state["decode_dispatch"] = engine._last_dispatch
+    if engine.timeline is not None:
+        tl = engine.timeline.snapshot(limit=0)
+        state["timeline"] = {k: v for k, v in tl.items() if k != "recent"}
+    return state
+
+
+def _debug_tokens(engine: Engine, query: dict) -> tuple[int, dict]:
+    """``GET /debug/tokens``: the change-compressed per-token ITL ring with
+    stall causes, the speculation ledger and the goodput decomposition.
+    ``?limit=N`` bounds the ring tail (default 256); 404 when the engine
+    runs without a timeline."""
+    if engine.timeline is None:
+        return 404, {"error": "token timeline disabled on this engine "
+                              "(token_timeline_capacity=0)"}
+    try:
+        limit = int(query.get("limit", ["256"])[-1])
+    except ValueError:
+        return 400, {"error": "limit must be an integer"}
+    return 200, {
+        "timeline": engine.timeline.snapshot(limit=max(0, limit)),
+        "spec": engine.spec_ledger.report(),
+        "goodput": engine.goodput.report(step_acct=engine.step_acct, spec=engine.spec_ledger),
+    }
+
+
 def _stats(engine: Engine) -> dict:
     """``GET /stats``: lock-free snapshot reads of the engine's counters."""
     s = engine.stats
@@ -208,6 +368,9 @@ def _stats(engine: Engine) -> dict:
         "spec_proposed": s.spec_proposed,
         "spec_accepted": s.spec_accepted,
         "spec_rejected": s.spec_rejected,
+        "resurrections": s.resurrections,
+        "replayed_tokens": s.replayed_tokens,
+        "replayed_cached_tokens": s.replayed_cached_tokens,
         "spec": engine.spec_report(),
     }
     if engine.waves is not None:
@@ -236,13 +399,23 @@ class _FrontendServer(ThreadingHTTPServer):
 class ServingFrontend:
     """HTTP API over one serving engine. ``port=0`` binds a free port
     (read it back from ``.port``). ``tokenizer`` (``server/tokenizer.py``)
-    lets clients send ``text`` and get ``text`` back."""
+    lets clients send ``text`` and get ``text`` back. ``profile_dir``
+    enables ``/profile`` captures under that directory."""
 
     def __init__(self, engine: Engine, host: str = "127.0.0.1", port: int = 0,
-                 tokenizer=None):
+                 tokenizer=None, profile_dir: str | None = None):
         self.tokenizer = tokenizer
         self.runner = EngineRunner(engine).start()
         self.log = get_logger("http.serve")
+        # /profile writes only under this operator-configured directory
+        # (None = endpoint disabled): a client never chooses a path.
+        self.profile_dir = profile_dir
+        if profile_dir is not None:
+            from radixmesh_tpu_torch.obs.tracing import prime_profiler
+
+            prime_profiler()  # captures run on handler threads
+        self._profile_lock = threading.Lock()
+        self._profile_seq = 0
         frontend = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -250,14 +423,53 @@ class ServingFrontend:
                 frontend.log.debug(fmt, *args)
 
             def do_GET(self):
-                if self.path == "/healthz":
+                path = urlsplit(self.path).path
+                query = parse_qs(urlsplit(self.path).query)
+                engine = frontend.runner.engine
+                if path == "/healthz":
                     _json_response(self, 200, {"status": "ok"})
-                elif self.path == "/stats":
-                    _json_response(self, 200, _stats(frontend.runner.engine))
+                elif path == "/stats":
+                    _json_response(self, 200, _stats(engine))
+                elif path == "/metrics":
+                    body = get_registry().render().encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "text/plain; version=0.0.4")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                elif path == "/debug/trace":
+                    # Read-only unless the caller opts into draining.
+                    drain = query.get("drain", ["0"])[-1].lower() in ("1", "true", "yes")
+                    rec = get_recorder()
+                    if query.get("format", [""])[-1].lower() == "spans":
+                        _json_response(self, 200, rec.export_spans(drain=drain))
+                    else:
+                        _json_response(self, 200, rec.chrome_trace(drain=drain))
+                elif path == "/debug/requests":
+                    _json_response(self, 200, _debug_requests(engine))
+                elif path == "/debug/state":
+                    _json_response(self, 200, _debug_state(engine))
+                elif path == "/debug/tokens":
+                    _json_response(self, *_debug_tokens(engine, query))
+                elif path == "/debug/profile":
+                    try:
+                        seconds = float(query.get("seconds", ["3.0"])[-1])
+                    except ValueError:
+                        _json_response(self, 400, {"error": "seconds must be a number"})
+                        return
+                    _json_response(self, *frontend._run_profile(seconds))
                 else:
                     _json_response(self, 404, {"error": "not found"})
 
             def do_POST(self):
+                if self.path == "/profile":
+                    try:
+                        seconds = float(_read_json(self).get("seconds", 3.0))
+                    except (TypeError, ValueError, json.JSONDecodeError) as e:
+                        _json_response(self, 400, {"error": str(e)})
+                        return
+                    _json_response(self, *frontend._run_profile(seconds))
+                    return
                 if self.path == "/cancel":
                     try:
                         rid = int(_read_json(self)["rid"])
@@ -288,15 +500,27 @@ class ServingFrontend:
                         # without knowing the id space; an explicit (even
                         # empty) stop_token_ids opts out.
                         stop_ids = (frontend.tokenizer.eos_id,)
+                    seed = body.get("seed")
+                    if seed is not None and (isinstance(seed, bool) or not isinstance(seed, int)):
+                        raise ValueError("seed must be an int")
                     sampling = SamplingParams(
                         temperature=float(body.get("temperature", 0.0)),
                         top_p=float(body.get("top_p", 1.0)),
                         top_k=int(body.get("top_k", 0)),
                         max_new_tokens=int(body.get("max_tokens", 16)),
                         stop_token_ids=stop_ids,
+                        seed=seed,
                     )
+                    # Resume admission: output a prior life delivered,
+                    # replayed through prefill and never re-emitted.
+                    resume_tokens = body.get("resume_tokens")
+                    if resume_tokens is not None:
+                        resume_tokens = _int_list(resume_tokens, "resume_tokens")
+                    trace_id = _trace_id_from_body(body)
                     timeout = float(body.get("timeout", 300.0))
-                    req = frontend.runner.submit(ids, sampling)
+                    req = frontend.runner.submit(
+                        ids, sampling, resume_tokens=resume_tokens, trace_id=trace_id
+                    )
                 except (KeyError, TypeError, ValueError, json.JSONDecodeError) as e:
                     _json_response(self, 400, {"error": str(e)})
                     return
@@ -309,6 +533,12 @@ class ServingFrontend:
                     frontend.runner.cancel(req.rid)
                     _json_response(self, 504, {"error": str(e), "rid": req.rid})
                     return
+                tr = req.trace
+                if tr is not None:
+                    # The outermost span of the request's flight: submit
+                    # to response ready.
+                    tr.add("http_request", req.submit_time, time.monotonic() - req.submit_time,
+                           cat="http", output_tokens=len(tokens))
                 reply = {
                     "output_ids": tokens,
                     "cached_tokens": req.prefix_len,
@@ -321,6 +551,11 @@ class ServingFrontend:
                         req.finish_time - req.submit_time if req.finish_time else None
                     ),
                 }
+                if req.resume_offset:
+                    # output_ids holds only the tokens after the delivered ones.
+                    reply["resumed_from"] = req.resume_offset
+                if tr is not None:
+                    reply["trace_id"] = tr.trace_id
                 if frontend.tokenizer is not None:
                     reply["text"] = frontend.tokenizer.decode(tokens)
                 if req.cancelled:
@@ -334,6 +569,33 @@ class ServingFrontend:
         )
         self._thread.start()
         self.log.info("serving frontend on %s:%d", host, self.port)
+
+    def _run_profile(self, seconds: float) -> tuple[int, dict]:
+        """One ``torch.profiler`` window of live serving into a fresh
+        numbered directory under ``profile_dir`` (``obs/tracing.py``).
+        Shared by ``POST /profile`` and ``GET /debug/profile``."""
+        if self.profile_dir is None:
+            return 403, {"error": "profiling disabled (no --profile-dir)"}
+        if not 0.0 < seconds <= 60.0:
+            return 400, {"error": "seconds must be in (0, 60]"}
+        if not self._profile_lock.acquire(blocking=False):
+            return 409, {"error": "profile already running"}
+        try:
+            from radixmesh_tpu_torch.obs.tracing import profile
+
+            # The lock is held: the sequence needs none of its own. The
+            # time stamp keeps directories unique across restarts.
+            self._profile_seq += 1
+            logdir = os.path.join(
+                self.profile_dir, f"capture-{int(time.time())}-{self._profile_seq:04d}"
+            )
+            with profile(logdir) as info:
+                time.sleep(seconds)  # the capture window itself
+        except Exception as e:  # noqa: BLE001 — report, don't kill the handler
+            return 500, {"error": str(e)}
+        finally:
+            self._profile_lock.release()
+        return 200, {"profiled_s": seconds, "logdir": logdir, **info}
 
     def close(self, drain_s: float = 5.0) -> None:
         self._server.shutdown()

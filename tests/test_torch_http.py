@@ -1,8 +1,9 @@
 """The port's HTTP frontend over a tiny CPU engine: ``/generate`` answers
 what ``Engine.generate`` answers on the same weights, ``/healthz`` and
 ``/stats`` serve (with the kernels' launch counts), fields of features
-that are not ported yet (a ``seed``, ``stream``) are refused with a 400
-instead of being ignored, and ``text`` is answered 400 without a
+that are not ported yet (``stream``, ``tenant``, ``deadline_ms``) are
+refused with a 400 instead of being ignored, ``seed``, ``resume_tokens``
+and ``trace_id`` are accepted, and ``text`` is answered 400 without a
 tokenizer and with ``text`` by a frontend that has one. A
 frontend over an engine with speculative decode and mixed waves answers
 the JAX engine's greedy tokens and reports both in ``/stats``. A frontend
@@ -97,7 +98,7 @@ def test_health_stats_and_refusals(served):
     assert code == 200 and {"hit_rate", "finished", "prefill_chunks", "kernels"} <= set(stats)
     # CPU tensors: the plain versions ran, no kernel launched.
     assert stats["kernels"]["paged_decode_fused_kernel"] == 0
-    for extra in ({"seed": 7}, {"stream": True}, {"tenant": "a"}):
+    for extra in ({"stream": True}, {"tenant": "a"}, {"deadline_ms": 100}):
         code, body = _post(fe.port, "/generate", {"input_ids": [1, 2, 3], **extra})
         assert code == 400 and "not supported" in body["error"], body
     # text without a tokenizer: 400, with the JAX frontend's message.
@@ -219,5 +220,89 @@ def test_text_with_a_tokenizer():
                                                    "max_tokens": 5})
         assert code == 200 and again["output_ids"] == body["output_ids"]
         assert again["cached_tokens"] > 0
+    finally:
+        fe.close(drain_s=0.0)
+
+
+def _get_text(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.status, r.read().decode()
+
+
+def test_seed_resume_and_trace_id_are_accepted(tmp_path):
+    """``seed``, ``resume_tokens`` and ``trace_id`` are served: the same
+    seed twice gives the same tokens, a resume returns the continuation
+    with ``resumed_from``, an adopted trace id comes back in the reply and
+    on the recorder's spans; bad values are a 400."""
+    from radixmesh_tpu_torch.obs.trace_plane import FlightRecorder, get_recorder, set_recorder
+
+    cfg = ModelConfig.tiny().replace(dtype=torch.float32)
+    params = init_params(cfg, seed=5, device="cpu")
+    old = get_recorder()
+    set_recorder(FlightRecorder(capacity=4096, sample=1.0))
+    fe = ServingFrontend(Engine(cfg, params, name="http-replay", **ENGINE_KW), port=0,
+                         profile_dir=str(tmp_path / "prof"))
+    try:
+        body = {"input_ids": list(range(3, 30)), "max_tokens": 8, "temperature": 0.9,
+                "top_p": 0.95, "seed": 4242}
+        code, a = _post(fe.port, "/generate", body)
+        assert code == 200, a
+        code, b = _post(fe.port, "/generate", {**body, "trace_id": "0xbeef"})
+        assert code == 200 and b["output_ids"] == a["output_ids"]
+        assert b["trace_id"] == 0xBEEF and "resumed_from" not in b
+        assert any(s.trace_id == 0xBEEF for s in get_recorder().snapshot())
+        code, r = _post(fe.port, "/generate", {**body, "resume_tokens": a["output_ids"][:3]})
+        assert code == 200 and r["resumed_from"] == 3
+        assert r["output_ids"] == a["output_ids"][3:]
+        for bad in ({"seed": "x"}, {"seed": True}, {"resume_tokens": [1, "2"]},
+                    {"trace_id": 0}, {"trace_id": 1 << 64},
+                    {"resume_tokens": a["output_ids"]}):  # covers the whole budget
+            code, err = _post(fe.port, "/generate", {**body, **bad})
+            assert code == 400, (bad, err)
+        code, stats = _get(fe.port, "/stats")
+        assert stats["resurrections"] == 1 and stats["replayed_tokens"] == 27 + 3
+        code, text = _get_text(fe.port, "/metrics")
+        assert code == 200
+        # The counter agrees with /stats (decode tokens: 7 + 7 + 4).
+        assert stats["generated_tokens"] == 18
+        assert 'radixmesh_engine_generated_tokens_total{engine="http-replay"} 18' in text
+        assert 'radixmesh_engine_ttft_seconds_count{engine="http-replay"} 3' in text
+        code, reqs = _get(fe.port, "/debug/requests")
+        assert code == 200 and reqs["running"] == reqs["waiting"] == 0
+        code, state = _get(fe.port, "/debug/state")
+        assert state["engine"]["name"] == "http-replay" and state["trace"]["enabled"]
+        assert state["timeline"]["appends"] == 7 + 7 + 4
+        code, toks = _get(fe.port, "/debug/tokens?limit=2")
+        assert code == 200 and len(toks["timeline"]["recent"]) <= 2
+        assert toks["goodput"]["useful_tokens"] == 8 + 8 + 5
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _get(fe.port, "/debug/tokens?limit=x")
+        assert e.value.code == 400
+        code, trace = _get(fe.port, "/debug/trace")
+        names = {e["name"] for e in trace["traceEvents"] if e["ph"] == "X"}
+        assert {"prefix_match", "prefill_wave", "decode_chunk", "first_token", "publish",
+                "http_request", "request_done"} <= names
+        code, prof = _post(fe.port, "/profile", {"seconds": 0.2})
+        assert code == 200 and (tmp_path / "prof").exists(), prof
+        assert json.load(open(prof["trace"]))["traceEvents"]
+        code, _ = _post(fe.port, "/profile", {"seconds": 0})
+        assert code == 400
+        code, prof = _get(fe.port, "/debug/profile?seconds=0.1")
+        assert code == 200 and prof["logdir"].startswith(str(tmp_path / "prof"))
+    finally:
+        fe.close(drain_s=0.0)
+        set_recorder(old)
+
+
+def test_debug_tokens_404_without_timeline_and_profile_403_without_dir():
+    cfg = ModelConfig.tiny().replace(dtype=torch.float32)
+    params = init_params(cfg, seed=5, device="cpu")
+    fe = ServingFrontend(Engine(cfg, params, token_timeline_capacity=0, **ENGINE_KW), port=0)
+    try:
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _get(fe.port, "/debug/tokens")
+        assert e.value.code == 404
+        code, body = _post(fe.port, "/profile", {"seconds": 1})
+        assert code == 403 and "profile-dir" in body["error"]
     finally:
         fe.close(drain_s=0.0)

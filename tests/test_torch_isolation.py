@@ -46,7 +46,10 @@ def test_port_imports_no_jax_and_no_jax_package():
             "radixmesh_tpu_torch.obs.attribution", "radixmesh_tpu_torch.cache.host_cache",
             "radixmesh_tpu_torch.cache.kv_transfer", "radixmesh_tpu_torch.cache.kv_tier",
             "radixmesh_tpu_torch.models.hf_io", "radixmesh_tpu_torch.models.qwen2",
-            "radixmesh_tpu_torch.server.tokenizer"} <= walked, r.stdout
+            "radixmesh_tpu_torch.server.tokenizer", "radixmesh_tpu_torch.obs.metrics",
+            "radixmesh_tpu_torch.obs.trace_plane", "radixmesh_tpu_torch.obs.tracing",
+            "radixmesh_tpu_torch.obs.token_timeline", "radixmesh_tpu_torch.obs.step_plane",
+            "radixmesh_tpu_torch.obs.evictions"} <= walked, r.stdout
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -66,7 +69,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert len(out[0]) == 16
 
 
-@pytest.mark.parametrize("flag", ["--weight-quant", "--stream-publish", "--slo"])
+@pytest.mark.parametrize("flag", ["--weight-quant", "--slo", "--blackbox-dir"])
 def test_launcher_refuses_unported_flags(flag, capsys):
     from radixmesh_tpu_torch.launch import main
 
@@ -117,6 +120,29 @@ def test_launcher_parses_the_tier_flags():
     assert (d.host_cache_slots, d.kv_transfer_async, d.kv_transfer_chunk,
             d.kv_transfer_min_restore, d.kv_tier_dir, d.kv_tier_capacity_gb) == (
         0, False, None, None, None, None)
+
+
+def test_launcher_parses_the_replay_and_observability_flags():
+    from radixmesh_tpu_torch.launch import _NOT_PORTED_FLAGS, parse_args
+
+    flags = ("--stream-publish", "--step-accounting", "--peak-tflops", "--profile-dir",
+             "--trace-capacity", "--trace-sample", "--trace-dir", "--token-timeline-capacity",
+             "--token-stall-threshold-ms")
+    assert not set(flags) & set(_NOT_PORTED_FLAGS)
+    args = parse_args([
+        "serve", "--device", "cpu", "--stream-publish", "8", "--step-accounting",
+        "--peak-tflops", "989", "--profile-dir", "/p", "--trace-capacity", "64",
+        "--trace-sample", "0.5", "--trace-dir", "/t", "--token-timeline-capacity", "0",
+        "--token-stall-threshold-ms", "20",
+    ])
+    assert (args.stream_publish, args.step_accounting, args.peak_tflops, args.profile_dir,
+            args.trace_capacity, args.trace_sample, args.trace_dir,
+            args.token_timeline_capacity, args.token_stall_threshold_ms) == (
+        8, True, 989.0, "/p", 64, 0.5, "/t", 0, 20.0)
+    d = parse_args(["serve"])
+    assert (d.stream_publish, d.step_accounting, d.peak_tflops, d.profile_dir, d.trace_capacity,
+            d.trace_sample, d.trace_dir, d.token_timeline_capacity,
+            d.token_stall_threshold_ms) == (None, False, None, None, 8192, None, None, 4096, 50.0)
 
 
 def test_launcher_parses_weights_and_tokenizer():

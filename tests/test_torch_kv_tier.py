@@ -1,6 +1,6 @@
 """The port's durable KV tier (``radixmesh_tpu_torch/cache/kv_tier.py``): twins
-of ``tests/test_kv_tier.py``'s ``TestExtentFormat``, ``TestTierWalk`` and the
-``TestEngineTier`` legs that need no resume (seeded replay is not ported).
+of ``tests/test_kv_tier.py``'s ``TestExtentFormat``, ``TestTierWalk`` and
+``TestEngineTier`` (its cold-restart resume leg with seeded replay too).
 Also the two properties that tie the packages together:
 
 - the extent files are byte-identical: the JAX ``DiskKVTier`` and the
@@ -495,6 +495,41 @@ class TestEngineTier:
         del eng
         eng2 = make_engine(tiny, d)
         assert eng2.resurrected["grafted_nodes"] >= 2
+        eng2.close()
+
+    def test_cold_restart_resume_byte_identical(self, tiny, tmp_path):
+        """Seeded replay composed with the tier: a stream interrupted by a
+        whole-cell kill resumes byte-identical on a cell rebuilt from the
+        extent directory alone, its replay a disk hit."""
+        cfg, _ = tiny
+        rng = np.random.default_rng(11)
+        prompt = list(rng.integers(1, cfg.vocab_size - 1, size=96).astype(np.int32))
+        samp = SamplingParams(temperature=0.9, top_p=0.95, seed=4242, max_new_tokens=8)
+        ref = make_engine(tiny, tmp_path / "ref")  # the expectation, on a pristine engine
+        r = ref.add_request(prompt, samp)
+        while ref.has_work():
+            ref.step()
+        expected = list(r.generated)
+        ref.close()
+
+        d = tmp_path / "resume"
+        eng = make_engine(tiny, d)
+        spill_everything(eng, [np.asarray(prompt)], samp)
+        req = eng.add_request(prompt, samp)
+        while len(req.generated) < 3:
+            eng.step()
+        delivered = list(req.generated)
+        eng.close()  # mid-decode whole-cell kill
+        del eng
+
+        eng2 = make_engine(tiny, d)
+        c0 = eng2.stats.cached_tokens
+        resumed = eng2.add_request(prompt, samp, resume_tokens=delivered)
+        while eng2.has_work():
+            eng2.step()
+        assert delivered + list(resumed.generated) == expected
+        assert eng2.stats.cached_tokens - c0 > 0  # the replay hit disk KV
+        assert eng2.stats.resurrections == 1
         eng2.close()
 
 
