@@ -132,6 +132,35 @@ Phases (any failure raises and exits non-zero):
    trace must name the decode and chunk kernels, ``/metrics`` counters
    equal to ``/stats``, ``/debug/tokens`` gaps, and the MFU reading over
    the card's peak.
+13. The serving edge: Llama-3-8B bf16 at full depth on a 65536-slot pool
+   behind the frontend as ``serve --slo --slo-tenant a=3 --slo-tenant b=1
+   --slo-tenant c=1:2000 --blackbox-dir D`` builds it (the history at
+   1.0 s). SSE under the legacy schedule, multi-step k = 4 and spec
+   gamma = 4, each in its own engine: four 600-token greedy prompts, each
+   streamed alone (a prefix miss), then sent twice at once, streamed and
+   not, dispatched into one batch (the same tokens, asserted), with the
+   first-event delay (client receipt of the first ``data:`` event less
+   the engine's ``first_token_time``) and the inter-event gaps. Light
+   load, one request at a time: TTFT and decode step wall through the
+   plain runner and through ``SLORunner`` in interleaved rounds.
+   Overload (spec gamma = 4): a calibration wave of 8 x 2000-token
+   prompts (and, on a second frontend, the same 8 one at a time), then a
+   burst of 24 + 24 deadline prompts (tenants a and b,
+   1500 ms TTFT) and 16 without a deadline: the EWMA prefill rate (first
+   fold and steady), admitted and shed by tenant and reason with their
+   HTTP codes and ``Retry-After``, the share of admitted deadline requests
+   within 1500 ms, the tiers reached with spec decode off at tier >= 1 and
+   back after the hold, requests dispatched at tier >= 2 capped at 64
+   tokens; tenant c's burst shed with 429 and ``Retry-After``;
+   ``/debug/timeseries`` serving the engine's series and ``POST
+   /admin/blackbox`` a dump ``load_blackbox`` reads. Decode step wall with
+   the history off, sampling at 1.0 s and at 0.1 s (interleaved), and the
+   sampler's ``radixmesh_history_sample_seconds`` p50 / p99. The decode
+   and chunk kernels' launches are counted and no plain attention version
+   may run. Last, ``launch.py serve --blackbox-dir D`` in a child process,
+   traffic, ``kill -9``: every completed segment loads, the newest sample
+   is at most 2 intervals older than the kill, and no final exists. The
+   port's ``entry()`` runs on the card first (finite logits).
 Checkpoints and profiles are written under ``chip_out/`` and removed.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches per path in
@@ -158,6 +187,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -1790,6 +1820,595 @@ def replay_http_phase(dev, model, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the serving edge (SSE, the SLO control plane, the telemetry
+# history and the black box)
+# ---------------------------------------------------------------------------
+
+# Tenants of the edge's SLO plane: name -> (weight, rate-limited), as
+# ``--slo-tenant a=3 --slo-tenant b=1 --slo-tenant c=1:2000``.
+EDGE_TENANTS = {"a": (3.0, False), "b": (1.0, False), "c": (1.0, True)}
+EDGE_SCHEDULES = {"legacy": {}, "multi-step k=4": dict(decode_steps_per_launch=4),
+                  "spec gamma=4": dict(spec_decode_tokens=4)}
+# Sizes of phase 13 (``model`` and ``device`` name what the ``serve``
+# child process runs; ``rate_c`` is tenant c's prompt tokens/s).
+EDGE = dict(model="llama3-8b", device="cuda", kv_slots=65536, vocab=128256,
+            sse_prompt=600, sse_tokens=32, sse_prompts=4,
+            light_prompt=600, light_tokens=48, light_rounds=3,
+            burst_prompt=2000, calibration=8, per_tenant=24, backlog=16, deadline_ms=1500,
+            burst_tokens=16, backlog_tokens=128, rate_c=2000.0,
+            wall_prompt=600, wall_rounds=3, kill_segments=6)
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _edge_slo(rate_c: float):
+    from radixmesh_tpu_torch.slo import SLOConfig, TenantConfig
+
+    return SLOConfig(tenants={n: TenantConfig(weight=w, rate_tokens_per_s=rate_c if limited else 0.0)
+                              for n, (w, limited) in EDGE_TENANTS.items()})
+
+
+def _edge_frontend(engine, rate_c, blackbox_dir=None, slo=True) -> ServingFrontend:
+    """The serving edge as ``serve --slo --slo-tenant ... --blackbox-dir D``
+    builds it: the SLO plane, the history at 1.0 s, the black box with its
+    watchdog at 10 intervals."""
+    return ServingFrontend(engine, port=0, slo=_edge_slo(rate_c) if slo else None,
+                           history_interval_s=1.0, blackbox_dir=blackbox_dir,
+                           blackbox_watchdog_s=10.0 if blackbox_dir else 0.0)
+
+
+def _capture_submits(fe) -> list:
+    """Every request the frontend's runner builds, in submit order (the
+    engine-side stamps the replies do not carry)."""
+    reqs = []
+    submit = fe.runner.submit
+
+    def wrapped(*a, **k):
+        req = submit(*a, **k)
+        reqs.append(req)
+        return req
+
+    fe.runner.submit = wrapped
+    return reqs
+
+
+def _post_any(port, body, timeout=300) -> tuple[int, dict, dict]:
+    """POST /generate; ``(status, headers, body)`` for any status."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/generate", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def _sse_post(port, body, timeout=300) -> tuple[list, list, float]:
+    """A streamed /generate: the events, the client's receipt time of each
+    (monotonic, the engine's clock: one process) and the send time."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/generate",
+                                 data=json.dumps({**body, "stream": True}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    events, times = [], []
+    t_sent = time.monotonic()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        check(r.headers["Content-Type"].startswith("text/event-stream"),
+              f"stream answered {r.headers['Content-Type']}")
+        for line in r:
+            if line.startswith(b"data: "):
+                times.append(time.monotonic())
+                events.append(json.loads(line[len(b"data: "):]))
+                if events[-1].get("done"):
+                    break
+    return events, times, t_sent
+
+
+def _pcts(xs) -> dict:
+    xs = np.asarray(xs, dtype=np.float64)
+    if xs.size == 0:
+        return {"n": 0, "p50": float("nan"), "p99": float("nan"), "mean": float("nan")}
+    return {"n": int(xs.size), "p50": float(np.percentile(xs, 50)), "p99": float(np.percentile(xs, 99)),
+            "mean": float(xs.mean()), "max": float(xs.max())}
+
+
+def _release(dev) -> None:
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _edge_sse(dev, model, E, rng, bb_root) -> dict:
+    """Each schedule in its own engine behind the edge. Four prompts, each
+    streamed alone (a prefix-cache miss: the first-event delay, TTFT and
+    the inter-event gaps), then sent twice at once, streamed and not, held
+    at the SLO queue until both wait there so that one pump dispatches
+    them into the same batch: the two must give the same tokens. Whether
+    the miss's tokens equal theirs is printed, not asserted (in bf16 the
+    hits recompute the prompt's last page through the chunk kernel and
+    run in a batch of two, either of which can flip a near-tied greedy
+    token)."""
+    cfg = model.cfg
+    out = {}
+    prompts = [rng.integers(0, E["vocab"], size=E["sse_prompt"]).tolist() for _ in range(E["sse_prompts"])]
+    for tag, kw in EDGE_SCHEDULES.items():
+        slug = tag.split()[0]
+        engine = Engine(cfg, model, num_slots=E["kv_slots"], page_size=16, max_batch=8, device=dev,
+                        name=f"edge-sse-{slug}", **kw)
+        fe = _edge_frontend(engine, E["rate_c"], blackbox_dir=str(bb_root / f"sse-{slug}"))
+        reqs = _capture_submits(fe)
+        rows = []
+
+        def stream(body):
+            # For the pair, reqs[n0] may be the other request of the batch:
+            # both take the same first_token_time.
+            n0 = len(reqs)
+            events, times, t_sent = _sse_post(fe.port, body)
+            tokens = [e["token"] for e in events[:-1]]
+            check(events[-1] == {"done": True, "output_ids": tokens}
+                  and all(set(e) == {"token"} for e in events[:-1]),
+                  f"sse {tag}: the done event does not carry the events' tokens")
+            check(len(tokens) == E["sse_tokens"], f"sse {tag}: {len(tokens)} events")
+            return {"tokens": tokens, "delay_s": times[0] - reqs[n0].first_token_time,
+                    "client_ttft_s": times[0] - t_sent, "gaps_s": np.diff(times[:-1]).tolist()}
+
+        try:
+            _post(fe.port, {"input_ids": rng.integers(0, E["vocab"], size=64).tolist(), "max_tokens": 4})
+            for p in prompts:
+                body = {"input_ids": p, "max_tokens": E["sse_tokens"], "tenant": "a",
+                        "ttft_deadline_ms": 60000}
+                miss = stream(body)
+                pair: dict = {}
+                with fe.runner._lock:  # no pump until both wait in the SLO queue
+                    threads = [threading.Thread(target=lambda: pair.update(stream=stream(body))),
+                               threading.Thread(target=lambda: pair.update(plain=_post(fe.port, body)))]
+                    for t in threads:
+                        t.start()
+                    deadline = time.monotonic() + 60
+                    while fe.runner.ctl.snapshot()["queued_requests"] < 2 and time.monotonic() < deadline:
+                        time.sleep(0.001)
+                for t in threads:
+                    t.join(timeout=300)
+                plain = pair["plain"]["output_ids"]
+                rows.append({
+                    "equal": pair["stream"]["tokens"] == plain,
+                    "miss_equal": miss["tokens"] == plain,
+                    "miss_first_differing": next((i for i, (a, b) in enumerate(zip(miss["tokens"], plain))
+                                                  if a != b), None),
+                    "miss": miss, "paired": pair["stream"],
+                })
+            counts = _counts(engine)
+        finally:
+            fe.close(drain_s=0.0)
+        misses = [r["miss"] for r in rows]
+        res = {"equal": [r["equal"] for r in rows], "miss_equal": [r["miss_equal"] for r in rows],
+               "miss_first_differing": [r["miss_first_differing"] for r in rows],
+               "first_event_delay_s": _pcts([x["delay_s"] for x in misses]),
+               "first_event_delay_paired_s": _pcts([r["paired"]["delay_s"] for r in rows]),
+               "delay_share_of_ttft": _pcts([x["delay_s"] / x["client_ttft_s"] for x in misses]),
+               "client_ttft_s": _pcts([x["client_ttft_s"] for x in misses]),
+               "gaps_s": _pcts([g for x in misses for g in x["gaps_s"]]), "engine_counts": counts}
+        print(f"[edge sse {tag}] streamed == non-streamed in one batch: {res['equal']}; alone (a miss) "
+              f"equal too: {res['miss_equal']} (first differing {res['miss_first_differing']}); first-event "
+              f"delay alone p50 {res['first_event_delay_s']['p50'] * 1e3:.3f} ms p99 "
+              f"{res['first_event_delay_s']['p99'] * 1e3:.3f} ms (paired p50 "
+              f"{res['first_event_delay_paired_s']['p50'] * 1e3:.3f} ms), share of client TTFT p50 "
+              f"{res['delay_share_of_ttft']['p50']:.5f} p99 {res['delay_share_of_ttft']['p99']:.5f}; client "
+              f"TTFT p50 {res['client_ttft_s']['p50']:.4f} s; inter-event gaps alone p50 "
+              f"{res['gaps_s']['p50'] * 1e3:.3f} ms p99 {res['gaps_s']['p99'] * 1e3:.3f} ms mean "
+              f"{res['gaps_s']['mean'] * 1e3:.3f} ms over {res['gaps_s']['n']}; {counts}", flush=True)
+        check(all(res["equal"]), f"sse {tag}: streamed tokens differ from the non-streamed reply")
+        out[tag] = res
+        del engine, fe
+        _release(dev)
+    return out
+
+
+def _edge_light(dev, model, E, rng) -> dict:
+    """One request at a time through a plain frontend and an SLO frontend,
+    interleaved rounds (plain, SLO, then SLO, plain, ...): TTFT and the
+    decode step wall, (e2e - TTFT) / (tokens - 1)."""
+    cfg = model.cfg
+    fes = {}
+    for name, slo in (("plain runner", False), ("SLORunner", True)):
+        engine = Engine(cfg, model, num_slots=E["kv_slots"], page_size=16, max_batch=8, device=dev,
+                        name=f"edge-light-{'slo' if slo else 'plain'}")
+        fes[name] = _edge_frontend(engine, E["rate_c"], slo=slo)
+    out = {name: {"ttft_s": [], "step_ms": []} for name in fes}
+    try:
+        for fe in fes.values():
+            _post(fe.port, {"input_ids": rng.integers(0, E["vocab"], size=64).tolist(), "max_tokens": 4})
+        for rnd in range(E["light_rounds"]):
+            for name in (list(fes) if rnd % 2 == 0 else list(fes)[::-1]):
+                for _ in range(2):
+                    body = {"input_ids": rng.integers(0, E["vocab"], size=E["light_prompt"]).tolist(),
+                            "max_tokens": E["light_tokens"], "tenant": "a"}
+                    r = _post(fes[name].port, body)
+                    check(len(r["output_ids"]) == E["light_tokens"], f"light load {name}: short reply")
+                    out[name]["ttft_s"].append(r["ttft_s"])
+                    out[name]["step_ms"].append((r["e2e_s"] - r["ttft_s"]) / (E["light_tokens"] - 1) * 1e3)
+        snap = fes["SLORunner"].runner.ctl.snapshot()
+    finally:
+        for fe in fes.values():
+            fe.close(drain_s=0.0)
+    for name in fes:
+        r = out[name]
+        r["ttft_median_s"] = float(np.median(r["ttft_s"]))
+        r["step_median_ms"] = float(np.median(r["step_ms"]))
+        print(f"[edge light] {name}: TTFT median {r['ttft_median_s']:.4f} s {[round(x, 4) for x in r['ttft_s']]}; "
+              f"decode step median {r['step_median_ms']:.3f} ms {[round(x, 3) for x in r['step_ms']]}", flush=True)
+    ratio = [s / p for s, p in zip(out["SLORunner"]["step_ms"], out["plain runner"]["step_ms"])]
+    out["slo_over_plain_step"] = ratio
+    out["slo_snapshot"] = {k: snap[k] for k in ("tier", "total_admitted", "total_shed", "prefill_tok_s_ewma")}
+    print(f"[edge light] SLORunner / plain decode step, pair by pair {[round(x, 3) for x in ratio]}; "
+          f"controller {out['slo_snapshot']}", flush=True)
+    check(snap["total_shed"] == 0 and snap["tier"] == 0, f"light load shed or degraded: {snap}")
+    del fes
+    _release(dev)
+    return out
+
+
+def _edge_overload(dev, model, E, rng, bb_root, calibration="wave") -> dict:
+    """Calibrate the controller's prefill-rate EWMA with ``calibration``
+    prompts without deadlines, sent as one wave (``"wave"``) or one at a
+    time (``"sequential"``), then a burst at once: tenants a and b (3:1)
+    with ``per_tenant`` deadline prompts each and ``backlog`` prompts
+    without a deadline. After the wave-calibrated burst, a burst of the
+    rate-limited tenant c, ``/debug/timeseries`` and ``POST
+    /admin/blackbox``. The serving engine runs spec gamma=4."""
+    from radixmesh_tpu_torch.obs.blackbox import load_blackbox
+
+    cfg = model.cfg
+    main = calibration == "wave"
+    engine = Engine(cfg, model, num_slots=E["kv_slots"], page_size=16, max_batch=8, device=dev,
+                    name="edge-slo" if main else "edge-slo-seq", spec_decode_tokens=4)
+    bb_dir = bb_root / f"overload-{calibration}"
+    fe = _edge_frontend(engine, E["rate_c"], blackbox_dir=str(bb_dir))
+    ctl = fe.runner.ctl
+    folds: list[float] = []
+    fold = ctl._fold_rate_locked
+
+    def recording_fold(rate):  # runs with the controller's lock held
+        folds.append(rate)
+        fold(rate)
+
+    ctl._fold_rate_locked = recording_fold
+    reqs = _capture_submits(fe)
+    base_spec = engine.spec_decode_tokens
+
+    def fresh(n):
+        return rng.integers(0, E["vocab"], size=n).tolist()
+
+    def run_all(bodies) -> list:
+        results = [None] * len(bodies)
+        gate = threading.Barrier(len(bodies))
+
+        def go(i, body):
+            gate.wait()
+            results[i] = _post_any(fe.port, body)
+
+        threads = [threading.Thread(target=go, args=(i, b)) for i, b in enumerate(bodies)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        return results
+
+    samples = []
+    stop = threading.Event()
+
+    def monitor():
+        while not stop.is_set():
+            samples.append((fe.runner._applied_tier, engine.spec_decode_tokens))
+            stop.wait(0.01)
+
+    try:
+        t0 = time.monotonic()
+        calib_bodies = [{"input_ids": fresh(E["burst_prompt"]), "max_tokens": 8}
+                        for _ in range(E["calibration"])]
+        calib = run_all(calib_bodies) if main else [_post_any(fe.port, b) for b in calib_bodies]
+        check(all(c == 200 for c, _, _ in calib), f"calibration: {[c for c, _, _ in calib]}")
+        calib_ewma = ctl.snapshot()["prefill_tok_s_ewma"]
+        calib_folds = len(folds)
+        bodies = ([{"input_ids": fresh(E["burst_prompt"]), "max_tokens": E["burst_tokens"], "tenant": t,
+                    "ttft_deadline_ms": E["deadline_ms"]} for t in ("a", "b") for _ in range(E["per_tenant"])]
+                  + [{"input_ids": fresh(E["burst_prompt"]), "max_tokens": E["backlog_tokens"]}
+                     for _ in range(E["backlog"])])
+        bodies = [bodies[i] for i in rng.permutation(len(bodies))]
+        mon = threading.Thread(target=monitor)
+        mon.start()
+        n_before = len(reqs)
+        t_burst = time.monotonic()
+        results = run_all(bodies)
+        burst_s = time.monotonic() - t_burst
+        # Back down the ladder: tier 0 and the base gamma after the hold.
+        deadline = time.monotonic() + 30
+        while (fe.runner._applied_tier or engine.spec_decode_tokens != base_spec) and time.monotonic() < deadline:
+            time.sleep(0.02)
+        stop.set()
+        mon.join()
+        recovered = (fe.runner._applied_tier, engine.spec_decode_tokens)
+        steady_ewma = ctl.snapshot()["prefill_tok_s_ewma"]
+        by_rid = {r.rid: r for r in reqs[n_before:]}
+        if main:
+            c_results = run_all([{"input_ids": fresh(E["burst_prompt"]), "max_tokens": 4, "tenant": "c"}
+                                 for _ in range(4)])
+            series = _http(fe.port, "/debug/timeseries?family=radixmesh_engine&limit=5000")
+            slo_series = _http(fe.port, "/debug/timeseries?family=radixmesh_slo&limit=5000")
+            waterfall = _http(fe.port, "/debug/waterfall")
+            admin = _http(fe.port, "/admin/blackbox", {})
+        snap = ctl.snapshot()
+        tier_events = [list(e) for e in ctl.tier_events]
+        counts = _counts(engine)
+    finally:
+        stop.set()
+        fe.close(drain_s=0.0)
+    table: dict[str, dict] = {}
+    met, admitted_deadline, capped = 0, 0, []
+    for body, (code, headers, reply) in zip(bodies, results):
+        tenant = body.get("tenant", "default")
+        key = "admitted" if code == 200 and not reply.get("shed") else f"{reply.get('reason')} ({code})"
+        cell = table.setdefault(tenant, {}).setdefault(key, {"n": 0, "retry_after": []})
+        cell["n"] += 1
+        if "Retry-After" in headers:
+            cell["retry_after"].append(int(headers["Retry-After"]))
+        if code == 200 and "ttft_deadline_ms" in body and not reply.get("shed"):
+            admitted_deadline += 1
+            met += reply["ttft_s"] is not None and reply["ttft_s"] <= E["deadline_ms"] / 1e3
+        r = by_rid.get(reply.get("rid")) if code == 200 else None
+        if r is not None and r.degradation_tier >= 2 and body["max_tokens"] > 64:
+            capped.append({"rid": r.rid, "tier": r.degradation_tier, "asked": body["max_tokens"],
+                           "max_new_tokens": r.sampling.max_new_tokens, "output": len(reply["output_ids"])})
+    max_tier = max((t for t, _ in samples), default=0)
+    res = {
+        "first_fold_tok_s": folds[0] if folds else None, "calibration_folds": calib_folds,
+        "ewma_after_calibration": calib_ewma, "steady_ewma": steady_ewma,
+        "folds_tok_s": [round(r, 1) for r in folds],
+        "outcomes": table, "deadline_admitted": admitted_deadline,
+        "deadline_met_share": met / admitted_deadline if admitted_deadline else None,
+        "max_tier": max_tier, "tier_events": tier_events,
+        "spec_during_tier": sorted({s for t, s in samples if t >= 1}),
+        "recovered": recovered, "capped": capped[:3], "n_capped": len(capped),
+        "burst_s": burst_s, "calibration_s": t_burst - t0, "snapshot": snap, "engine_counts": counts,
+    }
+    tag = f"[edge overload, {calibration} calibration]"
+    print(f"{tag} EWMA prefill rate: first fold {res['first_fold_tok_s']} tokens/s, after calibration "
+          f"{calib_ewma} ({calib_folds} folds), steady {steady_ewma}; folds {res['folds_tok_s'][:24]}", flush=True)
+    print(f"{tag} burst of {len(bodies)} in {burst_s:.2f} s (calibration {res['calibration_s']:.2f} s): "
+          f"outcomes {json.dumps(table, sort_keys=True)}", flush=True)
+    print(f"{tag} deadline requests admitted {admitted_deadline} of {2 * E['per_tenant']}, TTFT <= "
+          f"{E['deadline_ms']} ms: {res['deadline_met_share']}; highest tier {max_tier} (events "
+          f"{tier_events}); spec_decode_tokens while tier >= 1: {res['spec_during_tier']}; after the hold "
+          f"tier/spec {recovered}; capped at tier >= 2: {len(capped)} {capped[:2]}", flush=True)
+    check(admitted_deadline > 0, f"{tag} no deadline request admitted")
+    check(res["spec_during_tier"] in ([], [0]), f"{tag} spec decode ran at tier >= 1")
+    check(recovered == (0, base_spec), f"{tag} tier/spec after the hold {recovered}")
+    check(max_tier < 2 or capped, f"{tag} tier 2 reached but no backlog request was capped")
+    check(all(c["max_new_tokens"] == 64 and c["output"] <= 64 for c in capped),
+          f"{tag} a tier-2 request was not capped at 64: {capped[:3]}")
+    if not main:
+        # One request at a time, each first token folds over its own
+        # window: the rate model the deadline and tier logic assume.
+        check(max_tier >= 1, f"{tag} the burst reached no degradation tier")
+        return res
+    dump = load_blackbox(str(bb_dir))
+    c_codes = [(c, h.get("Retry-After"), b.get("reason")) for c, h, b in c_results]
+    res["rate_limited_c"] = c_codes
+    res["blackbox"] = {"finals": dump["finals"], "causes": dump["causes"], "segments": dump["segments"],
+                       "series": len(dump["series"])}
+    print(f"{tag} rate-limited tenant c, burst of 4: {c_codes}; /debug/timeseries engine series "
+          f"{len(series['series'])}, slo series {len(slo_series['series'])}; waterfall audited "
+          f"{waterfall['audited']}; /admin/blackbox {admin['cause']} -> load_blackbox {res['blackbox']}",
+          flush=True)
+    check(any(c == 429 and ra is not None and int(ra) >= 1 for c, ra, _ in c_codes),
+          f"{tag} tenant c's burst was not shed with 429 and Retry-After: {c_codes}")
+    check(any('engine="edge-slo"' in n for n in series["series"]),
+          f"{tag} /debug/timeseries has no series of the serving engine")
+    check("admin" in dump["causes"] and dump["series"], f"{tag} black box {res['blackbox']}")
+    del engine, fe
+    _release(dev)
+    return res
+
+
+HISTORY_CONFIGS = {"history off": 0.0, "history 1.0 s": 1.0, "history 0.1 s": 0.1}
+
+
+def _edge_history_walls(dev, model, E, rng) -> dict:
+    """Decode step wall of 4 rows (greedy) with the history off, sampling
+    every 1.0 s and every 0.1 s over the engine: the median of five 8-step
+    windows per configuration, interleaved rounds (reversed every other
+    one); the sampler's own cost from ``radixmesh_history_sample_seconds``
+    (in a registry of its own for these runs)."""
+    from radixmesh_tpu_torch.obs.metrics import TRANSFER_SECONDS_BUCKETS, Registry, get_registry, set_registry
+    from radixmesh_tpu_torch.obs.timeseries import TelemetryHistory
+
+    cfg = model.cfg
+    prompts = [rng.integers(0, E["vocab"], size=E["wall_prompt"]).tolist() for _ in range(4)]
+    names = list(HISTORY_CONFIGS)
+    out = {n: {"medians_ms": [], "windows_ms": []} for n in names}
+    old = set_registry(Registry())
+    try:
+        for rnd in range(E["wall_rounds"]):
+            for name in (names if rnd % 2 == 0 else names[::-1]):
+                eng = Engine(cfg, model, num_slots=8192, page_size=16, max_batch=4, device=dev,
+                             name=f"hist-{rnd}-{HISTORY_CONFIGS[name]}")
+                hist = None
+                if HISTORY_CONFIGS[name]:
+                    hist = TelemetryHistory(interval_s=HISTORY_CONFIGS[name], engine=eng, node=eng.name).start()
+                for p in prompts:
+                    eng.add_request(p, SamplingParams(max_new_tokens=48))
+                eng.step()
+                eng.step()
+                walls = []
+                for _ in range(5):
+                    _sync(dev)
+                    t = time.perf_counter()
+                    for _ in range(8):
+                        eng.step()
+                    _sync(dev)
+                    walls.append((time.perf_counter() - t) / 8 * 1e3)
+                check(sum(r is not None for r in eng._rows) == 4, f"history walls {name}: a row finished early")
+                _drain(eng)
+                if hist is not None:
+                    hist.close()
+                out[name]["medians_ms"].append(float(np.median(walls)))
+                out[name]["windows_ms"].append(walls)
+                del eng
+        fam = get_registry().histogram("radixmesh_history_sample_seconds", buckets=TRANSFER_SECONDS_BUCKETS)
+        n = fam.count
+        q = {"count": n, "p50_s": fam.quantile(0.5), "p99_s": fam.quantile(0.99), "mean_s": fam.sum / max(1, n)}
+    finally:
+        set_registry(old)
+    base = out["history off"]["medians_ms"]
+    for name in names:
+        r = out[name]
+        r["median_ms"] = float(np.median(r["medians_ms"]))
+        r["vs_off"] = [m / b for m, b in zip(r["medians_ms"], base)]
+        print(f"[edge history] decode step {name}: {r['median_ms']:.3f} ms (rounds "
+              f"{[round(m, 3) for m in r['medians_ms']]}, x{[round(v, 3) for v in r['vs_off']]} of off in "
+              f"the same round)", flush=True)
+    print(f"[edge history] radixmesh_history_sample_seconds over {q['count']} samples: p50 "
+          f"{q['p50_s'] * 1e3:.3f} ms, p99 {q['p99_s'] * 1e3:.3f} ms, mean {q['mean_s'] * 1e3:.3f} ms", flush=True)
+    check(q["count"] > 0, "history walls: the sampler never ran")
+    out["sample_seconds"] = q
+    return out
+
+
+def _edge_kill(E) -> dict:
+    """``launch.py serve --blackbox-dir D`` with the edge's flags in a child
+    process; traffic (streamed and not); ``kill -9``. Every completed
+    segment must load, the newest sample must be at most 2 intervals older
+    than the kill, and no final may exist (the watchdog never fired)."""
+    import signal
+    import socket
+
+    from radixmesh_tpu_torch.obs.blackbox import load_blackbox
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    bb_dir = OUT_DIR / "blackbox-kill"
+    shutil.rmtree(bb_dir, ignore_errors=True)
+    cmd = [sys.executable, "-m", "radixmesh_tpu_torch.launch", "serve", "--model", E["model"],
+           "--device", E["device"], "--http-port", str(port), "--kv-slots", str(E["kv_slots"]),
+           "--blackbox-dir", str(bb_dir), "--slo", "--slo-tenant", "a=3", "--slo-tenant", "b=1",
+           "--spec-decode-tokens", "4"]
+    log = open(OUT_DIR / "serve_blackbox.log", "w")
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    t0 = time.monotonic()
+    stop = threading.Event()
+    served: list[int] = []
+    rng = np.random.default_rng(13)
+    th = None
+    try:
+        while True:
+            check(proc.poll() is None,
+                  f"serve --blackbox-dir exited with {proc.returncode} (chip_out/serve_blackbox.log)")
+            check(time.monotonic() - t0 < 300, "serve --blackbox-dir did not answer /healthz in 300 s")
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=2) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                time.sleep(0.5)
+        ready_s = time.monotonic() - t0
+
+        def traffic():
+            i = 0
+            while not stop.is_set():
+                body = {"input_ids": rng.integers(0, E["vocab"], size=E["sse_prompt"]).tolist(),
+                        "max_tokens": 16, "tenant": "ab"[i % 2]}
+                try:
+                    if i % 2:
+                        served.append(len(_sse_post(port, body, timeout=120)[0]))
+                    else:
+                        served.append(len(_post(port, body)["output_ids"]))
+                except (OSError, RuntimeError, ValueError):
+                    return  # the server is gone
+                i += 1
+
+        th = threading.Thread(target=traffic)
+        th.start()
+        node_dir = None
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            subs = [d for d in bb_dir.iterdir() if d.is_dir()] if bb_dir.exists() else []
+            if subs:
+                node_dir = subs[0]
+                if len(list(node_dir.glob("segment-*.json"))) >= E["kill_segments"] and len(served) >= 2:
+                    break
+            time.sleep(0.1)
+        check(node_dir is not None, "serve --blackbox-dir wrote no dump directory")
+        t_kill = time.time()
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        stop.set()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if th is not None:
+            th.join(timeout=130)
+        log.close()
+    files = sorted(p.name for p in node_dir.iterdir())
+    dump = load_blackbox(str(bb_dir))  # raises on a torn segment
+    age = t_kill - (dump["last_t"] + dump["wall_offset"])
+    res = {"ready_s": ready_s, "served": len(served), "segments": dump["segments"],
+           "segment_files": sum(f.startswith("segment-") for f in files),
+           "tmp_files": [f for f in files if ".tmp." in f], "finals": dump["finals"],
+           "unclean": dump["unclean"], "newest_sample_age_s": age, "interval_s": dump["interval_s"],
+           "series": len(dump["series"])}
+    print(f"[edge kill -9] serve --blackbox-dir answered /healthz after {ready_s:.1f} s; {len(served)} "
+          f"requests served; after the kill {res['segments']} segments loaded of {res['segment_files']} "
+          f"files (temp files {res['tmp_files']}), finals {res['finals']}, unclean {res['unclean']}, newest "
+          f"sample {age:.3f} s before the kill (interval {res['interval_s']} s), {res['series']} series",
+          flush=True)
+    check(res["segments"] == res["segment_files"] >= 1, "kill -9: a segment did not load")
+    check(dump["unclean"] and dump["finals"] == 0, "kill -9: a final exists (the watchdog fired)")
+    check(age <= 2 * dump["interval_s"], f"kill -9: the newest sample is {age:.3f} s older than the kill")
+    shutil.rmtree(bb_dir, ignore_errors=True)
+    return res
+
+
+def serving_edge_phase(dev, model, E=EDGE) -> dict:
+    """Phase 13: the serving edge at full width (module docstring)."""
+    from radixmesh_tpu_torch.entry import entry
+
+    fn, args = entry(device=dev)  # the port's entry(), on the card by default
+    logits = fn(*args)
+    check(logits.shape == (2, 16, 512) and bool(torch.isfinite(logits.float()).all()),
+          f"entry(): logits {tuple(logits.shape)}")
+    print(f"[edge] entry() on {logits.device}: logits {tuple(logits.shape)} {logits.dtype}, finite", flush=True)
+    rng = np.random.default_rng(21)
+    bb_root = pathlib.Path(tempfile.mkdtemp(prefix="edge-blackbox-", dir=OUT_DIR))
+    _sync(dev)
+    pa.reset_counters()
+    try:
+        out = {"sse": _edge_sse(dev, model, E, rng, bb_root)}
+        out["light"] = _edge_light(dev, model, E, rng)
+        out["overload"] = _edge_overload(dev, model, E, rng, bb_root)
+        out["overload sequential"] = _edge_overload(dev, model, E, rng, bb_root, calibration="sequential")
+        out["history"] = _edge_history_walls(dev, model, E, rng)
+        _sync(dev)
+        out["launches"] = {"paged_decode_fused": pa.paged_decode_fused_kernel.launches,
+                           "paged_chunk_attention": pa.paged_chunk_attention_kernel.launches,
+                           "cuda_core_chunk_body": pa.paged_chunk_attention_kernel.launches_f32_body,
+                           "plain_calls": pa.plain_calls()}
+    finally:
+        shutil.rmtree(bb_root, ignore_errors=True)
+    print(f"[edge] launches on the edge's path (in process): {out['launches']}", flush=True)
+    if torch.device(dev).type == "cuda":
+        lc = out["launches"]
+        check(lc["paged_decode_fused"] > 0 and lc["paged_chunk_attention"] > 0 and lc["plain_calls"] == 0
+              and lc["cuda_core_chunk_body"] == 0, f"edge: kernel launches {lc}")
+    _release(dev)
+    out["kill"] = _edge_kill(E)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the whole path, card vs CPU
 # ---------------------------------------------------------------------------
 
@@ -1957,6 +2576,9 @@ def main() -> int:
     replay["decode walls"] = decode_wall_phase(dev, model)
     replay["bf16 http"] = replay_http_phase(dev, model, card)
     print(f"[time] replay and observability phases {time.monotonic() - t:.1f}s", flush=True)
+    t = time.monotonic()
+    edge = serving_edge_phase(dev, model)
+    print(f"[time] serving edge phase {time.monotonic() - t:.1f}s", flush=True)
     del model
     torch.cuda.empty_cache()
     t = time.monotonic()
@@ -1985,13 +2607,15 @@ def main() -> int:
         "paged_decode_fused": {**{f"serving {k}": v["launches"]["paged_decode_fused"]
                                   for k, v in serving.items() if "paged_decode_fused" in v["launches"]},
                                "tiers bf16": tiers["bf16"]["launches"]["paged_decode_fused"],
-                               "replay bf16 http": replay["bf16 http"]["launches"]["paged_decode_fused"]},
+                               "replay bf16 http": replay["bf16 http"]["launches"]["paged_decode_fused"],
+                               "serving edge": edge["launches"]["paged_decode_fused"]},
         "paged_decode_fused[int8]": {"serving int8": serving["int8"]["launches"]["paged_decode_fused[int8]"],
                                      "tiers int8": tiers["int8"]["launches"]["paged_decode_fused[int8]"]},
         "paged_chunk_attention": {**{f"serving {k}": v["launches"]["paged_chunk_attention"]
                                      for k, v in serving.items() if "paged_chunk_attention" in v["launches"]},
                                   "tiers bf16": tiers["bf16"]["launches"]["paged_chunk_attention"],
-                                  "replay bf16 http": replay["bf16 http"]["launches"]["paged_chunk_attention"]},
+                                  "replay bf16 http": replay["bf16 http"]["launches"]["paged_chunk_attention"],
+                                  "serving edge": edge["launches"]["paged_chunk_attention"]},
         "paged_chunk_attention[int8]": {
             "serving int8": serving["int8"]["launches"]["paged_chunk_attention[int8]"],
             "tiers int8": tiers["int8"]["launches"]["paged_chunk_attention[int8]"]},
@@ -2095,7 +2719,7 @@ def main() -> int:
               "build": {k: v["seconds"] for k, v in log.items()}, "sass": sass, "kernels": kernels,
               "groups": groups, "serving": serving, "tiers": tiers, "serve_cli": serve_cli,
               "qwen2_serving": qwen, "checkpoint": ckpt, "serve_text": serve_text, "whole_path": whole,
-              "replay": replay}
+              "replay": replay, "serving_edge": edge}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

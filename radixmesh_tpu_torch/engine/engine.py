@@ -390,6 +390,10 @@ class Engine:
         self._scratch_page = self._scratch_slot // page_size
 
         self.waiting: list[Request] = []
+        # SLO seam (slo/runner.py): called with the request right after its
+        # first token is recorded, the control plane's prefill service-rate
+        # feedback. None = no control plane.
+        self.on_first_token = None
         # Called as on_first_logits(req, logits_row) for every request
         # whose first token is sampled (a debugging/verification seam).
         self.on_first_logits = None
@@ -544,10 +548,16 @@ class Engine:
         prompt: Sequence[int],
         sampling: SamplingParams | None = None,
         *,
+        tenant: str = "default",
+        ttft_deadline_s: float | None = None,
+        e2e_deadline_s: float | None = None,
         resume_tokens: Sequence[int] | None = None,
         trace_id: int | None = None,
     ) -> Request:
-        """Build + validate a request without queueing it.
+        """Build + validate a request without queueing it: the admission
+        seam the SLO control plane (``slo/``) holds requests behind before
+        it enqueues or sheds them. ``tenant`` and the two deadlines
+        (seconds from submit) are the control plane's.
 
         ``resume_tokens`` switches on resume admission: the tokens are
         output a prior life of this request already delivered. They are
@@ -576,7 +586,14 @@ class Engine:
             sampling = dataclass_replace(
                 sampling, max_new_tokens=sampling.max_new_tokens - resume_offset
             )
-        req = Request(prompt=prompt, sampling=sampling, resume_offset=resume_offset)
+        req = Request(
+            prompt=prompt,
+            sampling=sampling,
+            tenant=tenant,
+            ttft_deadline_s=ttft_deadline_s,
+            e2e_deadline_s=e2e_deadline_s,
+            resume_offset=resume_offset,
+        )
         if not (0 < len(req.prompt) < self.max_seq_len):
             raise ValueError(f"prompt length {len(req.prompt)} out of range")
         if int(req.prompt.min()) < 0 or int(req.prompt.max()) >= self.cfg.vocab_size:
@@ -1198,6 +1215,8 @@ class Engine:
         if tr is not None:
             tr.add("first_token", req.first_token_time, 0.0, cat="scheduler",
                    ttft_s=round(ttft, 6))
+        if self.on_first_token is not None:
+            self.on_first_token(req)
 
     def _finalize_first_tokens(self, pending: list[tuple]) -> None:
         """One batched sample + one device→host copy for every request of

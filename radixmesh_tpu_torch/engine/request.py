@@ -18,7 +18,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-__all__ = ["Request", "RequestState", "SamplingParams"]
+__all__ = ["Request", "RequestState", "SamplingParams", "VALID_TRANSITIONS"]
 
 _rid_counter = itertools.count()
 
@@ -46,6 +46,21 @@ class RequestState(enum.Enum):
     RESTORING = "restoring"
     RUNNING = "running"
     FINISHED = "finished"
+
+
+# The admission state machine. FINISHED is terminal (a resumed request is
+# a new request); QUEUED re-entry covers the restore-complete requeue and
+# preemption; QUEUED -> FINISHED is a cancel or an SLO shed before
+# dispatch (``slo/runner.py``).
+VALID_TRANSITIONS = {
+    (RequestState.QUEUED, RequestState.RUNNING),      # dispatch
+    (RequestState.QUEUED, RequestState.RESTORING),    # park for a staged restore
+    (RequestState.QUEUED, RequestState.FINISHED),     # cancel or shed before dispatch
+    (RequestState.RESTORING, RequestState.QUEUED),    # restore landed: requeue
+    (RequestState.RESTORING, RequestState.FINISHED),  # cancel or deadline while parked
+    (RequestState.RUNNING, RequestState.QUEUED),      # preempt (pool pressure)
+    (RequestState.RUNNING, RequestState.FINISHED),    # stop, cap or cancel
+}
 
 
 @dataclass
@@ -78,13 +93,21 @@ class Request:
     # ``output_tokens`` holds only post-resume tokens.
     resume_offset: int = 0
     cancelled: bool = False  # aborted by Engine.cancel (output is partial)
-    # Dropped by a drain for the client to resubmit elsewhere
-    # (``Engine.drain_requeue_waiting``: reason "drain_requeue").
+
+    # -- SLO control plane (slo/) --
+    tenant: str = "default"  # rate-limit, fair-share and speculation-class key
+    ttft_deadline_s: float | None = None  # relative to submit_time
+    e2e_deadline_s: float | None = None  # relative to submit_time
+    admit_time: float = 0.0  # SLO queue -> engine dispatch instant
+    # Refused or dropped by the control plane, or by a drain for the client
+    # to resubmit elsewhere (``Engine.drain_requeue_waiting``).
     shed: bool = False
     shed_reason: str = ""
-    # Request-class key of the speculation ledger (the JAX package's SLO
-    # tenant). The HTTP edge does not accept it yet.
-    tenant: str = "default"
+    degradation_tier: int = 0  # tier in force when dispatched
+    # Backlog cost retired from the controller (first token or a cancel
+    # before one): whichever side runs first sets it
+    # (``OverloadController.note_retired``).
+    slo_retired: bool = False
     # Tree drafting stays on only while it pays: cleared the first time
     # the tree has no continuation for this request, so novel generations
     # never re-walk the whole history every launch.

@@ -12,6 +12,8 @@
         --weights /ckpt/llama3.2-3b --tokenizer byte
     python -m radixmesh_tpu_torch.launch serve --stream-publish 16 \
         --step-accounting --profile-dir /var/tmp/prof --trace-sample 0.1
+    python -m radixmesh_tpu_torch.launch serve --slo --slo-ttft-ms 1500 \
+        --slo-tenant gold=3 --slo-tenant free=1:2000 --blackbox-dir /var/tmp/bb
 
 ``serve`` builds one :class:`~radixmesh_tpu_torch.engine.engine.Engine`
 behind a :class:`~radixmesh_tpu_torch.server.http_frontend.ServingFrontend`
@@ -37,8 +39,14 @@ the JAX launcher's: ``--trace-capacity``, ``--trace-sample`` and
 ``--token-timeline-capacity`` and ``--token-stall-threshold-ms`` (the token
 timeline), ``--step-accounting`` and ``--peak-tflops`` (per-wave MFU; the
 peak defaults to the card's) and ``--profile-dir`` (``/profile``
-captures). Flags of the JAX launcher whose features are not ported yet are
-refused by name.
+captures). ``--slo``, ``--slo-ttft-ms`` and ``--slo-tenant NAME=W[:RATE]``
+put the overload control plane in the admission path (``slo/``; any of the
+three turns it on). ``--telemetry-history-interval`` (default 1.0 s; 0
+disables) samples the telemetry history, ``--blackbox-dir`` arms the black
+box (a history segment at every sample, a final dump at shutdown and on
+``POST /admin/blackbox``) and ``--blackbox-watchdog`` sets its stall
+watchdog (default 10 intervals with a dump directory). Flags of the JAX
+launcher whose features are not ported yet are refused by name.
 """
 
 from __future__ import annotations
@@ -51,10 +59,7 @@ import threading
 __all__ = ["main", "parse_args"]
 
 # ``serve`` flags of the JAX launcher whose features are not ported yet.
-_NOT_PORTED_FLAGS = (
-    "--weight-quant", "--slo", "--slo-ttft-ms", "--slo-tenant",
-    "--telemetry-history-interval", "--blackbox-dir", "--blackbox-watchdog",
-)
+_NOT_PORTED_FLAGS = ("--weight-quant",)
 
 
 def _configure_tracing(args: argparse.Namespace, node: str = "") -> None:
@@ -88,6 +93,50 @@ def _dump_trace(args: argparse.Namespace, log) -> None:
         log.info("wrote %d trace spans to %s", write_trace(path), path)
     except OSError:
         log.exception("trace dump failed")
+
+
+def _slo_config(args: argparse.Namespace):
+    """The :class:`SLOConfig` of ``--slo``/``--slo-ttft-ms``/``--slo-tenant``
+    (None when none is given), parsed as the JAX launcher parses them."""
+    if not (args.slo or args.slo_ttft_ms is not None or args.slo_tenant):
+        return None
+    from radixmesh_tpu_torch.slo import SLOConfig, TenantConfig
+
+    tenants = {}
+    for spec in args.slo_tenant:
+        # NAME=WEIGHT[:RATE_TOKENS_PER_S]
+        name, _, rest = spec.partition("=")
+        if not name or not rest:
+            raise SystemExit(f"--slo-tenant {spec!r}: want NAME=W[:RATE]")
+        weight, _, rate = rest.partition(":")
+        tenants[name] = TenantConfig(
+            weight=float(weight), rate_tokens_per_s=float(rate) if rate else 0.0
+        )
+    return SLOConfig(
+        tenants=tenants,
+        default_ttft_slo_s=args.slo_ttft_ms / 1e3 if args.slo_ttft_ms is not None else None,
+    )
+
+
+def _history_kwargs(args: argparse.Namespace, log) -> dict:
+    """Frontend kwargs of the telemetry history and the black box. The
+    watchdog arms at 10x the sample interval whenever a dump directory is
+    given, so an unclean death leaves a final without a flag."""
+    interval = args.telemetry_history_interval
+    watchdog = args.blackbox_watchdog
+    if watchdog is None:
+        watchdog = 10.0 * interval if args.blackbox_dir else 0.0
+    if args.blackbox_dir and interval <= 0:
+        log.warning(
+            "--blackbox-dir %s is armed but --telemetry-history-interval is 0: no history "
+            "is recorded, no segments are written and the watchdog stays off; only "
+            "shutdown and POST /admin/blackbox leave a dump", args.blackbox_dir,
+        )
+    return {
+        "history_interval_s": interval,
+        "blackbox_dir": args.blackbox_dir,
+        "blackbox_watchdog_s": watchdog,
+    }
 
 
 def _run_serve(args: argparse.Namespace) -> int:
@@ -158,8 +207,12 @@ def _run_serve(args: argparse.Namespace) -> int:
         step_accounting=args.step_accounting,
         peak_tflops=args.peak_tflops,
     )
+    slo = _slo_config(args)
+    if slo is not None:
+        log.info("SLO control plane enabled (%d tenants)", len(slo.tenants))
     frontend = ServingFrontend(engine, host=args.host, port=args.http_port, tokenizer=tokenizer,
-                               profile_dir=args.profile_dir)
+                               profile_dir=args.profile_dir, slo=slo,
+                               **_history_kwargs(args, log))
     print(f"serving {args.model} on http://{args.host}:{frontend.port}", flush=True)
     stop = threading.Event()
     signal.signal(signal.SIGINT, lambda *_: stop.set())
@@ -254,6 +307,26 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     serve.add_argument("--profile-dir", default=None,
                        help="enable POST /profile and GET /debug/profile?seconds=N torch.profiler "
                        "captures into this directory")
+    serve.add_argument("--slo", action="store_true",
+                       help="enable the overload control plane (SLO-aware admission, per-tenant "
+                       "fairness, deadline shedding, degradation tiers; slo/)")
+    serve.add_argument("--slo-ttft-ms", type=float, default=None,
+                       help="default TTFT deadline for requests that carry none (implies --slo)")
+    serve.add_argument("--slo-tenant", action="append", default=[], metavar="NAME=W[:RATE]",
+                       help="tenant fair-share weight and optional prompt-token rate limit "
+                       "(repeatable; implies --slo)")
+    serve.add_argument("--telemetry-history-interval", type=float, default=1.0, metavar="SECONDS",
+                       help="sample every registered metric family plus the step, goodput and "
+                       "SLO planes into bounded in-process rings every N seconds (~15 min "
+                       "retained, served on GET /debug/timeseries); 0 disables")
+    serve.add_argument("--blackbox-dir", default=None, metavar="DIR",
+                       help="arm the black box: a history segment lands here at every sample "
+                       "(atomic renames: a kill -9 keeps every completed segment), and shutdown, "
+                       "the stall watchdog and POST /admin/blackbox write a full final dump "
+                       "(history, waterfalls, spans, state)")
+    serve.add_argument("--blackbox-watchdog", type=float, default=None, metavar="SECONDS",
+                       help="flush the black box once if the history sampler stalls this long "
+                       "(default: 10x the sample interval with --blackbox-dir; 0 disables)")
     serve.set_defaults(fn=_run_serve)
     argv = sys.argv[1:] if argv is None else argv
     for arg in argv:

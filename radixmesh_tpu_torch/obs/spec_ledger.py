@@ -74,6 +74,9 @@ class SpecLedger:
         self._cells: dict[tuple[str, str, str], _SpecClass] = {}
         # (tenant, shape) -> current adaptive γ (absent = base).
         self._gamma: dict[tuple[str, str], int] = {}
+        # Last SLO degradation tier seen (slo/runner.py notes it when it
+        # applies a tier): tier >= 1 means speculation is off by policy.
+        self.last_tier = 0
         self._wave_seq = 0
 
         reg = get_registry()
@@ -174,13 +177,17 @@ class SpecLedger:
         """The γ the engine should draft with for this class: ``base``
         when the controller is off (or has no signal yet), else the
         steered value clamped to [1, base]. ``base`` ≤ 0 (speculation
-        off) always wins."""
+        off, including by SLO tier) always wins."""
         if base <= 0 or not self.adaptive:
             return base
         g = self._gamma.get((tenant, shape))
         if g is None:
             return base
         return max(1, min(base, g))
+
+    def note_tier(self, tier: int) -> None:
+        """SLO runner seam: records the degradation tier in force."""
+        self.last_tier = int(tier)
 
     # -- read path -----------------------------------------------------
 

@@ -6,23 +6,31 @@
   400), ``max_tokens``, ``temperature``, ``top_p``, ``top_k``,
   ``stop_token_ids`` (``text`` callers stop at the tokenizer's EOS unless
   they send their own, even an empty list), optional ``timeout`` (seconds),
-  ``seed`` (an int: seeded replay, ``engine/engine.py``),
+  ``seed`` (an int: seeded replay, ``engine/engine.py``), ``stream``
+  (true: server-sent events, one ``data: {"token": t}`` event per token
+  and a last ``{"done": true, "output_ids": [...]}`` event),
   ``resume_tokens`` (a list of ints a prior life of the request already
   delivered: replayed through prefill, never re-emitted) and ``trace_id``
   (a nonzero 64-bit int, or its ``0x`` hex string, adopted for this
-  request's spans). Replies ``{"output_ids", "cached_tokens", "rid",
-  "ttft_s", "e2e_s"}``, plus ``"resumed_from"`` (the tokens delivered
+  request's spans), and the SLO fields ``tenant``, ``ttft_deadline_ms``
+  and ``deadline_ms`` (end to end), which a frontend built with ``slo=``
+  enforces (``slo/``: overload answers 429 or 503 with ``Retry-After``,
+  a request dropped from the queue answers 503 with ``"shed": true``) and
+  a plain frontend accepts and ignores. Replies ``{"output_ids",
+  "cached_tokens", "rid", "ttft_s", "e2e_s"}``, plus ``"resumed_from"`` (the tokens delivered
   before) for a resumed request, ``"trace_id"`` for a traced one,
-  ``"text"`` (the output decoded) with a tokenizer and ``"cancelled":
-  true`` when cancelled.
+  ``"text"`` (the output decoded) with a tokenizer, ``"cancelled":
+  true`` when cancelled and ``"shed": true`` with its ``"reason"`` when
+  the control plane cut it short.
 - ``POST /cancel`` ``{"rid"}``; ``GET /healthz``; ``GET /stats`` (the
   engine's counters; ``spec``, speculative acceptance per prompt-length
   bucket; ``waves``, the wave mix under mixed waves; ``decode_dispatch``,
   the last paged-vs-dense decision; with KV tiers, ``host_fill``,
   ``host_tier`` (arena occupancy, write-back and restore counters),
   ``kv_transfer`` (the plane's ``stats()`` and its parked requests) and
-  ``kv_tier`` — the JAX frontend's key names; ``kernels``, the attention
-  kernels' launches and their plain versions' calls in this process).
+  ``kv_tier`` — the JAX frontend's key names; ``slo``, the controller's
+  snapshot, with SLO control on; ``kernels``, the attention kernels'
+  launches and their plain versions' calls in this process).
 - ``GET /metrics``: the port's registry (``obs/metrics.py``) in Prometheus
   text exposition: the engine's, the KV tiers' and the wave scheduler's
   series under the JAX package's names.
@@ -30,17 +38,23 @@
   ``?drain=1`` consumes it, ``?format=spans`` serves the raw span export),
   ``GET /debug/requests`` (the in-flight request table), ``GET
   /debug/state`` (the engine-side planes: scheduler, pool, tiers,
-  speculation ledger, waves, step accounting, recorder) and ``GET
+  speculation ledger, waves, step accounting, recorder, SLO), ``GET
   /debug/tokens`` (the token timeline, speculation ledger and goodput;
-  ``?limit=N``; 404 with the timeline off).
+  ``?limit=N``; 404 with the timeline off), ``GET /debug/timeseries``
+  (the telemetry history's rings, ``obs/timeseries.py``: ``?family=``
+  prefix, ``?since=`` cursor, ``?limit=`` points; 404 with the history
+  off) and ``GET /debug/waterfall`` (the phase attributor's p50/p99
+  breakdown, per-shape table and recent waterfalls,
+  ``obs/attribution.py``).
+- ``POST /admin/blackbox``: flush the black box (``obs/blackbox.py``) now;
+  404 without a ``blackbox_dir``.
 - ``POST /profile`` ``{"seconds": N}`` and ``GET /debug/profile?seconds=N``:
   one ``torch.profiler`` window (CUDA activity on the card) written as a
   Chrome trace into a fresh numbered directory under the frontend's
   ``profile_dir`` (403 without one: clients never choose paths).
 
-Fields of the JAX API whose features are not ported yet — ``stream``
-(SSE) and the SLO fields ``tenant``, ``ttft_deadline_ms``,
-``deadline_ms`` — are refused with a 400, never ignored.
+Fields of the JAX API whose features are not ported yet are refused by
+name with a 400, never ignored (``_NOT_PORTED_FIELDS``; none is left).
 
 Threading model: one :class:`EngineRunner` thread owns the engine and
 steps it while work exists; HTTP handler threads only submit requests and
@@ -60,20 +74,20 @@ from urllib.parse import parse_qs, urlsplit
 
 from radixmesh_tpu_torch.engine.engine import Engine
 from radixmesh_tpu_torch.engine.request import Request, RequestState, SamplingParams
+from radixmesh_tpu_torch.obs.attribution import ensure_attributor
+from radixmesh_tpu_torch.obs.blackbox import BlackBox
 from radixmesh_tpu_torch.obs.metrics import get_registry
+from radixmesh_tpu_torch.obs.timeseries import TelemetryHistory
 from radixmesh_tpu_torch.obs.trace_plane import get_recorder
 from radixmesh_tpu_torch.ops.paged_attention import launch_counts
+from radixmesh_tpu_torch.policy.retry import jittered_retry_after
+from radixmesh_tpu_torch.slo.control import RequestShed
 from radixmesh_tpu_torch.utils.logging import get_logger
 
 __all__ = ["EngineRunner", "ServingFrontend"]
 
-# /generate fields of features that are not ported yet.
-_NOT_PORTED_FIELDS = {
-    "stream": "SSE streaming",
-    "tenant": "SLO control",
-    "ttft_deadline_ms": "SLO control",
-    "deadline_ms": "SLO control",
-}
+# /generate fields of features that are not ported yet, by name -> feature.
+_NOT_PORTED_FIELDS: dict[str, str] = {}
 
 
 class EngineRunner:
@@ -145,6 +159,11 @@ class EngineRunner:
             self._take_inbox()
             return self.engine.cancel(rid)
 
+    def tokens_so_far(self, req: Request) -> list[int]:
+        # Handler threads only read the append-only list; a torn read costs
+        # one token of staleness, never corruption.
+        return list(req.output_tokens)
+
     def _take_inbox(self) -> None:
         """Queue every submitted request on the engine (hold ``_lock``)."""
         while True:
@@ -164,10 +183,16 @@ class EngineRunner:
                 req.cond.wait(timeout=min(remaining, 1.0))
         return req.generated
 
+    def _pre_step(self) -> None:
+        """Subclass hook run every scheduler iteration with the step lock
+        held, after the inbox is taken and before the has-work check (the
+        SLO runner pumps its admission queue here)."""
+
     def _run(self) -> None:
         while not self._stop.is_set():
             with self._lock:
                 self._take_inbox()
+                self._pre_step()
                 has_work = self.engine.has_work()
                 if has_work:
                     try:
@@ -251,6 +276,7 @@ def _request_row(req: Request, now: float) -> dict:
         "trace_id": getattr(req.trace, "trace_id", None),
         "elapsed_s": {
             "total": round(now - req.submit_time, 6) if req.submit_time else None,
+            "slo_queue": round(req.admit_time - req.submit_time, 6) if req.admit_time else None,
             "to_first_token": round(ft - req.submit_time, 6) if ft else None,
             "decoding": (
                 round(now - ft, 6) if ft and req.state is RequestState.RUNNING else None
@@ -276,9 +302,10 @@ def _debug_requests(engine: Engine) -> dict:
     }
 
 
-def _debug_state(engine: Engine) -> dict:
-    """``GET /debug/state``: the engine-side planes (the JAX frontend's
-    sections without the mesh, fleet, SLO and lifecycle ones)."""
+def _debug_state(engine: Engine, ctl=None) -> dict:
+    """``GET /debug/state``: the engine-side planes and, with SLO control
+    (``ctl``, the runner's controller), its snapshot (the JAX frontend's
+    sections without the mesh and lifecycle ones)."""
     tree = engine.tree
     state = {
         "engine": {
@@ -329,6 +356,8 @@ def _debug_state(engine: Engine) -> dict:
     if engine.timeline is not None:
         tl = engine.timeline.snapshot(limit=0)
         state["timeline"] = {k: v for k, v in tl.items() if k != "recent"}
+    if ctl is not None:
+        state["slo"] = ctl.snapshot()
     return state
 
 
@@ -351,8 +380,38 @@ def _debug_tokens(engine: Engine, query: dict) -> tuple[int, dict]:
     }
 
 
-def _stats(engine: Engine) -> dict:
-    """``GET /stats``: lock-free snapshot reads of the engine's counters."""
+def _debug_timeseries(history, query: dict) -> tuple[int, dict]:
+    """``GET /debug/timeseries``: the telemetry-history rings with cursor
+    pagination. ``?family=`` prefix-filters series, ``?since=`` is the
+    sample-sequence cursor from a previous page's ``next_since``,
+    ``?limit=`` bounds the points of a page (cut on a sample boundary)."""
+    if history is None:
+        return 404, {"error": "telemetry history disabled (--telemetry-history-interval 0)"}
+    try:
+        family = query.get("family", [""])[-1] or None
+        since = int(query.get("since", ["-1"])[-1])
+        limit = int(query.get("limit", ["2000"])[-1])
+    except ValueError:
+        return 400, {"error": "since/limit must be integers"}
+    return 200, history.query(family=family, since=since, limit=limit)
+
+
+def _admin_blackbox(blackbox) -> tuple[int, dict]:
+    """``POST /admin/blackbox``: flush the black box now (the operator's
+    snapshot before a restart; the same artifact shutdown and the watchdog
+    write)."""
+    if blackbox is None:
+        return 404, {"error": "no black box on this node (start with --blackbox-dir)"}
+    try:
+        res = blackbox.flush("admin")
+    except OSError as e:
+        return 500, {"error": str(e)}
+    return 200, {"flushed": True, **res}
+
+
+def _stats(engine: Engine, ctl=None) -> dict:
+    """``GET /stats``: lock-free snapshot reads of the engine's counters
+    (and the SLO controller's snapshot with SLO control on)."""
     s = engine.stats
     out = {
         "hit_rate": s.hit_rate,
@@ -387,25 +446,52 @@ def _stats(engine: Engine) -> dict:
         }
     if tel["kv_tier"] is not None:
         out["kv_tier"] = tel["kv_tier"]
+    if ctl is not None:
+        out["slo"] = ctl.snapshot()
     out["kernels"] = launch_counts()
     return out
+
+
+def _sse(handler: BaseHTTPRequestHandler, event: dict) -> None:
+    handler.wfile.write(f"data: {json.dumps(event)}\n\n".encode())
 
 
 class _FrontendServer(ThreadingHTTPServer):
     daemon_threads = True
     allow_reuse_address = True
+    # The listen backlog (socketserver's default is 5, the JAX frontend's):
+    # a burst of more simultaneous connections than the backlog holds is
+    # reset by the kernel before the SLO plane can answer it 429 or 503.
+    request_queue_size = 1024
 
 
 class ServingFrontend:
     """HTTP API over one serving engine. ``port=0`` binds a free port
     (read it back from ``.port``). ``tokenizer`` (``server/tokenizer.py``)
     lets clients send ``text`` and get ``text`` back. ``profile_dir``
-    enables ``/profile`` captures under that directory."""
+    enables ``/profile`` captures under that directory. ``slo`` (an
+    :class:`~radixmesh_tpu_torch.slo.control.SLOConfig`) puts the overload
+    control plane in the admission path (:class:`SLORunner`).
+    ``history_interval_s`` > 0 samples the telemetry history every that
+    many seconds into rings of ``history_capacity`` points (0 disables
+    it); ``blackbox_dir`` arms the black box there, committing a history
+    segment at every sample, with the watchdog at ``blackbox_watchdog_s``
+    (0 = off)."""
 
     def __init__(self, engine: Engine, host: str = "127.0.0.1", port: int = 0,
-                 tokenizer=None, profile_dir: str | None = None):
+                 tokenizer=None, profile_dir: str | None = None, slo=None,
+                 history_interval_s: float = 1.0, history_capacity: int = 900,
+                 blackbox_dir: str | None = None, blackbox_watchdog_s: float = 0.0):
         self.tokenizer = tokenizer
-        self.runner = EngineRunner(engine).start()
+        if slo is not None:
+            # slo.runner imports this module for EngineRunner.
+            from radixmesh_tpu_torch.slo.runner import SLORunner
+
+            self.runner = SLORunner(engine, slo).start()
+        else:
+            self.runner = EngineRunner(engine).start()
+        self.slo_enabled = slo is not None
+        ctl = self.runner.ctl if self.slo_enabled else None
         self.log = get_logger("http.serve")
         # /profile writes only under this operator-configured directory
         # (None = endpoint disabled): a client never chooses a path.
@@ -416,6 +502,34 @@ class ServingFrontend:
             prime_profiler()  # captures run on handler threads
         self._profile_lock = threading.Lock()
         self._profile_seq = 0
+        # The phase attributor installs on the recorder's span-retire hook
+        # now, so phase histograms accumulate from the first traced request
+        # (a swapped recorder gets a fresh one through ensure_attributor).
+        ensure_attributor()
+        # Telemetry history: bounded rings over every plane, sampled on
+        # its own thread (the cache mesh seam stays empty: not ported).
+        self.history = None
+        if history_interval_s > 0:
+            self.history = TelemetryHistory(
+                interval_s=history_interval_s, capacity=history_capacity, mesh=None,
+                engine=engine, slo=ctl, node=engine.name,
+            )
+        # The black box: crash-surviving dumps of the history, waterfalls,
+        # spans and state (no doctor: not ported). A segment commits at
+        # every sample, so a kill -9 loses at most one sample interval;
+        # the segments on disk span the ring's own window.
+        self.blackbox = None
+        if blackbox_dir:
+            self.blackbox = BlackBox(
+                blackbox_dir, history=self.history, doctor=None, recorder=get_recorder,
+                attributor_fn=ensure_attributor, state_fn=lambda: _debug_state(engine, ctl),
+                node=engine.name, segment_every=1, max_segments=history_capacity,
+                watchdog_timeout_s=blackbox_watchdog_s,
+            )
+        if self.history is not None:
+            # Started after the black box installed its segment hook, so
+            # the first samples are already crash-durable.
+            self.history.start()
         frontend = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -429,7 +543,7 @@ class ServingFrontend:
                 if path == "/healthz":
                     _json_response(self, 200, {"status": "ok"})
                 elif path == "/stats":
-                    _json_response(self, 200, _stats(engine))
+                    _json_response(self, 200, _stats(engine, ctl))
                 elif path == "/metrics":
                     body = get_registry().render().encode()
                     self.send_response(200)
@@ -448,9 +562,13 @@ class ServingFrontend:
                 elif path == "/debug/requests":
                     _json_response(self, 200, _debug_requests(engine))
                 elif path == "/debug/state":
-                    _json_response(self, 200, _debug_state(engine))
+                    _json_response(self, 200, _debug_state(engine, ctl))
                 elif path == "/debug/tokens":
                     _json_response(self, *_debug_tokens(engine, query))
+                elif path == "/debug/timeseries":
+                    _json_response(self, *_debug_timeseries(frontend.history, query))
+                elif path == "/debug/waterfall":
+                    _json_response(self, 200, ensure_attributor().report())
                 elif path == "/debug/profile":
                     try:
                         seconds = float(query.get("seconds", ["3.0"])[-1])
@@ -462,6 +580,9 @@ class ServingFrontend:
                     _json_response(self, 404, {"error": "not found"})
 
             def do_POST(self):
+                if self.path == "/admin/blackbox":
+                    _json_response(self, *_admin_blackbox(frontend.blackbox))
+                    return
                 if self.path == "/profile":
                     try:
                         seconds = float(_read_json(self).get("seconds", 3.0))
@@ -518,14 +639,34 @@ class ServingFrontend:
                         resume_tokens = _int_list(resume_tokens, "resume_tokens")
                     trace_id = _trace_id_from_body(body)
                     timeout = float(body.get("timeout", 300.0))
-                    req = frontend.runner.submit(
-                        ids, sampling, resume_tokens=resume_tokens, trace_id=trace_id
-                    )
+                    slo_kw = {}
+                    if frontend.slo_enabled:
+                        # SLO fields (ignored without a control plane: a
+                        # plain runner has neither tenants nor deadlines
+                        # to enforce them with).
+                        slo_kw["tenant"] = str(body.get("tenant", "default"))
+                        if "ttft_deadline_ms" in body:
+                            slo_kw["ttft_deadline_s"] = float(body["ttft_deadline_ms"]) / 1e3
+                        if "deadline_ms" in body:
+                            slo_kw["e2e_deadline_s"] = float(body["deadline_ms"]) / 1e3
                 except (KeyError, TypeError, ValueError, json.JSONDecodeError) as e:
+                    _json_response(self, 400, {"error": str(e)})
+                    return
+                try:
+                    req = frontend.runner.submit(
+                        ids, sampling, resume_tokens=resume_tokens, trace_id=trace_id, **slo_kw
+                    )
+                except RequestShed as e:  # the overload control plane refused it
+                    self._shed(e)
+                    return
+                except ValueError as e:  # e.g. prompt too long
                     _json_response(self, 400, {"error": str(e)})
                     return
                 except RuntimeError as e:  # submit raced shutdown
                     _json_response(self, 503, {"error": str(e)})
+                    return
+                if body.get("stream"):
+                    self._stream(req)
                     return
                 try:
                     tokens = frontend.runner.wait(req, timeout=timeout)
@@ -536,9 +677,16 @@ class ServingFrontend:
                 tr = req.trace
                 if tr is not None:
                     # The outermost span of the request's flight: submit
-                    # to response ready.
+                    # to response ready (streams record theirs when the
+                    # done event flushes).
                     tr.add("http_request", req.submit_time, time.monotonic() - req.submit_time,
                            cat="http", output_tokens=len(tokens))
+                if req.shed and not tokens:
+                    # Dropped from the SLO queue before any work ran (the
+                    # dispatch-time deadline check or the shutdown flush).
+                    _json_response(self, 503, {"error": f"request shed ({req.shed_reason})",
+                                               "shed": True, "reason": req.shed_reason})
+                    return
                 reply = {
                     "output_ids": tokens,
                     "cached_tokens": req.prefix_len,
@@ -560,7 +708,73 @@ class ServingFrontend:
                     reply["text"] = frontend.tokenizer.decode(tokens)
                 if req.cancelled:
                     reply["cancelled"] = True
+                if req.shed:
+                    reply["shed"] = True
+                    reply["reason"] = req.shed_reason
                 _json_response(self, 200, reply)
+
+            def _shed(self, e: RequestShed) -> None:
+                """429 (rate limited), 413 (a prompt the tenant's bucket can
+                never hold) or 503, with ``Retry-After`` where the shed is
+                retriable. The advertised wait carries bounded jitter, so
+                a herd shed in one instant does not return in one."""
+                body = {"error": str(e), "shed": True, "reason": e.reason}
+                if e.retry_after_s is None:
+                    _json_response(self, e.http_status, body)
+                    return
+                retry_s = jittered_retry_after(e.retry_after_s)
+                raw = json.dumps({**body, "retry_after_s": round(retry_s, 4)}).encode()
+                self.send_response(e.http_status)
+                self.send_header("Content-Type", "application/json")
+                # Before end_headers, as every header must be.
+                self.send_header("Retry-After", str(max(1, int(round(retry_s)))))
+                self.send_header("Content-Length", str(len(raw)))
+                self.end_headers()
+                self.wfile.write(raw)
+
+            def _stream(self, req: Request) -> None:
+                """Server-sent events: one ``data:`` event per new token,
+                then the ``done`` event."""
+                self.send_response(200)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-cache")
+                self.end_headers()
+                sent = 0
+                while True:
+                    tokens = frontend.runner.tokens_so_far(req)
+                    for t in tokens[sent:]:
+                        _sse(self, {"token": t})
+                    sent = len(tokens)
+                    self.wfile.flush()
+                    if req.state is RequestState.FINISHED:
+                        final = frontend.runner.tokens_so_far(req)
+                        for t in final[sent:]:
+                            _sse(self, {"token": t})
+                        done = {"done": True, "output_ids": final}
+                        if req.resume_offset:
+                            done["resumed_from"] = req.resume_offset
+                        if frontend.tokenizer is not None:
+                            done["text"] = frontend.tokenizer.decode(final)
+                        if req.cancelled:
+                            done["cancelled"] = True
+                        _sse(self, done)
+                        self.wfile.flush()
+                        tr = req.trace
+                        if tr is not None:
+                            tr.add("http_request", req.submit_time,
+                                   time.monotonic() - req.submit_time, cat="http", stream=True,
+                                   output_tokens=len(final))
+                        return
+                    # Park until the next token lands or the request
+                    # finishes: the engine notifies per consumed token, so
+                    # first-token latency is not quantized by a poll. The
+                    # 0.5 s re-check covers a notify racing the read above.
+                    with req.cond:
+                        if (
+                            len(req.output_tokens) <= sent
+                            and req.state is not RequestState.FINISHED
+                        ):
+                            req.cond.wait(timeout=0.5)
 
         self._server = _FrontendServer((host, port), Handler)
         self.port = self._server.server_address[1]
@@ -600,5 +814,11 @@ class ServingFrontend:
     def close(self, drain_s: float = 5.0) -> None:
         self._server.shutdown()
         self._server.server_close()
+        if self.blackbox is not None:
+            # A graceful shutdown writes one last final (each final is
+            # complete; the loader takes the newest).
+            self.blackbox.close(flush_cause="shutdown")
+        if self.history is not None:
+            self.history.close()
         self.runner.close(drain_s=drain_s)
         self.runner.engine.close()

@@ -1,9 +1,9 @@
 """The port's HTTP frontend over a tiny CPU engine: ``/generate`` answers
 what ``Engine.generate`` answers on the same weights, ``/healthz`` and
-``/stats`` serve (with the kernels' launch counts), fields of features
-that are not ported yet (``stream``, ``tenant``, ``deadline_ms``) are
-refused with a 400 instead of being ignored, ``seed``, ``resume_tokens``
-and ``trace_id`` are accepted, and ``text`` is answered 400 without a
+``/stats`` serve (with the kernels' launch counts), a plain frontend (no
+SLO control) accepts and ignores ``tenant``, ``ttft_deadline_ms`` and
+``deadline_ms`` as the JAX frontend does and streams for ``stream``,
+``seed``, ``resume_tokens`` and ``trace_id`` are accepted, and ``text`` is answered 400 without a
 tokenizer and with ``text`` by a frontend that has one. A
 frontend over an engine with speculative decode and mixed waves answers
 the JAX engine's greedy tokens and reports both in ``/stats``. A frontend
@@ -98,9 +98,25 @@ def test_health_stats_and_refusals(served):
     assert code == 200 and {"hit_rate", "finished", "prefill_chunks", "kernels"} <= set(stats)
     # CPU tensors: the plain versions ran, no kernel launched.
     assert stats["kernels"]["paged_decode_fused_kernel"] == 0
-    for extra in ({"stream": True}, {"tenant": "a"}, {"deadline_ms": 100}):
-        code, body = _post(fe.port, "/generate", {"input_ids": [1, 2, 3], **extra})
-        assert code == 400 and "not supported" in body["error"], body
+    # A plain frontend (no SLO control) accepts the SLO fields and ignores
+    # them, as the JAX frontend does; "stream" answers server-sent events.
+    code, plain = _post(fe.port, "/generate", {"input_ids": [1, 2, 3], "max_tokens": 2})
+    assert code == 200
+    for extra in ({"tenant": "a"}, {"deadline_ms": 100}, {"ttft_deadline_ms": 1},
+                  {"tenant": "whoever", "ttft_deadline_ms": 1, "deadline_ms": 1}):
+        code, body = _post(fe.port, "/generate", {"input_ids": [1, 2, 3], "max_tokens": 2, **extra})
+        assert code == 200 and body["output_ids"] == plain["output_ids"], body
+        assert "shed" not in body
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{fe.port}/generate",
+        data=json.dumps({"input_ids": [1, 2, 3], "max_tokens": 2, "stream": True}).encode(),
+    )
+    with urllib.request.urlopen(req, timeout=60) as r:
+        assert r.headers["Content-Type"].startswith("text/event-stream")
+        events = [json.loads(line[len(b"data: "):]) for line in r if line.startswith(b"data: ")]
+    assert events == [{"token": t} for t in plain["output_ids"]] + [
+        {"done": True, "output_ids": plain["output_ids"]}]
+    assert "slo" not in stats
     # text without a tokenizer: 400, with the JAX frontend's message.
     code, body = _post(fe.port, "/generate", {"text": "hello"})
     assert code == 400 and "no tokenizer" in body["error"], body
@@ -304,5 +320,75 @@ def test_debug_tokens_404_without_timeline_and_profile_403_without_dir():
         assert e.value.code == 404
         code, body = _post(fe.port, "/profile", {"seconds": 1})
         assert code == 403 and "profile-dir" in body["error"]
+    finally:
+        fe.close(drain_s=0.0)
+
+
+def _post_raw(port, body):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/generate", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, dict(r.headers), json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def test_slo_frontend_sheds_and_reports():
+    """With ``slo=``: a rate-limited tenant's second prompt answers 429
+    with ``Retry-After``; a request whose end-to-end deadline passes while
+    it waits in the SLO queue answers 503 with the shed body; ``/stats``
+    and ``/debug/state`` carry the controller's snapshot, ``/debug/requests``
+    the tenant and the SLO-queue wait; ``/debug/timeseries`` serves the
+    ``radixmesh_slo_*`` series and ``/debug/waterfall`` the attributor."""
+    import threading
+
+    from radixmesh_tpu_torch.slo import SLOConfig, TenantConfig
+
+    cfg = ModelConfig.tiny().replace(dtype=torch.float32)
+    slo = SLOConfig(tenants={"c": TenantConfig(rate_tokens_per_s=0.1, burst_tokens=24)})
+    fe = ServingFrontend(Engine(cfg, init_params(cfg, seed=3, device="cpu"), **ENGINE_KW), port=0,
+                         slo=slo, history_interval_s=0.05)
+    try:
+        code, _, body = _post_raw(fe.port, {"input_ids": list(range(1, 20)), "max_tokens": 3,
+                                            "tenant": "c"})
+        assert code == 200 and len(body["output_ids"]) == 3
+        code, headers, body = _post_raw(fe.port, {"input_ids": list(range(1, 20)), "max_tokens": 3,
+                                                  "tenant": "c"})
+        assert code == 429 and int(headers["Retry-After"]) >= 1, body
+        assert body["shed"] and body["reason"] == "rate_limited" and body["retry_after_s"] > 0
+        # Hold the step lock so the next request waits in the SLO queue
+        # past its 1 ms end-to-end deadline.
+        got = {}
+        with fe.runner._lock:
+            t = threading.Thread(target=lambda: got.update(zip(
+                ("code", "headers", "body"),
+                _post_raw(fe.port, {"input_ids": [4, 5, 6], "max_tokens": 2, "deadline_ms": 1}))))
+            t.start()
+            deadline = time.monotonic() + 30
+            while fe.runner.ctl.snapshot()["queued_requests"] == 0 and time.monotonic() < deadline:
+                time.sleep(0.005)
+            time.sleep(0.02)
+        t.join(timeout=60)
+        assert got["code"] == 503 and got["body"]["shed"], got
+        assert got["body"]["reason"] == "e2e_deadline_expired_in_queue"
+        code, stats = _get(fe.port, "/stats")
+        assert stats["slo"]["total_admitted"] == 1 and stats["slo"]["total_shed"] == 2
+        code, state = _get(fe.port, "/debug/state")
+        assert state["slo"]["tenants"]["c"]["admitted_tokens"] == 19
+        long = threading.Thread(target=_post_raw, args=(fe.port, {"input_ids": [7, 8, 9], "max_tokens": 300,
+                                                                 "tenant": "b"}))
+        long.start()
+        deadline = time.monotonic() + 30
+        rows = []
+        while not rows and time.monotonic() < deadline:
+            rows = [r for r in _get(fe.port, "/debug/requests")[1]["requests"] if r["tenant"] == "b"]
+        assert rows and rows[0]["elapsed_s"]["slo_queue"] is not None
+        long.join(timeout=60)
+        time.sleep(0.1)
+        code, page = _get(fe.port, "/debug/timeseries?family=radixmesh_slo_shed&limit=50")
+        assert code == 200 and any("rate_limited" in n for n in page["series"])
+        code, wf = _get(fe.port, "/debug/waterfall")
+        assert code == 200 and "slo_queue" in wf["phases"]
     finally:
         fe.close(drain_s=0.0)

@@ -5,8 +5,9 @@ encodes bf16 from torch's own bit patterns), nor ``safetensors``,
 ``transformers`` or ``tokenizers`` (the port reads and writes safetensors
 itself, and imports ``transformers`` only when an HF tokenizer directory
 is loaded); entry points default to CUDA and raise
-without it; the launcher refuses flags of features that are not ported yet
-and parses those that are."""
+without it; the launcher refuses the flag of a feature that is not ported
+yet (``--weight-quant``) and parses those that are, the SLO, history and
+black-box flags down to the frontend's arguments."""
 
 import pathlib
 import subprocess
@@ -49,7 +50,10 @@ def test_port_imports_no_jax_and_no_jax_package():
             "radixmesh_tpu_torch.server.tokenizer", "radixmesh_tpu_torch.obs.metrics",
             "radixmesh_tpu_torch.obs.trace_plane", "radixmesh_tpu_torch.obs.tracing",
             "radixmesh_tpu_torch.obs.token_timeline", "radixmesh_tpu_torch.obs.step_plane",
-            "radixmesh_tpu_torch.obs.evictions"} <= walked, r.stdout
+            "radixmesh_tpu_torch.obs.evictions", "radixmesh_tpu_torch.obs.timeseries",
+            "radixmesh_tpu_torch.obs.blackbox", "radixmesh_tpu_torch.slo.control",
+            "radixmesh_tpu_torch.slo.runner", "radixmesh_tpu_torch.policy.retry",
+            "radixmesh_tpu_torch.entry"} <= walked, r.stdout
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -69,14 +73,57 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert len(out[0]) == 16
 
 
-@pytest.mark.parametrize("flag", ["--weight-quant", "--slo", "--blackbox-dir"])
+@pytest.mark.parametrize("flag", ["--weight-quant"])
 def test_launcher_refuses_unported_flags(flag, capsys):
-    from radixmesh_tpu_torch.launch import main
+    from radixmesh_tpu_torch.launch import _NOT_PORTED_FLAGS, main
 
+    assert _NOT_PORTED_FLAGS == ("--weight-quant",)
     with pytest.raises(SystemExit) as e:
         main(["serve", "--model", "llama3-tiny", flag, "2"])
     assert e.value.code == 2
     assert "not supported by the PyTorch port" in capsys.readouterr().err
+
+
+class _Reached(Exception):
+    pass
+
+
+# Each flag this launcher took over from the refusal list, with what
+# ``ServingFrontend`` must receive for it (the JAX launcher's parsing).
+_PORTED_FLAGS = {
+    "--slo": (["--slo"], lambda kw: kw["slo"] is not None and kw["slo"].tenants == {}),
+    "--slo-ttft-ms": (["--slo-ttft-ms", "1500"],
+                      lambda kw: kw["slo"].default_ttft_slo_s == 1.5),
+    "--slo-tenant": (["--slo-tenant", "a=3", "--slo-tenant", "c=1:2000"],
+                     lambda kw: {n: (t.weight, t.rate_tokens_per_s) for n, t in kw["slo"].tenants.items()}
+                     == {"a": (3.0, 0.0), "c": (1.0, 2000.0)}),
+    "--telemetry-history-interval": (["--telemetry-history-interval", "0.25"],
+                                     lambda kw: kw["history_interval_s"] == 0.25 and kw["slo"] is None),
+    "--blackbox-dir": (["--blackbox-dir", "/bb"],
+                       lambda kw: kw["blackbox_dir"] == "/bb" and kw["blackbox_watchdog_s"] == 10.0
+                       and kw["history_interval_s"] == 1.0),
+    "--blackbox-watchdog": (["--blackbox-dir", "/bb", "--blackbox-watchdog", "4"],
+                            lambda kw: kw["blackbox_watchdog_s"] == 4.0),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(_PORTED_FLAGS))
+def test_launcher_passes_ported_flags_to_the_frontend(flag, monkeypatch):
+    import radixmesh_tpu_torch.server.http_frontend as hf
+    from radixmesh_tpu_torch.launch import _NOT_PORTED_FLAGS, main
+
+    assert flag not in _NOT_PORTED_FLAGS
+    seen = {}
+
+    def frontend(engine, **kw):
+        seen.update(kw)
+        raise _Reached
+
+    monkeypatch.setattr(hf, "ServingFrontend", frontend)
+    argv, ok = _PORTED_FLAGS[flag]
+    with pytest.raises(_Reached):
+        main(["serve", "--model", "llama3-tiny", "--device", "cpu", "--kv-slots", "256", *argv])
+    assert ok(seen), seen
 
 
 def test_launcher_parses_kv_quant_int8():
