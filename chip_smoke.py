@@ -161,6 +161,32 @@ Phases (any failure raises and exits non-zero):
    traffic, ``kill -9``: every completed segment loads, the newest sample
    is at most 2 intervals older than the kill, and no final exists. The
    port's ``entry()`` runs on the card first (finite logits).
+14. The disaggregated handoff: Llama-3-8B bf16 at full depth (phase 3's
+   weights), a ``PrefillWorker`` and a ``DecodeWorker`` with their own
+   32768-slot pools, 8 ragged prompts of 500–3000 tokens, 32 greedy tokens,
+   over four transports, each with fresh workers: direct ``submit``, an
+   ``InprocCommunicator`` (whole packets, decode side staged in blocks of 8
+   layers), a ``PyTcpCommunicator`` on loopback streamed through the KV
+   plane's handoff lane in packets of at most 120 tokens (under the 16 MiB
+   frame limit), and ``device_kv=True``. For every transport the decode
+   pool's KV at each request's slots is bit-equal (int16 patterns) to the
+   prefill pool's ``gather_raw`` of it, every transport gives the same
+   tokens, the chunk kernel ran once per layer per prefill chunk on the
+   prefill worker and the decode kernel never, the decode kernel once per
+   layer per decode pass on the decode worker, and no plain version. Printed:
+   per-stage walls and GB/s, the decode side's TTFT, decode tokens/s per
+   request and the share of tokens equal to a collocated engine's. A
+   tail-only handoff (``skip_prefix`` from ``cached_prefix_len``), an int8
+   sender into an int8 receiver (ints and scales bit-equal) and into a
+   bf16 receiver (the dequantized values), and a 2-layer float32 leg
+   (disaggregated equals collocated on the card, card equals CPU).
+15. W8A16 weights: Llama-3-8B quantized on the card (resident bytes bf16
+   against int8, the quantize peak); decode step 4 x 600 and prefill step 8
+   x 2000 walls, bf16 against W8A16 interleaved over five kept rounds;
+   first-token logits and 32 greedy tokens against bf16 (printed); a
+   2-layer float32 W8A16 engine's tokens equal card against CPU; and
+   ``launch.py serve --weight-quant int8`` answering ``/generate``. The
+   W8A16 runs' decode and chunk launches are counted.
 Checkpoints and profiles are written under ``chip_out/`` and removed.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches per path in
@@ -204,7 +230,7 @@ from radixmesh_tpu_torch.models.llama import Llama, init_params
 from radixmesh_tpu_torch.ops import _build
 from radixmesh_tpu_torch.ops import paged_attention as pa
 from radixmesh_tpu_torch.ops.attention import paged_attention_pool_bucketed
-from radixmesh_tpu_torch.ops.quant import quantize_kv
+from radixmesh_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 from radixmesh_tpu_torch.server.http_frontend import ServingFrontend
 from radixmesh_tpu_torch.utils.cuda_timing import bound, dense_context, kv_bytes, sdpa_inputs, time_ms
 
@@ -1259,12 +1285,13 @@ def tier_phase(dev, model, kv_quant=None) -> dict:
     return out
 
 
-def launcher_phase(kv_quant=None) -> dict:
+def launcher_phase(kv_quant=None, weight_quant=None) -> dict:
     """``python -m radixmesh_tpu_torch.launch serve`` with the three tiers
     (``--host-cache-slots``, ``--kv-transfer-async``, ``--kv-tier-dir``) in
     a child process: it must start on the card, answer ``/generate`` (the
     repeat a cache hit) and report the tiers in
-    ``/stats``; it is terminated after."""
+    ``/stats``; it is terminated after. With ``weight_quant`` it serves
+    ``--weight-quant`` W8A16 weights instead, without the tiers."""
     import socket
 
     with socket.socket() as sock:
@@ -1272,11 +1299,14 @@ def launcher_phase(kv_quant=None) -> dict:
         port = sock.getsockname()[1]
     tier_dir = tempfile.mkdtemp(prefix="kv-tier-serve-", dir=OUT_DIR)
     cmd = [sys.executable, "-m", "radixmesh_tpu_torch.launch", "serve", "--model", "llama3-8b",
-           "--http-port", str(port), "--kv-slots", "8192", "--host-cache-slots", "8192",
-           "--kv-transfer-async", "--kv-tier-dir", tier_dir]
+           "--http-port", str(port), "--kv-slots", "8192"]
+    if weight_quant:
+        cmd += ["--weight-quant", weight_quant]
+    else:
+        cmd += ["--host-cache-slots", "8192", "--kv-transfer-async", "--kv-tier-dir", tier_dir]
     if kv_quant:
         cmd += ["--kv-quant", kv_quant]
-    tag = kv_quant or "bf16"
+    tag = weight_quant and f"weights {weight_quant}" or kv_quant or "bf16"
     log = open(OUT_DIR / f"serve_{tag}.log", "w")
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
     t0 = time.monotonic()
@@ -1307,6 +1337,12 @@ def launcher_phase(kv_quant=None) -> dict:
         shutil.rmtree(tier_dir, ignore_errors=True)
     check(len(first["output_ids"]) == 8 and again["cached_tokens"] > 0,
           f"serve {tag}: /generate answered {first} / {again}")
+    if weight_quant:
+        print(f"[serve-cli {tag}] launch.py serve --weight-quant {weight_quant}: /healthz after "
+              f"{ready_s:.1f}s; /generate cached {first['cached_tokens']} then {again['cached_tokens']}; "
+              f"kernels {stats.get('kernels')}", flush=True)
+        return {"ready_s": ready_s, "cached": [first["cached_tokens"], again["cached_tokens"]],
+                "kernels": stats.get("kernels")}
     check({"host_fill", "host_tier", "kv_transfer", "kv_tier"} <= set(stats)
           and stats["host_tier"]["pinned"] and stats["kv_transfer"]["pinned"],
           f"serve {tag}: /stats lacks the tiers or they are not pinned: {sorted(stats)}")
@@ -2409,6 +2445,538 @@ def serving_edge_phase(dev, model, E=EDGE) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: disaggregated prefill→decode handoff
+# ---------------------------------------------------------------------------
+
+# Sizes of phases 14 and 15 (a CPU rehearsal shrinks them): prompt
+# lengths are drawn from ``lengths``; a streamed TCP packet carries at most
+# ``tcp_chunk`` tokens (120 x 131072 B at Llama-3-8B bf16 plus the header
+# stays under DEFAULT_MAX_MSG_BYTES, 16 MiB); the tail-only handoff shares
+# ``tail_base`` tokens; ``f32_model`` names the widths of the 2-layer
+# float32 legs.
+HANDOFF = dict(n_prompts=8, lengths=(500, 3001), new_tokens=32, tcp_chunk=120, tail_base=2000,
+               f32_model="llama3-8b", engine=dict(num_slots=32768, page_size=16, max_batch=8))
+W8 = dict(decode_len=600, prefill_len=2000, rounds=6, decode_slots=4096, prefill_slots=20480,
+          f32_model="llama3-8b")
+TRANSPORTS = ("direct", "inproc", "tcp-py streamed", "device_kv")
+
+
+def _b1_b2() -> dict:
+    """The decode and chunk kernels' launches (both pool dtypes) and the
+    plain versions' calls since the last reset."""
+    c = pa.launch_counts()
+    return {"b1": c["paged_decode_fused_kernel"], "b1_int8": c["paged_decode_fused_kernel[int8]"],
+            "b2": c["paged_chunk_attention_kernel"], "b2_int8": c["paged_chunk_attention_kernel[int8]"],
+            "plain": pa.plain_calls()}
+
+
+class _Tapped:
+    """A prefill worker whose gathers are copied aside (the reference bytes:
+    the prefill pool's ``gather_raw`` of every shipped token) and whose
+    prefills and handoffs are timed."""
+
+    def __init__(self, pw):
+        self.pw, self.ref, self.prefill_s = pw, {}, 0.0
+        gather, admit = pw._gather, pw._admit_one_prompt
+
+        def tap_gather(req, lo, hi):
+            kv, sc = gather(req, lo, hi)
+            self.ref.setdefault(req.prompt.tobytes(), []).append(
+                (lo, kv.clone(), None if sc is None else sc.clone()))
+            return kv, sc
+
+        def tap_admit(prompt, sampling):
+            t = time.perf_counter()
+            req = admit(prompt, sampling)
+            torch.cuda.synchronize()
+            self.prefill_s += time.perf_counter() - t
+            return req
+
+        pw._gather, pw._admit_one_prompt = tap_gather, tap_admit
+
+    def reference(self, prompt):
+        """The gathered KV (and scales) of the shipped tokens of ``prompt``."""
+        parts = sorted(self.ref[np.asarray(prompt, np.int32).tobytes()], key=lambda p: p[0])
+        kv = torch.cat([p[1] for p in parts], dim=2)
+        sc = None if parts[0][2] is None else torch.cat([p[2] for p in parts], dim=2)
+        return kv, sc
+
+
+def _pool_bits(pool, slots):
+    kv, sc = pool.gather_raw(slots)
+    return kv.contiguous(), None if sc is None else sc.contiguous()
+
+
+def _same_bits(a, b) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return bool(torch.equal(a, b))
+
+
+def _wait_pending(dw, n, timeout=120.0) -> float:
+    """Wait until ``n`` requests are queued on ``dw``; returns the instant."""
+    deadline = time.monotonic() + timeout
+    while True:
+        with dw._lock:
+            got = len(dw._pending)
+        if got >= n:
+            return time.perf_counter()
+        check(time.monotonic() < deadline, f"handoff: {got} of {n} requests arrived in {timeout} s")
+        time.sleep(0.001)
+
+
+def _handoff_transport(dev, model, transport, prompts, tag) -> dict:
+    """One transport's handoff of ``prompts`` at Llama-3-8B width: a fresh
+    prefill worker and a fresh decode worker, each with its own pool.
+    Returns tokens, the decode side's TTFTs and decode wall, the prefill and
+    decode launches, per-stage walls and the KV bit-equality verdict."""
+    from radixmesh_tpu_torch.cache.kv_transfer import KVTransferPlane
+    from radixmesh_tpu_torch.comm.communicator import create_communicator
+    from radixmesh_tpu_torch.comm.inproc import InprocHub
+    from radixmesh_tpu_torch.engine.disagg import DecodeWorker, PrefillWorker, pack_handoff
+
+    cfg = model.cfg
+    sp = SamplingParams(max_new_tokens=HANDOFF["new_tokens"])
+    pw = PrefillWorker(cfg, model, device=dev, long_prefill_threshold=0, name=f"pw-{tag}",
+                       **HANDOFF["engine"])
+    tap = _Tapped(pw)
+    comm = rx = plane = None
+    stage_layers = 8 if transport in ("inproc", "tcp-py streamed") else 0
+    if transport == "inproc":
+        InprocHub.reset_default()
+        rx = create_communicator("inproc", "decode", None)
+        comm = create_communicator("inproc", None, "decode")
+    elif transport == "tcp-py streamed":
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        rx = create_communicator("tcp-py", f"127.0.0.1:{port}", None)
+        comm = create_communicator("tcp-py", None, f"127.0.0.1:{port}")
+        plane = KVTransferPlane(name=f"handoff-{tag}")
+    dw = DecodeWorker(Engine(cfg, model, device=dev, name=f"dw-{tag}", **HANDOFF["engine"]), comm=rx,
+                      plane=plane, stage_layers=stage_layers)
+    nbytes = sum(len(p) for p in prompts) * kv_token_bytes(pw.pool)
+    walls = {}
+    try:
+        torch.cuda.synchronize()
+        pa.reset_counters()
+        t0 = time.perf_counter()
+        if transport == "tcp-py streamed":
+            for p in prompts:
+                pw.prefill_handoff_stream(p, sp, send=comm.send, chunk_tokens=HANDOFF["tcp_chunk"],
+                                          plane=plane)
+            prefill_launches = _b1_b2()
+            t_arrived = _wait_pending(dw, len(prompts))
+            walls["prefill_s"] = tap.prefill_s
+            walls["pack_and_wire_s"] = t_arrived - t0 - tap.prefill_s
+        else:
+            pkts = [pw.prefill_handoff(p, sp, device_kv=transport == "device_kv") for p in prompts]
+            torch.cuda.synchronize()
+            prefill_launches = _b1_b2()
+            t1 = time.perf_counter()
+            walls["prefill_s"] = tap.prefill_s
+            walls["pack_s"] = t1 - t0 - tap.prefill_s
+            if transport == "inproc":
+                for pkt in pkts:
+                    comm.send(pack_handoff(pkt))
+                walls["wire_s"] = _wait_pending(dw, len(prompts)) - t1
+            else:
+                for pkt in pkts:
+                    dw.submit(pkt)
+                walls["wire_s"] = time.perf_counter() - t1
+            del pkts
+        with dw._lock:
+            order = {np.asarray(p, np.int32).tobytes(): i for i, p in enumerate(prompts)}
+            reqs = sorted((r for r, _, _ in dw._pending), key=lambda r: order[r.prompt.tobytes()])
+        pa.reset_counters()
+        t = time.perf_counter()
+        dw._admit_pending()
+        torch.cuda.synchronize()
+        walls["stage_write_s"] = time.perf_counter() - t
+        check(all(r.state is RequestState.RUNNING for r in reqs), f"handoff {tag}: a request was not admitted")
+        equal = []
+        for r in reqs:
+            kv, sc = _pool_bits(dw.engine.pool, r.token_slots[: len(r.prompt)])
+            ref_kv, ref_sc = tap.reference(r.prompt)
+            equal.append(_same_bits(kv, ref_kv) and (sc is None) == (ref_sc is None)
+                         and (sc is None or _same_bits(sc, ref_sc)))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dw.run_until_drained()
+        torch.cuda.synchronize()
+        walls["decode_s"] = time.perf_counter() - t
+        decode_launches = _b1_b2()
+    finally:
+        for c in (comm, rx):
+            if c is not None:
+                c.close()
+        if plane is not None:
+            plane.close()
+    L = cfg.n_layers
+    out = {
+        "tokens": [r.generated for r in reqs], "kv_bit_equal": equal, "walls_s": walls,
+        "kv_bytes": nbytes, "ttft_s": list(dw.engine.stats.ttft_s),
+        "prefill_chunks": pw.stats.prefill_chunks, "decode_forwards": dw.engine.stats.decode_forwards,
+        "prefill_launches": prefill_launches, "decode_launches": decode_launches,
+        "lane_bytes": None if plane is None else plane.stats()["lane_bytes"]["handoff"],
+    }
+    moved_s = walls.get("pack_and_wire_s", walls.get("pack_s", 0.0) + walls.get("wire_s", 0.0))
+    out["gb_per_s"] = nbytes / moved_s / 1e9 if moved_s > 0 else None
+    print(f"[handoff {tag}] {len(prompts)} prompts {sum(len(p) for p in prompts)} tokens "
+          f"({nbytes / 1e9:.3f} GB KV): walls {json.dumps({k: round(v, 4) for k, v in walls.items()})}; "
+          f"{out['gb_per_s'] and round(out['gb_per_s'], 3)} GB/s over pack+wire; KV bit-equal {equal}; "
+          f"prefill launches {prefill_launches} ({out['prefill_chunks']} chunk launches), decode launches "
+          f"{decode_launches} ({out['decode_forwards']} decode passes)", flush=True)
+    check(all(equal), f"handoff {tag}: the decode pool's KV differs from the prefill pool's gather")
+    check(prefill_launches["b2"] == L * out["prefill_chunks"] > 0,
+          f"handoff {tag}: prefill chunk launches != layers x chunk passes")
+    check(prefill_launches["b1"] == prefill_launches["b1_int8"] == 0,
+          f"handoff {tag}: the decode kernel ran on the prefill worker")
+    check(decode_launches["b1"] == L * out["decode_forwards"] > 0,
+          f"handoff {tag}: decode kernel launches != layers x decode passes")
+    check(decode_launches["b2"] == 0, f"handoff {tag}: the chunk kernel ran on the decode worker")
+    check(prefill_launches["plain"] == decode_launches["plain"] == 0, f"handoff {tag}: plain attention calls")
+    check(all(len(t) == HANDOFF["new_tokens"] for t in out["tokens"]), f"handoff {tag}: short outputs")
+    del pw, dw
+    torch.cuda.empty_cache()
+    return out
+
+
+def _handoff_tail_only(dev, model, prompts) -> dict:
+    """A tail-only handoff: a decode worker caches a prompt, then a second
+    prompt sharing its first ``tail_base`` tokens ships only what the
+    receiver does not cache (``skip_prefix`` from ``cached_prefix_len``)."""
+    from radixmesh_tpu_torch.engine.disagg import DecodeWorker, PrefillWorker
+
+    cfg = model.cfg
+    sp = SamplingParams(max_new_tokens=8)
+    n_base = HANDOFF["tail_base"]
+    pw = PrefillWorker(cfg, model, device=dev, long_prefill_threshold=0, name="pw-tail", **HANDOFF["engine"])
+    tap = _Tapped(pw)
+    dw = DecodeWorker(Engine(cfg, model, device=dev, name="dw-tail", **HANDOFF["engine"]))
+    base = np.random.default_rng(17).integers(0, cfg.vocab_size, size=n_base).tolist()
+    first = base + prompts[1][:300]
+    second = base + prompts[2][:300]
+    dw.submit(pw.prefill_handoff(first, sp))
+    dw.run_until_drained()
+    skip = dw.cached_prefix_len(second)
+    pkt = pw.prefill_handoff(second, sp, skip_prefix=skip)
+    r = dw.submit(pkt)
+    dw._admit_pending()
+    kv, _ = _pool_bits(dw.engine.pool, r.token_slots[skip: len(second)])
+    ref, _ = tap.reference(second)
+    equal = _same_bits(kv, ref)
+    dw.run_until_drained()
+    print(f"[handoff tail-only] skip_prefix {skip} of {len(second)}: shipped {pkt.kv.shape[2]} tokens; "
+          f"decode reused {dw.engine.stats.cached_tokens} cached tokens; tail KV bit-equal {equal}; "
+          f"dropped {dw.dropped}; tokens {r.generated}", flush=True)
+    check(skip == n_base and pkt.kv.shape[2] == len(second) - skip,
+          "handoff tail-only: the packet did not skip the cached prefix")
+    check(equal and dw.dropped == 0 and len(r.generated) == 8, "handoff tail-only: wrong tail or dropped")
+    del pw, dw
+    torch.cuda.empty_cache()
+    return {"skip": skip, "shipped": int(pkt.kv.shape[2]), "tail_bit_equal": equal}
+
+
+def _handoff_int8_legs(dev, model, prompts) -> dict:
+    """An int8 prefill pool handing off to an int8 decode pool (the ints and
+    scales bit-equal) and to a bf16 decode pool (the dequantized values,
+    rounded to bf16, bit-equal)."""
+    from radixmesh_tpu_torch.engine.disagg import DecodeWorker, PrefillWorker
+
+    cfg = model.cfg
+    sp = SamplingParams(max_new_tokens=8)
+    out = {}
+    for receiver in ("int8", None):
+        tag = f"int8->{receiver or 'bf16'}"
+        pw = PrefillWorker(cfg, model, device=dev, long_prefill_threshold=0, kv_quant="int8",
+                           name=f"pw-{tag}", **HANDOFF["engine"])
+        tap = _Tapped(pw)
+        dw = DecodeWorker(Engine(cfg, model, device=dev, kv_quant=receiver, name=f"dw-{tag}",
+                                 **HANDOFF["engine"]), stage_layers=8)
+        pa.reset_counters()
+        pkts = [pw.prefill_handoff(p, sp) for p in prompts]
+        torch.cuda.synchronize()
+        prefill_launches = _b1_b2()
+        reqs = [dw.submit(pkt) for pkt in pkts]
+        pa.reset_counters()
+        dw._admit_pending()
+        equal = []
+        for r in reqs:
+            kv, sc = _pool_bits(dw.engine.pool, r.token_slots[: len(r.prompt)])
+            ref_kv, ref_sc = tap.reference(r.prompt)
+            if receiver == "int8":
+                equal.append(_same_bits(kv, ref_kv) and _same_bits(sc, ref_sc))
+            else:
+                equal.append(_same_bits(kv, dequantize_kv(ref_kv, ref_sc).to(torch.bfloat16)))
+        dw.run_until_drained()
+        torch.cuda.synchronize()
+        decode_launches = _b1_b2()
+        L = cfg.n_layers
+        print(f"[handoff {tag}] {len(prompts)} prompts: KV bit-equal {equal}; prefill launches "
+              f"{prefill_launches}; decode launches {decode_launches}; tokens {[r.generated for r in reqs]}",
+              flush=True)
+        check(all(equal), f"handoff {tag}: the decode pool's KV differs from the shipped int8 payload")
+        check(prefill_launches["b2_int8"] == L * pw.stats.prefill_chunks > 0
+              and prefill_launches["b1"] + prefill_launches["b1_int8"] == 0,
+              f"handoff {tag}: prefill launches {prefill_launches}")
+        b1 = decode_launches["b1_int8" if receiver else "b1"]
+        check(b1 == L * dw.engine.stats.decode_forwards > 0 and decode_launches["plain"] == 0,
+              f"handoff {tag}: decode launches {decode_launches}")
+        out[tag] = {"kv_bit_equal": equal, "prefill_launches": prefill_launches,
+                    "decode_launches": decode_launches, "tokens": [r.generated for r in reqs]}
+        del pw, dw, pkts
+        torch.cuda.empty_cache()
+    return out
+
+
+def _handoff_f32_leg(dev) -> dict:
+    """2-layer float32 Llama-3-8B widths: disaggregated (over the wire
+    bytes, layer-staged) against collocated on the card, and the card
+    against the CPU."""
+    from radixmesh_tpu_torch.engine.disagg import DecodeWorker, PrefillWorker, pack_handoff
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(HANDOFF["f32_model"], n_layers=2, dtype=torch.float32)
+    params = init_params(cfg, seed=1, device="cpu")
+    kw = dict(num_slots=1024, page_size=16, max_batch=2, long_prefill_threshold=16, prefill_chunk=64)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (150, 40)]
+    sp = SamplingParams(max_new_tokens=16)
+    out = {}
+    for name, device in (("cuda", dev), ("cpu", "cpu")):
+        pw = PrefillWorker(cfg, params, device=device, **kw)
+        dw = DecodeWorker(Engine(cfg, params, device=device, **kw), stage_layers=1)
+        for p in prompts:
+            dw._on_packet(pack_handoff(pw.prefill_handoff(p, sp)))
+        reqs = [r for r, _, _ in dw._pending]
+        dw.run_until_drained()
+        out[name] = [r.generated for r in reqs]
+    coll = Engine(cfg, params, device=dev, **kw)
+    out["collocated cuda"] = [coll.generate([p], sp)[0] for p in prompts]
+    print(f"[handoff f32] 2-layer f32 llama3-8b widths: disaggregated card {out['cuda']}, CPU {out['cpu']}; "
+          f"collocated card {out['collocated cuda']}", flush=True)
+    check(out["cuda"] == out["collocated cuda"], "handoff f32: disaggregated != collocated tokens on the card")
+    check(out["cuda"] == out["cpu"], "handoff f32: card != CPU tokens")
+    return out
+
+
+def _warm_pinned(sizes) -> float:
+    """Allocate and free pinned host blocks of ``sizes`` bytes, twice over
+    (a packet's sender and receiver copies), so PyTorch's pinned host
+    allocator has them cached as in a server that has been handing off for
+    a while: the transports' walls then time copies, not page locking.
+    Returns the seconds it took."""
+    t = time.perf_counter()
+    blocks = [torch.empty(n, dtype=torch.uint8, pin_memory=True) for n in list(sizes) * 2]
+    del blocks
+    return time.perf_counter() - t
+
+
+def handoff_phase(dev, model) -> dict:
+    """Phase 14: the disaggregated handoff at Llama-3-8B width (module
+    docstring). Every transport ships the same bytes into the same decode
+    batch, so every transport gives the same tokens."""
+    cfg = model.cfg
+    rng = np.random.default_rng(14)
+    lengths = [int(n) for n in rng.integers(*HANDOFF["lengths"], size=HANDOFF["n_prompts"])]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in lengths]
+    out = {"lengths": lengths, "transports": {}}
+    if dev.type == "cuda":
+        tok = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 2  # bf16 KV bytes per token
+        chunk = HANDOFF["tcp_chunk"]
+        out["pinned_warmup_s"] = _warm_pinned([n * tok for n in lengths] + [chunk * tok] * 2
+                                              + [(n % chunk or chunk) * tok for n in lengths])
+        print(f"[handoff] pinned host allocator warmed in {out['pinned_warmup_s']:.2f} s", flush=True)
+    for transport in TRANSPORTS:
+        out["transports"][transport] = _handoff_transport(dev, model, transport, prompts, transport)
+    runs = out["transports"]
+    tokens = {t: r["tokens"] for t, r in runs.items()}
+    check(all(tok == tokens["direct"] for tok in tokens.values()),
+          f"handoff: transports gave different tokens: {[t for t in tokens if tokens[t] != tokens['direct']]}")
+    # The collocated engine prefills the 8 prompts as one group (other
+    # launch shapes, other bf16 rounding): its agreement is printed only.
+    n_new = HANDOFF["new_tokens"]
+    coll = Engine(cfg, model, device=dev, name="handoff-collocated", **HANDOFF["engine"])
+    reqs = [coll.add_request(p, SamplingParams(max_new_tokens=n_new)) for p in prompts]
+    coll.step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _drain(coll)
+    torch.cuda.synchronize()
+    coll_decode_s = time.perf_counter() - t
+    same = sum(a == b for r, d in zip(reqs, tokens["direct"]) for a, b in zip(r.generated, d))
+    out["collocated"] = {"tokens_equal_share": same / (len(prompts) * n_new),
+                         "ttft_s": list(coll.stats.ttft_s),
+                         "decode_tok_s_per_request": (n_new - 2) / coll_decode_s}
+    del coll
+    torch.cuda.empty_cache()
+    for t, r in runs.items():
+        r["decode_tok_s_per_request"] = (n_new - 1) / r["walls_s"]["decode_s"]
+    print(f"[handoff] tokens equal across {len(runs)} transports; share equal to a collocated engine's "
+          f"{out['collocated']['tokens_equal_share']:.4f}; TTFT p50 decode side (direct) "
+          f"{np.median(runs['direct']['ttft_s']):.4f} s vs collocated {np.median(out['collocated']['ttft_s']):.4f} s; "
+          f"decode tokens/s per request {json.dumps({t: round(r['decode_tok_s_per_request'], 2) for t, r in runs.items()})} "
+          f"vs collocated {out['collocated']['decode_tok_s_per_request']:.2f}", flush=True)
+    out["tail_only"] = _handoff_tail_only(dev, model, prompts)
+    out["int8"] = _handoff_int8_legs(dev, model, prompts[:2])
+    out["f32"] = _handoff_f32_leg(dev)
+    for r in runs.values():
+        r.pop("tokens")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: W8A16 weights
+# ---------------------------------------------------------------------------
+
+def _param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def _w8_walls(dev, models: dict) -> dict:
+    """Decode step wall at 4 x 600 and prefill step wall at 8 x 2000, bf16
+    against W8A16, interleaved in one process (order reversed every other
+    round). Each wall: decode, the median of five 8-step windows; prefill,
+    one admission step of the 8 prompts (one group prefill plus the first
+    decode step). The W8A16 runs' launches are counted."""
+    cfg = next(iter(models.values())).cfg
+    rng = np.random.default_rng(15)
+    dec_prompts = [rng.integers(0, cfg.vocab_size, size=W8["decode_len"]).tolist() for _ in range(4)]
+    pre_prompts = [rng.integers(0, cfg.vocab_size, size=W8["prefill_len"]).tolist() for _ in range(8)]
+    walls = {name: {"decode_ms": [], "prefill_ms": []} for name in models}
+    launches = {"b1": 0, "b2": 0, "plain": 0, "decode_forwards": 0, "prefill_chunks": 0}
+    names = list(models)
+    for rnd in range(W8["rounds"]):
+        for name in (names if rnd % 2 == 0 else names[::-1]):
+            model = models[name]
+            if name == "w8a16":
+                pa.reset_counters()
+            eng = Engine(cfg, model, num_slots=W8["decode_slots"], page_size=16, max_batch=4, device=dev,
+                         name=f"w8-d-{rnd}")
+            for p in dec_prompts:
+                eng.add_request(p, SamplingParams(max_new_tokens=48))
+            eng.step()
+            eng.step()
+            ws = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(8):
+                    eng.step()
+                ws.append((time.perf_counter() - t) / 8 * 1e3)
+            _drain(eng)
+            st = _counts(eng)
+            del eng
+            eng = Engine(cfg, model, num_slots=W8["prefill_slots"], page_size=16, max_batch=8, device=dev,
+                         name=f"w8-p-{rnd}")
+            for p in pre_prompts:
+                eng.add_request(p, SamplingParams(max_new_tokens=2))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            pre_ms = (time.perf_counter() - t) * 1e3
+            _drain(eng)
+            if name == "w8a16":
+                torch.cuda.synchronize()
+                c = _b1_b2()
+                launches["b1"] += c["b1"]
+                launches["b2"] += c["b2"]
+                launches["plain"] += c["plain"]
+                launches["decode_forwards"] += st["decode_forwards"] + eng.stats.decode_forwards
+                launches["prefill_chunks"] += st["prefill_chunks"] + eng.stats.prefill_chunks
+            del eng
+            torch.cuda.empty_cache()
+            if rnd > 0:
+                walls[name]["decode_ms"].append(float(np.median(ws)))
+                walls[name]["prefill_ms"].append(pre_ms)
+    return {"walls": walls, "launches": launches}
+
+
+def _w8_f32_leg(dev) -> dict:
+    """2-layer float32 Llama-3-8B widths with W8A16 weights: the card's
+    greedy tokens equal the CPU's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(W8["f32_model"], n_layers=2, dtype=torch.float32)
+    params = init_params(cfg, seed=1, device="cpu")
+    kw = dict(num_slots=1024, page_size=16, max_batch=2, long_prefill_threshold=16, prefill_chunk=64,
+              weight_quant="int8")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (150, 40)]
+    out, logits = {}, {}
+    for name, device in (("cuda", dev), ("cpu", "cpu")):
+        eng = Engine(cfg, params, device=device, **kw)
+        logits[name] = []
+        eng.on_first_logits = lambda req, row, name=name: logits[name].append(row.float().cpu())
+        out[name] = eng.generate(prompts, SamplingParams(max_new_tokens=16))
+        check(eng.model.layers["wq"].dtype == torch.int8, "w8a16 f32: the weights are not int8")
+    diff = max((a - b).abs().max().item() for a, b in zip(logits["cuda"], logits["cpu"]))
+    print(f"[w8a16 f32] 2-layer f32 llama3-8b widths, W8A16: first-token logits max|cuda-cpu| {diff:.3e}; "
+          f"tokens cuda={out['cuda']} cpu={out['cpu']}", flush=True)
+    check(out["cuda"] == out["cpu"], "w8a16 f32: card vs CPU greedy tokens differ")
+    return {"tokens": out, "logits_max_abs_diff": diff}
+
+
+def w8a16_phase(dev, model) -> dict:
+    """Phase 15: W8A16 weights at Llama-3-8B width, beside the bf16 model."""
+    from radixmesh_tpu_torch.ops.wquant import quantize_params
+
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with torch.inference_mode():
+        w8 = Llama(cfg, quantize_params(model.param_tree()))
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t
+    resident = {"bf16_bytes": _param_bytes(model), "w8a16_bytes": _param_bytes(w8),
+                "w8a16_allocated_delta": torch.cuda.memory_allocated() - before,
+                "quantize_peak_over_before": torch.cuda.max_memory_allocated() - before,
+                "quantize_s": quant_s}
+    print(f"[w8a16] resident weights: bf16 {resident['bf16_bytes'] / 1e9:.3f} GB, W8A16 "
+          f"{resident['w8a16_bytes'] / 1e9:.3f} GB (allocated delta {resident['w8a16_allocated_delta'] / 1e9:.3f} GB; "
+          f"quantize peak over the bf16 model {resident['quantize_peak_over_before'] / 1e9:.3f} GB, "
+          f"{quant_s:.2f} s)", flush=True)
+    check(w8.weight_quant == "int8" and resident["w8a16_bytes"] < 0.51 * resident["bf16_bytes"],
+          "w8a16: the int8 model is not about half the bf16 bytes")
+    # Accuracy (reported): first-token logits and 32 greedy tokens.
+    prompt = np.random.default_rng(16).integers(0, cfg.vocab_size, size=W8["decode_len"]).tolist()
+    acc = {}
+    for name, m in (("bf16", model), ("w8a16", w8)):
+        eng = Engine(cfg, m, num_slots=W8["decode_slots"], page_size=16, max_batch=4, device=dev,
+                     name=f"w8-acc-{name}")
+        rows = []
+        eng.on_first_logits = lambda req, row: rows.append(row.float())
+        acc[name] = (eng.generate([prompt], SamplingParams(max_new_tokens=32))[0], rows[0])
+        del eng
+    logit_diff = (acc["bf16"][1] - acc["w8a16"][1]).abs().max().item()
+    agree = sum(a == b for a, b in zip(acc["bf16"][0], acc["w8a16"][0])) / 32
+    print(f"[w8a16] first-token logits max|bf16 - w8a16| {logit_diff:.4f} (bf16 max|logit| "
+          f"{acc['bf16'][1].abs().max().item():.4f}); greedy agreement over 32 tokens {agree:.4f}", flush=True)
+    walls = _w8_walls(dev, {"bf16": model, "w8a16": w8})
+    L = cfg.n_layers
+    lc = walls["launches"]
+    med = {n: {k: float(np.median(v)) for k, v in w.items()} for n, w in walls["walls"].items()}
+    print(f"[w8a16] walls over {W8['rounds'] - 1} interleaved rounds (median): "
+          f"{json.dumps({n: {k: round(v, 3) for k, v in m.items()} for n, m in med.items()})}; per round "
+          f"{json.dumps(walls['walls'])}; W8A16 decode x{med['w8a16']['decode_ms'] / med['bf16']['decode_ms']:.3f}, "
+          f"prefill x{med['w8a16']['prefill_ms'] / med['bf16']['prefill_ms']:.3f} of bf16; W8A16 launches {lc}",
+          flush=True)
+    check(lc["b1"] == L * lc["decode_forwards"] > 0 and lc["b2"] == L * lc["prefill_chunks"] > 0
+          and lc["plain"] == 0, f"w8a16: launches {lc}")
+    del w8
+    torch.cuda.empty_cache()
+    return {"resident": resident, "logits_max_abs_diff_vs_bf16": logit_diff, "greedy_agreement_32": agree,
+            "walls": walls["walls"], "median_ms": med, "launches": lc, "f32": _w8_f32_leg(dev)}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the whole path, card vs CPU
 # ---------------------------------------------------------------------------
 
@@ -2579,11 +3147,20 @@ def main() -> int:
     t = time.monotonic()
     edge = serving_edge_phase(dev, model)
     print(f"[time] serving edge phase {time.monotonic() - t:.1f}s", flush=True)
+    t = time.monotonic()
+    handoff = handoff_phase(dev, model)
+    print(f"[time] handoff phase {time.monotonic() - t:.1f}s", flush=True)
+    t = time.monotonic()
+    w8a16 = w8a16_phase(dev, model)
+    print(f"[time] w8a16 phase {time.monotonic() - t:.1f}s", flush=True)
     del model
     torch.cuda.empty_cache()
     t = time.monotonic()
     serve_cli = {tag: launcher_phase(quant) for tag, quant in (("bf16", None), ("int8", "int8"))}
     print(f"[time] serve launcher phases {time.monotonic() - t:.1f}s", flush=True)
+    t = time.monotonic()
+    w8a16["serve_cli"] = launcher_phase(weight_quant="int8")
+    print(f"[time] w8a16 serve launcher {time.monotonic() - t:.1f}s", flush=True)
     t = time.monotonic()
     qwen = qwen2_serving_phase(dev)
     print(f"[time] qwen2-7b serving phase {time.monotonic() - t:.1f}s", flush=True)
@@ -2608,17 +3185,27 @@ def main() -> int:
                                   for k, v in serving.items() if "paged_decode_fused" in v["launches"]},
                                "tiers bf16": tiers["bf16"]["launches"]["paged_decode_fused"],
                                "replay bf16 http": replay["bf16 http"]["launches"]["paged_decode_fused"],
-                               "serving edge": edge["launches"]["paged_decode_fused"]},
+                               "serving edge": edge["launches"]["paged_decode_fused"],
+                               "disagg decode bf16": sum(r["decode_launches"]["b1"]
+                                                         for r in handoff["transports"].values()),
+                               "disagg decode int8->bf16": handoff["int8"]["int8->bf16"]["decode_launches"]["b1"],
+                               "w8a16 serving": w8a16["launches"]["b1"]},
         "paged_decode_fused[int8]": {"serving int8": serving["int8"]["launches"]["paged_decode_fused[int8]"],
-                                     "tiers int8": tiers["int8"]["launches"]["paged_decode_fused[int8]"]},
+                                     "tiers int8": tiers["int8"]["launches"]["paged_decode_fused[int8]"],
+                                     "disagg decode int8":
+                                         handoff["int8"]["int8->int8"]["decode_launches"]["b1_int8"]},
         "paged_chunk_attention": {**{f"serving {k}": v["launches"]["paged_chunk_attention"]
                                      for k, v in serving.items() if "paged_chunk_attention" in v["launches"]},
                                   "tiers bf16": tiers["bf16"]["launches"]["paged_chunk_attention"],
                                   "replay bf16 http": replay["bf16 http"]["launches"]["paged_chunk_attention"],
-                                  "serving edge": edge["launches"]["paged_chunk_attention"]},
+                                  "serving edge": edge["launches"]["paged_chunk_attention"],
+                                  "disagg prefill bf16": sum(r["prefill_launches"]["b2"]
+                                                             for r in handoff["transports"].values()),
+                                  "w8a16 serving": w8a16["launches"]["b2"]},
         "paged_chunk_attention[int8]": {
             "serving int8": serving["int8"]["launches"]["paged_chunk_attention[int8]"],
-            "tiers int8": tiers["int8"]["launches"]["paged_chunk_attention[int8]"]},
+            "tiers int8": tiers["int8"]["launches"]["paged_chunk_attention[int8]"],
+            "disagg prefill int8": sum(leg["prefill_launches"]["b2_int8"] for leg in handoff["int8"].values())},
         "paged_chunk_attention[f32]": {**{f"whole path {k}": w["launches"]["chunk_cuda_core_body"]
                                           for k, w in whole.items() if not k.startswith("qwen2")},
                                        "replay f32": replay["f32"]["launches"]["chunk_cuda_core_body"]},
@@ -2719,7 +3306,7 @@ def main() -> int:
               "build": {k: v["seconds"] for k, v in log.items()}, "sass": sass, "kernels": kernels,
               "groups": groups, "serving": serving, "tiers": tiers, "serve_cli": serve_cli,
               "qwen2_serving": qwen, "checkpoint": ckpt, "serve_text": serve_text, "whole_path": whole,
-              "replay": replay, "serving_edge": edge}
+              "replay": replay, "serving_edge": edge, "handoff": handoff, "w8a16": w8a16}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -17,6 +17,8 @@ replica (the JAX package's ``cache/kv_pool.py``: ``SlotAllocator`` and
 - ``gather_raw``/``write_raw`` move the stored representation (int8 with
   its scales) in the token-major ``[2, L, n, Hkv, D]`` format that the
   host and disk tiers keep (``cache/host_cache.py``, ``cache/kv_tier.py``).
+- ``write_block`` stores such a block for a range of layers: the
+  disaggregated handoff's write (``engine/disagg.py``).
 """
 
 from __future__ import annotations
@@ -262,6 +264,48 @@ class PagedKVPool:
         self.kv[:, :, :, idx] = kv.to(self.kv.device).permute(0, 1, 3, 2, 4)
         if scales is not None:
             self.kv_scale[:, :, :, idx] = scales.to(self.kv.device).permute(0, 1, 3, 2)
+
+    def write_block(self, slots, kv: torch.Tensor, layer0: int = 0,
+                    scales: torch.Tensor | None = None, ready=None) -> None:
+        """Store a token-major ``[2, nL, n, H, D]`` block covering layers
+        ``[layer0, layer0 + nL)`` at ``slots`` (the staged handoff's write,
+        ``engine/disagg.py``). The JAX package's dtype dispatch: ``scales``
+        given → the ints and scales verbatim (int8 pools only); an int8
+        pool without scales → quantize on store; a plain pool → cast and
+        store. A full-layer block goes through :meth:`write` /
+        :meth:`write_raw`. ``ready``: a CUDA event recorded after the copy
+        that produced ``kv`` on another stream; the current stream waits on
+        it before the scatter, and the block's memory is marked as used by
+        the current stream."""
+        if len(slots) == 0:
+            return
+        if scales is not None and self.quant is None:
+            raise ValueError("raw quantized blocks target quantized pools")
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.kv.device)
+            stream.wait_event(ready)
+            for t in (kv, scales):
+                if t is not None:
+                    t.record_stream(stream)
+        nl = kv.shape[1]
+        if layer0 == 0 and nl == self.num_layers:
+            if scales is not None:
+                self.write_raw(slots, kv, scales)
+            else:
+                self.write(slots, kv[0], kv[1])
+            return
+        idx = self._index(slots)
+        layers = slice(layer0, layer0 + nl)
+        new_kv = kv.permute(0, 1, 3, 2, 4)  # token- → head-major [2, nL, H, n, D]
+        if scales is not None:
+            self.kv[:, layers, :, idx] = new_kv.to(self.dtype)
+            self.kv_scale[:, layers, :, idx] = scales.permute(0, 1, 3, 2).float()
+        elif self.quant is not None:
+            q, scale = quantize_kv(new_kv)
+            self.kv[:, layers, :, idx] = q
+            self.kv_scale[:, layers, :, idx] = scale
+        else:
+            self.kv[:, layers, :, idx] = new_kv.to(self.dtype)
 
     def page_table(self, slots: np.ndarray) -> np.ndarray:
         """Page ids covering a page-aligned run of slots."""

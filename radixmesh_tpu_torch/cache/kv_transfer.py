@@ -13,8 +13,11 @@ engine's scheduling thread (this package's port of the JAX package's
 - **spill** (host arena → disk extent, ``cache/kv_tier.py``): the worker
   reads the arena and writes a checksummed extent; the engine commits it.
 
-The handoff lane (``submit_task``/``note_handoff``) is an API here: the
-disaggregated handoff that calls it is not ported yet.
+The handoff lane (``submit_task``/``note_handoff``) carries the
+disaggregated handoff (``engine/disagg.py``): a prefill worker's streamed
+chunks are copied to the host, packed and sent by ``submit_task`` closures
+on the worker, and both sides account their staged blocks with
+``note_handoff``.
 
 **What the JAX worker's ``jnp.asarray`` staging becomes on CUDA.** The JAX
 plane leans on XLA's async dispatch and buffer donation for its ordering;
@@ -770,11 +773,13 @@ class KVTransferPlane:
             return not any(it[0] == "spill" for it in self._data_q)
 
     # ------------------------------------------------------------------
-    # handoff lane (API only: the disaggregated handoff is not ported)
+    # handoff lane (engine/disagg.py)
     # ------------------------------------------------------------------
 
     def submit_task(self, fn) -> None:
-        """Queue a handoff-lane closure on the worker, FIFO with restores."""
+        """Queue a handoff-lane closure on the worker, FIFO with restores
+        (``PrefillWorker.prefill_handoff_stream``: one chunk's copy to the
+        host, pack and send)."""
         with self._lock:
             self._data_q.append(("task", fn))
         self._work_evt.set()

@@ -99,8 +99,10 @@ by cause), records request-flight spans when the recorder samples
 and, with ``step_accounting``, per-wave MFU and padding
 (``obs/step_plane.py``). Each is one ``is not None`` branch when off.
 
-Not ported yet, and refused rather than ignored: the cache mesh (and with
-it routed prefetch hints), pp/sp/tp, W8A16 weights and SLO control.
+W8A16 weights (``weight_quant="int8"``, ``ops/wquant.py``) and the
+disaggregated handoff's decode-side admission (``_install_running``, driven
+by ``engine/disagg.py``) are the JAX engine's. Not ported yet: the cache
+mesh (and with it routed prefetch hints) and pp/sp/tp.
 """
 
 from __future__ import annotations
@@ -131,6 +133,7 @@ from radixmesh_tpu_torch.obs.token_timeline import STALL_CAUSES, GoodputLedger, 
 from radixmesh_tpu_torch.obs.trace_plane import get_recorder
 from radixmesh_tpu_torch.ops.attention import default_use_kernel, last_dispatch, select_paged
 from radixmesh_tpu_torch.ops.sampling import sample_tokens, spec_verify_sample
+from radixmesh_tpu_torch.ops.wquant import quantize_params
 from radixmesh_tpu_torch.utils.device import resolve_device
 from radixmesh_tpu_torch.utils.logging import get_logger
 
@@ -262,6 +265,7 @@ class Engine:
         token_stall_threshold_s: float = 0.05,
         step_accounting: bool = False,
         peak_tflops: float | None = None,
+        weight_quant: str | None = None,
     ):
         """``params`` is a param tree (``init_params`` / ``params_from_jax``)
         or a built :class:`Llama`. ``device`` defaults to CUDA and raises
@@ -271,7 +275,10 @@ class Engine:
         defaults, which run the legacy schedule with one tier (module
         docstring). ``name`` labels the engine's registry series (default
         ``engine<N>``); ``stream_publish_tokens``, the token timeline and
-        step accounting are as in the JAX engine."""
+        step accounting are as in the JAX engine. ``weight_quant="int8"``
+        serves W8A16 weights (``ops/wquant.py``): a param tree or a
+        full-precision ``Llama`` is quantized before the model is built; a
+        ``Llama`` that is already W8A16 is taken as it is."""
         if page_size & (page_size - 1):
             raise ValueError("page_size must be a power of two")
         if kv_tier_dir is not None and host_cache_slots <= 0:
@@ -283,8 +290,16 @@ class Engine:
         self.name = name or f"engine{next(_engine_seq)}"
         self.device = resolve_device(device)
         self.cfg = cfg
+        if weight_quant is not None:
+            if weight_quant != "int8":
+                raise ValueError(f"unknown weight quantization {weight_quant!r}")
+            if not isinstance(params, Llama):
+                params = quantize_params(params)
+            elif params.weight_quant is None:
+                params = quantize_params(params.param_tree())
         model = params if isinstance(params, Llama) else Llama(cfg, params)
         self.model = model.to(self.device)
+        self.weight_quant = model.weight_quant
         self.page_size = page_size
         self.max_batch = max_batch
         self.max_seq_len = max_seq_len or cfg.max_seq_len
@@ -1160,6 +1175,14 @@ class Engine:
         self._page_table[row] = self._scratch_page
         n_pages = -(-req.kv_len // self.page_size)
         self._page_table[row, :n_pages] = req.token_slots[:: self.page_size] // self.page_size
+
+    def _install_running(self, req: Request, row: int, reuse: int) -> None:
+        """Admission's tail for a request whose first token is already
+        known (the disaggregated handoff, ``engine/disagg.py``): install,
+        seed the decode row with that token and record the TTFT."""
+        self._install_prefilled(req, row, reuse)
+        self._tokens[row] = req.output_tokens[-1]
+        self._record_first_token(req)
 
     @staticmethod
     def _seeded_launch(rows: Iterable[Request | None]) -> bool:

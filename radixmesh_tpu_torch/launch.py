@@ -2,6 +2,7 @@
 
     python -m radixmesh_tpu_torch.launch serve --model llama3-8b --device cuda
     python -m radixmesh_tpu_torch.launch serve --model llama3-8b --kv-quant int8
+    python -m radixmesh_tpu_torch.launch serve --model llama3-8b --weight-quant int8
     python -m radixmesh_tpu_torch.launch serve --spec-decode-tokens 4 \
         --prefill-inline-budget 64 --decode-steps-per-launch 4 --paged-min-batch 2
     python -m radixmesh_tpu_torch.launch serve --host-cache-slots 32768 \
@@ -25,7 +26,7 @@ tokenizer directory, which needs ``transformers``) lets requests send
 ``text``. The device defaults to CUDA and the launcher
 exits with an error where torch has none; ``--device cpu`` runs the plain
 PyTorch path. ``--kv-quant int8`` stores the KV pool as int8 with per-token
-scales. The schedule flags (``--decode-steps-per-launch``,
+scales; ``--weight-quant int8`` serves W8A16 weights (``ops/wquant.py``). The schedule flags (``--decode-steps-per-launch``,
 ``--prefill-inline-budget``, ``--prefill-inline-max-defer``,
 ``--paged-min-batch``, ``--spec-decode-tokens``, ``--spec-adaptive``) take
 the JAX launcher's defaults, which run the legacy schedule. The tier flags
@@ -58,8 +59,9 @@ import threading
 
 __all__ = ["main", "parse_args"]
 
-# ``serve`` flags of the JAX launcher whose features are not ported yet.
-_NOT_PORTED_FLAGS = ("--weight-quant",)
+# ``serve`` flags of the JAX launcher whose features are not ported yet
+# (none since ``--weight-quant``; the check stays for the next one).
+_NOT_PORTED_FLAGS: tuple[str, ...] = ()
 
 
 def _configure_tracing(args: argparse.Namespace, node: str = "") -> None:
@@ -175,6 +177,12 @@ def _run_serve(args: argparse.Namespace) -> int:
             params = load_hf_checkpoint(args.weights, cfg, device)
         else:
             params = init_params(cfg, seed=args.seed, device=device)
+        if args.weight_quant:
+            from radixmesh_tpu_torch.ops.wquant import quantize_params
+
+            # Here, so that the full-precision tree is dropped before the
+            # engine is built (the engine passes an int8 tree through).
+            params = quantize_params(params)
     engine = Engine(
         cfg,
         params,
@@ -206,6 +214,7 @@ def _run_serve(args: argparse.Namespace) -> int:
         token_stall_threshold_s=args.token_stall_threshold_ms / 1e3,
         step_accounting=args.step_accounting,
         peak_tflops=args.peak_tflops,
+        weight_quant=args.weight_quant,
     )
     slo = _slo_config(args)
     if slo is not None:
@@ -247,6 +256,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                        help="'byte', or a local HF tokenizer directory: enables the text field")
     serve.add_argument("--kv-quant", choices=("int8",), default=None,
                        help="store the KV pool as int8 with per-token scales")
+    serve.add_argument("--weight-quant", choices=("int8",), default=None,
+                       help="W8A16 weights: int8 storage with per-output-channel scales (halves "
+                       "the resident weight bytes)")
     serve.add_argument("--decode-steps-per-launch", type=int, default=1,
                        help="fuse k decode steps per launch (sampling on the device)")
     serve.add_argument("--prefill-inline-budget", type=int, default=0,

@@ -4,7 +4,8 @@
   port keeps the JAX orientation leaf for leaf (``models/llama.py``), so
   conversion is a dtype and device move. bf16 leaves arrive as ml_dtypes
   ``bfloat16`` arrays, which ``torch.from_numpy`` rejects; they are read
-  through float32, and bf16 → f32 → bf16 is exact.
+  through float32, and bf16 → f32 → bf16 is exact. W8A16 trees keep their
+  int8 leaves and float32 ``<name>_s`` scales.
 - ``convert_hf_state_dict``: a HuggingFace Llama/Qwen2 state dict (HF
   names, ``[out, in]`` projections) into the stacked-layer dict, as the JAX
   package's ``convert_hf_state_dict`` does (``radixmesh_tpu/models/llama.py``).
@@ -17,40 +18,47 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from radixmesh_tpu_torch.models.llama import ModelConfig, layer_params, param_shapes
+from radixmesh_tpu_torch.models.llama import ModelConfig, layer_params, param_shapes, w8_scale_shapes
 from radixmesh_tpu_torch.utils.device import resolve_device
 
 __all__ = ["params_from_jax", "convert_hf_state_dict", "hf_state_dict"]
 
 
 def _leaf(x, shape, dtype: torch.dtype, device) -> torch.Tensor:
-    a = np.array(x, dtype=np.float32)  # a writable copy for torch
+    """One leaf as a tensor of ``dtype`` on ``device``; int8 leaves (W8A16
+    weights) stay int8."""
+    np_dtype = np.int8 if np.asarray(x).dtype == np.int8 else np.float32
+    a = np.array(x, dtype=np_dtype)  # a writable copy for torch
     if a.shape != tuple(shape):
         raise ValueError(f"leaf shape {a.shape} != expected {tuple(shape)}")
-    return torch.from_numpy(a).to(device=device, dtype=dtype)
+    t = torch.from_numpy(a)
+    return t.to(device=device, dtype=torch.int8 if np_dtype == np.int8 else dtype)
 
 
 def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
     """``np_tree``: the JAX ``init_params``/checkpoint tree with numpy (or
     array-like) leaves, Qwen2's ``bq``/``bk``/``bv`` included. Returns the
     port's param dict in ``cfg.dtype`` on ``device`` (CUDA unless ``"cpu"``
-    is asked for). W8A16 trees (``<name>_s`` scale leaves) are refused:
-    they are not ported yet."""
-    if any(k.endswith("_s") for k in np_tree) or any(
-        k.endswith("_s") for k in np_tree["layers"]
-    ):
-        raise NotImplementedError("W8A16 weights are not ported yet")
+    is asked for). A W8A16 tree (the JAX ``quantize_params`` or
+    ``random_w8_params``, or the port's ``ops.wquant.random_w8_params``)
+    keeps its int8 leaves int8 and carries their ``<name>_s`` scales across
+    in float32."""
     device = resolve_device(device)
     shapes = param_shapes(cfg)
-    out = {
-        name: _leaf(np_tree[name], shapes[name], cfg.dtype, device)
-        for name in shapes
-        if name != "layers"
-    }
-    out["layers"] = {
-        name: _leaf(np_tree["layers"][name], shapes["layers"][name], cfg.dtype, device)
-        for name in layer_params(cfg)
-    }
+    scale_shapes = w8_scale_shapes(cfg)
+
+    def convert(tree, shapes, names):
+        out = {}
+        for name in names:
+            out[name] = _leaf(tree[name], shapes[name], cfg.dtype, device)
+            if out[name].dtype == torch.int8:
+                if name not in scale_shapes:
+                    raise ValueError(f"leaf {name} is int8, but only {sorted(scale_shapes)} quantize")
+                out[name + "_s"] = _leaf(tree[name + "_s"], scale_shapes[name], torch.float32, device)
+        return out
+
+    out = convert(np_tree, shapes, [name for name in shapes if name != "layers"])
+    out["layers"] = convert(np_tree["layers"], shapes["layers"], layer_params(cfg))
     return out
 
 

@@ -15,6 +15,12 @@
   chunk kernel) and ``decode_step`` (one token per row, through the fused
   decode kernel). The big products are plain ``torch.matmul``; logits are
   float32 like the JAX ``_logits``.
+- W8A16 weights (``ops/wquant.py``): every projection, the untied LM head
+  and the tied one multiply by ``w.to(x.dtype)`` and then by the float32
+  per-output-channel scale (``_proj``, ``_logits``), and an int8 embedding
+  row is scaled in float32 and cast to the model dtype (``_embed``), as
+  the JAX ``_wmm`` and ``_embed_lookup`` do. The widened weight is a
+  temporary of one leaf per product; nothing keeps a full-precision copy.
 - ``decode_multi`` runs ``k`` decode steps in one call, sampling on the
   device and feeding each token to the next step, with no host sync;
   ``decode_multi_compact`` runs it over a sub-pool gathered from the live
@@ -49,9 +55,11 @@ from radixmesh_tpu_torch.ops.norm import rms_norm
 from radixmesh_tpu_torch.ops.quant import quantize_for_store
 from radixmesh_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from radixmesh_tpu_torch.ops.sampling import any_stochastic, sample_stochastic, sampling_tensors
+from radixmesh_tpu_torch.ops.wquant import LAYER_QUANT_WEIGHTS
 from radixmesh_tpu_torch.utils.device import resolve_device
 
-__all__ = ["ModelConfig", "Llama", "init_params", "LAYER_PARAMS", "BIAS_PARAMS", "layer_params"]
+__all__ = ["ModelConfig", "Llama", "init_params", "LAYER_PARAMS", "BIAS_PARAMS", "layer_params",
+           "w8_scale_shapes"]
 
 LAYER_PARAMS = (
     "attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
@@ -173,6 +181,19 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return shapes
 
 
+def w8_scale_shapes(cfg: ModelConfig) -> dict:
+    """Shape of the float32 scale ``<name>_s`` of each leaf a W8A16 tree
+    may hold as int8 (``ops/wquant.py``): the weight's shape without its
+    contraction axis."""
+    shapes = param_shapes(cfg)
+    ls = shapes["layers"]
+    out = {name: (ls[name][0], ls[name][2]) for name in LAYER_QUANT_WEIGHTS}
+    out["embed"] = (cfg.vocab_size,)
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (cfg.vocab_size,)
+    return out
+
+
 def init_params(
     cfg: ModelConfig, seed: int = 0, device: torch.device | str | None = None
 ) -> dict:
@@ -218,32 +239,70 @@ def init_params(
 
 class Llama(nn.Module):
     """Llama over a JAX-oriented param tree (no autograd: weights are
-    frozen parameters and every forward runs under ``inference_mode``)."""
+    frozen parameters and every forward runs under ``inference_mode``).
+
+    A W8A16 tree (``ops/wquant.py``) is taken as it is: its int8 leaves
+    stay int8 and their float32 ``<name>_s`` scales stay float32 (each
+    checked against its weight's shape); every other leaf is cast to
+    ``cfg.dtype``. Each product then dequantizes its weight to the
+    activations' dtype, as the JAX ``_wmm`` does (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
         self.cfg = cfg
         shapes = param_shapes(cfg)
+        scale_shapes = w8_scale_shapes(cfg)
 
-        def frozen(t, shape):
-            if tuple(t.shape) != tuple(shape):
-                raise ValueError(f"param shape {tuple(t.shape)} != expected {shape}")
-            return nn.Parameter(t.to(cfg.dtype), requires_grad=False)
+        def frozen(tree, name, shapes, scales):
+            """The leaf as a frozen parameter; an int8 leaf's checked
+            float32 scale goes into ``scales``."""
+            t = tree[name]
+            if tuple(t.shape) != tuple(shapes[name]):
+                raise ValueError(f"param {name} shape {tuple(t.shape)} != expected {shapes[name]}")
+            if t.dtype != torch.int8:
+                return nn.Parameter(t.to(cfg.dtype), requires_grad=False)
+            if name not in scale_shapes:
+                raise ValueError(f"param {name} is int8, but only {sorted(scale_shapes)} quantize")
+            s = tree.get(name + "_s")
+            if s is None or tuple(s.shape) != scale_shapes[name]:
+                raise ValueError(f"int8 param {name} needs a scale {name}_s of shape "
+                                 f"{scale_shapes[name]}, got {None if s is None else tuple(s.shape)}")
+            scales[name + "_s"] = nn.Parameter(s.to(torch.float32), requires_grad=False)
+            return nn.Parameter(t, requires_grad=False)
 
-        self.embed = frozen(params["embed"], shapes["embed"])
-        self.final_norm = frozen(params["final_norm"], shapes["final_norm"])
+        layer_scales, top_scales = {}, {}
         self.layers = nn.ParameterDict(
-            {n: frozen(params["layers"][n], shapes["layers"][n]) for n in layer_params(cfg)}
+            {n: frozen(params["layers"], n, shapes["layers"], layer_scales) for n in layer_params(cfg)}
         )
+        self.layers.update(layer_scales)
+        self.embed = frozen(params, "embed", shapes, top_scales)
+        self.final_norm = frozen(params, "final_norm", shapes, top_scales)
         self.lm_head = (
-            None if cfg.tie_embeddings else frozen(params["lm_head"], shapes["lm_head"])
+            None if cfg.tie_embeddings else frozen(params, "lm_head", shapes, top_scales)
         )
+        self.embed_s = top_scales.get("embed_s")
+        self.lm_head_s = top_scales.get("lm_head_s")
         self.register_buffer(
             "inv_freq",
             rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
                              device=self.embed.device),
             persistent=False,
         )
+
+    @property
+    def weight_quant(self) -> str | None:
+        """``"int8"`` for a W8A16 model, else None."""
+        return "int8" if self.embed.dtype == torch.int8 else None
+
+    def param_tree(self) -> dict:
+        """The model's leaves as a param tree (the tensors themselves, not
+        copies): what ``ops.wquant.quantize_params`` takes."""
+        layers = dict(self.layers.items())
+        tree = {"embed": self.embed, "final_norm": self.final_norm, "layers": layers}
+        for name in ("lm_head", "embed_s", "lm_head_s"):
+            if getattr(self, name) is not None:
+                tree[name] = getattr(self, name)
+        return tree
 
     # -- shared pieces ---------------------------------------------------
 
@@ -253,9 +312,9 @@ class Llama(nn.Module):
         through here)."""
         cfg, lp = self.cfg, self.layers
         B, S = x.shape[:2]
-        q = torch.matmul(x, lp["wq"][l])
-        k = torch.matmul(x, lp["wk"][l])
-        v = torch.matmul(x, lp["wv"][l])
+        q = self._proj(x, "wq", l)
+        k = self._proj(x, "wk", l)
+        v = self._proj(x, "wv", l)
         if cfg.qkv_bias:
             q, k, v = q + lp["bq"][l], k + lp["bk"][l], v + lp["bv"][l]
         return (q.view(B, S, cfg.n_heads, cfg.head_dim),
@@ -265,21 +324,45 @@ class Llama(nn.Module):
     def _attn_out_mlp(self, l: int, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
         """Residual ``wo`` projection of ``attn`` [B, S, Hq, D], then the
         SwiGLU MLP block."""
-        lp = self.layers
         B, S = x.shape[:2]
-        x = x + torch.matmul(attn.reshape(B, S, -1), lp["wo"][l])
-        h = rms_norm(x, lp["mlp_norm"][l], self.cfg.rms_eps)
-        gate = F.silu(torch.matmul(h, lp["w_gate"][l]))
-        up = torch.matmul(h, lp["w_up"][l])
-        return x + torch.matmul(gate * up, lp["w_down"][l])
+        x = x + self._proj(attn.reshape(B, S, -1), "wo", l)
+        h = rms_norm(x, self.layers["mlp_norm"][l], self.cfg.rms_eps)
+        gate = F.silu(self._proj(h, "w_gate", l))
+        up = self._proj(h, "w_up", l)
+        return x + self._proj(gate * up, "w_down", l)
+
+    def _proj(self, x: torch.Tensor, name: str, l: int) -> torch.Tensor:
+        """``x @ layers[name][l]``. An int8 weight (W8A16) is widened to
+        ``x.dtype`` for the product and its per-output-channel float32 scale
+        applied after it, which promotes the result to float32; it is cast
+        back to ``x.dtype``, as the JAX ``_wmm`` does."""
+        w = self.layers[name][l]
+        if w.dtype != torch.int8:
+            return torch.matmul(x, w)
+        return (torch.matmul(x, w.to(x.dtype)) * self.layers[name + "_s"][l]).to(x.dtype)
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Embedding gather; an int8 table's rows are multiplied by their
+        scales in float32, then cast to the model dtype (the JAX
+        ``_embed_lookup``)."""
+        if self.embed_s is None:
+            return F.embedding(tokens, self.embed)
+        rows = self.embed[tokens].float() * self.embed_s[tokens][..., None]
+        return rows.to(self.cfg.dtype)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm + LM head, float32 logits (products accumulate in
         float32 either way; a bf16 model rounds the product to bf16 before
-        the cast)."""
+        the cast). A W8A16 head multiplies by its float32 scale, which makes
+        the logits float32."""
         x = rms_norm(x, self.final_norm, self.cfg.rms_eps)
-        w = self.embed.t() if self.cfg.tie_embeddings else self.lm_head
-        return torch.matmul(x, w).float()
+        if self.cfg.tie_embeddings:
+            w, s = self.embed.t(), self.embed_s
+        else:
+            w, s = self.lm_head, self.lm_head_s
+        if s is None:
+            return torch.matmul(x, w).float()
+        return torch.matmul(x, w.to(x.dtype)) * s
 
     def _rope(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         return apply_rope(x, positions, self.inv_freq)
@@ -300,7 +383,7 @@ class Llama(nn.Module):
         masked). Returns ``(logits [B, S, V] f32, new_k [L, B, S, Hkv, D],
         new_v)``; the caller writes new K/V into the pool."""
         cfg = self.cfg
-        x = F.embedding(tokens, self.embed)
+        x = self._embed(tokens)
         p_max = cached_k.shape[2]
         s_new = tokens.shape[1]
         pad = p_max - prefix_lengths
@@ -347,7 +430,7 @@ class Llama(nn.Module):
         prior = torch.minimum(positions[:, 0], kv_lengths).to(torch.int32)
         kv_lengths = kv_lengths.to(torch.int32)
         flat_slots = slots.reshape(-1).long()
-        x = F.embedding(tokens, self.embed)
+        x = self._embed(tokens)
         B, C = tokens.shape
         for l in range(L):
             h = rms_norm(x, self.layers["attn_norm"][l], cfg.rms_eps)
@@ -392,7 +475,7 @@ class Llama(nn.Module):
         kv_pages = kv_pool.view(2, L, Hkv, P, page_size, D)
         scale_pages = None if kv_scale is None else kv_scale.view(2, L, Hkv, P, page_size)
         positions = (lengths.long() - 1)[:, None]  # [B, 1]
-        x = F.embedding(tokens, self.embed)[:, None, :]  # [B, 1, H]
+        x = self._embed(tokens)[:, None, :]  # [B, 1, H]
         for l in range(L):
             h = rms_norm(x, self.layers["attn_norm"][l], cfg.rms_eps)
             q, k, v = self._qkv(l, h)

@@ -5,9 +5,9 @@ encodes bf16 from torch's own bit patterns), nor ``safetensors``,
 ``transformers`` or ``tokenizers`` (the port reads and writes safetensors
 itself, and imports ``transformers`` only when an HF tokenizer directory
 is loaded); entry points default to CUDA and raise
-without it; the launcher refuses the flag of a feature that is not ported
-yet (``--weight-quant``) and parses those that are, the SLO, history and
-black-box flags down to the frontend's arguments."""
+without it; the launcher refuses no flag since ``--weight-quant`` was
+ported (it reaches the engine), and parses the SLO, history and black-box
+flags down to the frontend's arguments."""
 
 import pathlib
 import subprocess
@@ -53,7 +53,9 @@ def test_port_imports_no_jax_and_no_jax_package():
             "radixmesh_tpu_torch.obs.evictions", "radixmesh_tpu_torch.obs.timeseries",
             "radixmesh_tpu_torch.obs.blackbox", "radixmesh_tpu_torch.slo.control",
             "radixmesh_tpu_torch.slo.runner", "radixmesh_tpu_torch.policy.retry",
-            "radixmesh_tpu_torch.entry"} <= walked, r.stdout
+            "radixmesh_tpu_torch.entry", "radixmesh_tpu_torch.engine.disagg",
+            "radixmesh_tpu_torch.comm.communicator", "radixmesh_tpu_torch.comm.inproc",
+            "radixmesh_tpu_torch.comm.tcp_py", "radixmesh_tpu_torch.ops.wquant"} <= walked, r.stdout
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -73,19 +75,32 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert len(out[0]) == 16
 
 
-@pytest.mark.parametrize("flag", ["--weight-quant"])
-def test_launcher_refuses_unported_flags(flag, capsys):
-    from radixmesh_tpu_torch.launch import _NOT_PORTED_FLAGS, main
-
-    assert _NOT_PORTED_FLAGS == ("--weight-quant",)
-    with pytest.raises(SystemExit) as e:
-        main(["serve", "--model", "llama3-tiny", flag, "2"])
-    assert e.value.code == 2
-    assert "not supported by the PyTorch port" in capsys.readouterr().err
-
-
 class _Reached(Exception):
     pass
+
+
+@pytest.mark.parametrize("flag", ["--weight-quant"])
+def test_launcher_refuses_unported_flags(flag, monkeypatch, capsys):
+    """No flag is refused since ``--weight-quant`` was ported: it reaches the
+    engine's ``weight_quant``, and a value other than int8 is refused."""
+    import radixmesh_tpu_torch.engine.engine as engine_mod
+    from radixmesh_tpu_torch.launch import _NOT_PORTED_FLAGS, main
+
+    assert _NOT_PORTED_FLAGS == ()
+    seen = {}
+
+    def engine(cfg, params, **kw):
+        seen.update(kw)
+        raise _Reached
+
+    monkeypatch.setattr(engine_mod, "Engine", engine)
+    with pytest.raises(_Reached):
+        main(["serve", "--model", "llama3-tiny", "--device", "cpu", flag, "int8"])
+    assert seen["weight_quant"] == "int8"
+    with pytest.raises(SystemExit) as e:
+        main(["serve", "--model", "llama3-tiny", flag, "int4"])
+    assert e.value.code == 2
+    assert "invalid choice" in capsys.readouterr().err
 
 
 # Each flag this launcher took over from the refusal list, with what
