@@ -187,6 +187,36 @@ Phases (any failure raises and exits non-zero):
    2-layer float32 W8A16 engine's tokens equal card against CPU; and
    ``launch.py serve --weight-quant int8`` answering ``/generate``. The
    W8A16 runs' decode and chunk launches are counted.
+16. The LM head and the cache mesh. The head of a decode step
+   (``Llama._logits`` at B = 4 and 8) with its float32-output product
+   against the bf16 product widened afterwards: device time, the logits'
+   difference (off the bf16 grid), and the greedy tokens of four bf16
+   requests served with each. Then Llama-3-8B bf16 at full width (phase
+   3's weights) as two engines on the card, p0 (prefill) and d0 (decode),
+   each with its own 65536-slot pool and an advertisement-only
+   ``MeshCache`` replica, and a router replica r0 with
+   ``CacheAwareRouter``, all three in this process, mesh page 16. (a) On
+   each transport (``inproc``, native ``tcp`` on localhost, ``tcp-py``):
+   8 prompts of 2000 tokens served on p0; the lag from the end of p0's
+   publish to r0 attributing each prompt to p0; the 8 prompts plus 64 new
+   tokens each routed by r0 to p0 as hits of at least 2000 tokens and
+   served there alone, then served alone on d0 as misses: TTFT of each,
+   ``cached_tokens``, the share of equal greedy tokens; the decode and
+   chunk kernels must run on both engines and no plain version. A 2-layer
+   float32 leg (inproc) must give equal hit and miss tokens. (b) p0, d0
+   and r0 in three processes, over native ``tcp`` and ``tcp-py``: p0
+   advertises 800 prefixes of 2000 tokens (1.6M tokens): inserts applied
+   per second at r0 and d0, bytes per insert, apply lag, r0's
+   ``match_prefix`` time and each replica's RSS growth. (c) The decode
+   step wall of 4 x 600 on p0 with the mesh on (d0 advertising 50
+   prefixes a second) and off, interleaved over 3 rounds, over native
+   ``tcp`` and ``tcp-py``. (d) After the weights are freed, two ``python
+   -m radixmesh_tpu_torch.launch node`` processes (prefill and decode, a
+   16384-slot pool each) over native ``tcp`` from JSON configs with
+   ``--fleet-digest-interval 0.5``: ``POST /generate`` to the prefill
+   node, then the decode node's ``radixmesh_mesh_oplogs_received_total``
+   must rise and its ``/cluster/telemetry`` must hold the prefill node's
+   digest with the prefill node's own fingerprint.
 Checkpoints and profiles are written under ``chip_out/`` and removed.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches per path in
@@ -2977,6 +3007,625 @@ def w8a16_phase(dev, model) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the LM head's float32 product, and the cache mesh
+# ---------------------------------------------------------------------------
+
+# Sizes of phase 16 (a CPU rehearsal shrinks them). (a) ``prompts`` prompts
+# of ``prompt_len`` tokens served on p0, routed back with ``extra`` new
+# tokens; (b) ``scale_prefixes`` advertised prefixes of ``scale_len``
+# tokens, ``match_samples`` router matches; (c) decode walls of
+# ``wall_rows`` x ``wall_len`` while d0 advertises ``traffic_per_s``
+# prefixes a second; (d) two ``launch.py node`` processes with
+# ``node_slots`` KV slots each.
+MESH = dict(prompts=8, prompt_len=2000, extra=64, new_tokens=8, f32_prompts=4, f32_layers=2,
+            engine=dict(num_slots=65536, page_size=16, max_batch=8),
+            scale_prefixes=800, scale_len=2000, match_samples=2000,
+            wall_rows=4, wall_len=600, wall_rounds=3, wall_slots=8192, traffic_per_s=50,
+            node_model="llama3-8b", node_slots=16384, head_rows=(4, 8), head_prompts=4, head_len=600,
+            head_tokens=32)
+MESH_PAGE = 16
+MESH_PROTOCOLS = ("inproc", "tcp", "tcp-py")
+
+
+def _logits_rounded(self, x):
+    """The LM head as the port computed it before its float32-output
+    product: the product in the model dtype, widened afterwards."""
+    from radixmesh_tpu_torch.ops.norm import rms_norm
+
+    x = rms_norm(x, self.final_norm, self.cfg.rms_eps)
+    if self.cfg.tie_embeddings:
+        w, s = self.embed.t(), self.embed_s
+    else:
+        w, s = self.lm_head, self.lm_head_s
+    if s is None:
+        return torch.matmul(x, w).float()
+    return torch.matmul(x, w.to(x.dtype)) * s
+
+
+def head_phase(dev, model) -> dict:
+    """The LM head of a decode step (``Llama._logits`` over ``B`` rows),
+    float32-output product against the bf16 product widened afterwards:
+    device time, and the greedy tokens of the same bf16 requests served
+    with each."""
+    from radixmesh_tpu_torch.models.llama import Llama as _Llama
+
+    cfg = model.cfg
+    out: dict = {"rows": {}}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for rows in MESH["head_rows"]:
+        x = torch.randn(rows, 1, cfg.hidden, generator=gen, device=dev, dtype=cfg.dtype)
+        with torch.inference_mode():
+            new, old = model._logits(x), _logits_rounded(model, x)
+            out["rows"][rows] = {
+                "f32_output_ms": time_ms(lambda: model._logits(x), 30, dev),
+                "bf16_widened_ms": time_ms(lambda: _logits_rounded(model, x), 30, dev),
+                "max_abs_diff": float((new - old).abs().max()),
+                "argmax_flips": int((new.argmax(-1) != old.argmax(-1)).sum()),
+                "on_bf16_grid_after": bool(torch.equal(new, new.to(torch.bfloat16).float())),
+            }
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, MESH["head_len"]).tolist() for _ in range(MESH["head_prompts"])]
+    sp = SamplingParams(max_new_tokens=MESH["head_tokens"])
+    toks = {}
+    for tag in ("after", "before"):
+        if tag == "before":
+            _Llama._logits, saved = _logits_rounded, _Llama._logits
+        try:
+            eng = Engine(cfg, model, num_slots=8192, page_size=16, max_batch=4, device=dev, name=f"head-{tag}")
+            toks[tag] = eng.generate(prompts, sp)
+        finally:
+            if tag == "before":
+                _Llama._logits = saved
+        del eng
+    same = [a == b for ra, rb in zip(toks["after"], toks["before"]) for a, b in zip(ra, rb)]
+    out["greedy_tokens_equal_share"] = sum(same) / len(same)
+    out["greedy_rows_equal"] = sum(ra == rb for ra, rb in zip(toks["after"], toks["before"]))
+    first = [next((i for i, (a, b) in enumerate(zip(ra, rb)) if a != b), None)
+             for ra, rb in zip(toks["after"], toks["before"])]
+    out["first_divergent_token"] = first
+    for rows, r in out["rows"].items():
+        check(not r["on_bf16_grid_after"], f"head: float32-output logits at B={rows} sit on the bf16 grid")
+        print(f"[head] B={rows}: LM head {r['f32_output_ms']:.4f} ms with a float32 output vs "
+              f"{r['bf16_widened_ms']:.4f} ms bf16 widened; max |diff| {r['max_abs_diff']:.5f}, "
+              f"{r['argmax_flips']} argmax flips", flush=True)
+    print(f"[head] bf16 greedy tokens after vs before the fix: {out['greedy_rows_equal']}/{len(prompts)} rows "
+          f"equal, token share {out['greedy_tokens_equal_share']:.3f}, first divergent {first}", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _free_ports(n: int) -> list[int]:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _ring_addrs(protocol: str) -> list[str]:
+    """Addresses of p0, d0 and r0 on ``protocol``."""
+    if protocol == "inproc":
+        from radixmesh_tpu_torch.comm.inproc import InprocHub
+
+        InprocHub.reset_default()
+        return ["p0", "d0", "r0"]
+    return [f"127.0.0.1:{p}" for p in _free_ports(3)]
+
+
+def _ring_config(addrs: list[str], i: int, protocol: str):
+    from radixmesh_tpu_torch.config import MeshConfig
+
+    # A replica bound of 2^21 tokens holds the scale leg's 1.6M unfolded.
+    return MeshConfig(prefill_nodes=[addrs[0]], decode_nodes=[addrs[1]], router_nodes=[addrs[2]],
+                      local_addr=addrs[i], protocol=protocol, page_size=MESH_PAGE,
+                      tick_interval_s=0.05, gc_interval_s=30.0, mesh_max_tokens=1 << 21)
+
+
+def _mesh_ring(protocol: str):
+    """p0, d0 and r0 as three ``MeshCache`` replicas in this process (the
+    serving nodes' replicas advertisement-only) and the router."""
+    from radixmesh_tpu_torch.cache.mesh_cache import MeshCache
+    from radixmesh_tpu_torch.router.cache_aware_router import CacheAwareRouter
+
+    addrs = _ring_addrs(protocol)
+    meshes = [MeshCache(_ring_config(addrs, i, protocol), pool=None).start() for i in range(3)]
+    for m in meshes:
+        check(m.wait_ready(timeout=60), f"mesh {protocol}: rank {m.rank} never passed the startup barrier")
+    router = CacheAwareRouter(meshes[2], meshes[2].cfg)
+    router.finish_warm_up()
+    return addrs, meshes, router
+
+
+def _close_ring(meshes) -> None:
+    for m in meshes:
+        m.close()
+
+
+def _attribution_watch(router_mesh, prompts, t_attr, stop):
+    """Poll the router replica until each prompt is attributed whole to
+    prefill rank 0; stamp the moment."""
+    while not stop.is_set() and len(t_attr) < len(prompts):
+        for i, p in enumerate(prompts):
+            if i not in t_attr:
+                r = router_mesh.match_prefix(p)
+                if r.prefill_rank == 0 and r.match_len >= len(p) - len(p) % MESH_PAGE:
+                    t_attr[i] = time.monotonic()
+        time.sleep(0.0005)
+
+
+def _mesh_serving_leg(dev, model, protocol: str, n_prompts: int, tag: str) -> dict:
+    """Serve → publish → replicate → route back → serve from the cache, on
+    one ring: ``n_prompts`` prompts on p0; each prompt attributed to p0 at
+    the router (the lag from the end of p0's publish); each routed back with
+    ``extra`` new tokens as a p0 hit and served there alone, then served
+    alone on d0 as a miss."""
+    cfg = model.cfg
+    addrs, meshes, router = _mesh_ring(protocol)
+    try:
+        p0 = Engine(cfg, model, mesh=meshes[0], name=f"{tag}-p0", device=dev, **MESH["engine"])
+        d0 = Engine(cfg, model, mesh=meshes[1], name=f"{tag}-d0", device=dev, **MESH["engine"])
+        rng = np.random.default_rng(16)
+        prompts = [rng.integers(0, cfg.vocab_size, MESH["prompt_len"]).tolist() for _ in range(n_prompts)]
+        key16 = {tuple(p[:16]): i for i, p in enumerate(prompts)}
+        t_pub: dict[int, float] = {}
+        insert = meshes[0].insert
+
+        def timed_insert(key, slots, **kw):
+            n = insert(key, slots, **kw)
+            i = key16.get(tuple(int(t) for t in key[:16]))
+            if i is not None and len(key) >= MESH["prompt_len"] - MESH["prompt_len"] % MESH_PAGE:
+                t_pub.setdefault(i, time.monotonic())
+            return n
+
+        meshes[0].insert = timed_insert
+        t_attr: dict[int, float] = {}
+        stop = threading.Event()
+        watcher = threading.Thread(target=_attribution_watch, args=(meshes[2], prompts, t_attr, stop),
+                                   daemon=True)
+        pa.reset_counters()
+        watcher.start()
+        t = time.monotonic()
+        first = p0.generate(prompts, SamplingParams(max_new_tokens=MESH["new_tokens"]))
+        serve_s = time.monotonic() - t
+        watcher.join(timeout=60)
+        stop.set()
+        check(len(t_attr) == n_prompts, f"mesh {tag}: the router attributed {len(t_attr)}/{n_prompts} prompts to p0")
+        lag_ms = [1e3 * (t_attr[i] - t_pub[i]) for i in range(n_prompts)]
+        extra = [rng.integers(0, cfg.vocab_size, MESH["extra"]).tolist() for _ in range(n_prompts)]
+        routed = [p + e for p, e in zip(prompts, extra)]
+        aligned = MESH["prompt_len"] - MESH["prompt_len"] % MESH_PAGE
+        routes = [router.cache_aware_route(r) for r in routed]
+        for r in routes:
+            check(r.prefill_addr == addrs[0] and r.prefill_cache_hit and r.match_len >= aligned,
+                  f"mesh {tag}: a shared-prefix request routed to {r} (want {addrs[0]}, a hit of >= {aligned})")
+        hits = [_serve_alone(p0, r, MESH["new_tokens"]) for r in routed]
+        p0_counts = {**_b1_b2(), "f32_body": pa.paged_chunk_attention_kernel.launches_f32_body}
+        pa.reset_counters()
+        misses = [_serve_alone(d0, r, MESH["new_tokens"]) for r in routed]
+        d0_counts = {**_b1_b2(), "f32_body": pa.paged_chunk_attention_kernel.launches_f32_body}
+        for name, c in (("p0", p0_counts), ("d0", d0_counts)):
+            check(c["b1"] > 0 and c["b2"] > 0 and c["plain"] == 0,
+                  f"mesh {tag}: {name} launched decode {c['b1']}, chunk {c['b2']}, plain {c['plain']}")
+        check(all(h[1] >= aligned for h in hits), f"mesh {tag}: routed hits cached {[h[1] for h in hits]}")
+        check(all(m[1] == 0 for m in misses), f"mesh {tag}: d0 misses cached {[m[1] for m in misses]}")
+        same = [a == b for h, m in zip(hits, misses) for a, b in zip(h[0], m[0])]
+        out = {
+            "protocol": protocol, "serve_s": serve_s, "first_tokens": first,
+            "lag_ms": lag_ms, "lag_p50_ms": float(np.percentile(lag_ms, 50)),
+            "lag_p99_ms": float(np.percentile(lag_ms, 99)),
+            "match_len": [r.match_len for r in routes],
+            "cached_tokens": [h[1] for h in hits],
+            "hit_ttft_s": [h[2] for h in hits], "miss_ttft_s": [m[2] for m in misses],
+            "hit_tokens": [h[0] for h in hits], "miss_tokens": [m[0] for m in misses],
+            "tokens_equal_share": sum(same) / len(same),
+            "launches": {"p0": p0_counts, "d0": d0_counts},
+        }
+        return out
+    finally:
+        meshes[0].__dict__.pop("insert", None)
+        _close_ring(meshes)
+
+
+def _scale_replica(i: int, addrs: list, protocol: str, conn) -> None:
+    """One replica of the ring in its own process. For the scale leg p0
+    inserts the prefixes, d0 and r0 report when every one has landed, r0
+    times router matches; for the wall leg d0 advertises a stream of
+    prefixes (``traffic``) until told to stop. Commands arrive on
+    ``conn``."""
+    from radixmesh_tpu_torch.cache.mesh_cache import MeshCache
+
+    def rss_mb() -> float:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 1024.0
+        return float("nan")
+
+    mesh = MeshCache(_ring_config(addrs, i, protocol), pool=None).start()
+    try:
+        conn.send(("ready", mesh.wait_ready(timeout=60), rss_mb()))
+        while True:
+            cmd, *arg = conn.recv()
+            if cmd == "close":
+                break
+            if cmd == "traffic":
+                sent = _traffic(mesh, arg[0], conn.poll, arg[1])
+                conn.recv()  # "stop"
+                conn.send(("stopped", sent))
+                continue
+            n, length, seed = arg[:3]
+            keys = np.random.default_rng(seed).integers(0, 128256, (n, length), dtype=np.int32)
+            if cmd == "insert":
+                rss0 = rss_mb()
+                t0 = time.time()
+                for j in range(n):
+                    mesh.insert(keys[j], np.arange(j * length, (j + 1) * length, dtype=np.int32))
+                conn.send(("inserted", t0, time.time(), rss0,
+                           float(mesh._g_bytes_per_insert.value)))
+            elif cmd == "await":
+                rss0 = rss_mb()
+                # A fresh lag histogram: only this leg's frames.
+                mesh._m_lag = mesh._m_lag._new_child()
+                conn.send(("armed",))
+                deadline = time.monotonic() + arg[3]
+                tree = mesh.tree
+                # The tree's token count is read without the mesh lock, so
+                # waiting costs the apply path nothing; every key is
+                # matched once after.
+                while tree.evictable_size_ + tree.protected_size_ < n * length and time.monotonic() < deadline:
+                    time.sleep(0.001)
+                t_done = time.time()
+                if mesh.role.value == "router":
+                    pending = [j for j in range(n) if mesh.match_prefix(keys[j]).match_len < length]
+                else:
+                    pending = [j for j in range(n) if mesh.match_prefix(keys[j]).length < length]
+                conn.send(("landed", t_done, len(pending), rss0, rss_mb(),
+                           mesh._m_lag.quantile(0.5), mesh._m_lag.quantile(0.99),
+                           mesh.tree.evictable_size_ + mesh.tree.protected_size_))
+            elif cmd == "match":
+                rng = np.random.default_rng(seed + 1)
+                us = []
+                for j in rng.integers(0, n, arg[3]):
+                    cut = int(rng.integers(MESH_PAGE, length + 1))
+                    t = time.perf_counter()
+                    mesh.match_prefix(keys[j, :cut])
+                    us.append(1e6 * (time.perf_counter() - t))
+                conn.send(("matched", float(np.percentile(us, 50)), float(np.percentile(us, 99))))
+            elif cmd == "rss":
+                conn.send(("rss", rss_mb()))
+    finally:
+        mesh.close()
+        conn.close()
+
+
+def _ring_scale_leg(protocol: str) -> dict:
+    """p0, d0 and r0 in three processes: p0 advertises ``scale_prefixes``
+    prefixes of ``scale_len`` tokens; the inserts applied per second at
+    r0 and d0, bytes per insert at p0, r0's apply lag, r0's
+    ``match_prefix`` time and each replica's RSS growth."""
+    addrs = _ring_addrs(protocol)
+    pipes, procs = _spawn_replicas(addrs, protocol, (0, 1, 2))
+    n, length = MESH["scale_prefixes"], MESH["scale_len"]
+    try:
+        ready = [c.recv() for c in pipes]
+        check(all(r[1] for r in ready), f"ring scale {protocol}: a replica never became ready: {ready}")
+        for c in pipes[1:]:
+            c.send(("await", n, length, 7, 300.0))
+        for c in pipes[1:]:
+            check(c.recv() == ("armed",), f"ring scale {protocol}: a replica did not arm")
+        pipes[0].send(("insert", n, length, 7))
+        _, t0, t_inserted, p0_rss0, bytes_per_insert = pipes[0].recv()
+        landed = {name: c.recv() for name, c in zip(("d0", "r0"), pipes[1:])}
+        for name, r in landed.items():
+            check(r[2] == 0, f"ring scale {protocol}: {r[2]} of {n} prefixes never landed at {name}")
+        pipes[2].send(("match", n, length, 7, MESH["match_samples"]))
+        _, match_p50, match_p99 = pipes[2].recv()
+        pipes[0].send(("rss", 0, 0, 0))
+        p0_rss1 = pipes[0].recv()[1]
+        out = {
+            "protocol": protocol, "prefixes": n, "tokens": n * length,
+            "insert_s_at_p0": t_inserted - t0, "bytes_per_insert": bytes_per_insert,
+            "inserts_per_s": {name: n / (r[1] - t0) for name, r in landed.items()},
+            "apply_lag_p50_s": {name: r[5] for name, r in landed.items()},
+            "apply_lag_p99_s": {name: r[6] for name, r in landed.items()},
+            "replica_tokens": {name: r[7] for name, r in landed.items()},
+            "rss_growth_mb": {"p0": p0_rss1 - p0_rss0,
+                              **{name: r[4] - r[3] for name, r in landed.items()}},
+            "router_match_us": {"p50": match_p50, "p99": match_p99},
+        }
+        return out
+    finally:
+        _stop_replicas(pipes, procs)
+
+
+def _traffic(mesh, rate: float, stopped, seed: int) -> int:
+    """Advertise a fresh ``scale_len``-token prefix from ``mesh`` at
+    ``rate`` per second until ``stopped(timeout)`` is true (an event's
+    ``wait`` or a pipe's ``poll``); returns the prefixes sent."""
+    rng = np.random.default_rng(seed)
+    length = MESH["scale_len"]
+    j = 0
+    while not stopped(1.0 / rate):
+        mesh.insert(rng.integers(0, 128256, length).astype(np.int32),
+                    np.arange(length, dtype=np.int32) + (j % 64) * length)
+        j += 1
+    return j
+
+
+def _spawn_replicas(addrs: list, protocol: str, which) -> tuple[list, list]:
+    """``_scale_replica`` processes for the ring ranks ``which``; returns
+    (pipes, processes) once each replica passed the startup barrier. The
+    caller's own replicas must start before this waits."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    pipes, procs = [], []
+    for i in which:
+        parent, child = ctx.Pipe()
+        p = ctx.Process(target=_scale_replica, args=(i, addrs, protocol, child), daemon=True)
+        p.start()
+        pipes.append(parent)
+        procs.append(p)
+    return pipes, procs
+
+
+def _stop_replicas(pipes, procs) -> None:
+    for c in pipes:
+        try:
+            c.send(("close",))
+        except (BrokenPipeError, OSError):
+            pass
+    for p in procs:
+        p.join(timeout=30)
+        if p.is_alive():
+            p.kill()
+            p.join()
+
+
+def _mesh_wall_leg(dev, model, protocol: str, remote: bool) -> dict:
+    """Decode step wall of ``wall_rows`` x ``wall_len`` on p0: the engine
+    with its mesh replica while d0 advertises ``traffic_per_s`` prefixes a
+    second (p0's replica applies and forwards each), against an engine
+    without a mesh and a quiet ring, interleaved. ``remote``: d0 and r0 run
+    in their own processes, as a deployment runs them; otherwise all three
+    replicas share this process. The median of five 8-step windows per
+    run; a discarded warm-up, then ``wall_rounds`` rounds, the order
+    reversed in every other one."""
+    from radixmesh_tpu_torch.cache.mesh_cache import MeshCache
+
+    cfg = model.cfg
+    pipes, procs = [], []
+    if remote:
+        addrs = _ring_addrs(protocol)
+        pipes, procs = _spawn_replicas(addrs, protocol, (1, 2))
+        meshes = [MeshCache(_ring_config(addrs, 0, protocol), pool=None).start()]
+        check(meshes[0].wait_ready(timeout=60) and all(c.recv()[1] for c in pipes),
+              f"mesh walls {protocol}: the ring never formed")
+    else:
+        addrs, meshes, _ = _mesh_ring(protocol)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg.vocab_size, MESH["wall_len"]).tolist() for _ in range(MESH["wall_rows"])]
+    out = {"on": [], "off": [], "protocol": protocol, "remote": remote, "traffic_per_s": MESH["traffic_per_s"],
+           "advertised": 0}
+    try:
+        order = [["on"]] + [["on", "off"] if r % 2 == 0 else ["off", "on"] for r in range(MESH["wall_rounds"])]
+        for rnd, names in enumerate(order):
+            for name in names:
+                eng = Engine(cfg, model, num_slots=MESH["wall_slots"], page_size=16, max_batch=4, device=dev,
+                             mesh=meshes[0] if name == "on" else None, name=f"wall-{protocol}-{rnd}-{name}")
+                for p in prompts:
+                    eng.add_request(p, SamplingParams(max_new_tokens=48))
+                eng.step()
+                eng.step()
+                stop = threading.Event()
+                th = None
+                if name == "on":
+                    if remote:
+                        pipes[0].send(("traffic", MESH["traffic_per_s"], rnd))
+                    else:
+                        th = threading.Thread(target=_traffic, daemon=True,
+                                              args=(meshes[1], MESH["traffic_per_s"], stop.wait, rnd))
+                        th.start()
+                walls = []
+                try:
+                    for _ in range(5):
+                        torch.cuda.synchronize()
+                        t = time.perf_counter()
+                        for _ in range(8):
+                            eng.step()
+                        walls.append((time.perf_counter() - t) / 8 * 1e3)
+                finally:
+                    stop.set()
+                    if th is not None:
+                        th.join(timeout=10)
+                    if remote and name == "on":
+                        pipes[0].send(("stop",))
+                        out["advertised"] += pipes[0].recv()[1]
+                check(sum(r is not None for r in eng._rows) == MESH["wall_rows"],
+                      f"mesh walls {protocol}: a row finished early")
+                _drain(eng)
+                if rnd > 0:
+                    out[name].append(float(np.median(walls)))
+                del eng
+        out["on_over_off"] = [a / b for a, b in zip(out["on"], out["off"])]
+        return out
+    finally:
+        _close_ring(meshes)
+        _stop_replicas(pipes, procs)
+
+
+def _port_block(n: int) -> int:
+    """A base port with ``base .. base + n - 1`` and the same ports plus
+    1000 (the serving ports) free."""
+    import socket
+
+    rng = np.random.default_rng(os.getpid())
+    for _ in range(200):
+        base = int(rng.integers(20000, 40000))
+        try:
+            socks = []
+            for p in [base + i for i in range(n)] + [base + 1000 + i for i in range(n)]:
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError("no free block of ports")
+
+
+def mesh_node_leg(model_preset: str, node_slots: int, device: str = "cuda", out_dir=None) -> dict:
+    """Two ``python -m radixmesh_tpu_torch.launch node`` processes, a
+    prefill and a decode node, over native ``tcp`` from JSON configs with a
+    ``model:`` section and ``--fleet-digest-interval 0.5``: ``POST
+    /generate`` to the prefill node; the decode node's
+    ``radixmesh_mesh_oplogs_received_total`` rises and its fleet view holds
+    the prefill node's digest with the prefill node's own fingerprint. On
+    the card the prefill node must have launched the decode and chunk
+    kernels and no plain version (``tests/test_torch_launch_node.py`` runs
+    this leg on the CPU with ``device="cpu"``)."""
+    out_dir = pathlib.Path(out_dir or OUT_DIR)
+    out_dir.mkdir(exist_ok=True)
+    base = _port_block(2)
+    addrs = [f"127.0.0.1:{base}", f"127.0.0.1:{base + 1}"]
+    serve = [base + 1000, base + 1001]
+    procs, logs = [], []
+    t0 = time.monotonic()
+    try:
+        for i, role in enumerate(("prefill", "decode")):
+            cfg = {"prefill_nodes": addrs[:1], "decode_nodes": addrs[1:], "router_nodes": [],
+                   "local_addr": addrs[i], "protocol": "tcp", "page_size": MESH_PAGE,
+                   "tick_interval_s": 0.5, "serve_port_offset": 1000,
+                   "model": {"preset": model_preset, "kv_slots": node_slots, "page_size": 16,
+                             "max_batch": 4, "seed": 0}}
+            path = out_dir / f"node-{role}.json"
+            path.write_text(json.dumps(cfg))
+            log = open(out_dir / f"node-{role}.log", "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "radixmesh_tpu_torch.launch", "node", "--config-file", str(path),
+                 "--fleet-digest-interval", "0.5", "--device", device, "--ready-timeout", "300"],
+                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
+        for i, port in enumerate(serve):
+            while True:
+                check(procs[i].poll() is None, f"node {i} exited with {procs[i].returncode} "
+                      f"({out_dir}/node-{('prefill', 'decode')[i]}.log)")
+                check(time.monotonic() - t0 < 400, f"node {i} did not answer /healthz in 400 s")
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=2) as r:
+                        if r.status == 200:
+                            break
+                except OSError:
+                    time.sleep(0.5)
+        ready_s = time.monotonic() - t0
+        series = 'radixmesh_mesh_oplogs_received_total{node="decode@1",type="INSERT"}'
+        before = _metric(_http(serve[1], "/metrics"), series)
+        mcfg = get_config(model_preset)
+        # Longer than the engine's dense-prefill threshold: the chunk kernel.
+        ids = np.random.default_rng(18).integers(0, mcfg.vocab_size, min(2000, mcfg.max_seq_len // 2)).tolist()
+        t = time.monotonic()
+        first = _http(serve[0], "/generate", {"input_ids": ids, "max_tokens": 8})
+        generate_s = time.monotonic() - t
+        deadline = time.monotonic() + 30
+        while True:
+            after = _metric(_http(serve[1], "/metrics"), series)
+            pre = _http(serve[0], "/cluster/telemetry")["nodes"].get("0")
+            seen = _http(serve[1], "/cluster/telemetry")["nodes"].get("0")
+            same = (pre is not None and seen is not None and pre["tree_tokens"] > 0
+                    and seen["fingerprint"] == pre["fingerprint"])
+            if (after > before and same) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        check(after > before, f"mesh node leg: the decode node received no oplog ({before} -> {after})")
+        check(same, f"mesh node leg: the decode node's digest of the prefill node {seen} != the prefill "
+              f"node's own {pre}")
+        stats = _http(serve[0], "/stats")
+        kernels = stats.get("kernels", {})
+        if device == "cuda":
+            check(kernels.get("paged_decode_fused_kernel", 0) > 0
+                  and kernels.get("paged_chunk_attention_kernel", 0) > 0
+                  and not any(v for k, v in kernels.items() if "plain" in k),
+                  f"mesh node leg: the prefill node's kernels {kernels}")
+    finally:
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    return {"ready_s": ready_s, "generate_s": generate_s, "wall_s": time.monotonic() - t0,
+            "oplogs_received": [before, after], "prefill_digest": pre, "decode_view_of_prefill": seen,
+            "output_ids": first["output_ids"], "kernels": kernels}
+
+
+def mesh_phase(dev, model) -> dict:
+    """Phase 16: (a) serve → publish → replicate → route back on each
+    transport at full width, and a 2-layer float32 leg whose hit and miss
+    tokens must be equal; (b) the ring at scale over native ``tcp`` and
+    ``tcp-py``; (c) the decode wall with the mesh on and off."""
+    out: dict = {"legs": {}, "scale": {}, "walls": {}}
+    for protocol in MESH_PROTOCOLS:
+        t = time.monotonic()
+        leg = out["legs"][protocol] = _mesh_serving_leg(dev, model, protocol, MESH["prompts"], f"mesh-{protocol}")
+        hit, miss = leg["hit_ttft_s"], leg["miss_ttft_s"]
+        print(f"[mesh {protocol}] {MESH['prompts']} x {MESH['prompt_len']} served on p0 in {leg['serve_s']:.3f}s; "
+              f"publish -> router attribution p50 {leg['lag_p50_ms']:.3f} ms p99 {leg['lag_p99_ms']:.3f} ms; "
+              f"routed to p0 as hits of {min(leg['match_len'])}-{max(leg['match_len'])} tokens; TTFT hit "
+              f"p50 {np.median(hit):.4f}s vs miss on d0 p50 {np.median(miss):.4f}s; cached "
+              f"{leg['cached_tokens']}; hit == miss tokens share {leg['tokens_equal_share']:.3f}; "
+              f"launches p0 {leg['launches']['p0']} d0 {leg['launches']['d0']} "
+              f"({time.monotonic() - t:.1f}s)", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    f32_cfg = get_config(MESH["node_model"], n_layers=MESH["f32_layers"], dtype=torch.float32)
+    with torch.inference_mode():
+        f32_model = Llama(f32_cfg, init_params(f32_cfg, seed=3, device=dev))
+    f32 = out["f32"] = _mesh_serving_leg(dev, f32_model, "inproc", MESH["f32_prompts"], "mesh-f32")
+    f32["f32_body_launches"] = sum(c["f32_body"] for c in f32["launches"].values())
+    check(f32["f32_body_launches"] > 0, "mesh f32: the CUDA-core chunk body never ran")
+    check(f32["hit_tokens"] == f32["miss_tokens"],
+          f"mesh f32: routed hit tokens {f32['hit_tokens']} != miss tokens {f32['miss_tokens']}")
+    print(f"[mesh f32] 2-layer float32: routed hits cached {f32['cached_tokens']}, hit tokens == miss "
+          f"tokens for all {MESH['f32_prompts']}; CUDA-core chunk body launches {f32['f32_body_launches']}",
+          flush=True)
+    del f32_model
+    torch.cuda.empty_cache()
+    for protocol in ("tcp", "tcp-py"):
+        t = time.monotonic()
+        s = out["scale"][protocol] = _ring_scale_leg(protocol)
+        print(f"[mesh scale {protocol}] {s['prefixes']} x {MESH['scale_len']} = {s['tokens']} tokens advertised "
+              f"from p0 in {s['insert_s_at_p0']:.3f}s; applied/s r0 {s['inserts_per_s']['r0']:.1f} d0 "
+              f"{s['inserts_per_s']['d0']:.1f}; bytes/insert {s['bytes_per_insert']:.1f}; apply lag p99 r0 "
+              f"{s['apply_lag_p99_s']['r0'] * 1e3:.3f} ms d0 {s['apply_lag_p99_s']['d0'] * 1e3:.3f} ms; "
+              f"router match_prefix p50 {s['router_match_us']['p50']:.2f} us p99 "
+              f"{s['router_match_us']['p99']:.2f} us; RSS growth MB {s['rss_growth_mb']} "
+              f"({time.monotonic() - t:.1f}s)", flush=True)
+    for protocol in ("tcp", "tcp-py"):
+        for remote in (False, True):
+            t = time.monotonic()
+            tag = f"{protocol} {'d0 and r0 in other processes' if remote else 'one process'}"
+            w = out["walls"][tag] = _mesh_wall_leg(dev, model, protocol, remote)
+            print(f"[mesh walls {tag}] decode step {MESH['wall_rows']} x {MESH['wall_len']}: mesh on "
+                  f"({w['traffic_per_s']} inserts/s from d0) {[round(x, 3) for x in w['on']]} ms vs off "
+                  f"{[round(x, 3) for x in w['off']]} ms; on/off {[round(x, 3) for x in w['on_over_off']]} "
+                  f"({time.monotonic() - t:.1f}s)", flush=True)
+            torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the whole path, card vs CPU
 # ---------------------------------------------------------------------------
 
@@ -3153,6 +3802,12 @@ def main() -> int:
     t = time.monotonic()
     w8a16 = w8a16_phase(dev, model)
     print(f"[time] w8a16 phase {time.monotonic() - t:.1f}s", flush=True)
+    t = time.monotonic()
+    head = head_phase(dev, model)
+    print(f"[time] LM head phase {time.monotonic() - t:.1f}s", flush=True)
+    t = time.monotonic()
+    mesh = mesh_phase(dev, model)
+    print(f"[time] mesh phase (a)-(c) {time.monotonic() - t:.1f}s", flush=True)
     del model
     torch.cuda.empty_cache()
     t = time.monotonic()
@@ -3161,6 +3816,14 @@ def main() -> int:
     t = time.monotonic()
     w8a16["serve_cli"] = launcher_phase(weight_quant="int8")
     print(f"[time] w8a16 serve launcher {time.monotonic() - t:.1f}s", flush=True)
+    t = time.monotonic()
+    node = mesh["node"] = mesh_node_leg(MESH["node_model"], MESH["node_slots"])
+    print(f"[mesh node] two launch.py node processes (prefill, decode) over native tcp: /healthz after "
+          f"{node['ready_s']:.1f}s; /generate {node['generate_s']:.3f}s; decode node oplogs received "
+          f"{node['oplogs_received']}; its digest of the prefill node fingerprint "
+          f"{node['decode_view_of_prefill']['fingerprint']} == the prefill node's own; prefill node kernels "
+          f"{node['kernels']}; leg wall {node['wall_s']:.1f}s", flush=True)
+    print(f"[time] mesh node leg (d) {time.monotonic() - t:.1f}s", flush=True)
     t = time.monotonic()
     qwen = qwen2_serving_phase(dev)
     print(f"[time] qwen2-7b serving phase {time.monotonic() - t:.1f}s", flush=True)
@@ -3189,7 +3852,10 @@ def main() -> int:
                                "disagg decode bf16": sum(r["decode_launches"]["b1"]
                                                          for r in handoff["transports"].values()),
                                "disagg decode int8->bf16": handoff["int8"]["int8->bf16"]["decode_launches"]["b1"],
-                               "w8a16 serving": w8a16["launches"]["b1"]},
+                               "w8a16 serving": w8a16["launches"]["b1"],
+                               **{f"mesh {proto} {n}": leg["launches"][n]["b1"]
+                                  for proto, leg in mesh["legs"].items() for n in ("p0", "d0")},
+                               "mesh node prefill": node["kernels"]["paged_decode_fused_kernel"]},
         "paged_decode_fused[int8]": {"serving int8": serving["int8"]["launches"]["paged_decode_fused[int8]"],
                                      "tiers int8": tiers["int8"]["launches"]["paged_decode_fused[int8]"],
                                      "disagg decode int8":
@@ -3201,14 +3867,19 @@ def main() -> int:
                                   "serving edge": edge["launches"]["paged_chunk_attention"],
                                   "disagg prefill bf16": sum(r["prefill_launches"]["b2"]
                                                              for r in handoff["transports"].values()),
-                                  "w8a16 serving": w8a16["launches"]["b2"]},
+                                  "w8a16 serving": w8a16["launches"]["b2"],
+                                  **{f"mesh {proto} {n}": leg["launches"][n]["b2"]
+                                     for proto, leg in mesh["legs"].items() for n in ("p0", "d0")},
+                                  "mesh node prefill": node["kernels"]["paged_chunk_attention_kernel"]},
         "paged_chunk_attention[int8]": {
             "serving int8": serving["int8"]["launches"]["paged_chunk_attention[int8]"],
             "tiers int8": tiers["int8"]["launches"]["paged_chunk_attention[int8]"],
             "disagg prefill int8": sum(leg["prefill_launches"]["b2_int8"] for leg in handoff["int8"].values())},
         "paged_chunk_attention[f32]": {**{f"whole path {k}": w["launches"]["chunk_cuda_core_body"]
                                           for k, w in whole.items() if not k.startswith("qwen2")},
-                                       "replay f32": replay["f32"]["launches"]["chunk_cuda_core_body"]},
+                                       "replay f32": replay["f32"]["launches"]["chunk_cuda_core_body"],
+                                       **{f"mesh f32 {n}": c["f32_body"]
+                                          for n, c in mesh["f32"]["launches"].items()}},
         "paged_attention_pool": {"pool path bf16": serving["bf16"]["pool_path"]["launches"]},
         "paged_attention_pool[int8]": {"pool path int8": serving["int8"]["pool_path"]["launches"]},
     }
@@ -3306,7 +3977,8 @@ def main() -> int:
               "build": {k: v["seconds"] for k, v in log.items()}, "sass": sass, "kernels": kernels,
               "groups": groups, "serving": serving, "tiers": tiers, "serve_cli": serve_cli,
               "qwen2_serving": qwen, "checkpoint": ckpt, "serve_text": serve_text, "whole_path": whole,
-              "replay": replay, "serving_edge": edge, "handoff": handoff, "w8a16": w8a16}
+              "replay": replay, "serving_edge": edge, "handoff": handoff, "w8a16": w8a16,
+              "head": head, "mesh": mesh}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -177,6 +177,13 @@ class PagedKVPool:
     def free_slots(self) -> int:
         return self.allocator.free_slots
 
+    def fill_free_fraction(self) -> float:
+        """Free fraction of the pool, 0..1: the fleet digest's ``pool_fill``
+        complement (``obs/fleet_plane.py``)."""
+        if self.num_slots <= 0:
+            return 1.0
+        return self.free_slots / self.num_slots
+
     # ---- device ops ----
 
     def _index(self, slots) -> torch.Tensor:

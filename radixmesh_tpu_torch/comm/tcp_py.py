@@ -14,7 +14,8 @@ import threading
 import time
 from typing import Callable
 
-from radixmesh_tpu_torch.comm.communicator import DEFAULT_MAX_MSG_BYTES, Communicator, parse_addr
+from radixmesh_tpu_torch.comm.communicator import Communicator
+from radixmesh_tpu_torch.config import DEFAULT_MAX_MSG_BYTES, parse_addr
 from radixmesh_tpu_torch.utils.logging import get_logger
 
 __all__ = ["PyTcpCommunicator"]

@@ -101,8 +101,17 @@ and, with ``step_accounting``, per-wave MFU and padding
 
 W8A16 weights (``weight_quant="int8"``, ``ops/wquant.py``) and the
 disaggregated handoff's decode-side admission (``_install_running``, driven
-by ``engine/disagg.py``) are the JAX engine's. Not ported yet: the cache
-mesh (and with it routed prefetch hints) and pp/sp/tp.
+by ``engine/disagg.py``) are the JAX engine's.
+
+Cache mesh (``cache/mesh_cache.py``): pass ``mesh=MeshCache(...)`` and every
+publish also advertises its page-aligned prefix around the ring (with the
+request's trace id), so the router learns which node holds which prefix.
+The engine's tree owns slot lifetime; the mesh replica of a serving node
+is advertisement-only (built with ``pool=None``). An eviction that
+destroys KV retracts the prefix ring-wide (``_unadvertise``), and
+``announce_resurrected`` re-announces a disk tier's grafted prefixes.
+``telemetry()`` carries the signals the fleet digest reads. Not ported
+yet: pp/sp/tp.
 """
 
 from __future__ import annotations
@@ -125,7 +134,7 @@ from radixmesh_tpu_torch.engine.request import Request, RequestState, SamplingPa
 from radixmesh_tpu_torch.engine.waves import WaveScheduler
 from radixmesh_tpu_torch.models.llama import Llama, ModelConfig
 from radixmesh_tpu_torch.obs.attribution import shape_bucket
-from radixmesh_tpu_torch.obs.evictions import eviction_counters
+from radixmesh_tpu_torch.obs.fleet_plane import eviction_counters
 from radixmesh_tpu_torch.obs.metrics import TOKEN_LEN_BUCKETS, get_registry
 from radixmesh_tpu_torch.obs.spec_ledger import SpecLedger
 from radixmesh_tpu_torch.obs.step_plane import StepAccounting
@@ -266,6 +275,7 @@ class Engine:
         step_accounting: bool = False,
         peak_tflops: float | None = None,
         weight_quant: str | None = None,
+        mesh=None,
     ):
         """``params`` is a param tree (``init_params`` / ``params_from_jax``)
         or a built :class:`Llama`. ``device`` defaults to CUDA and raises
@@ -278,7 +288,9 @@ class Engine:
         step accounting are as in the JAX engine. ``weight_quant="int8"``
         serves W8A16 weights (``ops/wquant.py``): a param tree or a
         full-precision ``Llama`` is quantized before the model is built; a
-        ``Llama`` that is already W8A16 is taken as it is."""
+        ``Llama`` that is already W8A16 is taken as it is. ``mesh`` is this
+        node's ``MeshCache`` replica (module docstring); its page size
+        must divide ``page_size``."""
         if page_size & (page_size - 1):
             raise ValueError("page_size must be a power of two")
         if kv_tier_dir is not None and host_cache_slots <= 0:
@@ -290,6 +302,12 @@ class Engine:
         self.name = name or f"engine{next(_engine_seq)}"
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh
+        mesh_page = getattr(mesh, "page", 1) if mesh is not None else 1
+        if mesh_page > 1 and page_size % mesh_page:
+            # Publishes are aligned at engine pages, so the mesh page must
+            # divide the engine page.
+            raise ValueError(f"mesh page_size {mesh_page} must divide engine page_size {page_size}")
         if weight_quant is not None:
             if weight_quant != "int8":
                 raise ValueError(f"unknown weight quantization {weight_quant!r}")
@@ -435,6 +453,8 @@ class Engine:
         # at finish and preemption.
         self.stream_publish_tokens = max(0, stream_publish_tokens)
         self.stats = EngineStats()
+        # Decode seconds per token, an EWMA for the fleet digest.
+        self._decode_ewma = 0.0
         self._register_series()
         # Token-level speed plane: the per-token ITL ring with stall
         # attribution and the per-tenant goodput ledger (one branch in
@@ -754,12 +774,49 @@ class Engine:
         plane.pump(self.tree)
         return submitted, plane.spills_idle()
 
+    def announce_resurrected(self) -> int:
+        """Re-announce the disk tier's resurrected prefixes to the mesh:
+        each grafted key is inserted as an advertisement (this node serves
+        it through a staged disk restore; the placeholder indices are never
+        freed into the pool). Call after the mesh transport is up. Returns
+        the keys announced."""
+        keys = self.resurrected.get("keys") or []
+        if self.mesh is None or not keys:
+            return 0
+        n = 0
+        for key in keys:
+            key = np.asarray(key, dtype=np.int32)
+            if len(key):
+                self.mesh.insert(key, np.arange(len(key), dtype=np.int32), advertise=True)
+                n += 1
+        return n
+
+    def _note_decode_time(self, per_token_s: float) -> None:
+        """Every decode-latency sample: the TPOT histogram keeps the
+        distribution; the EWMA is the fleet digest's latency signal."""
+        self._m_tpot.observe(per_token_s)
+        if self._decode_ewma == 0.0:
+            self._decode_ewma = per_token_s
+        else:
+            self._decode_ewma += 0.2 * (per_token_s - self._decode_ewma)
+
     def telemetry(self) -> dict:
-        """The tier signals of the JAX engine's ``telemetry()``: host-arena
-        fill and the disk tier's ``stats()`` (None without one)."""
+        """Point-in-time engine signals for the fleet digest
+        (``obs/fleet_plane.py``), read without locks so that a wedged engine
+        can still be described. Parked and inline-prefilling requests count
+        as waiting."""
+        rows = sum(1 for r in self._rows if r is not None)
         host = getattr(self.tree, "host", None)
         return {
+            "batch_occupancy": rows / max(1, self.max_batch),
+            "waiting": len(self.waiting) + len(self._restoring) + len(self._inline),
+            "decode_steps": self.stats.decode_steps,
+            "decode_ewma_s": self._decode_ewma,
+            "cache_hit_rate": self.stats.hit_rate,
+            "pool_fill": 1.0 - self.pool.fill_free_fraction(),
             "host_fill": 0.0 if host is None else 1.0 - host.free_slots / host.num_slots,
+            "evictions": {c: int(m.value) for c, m in self._m_evicted.items()},
+            "spec": self.spec_report(),
             "kv_tier": None if self._kv_tier is None else self._kv_tier.stats(),
         }
 
@@ -878,7 +935,14 @@ class Engine:
         if slots is None:
             rec = get_recorder()
             t_ev = time.monotonic() if rec.enabled else 0.0
-            freed = self.tree.evict(n - self.pool.free_slots)
+            if self.mesh is not None:
+                # An eviction that destroys KV retracts the prefix
+                # ring-wide, or the router keeps sending its requests here.
+                # A host tier calls the hook only where write-back failed
+                # (a written-back prefix stays servable by a restore).
+                freed = self.tree.evict(n - self.pool.free_slots, on_evict=self._unadvertise)
+            else:
+                freed = self.tree.evict(n - self.pool.free_slots)
             self.stats.evicted_tokens += freed
             if freed:
                 self._m_evicted[cause].inc(freed)
@@ -889,6 +953,19 @@ class Engine:
                     need_slots=int(n), satisfied=bool(slots is not None),
                 )
         return slots
+
+    def _unadvertise(self, node) -> None:
+        """Evict hook: free the node's pool slots (``on_evict`` replaces the
+        tree's ``on_free``) and retract its prefix ring-wide, best effort:
+        a replica applies the DELETE only where the key ends on an unlocked
+        leaf, so a prefix another node extended survives."""
+        self.pool.free(np.asarray(node.value, dtype=np.int32))
+        parts = []
+        while node is not None and node.parent is not None:
+            parts.append(node.key)
+            node = node.parent
+        if parts:
+            self.mesh.delete(np.concatenate(parts[::-1]))
 
     def _admit(self) -> None:
         """Admit waiting requests into free rows. Concurrent arrivals
@@ -1426,8 +1503,17 @@ class Engine:
             if req.lock_node is not None:
                 self.tree.dec_lock_ref(req.lock_node)
             req.lock_node = new_lock
+        if self.mesh is not None and aligned > 0:
+            # Advertise only the page-aligned prefix: the residue slots are
+            # freed at release, and advertising them would promise hits this
+            # node cannot serve. A traced request's id rides the frames.
+            self.mesh.insert(
+                key[:aligned], req.token_slots[:aligned],
+                trace_id=tr.trace_id if tr is not None else 0,
+            )
         if tr is not None:
-            tr.add("publish", t_pub, time.monotonic() - t_pub, cat="cache", tokens=int(key_len))
+            tr.add("publish", t_pub, time.monotonic() - t_pub, cat="cache", tokens=int(key_len),
+                   ring_advertised=bool(self.mesh is not None and aligned > 0))
 
     def _release(self, req: Request) -> None:
         """Publish the full sequence, free unpublished residue, release the
@@ -1557,7 +1643,7 @@ class Engine:
         # The sampled tokens reached the host: this spans the step's
         # dispatch and device time, the TPOT every active request sees.
         elapsed = time.monotonic() - step_t0
-        self._m_tpot.observe(elapsed)
+        self._note_decode_time(elapsed)
         if self.step_acct is not None:
             self.step_acct.note_wave("decode", len(active), self.max_batch, elapsed,
                                      rows=len(active))
@@ -1649,7 +1735,7 @@ class Engine:
         self.stats.decode_forwards += k
         elapsed = time.monotonic() - step_t0
         for _ in range(k):
-            self._m_tpot.observe(elapsed / k)
+            self._note_decode_time(elapsed / k)
         if self.step_acct is not None:
             self.step_acct.note_wave("decode", k * len(active), k * self.max_batch, elapsed,
                                      rows=len(active))
@@ -1937,7 +2023,7 @@ class Engine:
         elapsed = time.monotonic() - step_t0
         if active:
             for _ in range(max(emitted_total, 1)):
-                self._m_tpot.observe(elapsed / max(emitted_total, 1))
+                self._note_decode_time(elapsed / max(emitted_total, 1))
         if self.step_acct is not None:
             # B·C positions launched; useful work is the decode tokens
             # emitted plus the inline prefill tokens advanced.

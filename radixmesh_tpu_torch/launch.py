@@ -15,6 +15,8 @@
         --step-accounting --profile-dir /var/tmp/prof --trace-sample 0.1
     python -m radixmesh_tpu_torch.launch serve --slo --slo-ttft-ms 1500 \
         --slo-tenant gold=3 --slo-tenant free=1:2000 --blackbox-dir /var/tmp/bb
+    python -m radixmesh_tpu_torch.launch node --config-file prefill0.json \
+        --fleet-digest-interval 0.5 --replication-factor 2
 
 ``serve`` builds one :class:`~radixmesh_tpu_torch.engine.engine.Engine`
 behind a :class:`~radixmesh_tpu_torch.server.http_frontend.ServingFrontend`
@@ -48,6 +50,23 @@ box (a history segment at every sample, a final dump at shutdown and on
 ``POST /admin/blackbox``) and ``--blackbox-watchdog`` sets its stall
 watchdog (default 10 intervals with a dump directory). Flags of the JAX
 launcher whose features are not ported yet are refused by name.
+
+``node`` runs one node of the cache mesh from a config file (YAML, or JSON
+where PyYAML is not installed; ``config.load_config``), the JAX launcher's
+``node``. A prefill or decode node whose config has a ``model:`` section is
+a serving node: an :class:`Engine` with ``mesh=`` an advertisement-only
+:class:`~radixmesh_tpu_torch.cache.mesh_cache.MeshCache`, behind a
+``ServingFrontend`` on the cache port plus ``serve_port_offset``. Its
+``model:`` keys are the JAX launcher's (``preset``, ``overrides``,
+``page_size``, ``kv_slots``, ``max_batch``, ``seed``, the schedule, tier
+and quantization keys). A prefill or decode node without one is a cache
+node whose mesh owns a pool. ``--fleet-digest-interval`` gossips the
+node's fleet digest, ``--replication-factor``, ``--router-nodes`` and
+``--rebalance-interval`` override the config before it is validated, and
+``--chaos-plan`` arms fault injection on every transport the node opens.
+The KV-transfer, trace and history flags are ``serve``'s. The router role
+and the flags and config keys in ``_NOT_PORTED_NODE`` are refused by name
+with the ROADMAP.md queue item that brings them.
 """
 
 from __future__ import annotations
@@ -62,6 +81,17 @@ __all__ = ["main", "parse_args"]
 # ``serve`` flags of the JAX launcher whose features are not ported yet
 # (none since ``--weight-quant``; the check stays for the next one).
 _NOT_PORTED_FLAGS: tuple[str, ...] = ()
+
+# ``node`` flags of the JAX launcher whose features are not ported yet,
+# with the ROADMAP.md queue item that brings each.
+_NOT_PORTED_NODE: dict[str, str] = {
+    "--warm-up": "A2, the router role",
+    "--health-aware-routing": "A2, the router role",
+    "--kv-prefetch-hints": "A2, the router role",
+    "--repair-interval": "A3, the repair plane",
+    "--drain-timeout": "A3, the graceful drain",
+    "--agg-interval": "A4, fleet aggregation",
+}
 
 
 def _configure_tracing(args: argparse.Namespace, node: str = "") -> None:
@@ -235,9 +265,270 @@ def _run_serve(args: argparse.Namespace) -> int:
     return 0
 
 
+def _add_kv_transfer_args(sub: argparse.ArgumentParser) -> None:
+    """The async KV-movement plane's and the disk tier's flags (``serve``
+    and ``node``)."""
+    sub.add_argument("--kv-transfer-async", action="store_true",
+                     help="stage host-tier restores and write-backs off the scheduling thread "
+                     "(requests with host-tier prefixes park in RESTORING while decode steps)")
+    sub.add_argument("--kv-transfer-chunk", type=int, default=None, metavar="TOKENS",
+                     help="restore staging chunk in tokens (default 512)")
+    sub.add_argument("--kv-transfer-min-restore", type=int, default=None, metavar="TOKENS",
+                     help="restores shorter than this stay synchronous (default 0: always staged)")
+    sub.add_argument("--kv-tier-dir", default=None, metavar="DIR",
+                     help="durable KV spill tier: checksummed fsynced extent files below the "
+                     "host tier (needs --host-cache-slots; arms the async plane); scanned and "
+                     "resurrected at boot")
+    sub.add_argument("--kv-tier-capacity-gb", type=float, default=None, metavar="GB",
+                     help="extent-store disk budget (default 1 GiB); oldest extents drop past it")
+    sub.add_argument("--stream-publish", type=int, default=None, metavar="TOKENS",
+                     help="publish a request's grown prefix to the tree every N generated tokens "
+                     "(crash recovery: bounds a resumed request's cache-hit loss to N tokens; "
+                     "default 0 = publish only at finish and preemption)")
+
+
+def _add_trace_args(sub: argparse.ArgumentParser) -> None:
+    """The flight recorder's flags (``serve`` and ``node``)."""
+    sub.add_argument("--trace-capacity", type=int, default=8192,
+                     help="flight-recorder span bound (drop-oldest past it)")
+    sub.add_argument("--trace-sample", type=float, default=None,
+                     help="fraction of requests to trace (0 disables, the default; spans on "
+                     "GET /debug/trace as Perfetto-loadable JSON)")
+    sub.add_argument("--trace-dir", default=None,
+                     help="also dump the flight recorder to this directory on exit (implies "
+                     "--trace-sample 1.0 unless set explicitly)")
+
+
+def _add_history_args(sub: argparse.ArgumentParser) -> None:
+    """The telemetry history's and the black box's flags (``serve`` and
+    ``node``)."""
+    sub.add_argument("--telemetry-history-interval", type=float, default=1.0, metavar="SECONDS",
+                     help="sample every registered metric family plus the step, goodput and "
+                     "SLO planes into bounded in-process rings every N seconds (~15 min "
+                     "retained, served on GET /debug/timeseries); 0 disables")
+    sub.add_argument("--blackbox-dir", default=None, metavar="DIR",
+                     help="arm the black box: a history segment lands here at every sample "
+                     "(atomic renames: a kill -9 keeps every completed segment), and shutdown, "
+                     "the stall watchdog and POST /admin/blackbox write a full final dump "
+                     "(history, waterfalls, spans, state)")
+    sub.add_argument("--blackbox-watchdog", type=float, default=None, metavar="SECONDS",
+                     help="flush the black box once if the history sampler stalls this long "
+                     "(default: 10x the sample interval with --blackbox-dir; 0 disables)")
+
+
+def _node_refusal(cfg, serving: bool, args: argparse.Namespace) -> str | None:
+    """Why this node cannot run on the port yet (None if it can): the
+    router role and config keys whose features are not ported."""
+    from radixmesh_tpu_torch.config import NodeRole
+
+    if cfg.local_role is NodeRole.ROUTER:
+        return ("the router role (RouterFrontend, /route) is not supported by the PyTorch port "
+                "yet (see ROADMAP.md, queue A2)")
+    if cfg.repair_interval_s > 0:
+        return ("repair_interval_s > 0 (the repair plane) is not supported by the PyTorch port "
+                "yet (see ROADMAP.md, queue A3)")
+    if cfg.agg_interval_s > 0:
+        return ("agg_interval_s > 0 (fleet aggregation) is not supported by the PyTorch port yet "
+                "(see ROADMAP.md, queue A4)")
+    if not serving and args.blackbox_dir:
+        return ("--blackbox-dir on a node without a model (its dump's doctor section) is not "
+                "supported by the PyTorch port yet (see ROADMAP.md, queue A4)")
+    return None
+
+
+def _node_engine(cfg, args: argparse.Namespace, mesh, name: str, device, log):
+    """The serving node's engine, from the config's ``model:`` section (the
+    JAX launcher's keys; flags override the config's tier keys)."""
+    import torch
+
+    from radixmesh_tpu_torch.engine.engine import Engine
+    from radixmesh_tpu_torch.models import get_config, init_params
+
+    model = cfg.model
+    mcfg = get_config(model.get("preset", "llama3-tiny"), **model.get("overrides", {}))
+    seed = int(model.get("seed", 0))
+    log.info("initializing model %s on %s ...", model.get("preset", "llama3-tiny"), device)
+    with torch.inference_mode():
+        params = init_params(mcfg, seed=seed, device=device)
+    return Engine(
+        mcfg,
+        params,
+        num_slots=int(model.get("kv_slots", cfg.num_kv_slots)),
+        page_size=int(model.get("page_size", 16)),
+        max_batch=int(model.get("max_batch", 8)),
+        rng_seed=seed,
+        host_cache_slots=int(model.get("host_cache_slots", 0)),
+        decode_steps_per_launch=int(model.get("decode_steps_per_launch", 1)),
+        prefill_inline_budget=int(model.get("prefill_inline_budget", 0)),
+        prefill_inline_max_defer=int(model.get("prefill_inline_max_defer", 2)),
+        paged_min_batch=int(model.get("paged_min_batch", 0)),
+        spec_decode_tokens=int(model.get("spec_decode_tokens", 0)),
+        spec_adaptive=bool(model.get("spec_adaptive", False)),
+        token_timeline_capacity=int(model.get("token_timeline_capacity", 4096)),
+        token_stall_threshold_s=float(model.get("token_stall_threshold_s", 0.05)),
+        kv_quant=model.get("kv_quant"),
+        weight_quant=model.get("weight_quant"),
+        device=device,
+        mesh=mesh,
+        name=name,
+        kv_transfer_async=args.kv_transfer_async or cfg.kv_transfer_async,
+        kv_transfer_chunk_tokens=(
+            args.kv_transfer_chunk if args.kv_transfer_chunk is not None
+            else cfg.kv_transfer_chunk_tokens
+        ),
+        kv_transfer_min_restore_tokens=(
+            args.kv_transfer_min_restore if args.kv_transfer_min_restore is not None
+            else cfg.kv_transfer_min_restore_tokens
+        ),
+        stream_publish_tokens=(
+            args.stream_publish if args.stream_publish is not None else cfg.stream_publish_tokens
+        ),
+        kv_tier_dir=args.kv_tier_dir or cfg.kv_tier_dir,
+        kv_tier_capacity_bytes=(
+            int(args.kv_tier_capacity_gb * (1 << 30)) if args.kv_tier_capacity_gb is not None
+            else cfg.kv_tier_capacity_bytes
+        ),
+        step_accounting=bool(model.get("step_accounting", False)),
+        peak_tflops=model.get("peak_tflops"),
+    )
+
+
+def _run_node(args: argparse.Namespace) -> int:
+    import json
+
+    from radixmesh_tpu_torch.cache.mesh_cache import MeshCache
+    from radixmesh_tpu_torch.config import load_config, parse_addr
+    from radixmesh_tpu_torch.utils.device import resolve_device
+    from radixmesh_tpu_torch.utils.logging import configure_logger, get_logger
+
+    router_override = (
+        [a.strip() for a in args.router_nodes.split(",") if a.strip()]
+        if args.router_nodes is not None else None
+    )
+    # The overrides apply before validation, so a router added by flag
+    # finds its membership and the rebalance check judges the factor the
+    # node runs with.
+    cfg = load_config(args.config_file, router_nodes=router_override,
+                      replication_factor=args.replication_factor,
+                      rebalance_interval_s=args.rebalance_interval)
+    role, rank, _ = cfg.local_identity()
+    serving = bool(cfg.model)
+    refusal = _node_refusal(cfg, serving, args)
+    if refusal is not None:
+        raise SystemExit(refusal)
+    label = f"{role.value}@{rank}"
+    configure_logger(label)
+    log = get_logger("launch")
+    device = resolve_device(args.device)
+    _configure_tracing(args, node=label)
+    if cfg.replication_factor > 0:
+        log.info("prefix-ownership sharding ON (replication factor %d)", cfg.replication_factor)
+    chaos_spec = cfg.chaos
+    if args.chaos_plan:
+        with open(args.chaos_plan) as fh:
+            chaos_spec = json.load(fh)
+    if chaos_spec:
+        from radixmesh_tpu_torch.comm.faults import FaultPlan, install
+
+        # Before the node opens any transport, so every channel passes the
+        # seam.
+        plan = FaultPlan.from_dict(chaos_spec)
+        install(plan)
+        log.warning("CHAOS PLAN ARMED (seed=%d, drop_p=%.2f, %d partitions)",
+                    plan.seed, plan.drop_p, len(plan.partitions))
+    if serving and device.type == "cuda":
+        from radixmesh_tpu_torch.ops._build import build_all
+
+        log.info("building the CUDA kernels ...")
+        build_all()
+    if serving:
+        # The engine owns slot lifetime; its mesh replica only advertises.
+        node = MeshCache(cfg, pool=None).start()
+    else:
+        from radixmesh_tpu_torch.cache.kv_pool import PagedKVPool
+
+        # A cache node without a model: the mesh owns the pool.
+        model = cfg.model or {}
+        pool = PagedKVPool(num_slots=cfg.num_kv_slots, num_layers=int(model.get("n_layers", 1)),
+                           num_kv_heads=int(model.get("n_kv_heads", 1)),
+                           head_dim=int(model.get("head_dim", 128)), page_size=cfg.page_size,
+                           device=device)
+        node = MeshCache(cfg, pool=pool).start()
+    log.info("node started; waiting for ring verification ...")
+    if not node.wait_ready(timeout=args.ready_timeout):
+        log.error("startup tick barrier timed out")
+        node.close()
+        return 1
+    log.info("ring verified (view epoch=%d)", node.view.epoch)
+
+    engine = frontend = fleet_plane = rebalance_plane = None
+    if serving:
+        from radixmesh_tpu_torch.server.http_frontend import ServingFrontend
+
+        tokenizer = None
+        tok_spec = args.tokenizer or cfg.model.get("tokenizer")
+        if tok_spec:
+            from radixmesh_tpu_torch.server.tokenizer import load_tokenizer
+
+            tokenizer = load_tokenizer(tok_spec)
+        engine = _node_engine(cfg, args, node, f"{role.value}{rank}", device, log)
+        if engine.resurrected.get("grafted_nodes"):
+            log.info("resurrected %d prefix(es) / %d tokens; re-announced %d",
+                     engine.resurrected["grafted_nodes"], engine.resurrected["grafted_tokens"],
+                     engine.announce_resurrected())
+        if engine.kv_transfer is not None:
+            # PREFETCH hints off the wire land in the plane's hint queue.
+            node.on_prefetch = engine.kv_transfer.note_hint
+            log.info("async KV-movement plane enabled")
+        host, port = parse_addr(cfg.local_addr)
+        frontend = ServingFrontend(engine, host=host or "127.0.0.1",
+                                   port=port + cfg.serve_port_offset, tokenizer=tokenizer,
+                                   **_history_kwargs(args, log))
+        print(f"serving {label} on http://{host or '127.0.0.1'}:{frontend.port}", flush=True)
+    digest_interval = (
+        args.fleet_digest_interval if args.fleet_digest_interval is not None
+        else cfg.digest_interval_s
+    )
+    if digest_interval > 0:
+        from radixmesh_tpu_torch.obs.fleet_plane import FleetPlane
+
+        fleet_plane = FleetPlane(
+            node, engine=engine, slo=getattr(getattr(frontend, "runner", None), "ctl", None),
+            interval_s=digest_interval,
+        ).start()
+        log.info("fleet digests every %.1fs", digest_interval)
+    if cfg.replication_factor > 0 and cfg.rebalance_interval_s > 0:
+        from radixmesh_tpu_torch.cache.rebalance import RebalanceConfig, RebalancePlane
+
+        rebalance_plane = RebalancePlane(
+            node, RebalanceConfig(interval_s=cfg.rebalance_interval_s)
+        ).start()
+        log.info("heat-driven rebalancer armed (tick %.1fs)", cfg.rebalance_interval_s)
+
+    stop = threading.Event()
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    try:
+        while not stop.is_set():
+            stop.wait(1.0)
+    finally:
+        if rebalance_plane is not None:
+            rebalance_plane.close()
+        if fleet_plane is not None:
+            fleet_plane.close()
+        if frontend is not None:
+            frontend.close()
+        if engine is not None:
+            engine.close()
+        node.close(graceful=True)
+        _dump_trace(args, log)
+    return 0
+
+
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     """Parse the launcher's command line; exits (status 2) on a flag of a
-    feature that is not ported yet."""
+    feature that is not ported yet (``_NOT_PORTED_FLAGS`` for ``serve``,
+    ``_NOT_PORTED_NODE`` for ``node``)."""
     parser = argparse.ArgumentParser(prog="radixmesh-tpu-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     serve = sub.add_parser("serve", help="run a single-node serving engine")
@@ -279,31 +570,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     serve.add_argument("--host-cache-slots", type=int, default=0,
                        help="host-RAM KV tier of N token slots (pinned on the card): evicted "
                        "prefixes are written back and restored on a hit")
-    serve.add_argument("--kv-transfer-async", action="store_true",
-                       help="stage host-tier restores and write-backs off the scheduling thread "
-                       "(requests with host-tier prefixes park in RESTORING while decode steps)")
-    serve.add_argument("--kv-transfer-chunk", type=int, default=None, metavar="TOKENS",
-                       help="restore staging chunk in tokens (default 512)")
-    serve.add_argument("--kv-transfer-min-restore", type=int, default=None, metavar="TOKENS",
-                       help="restores shorter than this stay synchronous (default 0: always staged)")
-    serve.add_argument("--kv-tier-dir", default=None, metavar="DIR",
-                       help="durable KV spill tier: checksummed fsynced extent files below the "
-                       "host tier (needs --host-cache-slots; arms the async plane); scanned and "
-                       "resurrected at boot")
-    serve.add_argument("--kv-tier-capacity-gb", type=float, default=None, metavar="GB",
-                       help="extent-store disk budget (default 1 GiB); oldest extents drop past it")
-    serve.add_argument("--stream-publish", type=int, default=None, metavar="TOKENS",
-                       help="publish a request's grown prefix to the tree every N generated tokens "
-                       "(crash recovery: bounds a resumed request's cache-hit loss to N tokens; "
-                       "default 0 = publish only at finish and preemption)")
-    serve.add_argument("--trace-capacity", type=int, default=8192,
-                       help="flight-recorder span bound (drop-oldest past it)")
-    serve.add_argument("--trace-sample", type=float, default=None,
-                       help="fraction of requests to trace (0 disables, the default; spans on "
-                       "GET /debug/trace as Perfetto-loadable JSON)")
-    serve.add_argument("--trace-dir", default=None,
-                       help="also dump the flight recorder to this directory on exit (implies "
-                       "--trace-sample 1.0 unless set explicitly)")
+    _add_kv_transfer_args(serve)
+    _add_trace_args(serve)
     serve.add_argument("--token-timeline-capacity", type=int, default=4096,
                        help="per-token ITL ring entries for /debug/tokens (change-compressed, "
                        "drop-oldest; 0 disables the token timeline and the goodput ledger)")
@@ -327,26 +595,50 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     serve.add_argument("--slo-tenant", action="append", default=[], metavar="NAME=W[:RATE]",
                        help="tenant fair-share weight and optional prompt-token rate limit "
                        "(repeatable; implies --slo)")
-    serve.add_argument("--telemetry-history-interval", type=float, default=1.0, metavar="SECONDS",
-                       help="sample every registered metric family plus the step, goodput and "
-                       "SLO planes into bounded in-process rings every N seconds (~15 min "
-                       "retained, served on GET /debug/timeseries); 0 disables")
-    serve.add_argument("--blackbox-dir", default=None, metavar="DIR",
-                       help="arm the black box: a history segment lands here at every sample "
-                       "(atomic renames: a kill -9 keeps every completed segment), and shutdown, "
-                       "the stall watchdog and POST /admin/blackbox write a full final dump "
-                       "(history, waterfalls, spans, state)")
-    serve.add_argument("--blackbox-watchdog", type=float, default=None, metavar="SECONDS",
-                       help="flush the black box once if the history sampler stalls this long "
-                       "(default: 10x the sample interval with --blackbox-dir; 0 disables)")
+    _add_history_args(serve)
     serve.set_defaults(fn=_run_serve)
+
+    node = sub.add_parser("node", help="run one cache-mesh node")
+    node.add_argument("--config-file", required=True,
+                      help="the node's config (YAML, or JSON without PyYAML); every node of a "
+                      "cluster shares one config except local_addr")
+    node.add_argument("--http-port", type=int, default=0, help="router API port (router role)")
+    node.add_argument("--ready-timeout", type=float, default=120.0,
+                      help="seconds to wait for the ring's startup barrier")
+    node.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    node.add_argument("--tokenizer", default=None, metavar="SPEC",
+                      help="'byte' or a local HF tokenizer dir; enables text on this node's API "
+                      "(the same spec on every node; overrides model.tokenizer)")
+    node.add_argument("--fleet-digest-interval", type=float, default=None, metavar="SECONDS",
+                      help="gossip this node's fleet NodeDigest (tree fingerprint, fill, health "
+                      "signals) every N seconds as one oplog frame (obs/fleet_plane.py); "
+                      "overrides the config's digest_interval_s; 0 disables origination")
+    node.add_argument("--replication-factor", type=int, default=None, metavar="RF",
+                      help="prefix-ownership sharding (cache/sharding.py): each subtree shard is "
+                      "owned by RF consistent-hash successors; identical on every node; 0 = full "
+                      "replication")
+    node.add_argument("--router-nodes", default=None, metavar="ADDR,ADDR",
+                      help="comma-separated router cache addresses replacing the config's "
+                      "router_nodes (identical on every node: the rank space is positional)")
+    node.add_argument("--rebalance-interval", type=float, default=None, metavar="SECONDS",
+                      help="heat-driven shard rebalancing (cache/rebalance.py) every N seconds; "
+                      "needs --replication-factor > 0; 0 disables the decider")
+    node.add_argument("--chaos-plan", default=None, metavar="FILE",
+                      help="arm fault injection from a FaultPlan JSON file (comm/faults.py) on "
+                      "every transport this node opens; drills and soak runs only")
+    _add_kv_transfer_args(node)
+    _add_trace_args(node)
+    _add_history_args(node)
+    node.set_defaults(fn=_run_node)
+
     argv = sys.argv[1:] if argv is None else argv
+    refused = _NOT_PORTED_NODE if argv[:1] == ["node"] else dict.fromkeys(_NOT_PORTED_FLAGS, "A")
     for arg in argv:
         flag = arg.split("=", 1)[0]
-        if flag in _NOT_PORTED_FLAGS:
+        if flag in refused:
             parser.error(
                 f"{flag} is not supported by the PyTorch port yet "
-                "(see ROADMAP.md, queue A)"
+                f"(see ROADMAP.md, queue {refused[flag]})"
             )
     return parser.parse_args(argv)
 

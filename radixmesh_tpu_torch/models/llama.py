@@ -13,8 +13,11 @@
   against an optional right-aligned cached prefix, plain attention),
   ``prefill_chunk_paged`` (one chunk against the paged pool, through the
   chunk kernel) and ``decode_step`` (one token per row, through the fused
-  decode kernel). The big products are plain ``torch.matmul``; logits are
-  float32 like the JAX ``_logits``.
+  decode kernel). The big products are plain ``torch.matmul``. The LM
+  head's product has a float32 output, as the JAX ``_logits`` asks with
+  ``preferred_element_type``: on CUDA ``torch.mm(..., out_dtype=float32)``
+  over the model-dtype operands, on the CPU a float32 product. The logits
+  are never rounded to the model dtype.
 - W8A16 weights (``ops/wquant.py``): every projection, the untied LM head
   and the tied one multiply by ``w.to(x.dtype)`` and then by the float32
   per-output-channel scale (``_proj``, ``_logits``), and an int8 embedding
@@ -237,6 +240,18 @@ def init_params(
     return params
 
 
+def _head_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., H] @ w [H, V]`` with a float32 result that was never
+    rounded to ``x.dtype``. On CUDA a bf16 product goes through cuBLAS with
+    a float32 output (``torch.mm(..., out_dtype=torch.float32)``); on the
+    CPU, and for float32 operands, the operands are widened first (exact:
+    every bf16 value is a float32 value)."""
+    if x.is_cuda and x.dtype != torch.float32:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.float(), w.float())
+
+
 class Llama(nn.Module):
     """Llama over a JAX-oriented param tree (no autograd: weights are
     frozen parameters and every forward runs under ``inference_mode``).
@@ -351,18 +366,18 @@ class Llama(nn.Module):
         return rows.to(self.cfg.dtype)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Final norm + LM head, float32 logits (products accumulate in
-        float32 either way; a bf16 model rounds the product to bf16 before
-        the cast). A W8A16 head multiplies by its float32 scale, which makes
-        the logits float32."""
+        """Final norm + LM head, float32 logits from a float32-output
+        product (``_head_product``). A W8A16 head widens its int8 weight to
+        the model dtype for the product and multiplies by its float32
+        scale, as the JAX ``_wmm`` does with ``preferred_element_type``."""
         x = rms_norm(x, self.final_norm, self.cfg.rms_eps)
         if self.cfg.tie_embeddings:
             w, s = self.embed.t(), self.embed_s
         else:
             w, s = self.lm_head, self.lm_head_s
         if s is None:
-            return torch.matmul(x, w).float()
-        return torch.matmul(x, w.to(x.dtype)) * s
+            return _head_product(x, w)
+        return _head_product(x, w.to(x.dtype)) * s
 
     def _rope(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         return apply_rope(x, positions, self.inv_freq)

@@ -11,7 +11,8 @@ Two levels:
   ``chrome://tracing``) plus a ``key_averages`` table (``ops.txt``). CUDA
   activity is recorded where the process has a CUDA device.
 
-:func:`timed` pairs an annotation with a histogram observation.
+:func:`timed` pairs an annotation with a histogram observation;
+:func:`recorded` pairs one with a flight-recorder span.
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ import time
 from typing import Iterator
 
 from radixmesh_tpu_torch.obs.metrics import Histogram
+from radixmesh_tpu_torch.obs.trace_plane import get_recorder
 
-__all__ = ["annotate", "prime_profiler", "profile", "timed"]
+__all__ = ["annotate", "prime_profiler", "profile", "recorded", "timed"]
 
 
 def _activities():
@@ -93,3 +95,22 @@ def timed(hist: Histogram, name: str | None = None) -> Iterator[None]:
             yield
         finally:
             hist.observe(time.monotonic() - t0)
+
+
+@contextlib.contextmanager
+def recorded(lane: str, name: str, **args) -> Iterator[None]:
+    """An annotation for profiler captures and a flight-recorder span
+    (``obs/trace_plane.py``) on ``lane``, in one block. One branch when the
+    recorder is disabled (it still annotates, which is a no-op without a
+    live profile)."""
+    rec = get_recorder()
+    if not rec.enabled:
+        with annotate(name):
+            yield
+        return
+    t0 = time.monotonic()
+    with annotate(name):
+        try:
+            yield
+        finally:
+            rec.event(lane, name, t0, time.monotonic() - t0, **args)

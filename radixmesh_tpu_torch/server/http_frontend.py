@@ -38,7 +38,10 @@
   ``?drain=1`` consumes it, ``?format=spans`` serves the raw span export),
   ``GET /debug/requests`` (the in-flight request table), ``GET
   /debug/state`` (the engine-side planes: scheduler, pool, tiers,
-  speculation ledger, waves, step accounting, recorder, SLO), ``GET
+  speculation ledger, waves, step accounting, recorder, SLO, and with a
+  cache mesh the node's ``membership``), ``GET /cluster/telemetry`` (with a
+  cache mesh: every gossiped fleet digest and the fingerprint-convergence
+  audit, ``obs/fleet_plane.py``), ``GET
   /debug/tokens`` (the token timeline, speculation ledger and goodput;
   ``?limit=N``; 404 with the timeline off), ``GET /debug/timeseries``
   (the telemetry history's rings, ``obs/timeseries.py``: ``?family=``
@@ -302,10 +305,35 @@ def _debug_requests(engine: Engine) -> dict:
     }
 
 
+def _membership_state(mesh) -> dict:
+    """The node's place in the cache mesh's membership view."""
+    return {
+        "role": mesh.role.value,
+        "rank": mesh.rank,
+        "view_epoch": mesh.view.epoch,
+        "alive": list(mesh.view.alive),
+        "master_rank": mesh.view.master_rank(),
+        "successor_rank": mesh._succ_rank,
+    }
+
+
+def _cluster_telemetry(mesh) -> dict:
+    """``GET /cluster/telemetry``: every gossiped NodeDigest plus the
+    pairwise fingerprint-convergence audit (``obs/fleet_plane.py``)."""
+    if mesh is None:
+        return {"nodes": {}, "note": "no cache mesh attached to this node"}
+    snap = mesh.fleet.snapshot()
+    if "shard_heat" in snap:
+        snap["shard_heat"] = mesh.shard_heat_report()
+    snap["self"] = _membership_state(mesh)
+    return snap
+
+
 def _debug_state(engine: Engine, ctl=None) -> dict:
-    """``GET /debug/state``: the engine-side planes and, with SLO control
-    (``ctl``, the runner's controller), its snapshot (the JAX frontend's
-    sections without the mesh and lifecycle ones)."""
+    """``GET /debug/state``: the engine-side planes, with SLO control
+    (``ctl``, the runner's controller) its snapshot, and with a cache mesh
+    the node's membership (the JAX frontend's sections without the
+    lifecycle one)."""
     tree = engine.tree
     state = {
         "engine": {
@@ -338,6 +366,8 @@ def _debug_state(engine: Engine, ctl=None) -> dict:
         "trace": get_recorder().stats(),
         "exemplars": get_registry().exemplars(),
     }
+    if engine.mesh is not None:
+        state["membership"] = _membership_state(engine.mesh)
     if hasattr(tree, "host"):
         state["host_tier"] = tree.stats()
     if engine.kv_transfer is not None:
@@ -563,6 +593,8 @@ class ServingFrontend:
                     _json_response(self, 200, _debug_requests(engine))
                 elif path == "/debug/state":
                     _json_response(self, 200, _debug_state(engine, ctl))
+                elif path == "/cluster/telemetry":
+                    _json_response(self, 200, _cluster_telemetry(engine.mesh))
                 elif path == "/debug/tokens":
                     _json_response(self, *_debug_tokens(engine, query))
                 elif path == "/debug/timeseries":

@@ -1,0 +1,72 @@
+"""Run a JAX-package test module's cases against the port.
+
+The cache mesh is host code that both packages hold in identical copies,
+so its tests are the same tests: :func:`load_twin` reads
+``tests/<name>.py``, points every ``radixmesh_tpu`` import at
+``radixmesh_tpu_torch`` and runs the module's source in the namespace of
+the calling ``test_torch_*.py`` file, which pytest then collects. The
+JAX pool, which the mesh only allocates from and frees into, is swapped
+for the port's on the CPU. Cases that reach a model or the JAX engine are
+named in ``drop`` and get a hand-written twin beside the loader call.
+The port's metric registry and flight recorder are process-global as the
+JAX package's are, so each twinned test gets fresh ones, as
+``conftest.py`` gives the JAX package's.
+"""
+
+from __future__ import annotations
+
+import re
+from pathlib import Path
+
+import pytest
+
+from radixmesh_tpu_torch.cache.kv_pool import PagedKVPool
+from radixmesh_tpu_torch.obs import metrics, trace_plane
+
+TESTS = Path(__file__).resolve().parent
+
+__all__ = ["CpuPagedKVPool", "load_twin"]
+
+
+def CpuPagedKVPool(*args, **kwargs) -> PagedKVPool:
+    """The port's pool, on the CPU unless a device is named."""
+    kwargs.setdefault("device", "cpu")
+    return PagedKVPool(*args, **kwargs)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_port_registry_and_recorder():
+    old_reg, old_rec = metrics.get_registry(), trace_plane.get_recorder()
+    metrics.set_registry(metrics.Registry())
+    trace_plane.set_recorder(trace_plane.FlightRecorder())
+    yield
+    metrics.set_registry(old_reg)
+    trace_plane.set_recorder(old_rec)
+
+
+def load_twin(name: str, namespace: dict, *, drop: tuple[str, ...] = (),
+              subs: tuple[tuple[str, str], ...] = ()) -> None:
+    """Define ``tests/<name>.py``'s tests in ``namespace`` against the port.
+
+    ``drop`` names top-level test functions or classes (``"TestX"``) or
+    single methods (``"TestX.test_y"``) not to twin; ``subs`` are literal
+    source replacements, applied first."""
+    path = TESTS / f"{name}.py"
+    src = path.read_text()
+    for old, new in subs:
+        if old not in src:
+            raise ValueError(f"{name}: substitution target not found: {old!r}")
+        src = src.replace(old, new)
+    src = src.replace(
+        "from radixmesh_tpu.cache.kv_pool import PagedKVPool",
+        "from _torch_twin import CpuPagedKVPool as PagedKVPool",
+    )
+    src = re.sub(r"\bradixmesh_tpu\b", "radixmesh_tpu_torch", src)
+    namespace["_fresh_port_registry_and_recorder"] = _fresh_port_registry_and_recorder
+    exec(compile(src, str(path), "exec"), namespace)
+    for item in drop:
+        owner, _, attr = item.partition(".")
+        if attr:
+            delattr(namespace[owner], attr)
+        else:
+            del namespace[owner]

@@ -1,7 +1,10 @@
 """The port's transports (``radixmesh_tpu_torch/comm/``): twins of
 ``tests/test_comm.py``'s in-process and Python-TCP cases, plus the native
-``tcp`` protocol refused by name and the frames of both packages' Python
-transports interoperating. Every socket test runs under its own timeout."""
+``tcp`` protocol (built from the repo's source with ``g++`` at first use,
+raising if the build fails) and the frames of both packages' transports
+interoperating. Every socket test runs under its own timeout. The whole of
+``tests/test_comm.py`` also runs against the port in
+``test_torch_transport_twin.py``."""
 
 import functools
 import socket
@@ -10,8 +13,9 @@ import time
 
 import pytest
 
-from radixmesh_tpu_torch.comm.communicator import DEFAULT_MAX_MSG_BYTES, create_communicator, parse_addr
+from radixmesh_tpu_torch.comm.communicator import create_communicator
 from radixmesh_tpu_torch.comm.inproc import InprocHub
+from radixmesh_tpu_torch.config import DEFAULT_MAX_MSG_BYTES, parse_addr
 
 # Wall-clock limit of each socket test (seconds).
 SOCKET_TIMEOUT_S = 30
@@ -125,8 +129,29 @@ class TestInproc:
         assert not a.connected()
 
     def test_native_tcp_refused_by_name(self):
-        with pytest.raises(NotImplementedError, match="'tcp'.*not ported"):
+        """``tcp`` was refused by name until the native transport was
+        ported; now it is the native transport, never ``tcp-py``."""
+        from radixmesh_tpu_torch.comm.tcp_native import NativeTcpCommunicator
+
+        c = create_communicator("tcp", None, "127.0.0.1:1")
+        try:
+            assert isinstance(c, NativeTcpCommunicator)
+        finally:
+            c.close()
+
+    def test_failed_native_build_raises(self, tmp_path, monkeypatch):
+        """A source that does not compile raises with the compiler's
+        message; the factory never falls back to ``tcp-py``."""
+        from radixmesh_tpu_torch.comm import tcp_native
+
+        broken = tmp_path / "transport.cpp"
+        broken.write_text("this is not C++\n")
+        monkeypatch.setattr(tcp_native, "_SRC", broken)
+        monkeypatch.setattr(tcp_native, "_BUILD_DIR", tmp_path / "build")
+        monkeypatch.setattr(tcp_native, "_lib", None)
+        with pytest.raises(RuntimeError, match="building the native transport .* failed"):
             create_communicator("tcp", None, "127.0.0.1:1")
+        assert not list((tmp_path / "build").glob("*"))
 
 
 class TestPyTcp:

@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of ``radixmesh_tpu_torch``
 and everything ``chip_smoke.py`` imports pulls in neither ``jax``, the JAX
 package nor ``ml_dtypes`` (absent on the card's machine: the disk tier
-encodes bf16 from torch's own bit patterns), nor ``safetensors``,
+encodes bf16 from torch's own bit patterns), nor ``yaml`` (PyYAML is not on
+the card's machine either: ``config.load_config`` imports it only when it
+reads a file, and reads JSON without it), nor ``safetensors``,
 ``transformers`` or ``tokenizers`` (the port reads and writes safetensors
 itself, and imports ``transformers`` only when an HF tokenizer directory
 is loaded); entry points default to CUDA and raise
@@ -27,7 +29,7 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke  # noqa: F401  (module import only; main() is not run)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "radixmesh_tpu" or m.startswith("radixmesh_tpu.") or m == "ml_dtypes"
+             or m == "radixmesh_tpu" or m.startswith("radixmesh_tpu.") or m in ("ml_dtypes", "yaml")
              or m.split(".")[0] in ("safetensors", "transformers", "tokenizers"))
 print(len(mods), bad, " ".join(mods))
 assert not bad, bad
@@ -50,12 +52,20 @@ def test_port_imports_no_jax_and_no_jax_package():
             "radixmesh_tpu_torch.server.tokenizer", "radixmesh_tpu_torch.obs.metrics",
             "radixmesh_tpu_torch.obs.trace_plane", "radixmesh_tpu_torch.obs.tracing",
             "radixmesh_tpu_torch.obs.token_timeline", "radixmesh_tpu_torch.obs.step_plane",
-            "radixmesh_tpu_torch.obs.evictions", "radixmesh_tpu_torch.obs.timeseries",
+            "radixmesh_tpu_torch.obs.fleet_plane", "radixmesh_tpu_torch.obs.timeseries",
             "radixmesh_tpu_torch.obs.blackbox", "radixmesh_tpu_torch.slo.control",
             "radixmesh_tpu_torch.slo.runner", "radixmesh_tpu_torch.policy.retry",
             "radixmesh_tpu_torch.entry", "radixmesh_tpu_torch.engine.disagg",
             "radixmesh_tpu_torch.comm.communicator", "radixmesh_tpu_torch.comm.inproc",
-            "radixmesh_tpu_torch.comm.tcp_py", "radixmesh_tpu_torch.ops.wquant"} <= walked, r.stdout
+            "radixmesh_tpu_torch.comm.tcp_py", "radixmesh_tpu_torch.ops.wquant",
+            "radixmesh_tpu_torch.config", "radixmesh_tpu_torch.utils.sync",
+            "radixmesh_tpu_torch.cache.oplog", "radixmesh_tpu_torch.cache.mesh_values",
+            "radixmesh_tpu_torch.cache.sharding", "radixmesh_tpu_torch.cache.rebalance",
+            "radixmesh_tpu_torch.cache.mesh_cache", "radixmesh_tpu_torch.router.consistent_hash",
+            "radixmesh_tpu_torch.router.cache_aware_router", "radixmesh_tpu_torch.policy.conflict",
+            "radixmesh_tpu_torch.policy.hierarchy", "radixmesh_tpu_torch.policy.sync_algo",
+            "radixmesh_tpu_torch.policy.topology", "radixmesh_tpu_torch.policy.lifecycle",
+            "radixmesh_tpu_torch.comm.faults", "radixmesh_tpu_torch.comm.tcp_native"} <= walked, r.stdout
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
