@@ -89,9 +89,10 @@ Phases (any failure raises and exits non-zero):
    GB/s beside a plain pinned ``copy_`` of the same bytes each way, and
    the gather's and the scatter's device time. Then ``launch.py serve``
    with ``--host-cache-slots``, ``--kv-transfer-async`` and
-   ``--kv-tier-dir`` (bf16, then ``--kv-quant int8``) in a child process
-   must start, answer ``/generate`` (the repeat a cache hit) and report
-   the tiers in ``/stats``. The decode and chunk
+   ``--kv-tier-dir`` (bf16, and ``--kv-quant int8``; each in a child
+   process, the two started together) must start,
+   answer ``/generate`` (the repeat a cache hit) and report the tiers in
+   ``/stats``. The decode and chunk
    kernels' launches are counted, and no plain attention version may run.
    The float32 whole path (phase 5) gains a run with a host tier and the
    async plane, card vs CPU.
@@ -114,7 +115,8 @@ Phases (any failure raises and exits non-zero):
 10. ``launch.py serve --model llama3.2-3b --weights DIR --tokenizer byte``
    over a full llama3.2-3b checkpoint the port writes: a ``text`` request
    answered with ``text``, its repeat a prefix hit, and ``/stats`` showing
-   the decode and chunk kernels launched (G 3) and no plain call.
+   the decode and chunk kernels launched (G 3) and no plain call. It runs
+   beside phase 15's ``serve --weight-quant int8``.
 11. A 2-layer float32 Qwen2-7B (planted biases) through the ``Engine`` on
    the card and on the CPU, as phase 5: the same greedy tokens, the decode
    kernel and the CUDA-core chunk body at G 7.
@@ -209,14 +211,40 @@ Phases (any failure raises and exits non-zero):
    per second at r0 and d0, bytes per insert, apply lag, r0's
    ``match_prefix`` time and each replica's RSS growth. (c) The decode
    step wall of 4 x 600 on p0 with the mesh on (d0 advertising 50
-   prefixes a second) and off, interleaved over 3 rounds, over native
-   ``tcp`` and ``tcp-py``. (d) After the weights are freed, two ``python
+   prefixes a second) and off, two rounds after a warm-up (the order
+   reversed in the second), over native ``tcp`` and ``tcp-py``. (d)
+   After the weights are freed, two ``python
    -m radixmesh_tpu_torch.launch node`` processes (prefill and decode, a
    16384-slot pool each) over native ``tcp`` from JSON configs with
    ``--fleet-digest-interval 0.5``: ``POST /generate`` to the prefill
    node, then the decode node's ``radixmesh_mesh_oplogs_received_total``
    must rise and its ``/cluster/telemetry`` must hold the prefill node's
    digest with the prefill node's own fingerprint.
+17. The fleet (``fleet_leg``): four ``launch.py node`` processes over
+   native ``tcp`` — routers r0 and r1 (model-less, ``POST /route``) and
+   Llama-3-8B serving nodes p0 and d0 (random bf16 weights, 32768 slots,
+   ``max_batch`` 4) — with ``--fleet-digest-interval 0.5 --repair-interval
+   1.0 --drain-timeout 30``; the client here is a ``RouterFrontDoor`` over
+   both routers and a ``RecoveryCoordinator`` over streamed ``/generate``.
+   First d0's decode step with the repair plane armed, on its fresh
+   process. (a) 8 miss prompts of 2000 tokens served where routed, then
+   each plus 64 tokens routed back as a p0 hit and served with 2000 cached
+   tokens (``/route`` p50/p99, hit and miss TTFT). (b) ``kill -9`` r0
+   between two routes: the front door fails over to r1 and loses none
+   (failover wall, ``radixmesh_frontdoor_*_total``); r0 restarts
+   meanwhile. (c) 4 greedy requests of 600 + 128 tokens on p0, ``kill -9``
+   p0 once each delivered 8: all finish on d0 with ``resumed_from`` = k and
+   nothing re-emitted (recovery seconds, and the share equal to an
+   undisturbed run that is a prefix hit on p0 as they are: a bf16
+   reading). (d) p0 restarts from its config: BOOTSTRAPPING → ACTIVE from
+   donor d0, the routers' withheld hits rise meanwhile, the fingerprints
+   agree, and p0's prefix routes to p0 again. (e) ``POST /admin/drain`` to
+   d0 while 4 requests decode: they finish, 4 arrivals get 503 with the
+   router and no ``Retry-After`` (the plain runner's answer, as in the JAX
+   package), the routers see DRAINING then drop d0, and SIGTERM exits 0
+   within the drain timeout. Last d0's decode step unarmed, on a fresh d0
+   process started without the repair plane. p0's and d0's ``/stats`` must
+   show the decode and chunk kernels and no plain version.
 Checkpoints and profiles are written under ``chip_out/`` and removed.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches per path in
@@ -231,6 +259,7 @@ Exits 2 without printing a result where torch has no CUDA device.
 from __future__ import annotations
 
 import ctypes
+import functools
 import gc
 import json
 import math
@@ -238,6 +267,7 @@ import os
 import pathlib
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1315,6 +1345,29 @@ def tier_phase(dev, model, kv_quant=None) -> dict:
     return out
 
 
+def _together(*calls) -> list:
+    """Run the zero-argument ``calls`` in threads at once; their results in
+    order, or the first call's failure raised once all have ended."""
+    results: list = [None] * len(calls)
+    errors: list = [None] * len(calls)
+
+    def one(i):
+        try:
+            results[i] = calls[i]()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors[i] = e
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(calls))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for e in errors:
+        if e is not None:
+            raise e
+    return results
+
+
 def launcher_phase(kv_quant=None, weight_quant=None) -> dict:
     """``python -m radixmesh_tpu_torch.launch serve`` with the three tiers
     (``--host-cache-slots``, ``--kv-transfer-async``, ``--kv-tier-dir``) in
@@ -1587,11 +1640,14 @@ def _http(port, path, body=None, timeout=120):
     return raw if path == "/metrics" else json.loads(raw)
 
 
-def _metric(text: str, series: str) -> float:
-    """The value of one exposition series line (``name{labels}``)."""
+def _metric(text: str, series: str, default: float | None = None) -> float:
+    """The value of one exposition series line (``name{labels}``); a series
+    not exposed (a counter never incremented) reads ``default`` if given."""
     for line in text.splitlines():
         if line.startswith(series + " "):
             return float(line.split()[-1])
+    if default is not None:
+        return default
     raise RuntimeError(f"chip_smoke check failed: /metrics has no series {series}")
 
 
@@ -1941,9 +1997,10 @@ def _capture_submits(fe) -> list:
     return reqs
 
 
-def _post_any(port, body, timeout=300) -> tuple[int, dict, dict]:
-    """POST /generate; ``(status, headers, body)`` for any status."""
-    req = urllib.request.Request(f"http://127.0.0.1:{port}/generate", data=json.dumps(body).encode(),
+def _post_any(port, body, timeout=300, path="/generate") -> tuple[int, dict, dict]:
+    """POST JSON (to ``/generate`` by default); ``(status, headers, body)``
+    for any status."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
@@ -3020,7 +3077,7 @@ def w8a16_phase(dev, model) -> dict:
 MESH = dict(prompts=8, prompt_len=2000, extra=64, new_tokens=8, f32_prompts=4, f32_layers=2,
             engine=dict(num_slots=65536, page_size=16, max_batch=8),
             scale_prefixes=800, scale_len=2000, match_samples=2000,
-            wall_rows=4, wall_len=600, wall_rounds=3, wall_slots=8192, traffic_per_s=50,
+            wall_rows=4, wall_len=600, wall_rounds=2, wall_slots=8192, traffic_per_s=50,
             node_model="llama3-8b", node_slots=16384, head_rows=(4, 8), head_prompts=4, head_len=600,
             head_tokens=32)
 MESH_PAGE = 16
@@ -3461,12 +3518,14 @@ def _mesh_wall_leg(dev, model, protocol: str, remote: bool) -> dict:
 
 def _port_block(n: int) -> int:
     """A base port with ``base .. base + n - 1`` and the same ports plus
-    1000 (the serving ports) free."""
+    1000 (the serving ports) free, all below Linux's ephemeral range (from
+    32768), so that no outgoing connection takes one while a node that
+    owns it restarts."""
     import socket
 
     rng = np.random.default_rng(os.getpid())
     for _ in range(200):
-        base = int(rng.integers(20000, 40000))
+        base = int(rng.integers(20000, 31000))
         try:
             socks = []
             for p in [base + i for i in range(n)] + [base + 1000 + i for i in range(n)]:
@@ -3570,6 +3629,623 @@ def mesh_node_leg(model_preset: str, node_slots: int, device: str = "cuda", out_
             "output_ids": first["output_ids"], "kernels": kernels}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the fleet's failure handling over real processes
+# ---------------------------------------------------------------------------
+
+# The fleet leg's shapes: two routers and two Llama-3-8B serving nodes of
+# ``slots`` KV slots; (a) ``prompts`` miss prompts of ``prompt_len`` tokens,
+# then each with ``extra`` new tokens routed back; (c) ``resume_prompts``
+# greedy requests of ``resume_len`` prompt tokens and ``resume_tokens`` new
+# ones, p0 killed once each has ``kill_after``; (e) ``drain_rows`` requests
+# decoding on d0 and as many arriving during its drain.
+FLEET = dict(model="llama3-8b", slots=32768, max_batch=4, prompts=8, prompt_len=2000, extra=64,
+             new_tokens=8, resume_prompts=4, resume_len=600, resume_tokens=128, kill_after=8,
+             drain_rows=4, drain_len=600, drain_tokens=128, wall_tokens=48, drain_timeout=30.0,
+             hop_timeout_s=5.0, failure_timeout_s=2.0, start_limit_s=400.0)
+FLEET_NAMES = ("p0", "d0", "r0", "r1")
+
+
+def _fleet_configs(out_dir, addrs, spec) -> list:
+    """One JSON config per node, identical but ``local_addr``."""
+    paths = []
+    for name, addr in zip(FLEET_NAMES, addrs):
+        cfg = {"prefill_nodes": addrs[:1], "decode_nodes": addrs[1:2], "router_nodes": addrs[2:],
+               "local_addr": addr, "protocol": "tcp", "page_size": MESH_PAGE, "tick_interval_s": 0.5,
+               "failure_timeout_s": spec["failure_timeout_s"], "repair_age_threshold_s": 1.0,
+               "repair_backoff_s": 0.5,
+               "serve_port_offset": 1000,
+               "model": {"preset": spec["model"], "kv_slots": spec["slots"], "page_size": 16,
+                         "max_batch": spec["max_batch"], "seed": 0}}
+        path = out_dir / f"fleet-{name}.json"
+        path.write_text(json.dumps(cfg))
+        paths.append(path)
+    return paths
+
+
+class _Fleet:
+    """The fleet's processes: ``start`` one node, ``wait_http`` for its
+    ``/healthz``, and stop every process on ``close``."""
+
+    def __init__(self, out_dir, paths, http_ports, device, drain_timeout):
+        self.out_dir, self.paths, self.http_ports, self.device = out_dir, paths, http_ports, device
+        self.drain_timeout = drain_timeout
+        self.procs: dict = {}
+        self.logs: list = []
+
+    def start(self, name: str, repair: bool = True, tag: str = ""):
+        i = FLEET_NAMES.index(name)
+        cmd = [sys.executable, "-m", "radixmesh_tpu_torch.launch", "node", "--config-file", str(self.paths[i]),
+               "--fleet-digest-interval", "0.5", "--drain-timeout", str(self.drain_timeout),
+               "--ready-timeout", "300"]
+        if repair:
+            cmd += ["--repair-interval", "1.0"]
+        if name.startswith("r"):
+            cmd += ["--http-port", str(self.http_ports[i])]
+        else:
+            cmd += ["--device", self.device]
+        log = open(self.out_dir / f"fleet-{name}{tag}.log", "w")
+        self.logs.append(log)
+        self.procs[name] = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        return self.procs[name]
+
+    def wait_http(self, name: str, t0: float, limit: float) -> float:
+        port = self.http_ports[FLEET_NAMES.index(name)]
+        while True:
+            proc = self.procs[name]
+            check(proc.poll() is None, f"fleet: {name} exited with {proc.returncode} "
+                  f"({self.out_dir}/fleet-{name}*.log)")
+            check(time.monotonic() - t0 < limit, f"fleet: {name} did not answer /healthz in {limit:.0f} s")
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=2) as r:
+                    if r.status == 200:
+                        return time.monotonic() - t0
+            except OSError:
+                time.sleep(0.2)
+
+    def close(self) -> None:
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.terminate()
+        for p in self.procs.values():
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        for log in self.logs:
+            log.close()
+
+
+def _port_of(addr: str) -> int:
+    return int(addr.rsplit(":", 1)[1])
+
+
+def _route_edge(port: int):
+    """``POST /route`` on one router as a front-door edge: a shed with
+    ``Retry-After`` raises ``RetryAfter``; any other failure propagates, and
+    the front door declares the router dead."""
+    from radixmesh_tpu_torch.router.front_door import RetryAfter
+
+    def route(ids):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/route",
+                                     data=json.dumps({"input_ids": ids}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            if e.code in (429, 503) and e.headers.get("Retry-After"):
+                raise RetryAfter(float(e.headers["Retry-After"])) from e
+            raise
+
+    return route
+
+
+def _sse_hop(serve_addr: str, rec, hop_s: float, max_tokens: int) -> dict:
+    """One serving hop of a recovery record: a streamed ``/generate`` that
+    resumes from the tokens already delivered and calls ``rec.deliver`` per
+    token. A broken or silent stream indicts the node."""
+    import http.client
+
+    from radixmesh_tpu_torch.server.recovery import HopTimeout, NodeDied
+
+    k = len(rec.delivered)
+    body = {"input_ids": rec.prompt.tolist(), "max_tokens": max_tokens, "stream": True}
+    if k:
+        body["resume_tokens"] = list(rec.delivered)
+    req = urllib.request.Request(f"http://{serve_addr}/generate", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t_post, t_first = time.monotonic(), None
+    try:
+        with urllib.request.urlopen(req, timeout=hop_s) as r:
+            for line in r:
+                if not line.startswith(b"data: "):
+                    continue
+                ev = json.loads(line[len(b"data: "):])
+                if ev.get("done"):
+                    return {"addr": serve_addr, "k": k, "resumed_from": ev.get("resumed_from", 0),
+                            "output_ids": ev["output_ids"], "t_post": t_post, "t_first": t_first}
+                t_first = t_first or time.monotonic()
+                rec.deliver(ev["token"])
+    except urllib.error.HTTPError as e:
+        raise RuntimeError(f"{serve_addr} answered {e.code}") from e
+    except TimeoutError as e:
+        raise HopTimeout(f"no progress from {serve_addr} in {hop_s:.1f} s") from e
+    except urllib.error.URLError as e:
+        if isinstance(e.reason, TimeoutError):
+            raise HopTimeout(f"no progress from {serve_addr} in {hop_s:.1f} s") from e
+        raise NodeDied(f"{serve_addr}: {e.reason}") from e
+    except (ConnectionError, http.client.HTTPException) as e:
+        raise NodeDied(f"{serve_addr}: {e!r}") from e
+    raise NodeDied(f"{serve_addr}: the stream ended without a done event")
+
+
+def _decode_gaps(port: int, prompts, tokens: int) -> dict:
+    """``len(prompts)`` concurrent streamed requests on one node: the median
+    gap between a request's tokens after its first (ms), a decode step's
+    wall as a client sees it."""
+    out: list = [None] * len(prompts)
+
+    def one(i):
+        out[i] = _sse_post(port, {"input_ids": prompts[i], "max_tokens": tokens})
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    gaps = [1e3 * (b - a) for _, times, _ in out for a, b in zip(times[1:-2], times[2:-1])]
+    return {"median_ms": float(np.median(gaps)), "p90_ms": float(np.percentile(gaps, 90)), "n": len(gaps)}
+
+
+def _fleet_stats_kernels(port: int) -> dict:
+    k = _http(port, "/stats").get("kernels", {})
+    return {"b1": k.get("paged_decode_fused_kernel", 0), "b2": k.get("paged_chunk_attention_kernel", 0),
+            "plain": sum(v for n, v in k.items() if "plain" in n)}
+
+
+def _lifecycle_of(port: int):
+    """The node's ``/debug/state`` lifecycle section (None before the plane
+    attaches)."""
+    return _http(port, "/debug/state").get("lifecycle")
+
+
+def fleet_leg(device: str = "cuda", out_dir=None, sizes=None) -> dict:
+    """Phase 17: two routers (r0, r1, model-less) and two serving nodes (p0,
+    d0) as ``python -m radixmesh_tpu_torch.launch node`` processes over
+    native ``tcp``, with ``--fleet-digest-interval 0.5 --repair-interval
+    1.0 --drain-timeout 30``. The client side runs here: a
+    ``RouterFrontDoor`` over both routers' ``POST /route`` and a
+    ``RecoveryCoordinator`` over streamed ``POST /generate``.
+
+    d0's decode wall with the repair plane armed, on its fresh process; (a)
+    route and route back; (b) ``kill -9`` r0 between two requests (it
+    restarts during (c)); (c) ``kill -9`` p0 mid-decode and resume its
+    requests on d0; (d) restart p0 (a warm join: BOOTSTRAPPING → ACTIVE
+    while the routers withhold its hits); (e) drain d0 over ``POST
+    /admin/drain`` (decodes finish, arrivals get 503 with the router and,
+    from the plain runner, no Retry-After; DRAINING then LEFT, exit 0 on
+    SIGTERM); and d0's decode wall unarmed, on a fresh d0 started without
+    the repair plane. ``tests/test_torch_launch_node.py`` runs it on the CPU
+    with the tiny model."""
+    from radixmesh_tpu_torch.obs.metrics import get_registry
+    from radixmesh_tpu_torch.policy.retry import RetryPolicy
+    from radixmesh_tpu_torch.router.front_door import RouterFrontDoor
+    from radixmesh_tpu_torch.server.recovery import RecoveryCoordinator
+
+    spec = dict(FLEET, **(sizes or {}))
+    out_dir = pathlib.Path(out_dir or OUT_DIR)
+    out_dir.mkdir(exist_ok=True)
+    base = _port_block(4)
+    addrs = [f"127.0.0.1:{base + i}" for i in range(4)]
+    http_ports = [base + 1000 + i for i in range(4)]
+    serve = {n: f"127.0.0.1:{http_ports[i]}" for i, n in enumerate(FLEET_NAMES)}
+    port = dict(zip(FLEET_NAMES, http_ports))
+    fleet = _Fleet(out_dir, _fleet_configs(out_dir, addrs, spec), http_ports, device, spec["drain_timeout"])
+    mcfg = get_config(spec["model"])
+    rng = np.random.default_rng(17)
+    aligned = spec["prompt_len"] - spec["prompt_len"] % MESH_PAGE
+    out: dict = {"addrs": dict(zip(FLEET_NAMES, addrs))}
+    t0 = time.monotonic()
+    try:
+        for name in FLEET_NAMES:
+            fleet.start(name)
+        out["ready_s"] = {n: fleet.wait_http(n, t0, spec["start_limit_s"]) for n in FLEET_NAMES}
+        # Both serving nodes gossip ACTIVE before any traffic.
+        deadline = time.monotonic() + 120
+        while True:
+            nodes = _http(port["r1"], "/cluster/telemetry")["nodes"]
+            states = {r: nodes.get(r, {}).get("lifecycle") for r in ("0", "1")}
+            if all(s == "active" for s in states.values()):
+                break
+            check(time.monotonic() < deadline, f"fleet: serving nodes never gossiped active: {states}")
+            time.sleep(0.2)
+        out["active_s"] = time.monotonic() - t0
+        # d0's decode wall with the repair plane armed, taken on its fresh
+        # process as the unarmed one is (last): both are the first requests
+        # their process serves.
+        wall_prompts = [rng.integers(0, mcfg.vocab_size, spec["drain_len"]).tolist()
+                        for _ in range(spec["drain_rows"])]
+        armed = _decode_gaps(http_ports[1], wall_prompts, spec["wall_tokens"])
+
+        # (a) route, serve, publish, route back.
+        door = RouterFrontDoor([(addrs[2], _route_edge(port["r0"])), (addrs[3], _route_edge(port["r1"]))],
+                               hop_timeout_s=2.0, name="fleet")
+        route_ms: list = []
+
+        def route(ids):
+            t = time.perf_counter()
+            res = door.route(ids)
+            route_ms.append(1e3 * (time.perf_counter() - t))
+            return res
+
+        prompts = [rng.integers(0, mcfg.vocab_size, spec["prompt_len"]).tolist() for _ in range(spec["prompts"])]
+        misses = []
+        for p in prompts:
+            r = route(p)
+            check(not r["prefill_cache_hit"] and r["prefill_serve_addr"] == serve["p0"],
+                  f"fleet (a): a new prompt routed as {r}")
+            misses.append(_http(_port_of(r["prefill_serve_addr"]), "/generate",
+                                {"input_ids": p, "max_tokens": spec["new_tokens"]}, timeout=600))
+        routed = [p + rng.integers(0, mcfg.vocab_size, spec["extra"]).tolist() for p in prompts]
+        deadline = time.monotonic() + 30
+        while True:  # replication to the routers' replicas
+            back = [route(r) for r in routed]
+            if all(b["prefill_cache_hit"] and b["match_len"] >= aligned for b in back):
+                break
+            check(time.monotonic() < deadline,
+                  f"fleet (a): routed back as {[(b['prefill_cache_hit'], b['match_len']) for b in back]}")
+            time.sleep(0.2)
+        hits = []
+        for r, b in zip(routed, back):
+            check(b["prefill_serve_addr"] == serve["p0"], f"fleet (a): a shared prefix routed to {b}")
+            hits.append(_http(_port_of(b["prefill_serve_addr"]), "/generate",
+                              {"input_ids": r, "max_tokens": spec["new_tokens"]}, timeout=600))
+        check(all(h["cached_tokens"] >= aligned for h in hits),
+              f"fleet (a): routed hits cached {[h['cached_tokens'] for h in hits]} (want >= {aligned})")
+        out["a"] = {"route_ms": _pcts(route_ms), "match_len": [b["match_len"] for b in back],
+                    "cached_tokens": [h["cached_tokens"] for h in hits],
+                    "miss_ttft_s": [m["ttft_s"] for m in misses], "hit_ttft_s": [h["ttft_s"] for h in hits]}
+
+        # (b) kill -9 r0 between two requests: the front door fails over.
+        answers, t_kill, t_first = [], None, None
+        for i, r in enumerate(routed):
+            if i == len(routed) // 2:
+                fleet.procs["r0"].kill()
+                fleet.procs["r0"].wait()
+                t_kill = time.monotonic()
+            res = route(r)
+            if t_kill is not None and t_first is None:
+                t_first = time.monotonic()
+            answers.append(res)
+        check(all(a["prefill_cache_hit"] for a in answers) and len(answers) == len(routed),
+              f"fleet (b): routes after the router kill {answers}")
+        check(door.dead_addrs() == {addrs[2]} and door.failovers >= 1,
+              f"fleet (b): dead {door.dead_addrs()} failovers {door.failovers}")
+        text = get_registry().render()
+        fd_metrics = {m: _metric(text, f'radixmesh_frontdoor_{m}_total{{node="fleet"}}', 0.0)
+                      for m in ("failovers", "hedges", "retry_after_waits")}
+        # r0 comes back while (c) warms p0; the front door readmits it
+        # before (d), which reads both routers.
+        r0_back: dict = {}
+
+        def restart_r0(t):
+            try:
+                r0_back["s"] = fleet.wait_http("r0", t, 120)
+            except RuntimeError as e:
+                r0_back["error"] = str(e)
+
+        fleet.start("r0", tag="-restart")
+        r0_waiter = threading.Thread(target=restart_r0, args=(time.monotonic(),))
+        r0_waiter.start()
+        out["b"] = {"failover_s": t_first - t_kill, "routes": len(answers), "frontdoor": fd_metrics}
+
+        # (c) kill -9 p0 mid-decode; the recovery plane finishes on d0. The
+        # undisturbed run is a prefix hit on p0, as the interrupted one is:
+        # a first pass of one token publishes each prompt.
+        rprompts = [rng.integers(0, mcfg.vocab_size, spec["resume_len"]).tolist()
+                    for _ in range(spec["resume_prompts"])]
+        ref: list = [None] * len(rprompts)
+        ref_cached: list = [None] * len(rprompts)
+
+        def reference(i, max_tokens):
+            res = _http(http_ports[0], "/generate", {"input_ids": rprompts[i], "max_tokens": max_tokens},
+                        timeout=600)
+            ref[i], ref_cached[i] = res["output_ids"], res["cached_tokens"]
+
+        for max_tokens in (1, spec["resume_tokens"]):
+            threads = [threading.Thread(target=reference, args=(i, max_tokens)) for i in range(len(rprompts))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+        check(all(c > 0 for c in ref_cached), f"fleet (c): the undisturbed runs cached {ref_cached}")
+        r0_waiter.join()
+        check("s" in r0_back, f"fleet (b): r0's restart: {r0_back}")
+        out["b"]["r0_restart_s"] = r0_back["s"]
+        door.revive(addrs[2])
+        kernels_p0 = _fleet_stats_kernels(http_ports[0])
+        coord = RecoveryCoordinator(RetryPolicy(hop_timeout_s=spec["hop_timeout_s"], max_retries=3,
+                                                backoff_base_s=0.05), name="fleet")
+
+        def route_fn(key, exclude):
+            res = route(key.tolist())
+            for a in (res["prefill_serve_addr"], res["decode_serve_addr"]):
+                if a is not None and a not in exclude:
+                    return a
+            return None
+
+        recs = [coord.admit(p) for p in rprompts]
+        t_dead: dict = {}  # when the client first declared p0 dead (its stream broke)
+        coord.on_node_dead.append(lambda addr, cause: t_dead.setdefault(addr, time.monotonic()))
+        hops: dict = {r.rid: [] for r in recs}
+        reports: dict = {}
+        errors: list = []
+
+        def serve_fn(addr, rec, hop_s):
+            hops[rec.rid].append(_sse_hop(addr, rec, hop_s, spec["resume_tokens"]))
+
+        def run(rec):
+            try:
+                reports[rec.rid] = coord.run_to_completion(rec, route_fn, serve_fn)
+            except Exception as e:  # noqa: BLE001 — reported and failed below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=run, args=(r,)) for r in recs]
+        for th in threads:
+            th.start()
+        while not all(len(r.delivered) >= spec["kill_after"] for r in recs):
+            check(all(th.is_alive() for th in threads), f"fleet (c): a request ended before the kill: {errors}")
+            time.sleep(0.001)
+        fleet.procs["p0"].kill()
+        t_p0_kill = time.monotonic()
+        for th in threads:
+            th.join(timeout=600)
+        check(not errors, f"fleet (c): recovery failed: {errors}")
+        resumed = []
+        for r in recs:
+            h = hops[r.rid]
+            check(len(h) == 1 and r.resurrections == 1,
+                  f"fleet (c): request {r.rid} took hops {h} with {r.resurrections} resurrection(s)")
+            last = h[-1]
+            check(last["addr"] == serve["d0"] and last["k"] >= spec["kill_after"]
+                  and last["resumed_from"] == last["k"],
+                  f"fleet (c): request {r.rid} resumed as {[(x['addr'], x['k'], x['resumed_from']) for x in h]}")
+            check(len(r.delivered) == spec["resume_tokens"] and last["output_ids"] == r.delivered[last["k"]:],
+                  f"fleet (c): request {r.rid} delivered {len(r.delivered)} tokens, re-emitted or lost some")
+            resumed.append(last["k"])
+        same = [r.delivered == ref[i] for i, r in enumerate(recs)]
+        same_tok = [a == b for i, r in enumerate(recs) for a, b in zip(r.delivered, ref[i])]
+        # Where each continuation first leaves the undisturbed run, counted
+        # from its resume point (None: never).
+        diverge = [next((j - k for j, (a, b) in enumerate(zip(r.delivered, ref[i])) if a != b), None)
+                   for i, (r, k) in enumerate(zip(recs, resumed))]
+        rec_s = [reports[r.rid]["recovery_s"] for r in recs]
+        out["c"] = {"k": resumed, "recovery_s": rec_s, "recovery_p50_s": float(np.median(rec_s)),
+                    "kill_to_first_resumed_token_s": [hops[r.rid][-1]["t_first"] - t_p0_kill for r in recs],
+                    "kill_to_declared_dead_s": t_dead[serve["p0"]] - t_p0_kill,
+                    "kill_to_resume_post_s": [hops[r.rid][-1]["t_post"] - t_p0_kill for r in recs],
+                    "first_divergence_after_k": diverge, "reference_cached_tokens": ref_cached,
+                    "recovery_max_s": float(max(rec_s)), "resurrections": [r.resurrections for r in recs],
+                    "continuation_equal_share": sum(same) / len(same),
+                    "token_equal_share": sum(same_tok) / len(same_tok),
+                    "kill_to_done_s": time.monotonic() - t_p0_kill}
+
+        # (d) p0 restarts from the same config: a warm join from d0.
+        text = {n: _http(port[n], "/metrics") for n in ("r0", "r1")}
+        withheld_series = 'radixmesh_router_requests_total{outcome="withheld",role="prefill"}'
+        withheld0 = sum(_metric(text[n], withheld_series, 0.0) for n in text)
+        stop = threading.Event()
+        serving_p0 = threading.Event()
+        # Hits routed to p0 before its HTTP port answers: the window between
+        # its ring rejoin and its first (bootstrapping) digest.
+        hammer = {"routes": 0, "to_p0_hit": 0, "to_p0_hit_before_serving": 0, "errors": 0}
+
+        def hammer_routes(n):
+            # Routes of p0's prefixes on one router from p0's restart until
+            # it is active: the hits its bootstrap digest withholds.
+            while not stop.is_set():
+                for r in routed[:2]:
+                    try:
+                        res = _http(port[n], "/route", {"input_ids": r}, timeout=10)
+                    except (OSError, RuntimeError):
+                        hammer["errors"] += 1
+                        continue
+                    hammer["routes"] += 1
+                    hit = res["prefill_cache_hit"] and res["prefill_addr"] == addrs[0]
+                    hammer["to_p0_hit"] += hit
+                    hammer["to_p0_hit_before_serving"] += hit and not serving_p0.is_set()
+
+        fleet.procs["p0"].wait()
+        t_restart = time.monotonic()
+        fleet.start("p0", tag="-rejoin")
+        workers = [threading.Thread(target=hammer_routes, args=(n,), daemon=True) for n in ("r0", "r1")]
+        for w in workers:
+            w.start()
+        fleet.wait_http("p0", t_restart, spec["start_limit_s"])
+        serving_p0.set()
+        states = []
+        deadline = time.monotonic() + 120
+        while True:
+            lc = _lifecycle_of(http_ports[0])
+            if lc is not None and (not states or states[-1] != lc["state"]):
+                states.append(lc["state"])
+            if lc is not None and lc["state"] == "active":
+                break
+            check(time.monotonic() < deadline, f"fleet (d): p0 never went active: {states}")
+            time.sleep(0.05)
+        t_active = time.monotonic()
+        time.sleep(1.0)  # the routers fold p0's ACTIVE digest
+        stop.set()
+        for w in workers:
+            w.join()
+        boot = lc.get("bootstrap", {})
+        check(boot.get("donor_rank") == 1 and boot.get("converge_s") is not None,
+              f"fleet (d): p0's bootstrap {lc}")
+        text = {n: _http(port[n], "/metrics") for n in ("r0", "r1")}
+        withheld1 = sum(_metric(text[n], withheld_series, 0.0) for n in text)
+        check(withheld1 > withheld0, f"fleet (d): the routers withheld no hit ({withheld0} -> {withheld1}; "
+              f"routes {hammer}, p0 states {states})")
+        deadline = time.monotonic() + 30
+        while True:
+            nodes = _http(port["r1"], "/cluster/telemetry")["nodes"]
+            fp = {r: nodes.get(r, {}).get("fingerprint") for r in ("0", "1")}
+            if fp["0"] is not None and fp["0"] == fp["1"]:
+                break
+            check(time.monotonic() < deadline, f"fleet (d): fingerprints {fp} never agreed")
+            time.sleep(0.2)
+        again = route(routed[0])
+        check(again["prefill_addr"] == addrs[0] and again["prefill_cache_hit"],
+              f"fleet (d): p0's prefix routed as {again} after its join")
+        first_hit = _http(http_ports[0], "/generate", {"input_ids": routed[0], "max_tokens": spec["new_tokens"]},
+                          timeout=600)
+        p0_metrics = _http(http_ports[0], "/metrics")
+        d0_metrics = _http(http_ports[1], "/metrics")
+        keys = {n: _metric(t, f'radixmesh_repair_keys_pushed_total{{node="{lbl}"}}', 0.0)
+                for n, t, lbl in (("p0", p0_metrics, "prefill@0"), ("d0", d0_metrics, "decode@1"))}
+        out["d"] = {"states": states, "bootstrap_wall_s": t_active - t_restart,
+                    "bootstrap_converge_s": boot.get("converge_s"), "rounds": boot.get("rounds"),
+                    "keys_pushed": keys, "withheld_hits": [withheld0, withheld1], "hammer": hammer,
+                    "fingerprint": fp["0"], "route_after_join": again,
+                    "first_routed_cached_tokens": first_hit["cached_tokens"]}
+
+        # (e) d0's drain.
+        decoding: list = [None] * spec["drain_rows"]
+        dprompts = [rng.integers(0, mcfg.vocab_size, spec["drain_len"]).tolist()
+                    for _ in range(spec["drain_rows"])]
+
+        def decode(i):
+            decoding[i] = _post_any(http_ports[1], {"input_ids": dprompts[i], "max_tokens": spec["drain_tokens"]},
+                                    timeout=600)
+
+        threads = [threading.Thread(target=decode, args=(i,)) for i in range(len(dprompts))]
+        for th in threads:
+            th.start()
+        deadline = time.monotonic() + 300
+        while True:
+            reqs = _http(http_ports[1], "/debug/requests")
+            if reqs["running"] >= spec["drain_rows"] and all(
+                    q["output_tokens"] >= 2 for q in reqs["requests"] if q["state"] == "running"):
+                break
+            check(time.monotonic() < deadline, f"fleet (e): d0 never decoded {spec['drain_rows']} rows: {reqs}")
+            time.sleep(0.02)
+        t_drain = time.monotonic()
+        st, _, drained = _post_any(http_ports[1], {}, path="/admin/drain")
+        check(st == 202 and drained["accepted"] and drained["router"] == addrs[2],
+              f"fleet (e): POST /admin/drain answered {st} {drained}")
+        arrivals = [_post_any(http_ports[1], {"input_ids": p, "max_tokens": spec["drain_tokens"]}, timeout=60)
+                    for p in dprompts]
+        # The plain runner refuses a submit while draining; the frontend
+        # answers 503 with the router to retry through and no Retry-After,
+        # as the JAX package's does (ROADMAP.md section C).
+        for code, headers, body in arrivals:
+            check(code == 503 and "Retry-After" not in headers and body.get("router") == addrs[2],
+                  f"fleet (e): an arrival during the drain got {code} {headers} {body}")
+        seen_draining = False
+        deadline = time.monotonic() + 30
+        while not seen_draining:
+            nodes = _http(port["r1"], "/cluster/telemetry")["nodes"]
+            seen_draining = nodes.get("1", {}).get("lifecycle") == "draining"
+            check(seen_draining or time.monotonic() < deadline, "fleet (e): the routers never saw d0 draining")
+            time.sleep(0.02)
+        # d0 is the only decode node: a departing node is still the
+        # fallback when nothing else of its role exists (the router's rule),
+        # so it leaves the answers only once it has left.
+        r_drain = _http(port["r1"], "/route", {"input_ids": dprompts[0]})
+        for th in threads:
+            th.join(timeout=spec["drain_timeout"] + 60)
+        for code, _, body in decoding:
+            check(code == 200 and len(body["output_ids"]) == spec["drain_tokens"] and not body.get("cancelled"),
+                  f"fleet (e): a decoding request ended {code} {body.get('output_ids', body)!s:.200}")
+        kernels_d0 = _fleet_stats_kernels(http_ports[1])
+        deadline = time.monotonic() + spec["drain_timeout"] + 30
+        while True:
+            lc = _lifecycle_of(http_ports[1])
+            if lc["state"] == "left":
+                break
+            check(time.monotonic() < deadline, f"fleet (e): d0 never left: {lc}")
+            time.sleep(0.05)
+        t_left = time.monotonic()
+        deadline = time.monotonic() + 30
+        while True:
+            gone = [_http(port[n], "/debug/state")["membership"]["alive"] for n in ("r0", "r1")]
+            nodes = _http(port["r1"], "/cluster/telemetry")["nodes"]
+            if all(1 not in g for g in gone) and "1" not in nodes:
+                break
+            check(time.monotonic() < deadline, f"fleet (e): the routers still hold d0: {gone} {sorted(nodes)}")
+            time.sleep(0.05)
+        r_left = route(dprompts[0])
+        check(r_left["decode_addr"] != addrs[1], f"fleet (e): d0 routed after it left: {r_left}")
+        t = time.monotonic()
+        fleet.procs["d0"].send_signal(signal.SIGTERM)
+        rc = fleet.procs["d0"].wait(timeout=spec["drain_timeout"] + 30)
+        exit_s = time.monotonic() - t
+        check(rc == 0 and exit_s < spec["drain_timeout"], f"fleet (e): d0 exited {rc} after {exit_s:.1f} s")
+        out["e"] = {"drain_wall_s": t_left - t_drain, "exit_s": exit_s,
+                    "decode_addr_while_draining": r_drain["decode_addr"],
+                    "decode_addr_after_left": r_left["decode_addr"], "requeued": lc["drain"].get("requeued"),
+                    "arrivals": [c for c, _, _ in arrivals],
+                    "retry_after": [h.get("Retry-After") for _, h, _ in arrivals], "drain": lc["drain"]}
+
+        # d0 again without the repair plane: the decode wall unarmed, on a
+        # fresh process as the armed one was.
+        t = time.monotonic()
+        fleet.start("d0", repair=False, tag="-unarmed")
+        fleet.wait_http("d0", t, spec["start_limit_s"])
+        unarmed = _decode_gaps(http_ports[1], wall_prompts, spec["wall_tokens"])
+        kernels_d0b = _fleet_stats_kernels(http_ports[1])
+        kernels_p0b = _fleet_stats_kernels(http_ports[0])
+        out["decode_wall"] = {"armed": armed, "unarmed": unarmed}
+        out["kernels"] = {"p0": {k: kernels_p0[k] + kernels_p0b[k] for k in kernels_p0},
+                          "d0": {k: kernels_d0[k] + kernels_d0b[k] for k in kernels_d0}}
+        if device == "cuda":
+            for name, c in out["kernels"].items():
+                check(c["b1"] > 0 and c["b2"] > 0 and c["plain"] == 0, f"fleet: {name}'s kernels {c}")
+    finally:
+        fleet.close()
+    out["wall_s"] = time.monotonic() - t0
+    return out
+
+
+def fleet_phase(card: str) -> dict:
+    """Phase 17: :func:`fleet_leg` at Llama-3-8B's full width, and its
+    numbers, each beside the card's name and power limit."""
+    f = fleet_leg()
+    a, b, c, d, e, w = f["a"], f["b"], f["c"], f["d"], f["e"], f["decode_wall"]
+    print(f"[fleet] ({card}) 4 launch.py node processes (r0, r1, p0, d0) over native tcp: /healthz after "
+          f"{max(f['ready_s'].values()):.1f}s, active after {f['active_s']:.1f}s", flush=True)
+    print(f"[fleet a] /route p50 {a['route_ms']['p50']:.3f} ms p99 {a['route_ms']['p99']:.3f} ms; routed back "
+          f"as hits of {min(a['match_len'])}-{max(a['match_len'])} tokens, cached {a['cached_tokens']}; TTFT hit "
+          f"p50 {np.median(a['hit_ttft_s']):.4f}s vs miss p50 {np.median(a['miss_ttft_s']):.4f}s", flush=True)
+    print(f"[fleet b] kill -9 r0: first route through r1 {1e3 * b['failover_s']:.3f} ms after the kill, "
+          f"{b['routes']} routes, none lost; front door {b['frontdoor']}; r0 back in {b['r0_restart_s']:.1f}s",
+          flush=True)
+    print(f"[fleet c] kill -9 p0 at k = {c['k']}: all resumed on d0 (resumed_from == k, nothing re-emitted); "
+          f"radixmesh_request_recovery_seconds p50 {c['recovery_p50_s']:.3f}s max {c['recovery_max_s']:.3f}s; "
+          f"kill -> declared dead {c['kill_to_declared_dead_s']:.3f}s -> resume POSTed "
+          f"{[round(x, 3) for x in c['kill_to_resume_post_s']]}s -> first resumed token "
+          f"{[round(x, 3) for x in c['kill_to_first_resumed_token_s']]}s after the kill; "
+          f"continuations equal to the undisturbed run (a p0 hit of {c['reference_cached_tokens']} tokens) "
+          f"{c['continuation_equal_share']:.3f} (tokens {c['token_equal_share']:.3f}; first divergence after k "
+          f"{c['first_divergence_after_k']})", flush=True)
+    print(f"[fleet d] p0 restarted: {' -> '.join(d['states'])} in {d['bootstrap_wall_s']:.2f}s from the restart "
+          f"(bootstrap {d['bootstrap_converge_s']:.3f}s, {d['rounds']} round(s), keys pushed {d['keys_pushed']}); "
+          f"withheld hits {d['withheld_hits']}; routes {d['hammer']}; routed back to p0 "
+          f"{d['route_after_join']['prefill_cache_hit']}, its first routed hit cached "
+          f"{d['first_routed_cached_tokens']} tokens", flush=True)
+    print(f"[fleet e] drain d0: left {e['drain_wall_s']:.3f}s after POST /admin/drain, exit 0 "
+          f"{e['exit_s']:.3f}s after SIGTERM; arrivals {e['arrivals']} with the router, Retry-After "
+          f"{e['retry_after']} (the plain runner sends none); decode "
+          f"addr while draining {e['decode_addr_while_draining']}, after leaving {e['decode_addr_after_left']}; "
+          f"drain {e['drain']}", flush=True)
+    print(f"[fleet walls] d0 decode step (client gap, {FLEET['drain_rows']} rows x {FLEET['drain_len']}, the first "
+          f"requests of a fresh d0 process each, one reading each): repair armed median "
+          f"{w['armed']['median_ms']:.3f} ms, unarmed {w['unarmed']['median_ms']:.3f} ms; kernels "
+          f"{f['kernels']}; leg wall {f['wall_s']:.1f}s", flush=True)
+    return f
+
+
 def mesh_phase(dev, model) -> dict:
     """Phase 16: (a) serve → publish → replicate → route back on each
     transport at full width, and a 2-layer float32 leg whose hit and miss
@@ -3669,13 +4345,22 @@ def _whole_path_script(eng, cfg, schedules, tiers=False) -> list[list[int]]:
     return [r.generated for r in reqs]
 
 
-def whole_path_check(dev, kv_quant=None, schedules=None, tiers=False, model="llama3-8b") -> dict:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+@functools.lru_cache(maxsize=1)
+def _whole_path_params(model: str) -> dict:
+    """The whole-path checks' 2-layer float32 weights on the CPU (several
+    GB at full width, built once per model; the engines copy them)."""
     cfg = get_config(model, n_layers=2, dtype=torch.float32)
     params = init_params(cfg, seed=1, device="cpu")
     if cfg.qkv_bias:
         plant_biases(params, 1)
+    return params
+
+
+def whole_path_check(dev, kv_quant=None, schedules=None, tiers=False, model="llama3-8b") -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(model, n_layers=2, dtype=torch.float32)
+    params = _whole_path_params(model)
     kw = dict(num_slots=1024, page_size=16, max_batch=2, long_prefill_threshold=16,
               prefill_chunk=64, kv_quant=kv_quant, **(schedules or {}))
     if tiers:
@@ -3809,13 +4494,20 @@ def main() -> int:
     mesh = mesh_phase(dev, model)
     print(f"[time] mesh phase (a)-(c) {time.monotonic() - t:.1f}s", flush=True)
     del model
+    gc.collect()
     torch.cuda.empty_cache()
     t = time.monotonic()
-    serve_cli = {tag: launcher_phase(quant) for tag, quant in (("bf16", None), ("int8", "int8"))}
-    print(f"[time] serve launcher phases {time.monotonic() - t:.1f}s", flush=True)
+    # The child processes start in pairs, each with its own port and log:
+    # a pair needs at most ~35 GiB of the card (the W8A16 quantize peak
+    # ~23 GiB beside the text launcher's ~12), the node leg's two nodes
+    # ~34 GiB alone, and this process may still hold ~20 GiB.
+    print(f"[serve-cli] {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated here", flush=True)
+    serve_bf16, serve_int8 = _together(lambda: launcher_phase(), lambda: launcher_phase("int8"))
+    serve_cli = {"bf16": serve_bf16, "int8": serve_int8}
+    print(f"[time] serve launcher phases (bf16 and int8 together) {time.monotonic() - t:.1f}s", flush=True)
     t = time.monotonic()
-    w8a16["serve_cli"] = launcher_phase(weight_quant="int8")
-    print(f"[time] w8a16 serve launcher {time.monotonic() - t:.1f}s", flush=True)
+    w8a16["serve_cli"], serve_text = _together(lambda: launcher_phase(weight_quant="int8"), launcher_text_phase)
+    print(f"[time] w8a16 serve launcher and the text launcher together {time.monotonic() - t:.1f}s", flush=True)
     t = time.monotonic()
     node = mesh["node"] = mesh_node_leg(MESH["node_model"], MESH["node_slots"])
     print(f"[mesh node] two launch.py node processes (prefill, decode) over native tcp: /healthz after "
@@ -3825,20 +4517,21 @@ def main() -> int:
           f"{node['kernels']}; leg wall {node['wall_s']:.1f}s", flush=True)
     print(f"[time] mesh node leg (d) {time.monotonic() - t:.1f}s", flush=True)
     t = time.monotonic()
+    fleet = fleet_phase(card)
+    print(f"[time] fleet phase {time.monotonic() - t:.1f}s", flush=True)
+    t = time.monotonic()
     qwen = qwen2_serving_phase(dev)
     print(f"[time] qwen2-7b serving phase {time.monotonic() - t:.1f}s", flush=True)
     t = time.monotonic()
     ckpt = checkpoint_phase(dev)
     print(f"[time] checkpoint phase {time.monotonic() - t:.1f}s", flush=True)
     t = time.monotonic()
-    serve_text = launcher_text_phase()
-    print(f"[time] serve launcher with a checkpoint and text {time.monotonic() - t:.1f}s", flush=True)
-    t = time.monotonic()
     whole = {tag: whole_path_check(dev, quant, sched, tiered, name) for tag, quant, sched, tiered, name in
              (("float32", None, None, False, "llama3-8b"), ("int8", "int8", None, False, "llama3-8b"),
               ("float32 schedules", None, SCHEDULES, False, "llama3-8b"),
               ("float32 tiers", None, None, True, "llama3-8b"),
               ("qwen2-7b float32", None, None, False, "qwen2-7b"))}
+    _whole_path_params.cache_clear()
     print(f"[time] whole-path checks {time.monotonic() - t:.1f}s", flush=True)
 
     # Launches of each kernel entry on each path that ran it (counts zeroed
@@ -3855,7 +4548,8 @@ def main() -> int:
                                "w8a16 serving": w8a16["launches"]["b1"],
                                **{f"mesh {proto} {n}": leg["launches"][n]["b1"]
                                   for proto, leg in mesh["legs"].items() for n in ("p0", "d0")},
-                               "mesh node prefill": node["kernels"]["paged_decode_fused_kernel"]},
+                               "mesh node prefill": node["kernels"]["paged_decode_fused_kernel"],
+                               "fleet p0": fleet["kernels"]["p0"]["b1"], "fleet d0": fleet["kernels"]["d0"]["b1"]},
         "paged_decode_fused[int8]": {"serving int8": serving["int8"]["launches"]["paged_decode_fused[int8]"],
                                      "tiers int8": tiers["int8"]["launches"]["paged_decode_fused[int8]"],
                                      "disagg decode int8":
@@ -3870,7 +4564,8 @@ def main() -> int:
                                   "w8a16 serving": w8a16["launches"]["b2"],
                                   **{f"mesh {proto} {n}": leg["launches"][n]["b2"]
                                      for proto, leg in mesh["legs"].items() for n in ("p0", "d0")},
-                                  "mesh node prefill": node["kernels"]["paged_chunk_attention_kernel"]},
+                                  "mesh node prefill": node["kernels"]["paged_chunk_attention_kernel"],
+                                  "fleet p0": fleet["kernels"]["p0"]["b2"], "fleet d0": fleet["kernels"]["d0"]["b2"]},
         "paged_chunk_attention[int8]": {
             "serving int8": serving["int8"]["launches"]["paged_chunk_attention[int8]"],
             "tiers int8": tiers["int8"]["launches"]["paged_chunk_attention[int8]"],
@@ -3978,7 +4673,7 @@ def main() -> int:
               "groups": groups, "serving": serving, "tiers": tiers, "serve_cli": serve_cli,
               "qwen2_serving": qwen, "checkpoint": ckpt, "serve_text": serve_text, "whole_path": whole,
               "replay": replay, "serving_edge": edge, "handoff": handoff, "w8a16": w8a16,
-              "head": head, "mesh": mesh}
+              "head": head, "mesh": mesh, "fleet": fleet}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

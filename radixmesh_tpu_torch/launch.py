@@ -64,9 +64,23 @@ node whose mesh owns a pool. ``--fleet-digest-interval`` gossips the
 node's fleet digest, ``--replication-factor``, ``--router-nodes`` and
 ``--rebalance-interval`` override the config before it is validated, and
 ``--chaos-plan`` arms fault injection on every transport the node opens.
-The KV-transfer, trace and history flags are ``serve``'s. The router role
-and the flags and config keys in ``_NOT_PORTED_NODE`` are refused by name
-with the ROADMAP.md queue item that brings them.
+A router node (``local_addr`` in ``router_nodes``) runs a
+:class:`~radixmesh_tpu_torch.router.cache_aware_router.CacheAwareRouter`
+behind a :class:`~radixmesh_tpu_torch.server.http_frontend.RouterFrontend`
+(``POST /route``) on ``--http-port``, with ``--warm-up``,
+``--health-aware-routing`` and ``--kv-prefetch-hints``.
+``--repair-interval`` (or the config's ``repair_interval_s``) arms the
+anti-entropy repair plane on every role (routers probe and pull, never
+push). Every non-router node arms the lifecycle plane: with a repair plane
+and digests it joins BOOTSTRAPPING (a warm join from a donor) before it
+goes ACTIVE, and ``POST /admin/drain`` or SIGTERM/SIGINT drain it
+(``--drain-timeout``, default 30 s) and announce LEAVE before it exits.
+The KV-transfer, trace and history flags are ``serve``'s. The flags and
+config keys in ``_NOT_PORTED_NODE`` are refused by name with the
+ROADMAP.md queue item that brings them.
+
+    python -m radixmesh_tpu_torch.launch node --config-file router0.json --http-port 8100 \
+        --fleet-digest-interval 0.5 --repair-interval 1.0
 """
 
 from __future__ import annotations
@@ -85,11 +99,6 @@ _NOT_PORTED_FLAGS: tuple[str, ...] = ()
 # ``node`` flags of the JAX launcher whose features are not ported yet,
 # with the ROADMAP.md queue item that brings each.
 _NOT_PORTED_NODE: dict[str, str] = {
-    "--warm-up": "A2, the router role",
-    "--health-aware-routing": "A2, the router role",
-    "--kv-prefetch-hints": "A2, the router role",
-    "--repair-interval": "A3, the repair plane",
-    "--drain-timeout": "A3, the graceful drain",
     "--agg-interval": "A4, fleet aggregation",
 }
 
@@ -318,15 +327,7 @@ def _add_history_args(sub: argparse.ArgumentParser) -> None:
 
 def _node_refusal(cfg, serving: bool, args: argparse.Namespace) -> str | None:
     """Why this node cannot run on the port yet (None if it can): the
-    router role and config keys whose features are not ported."""
-    from radixmesh_tpu_torch.config import NodeRole
-
-    if cfg.local_role is NodeRole.ROUTER:
-        return ("the router role (RouterFrontend, /route) is not supported by the PyTorch port "
-                "yet (see ROADMAP.md, queue A2)")
-    if cfg.repair_interval_s > 0:
-        return ("repair_interval_s > 0 (the repair plane) is not supported by the PyTorch port "
-                "yet (see ROADMAP.md, queue A3)")
+    config keys and flags whose features are not ported."""
     if cfg.agg_interval_s > 0:
         return ("agg_interval_s > 0 (fleet aggregation) is not supported by the PyTorch port yet "
                 "(see ROADMAP.md, queue A4)")
@@ -397,7 +398,7 @@ def _run_node(args: argparse.Namespace) -> int:
     import json
 
     from radixmesh_tpu_torch.cache.mesh_cache import MeshCache
-    from radixmesh_tpu_torch.config import load_config, parse_addr
+    from radixmesh_tpu_torch.config import NodeRole, load_config, parse_addr
     from radixmesh_tpu_torch.utils.device import resolve_device
     from radixmesh_tpu_torch.utils.logging import configure_logger, get_logger
 
@@ -412,14 +413,16 @@ def _run_node(args: argparse.Namespace) -> int:
                       replication_factor=args.replication_factor,
                       rebalance_interval_s=args.rebalance_interval)
     role, rank, _ = cfg.local_identity()
-    serving = bool(cfg.model)
+    is_router = role is NodeRole.ROUTER
+    serving = not is_router and bool(cfg.model)
     refusal = _node_refusal(cfg, serving, args)
     if refusal is not None:
         raise SystemExit(refusal)
     label = f"{role.value}@{rank}"
     configure_logger(label)
     log = get_logger("launch")
-    device = resolve_device(args.device)
+    # A router touches no device.
+    device = None if is_router else resolve_device(args.device)
     _configure_tracing(args, node=label)
     if cfg.replication_factor > 0:
         log.info("prefix-ownership sharding ON (replication factor %d)", cfg.replication_factor)
@@ -441,8 +444,9 @@ def _run_node(args: argparse.Namespace) -> int:
 
         log.info("building the CUDA kernels ...")
         build_all()
-    if serving:
-        # The engine owns slot lifetime; its mesh replica only advertises.
+    if serving or is_router:
+        # A serving node's engine owns slot lifetime, so its replica only
+        # advertises; a router's replica holds ranks only.
         node = MeshCache(cfg, pool=None).start()
     else:
         from radixmesh_tpu_torch.cache.kv_pool import PagedKVPool
@@ -461,16 +465,32 @@ def _run_node(args: argparse.Namespace) -> int:
         return 1
     log.info("ring verified (view epoch=%d)", node.view.epoch)
 
-    engine = frontend = fleet_plane = rebalance_plane = None
-    if serving:
+    # The same tokenizer spec on routers and serving nodes, or routed text
+    # prefixes do not line up with cached ones.
+    tokenizer = None
+    tok_spec = args.tokenizer or (cfg.model or {}).get("tokenizer")
+    if tok_spec:
+        from radixmesh_tpu_torch.server.tokenizer import load_tokenizer
+
+        tokenizer = load_tokenizer(tok_spec)
+
+    engine = frontend = fleet_plane = repair_plane = rebalance_plane = lifecycle_plane = None
+    if is_router:
+        from radixmesh_tpu_torch.router.cache_aware_router import CacheAwareRouter
+        from radixmesh_tpu_torch.server.http_frontend import RouterFrontend
+
+        router = CacheAwareRouter(node, cfg, health_aware=args.health_aware_routing,
+                                  prefetch_hints=args.kv_prefetch_hints)
+        router.watch_topology()
+        if not args.warm_up:
+            router.finish_warm_up()
+        host = parse_addr(cfg.local_addr)[0] or "127.0.0.1"
+        frontend = RouterFrontend(router, host=host, port=args.http_port, tokenizer=tokenizer,
+                                  **_history_kwargs(args, log))
+        print(f"routing {label} on http://{host}:{frontend.port}", flush=True)
+    elif serving:
         from radixmesh_tpu_torch.server.http_frontend import ServingFrontend
 
-        tokenizer = None
-        tok_spec = args.tokenizer or cfg.model.get("tokenizer")
-        if tok_spec:
-            from radixmesh_tpu_torch.server.tokenizer import load_tokenizer
-
-            tokenizer = load_tokenizer(tok_spec)
         engine = _node_engine(cfg, args, node, f"{role.value}{rank}", device, log)
         if engine.resurrected.get("grafted_nodes"):
             log.info("resurrected %d prefix(es) / %d tokens; re-announced %d",
@@ -489,21 +509,60 @@ def _run_node(args: argparse.Namespace) -> int:
         args.fleet_digest_interval if args.fleet_digest_interval is not None
         else cfg.digest_interval_s
     )
-    if digest_interval > 0:
+    if not is_router and digest_interval > 0:
         from radixmesh_tpu_torch.obs.fleet_plane import FleetPlane
 
+        # Routers never originate digests: the master's fan-out fills
+        # their view. Started after the lifecycle plane attaches, so the
+        # first digest already carries the node's lifecycle state.
         fleet_plane = FleetPlane(
             node, engine=engine, slo=getattr(getattr(frontend, "runner", None), "ctl", None),
             interval_s=digest_interval,
-        ).start()
-        log.info("fleet digests every %.1fs", digest_interval)
-    if cfg.replication_factor > 0 and cfg.rebalance_interval_s > 0:
+        )
+    repair_interval = (
+        args.repair_interval if args.repair_interval is not None else cfg.repair_interval_s
+    )
+    if repair_interval > 0:
+        from radixmesh_tpu_torch.cache.repair_plane import RepairConfig, RepairPlane
+
+        # Every role runs one: routers probe and pull, never push.
+        repair_plane = RepairPlane(node, RepairConfig(
+            interval_s=repair_interval, age_threshold_s=cfg.repair_age_threshold_s,
+            key_budget=cfg.repair_key_budget, backoff_base_s=cfg.repair_backoff_s,
+            backoff_max_s=max(cfg.repair_backoff_s * 30.0, cfg.repair_backoff_s),
+        )).start()
+        log.info("anti-entropy repair armed (scan %.1fs, stale after %.1fs)",
+                 repair_interval, cfg.repair_age_threshold_s)
+    if not is_router and cfg.replication_factor > 0 and cfg.rebalance_interval_s > 0:
         from radixmesh_tpu_torch.cache.rebalance import RebalanceConfig, RebalancePlane
 
         rebalance_plane = RebalancePlane(
             node, RebalanceConfig(interval_s=cfg.rebalance_interval_s)
         ).start()
         log.info("heat-driven rebalancer armed (tick %.1fs)", cfg.rebalance_interval_s)
+    if not is_router:
+        from radixmesh_tpu_torch.policy.lifecycle import LifecycleConfig, LifecyclePlane
+
+        # BOOTSTRAPPING → ACTIVE → DRAINING → LEFT. The warm join (bulk
+        # repair from a donor while routers withhold hits) needs a repair
+        # plane to pull through and digests to see donors; otherwise the
+        # node starts ACTIVE. POST /admin/drain and SIGTERM drain through
+        # it, and drain step 5c flushes the node's black box.
+        lifecycle_plane = LifecyclePlane(
+            node, repair=repair_plane, runner=getattr(frontend, "runner", None),
+            fleet_plane=fleet_plane, cfg=LifecycleConfig(drain_timeout_s=args.drain_timeout),
+            bootstrap=repair_plane is not None and digest_interval > 0,
+            blackbox=getattr(frontend, "blackbox", None),
+        )
+        if frontend is not None:
+            frontend.lifecycle = lifecycle_plane
+    if fleet_plane is not None:
+        fleet_plane.start()
+        log.info("fleet digests every %.1fs", digest_interval)
+    if lifecycle_plane is not None:
+        lifecycle_plane.start()
+        log.info("membership lifecycle plane armed (state=%s, drain timeout %.0fs)",
+                 lifecycle_plane.state.value, args.drain_timeout)
 
     stop = threading.Event()
     signal.signal(signal.SIGINT, lambda *_: stop.set())
@@ -512,8 +571,19 @@ def _run_node(args: argparse.Namespace) -> int:
         while not stop.is_set():
             stop.wait(1.0)
     finally:
+        if lifecycle_plane is not None:
+            # Drain on the way out while the ring still answers: requeue
+            # parked work, flush hot prefixes, announce LEAVE. A node
+            # drained by POST /admin/drain falls through at once.
+            try:
+                lifecycle_plane.drain(deadline_s=args.drain_timeout)
+            except Exception:  # noqa: BLE001 — a failed drain must not block the exit
+                log.exception("exit drain failed")
+            lifecycle_plane.close()
         if rebalance_plane is not None:
             rebalance_plane.close()
+        if repair_plane is not None:
+            repair_plane.close()
         if fleet_plane is not None:
             fleet_plane.close()
         if frontend is not None:
@@ -626,6 +696,27 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     node.add_argument("--chaos-plan", default=None, metavar="FILE",
                       help="arm fault injection from a FaultPlan JSON file (comm/faults.py) on "
                       "every transport this node opens; drills and soak runs only")
+    node.add_argument("--warm-up", action="store_true",
+                      help="start the router in warm-up (spread) mode")
+    node.add_argument("--health-aware-routing", action="store_true",
+                      help="router role: demote nodes whose gossiped health score drops below "
+                      "0.5 (stall watchdog, replication lag, eviction storm): cache hits shed "
+                      "past them and the hash-ring fallback skips them")
+    node.add_argument("--kv-prefetch-hints", action="store_true",
+                      help="router role: fire an idempotent PREFETCH oplog at the node a cache "
+                      "hit routes to, so a host-tier prefix starts restoring before the request "
+                      "arrives (cache/kv_transfer.py)")
+    node.add_argument("--repair-interval", type=float, default=None, metavar="SECONDS",
+                      help="anti-entropy repair scan cadence (cache/repair_plane.py): compare "
+                      "this node's tree fingerprint against gossiped digests and open bounded "
+                      "repair sessions with stale diverged peers; overrides the config's "
+                      "repair_interval_s; 0 disables. Needs --fleet-digest-interval somewhere in "
+                      "the fleet")
+    node.add_argument("--drain-timeout", type=float, default=30.0, metavar="SECONDS",
+                      help="graceful-drain deadline (policy/lifecycle.py): on POST /admin/drain "
+                      "or SIGTERM, in-flight decodes get this long to finish while new work is "
+                      "shed retriably, parked restores are requeued, hot prefixes are written "
+                      "back to the host tier, and the node announces LEAVE")
     _add_kv_transfer_args(node)
     _add_trace_args(node)
     _add_history_args(node)

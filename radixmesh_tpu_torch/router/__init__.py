@@ -1,5 +1,7 @@
 """Request routing over the cache mesh (the port's copy of the JAX
-package's ``router/``, without its HTTP front door).
+package's ``router/``). The client-side failover over several routers,
+``RouterFrontDoor``, is imported from ``router.front_door``, as in the JAX
+package.
 
 ``CacheAwareRouter`` answers: which prefill node and which decode node
 already hold the longest cached prefix of this request's tokens? It reads

@@ -1,5 +1,6 @@
 """HTTP serving frontend over the port's engine (the JAX package's
-``server/http_frontend.py``: ``EngineRunner`` and ``ServingFrontend``).
+``server/http_frontend.py``: ``EngineRunner``, ``ServingFrontend`` and the
+router node's ``RouterFrontend``).
 
 - ``POST /generate``: ``input_ids`` (list of ints) or ``text`` (a string,
   tokenized server-side; needs a frontend built with a ``tokenizer``, else
@@ -50,7 +51,14 @@
   breakdown, per-shape table and recent waterfalls,
   ``obs/attribution.py``).
 - ``POST /admin/blackbox``: flush the black box (``obs/blackbox.py``) now;
-  404 without a ``blackbox_dir``.
+  404 without a ``blackbox_dir``. ``POST /admin/drain`` (optional
+  ``{"deadline_s"}``): start the node's graceful drain
+  (``policy/lifecycle.py``), 202 or 200 with ``accepted``, ``state``,
+  ``router`` and ``deadline_s``; 404 without a lifecycle plane. While a
+  node drains, ``/generate`` answers 503 with the router to retry through
+  (and ``Retry-After`` with SLO control on).
+- ``GET /cluster/{health,doctor,timeseries,slo}``: 501, refused by name
+  (fleet aggregation and the doctor are not ported yet).
 - ``POST /profile`` ``{"seconds": N}`` and ``GET /debug/profile?seconds=N``:
   one ``torch.profiler`` window (CUDA activity on the card) written as a
   Chrome trace into a fresh numbered directory under the frontend's
@@ -87,7 +95,7 @@ from radixmesh_tpu_torch.policy.retry import jittered_retry_after
 from radixmesh_tpu_torch.slo.control import RequestShed
 from radixmesh_tpu_torch.utils.logging import get_logger
 
-__all__ = ["EngineRunner", "ServingFrontend"]
+__all__ = ["EngineRunner", "RouterFrontend", "ServingFrontend"]
 
 # /generate fields of features that are not ported yet, by name -> feature.
 _NOT_PORTED_FIELDS: dict[str, str] = {}
@@ -110,6 +118,10 @@ class EngineRunner:
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._closed = False
+        # Graceful drain (policy/lifecycle.py): once set, new submits are
+        # refused retriably while in-flight work keeps stepping.
+        self._draining = False
+        self._drain_retry_after_s = 1.0
         self._thread = threading.Thread(target=self._run, daemon=True, name="engine-runner")
         self.log = get_logger("engine.runner")
 
@@ -153,6 +165,8 @@ class EngineRunner:
         with self._inbox_lock:
             if self._closed:
                 raise RuntimeError("engine runner is shut down")
+            if self._draining:
+                raise RuntimeError("node is draining — retry via the router")
             self._inbox.put(req)
         self._wake.set()
         return req
@@ -161,6 +175,69 @@ class EngineRunner:
         with self._lock:
             self._take_inbox()
             return self.engine.cancel(rid)
+
+    # -- graceful drain (driven by policy/lifecycle.py) ------------------
+
+    def begin_drain(self, retry_after_s: float = 1.0) -> None:
+        """Close the admission window: new submits are refused retriably
+        (clients re-route via the router) while in-flight work keeps
+        stepping. The engine also stops converting PREFETCH hints: a
+        restore nobody will be routed here to use must not open tickets on
+        a departing node."""
+        with self._inbox_lock:
+            self._draining = True
+            self._drain_retry_after_s = retry_after_s
+        with self._lock:
+            self.engine.draining = True
+
+    def drain_requeue(self) -> int:
+        """Cancel and flag every queued and parked-RESTORING request for
+        requeue at the router (they have produced nothing; bouncing them
+        loses no work). Returns the number flagged."""
+        with self._lock:
+            self._take_inbox()
+            return self.engine.drain_requeue_waiting()
+
+    def drain_wait_idle(self, deadline_s: float, poll_s: float = 0.02) -> bool:
+        """Let in-flight decodes run to completion, bounded by
+        ``deadline_s``; stragglers past it are cancelled (partial output
+        returns, flagged). True = everything finished on its own."""
+        deadline = time.monotonic() + deadline_s
+        while time.monotonic() < deadline:
+            with self._lock:
+                self._take_inbox()
+                if not self.engine.has_work():
+                    return True
+            time.sleep(poll_s)
+        with self._lock:
+            n = self.engine.cancel_all()
+        if n:
+            self.log.warning("drain deadline (%.1fs): cancelled %d straggler(s)", deadline_s, n)
+        return False
+
+    def drain_flush(self) -> tuple[int, bool]:
+        """Write hot prefixes back to the host tier (the fused write-back
+        lane) and wait for the arena writes to land: the last step before
+        LEAVE, so a warm rejoin finds its working set. Returns ``(tokens
+        written back, landed)``; ``landed`` is False when the write barrier
+        timed out or an awaited write-back failed."""
+        with self._lock:
+            n = self.engine.drain_flush_hot()
+        plane = self.engine.kv_transfer
+        landed = True
+        if plane is not None:
+            landed = plane.wait_host_ready()
+            if not landed:
+                self.log.warning("drain write-back barrier failed or timed out: hot prefixes "
+                                 "may not have landed in the host tier")
+        return n, landed
+
+    def drain_flush_disk(self) -> tuple[int, bool]:
+        """Drain step 5d (policy/lifecycle.py): flush the hot subtrees one
+        tier further, host arena to durable disk extents. (0, True) without
+        a tier. Runs after :meth:`drain_flush`."""
+        with self._lock:
+            return self.engine.drain_flush_disk()
 
     def tokens_so_far(self, req: Request) -> list[int]:
         # Handler threads only read the append-only list; a torn read costs
@@ -234,13 +311,14 @@ def _int_list(x, what: str) -> list[int]:
     return x
 
 
-def _ids_from_body(body: dict, tokenizer) -> list[int]:
+def _ids_from_body(body: dict, tokenizer, who: str = "server") -> list[int]:
     """Token ids from a request body: ``text`` (tokenized server-side) or
-    raw ``input_ids``."""
+    raw ``input_ids``; one implementation for the serving and router
+    frontends."""
     if "text" in body:
         if tokenizer is None:
             raise ValueError(
-                "server has no tokenizer (start with --tokenizer); send input_ids instead"
+                f"{who} has no tokenizer (start with --tokenizer); send input_ids instead"
             )
         if not isinstance(body["text"], str):
             raise ValueError("text must be a string")
@@ -329,11 +407,21 @@ def _cluster_telemetry(mesh) -> dict:
     return snap
 
 
-def _debug_state(engine: Engine, ctl=None) -> dict:
+# Fleet endpoints whose planes (obs/aggregator.py, obs/doctor.py) are not
+# ported yet: answered by name, never a bare 404.
+_NOT_PORTED_CLUSTER = ("/cluster/health", "/cluster/doctor", "/cluster/timeseries", "/cluster/slo")
+
+
+def _cluster_refusal(path: str) -> tuple[int, dict]:
+    return 501, {"error": f"{path} (fleet aggregation and the mesh doctor) is not supported by "
+                          "the PyTorch port yet (see ROADMAP.md, queue A4)"}
+
+
+def _debug_state(engine: Engine, ctl=None, lifecycle=None) -> dict:
     """``GET /debug/state``: the engine-side planes, with SLO control
-    (``ctl``, the runner's controller) its snapshot, and with a cache mesh
-    the node's membership (the JAX frontend's sections without the
-    lifecycle one)."""
+    (``ctl``, the runner's controller) its snapshot, with a cache mesh the
+    node's membership, and with a lifecycle plane its state and drain
+    record (the JAX frontend's sections)."""
     tree = engine.tree
     state = {
         "engine": {
@@ -388,6 +476,8 @@ def _debug_state(engine: Engine, ctl=None) -> dict:
         state["timeline"] = {k: v for k, v in tl.items() if k != "recent"}
     if ctl is not None:
         state["slo"] = ctl.snapshot()
+    if lifecycle is not None:
+        state["lifecycle"] = lifecycle.status()
     return state
 
 
@@ -439,6 +529,30 @@ def _admin_blackbox(blackbox) -> tuple[int, dict]:
     return 200, {"flushed": True, **res}
 
 
+def _admin_drain(handler: BaseHTTPRequestHandler, lifecycle) -> tuple[int, dict]:
+    """``POST /admin/drain`` (optional ``{"deadline_s"}``): start the
+    DRAINING → LEFT sequence of the lifecycle plane (``policy/lifecycle.py``)
+    in the background; 202 when this call started it, 200 when a drain was
+    already under way or done. 404 without a lifecycle plane."""
+    if lifecycle is None:
+        return 404, {"error": "no lifecycle plane attached to this node (start via launch.py node)"}
+    try:
+        length = int(handler.headers.get("Content-Length", 0) or 0)
+        body = _read_json(handler) if length > 0 else {}
+        deadline = body.get("deadline_s")
+        deadline = None if deadline is None else float(deadline)
+    except (TypeError, ValueError, json.JSONDecodeError) as e:
+        return 400, {"error": str(e)}
+    accepted = lifecycle.request_drain(deadline_s=deadline)
+    return 202 if accepted else 200, {
+        "accepted": accepted,
+        "state": lifecycle.state.value,
+        # Where shed clients should retry.
+        "router": lifecycle.router_hint(),
+        "deadline_s": deadline if deadline is not None else lifecycle.cfg.drain_timeout_s,
+    }
+
+
 def _stats(engine: Engine, ctl=None) -> dict:
     """``GET /stats``: lock-free snapshot reads of the engine's counters
     (and the SLO controller's snapshot with SLO control on)."""
@@ -482,6 +596,27 @@ def _stats(engine: Engine, ctl=None) -> dict:
     return out
 
 
+def _metrics_response(handler: BaseHTTPRequestHandler) -> None:
+    """``GET /metrics``: the registry in Prometheus text exposition."""
+    body = get_registry().render().encode()
+    handler.send_response(200)
+    handler.send_header("Content-Type", "text/plain; version=0.0.4")
+    handler.send_header("Content-Length", str(len(body)))
+    handler.end_headers()
+    handler.wfile.write(body)
+
+
+def _debug_trace(query: dict) -> dict:
+    """``GET /debug/trace``: the flight recorder as Chrome trace-event JSON
+    (``?format=spans``: the raw span export), read-only unless the caller
+    opts into draining it (``?drain=1``)."""
+    drain = query.get("drain", ["0"])[-1].lower() in ("1", "true", "yes")
+    rec = get_recorder()
+    if query.get("format", [""])[-1].lower() == "spans":
+        return rec.export_spans(drain=drain)
+    return rec.chrome_trace(drain=drain)
+
+
 def _sse(handler: BaseHTTPRequestHandler, event: dict) -> None:
     handler.wfile.write(f"data: {json.dumps(event)}\n\n".encode())
 
@@ -501,18 +636,24 @@ class ServingFrontend:
     lets clients send ``text`` and get ``text`` back. ``profile_dir``
     enables ``/profile`` captures under that directory. ``slo`` (an
     :class:`~radixmesh_tpu_torch.slo.control.SLOConfig`) puts the overload
-    control plane in the admission path (:class:`SLORunner`).
-    ``history_interval_s`` > 0 samples the telemetry history every that
+    control plane in the admission path (:class:`SLORunner`). ``lifecycle``
+    (a :class:`~radixmesh_tpu_torch.policy.lifecycle.LifecyclePlane`, also
+    settable after construction, since the plane needs this frontend's
+    runner) enables ``POST /admin/drain``, points drain sheds at the router
+    and adds its section to ``/debug/state``. ``history_interval_s`` > 0 samples the telemetry history every that
     many seconds into rings of ``history_capacity`` points (0 disables
     it); ``blackbox_dir`` arms the black box there, committing a history
     segment at every sample, with the watchdog at ``blackbox_watchdog_s``
     (0 = off)."""
 
     def __init__(self, engine: Engine, host: str = "127.0.0.1", port: int = 0,
-                 tokenizer=None, profile_dir: str | None = None, slo=None,
+                 tokenizer=None, profile_dir: str | None = None, slo=None, lifecycle=None,
                  history_interval_s: float = 1.0, history_capacity: int = 900,
                  blackbox_dir: str | None = None, blackbox_watchdog_s: float = 0.0):
         self.tokenizer = tokenizer
+        # Handlers read the attribute on every call: launch.py attaches
+        # the plane after construction.
+        self.lifecycle = lifecycle
         if slo is not None:
             # slo.runner imports this module for EngineRunner.
             from radixmesh_tpu_torch.slo.runner import SLORunner
@@ -536,12 +677,12 @@ class ServingFrontend:
         # now, so phase histograms accumulate from the first traced request
         # (a swapped recorder gets a fresh one through ensure_attributor).
         ensure_attributor()
-        # Telemetry history: bounded rings over every plane, sampled on
-        # its own thread (the cache mesh seam stays empty: not ported).
+        # Telemetry history: bounded rings over every plane (with a cache
+        # mesh, its fleet health and shard heat), sampled on its own thread.
         self.history = None
         if history_interval_s > 0:
             self.history = TelemetryHistory(
-                interval_s=history_interval_s, capacity=history_capacity, mesh=None,
+                interval_s=history_interval_s, capacity=history_capacity, mesh=engine.mesh,
                 engine=engine, slo=ctl, node=engine.name,
             )
         # The black box: crash-surviving dumps of the history, waterfalls,
@@ -552,7 +693,8 @@ class ServingFrontend:
         if blackbox_dir:
             self.blackbox = BlackBox(
                 blackbox_dir, history=self.history, doctor=None, recorder=get_recorder,
-                attributor_fn=ensure_attributor, state_fn=lambda: _debug_state(engine, ctl),
+                attributor_fn=ensure_attributor,
+                state_fn=lambda: _debug_state(engine, ctl, self.lifecycle),
                 node=engine.name, segment_every=1, max_segments=history_capacity,
                 watchdog_timeout_s=blackbox_watchdog_s,
             )
@@ -575,24 +717,13 @@ class ServingFrontend:
                 elif path == "/stats":
                     _json_response(self, 200, _stats(engine, ctl))
                 elif path == "/metrics":
-                    body = get_registry().render().encode()
-                    self.send_response(200)
-                    self.send_header("Content-Type", "text/plain; version=0.0.4")
-                    self.send_header("Content-Length", str(len(body)))
-                    self.end_headers()
-                    self.wfile.write(body)
+                    _metrics_response(self)
                 elif path == "/debug/trace":
-                    # Read-only unless the caller opts into draining.
-                    drain = query.get("drain", ["0"])[-1].lower() in ("1", "true", "yes")
-                    rec = get_recorder()
-                    if query.get("format", [""])[-1].lower() == "spans":
-                        _json_response(self, 200, rec.export_spans(drain=drain))
-                    else:
-                        _json_response(self, 200, rec.chrome_trace(drain=drain))
+                    _json_response(self, 200, _debug_trace(query))
                 elif path == "/debug/requests":
                     _json_response(self, 200, _debug_requests(engine))
                 elif path == "/debug/state":
-                    _json_response(self, 200, _debug_state(engine, ctl))
+                    _json_response(self, 200, _debug_state(engine, ctl, frontend.lifecycle))
                 elif path == "/cluster/telemetry":
                     _json_response(self, 200, _cluster_telemetry(engine.mesh))
                 elif path == "/debug/tokens":
@@ -601,6 +732,8 @@ class ServingFrontend:
                     _json_response(self, *_debug_timeseries(frontend.history, query))
                 elif path == "/debug/waterfall":
                     _json_response(self, 200, ensure_attributor().report())
+                elif path in _NOT_PORTED_CLUSTER:
+                    _json_response(self, *_cluster_refusal(path))
                 elif path == "/debug/profile":
                     try:
                         seconds = float(query.get("seconds", ["3.0"])[-1])
@@ -614,6 +747,11 @@ class ServingFrontend:
             def do_POST(self):
                 if self.path == "/admin/blackbox":
                     _json_response(self, *_admin_blackbox(frontend.blackbox))
+                    return
+                if self.path == "/admin/drain":
+                    # The drain runs on the plane's own thread: the handler
+                    # must not block for the whole drain deadline.
+                    _json_response(self, *_admin_drain(self, frontend.lifecycle))
                     return
                 if self.path == "/profile":
                     try:
@@ -694,8 +832,12 @@ class ServingFrontend:
                 except ValueError as e:  # e.g. prompt too long
                     _json_response(self, 400, {"error": str(e)})
                     return
-                except RuntimeError as e:  # submit raced shutdown
-                    _json_response(self, 503, {"error": str(e)})
+                except RuntimeError as e:  # submit raced shutdown or a drain
+                    extra = {}
+                    lc = frontend.lifecycle
+                    if lc is not None and "draining" in str(e):
+                        extra["router"] = lc.router_hint()
+                    _json_response(self, 503, {"error": str(e), **extra})
                     return
                 if body.get("stream"):
                     self._stream(req)
@@ -751,11 +893,17 @@ class ServingFrontend:
                 retriable. The advertised wait carries bounded jitter, so
                 a herd shed in one instant does not return in one."""
                 body = {"error": str(e), "shed": True, "reason": e.reason}
+                # A drain shed points the client at the router: the fleet
+                # still has capacity, just not here.
+                hint = (
+                    {"router": frontend.lifecycle.router_hint()}
+                    if e.reason == "draining" and frontend.lifecycle is not None else {}
+                )
                 if e.retry_after_s is None:
-                    _json_response(self, e.http_status, body)
+                    _json_response(self, e.http_status, {**body, **hint})
                     return
                 retry_s = jittered_retry_after(e.retry_after_s)
-                raw = json.dumps({**body, "retry_after_s": round(retry_s, 4)}).encode()
+                raw = json.dumps({**body, "retry_after_s": round(retry_s, 4), **hint}).encode()
                 self.send_response(e.http_status)
                 self.send_header("Content-Type", "application/json")
                 # Before end_headers, as every header must be.
@@ -854,3 +1002,142 @@ class ServingFrontend:
             self.history.close()
         self.runner.close(drain_s=drain_s)
         self.runner.engine.close()
+
+
+class RouterFrontend:
+    """HTTP API over a router node's cache-aware router
+    (:class:`~radixmesh_tpu_torch.router.cache_aware_router.CacheAwareRouter`).
+
+    ``POST /route`` ``{"input_ids"}`` (or ``{"text"}`` with a tokenizer, which
+    must be the serving nodes' own) answers where to send the request:
+    ``prefill_addr``/``decode_addr`` (cache addresses, null when no node of
+    that role is alive), ``prefill_serve_addr``/``decode_serve_addr`` (their
+    serving HTTP endpoints), ``prefill_cache_hit``/``decode_cache_hit`` and
+    ``match_len``. Also ``GET /healthz``, ``/metrics``, ``/debug/{trace,
+    requests,state,timeseries,waterfall}``, ``/cluster/telemetry`` and
+    ``POST /admin/blackbox``, as the serving frontend answers them; the
+    history samples the router's mesh replica. The black box has no doctor
+    section, and ``/cluster/{health,doctor,timeseries,slo}`` are refused by
+    name (``_NOT_PORTED_CLUSTER``)."""
+
+    def __init__(self, router, host: str = "127.0.0.1", port: int = 0, tokenizer=None,
+                 history_interval_s: float = 1.0, history_capacity: int = 900,
+                 blackbox_dir: str | None = None, blackbox_watchdog_s: float = 0.0):
+        self.router = router
+        self.tokenizer = tokenizer
+        self.log = get_logger("http.route")
+        ensure_attributor()
+        node_label = f"router@{router.mesh_cache.rank}"
+        self.history = None
+        if history_interval_s > 0:
+            self.history = TelemetryHistory(
+                interval_s=history_interval_s, capacity=history_capacity,
+                mesh=router.mesh_cache, node=node_label,
+            )
+        self.blackbox = None
+        if blackbox_dir:
+            self.blackbox = BlackBox(
+                blackbox_dir, history=self.history, doctor=None, recorder=get_recorder,
+                attributor_fn=ensure_attributor, state_fn=self._debug_state, node=node_label,
+                segment_every=1, max_segments=history_capacity,
+                watchdog_timeout_s=blackbox_watchdog_s,
+            )
+        if self.history is not None:
+            self.history.start()
+        frontend = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):
+                frontend.log.debug(fmt, *args)
+
+            def do_GET(self):
+                path = urlsplit(self.path).path
+                query = parse_qs(urlsplit(self.path).query)
+                if path == "/healthz":
+                    _json_response(self, 200, {"status": "ok"})
+                elif path == "/metrics":
+                    _metrics_response(self)
+                elif path == "/debug/trace":
+                    _json_response(self, 200, _debug_trace(query))
+                elif path == "/debug/requests":
+                    # Routing is one stateless tree walk per call: the empty
+                    # table (not a 404) keeps fleet tooling uniform.
+                    _json_response(self, 200, {
+                        "requests": [],
+                        "note": "router node — see a serving node's /debug/requests for "
+                                "in-flight requests",
+                    })
+                elif path == "/debug/state":
+                    _json_response(self, 200, frontend._debug_state())
+                elif path == "/debug/timeseries":
+                    _json_response(self, *_debug_timeseries(frontend.history, query))
+                elif path == "/debug/waterfall":
+                    _json_response(self, 200, ensure_attributor().report())
+                elif path == "/cluster/telemetry":
+                    _json_response(self, 200, _cluster_telemetry(frontend.router.mesh_cache))
+                elif path in _NOT_PORTED_CLUSTER:
+                    _json_response(self, *_cluster_refusal(path))
+                else:
+                    _json_response(self, 404, {"error": "not found"})
+
+            def do_POST(self):
+                if self.path == "/admin/blackbox":
+                    _json_response(self, *_admin_blackbox(frontend.blackbox))
+                    return
+                if self.path != "/route":
+                    _json_response(self, 404, {"error": "not found"})
+                    return
+                try:
+                    ids = _ids_from_body(_read_json(self), frontend.tokenizer, "router")
+                except (KeyError, ValueError, json.JSONDecodeError) as e:
+                    _json_response(self, 400, {"error": str(e)})
+                    return
+                res = frontend.router.cache_aware_route(ids)
+                cfg = frontend.router.config
+                _json_response(self, 200, {
+                    # A null address: no node of that role is alive now.
+                    "prefill_addr": res.prefill_addr,
+                    "decode_addr": res.decode_addr,
+                    # Where to POST /generate: the routed node's serving
+                    # endpoint (cache port + serve_port_offset).
+                    "prefill_serve_addr": cfg.serve_addr(res.prefill_addr),
+                    "decode_serve_addr": cfg.serve_addr(res.decode_addr),
+                    "prefill_cache_hit": res.prefill_cache_hit,
+                    "decode_cache_hit": res.decode_cache_hit,
+                    "match_len": res.match_len,
+                })
+
+        self._server = _FrontendServer((host, port), Handler)
+        self.port = self._server.server_address[1]
+        self._thread = threading.Thread(
+            target=self._server.serve_forever, daemon=True, name="http-route"
+        )
+        self._thread.start()
+        self.log.info("router frontend on %s:%d", host, self.port)
+
+    def _debug_state(self) -> dict:
+        r = self.router
+        with r._alive_lock:
+            alive = {k: sorted(v) for k, v in r._alive.items()}
+        return {
+            "router": {
+                "warm_up": r._warm_up,
+                "alive": alive,
+                "estimated_load": {
+                    addr: round(r._loads.load(addr), 3)
+                    for role_addrs in alive.values()
+                    for addr in role_addrs
+                },
+            },
+            "membership": _membership_state(r.mesh_cache),
+            "trace": get_recorder().stats(),
+            "exemplars": get_registry().exemplars(),
+        }
+
+    def close(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+        if self.blackbox is not None:
+            self.blackbox.close(flush_cause="shutdown")
+        if self.history is not None:
+            self.history.close()

@@ -37,8 +37,6 @@ restore on the way back down.
 The engine's ``on_first_token`` hook feeds the controller's service-rate
 EWMA and retires dispatched tokens from the backlog estimate, on the
 runner thread with the step lock held.
-
-Not ported with it: ``begin_drain`` (the lifecycle plane).
 """
 
 from __future__ import annotations
@@ -52,6 +50,7 @@ from radixmesh_tpu_torch.engine.request import Request, RequestState, SamplingPa
 from radixmesh_tpu_torch.obs.tracing import annotate
 from radixmesh_tpu_torch.server.http_frontend import EngineRunner
 from radixmesh_tpu_torch.slo.control import (
+    SHED_DRAINING,
     SHED_SHUTDOWN,
     OverloadController,
     RequestShed,
@@ -117,6 +116,11 @@ class SLORunner(EngineRunner):
         with self._inbox_lock:
             if self._closed:
                 raise RuntimeError("engine runner is shut down")
+            if self._draining:
+                # Graceful drain (policy/lifecycle.py): a retriable 503 with
+                # Retry-After; the frontend's shed body names the router to
+                # re-route through.
+                raise RequestShed(SHED_DRAINING, self._drain_retry_after_s, tenant)
             decision = self.ctl.offer(tenant, len(req.prompt), ttft_deadline_s)
             if not decision.admitted:
                 raise RequestShed(decision.reason, decision.retry_after_s, tenant)
@@ -226,6 +230,16 @@ class SLORunner(EngineRunner):
             if ok and req is not None and req.admit_time > 0:
                 self.ctl.note_retired(req)
             return ok
+
+    def begin_drain(self, retry_after_s: float = 1.0) -> None:
+        """Graceful drain with the control plane in the path: close
+        admission (new submits shed ``draining``, a retriable 503), then
+        bounce every queued but undispatched request back to its client
+        the same way: queued work has produced nothing, so the router
+        re-places it on a surviving node with no loss."""
+        super().begin_drain(retry_after_s)
+        for req in self.ctl.flush(SHED_DRAINING):
+            self._finalize_shed(req)
 
     def close(self, drain_s: float = 0.0) -> None:
         # Close the submit window before flushing: a submit racing into

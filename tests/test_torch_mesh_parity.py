@@ -142,6 +142,10 @@ def _script(pkg: str, jparams) -> dict:
             _entries(m.tree) == _entries(meshes["p0"].tree) for a_, m in meshes.items() if a_ != "r0"
         )), pkg
         out["replicas"] = {addr: _entries(m.tree) for addr, m in meshes.items() if addr != "r0"}
+        # The router's replica is fed by the master's fan-out after the
+        # ring: let it catch up with the last inserts before reading it.
+        assert _wait(lambda: [e[:2] for e in _entries(meshes["r0"].tree)]
+                     == [e[:2] for e in out["replicas"]["p0"]]), pkg
         out["router_keys"] = _entries(meshes["r0"].tree)
         return out
     finally:

@@ -299,3 +299,211 @@ def test_mixed_ring_converges():
     finally:
         for n in nodes:
             n.close()
+
+
+# -- the repair plane, LEAVE and the lifecycle digest -------------------------
+
+from radixmesh_tpu.cache import radix_tree as j_tree  # noqa: E402
+from radixmesh_tpu.cache import repair_plane as j_repair  # noqa: E402
+from radixmesh_tpu_torch.cache import radix_tree as t_tree  # noqa: E402
+from radixmesh_tpu_torch.cache import repair_plane as t_repair  # noqa: E402
+
+
+def _seeded_trees(seed):
+    """The same seeded inserts into a JAX and a port radix tree."""
+    rng = np.random.default_rng(seed)
+    trees = (j_tree.RadixTree(page_size=1), t_tree.RadixTree(page_size=1))
+    for _ in range(int(rng.integers(5, 40))):
+        key = rng.integers(1, 1 << 20, int(rng.integers(1, 24))).astype(np.int32)
+        for t in trees:
+            t.insert(key, np.arange(len(key), dtype=np.int32))
+    return rng, trees
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_repair_probe_and_summary_bytes_identical(seed):
+    """A probe and both summaries built from the same tree in each package
+    are the same bytes, and each package decodes the other's."""
+    rng, (jt, tt) = _seeded_trees(seed)
+    jvec, tvec = jt.fingerprint_buckets(), tt.fingerprint_buckets()
+    assert jvec.tobytes() == tvec.tobytes()
+    ja, ta = j_repair.encode_probe(jvec), t_repair.encode_probe(tvec)
+    assert ja.tobytes() == ta.tobytes()
+    assert (t_repair.decode_probe(ja) == j_repair.decode_probe(ta)).all()
+    buckets = sorted(int(b) for b in rng.choice(j_tree.FP_BUCKETS, int(rng.integers(1, 9)), replace=False))
+    jh = [jt.path_hash(n) for n in jt.nodes_touching_buckets(buckets)]
+    th = [tt.path_hash(n) for n in tt.nodes_touching_buckets(buckets)]
+    assert jh == th
+    for reply in (False, True):
+        ja = j_repair.encode_summary(jvec, buckets, jh, reply=reply)
+        ta = t_repair.encode_summary(tvec, buckets, th, reply=reply)
+        assert ja.tobytes() == ta.tobytes()
+        jd, td = t_repair.decode_summary(ja), j_repair.decode_summary(ta)
+        assert (jd[0] == td[0]).all() and jd[1:] == td[1:]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_shard_repair_bytes_identical(seed):
+    """The owner-scoped probe and the session summary that selects the
+    entries a push re-emits."""
+    rng = np.random.default_rng(seed)
+    sids = rng.choice(j_sharding.NUM_SHARDS, int(rng.integers(1, 12)), replace=False)
+    pairs = [(int(s), int(rng.integers(0, 1 << 63))) for s in sids]
+    hashes = {int(h) for h in rng.integers(0, 1 << 63, int(rng.integers(0, 30)), dtype=np.int64)}
+    ja, ta = j_repair.encode_shard_probe(pairs), t_repair.encode_shard_probe(pairs)
+    assert ja.tobytes() == ta.tobytes()
+    assert t_repair.decode_shard_probe(ja) == j_repair.decode_shard_probe(ta)
+    for reply in (False, True):
+        ja = j_repair.encode_shard_session_summary(pairs, hashes, reply)
+        ta = t_repair.encode_shard_session_summary(pairs, hashes, reply)
+        assert ja.tobytes() == ta.tobytes()
+        assert t_repair.decode_shard_session_summary(ja) == j_repair.decode_shard_session_summary(ta)
+
+
+@pytest.mark.parametrize("kind", ["REPAIR_PROBE", "REPAIR_SUMMARY", "LEAVE"])
+@pytest.mark.parametrize("seed", range(3))
+def test_repair_and_leave_frames_identical(kind, seed):
+    """A whole frame as ``MeshCache.send_repair`` and the LEAVE
+    announcement build it (a LEAVE carries the leaver's exclusion view)."""
+    rng, (jt, tt) = _seeded_trees(seed)
+    if kind == "LEAVE":
+        alive = tuple(sorted(int(r) for r in rng.choice(16, int(rng.integers(1, 8)), replace=False)))
+        epoch = int(rng.integers(0, 1 << 20))
+        jv = j_topology.encode_view(j_topology.TopologyView(epoch=epoch, alive=alive))
+        tv = t_topology.encode_view(t_topology.TopologyView(epoch=epoch, alive=alive))
+    elif kind == "REPAIR_PROBE":
+        jv, tv = j_repair.encode_probe(jt.fingerprint_buckets()), t_repair.encode_probe(tt.fingerprint_buckets())
+    else:
+        jv = j_repair.encode_summary(jt.fingerprint_buckets(), [1, 5], [7, 9], reply=True)
+        tv = t_repair.encode_summary(tt.fingerprint_buckets(), [1, 5], [7, 9], reply=True)
+    fields = dict(origin_rank=int(rng.integers(0, 64)), logic_id=int(rng.integers(0, 1 << 40)),
+                  ttl=int(rng.integers(1, 8)), value_rank=int(rng.integers(0, 64)), ts=float(rng.random() * 1e9))
+    jb = j_oplog.serialize(j_oplog.Oplog(op_type=j_oplog.OplogType[kind], value=np.asarray(jv, np.int32), **fields))
+    tb = t_oplog.serialize(t_oplog.Oplog(op_type=t_oplog.OplogType[kind], value=np.asarray(tv, np.int32), **fields))
+    assert bytes(jb) == bytes(tb)
+    back = t_oplog.deserialize(jb)
+    assert back.op_type is t_oplog.OplogType[kind] and bytes(back.value.tobytes()) == bytes(np.asarray(jv, np.int32).tobytes())
+
+
+@pytest.mark.parametrize("state", ["bootstrapping", "active", "draining", "left"])
+def test_lifecycle_digest_bytes_identical(state):
+    rng = np.random.default_rng(len(state))
+    f = dict(rank=int(rng.integers(0, 64)), role="prefill", seq=int(rng.integers(1, 1 << 30)),
+             ts=float(rng.random() * 1e9), epoch=3, fingerprint=int(rng.integers(0, 1 << 63)),
+             tree_tokens=int(rng.integers(0, 1 << 30)), cache_hit_rate=0.5, pool_fill=0.25, host_fill=0.0,
+             batch_occupancy=0.75, decode_ewma_s=0.02, waiting=3, decode_steps=99,
+             slo_tier=int(rng.integers(0, 4)), lifecycle=state)
+    ja, ta = j_fleet.NodeDigest(**f).encode(), t_fleet.NodeDigest(**f).encode()
+    assert ja.tobytes() == ta.tobytes()
+    assert t_fleet.NodeDigest.decode(ja).lifecycle == j_fleet.NodeDigest.decode(ta).lifecycle == state
+
+
+# -- a mixed in-process ring with both repair planes and both routers ---------
+
+
+@pytest.fixture(scope="module")
+def mixed_ring():
+    """Port prefill ``mp0``, JAX prefill ``mp1``, port decode ``md0``, a JAX
+    router ``mr0`` and a port router ``mr1`` on ONE in-process hub (the
+    port's hub is pointed at the JAX package's), each with its own
+    package's repair plane and, on the ring nodes, fleet plane."""
+    from radixmesh_tpu.cache.mesh_cache import MeshCache as JMesh
+    from radixmesh_tpu.comm import inproc as j_inproc
+    from radixmesh_tpu.obs.fleet_plane import FleetPlane as JFleetPlane
+    from radixmesh_tpu_torch.cache.mesh_cache import MeshCache as TMesh
+    from radixmesh_tpu_torch.comm import inproc as t_inproc
+    from radixmesh_tpu_torch.obs.fleet_plane import FleetPlane as TFleetPlane
+
+    j_inproc.InprocHub.reset_default()
+    t_inproc.InprocHub.reset_default()
+    t_inproc.InprocHub._default = j_inproc.InprocHub.default()
+    prefill, decode, routers = ["mp0", "mp1"], ["md0"], ["mr0", "mr1"]
+    jax_side = {"mp1", "mr0"}
+    nodes, planes, repairs = [], [], []
+    try:
+        for addr in prefill + decode + routers:
+            mod = j_config if addr in jax_side else t_config
+            cfg = mod.MeshConfig(prefill_nodes=prefill, decode_nodes=decode, router_nodes=routers,
+                                 local_addr=addr, protocol="inproc", tick_interval_s=0.05,
+                                 gc_interval_s=60.0, failure_timeout_s=60.0)
+            nodes.append((JMesh if addr in jax_side else TMesh)(cfg, pool=None).start())
+        for n in nodes:
+            assert n.wait_ready(timeout=20)
+        for n in nodes:
+            jaxn = n.cfg.local_addr in jax_side
+            rp = j_repair if jaxn else t_repair
+            repairs.append(rp.RepairPlane(n, rp.RepairConfig(interval_s=0.05, age_threshold_s=0.2,
+                                                            backoff_base_s=0.2, backoff_max_s=2.0), seed=0))
+            if n.cfg.local_addr not in routers:
+                planes.append((JFleetPlane if jaxn else TFleetPlane)(n, interval_s=0.1))
+        yield nodes, planes, repairs
+    finally:
+        for r in repairs:
+            r.close()
+        for p in planes:
+            p.close()
+        for n in nodes:
+            n.close()
+        t_inproc.InprocHub._default = None
+        j_inproc.InprocHub.reset_default()
+
+
+def _converge(nodes, planes, timeout=20.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        for p in planes:
+            p.publish_once()
+        if len({n.tree.fingerprint_ for n in nodes}) == 1:
+            return True
+        time.sleep(0.05)
+    return False
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_mixed_ring_repairs_a_dropped_insert(mixed_ring, writer):
+    """An INSERT applied only on one replica (the dropped-frame stand-in),
+    once on the JAX prefill node and once on the port's: the repair session
+    between the two packages pushes it to every replica, routers too."""
+    from radixmesh_tpu.cache.mesh_values import PrefillValue as JValue
+    from radixmesh_tpu_torch.cache.mesh_values import PrefillValue as TValue
+
+    nodes, planes, repairs = mixed_ring
+    for r in repairs:
+        if r._thread is None:
+            r.start()
+    nodes[0].insert(np.array([1, 2, 3], np.int32), np.arange(3, dtype=np.int32))
+    assert _converge(nodes, planes)
+    src = nodes[1] if writer == "jax" else nodes[0]
+    key = np.array([40, 41, 42, 43], np.int32) + (0 if writer == "jax" else 100)
+    pushed_before = sum(r.stats()["keys_pushed"] for r in repairs if (r.mesh is src))
+    with src._lock:
+        src._mesh_insert(key, (JValue if writer == "jax" else TValue)(np.arange(4, dtype=np.int32), src.rank))
+    assert len({n.tree.fingerprint_ for n in nodes}) > 1
+    assert _converge(nodes, planes), "the mixed ring never repaired the dropped insert"
+    for n in nodes:
+        assert n.tree.match_prefix(key, split_partial=False).length == len(key), n.cfg.local_addr
+    # The replica that held the one-sided entry pushed it: a JAX plane in
+    # one case, the port's in the other.
+    assert sum(r.stats()["keys_pushed"] for r in repairs if r.mesh is src) > pushed_before
+
+
+def test_mixed_routers_route_alike(mixed_ring):
+    """The JAX router and the port's, over their replicas of the same
+    replicated tree, give the same ``RouteResult`` for hits and misses."""
+    from radixmesh_tpu.router.cache_aware_router import CacheAwareRouter as JRouter
+    from radixmesh_tpu_torch.router.cache_aware_router import CacheAwareRouter as TRouter
+
+    nodes, planes, _ = mixed_ring
+    rng = np.random.default_rng(5)
+    keys = [rng.integers(1, 1 << 20, int(rng.integers(8, 40))).astype(np.int32) for _ in range(12)]
+    for i, k in enumerate(keys[:8]):
+        nodes[i % 3].insert(k, np.arange(len(k), dtype=np.int32))
+    assert _converge(nodes, planes)
+    jr, tr = JRouter(nodes[3], nodes[3].cfg), TRouter(nodes[4], nodes[4].cfg)
+    jr.finish_warm_up()
+    tr.finish_warm_up()
+    fields = ("prefill_addr", "decode_addr", "prefill_cache_hit", "decode_cache_hit", "match_len")
+    for k in keys + [np.concatenate([keys[0], [7, 7]]).astype(np.int32)]:
+        a, b = jr.cache_aware_route(k.tolist()), tr.cache_aware_route(k.tolist())
+        assert [getattr(a, f) for f in fields] == [getattr(b, f) for f in fields]
+    assert sum(tr.cache_aware_route(k.tolist()).prefill_cache_hit for k in keys[:8]) >= 1
