@@ -38,7 +38,11 @@ Phases (any failure raises and exits non-zero):
    ragged priors, live windows w in {1, 3, 5, 16} and an all-padding row,
    with the longest row's last prior page read from the scratch page as a
    planted fault at C = 5; the decode kernel over a 16-page compact
-   sub-pool. Times with CUDA events (L2 flushed before each launch, the
+   sub-pool. The serving path's own shapes: decode 4 x 600 and 8 x 2000
+   (three readings each) and the 8 x 2000 prefill's four chunks. Pages of
+   1, 3 and 4 tokens (gathered row by row; 4 timed) and of 24 and 64
+   (TMA boxes of 8 and 64 rows): decode, pool and both chunk bodies.
+   Times with CUDA events (L2 flushed before each launch, the
    host's launch time kept out, the median of the timed calls) beside the
    bound, the plain version and one library call
    (``scaled_dot_product_attention`` over the gathered dense K/V).
@@ -313,6 +317,13 @@ MIXED_FILL = [16, 1, 3, 0, 5, 16, 5, 3]
 # Decode over a compact working set: 14 pages of rows and a scratch and a
 # NaN page make a 16-page pool (two rows inactive).
 COMPACT_LENGTHS = [1, 17, 33, 40, 5, 60, 0, 0]
+# The serving path's own shapes (``serve_profile``'s 4 x 600 and 8 x 2000
+# cells): decode over the engine's power-of-two page-table buckets (64 and
+# 128 pages), and the 8 x 2000 prefill's chunks of 512 at priors 0, 512,
+# 1024 and 1536 (the last chunk 464 tokens).
+DECODE_4X600 = [601, 606, 611, 616]
+DECODE_8X2000 = [2001, 2003, 2005, 2007, 2009, 2011, 2013, 2015]
+PREFILL_8X2000 = ((0, 512), (512, 512), (1024, 512), (1536, 464))
 # The fast schedules' flags for the whole-path and serving checks.
 SCHEDULES = dict(spec_decode_tokens=4, prefill_inline_budget=64, decode_steps_per_launch=4,
                  paged_min_batch=2)
@@ -339,17 +350,17 @@ def _dtype_name(dtype, quant) -> str:
 # ---------------------------------------------------------------------------
 
 
-def _pool_and_tables(rng, row_tokens, maxp, dtype, dev, quant=False, hkv=HKV):
+def _pool_and_tables(rng, row_tokens, maxp, dtype, dev, quant=False, hkv=HKV, page=PAGE):
     """A random 2-layer pool with disjoint, permuted pages per row. Returns
     (kv_pages, kv_scales or None, page_table, scratch_page, nan_page);
     page-table pads point at the NaN page, and every slot of a row's last
     page at or past ``row_tokens[b]`` is NaN — in the K/V for bf16/f32
     pools, in the scales for int8 pools (whose payload has no NaN)."""
-    need = [-(-max(int(n), 0) // PAGE) for n in row_tokens]
+    need = [-(-max(int(n), 0) // page) for n in row_tokens]
     P = sum(need) + 2
     perm = rng.permutation(P)
     scratch_page, nan_page = int(perm[0]), int(perm[1])
-    kv = torch.randn(2, LAYERS, hkv, P, PAGE, D, generator=torch.Generator().manual_seed(int(rng.integers(1 << 30))))
+    kv = torch.randn(2, LAYERS, hkv, P, page, D, generator=torch.Generator().manual_seed(int(rng.integers(1 << 30))))
     scales = None
     if quant:
         kv, scales = quantize_kv(kv)
@@ -366,8 +377,8 @@ def _pool_and_tables(rng, row_tokens, maxp, dtype, dev, quant=False, hkv=HKV):
         nxt += need[b]
         if need[b] == 0:
             pt[b, 0] = scratch_page
-        elif n % PAGE:
-            poison[:, :, :, int(pt[b, need[b] - 1]), n % PAGE :] = float("nan")
+        elif n % page:
+            poison[:, :, :, int(pt[b, need[b] - 1]), n % page :] = float("nan")
     return kv, scales, torch.as_tensor(pt, device=dev), scratch_page, nan_page
 
 
@@ -399,19 +410,20 @@ def _equal(a, b):
 
 
 def decode_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256, pool_pages=None,
-                heads=(HQ, HKV)):
+                heads=(HQ, HKV), page=PAGE, readings=1):
     hq, hkv = heads
     rng = np.random.default_rng(seed)
     lengths = np.asarray(lengths, np.int32)
     B, layer = len(lengths), 1
     # Pool tokens per row: the context before the current token plus the
     # current token's own slot (it lands in the row's pages).
-    kv, sc, pt, scratch_page, _ = _pool_and_tables(rng, np.maximum(lengths, 0), maxp, dtype, dev, quant, hkv)
+    kv, sc, pt, scratch_page, _ = _pool_and_tables(rng, np.maximum(lengths, 0), maxp, dtype, dev, quant, hkv,
+                                                   page)
     check(pool_pages is None or kv.shape[3] == pool_pages, f"{name}: pool of {kv.shape[3]} pages")
     pos = np.maximum(lengths - 1, 0)
     pt_np = pt.cpu().numpy()
-    slots = pt_np[np.arange(B), pos // PAGE] * PAGE + pos % PAGE
-    scratch_slot = scratch_page * PAGE
+    slots = pt_np[np.arange(B), pos // page] * page + pos % page
+    scratch_slot = scratch_page * page
     slots = np.where(lengths <= 1, scratch_slot, slots).astype(np.int32)
     pt_np[lengths <= 1] = scratch_page
     pt = torch.as_tensor(pt_np, device=dev)
@@ -452,7 +464,7 @@ def decode_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256, p
                 hit = torch.stack([held[what] == x for x in values]).any(dim=0)
                 check(bool(hit.all()), f"{name}: scratch slot {what} holds a value no writer wrote")
     res = {"case": name, "dtype": _dtype_name(dtype, quant), "q_dtype": str(dtype),
-           "splits": pa.decode_splits(maxp * PAGE, B * hkv, pa.sm_count(dev))[0],
+           "splits": pa.decode_splits(maxp * page, B * hkv, pa.sm_count(dev))[0],
            "pool_pages": int(kv.shape[3]), **close}
     if timed:
         es = q.element_size()
@@ -462,11 +474,17 @@ def decode_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256, p
             2 * q.numel() * es + 2 * k_new.numel() * es  # q, out; k_new, v_new
             + kv_bytes(int(live.sum()), kv, quant)  # the rows written
             + kv_bytes(int(ctx.sum()), kv, quant)  # K/V pages read
-            + 4 * int(np.sum(-(-ctx // PAGE))) + 8 * B  # page table, slots, lengths
+            + 4 * int(np.sum(-(-ctx // page))) + 8 * B  # page table, slots, lengths
         )
         flops = 4 * hq * D * int(lengths[live].sum())
         res["bound_ms"], res["bound_by"] = bound(nbytes, flops, dtype)
-        res["ms"] = time_ms(lambda: pa.paged_decode_fused_kernel(q, k_new, v_new, kv_k, sl, pt, ln, layer, sc_k), 20)
+        # ``readings`` medians of 20 calls each; ``ms`` is their median.
+        ms = [time_ms(lambda: pa.paged_decode_fused_kernel(q, k_new, v_new, kv_k, sl, pt, ln, layer, sc_k), 20)
+              for _ in range(readings)]
+        res["ms"] = sorted(ms)[len(ms) // 2]
+        if readings > 1:
+            res["ms_readings"] = ms
+        res["shape"] = f"B={B} Hq={hq} Hkv={hkv} D={D} page={page} maxp={maxp} lengths={lengths.tolist()}"
         res["plain_ms"] = time_ms(lambda: pa.paged_decode_fused_plain(q, k_new, v_new, kv_p, sl, pt, ln, layer, sc_p), 5)
         # Library yardstick: SDPA over the gathered dense context (+ the
         # current token), heads expanded to Hq; length-0 rows see key 0.
@@ -481,16 +499,15 @@ def decode_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256, p
         res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask), 20)
         lib = F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask)[:, :, 0]
         res["library_max_abs_diff"] = (lib.float() - want.float())[torch.as_tensor(live, device=dev)].abs().max().item()
-        res["shape"] = f"B={B} Hq={hq} Hkv={hkv} D={D} page={PAGE} lengths={lengths.tolist()}"
     return res
 
 
-def pool_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256, heads=(HQ, HKV)):
+def pool_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256, heads=(HQ, HKV), page=PAGE):
     hq, hkv = heads
     rng = np.random.default_rng(seed)
     lengths = np.asarray(lengths, np.int32)
     B, layer = len(lengths), 1
-    kv, sc, pt, _, _ = _pool_and_tables(rng, np.maximum(lengths, 0), maxp, dtype, dev, quant, hkv)
+    kv, sc, pt, _, _ = _pool_and_tables(rng, np.maximum(lengths, 0), maxp, dtype, dev, quant, hkv, page)
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, hq, D, generator=g, device=dev).to(dtype)
     ln = torch.as_tensor(lengths, device=dev)
@@ -504,15 +521,16 @@ def pool_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256, hea
     check(torch.count_nonzero(got[zero_rows]).item() == 0, f"{name}: length-0 rows must output zeros")
     check(bool(_equal(kv, kv_before).all()), f"{name}: the read-only kernel changed the pool")
     res = {"case": name, "dtype": _dtype_name(dtype, quant), "q_dtype": str(dtype),
-           "splits": pa.decode_splits(maxp * PAGE, B * hkv, pa.sm_count(dev))[0], **close}
+           "splits": pa.decode_splits(maxp * page, B * hkv, pa.sm_count(dev))[0], **close}
     if timed:
         es = q.element_size()
         n = np.maximum(lengths, 0)
         nbytes = (2 * q.numel() * es + kv_bytes(int(n.sum()), kv, quant)
-                  + 4 * int(np.sum(-(-n // PAGE))) + 4 * B)
+                  + 4 * int(np.sum(-(-n // page))) + 4 * B)
         flops = 4 * hq * D * int(n.sum())
         res["bound_ms"], res["bound_by"] = bound(nbytes, flops, dtype)
         res["ms"] = time_ms(lambda: pa.paged_attention_pool_kernel(q, kv, pt, ln, layer, sc), 20)
+        res["shape"] = f"B={B} Hq={hq} Hkv={hkv} D={D} page={page} maxp={maxp} lengths={lengths.tolist()}"
         res["plain_ms"] = time_ms(lambda: pa.paged_attention_pool_plain(q, kv, pt, ln, layer, sc), 5)
         kd, vd = dense_context(kv, sc, pt, layer, n, int(n.max()), dtype)
         mask = torch.zeros(B, 1, 1, kd.shape[1], dtype=torch.bool, device=dev)
@@ -521,19 +539,18 @@ def pool_case(name, lengths, dtype, dev, timed, seed, quant=False, maxp=256, hea
         kx, vx = sdpa_inputs(kd, vd, hq // hkv)
         qx = q[:, :, None, :]
         res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask), 20)
-        res["shape"] = f"B={B} Hq={hq} Hkv={hkv} D={D} page={PAGE} lengths={lengths.tolist()}"
     return res
 
 
 def chunk_case(name, prior, n_dense, dtype, dev, timed, seed, C=512, quant=False, faults=None,
-               heads=(HQ, HKV)):
+               heads=(HQ, HKV), page=PAGE):
     hq, hkv = heads
     rng = np.random.default_rng(seed)
     prior = np.asarray(prior, np.int32)
     n_dense = np.asarray(n_dense, np.int32)
     B, layer = len(prior), 1
-    maxp = 1 << int(math.ceil(math.log2(max(32, -(-int((prior + C).max()) // PAGE)))))
-    kv, sc, pt, scratch_page, _ = _pool_and_tables(rng, prior, maxp, dtype, dev, quant, hkv)
+    maxp = 1 << int(math.ceil(math.log2(max(32, -(-int((prior + C).max()) // page)))))
+    kv, sc, pt, scratch_page, _ = _pool_and_tables(rng, prior, maxp, dtype, dev, quant, hkv, page)
     g = torch.Generator(device=dev).manual_seed(seed)
     # int8 pools take the chunk's K/V already dequantized, in float32.
     cur_dtype = torch.float32 if quant else dtype
@@ -549,23 +566,27 @@ def chunk_case(name, prior, n_dense, dtype, dev, timed, seed, C=512, quant=False
     res = {"case": name, "dtype": _dtype_name(dtype, quant), "q_dtype": str(dtype),
            "body": "tensor cores" if dtype == torch.bfloat16 else "CUDA cores",
            **_check_close(name, got, want, dtype)}
-    res["cblk"] = pa.chunk_query_block(C, hq // hkv, pa.CHUNK_ROWS[dtype])
+    # The query block of the body that ran.
+    res["cblk"] = (pa.chunk_tc_query_block(C, hq // hkv) if dtype == torch.bfloat16
+                   else pa.chunk_query_block(C, hq // hkv, pa.CHUNK_ROWS[dtype]))
     if prior.max() >= 64 and (dtype == torch.bfloat16 or C == 512 or faults):
         res["planted_faults"] = planted_faults(
             name, want, (q, kc, vc, kv, pt, pr, kl, layer, sc), int(np.argmax(prior)),
-            int(prior.max()), scratch_page, faults or FAULTS[:3])
+            int(prior.max()), scratch_page, faults or FAULTS[:3], page)
     if timed:
         es = q.element_size()
         nbytes = (
             2 * q.numel() * es + 2 * kc.numel() * kc.element_size()  # q, out; chunk K/V
             + kv_bytes(int(prior.sum()), kv, quant)  # prior K/V pages read
-            + 4 * int(np.sum(-(-prior // PAGE))) + 8 * B
+            + 4 * int(np.sum(-(-prior // page))) + 8 * B
         )
         n = n_dense.astype(np.int64)
         keys = int(np.sum(n * prior + n * (n + 1) // 2))
         flops = 4 * hq * D * keys
         res["bound_ms"], res["bound_by"] = bound(nbytes, flops, dtype)
         res["ms"] = time_ms(lambda: pa.paged_chunk_attention_kernel(q, kc, vc, kv, pt, pr, kl, layer, sc), 10)
+        res["shape"] = (f"B={B} C={C} Hq={hq} Hkv={hkv} D={D} page={page} "
+                        f"prior={prior.tolist()} chunk_valid={n_dense.tolist()}")
         res["plain_ms"] = time_ms(lambda: pa.paged_chunk_attention_plain(q, kc, vc, kv, pt, pr, kl, layer, sc), 3)
         # Library yardstick: SDPA over [prior context ++ chunk], one bool
         # mask carrying the prior bound, causality and the kv bound.
@@ -581,8 +602,6 @@ def chunk_case(name, prior, n_dense, dtype, dev, timed, seed, C=512, quant=False
         kx, vx = sdpa_inputs(kd, vd, hq // hkv)
         qx = q.permute(0, 2, 1, 3).contiguous()
         res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask), 10)
-        res["shape"] = (f"B={B} C={C} Hq={hq} Hkv={hkv} D={D} page={PAGE} "
-                        f"prior={prior.tolist()} chunk_valid={n_dense.tolist()}")
     return res
 
 
@@ -590,7 +609,7 @@ FAULTS = ("last prior key skipped", "last 64 prior keys skipped", "one prior pag
           "last prior page wrong")
 
 
-def planted_faults(name, want, args, b, prior_b, scratch_page, which) -> dict:
+def planted_faults(name, want, args, b, prior_b, scratch_page, which, page=PAGE) -> dict:
     """The check must tell a wrong chunk body from a right one: faults
     (``which``, of ``FAULTS``) made in the inputs of the row ``b`` with the
     longest prior — its last prior key skipped, its last 64 prior keys
@@ -612,8 +631,8 @@ def planted_faults(name, want, args, b, prior_b, scratch_page, which) -> dict:
 
     faults = {"last prior key skipped": lambda: (pt, pr - cut(1), kl - cut(1)),
               "last 64 prior keys skipped": lambda: (pt, pr - cut(64), kl - cut(64)),
-              "one prior page wrong": lambda: (wrong_page(prior_b // PAGE // 2), pr, kl),
-              "last prior page wrong": lambda: (wrong_page((prior_b - 1) // PAGE), pr, kl)}
+              "one prior page wrong": lambda: (wrong_page(prior_b // page // 2), pr, kl),
+              "last prior page wrong": lambda: (wrong_page((prior_b - 1) // page), pr, kl)}
     out = {}
     for fault in which:
         pt_f, pr_f, kl_f = faults[fault]()
@@ -630,6 +649,9 @@ def planted_faults(name, want, args, b, prior_b, scratch_page, which) -> dict:
     return out
 
 
+# Page sizes of phase 2's page cases, and their planted fault.
+PAGES = (4, 1, 3, 24, 64)
+PAGE_FAULTS = ("last 64 prior keys skipped",)
 # The B=8 ragged shapes of the kernel phases: decode and pool lengths,
 # chunk priors and live chunk tokens per row (C = 512).
 RAGGED = [0, 1, 1, 17, 513, 1500, 3001, 4096]
@@ -708,6 +730,39 @@ def kernel_phase(dev) -> dict:
             MIXED_FILL, f32, dev, True, 22, C=16, quant=quant)
         run("paged_decode_fused" + sfx, decode_case, "decode B=8 compact 16 pages" + tag, COMPACT_LENGTHS,
             bf16, dev, True, 23, quant=quant, maxp=4, pool_pages=16)
+    # The serving path's shapes: decode 4 x 600 and 8 x 2000 on the
+    # engine's page-table buckets (bf16 and int8 pools), the 8 x 2000
+    # prefill's four chunk launches (bf16).
+    for quant in (False, True):
+        sfx, tag = ("[int8]", " int8") if quant else ("", "")
+        run("paged_decode_fused" + sfx, decode_case, "decode 4x600" + tag, DECODE_4X600, bf16, dev, True,
+            24, quant=quant, maxp=64, readings=3)
+        run("paged_decode_fused" + sfx, decode_case, "decode 8x2000" + tag, DECODE_8X2000, bf16, dev, True,
+            25, quant=quant, maxp=128, readings=3)
+    for i, (prior, fill) in enumerate(PREFILL_8X2000):
+        run("paged_chunk_attention", chunk_case, f"chunk 8x2000 prior={prior}", [prior] * 8, [fill] * 8,
+            bf16, dev, True, 26 + i)
+    # Pages other than 16 tokens: the engine takes any power of two, the
+    # kernels any size. Pages of 1, 3 and 4 tokens are gathered row by row
+    # (4, the smallest the engine is often run with, timed: the same shapes
+    # at page 16 are the rows above); 24 and 64 come by TMA boxes of 8 and
+    # 64 rows. The planted fault is one that no page size hides (a fault
+    # in one page of one token would sit inside the row limit).
+    for page in PAGES:
+        timed = page == 4
+        for quant in (False, True):
+            sfx, tag = ("[int8]", " int8") if quant else ("", "")
+            tag += f" page={page}"
+            run("paged_decode_fused" + sfx, decode_case, "decode B=8 ragged" + tag, RAGGED, bf16, dev, timed,
+                41, quant=quant, maxp=-(-max(RAGGED) // page), page=page)
+            run("paged_attention_pool" + sfx, pool_case, "pool B=8 ragged" + tag, RAGGED, bf16, dev,
+                timed and not quant, 42, quant=quant, maxp=-(-max(RAGGED) // page), page=page)
+            run("paged_chunk_attention" + sfx, chunk_case, "chunk B=8 ragged" + tag, CHUNK_PRIOR, CHUNK_FILL,
+                bf16, dev, timed, 43, quant=quant, faults=PAGE_FAULTS, page=page)
+            run("paged_chunk_attention" + sfx, chunk_case, "chunk verify C=5" + tag, CHUNK_PRIOR, VERIFY_FILL,
+                bf16, dev, timed and not quant, 44, C=5, quant=quant, faults=PAGE_FAULTS, page=page)
+        run("paged_chunk_attention[f32]", chunk_case, f"chunk B=8 ragged page={page}", CHUNK_PRIOR, CHUNK_FILL,
+            f32, dev, False, 45, faults=PAGE_FAULTS, page=page)
     return results
 
 
@@ -769,17 +824,24 @@ def group_kernel_phase(dev) -> dict:
 
 
 def sass_check() -> dict:
-    """The tensor-core chunk body issues wgmma: ``cuobjdump -sass`` of its
-    library shows HGMMA instructions (saved to ``chip_out/hgmma.txt``).
-    The CUDA-core body copies K/V tiles with cp.async and reads its
-    fragments 16 bytes at a time: its library shows LDGSTS and LDS.128
-    (those lines saved to ``chip_out/f32_body_sass.txt``)."""
-    lines = [line.strip() for line in _build.sass("paged_chunk_tc").splitlines()
-             if "HGMMA" in line]
+    """The tensor-core chunk body issues wgmma fed by TMA on an mbarrier
+    ring: ``cuobjdump -sass`` of its library shows HGMMA, UTMALDG (TMA
+    loads) and SYNCS (mbarrier) instructions (the HGMMA lines saved to
+    ``chip_out/hgmma.txt``). The CUDA-core body copies K/V tiles with
+    cp.async and reads its fragments 16 bytes at a time: its library shows
+    LDGSTS and LDS.128 (those lines saved to ``chip_out/f32_body_sass.txt``).
+    The decode library loads pages by TMA on an mbarrier ring and runs
+    mma.sync on ldmatrix fragments: UTMALDG, SYNCS, HMMA and LDSM."""
+    tc = _build.sass("paged_chunk_tc")
+    lines = [line.strip() for line in tc.splitlines() if "HGMMA" in line]
     (OUT_DIR / "hgmma.txt").write_text("\n".join(lines) + "\n")
-    check(len(lines) > 0, "no HGMMA instruction in the tensor-core chunk library")
-    print(f"[env] cuobjdump -sass paged_chunk_tc: {len(lines)} HGMMA instructions, e.g. "
-          f"{lines[0]}", flush=True)
+    tc_ops = {op: tc.count(op) for op in ("HGMMA", "UTMALDG", "SYNCS")}
+    check(all(tc_ops.values()), f"the tensor-core chunk library lacks HGMMA, UTMALDG or SYNCS: {tc_ops}")
+    print(f"[env] cuobjdump -sass paged_chunk_tc: {tc_ops}, e.g. {lines[0]}", flush=True)
+    dec = _build.sass("paged_decode")
+    dec_ops = {op: dec.count(op) for op in ("UTMALDG", "SYNCS", "HMMA", "LDSM")}
+    check(all(dec_ops.values()), f"the decode library lacks UTMALDG, SYNCS, HMMA or LDSM: {dec_ops}")
+    print(f"[env] cuobjdump -sass paged_decode: {dec_ops}", flush=True)
     f32_body = _build.sass("paged_chunk")
     ops = {op: f32_body.count(op) for op in ("LDGSTS", "LDS.128", "FFMA ", "SHFL.BFLY")}
     (OUT_DIR / "f32_body_sass.txt").write_text("".join(
@@ -787,7 +849,8 @@ def sass_check() -> dict:
     check(ops["LDGSTS"] > 0 and ops["LDS.128"] > 0,
           f"the CUDA-core chunk library lacks LDGSTS or LDS.128: {ops}")
     print(f"[env] cuobjdump -sass paged_chunk: {ops}", flush=True)
-    return {"hgmma_instructions": len(lines), "example": lines[0], "f32_body": ops}
+    return {"hgmma_instructions": len(lines), "example": lines[0], "tensor_core_body": tc_ops,
+            "decode": dec_ops, "f32_body": ops}
 
 
 def f32_body_resources(ptxas: str) -> dict:
@@ -877,6 +940,11 @@ def pool_path_phase(engine, seqs, tag, dev) -> dict:
 _SCHED_FIELDS = ("decode_steps", "decode_forwards", "prefill_chunks", "prefill_chunks_with_prior",
                  "spec_proposed", "spec_accepted", "spec_rejected", "multi_step_launches",
                  "compact_launches", "verify_launches", "mixed_launches", "inline_launches")
+
+
+def _chunk_by_c() -> dict:
+    """The chunk kernel's launches by chunk length C since the last reset."""
+    return dict(sorted(pa.paged_chunk_attention_kernel.launches_by_c.items()))
 
 
 def _counts(engine) -> dict:
@@ -969,6 +1037,7 @@ def serving_phase(dev, model, kv_quant=None, schedules=None, legacy=None, name="
                           + getattr(pa.paged_chunk_attention_kernel, other))
         f32_body = pa.paged_chunk_attention_kernel.launches_f32_body
         plain_calls = pa.plain_calls()
+        by_c = _chunk_by_c()
         st = {k: v - counts0[k] for k, v in _counts(engine).items()}
         waves = None if engine.waves is None else engine.waves.snapshot()
     finally:
@@ -984,7 +1053,7 @@ def serving_phase(dev, model, kv_quant=None, schedules=None, legacy=None, name="
     L = cfg.n_layers
     b2 = _b2_by_schedule(st, L)
     print(f"[serve {tag}] launches={launches} other_pool_dtype_launches={other_launches} "
-          f"cuda_core_chunk_body_launches={f32_body} "
+          f"cuda_core_chunk_body_launches={f32_body} chunk_launches_by_c={by_c} "
           f"plain_calls={plain_calls} decode_steps={st['decode_steps']} decode_forwards={st['decode_forwards']} "
           f"prefill_chunks={st['prefill_chunks']} chunks_with_prior={st['prefill_chunks_with_prior']} "
           f"group_cached={[results[k]['cached_tokens'] for k in group]}", flush=True)
@@ -1045,7 +1114,8 @@ def serving_phase(dev, model, kv_quant=None, schedules=None, legacy=None, name="
     torch.cuda.empty_cache()
     for r in results.values():
         del r["ids"]
-    return {"launches": launches, "requests": results, "pool_path": pool_path, "schedules": sched}
+    return {"launches": launches, "chunk_by_c": by_c, "requests": results, "pool_path": pool_path,
+            "schedules": sched}
 
 
 # ---------------------------------------------------------------------------
@@ -1298,6 +1368,7 @@ def tier_phase(dev, model, kv_quant=None) -> dict:
     suffix = "" if kv_quant is None else f"[{kv_quant}]"
     launches = {"paged_decode_fused" + suffix: getattr(pa.paged_decode_fused_kernel, attr),
                 "paged_chunk_attention" + suffix: getattr(pa.paged_chunk_attention_kernel, attr)}
+    out["chunk_by_c"] = _chunk_by_c()
     plain_calls = pa.plain_calls()
     L = cfg.n_layers
     check(plain_calls == 0, f"tiers {tag}: {plain_calls} plain attention calls on the card")
@@ -1881,11 +1952,11 @@ def replay_http_phase(dev, model, card) -> dict:
                     "paged_chunk_attention": pa.paged_chunk_attention_kernel.launches,
                     "cuda_core_chunk_body": pa.paged_chunk_attention_kernel.launches_f32_body,
                     "plain_calls": pa.plain_calls()}
+        by_c = _chunk_by_c()
         with open(prof["trace"]) as fh:
             events = json.load(fh)["traceEvents"]
         kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
-        named = {k: sum(k in n for n in kernels) for k in ("paged_split_kernel", "paged_combine_kernel",
-                                                           "paged_chunk_tc_kernel")}
+        named = {k: sum(k in n for n in kernels) for k in ("paged_decode_kernel", "paged_chunk_tc_kernel")}
         metrics = _http(fe.port, "/metrics")
         stats = _http(fe.port, "/stats")
         state = _http(fe.port, "/debug/state")
@@ -1918,7 +1989,7 @@ def replay_http_phase(dev, model, card) -> dict:
     for s in prompts:
         check(alone[s][0] == alone[s][1], f"replay bf16: seed {s} alone twice gave different tokens")
         check(len(batch[s]["output_ids"]) == n_tok, f"replay bf16: seed {s} returned too few tokens")
-    check(named["paged_split_kernel"] > 0 and named["paged_chunk_tc_kernel"] > 0,
+    check(named["paged_decode_kernel"] > 0 and named["paged_chunk_tc_kernel"] > 0,
           f"replay bf16: the profile's Chrome trace does not name the decode and chunk kernels ({named})")
     check(launches["paged_decode_fused"] > 0 and launches["paged_chunk_attention"] > 0
           and launches["plain_calls"] == 0 and launches["cuda_core_chunk_body"] == 0,
@@ -1937,7 +2008,7 @@ def replay_http_phase(dev, model, card) -> dict:
           f"replay bf16: /debug/trace spans {sorted(span_names)}")
     shutil.rmtree(prof_dir, ignore_errors=True)
     return {"batch_vs_alone": batch_vs_alone, "resume_match_share": share, "resume_token_share": token_share,
-            "profile_kernels": named, "launches": launches, "metrics": scraped, "mfu": acct,
+            "profile_kernels": named, "launches": launches, "chunk_by_c": by_c, "metrics": scraped, "mfu": acct,
             "tokens": {k: v for k, v in tokens["timeline"].items() if k != "recent"}}
 
 
@@ -2519,6 +2590,7 @@ def serving_edge_phase(dev, model, E=EDGE) -> dict:
                            "paged_chunk_attention": pa.paged_chunk_attention_kernel.launches,
                            "cuda_core_chunk_body": pa.paged_chunk_attention_kernel.launches_f32_body,
                            "plain_calls": pa.plain_calls()}
+        out["chunk_by_c"] = _chunk_by_c()
     finally:
         shutil.rmtree(bb_root, ignore_errors=True)
     print(f"[edge] launches on the edge's path (in process): {out['launches']}", flush=True)
@@ -4429,7 +4501,19 @@ def whole_path_check(dev, kv_quant=None, schedules=None, tiers=False, model="lla
 # ---------------------------------------------------------------------------
 
 
-def main() -> int:
+def _parse(argv):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", action="store_true",
+                    help="phases 1, 2 and 7 alone (build, SASS, the kernels against their plain "
+                         "versions, timed); the readings go to --json")
+    ap.add_argument("--json", metavar="FILE", help="where --kernels writes its readings")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = _parse(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an "
               "NVIDIA GPU (no result)", file=sys.stderr)
@@ -4447,7 +4531,10 @@ def main() -> int:
     (OUT_DIR / "ptxas.txt").write_text("\n".join(f"== {k}\n{v['ptxas']}" for k, v in log.items()))
     lines = [line for v in log.values() for line in v["ptxas"].splitlines()]
     regs = [int(w) for line in lines for w, nxt in zip(line.split(), line.split()[1:])
-            if nxt.startswith("registers")]
+            if nxt.startswith("registers") and w.isdigit()]
+    for line in lines:
+        if "warning" in line.lower():
+            print(f"[env] ptxas: {line.strip()}", flush=True)
     spills = [line for line in lines
               if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
     print(f"[env] ptxas: max registers/thread {max(regs) if regs else 'n/a'}; "
@@ -4461,6 +4548,14 @@ def main() -> int:
     t = time.monotonic()
     groups = group_kernel_phase(dev)
     print(f"[time] kernel phase at GQA groups 3 and 7 {time.monotonic() - t:.1f}s", flush=True)
+    if args.kernels:
+        if args.json:
+            pathlib.Path(args.json).write_text(json.dumps(
+                {"card": card, "build": {k: v["seconds"] for k, v in log.items()},
+                 "ptxas": {k: v["ptxas"] for k, v in log.items()},
+                 "kernels": {"phase 2": kernels, "phase 7": groups}}, indent=1, default=str))
+        print(card, flush=True)
+        return 0
     t = time.monotonic()
     cfg = get_config("llama3-8b")
     with torch.inference_mode():
@@ -4579,6 +4674,13 @@ def main() -> int:
         "paged_attention_pool[int8]": {"pool path int8": serving["int8"]["pool_path"]["launches"]},
     }
     launches = {name: sum(paths.values()) for name, paths in by_path.items()}
+    # The chunk kernel's launches by chunk length C on each in-process path
+    # (both pool kinds): launches x (time - bound) by shape.
+    chunk_by_c = {**{f"serving {k}": v["chunk_by_c"] for k, v in serving.items()},
+                  **{f"tiers {k}": v["chunk_by_c"] for k, v in tiers.items()},
+                  "replay bf16 http": replay["bf16 http"]["chunk_by_c"],
+                  "serving edge": edge["chunk_by_c"]}
+    print("[kernels] chunk kernel launches by C, per path: " + json.dumps(chunk_by_c), flush=True)
     csrc = "radixmesh_tpu_torch/ops/csrc/"
     jax_src = "radixmesh_tpu/ops/paged_attention.py:"
     # name: (source, replaces, the kernel-phase case of the entry, its dtype)
@@ -4598,7 +4700,7 @@ def main() -> int:
         "paged_attention_pool[int8]": (csrc + "paged_pool.cu", jax_src + "912",
                                        "pool B=8 ragged int8", "int8"),
     }
-    summary_keys = ("case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+    summary_keys = ("case", "ms", "ms_readings", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
                     "row_rel_err", "cblk", "us_per_query_row", "shape")
     # The GQA groups 7 (Qwen2-7B) and 3 (llama3.2-3b): each entry's main
     # row is its G case of the group kernel phase, its launches those of
@@ -4637,13 +4739,15 @@ def main() -> int:
         main_row = [r for r in kernels[name]
                     if r["case"] == case and r["dtype"] == dtype and "ms" in r][0]
         # The entry's other timed cases: the fast schedules' shapes (verify
-        # and mixed-wave chunks, decode over a compact sub-pool); a group
-        # entry's other cases at its group; every timed case of the
-        # CUDA-core chunk body (float32 and int8 pools).
+        # and mixed-wave chunks, decode over a compact sub-pool), the
+        # serving shapes and 4-token pages; a group entry's other cases at
+        # its group; every timed case of the CUDA-core chunk body (float32
+        # and int8 pools).
         shapes = [{k: r.get(k) for k in summary_keys}
                   for r in kernels[name] if "ms" in r and r is not main_row
                   and (name in group_meta or "[f32]" in name or r["dtype"] == dtype
-                       and any(w in r["case"] for w in ("verify", "mixed", "compact")))]
+                       and any(w in r["case"] for w in ("verify", "mixed", "compact", "4x600", "8x2000",
+                                                        "page=")))]
         entries.append({
             "name": name,
             "route": "cuda",
@@ -4651,6 +4755,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches[name],
             "launches_by_path": by_path[name],
+            **({"launches_by_c": chunk_by_c} if name.startswith("paged_chunk_attention")
+               and "[f32]" not in name and " G=" not in name else {}),
             "max_abs_err": main_row["max_abs_err"],
             "max_abs_diff": main_row["max_abs_err"],
             "row_rel_err": main_row.get("row_rel_err"),

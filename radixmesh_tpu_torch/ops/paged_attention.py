@@ -20,12 +20,17 @@ versions beside them.
   fold-in; rows with ``lengths[b] <= 0`` output zeros.
 
 On the card, the two decode kernels split each row's context over
-``decode_splits`` CTAs (flash-decoding): a worker launch writes float32
-partials and a combine launch merges them (and, fused, writes the current
-row and folds it in) — two launches per call, counted as one. The chunk
-kernel has two bodies: bfloat16 queries run on the tensor cores
-(``csrc/paged_chunk_tc.cu``, wgmma), float32 queries on the CUDA cores
-(``csrc/paged_chunk.cu``), counted apart in ``launches_f32_body``.
+``decode_splits`` CTAs (flash-decoding) in one launch: each split writes
+float32 partials and the last to finish merges them (and, fused, writes
+the current row and folds it in). The chunk kernel has two bodies:
+bfloat16 queries run on the tensor cores (``csrc/paged_chunk_tc.cu``:
+wgmma fed by TMA, its query blocks from ``chunk_tc_query_block`` and each
+block's tiles split over ``chunk_splits`` CTAs, merged in the same
+launch), float32 queries on the CUDA cores (``csrc/paged_chunk.cu``,
+blocks from ``chunk_query_block``), counted apart in
+``launches_f32_body``; ``launches_by_c`` counts the chunk kernel's
+launches by chunk length C. The split kernels' counters (``_counters``)
+are allocated once per device and stream and left at 0 by every launch.
 
 Each takes an int8 pool with its scales ``kv_scales [2, L, Hkv, P, page]``
 float32 (value ≈ int8 · scale, ``ops/quant.py``). The decode kernel then
@@ -66,6 +71,8 @@ __all__ = [
     "paged_attention_pool_kernel",
     "paged_attention_pool_plain",
     "chunk_query_block",
+    "chunk_tc_query_block",
+    "chunk_splits",
     "decode_splits",
     "reset_counters",
     "plain_calls",
@@ -271,10 +278,10 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 # Argument types of each library's C entry point.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY = {
-    "paged_decode": ("paged_decode_launch", [_I, _I] + [_P] * 10 + [_I] * 11 + [_P]),
-    "paged_pool": ("paged_pool_launch", [_I, _I] + [_P] * 7 + [_I] * 11 + [_P]),
+    "paged_decode": ("paged_decode_launch", [_I, _I] + [_P] * 11 + [_I] * 11 + [_P]),
+    "paged_pool": ("paged_pool_launch", [_I, _I] + [_P] * 8 + [_I] * 11 + [_P]),
     "paged_chunk": ("paged_chunk_launch", [_I, _I] + [_P] * 9 + [_I] * 11 + [_P]),
-    "paged_chunk_tc": ("paged_chunk_tc_launch", [_I, _I] + [_P] * 9 + [_I] * 11 + [_P]),
+    "paged_chunk_tc": ("paged_chunk_tc_launch", [_I, _I] + [_P] * 11 + [_I] * 13 + [_P]),
 }
 
 
@@ -333,22 +340,50 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _launch(lib: str, q: torch.Tensor, *args) -> None:
+# Split counters per (device, stream): int32, all 0 between launches (the
+# CTA that merges a split puts its counter back to 0), so no launch needs
+# a memset. Each stream has its own: two engines launching on their own
+# streams would race on a shared one.
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+_MIN_COUNTERS = 4096
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed split counters for ``stream`` on ``device``,
+    allocated at first use and grown (zeroed again) only when a launch needs
+    more."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        size = max(n, _MIN_COUNTERS, 0 if buf is None else 2 * buf.numel())
+        buf = _COUNTERS[key] = torch.zeros(size, dtype=torch.int32, device=device)
+    return buf
+
+
+# Stands in ``_launch``'s arguments for the stream's split counters.
+_COUNTER_PTR = object()
+
+
+def _launch(lib: str, q: torch.Tensor, *args, counters: int = 0) -> None:
     """Call ``lib``'s entry point on q's current stream; raise on a
     refused launch (a launch that never ran is not reported by a later
-    synchronize)."""
+    synchronize). ``_COUNTER_PTR`` in ``args`` becomes that stream's split
+    counters (at least ``counters`` of them), or a null pointer when
+    ``counters`` is 0."""
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _entry(lib)(*args, stream)
+        ctr = _counters(q.device, stream, counters).data_ptr() if counters else None
+        rc = _entry(lib)(*(ctr if a is _COUNTER_PTR else a for a in args), stream)
     if rc != 0:
         raise RuntimeError(f"{_ENTRY[lib][0]}: CUDA launch failed with cudaError_t {rc}")
 
 
-# Split selection of the decode kernels: the block loop's tile, the CTAs
-# per SM a split aims for, and the fewest tiles per split.
-_DECODE_TILE = 32
-_CTAS_PER_SM = 16
-_MIN_SPLIT_TILES = 2
+# Split selection of the decode kernels: the kernel's tile, the CTAs per
+# SM a split aims for, and the fewest tiles per split (a split pays its
+# pipeline's fill and its partials' write over at least that many tiles).
+_DECODE_TILE = 64
+_CTAS_PER_SM = 4
+_MIN_SPLIT_TILES = 4
 _SM_COUNTS: dict[torch.device, int] = {}
 
 
@@ -367,9 +402,9 @@ def decode_splits(n_ctx: int, rows: int, sms: int) -> tuple[int, int]:
     page``, which the engine buckets to a power of two), ``rows`` is ``B *
     Hkv`` and ``sms`` the card's SM count (``sm_count``). Split ``s``
     attends tokens ``[s * span, (s + 1) * span)``; ``span`` is a multiple
-    of the 32-token tile, ``splits * span >= n_ctx`` and every split starts
+    of the 64-token tile, ``splits * span >= n_ctx`` and every split starts
     below ``n_ctx``. The grid aims at about ``_CTAS_PER_SM`` CTAs per SM
-    with at least two tiles per split, so ``rows >= 16 * sms`` takes one
+    with at least four tiles per split, so ``rows >= 4 * sms`` takes one
     split. Never reads ``lengths``: choosing from them would cost a
     host-device sync per decode step."""
     tiles = max(1, -(-n_ctx // _DECODE_TILE))
@@ -379,10 +414,12 @@ def decode_splits(n_ctx: int, rows: int, sms: int) -> tuple[int, int]:
     return -(-max(n_ctx, 1) // span), span
 
 
-def _split_workspace(q: torch.Tensor, splits: int) -> torch.Tensor:
-    """Float32 partials of the split decode: m, l ``[B, Hq, S]`` then acc
-    ``[B, Hq, S, D]``, in one allocation."""
+def _split_workspace(q: torch.Tensor, splits: int) -> torch.Tensor | None:
+    """Float32 partials of the split decode, none for one split: per (row,
+    kv head, split), m and l ``[G]`` then O ``[G, D]``."""
     B, Hq, D = q.shape
+    if splits == 1:
+        return None
     return torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32, device=q.device)
 
 
@@ -423,8 +460,8 @@ def paged_decode_fused_kernel(
         "paged_decode", q, _DTYPES[q.dtype], _DTYPES[kv_pages.dtype], q.data_ptr(),
         k_new.data_ptr(), v_new.data_ptr(), kv_pages.data_ptr(), _ptr(kv_scales),
         slots.data_ptr(), page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), B, Hq, Hkv, D, L, P * page, page, page_table.shape[1], int(layer),
-        splits, span,
+        _ptr(ws), _COUNTER_PTR, B, Hq, Hkv, D, L, P * page, page, page_table.shape[1],
+        int(layer), splits, span, counters=B * Hkv if splits > 1 else 0,
     )
     _count(paged_decode_fused_kernel, "launches", kv_scales)
     return out
@@ -462,8 +499,8 @@ def paged_attention_pool_kernel(
     _launch(
         "paged_pool", q, _DTYPES[q.dtype], _DTYPES[kv_pages.dtype], q.data_ptr(),
         kv_pages.data_ptr(), _ptr(kv_scales), page_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), B, Hq, Hkv, D, L, P * page, page,
-        page_table.shape[1], int(layer), splits, span,
+        out.data_ptr(), _ptr(ws), _COUNTER_PTR, B, Hq, Hkv, D, L, P * page, page,
+        page_table.shape[1], int(layer), splits, span, counters=B * Hkv if splits > 1 else 0,
     )
     _count(paged_attention_pool_kernel, "launches", kv_scales)
     return out
@@ -477,16 +514,49 @@ paged_attention_pool_kernel.launches_int8 = 0
 # in each source): two 64-row warpgroups on the tensor cores (bf16
 # queries), 256 threads of 8 rows each on the CUDA cores (float32 queries).
 CHUNK_ROWS = {torch.bfloat16: 128, torch.float32: 128}
+# The tensor-core body's key tile, and its prior split's aim: CTAs per SM
+# and the fewest tiles per split.
+_CHUNK_TILE = 64
+_CHUNK_CTAS_PER_SM = 4
+_CHUNK_MIN_SPLIT_TILES = 4
 
 
 def chunk_query_block(C: int, G: int, max_rows: int = 128) -> int:
-    """Queries per CTA of the chunk kernel: the largest power-of-two
-    divisor of ``C`` whose row count ``Cblk * G`` fits ``max_rows`` (the
-    body's rows per CTA, ``CHUNK_ROWS``)."""
+    """Queries per CTA of the chunk kernel's CUDA-core body: the largest
+    power-of-two divisor of ``C`` whose row count ``Cblk * G`` fits
+    ``max_rows`` (the body's rows per CTA, ``CHUNK_ROWS``)."""
     cblk = 1
     while C % (cblk * 2) == 0 and cblk * 2 * G <= max_rows:
         cblk *= 2
     return cblk
+
+
+def chunk_tc_query_block(C: int, G: int) -> int:
+    """Queries per CTA of the tensor-core body: all ``C`` queries of a
+    (row, kv head) while ``C * G`` fits its 128 rows, else as many as fit;
+    the last of the ``ceil(C / cblk)`` blocks may be ragged."""
+    return max(1, min(C, CHUNK_ROWS[torch.bfloat16] // G))
+
+
+def chunk_splits(n_ctx: int, C: int, cblk: int, rows: int, sms: int) -> tuple[int, int]:
+    """``(splits, tiles_per_split)`` of the tensor-core body, from shapes
+    alone: ``n_ctx`` is the page table's width in tokens, ``rows`` is ``B *
+    Hkv`` and ``sms`` the card's SM count. A (row, kv head, query block)
+    has at most ``ceil(n_ctx / 64)`` prior tiles then ``ceil(C / 64)``
+    dense ones; split ``s`` takes tiles ``[s * tps, (s + 1) * tps)`` of that
+    list, ``splits * tps`` covers it and every split starts inside it. A
+    grid that fills half the card or more takes one split: the body holds
+    one CTA per SM, so splitting it adds waves and merges. A smaller one
+    (a verify at C = 5 or a mixed wave at C = 16 over a few rows) aims at
+    about ``_CHUNK_CTAS_PER_SM`` CTAs per SM, most of them short or empty
+    on ragged rows, with at least four tiles per split. Never reads
+    lengths."""
+    tiles = -(-max(n_ctx, 0) // _CHUNK_TILE) + -(-C // _CHUNK_TILE)
+    ctas = max(rows, 1) * -(-C // cblk)
+    want = -(-(sms * _CHUNK_CTAS_PER_SM) // ctas) if 2 * ctas < sms else 1
+    splits = max(1, min(want, tiles // _CHUNK_MIN_SPLIT_TILES))
+    tps = -(-tiles // splits)
+    return -(-tiles // tps), tps
 
 
 def paged_chunk_attention_kernel(
@@ -521,18 +591,31 @@ def paged_chunk_attention_kernel(
     _check(page_table.dim() == 2 and page_table.shape[0] == B, f"{name}: page_table must be [B, max_pages]")
     _check(tuple(prior_lengths.shape) == (B,) and tuple(kv_lengths.shape) == (B,),
            f"{name}: prior_lengths/kv_lengths must be [B]")
-    cblk = chunk_query_block(C, Hq // Hkv, CHUNK_ROWS[q.dtype])
-    lib = "paged_chunk_tc" if q.dtype == torch.bfloat16 else "paged_chunk"
+    G, maxp = Hq // Hkv, page_table.shape[1]
     out = torch.empty_like(q)
-    _launch(
-        lib, q, _DTYPES[q.dtype], _DTYPES[kv_pages.dtype], q.data_ptr(),
-        k_cur.data_ptr(), v_cur.data_ptr(), kv_pages.data_ptr(), _ptr(kv_scales),
-        page_table.data_ptr(), prior_lengths.data_ptr(), kv_lengths.data_ptr(), out.data_ptr(),
-        B, C, Hq, Hkv, D, L, P * page, page, page_table.shape[1], int(layer), cblk,
-    )
-    _count(paged_chunk_attention_kernel, "launches", kv_scales)
-    if lib == "paged_chunk":
+    common = (q.data_ptr(), k_cur.data_ptr(), v_cur.data_ptr(), kv_pages.data_ptr(), _ptr(kv_scales),
+              page_table.data_ptr(), prior_lengths.data_ptr(), kv_lengths.data_ptr(), out.data_ptr())
+    if q.dtype == torch.bfloat16:
+        cblk = chunk_tc_query_block(C, G)
+        n_blocks = B * Hkv * -(-C // cblk)
+        splits, tps = chunk_splits(maxp * page, C, cblk, B * Hkv, sm_count(q.device))
+        ws = (None if splits == 1 else
+              torch.empty(n_blocks * splits * cblk * G * (D + 2), dtype=torch.float32, device=q.device))
+        _launch(
+            "paged_chunk_tc", q, _DTYPES[q.dtype], _DTYPES[kv_pages.dtype], *common, _ptr(ws),
+            _COUNTER_PTR, B, C, Hq, Hkv, D, L, P * page, page, maxp, int(layer), cblk, splits, tps,
+            counters=n_blocks if splits > 1 else 0,
+        )
+    else:
+        _launch(
+            "paged_chunk", q, _DTYPES[q.dtype], _DTYPES[kv_pages.dtype], *common,
+            B, C, Hq, Hkv, D, L, P * page, page, maxp, int(layer),
+            chunk_query_block(C, G, CHUNK_ROWS[q.dtype]),
+        )
         paged_chunk_attention_kernel.launches_f32_body += 1
+    _count(paged_chunk_attention_kernel, "launches", kv_scales)
+    by_c = paged_chunk_attention_kernel.launches_by_c
+    by_c[C] = by_c.get(C, 0) + 1
     return out
 
 
@@ -541,6 +624,8 @@ paged_chunk_attention_kernel.launches_int8 = 0
 # Launches of the CUDA-core body (float32 queries, any pool); the rest of
 # ``launches`` + ``launches_int8`` ran on the tensor cores.
 paged_chunk_attention_kernel.launches_f32_body = 0
+# Launches of either body by chunk length C (both pool kinds).
+paged_chunk_attention_kernel.launches_by_c = {}
 
 _COUNTED = (
     (paged_decode_fused_kernel, "launches"),
@@ -554,11 +639,13 @@ _COUNTED = (
 
 def reset_counters() -> None:
     """Zero every wrapper's launch counts and every plain version's call
-    counts (bf16/f32 and int8 pools)."""
+    counts (bf16/f32 and int8 pools), and clear the chunk kernel's
+    ``launches_by_c``."""
     for fn, attr in _COUNTED:
         setattr(fn, attr, 0)
         setattr(fn, f"{attr}_int8", 0)
     paged_chunk_attention_kernel.launches_f32_body = 0
+    paged_chunk_attention_kernel.launches_by_c = {}
 
 
 def plain_calls() -> int:

@@ -52,11 +52,9 @@ import torch
 __all__ = ["main", "profile_shape"]
 
 # Kernel-name fragments of each group (cuBLAS/CUTLASS GEMM names vary by
-# version: gemm, gemv, xmma, cutlass, nvjet). ``paged_attend_kernel`` is
-# the one-launch decode kernel of earlier commits, so that a copy of this
-# script profiles them the same way.
+# version: gemm, gemv, xmma, cutlass, nvjet).
 _GROUPS = (
-    ("decode_attention", ("paged_split_kernel", "paged_combine_kernel", "paged_attend_kernel")),
+    ("decode_attention", ("paged_decode_kernel",)),
     ("chunk_attention", ("paged_chunk_tc_kernel", "paged_chunk_kernel")),
     ("matmul", ("gemm", "gemv", "xmma", "cutlass", "nvjet")),
 )

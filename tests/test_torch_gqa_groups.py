@@ -4,8 +4,12 @@ chunk, B3 pool), on the CPU.
 - The wrappers' group check takes every group the kernels are instantiated
   for (1..8) and refuses a larger one by name.
 - ``chunk_query_block`` at groups 3, 5, 6 and 7: the largest power-of-two
-  divisor of C whose rows fit the body's CTA (128 rows on either body; the
-  64-row cases keep the rule pinned at another width).
+  divisor of C whose rows fit the CUDA-core body's CTA (128 rows; the
+  64-row cases keep the rule pinned at another width); and
+  ``chunk_tc_query_block``, the tensor-core body's rule at those groups: all
+  C queries while C * G fits its 128 rows, else floor(128 / G), a ragged
+  last block covering the rest (so G 3, 5, 6 and 7 fill 126, 125, 126 and
+  126 of the 128 rows at C = 512).
 - The plain versions against the JAX package's Pallas kernels in interpret
   mode at G 3, 5 and 7 (Qwen2-7B's 7, Qwen2.5-14B/32B's 5, llama3.2-3b's 3)
   over float32, bf16 and int8 pools, with length-0 and length-1 rows,
@@ -71,9 +75,23 @@ def test_chunk_query_block_at_odd_groups(G, C, rows, want):
     assert C % cblk == 0 and cblk * G <= rows
 
 
+@pytest.mark.parametrize("G,C,want", [
+    (3, 512, 42), (5, 512, 25), (6, 512, 21), (7, 512, 18),
+    (3, 16, 16), (5, 16, 16), (6, 16, 16), (7, 16, 16),
+    (3, 5, 5), (5, 5, 5), (6, 5, 5), (7, 5, 5), (7, 64, 18), (3, 64, 42),
+])
+def test_chunk_tc_query_block_at_odd_groups(G, C, want):
+    cblk = tpa.chunk_tc_query_block(C, G)
+    assert cblk == want and cblk * G <= 128
+    # The blocks cover every query once; only the last may be ragged.
+    blocks = [range(c0, min(c0 + cblk, C)) for c0 in range(0, C, cblk)]
+    assert sorted(c for blk in blocks for c in blk) == list(range(C))
+    assert all(len(blk) == cblk for blk in blocks[:-1])
+
+
 @pytest.mark.parametrize("source,pattern", [
     ("paged_decode.cuh", r"case (\d+): return launch<TQ, TP, D, \1, kFused>"),
-    ("paged_chunk_tc.cu", r"case (\d+): return launch<TP, TC, D, \1>"),
+    ("paged_chunk_tc.cu", r"case (\d+): return launch<TP, TC, D, \1, kGather>"),
     ("paged_chunk.cu", r"case (\d+): return launch<TQ, TP, TC, D, \1>"),
 ])
 def test_cuda_switches_instantiate_every_group(source, pattern):

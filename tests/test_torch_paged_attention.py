@@ -201,9 +201,12 @@ class TestPlainChunk:
         assert tpa.chunk_query_block(8, 2, rows) == 8
         assert tpa.chunk_query_block(24, 8, rows) == 8
         assert tpa.chunk_query_block(1, 4, rows) == 1
-        # The tensor-core body (bf16 queries): 128 rows per CTA.
-        assert tpa.chunk_query_block(512, 4) == 32
-        assert tpa.chunk_query_block(24, 8) == 8
+        # The tensor-core body (bf16 queries): 128 rows per CTA, all C
+        # queries of a (row, kv head) while they fit, a ragged last block.
+        assert tpa.chunk_tc_query_block(512, 4) == 32
+        assert tpa.chunk_tc_query_block(24, 8) == 16
+        assert tpa.chunk_tc_query_block(5, 4) == 5
+        assert tpa.chunk_tc_query_block(512, 7) == 18
 
 
 class TestKernelWrappersOnCuda:

@@ -3,17 +3,19 @@ kernel's query blocks, and the port's device defaults, on the CPU.
 
 - ``decode_splits`` (the host-side choice of splits and span, from shapes
   alone) covers every context token exactly once for page-table widths
-  16…4096 tokens, ``B * Hkv`` from 1 to 512 and 114 or 132 SMs, and
-  never takes ``lengths``: the wrappers hold no host-device sync. The SM
-  count is read once per device.
+  16…4096 tokens, ``B * Hkv`` from 1 to 512 and 114 or 132 SMs, with spans
+  of whole 64-token tiles and at least four tiles a split, and never takes
+  ``lengths``: the wrappers hold no host-device sync. The SM count is read
+  once per device.
 - A plain version of the split and the log-sum-exp combine (test-only,
   here) equals ``paged_decode_fused_plain`` / ``paged_attention_pool_plain``
   and, through them, the JAX package's Pallas kernels in interpret mode,
   for S in {1, 2, 7, 32} splits, with empty splits, rows of length 0 and 1,
   and NaN-poisoned pad pages (for int8 pools the NaN sits in the scales).
   Tolerance: float32 atol 1e-5 (summation order).
-- ``chunk_query_block`` gives valid blocks for every engine bucket
-  C in {16 … 512} and G in {1, 2, 4, 8}, for both bodies' row counts.
+- The chunk kernel's query blocks give valid blocks for every engine
+  bucket C in {16 … 512} and G in {1, 2, 4, 8}: ``chunk_query_block`` for
+  the CUDA-core body, ``chunk_tc_query_block`` for the tensor-core body.
 - ``init_params``, ``params_from_jax`` and ``PagedKVPool`` default to CUDA:
   each raises where torch has none, unless it is passed ``device="cpu"``.
 """
@@ -64,7 +66,7 @@ class TestDecodeSplits:
     def test_covers_every_context_token_once(self, n_ctx):
         for sms, rows in ((sms, rows) for sms in (114, 132) for rows in range(1, 513)):
             splits, span = tpa.decode_splits(n_ctx, rows, sms)
-            assert splits >= 1 and span > 0 and span % 32 == 0
+            assert splits >= 1 and span > 0 and span % 64 == 0
             # Split s attends [s*span, (s+1)*span): together they cover
             # [0, n_ctx) once, and no split starts past the context.
             covered = np.zeros(splits * span, np.int32)
@@ -72,17 +74,18 @@ class TestDecodeSplits:
                 covered[s * span : (s + 1) * span] += 1
             assert (covered[:n_ctx] == 1).all()
             assert (splits - 1) * span < n_ctx
-            assert splits <= max(1, -(-n_ctx // 32) // 2)  # at least two tiles a split
+            assert splits <= max(1, -(-n_ctx // 64) // 4)  # at least four tiles a split
 
     def test_small_batches_split_and_a_full_card_does_not(self):
-        assert tpa.decode_splits(4096, 8, 132) == (64, 64)  # B=1, Hkv 8
-        assert tpa.decode_splits(4096, 64, 132) == (32, 128)  # B=8, Hkv 8
-        assert tpa.decode_splits(2048, 64, 132)[0] > 1
-        assert tpa.decode_splits(64, 8, 132) == (1, 64)  # two tiles: one split
-        for rows in (2112, 4096, 8192):
+        assert tpa.decode_splits(4096, 8, 132) == (16, 256)  # B=1, Hkv 8: 4 tiles a split
+        assert tpa.decode_splits(4096, 64, 132) == (8, 512)  # B=8, Hkv 8
+        assert tpa.decode_splits(1024, 32, 132) == (4, 256)  # 4 x 600 on its 64-page bucket
+        assert tpa.decode_splits(2048, 64, 132) == (8, 256)  # 8 x 2000 on its 128-page bucket
+        assert tpa.decode_splits(64, 8, 132) == (1, 64)  # one tile: one split
+        for rows in (528, 2112, 4096, 8192):
             assert tpa.decode_splits(4096, rows, 132) == (1, 4096)
         # A card with fewer SMs fills with fewer splits.
-        assert tpa.decode_splits(4096, 64, 66) == (16, 256)
+        assert tpa.decode_splits(4096, 64, 66) == (5, 832)
         assert tpa.decode_splits(4096, 1056, 66) == (1, 4096)
 
     def test_sm_count_is_read_once_per_device(self, monkeypatch):
@@ -106,7 +109,7 @@ class TestDecodeSplits:
         tensor back to the host."""
         assert list(inspect.signature(tpa.decode_splits).parameters) == ["n_ctx", "rows", "sms"]
         for fn in (tpa.paged_decode_fused_kernel, tpa.paged_attention_pool_kernel,
-                   tpa.decode_splits, tpa._split_workspace):
+                   tpa.decode_splits, tpa._split_workspace, tpa._counters, tpa._launch):
             src = inspect.getsource(fn)
             for call in (".item()", ".cpu()", ".tolist()", ".numpy()"):
                 assert call not in src, f"{fn.__name__} calls {call}"
@@ -288,15 +291,23 @@ class TestPlainSplitCombine:
 class TestChunkQueryBlock:
     @pytest.mark.parametrize("G", [1, 2, 4, 8])
     def test_valid_for_every_engine_bucket(self, G):
-        for dtype, rows in tpa.CHUNK_ROWS.items():
-            for C in (16, 32, 64, 128, 256, 512):
-                cblk = tpa.chunk_query_block(C, G, rows)
-                assert cblk >= 1 and cblk & (cblk - 1) == 0, (dtype, C, cblk)
-                assert C % cblk == 0 and cblk * G <= rows
-                # the largest such block: doubling breaks a rule
-                assert C % (2 * cblk) or 2 * cblk * G > rows
-        assert tpa.chunk_query_block(512, 4, tpa.CHUNK_ROWS[torch.bfloat16]) == 32
-        assert tpa.chunk_query_block(16, 1, tpa.CHUNK_ROWS[torch.bfloat16]) == 16
+        rows = tpa.CHUNK_ROWS[torch.float32]  # the CUDA-core body
+        for C in (16, 32, 64, 128, 256, 512):
+            cblk = tpa.chunk_query_block(C, G, rows)
+            assert cblk >= 1 and cblk & (cblk - 1) == 0, (C, cblk)
+            assert C % cblk == 0 and cblk * G <= rows
+            # the largest such block: doubling breaks a rule
+            assert C % (2 * cblk) or 2 * cblk * G > rows
+        # The tensor-core body: all C queries while C * G fits its rows,
+        # else as many as fit, the last block ragged.
+        rows = tpa.CHUNK_ROWS[torch.bfloat16]
+        for C in (16, 32, 64, 128, 256, 512):
+            cblk = tpa.chunk_tc_query_block(C, G)
+            assert cblk == min(C, rows // G)
+            assert cblk * G <= rows and (cblk == C or (cblk + 1) * G > rows)
+        assert tpa.chunk_query_block(512, 4, tpa.CHUNK_ROWS[torch.float32]) == 32
+        assert tpa.chunk_tc_query_block(512, 4) == 32
+        assert tpa.chunk_tc_query_block(16, 1) == 16
 
 
 # ---------------------------------------------------------------------------
