@@ -215,8 +215,8 @@ Phases (any failure raises and exits non-zero):
    per second at r0 and d0, bytes per insert, apply lag, r0's
    ``match_prefix`` time and each replica's RSS growth. (c) The decode
    step wall of 4 x 600 on p0 with the mesh on (d0 advertising 50
-   prefixes a second) and off, two rounds after a warm-up (the order
-   reversed in the second), over native ``tcp`` and ``tcp-py``. (d)
+   prefixes a second) and off, one round after a warm-up, over native
+   ``tcp`` and ``tcp-py``. (d)
    After the weights are freed, two ``python
    -m radixmesh_tpu_torch.launch node`` processes (prefill and decode, a
    16384-slot pool each) over native ``tcp`` from JSON configs with
@@ -248,7 +248,20 @@ Phases (any failure raises and exits non-zero):
    package), the routers see DRAINING then drop d0, and SIGTERM exits 0
    within the drain timeout. Last d0's decode step unarmed, on a fresh d0
    process started without the repair plane. p0's and d0's ``/stats`` must
-   show the decode and chunk kernels and no plain version.
+   show the decode and chunk kernels and no plain version. (f) Fleet
+   diagnosis: both routers run with ``--agg-interval 0.5`` and r1 with a
+   black box. After (a), r1's ``/cluster/timeseries`` holds series of
+   prefill0 and decode1 (the topology's names), the growth of its merged
+   TTFT buckets over (a) counts (a)'s 16 requests and puts its p50 in the
+   bucket that holds the client's own p50; ``/cluster/slo``'s fleet p50 and
+   p99 are printed beside the client's, with the aggregator's stats. After
+   the ``kill -9`` of p0 in (c), r1's ``/cluster/doctor`` must name
+   ``telemetry_gap`` for prefill0 with the dead-node verdict before p0
+   restarts (seconds from the kill), and the finding must clear within 10
+   pull intervals of p0's ACTIVE. After (d), d0's doctor runs the engine
+   rules with none crashed, r1's flushed black box holds a ``doctor``
+   section, and ``python -m radixmesh_tpu_torch.doctor --blackbox --json``
+   over it exits 0 or 1 (its findings printed).
 Checkpoints and profiles are written under ``chip_out/`` and removed.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches per path in
@@ -2029,7 +2042,7 @@ EDGE = dict(model="llama3-8b", device="cuda", kv_slots=65536, vocab=128256,
             light_prompt=600, light_tokens=48, light_rounds=3,
             burst_prompt=2000, calibration=8, per_tenant=24, backlog=16, deadline_ms=1500,
             burst_tokens=16, backlog_tokens=128, rate_c=2000.0,
-            wall_prompt=600, wall_rounds=3, kill_segments=6)
+            wall_prompt=600, wall_rounds=2, kill_segments=6)
 
 
 def _sync(dev) -> None:
@@ -2615,7 +2628,7 @@ def serving_edge_phase(dev, model, E=EDGE) -> dict:
 # float32 legs.
 HANDOFF = dict(n_prompts=8, lengths=(500, 3001), new_tokens=32, tcp_chunk=120, tail_base=2000,
                f32_model="llama3-8b", engine=dict(num_slots=32768, page_size=16, max_batch=8))
-W8 = dict(decode_len=600, prefill_len=2000, rounds=6, decode_slots=4096, prefill_slots=20480,
+W8 = dict(decode_len=600, prefill_len=2000, rounds=4, decode_slots=4096, prefill_slots=20480,
           f32_model="llama3-8b")
 TRANSPORTS = ("direct", "inproc", "tcp-py streamed", "device_kv")
 
@@ -3149,7 +3162,7 @@ def w8a16_phase(dev, model) -> dict:
 MESH = dict(prompts=8, prompt_len=2000, extra=64, new_tokens=8, f32_prompts=4, f32_layers=2,
             engine=dict(num_slots=65536, page_size=16, max_batch=8),
             scale_prefixes=800, scale_len=2000, match_samples=2000,
-            wall_rows=4, wall_len=600, wall_rounds=2, wall_slots=8192, traffic_per_s=50,
+            wall_rows=4, wall_len=600, wall_rounds=1, wall_slots=8192, traffic_per_s=50,
             node_model="llama3-8b", node_slots=16384, head_rows=(4, 8), head_prompts=4, head_len=600,
             head_tokens=32)
 MESH_PAGE = 16
@@ -3710,11 +3723,16 @@ def mesh_node_leg(model_preset: str, node_slots: int, device: str = "cuda", out_
 # then each with ``extra`` new tokens routed back; (c) ``resume_prompts``
 # greedy requests of ``resume_len`` prompt tokens and ``resume_tokens`` new
 # ones, p0 killed once each has ``kill_after``; (e) ``drain_rows`` requests
-# decoding on d0 and as many arriving during its drain.
+# decoding on d0 and as many arriving during its drain; (f) both routers
+# pull the serving nodes' telemetry every ``agg_interval`` seconds.
 FLEET = dict(model="llama3-8b", slots=32768, max_batch=4, prompts=8, prompt_len=2000, extra=64,
              new_tokens=8, resume_prompts=4, resume_len=600, resume_tokens=128, kill_after=8,
              drain_rows=4, drain_len=600, drain_tokens=128, wall_tokens=48, drain_timeout=30.0,
-             hop_timeout_s=5.0, failure_timeout_s=2.0, start_limit_s=400.0)
+             hop_timeout_s=5.0, failure_timeout_s=2.0, start_limit_s=400.0, agg_interval=0.5)
+# The fleet aggregator's peer names, derived from the topology (role and
+# ring rank), as ``launch.py node`` names them.
+FLEET_PEERS = {"p0": "prefill0", "d0": "decode1"}
+ENGINE_RULES = ("restore_park_stall", "spec_efficiency", "decode_stall", "spec_misconfigured")
 FLEET_NAMES = ("p0", "d0", "r0", "r1")
 
 
@@ -3739,9 +3757,11 @@ class _Fleet:
     """The fleet's processes: ``start`` one node, ``wait_http`` for its
     ``/healthz``, and stop every process on ``close``."""
 
-    def __init__(self, out_dir, paths, http_ports, device, drain_timeout):
+    def __init__(self, out_dir, paths, http_ports, device, drain_timeout, agg_interval):
         self.out_dir, self.paths, self.http_ports, self.device = out_dir, paths, http_ports, device
-        self.drain_timeout = drain_timeout
+        self.drain_timeout, self.agg_interval = drain_timeout, agg_interval
+        # r1 keeps a black box: the observer's dump a post-mortem reads.
+        self.blackbox_dir = out_dir / "fleet-bb-r1"
         self.procs: dict = {}
         self.logs: list = []
 
@@ -3753,7 +3773,9 @@ class _Fleet:
         if repair:
             cmd += ["--repair-interval", "1.0"]
         if name.startswith("r"):
-            cmd += ["--http-port", str(self.http_ports[i])]
+            cmd += ["--http-port", str(self.http_ports[i]), "--agg-interval", str(self.agg_interval)]
+            if name == "r1":
+                cmd += ["--blackbox-dir", str(self.blackbox_dir)]
         else:
             cmd += ["--device", self.device]
         log = open(self.out_dir / f"fleet-{name}{tag}.log", "w")
@@ -3883,6 +3905,120 @@ def _lifecycle_of(port: int):
     return _http(port, "/debug/state").get("lifecycle")
 
 
+def _fleet_ttft(port: int) -> tuple[tuple, list]:
+    """A router's fleet store: the serving nodes' TTFT bucket counts merged
+    across nodes (``merge_bucket_counts``: bounds, cumulative counts)."""
+    from radixmesh_tpu_torch.obs.aggregator import _parse_labels, merge_bucket_counts
+
+    body = _http(port, "/cluster/timeseries?family=radixmesh_request_ttft_seconds_bucket&limit=1")
+    per: dict = {}
+    for name, s in body["series"].items():
+        labels = _parse_labels(name)
+        if "le" in labels and s["last"][1] is not None:
+            per.setdefault(labels.get("node"), {})[labels["le"]] = float(s["last"][1])
+    return merge_bucket_counts(list(per.values()))
+
+
+def _fleet_ttft_settled(port: int, want: int, limit_s: float = 20.0) -> tuple[tuple, list]:
+    """The router's merged TTFT counts once they hold ``want`` requests (the
+    aggregator pulls the nodes' rings, each sampled once a second)."""
+    deadline = time.monotonic() + limit_s
+    while True:
+        bounds, cum = _fleet_ttft(port)
+        if cum and cum[-1] >= want:
+            check(cum[-1] == want, f"fleet (f): the fleet store counts {cum[-1]} TTFTs, the client {want}")
+            return bounds, cum
+        check(time.monotonic() < deadline, f"fleet (f): the fleet store counts {cum[-1:]} TTFTs after "
+              f"{limit_s:.0f} s, the client {want}")
+        time.sleep(0.1)
+
+
+def _gap_finding(port: int, peer: str):
+    """The ``telemetry_gap`` finding naming ``peer`` in a router's
+    ``/cluster/doctor``, or None."""
+    for f in _http(port, "/cluster/doctor")["findings"]:
+        if f["rule"] == "telemetry_gap" and f["evidence"]["peer"] == peer:
+            return f
+    return None
+
+
+def _watch_gap(port: int, peer: str, t_kill: float, found: dict, stop) -> None:
+    """Poll a router's doctor from a kill until it names the killed peer's
+    telemetry gap with the dead-node verdict."""
+    while not stop.is_set():
+        try:
+            f = _gap_finding(port, peer)
+        except (OSError, RuntimeError):
+            f = None
+        if f is not None and f["evidence"]["verdict"] == "node_dead":
+            found.update(finding=f, after_kill_s=time.monotonic() - t_kill)
+            return
+        time.sleep(0.1)
+
+
+def _fleet_after_a(port: int, replies: list, before: list, n_before: int) -> dict:
+    """(f) after (a), on router ``port``: the fleet store holds series of
+    both serving nodes under the topology's names; the growth of its merged
+    TTFT bucket counts across (a) counts (a)'s requests, and its p50 bucket
+    holds the client's own p50 (the order statistic a bucket quantile
+    selects); ``/cluster/slo``'s fleet quantiles (every request so far) and
+    the aggregator's stats."""
+    from radixmesh_tpu_torch.obs.aggregator import merge_quantile
+
+    client = sorted(r["ttft_s"] for r in replies)
+    bounds, cum = _fleet_ttft_settled(port, n_before + len(client))
+    check(len(cum) == len(before), f"fleet (f): bucket sets differ before and after (a): {before} {cum}")
+    delta = [a - b for a, b in zip(cum, before)]
+    est, le = merge_quantile(bounds + (float("inf"),), delta, 0.5)
+    edges = (0.0,) + bounds + (float("inf"),)
+    i = edges.index(float(le)) if le != "+Inf" else len(edges) - 1
+    client_p50 = client[math.ceil(0.5 * len(client)) - 1]
+    check(edges[i - 1] < client_p50 <= edges[i],
+          f"fleet (f): the client's TTFT p50 {client_p50:.6f}s is outside the fleet's p50 bucket "
+          f"({edges[i - 1]}, {edges[i]}]")
+    names = _http(port, "/cluster/timeseries?limit=1")
+    nodes = {n: sum(f'node="{n}"' in k for k in names["series"]) for n in FLEET_PEERS.values()}
+    check(all(nodes.values()), f"fleet (f): r1's fleet store holds series per node {nodes}")
+    slo = _http(port, "/cluster/slo")
+    ttft = slo["tenants"]["default"]["ttft"]
+    stats = names["aggregator"]
+    return {"client_ttft_s": {"p50": client_p50, "p99": client[math.ceil(0.99 * len(client)) - 1],
+                              "n": len(client)},
+            "fleet_ttft_a": {"p50": est, "p50_bucket": [edges[i - 1], edges[i]], "n": delta[-1]},
+            "slo_ttft": {k: ttft.get(k) for k in ("count", "nodes", "p50", "p99", "p50_bucket", "p99_bucket")},
+            "series_per_node": nodes, "aggregator": stats, "peers": slo["peers"],
+            "pull_ms_per_peer": 1e3 * stats["pull_seconds_total"] / max(1, stats["sweeps"] * stats["peers"])}
+
+
+def _fleet_doctor_after_d(r1: int, d0: int, bb_dir) -> dict:
+    """(f) after (d): d0's doctor runs the engine rules and none crashed;
+    r1's black box, flushed now, holds a ``doctor`` section, and the
+    post-mortem reader (``python -m radixmesh_tpu_torch.doctor --blackbox
+    --json``, a child process) exits 0 or 1 over it."""
+    rep = _http(d0, "/cluster/doctor")
+    check(set(ENGINE_RULES) <= set(rep["rules_checked"]),
+          f"fleet (f): d0's doctor checked {rep['rules_checked']}")
+    crashed = [f for f in rep["findings"] if "rule crashed" in f["summary"]]
+    check(not crashed, f"fleet (f): d0's doctor: {crashed}")
+    flushed = _http(r1, "/admin/blackbox", {})
+    final = json.loads(pathlib.Path(flushed["path"]).read_text())
+    check("doctor" in final, f"fleet (f): r1's final dump has sections {sorted(final)}")
+    node_dir = pathlib.Path(flushed["path"]).parent
+    check(node_dir.parent == pathlib.Path(bb_dir), f"fleet (f): r1's dump at {node_dir}")
+    r = subprocess.run([sys.executable, "-m", "radixmesh_tpu_torch.doctor", "--blackbox", str(node_dir), "--json"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=120)
+    check(r.returncode in (0, 1), f"fleet (f): the post-mortem reader exited {r.returncode}: {r.stderr[-2000:]}")
+    report = json.loads(r.stdout)
+    crash = [f["evidence"] for f in report["findings"] if f["rule"] == "node_crash"]
+    return {"d0_rules_checked": rep["rules_checked"], "d0_findings": [f["rule"] for f in rep["findings"]],
+            "r1_final_doctor": {k: final["doctor"].get(k) for k in ("healthy", "rules_checked")}
+            | {"findings": [f["rule"] for f in final["doctor"]["findings"]]},
+            "postmortem": {"rc": r.returncode, "findings": [(f["rule"], f["evidence"]) for f in report["findings"]],
+                           "samples": report["samples"], "series": report["series"],
+                           "node_crash_ranks": [c["rank"] for c in crash],
+                           "names_p0": any(str(c["rank"]) == "0" for c in crash)}}
+
+
 def fleet_leg(device: str = "cuda", out_dir=None, sizes=None) -> dict:
     """Phase 17: two routers (r0, r1, model-less) and two serving nodes (p0,
     d0) as ``python -m radixmesh_tpu_torch.launch node`` processes over
@@ -3899,8 +4035,12 @@ def fleet_leg(device: str = "cuda", out_dir=None, sizes=None) -> dict:
     /admin/drain`` (decodes finish, arrivals get 503 with the router and,
     from the plain runner, no Retry-After; DRAINING then LEFT, exit 0 on
     SIGTERM); and d0's decode wall unarmed, on a fresh d0 started without
-    the repair plane. ``tests/test_torch_launch_node.py`` runs it on the CPU
-    with the tiny model."""
+    the repair plane. (f) Both routers host the fleet aggregator
+    (``--agg-interval``) and r1 a black box: its fleet store and SLO after
+    (a), its doctor's ``telemetry_gap`` for the killed p0 in (c) and its
+    clearing in (d), d0's engine rules, and the post-mortem of r1's dump
+    after (d). ``tests/test_torch_launch_node.py`` runs it on the CPU with
+    the tiny model."""
     from radixmesh_tpu_torch.obs.metrics import get_registry
     from radixmesh_tpu_torch.policy.retry import RetryPolicy
     from radixmesh_tpu_torch.router.front_door import RouterFrontDoor
@@ -3914,7 +4054,9 @@ def fleet_leg(device: str = "cuda", out_dir=None, sizes=None) -> dict:
     http_ports = [base + 1000 + i for i in range(4)]
     serve = {n: f"127.0.0.1:{http_ports[i]}" for i, n in enumerate(FLEET_NAMES)}
     port = dict(zip(FLEET_NAMES, http_ports))
-    fleet = _Fleet(out_dir, _fleet_configs(out_dir, addrs, spec), http_ports, device, spec["drain_timeout"])
+    fleet = _Fleet(out_dir, _fleet_configs(out_dir, addrs, spec), http_ports, device, spec["drain_timeout"],
+                   spec["agg_interval"])
+    shutil.rmtree(fleet.blackbox_dir, ignore_errors=True)
     mcfg = get_config(spec["model"])
     rng = np.random.default_rng(17)
     aligned = spec["prompt_len"] - spec["prompt_len"] % MESH_PAGE
@@ -3940,6 +4082,8 @@ def fleet_leg(device: str = "cuda", out_dir=None, sizes=None) -> dict:
         wall_prompts = [rng.integers(0, mcfg.vocab_size, spec["drain_len"]).tolist()
                         for _ in range(spec["drain_rows"])]
         armed = _decode_gaps(http_ports[1], wall_prompts, spec["wall_tokens"])
+        # (f) r1's fleet store holds the armed wall's TTFTs before (a).
+        _, ttft_before = _fleet_ttft_settled(port["r1"], len(wall_prompts))
 
         # (a) route, serve, publish, route back.
         door = RouterFrontDoor([(addrs[2], _route_edge(port["r0"])), (addrs[3], _route_edge(port["r1"]))],
@@ -3979,6 +4123,7 @@ def fleet_leg(device: str = "cuda", out_dir=None, sizes=None) -> dict:
         out["a"] = {"route_ms": _pcts(route_ms), "match_len": [b["match_len"] for b in back],
                     "cached_tokens": [h["cached_tokens"] for h in hits],
                     "miss_ttft_s": [m["ttft_s"] for m in misses], "hit_ttft_s": [h["ttft_s"] for h in hits]}
+        out["f"] = _fleet_after_a(port["r1"], misses + hits, ttft_before, len(wall_prompts))
 
         # (b) kill -9 r0 between two requests: the front door fails over.
         answers, t_kill, t_first = [], None, None
@@ -4072,6 +4217,11 @@ def fleet_leg(device: str = "cuda", out_dir=None, sizes=None) -> dict:
             time.sleep(0.001)
         fleet.procs["p0"].kill()
         t_p0_kill = time.monotonic()
+        gap: dict = {}
+        gap_stop = threading.Event()
+        gap_watch = threading.Thread(target=_watch_gap, args=(port["r1"], FLEET_PEERS["p0"], t_p0_kill, gap,
+                                                              gap_stop), daemon=True)
+        gap_watch.start()
         for th in threads:
             th.join(timeout=600)
         check(not errors, f"fleet (c): recovery failed: {errors}")
@@ -4130,6 +4280,12 @@ def fleet_leg(device: str = "cuda", out_dir=None, sizes=None) -> dict:
                     hammer["to_p0_hit_before_serving"] += hit and not serving_p0.is_set()
 
         fleet.procs["p0"].wait()
+        # (f) r1's doctor names p0's telemetry gap, dead node, before p0 restarts.
+        gap_watch.join(timeout=max(0.0, t_p0_kill + 60 - time.monotonic()))
+        gap_stop.set()
+        check("finding" in gap, f"fleet (f): r1's doctor never named prefill0's telemetry gap as a dead node "
+              f"within 60 s of the kill: {_http(port['r1'], '/cluster/doctor')['findings']}")
+        out["f"]["gap"] = {"after_kill_s": gap["after_kill_s"], "evidence": gap["finding"]["evidence"]}
         t_restart = time.monotonic()
         fleet.start("p0", tag="-rejoin")
         workers = [threading.Thread(target=hammer_routes, args=(n,), daemon=True) for n in ("r0", "r1")]
@@ -4148,7 +4304,13 @@ def fleet_leg(device: str = "cuda", out_dir=None, sizes=None) -> dict:
             check(time.monotonic() < deadline, f"fleet (d): p0 never went active: {states}")
             time.sleep(0.05)
         t_active = time.monotonic()
-        time.sleep(1.0)  # the routers fold p0's ACTIVE digest
+        # (f) the gap clears within 10 pull intervals of p0's ACTIVE.
+        while _gap_finding(port["r1"], FLEET_PEERS["p0"]) is not None:
+            check(time.monotonic() - t_active < 10 * spec["agg_interval"],
+                  f"fleet (f): prefill0's telemetry gap still open {10 * spec['agg_interval']:.1f} s after ACTIVE")
+            time.sleep(0.05)
+        out["f"]["gap"]["cleared_after_active_s"] = time.monotonic() - t_active
+        time.sleep(max(0.0, t_active + 1.0 - time.monotonic()))  # the routers fold p0's ACTIVE digest
         stop.set()
         for w in workers:
             w.join()
@@ -4176,6 +4338,7 @@ def fleet_leg(device: str = "cuda", out_dir=None, sizes=None) -> dict:
         d0_metrics = _http(http_ports[1], "/metrics")
         keys = {n: _metric(t, f'radixmesh_repair_keys_pushed_total{{node="{lbl}"}}', 0.0)
                 for n, t, lbl in (("p0", p0_metrics, "prefill@0"), ("d0", d0_metrics, "decode@1"))}
+        out["f"].update(_fleet_doctor_after_d(port["r1"], http_ports[1], fleet.blackbox_dir))
         out["d"] = {"states": states, "bootstrap_wall_s": t_active - t_restart,
                     "bootstrap_converge_s": boot.get("converge_s"), "rounds": boot.get("rounds"),
                     "keys_pushed": keys, "withheld_hits": [withheld0, withheld1], "hammer": hammer,
@@ -4311,6 +4474,21 @@ def fleet_phase(card: str) -> dict:
           f"{e['retry_after']} (the plain runner sends none); decode "
           f"addr while draining {e['decode_addr_while_draining']}, after leaving {e['decode_addr_after_left']}; "
           f"drain {e['drain']}", flush=True)
+    fa, gp, pm = f["f"], f["f"]["gap"], f["f"]["postmortem"]
+    print(f"[fleet f] ({card}) r1's fleet aggregator every {FLEET['agg_interval']}s: series per node "
+          f"{fa['series_per_node']}; (a)'s TTFT: client p50 {fa['client_ttft_s']['p50']:.6f}s p99 "
+          f"{fa['client_ttft_s']['p99']:.6f}s over {fa['client_ttft_s']['n']}, the fleet's p50 "
+          f"{fa['fleet_ttft_a']['p50']:.6f}s in bucket {fa['fleet_ttft_a']['p50_bucket']} over "
+          f"{fa['fleet_ttft_a']['n']:.0f}; /cluster/slo TTFT (every request so far) {fa['slo_ttft']}; "
+          f"aggregator {fa['aggregator']['sweeps']} sweeps over {fa['aggregator']['peers']} peers, "
+          f"{fa['pull_ms_per_peer']:.3f} ms pull wall per peer per sweep, store {fa['aggregator']['store']}; "
+          f"peers {fa['peers']}", flush=True)
+    print(f"[fleet f] kill -9 p0 -> r1's doctor names telemetry_gap {gp['evidence']} "
+          f"{gp['after_kill_s']:.3f}s after the kill; cleared {gp['cleared_after_active_s']:.3f}s after p0's "
+          f"ACTIVE; d0's doctor checked {f['f']['d0_rules_checked']} (findings {f['f']['d0_findings']}, none crashed); "
+          f"r1's final doctor {f['f']['r1_final_doctor']}; post-mortem of r1's dump: exit {pm['rc']}, "
+          f"{pm['samples']} samples / {pm['series']} series, findings {pm['findings']}; node_crash names p0 "
+          f"(rank 0): {pm['names_p0']}", flush=True)
     print(f"[fleet walls] d0 decode step (client gap, {FLEET['drain_rows']} rows x {FLEET['drain_len']}, the first "
           f"requests of a fresh d0 process each, one reading each): repair armed median "
           f"{w['armed']['median_ms']:.3f} ms, unarmed {w['unarmed']['median_ms']:.3f} ms; kernels "

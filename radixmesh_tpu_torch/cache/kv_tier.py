@@ -147,6 +147,9 @@ class DiskKVTier:
         self._extents: dict[str, ExtentRef] = {}
         self._resident_bytes = 0
         self._retired: deque[ExtentRef] = deque()
+        # (monotonic t, shard, "demote"|"promote"|"drop") ring: the mesh
+        # doctor's tier_thrash input when no history ring is attached.
+        self.recent_moves: deque = deque(maxlen=4096)
         # The JAX package's radixmesh_kv_tier_* series, on the registry and
         # as plain counters for stats() (/stats).
         self.spilled_tokens = 0
@@ -208,6 +211,7 @@ class DiskKVTier:
     def _note_move(self, direction: str, shard: int) -> None:
         with self._lock:
             self.moves[direction] += 1
+            self.recent_moves.append((time.monotonic(), int(shard), direction))
         self._m_moves.labels(dir=direction, shard=str(int(shard)), **self._m_moves_lbl).inc()
 
     def _count_corrupt(self, cause: str) -> None:

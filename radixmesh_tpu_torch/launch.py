@@ -68,19 +68,25 @@ A router node (``local_addr`` in ``router_nodes``) runs a
 :class:`~radixmesh_tpu_torch.router.cache_aware_router.CacheAwareRouter`
 behind a :class:`~radixmesh_tpu_torch.server.http_frontend.RouterFrontend`
 (``POST /route``) on ``--http-port``, with ``--warm-up``,
-``--health-aware-routing`` and ``--kv-prefetch-hints``.
+``--health-aware-routing`` and ``--kv-prefetch-hints``; with
+``--agg-interval`` (or the config's ``agg_interval_s``) it hosts the fleet
+aggregator, pulling every ring node's serving ``/debug/timeseries`` into
+the store behind ``/cluster/{timeseries,slo}`` and the doctor's fleet
+rules.
 ``--repair-interval`` (or the config's ``repair_interval_s``) arms the
 anti-entropy repair plane on every role (routers probe and pull, never
 push). Every non-router node arms the lifecycle plane: with a repair plane
 and digests it joins BOOTSTRAPPING (a warm join from a donor) before it
 goes ACTIVE, and ``POST /admin/drain`` or SIGTERM/SIGINT drain it
 (``--drain-timeout``, default 30 s) and announce LEAVE before it exits.
-The KV-transfer, trace and history flags are ``serve``'s. The flags and
-config keys in ``_NOT_PORTED_NODE`` are refused by name with the
-ROADMAP.md queue item that brings them.
+The KV-transfer, trace and history flags are ``serve``'s; a cache node
+without a model honours ``--blackbox-dir`` too (a history of its mesh and a
+black box whose doctor judges it). The flags in ``_NOT_PORTED_NODE`` (none
+is left) are refused by name with the ROADMAP.md queue item that brings
+them.
 
     python -m radixmesh_tpu_torch.launch node --config-file router0.json --http-port 8100 \
-        --fleet-digest-interval 0.5 --repair-interval 1.0
+        --fleet-digest-interval 0.5 --repair-interval 1.0 --agg-interval 2
 """
 
 from __future__ import annotations
@@ -97,10 +103,9 @@ __all__ = ["main", "parse_args"]
 _NOT_PORTED_FLAGS: tuple[str, ...] = ()
 
 # ``node`` flags of the JAX launcher whose features are not ported yet,
-# with the ROADMAP.md queue item that brings each.
-_NOT_PORTED_NODE: dict[str, str] = {
-    "--agg-interval": "A4, fleet aggregation",
-}
+# with the ROADMAP.md queue item that brings each (none since
+# ``--agg-interval``; the check stays for the next one).
+_NOT_PORTED_NODE: dict[str, str] = {}
 
 
 def _configure_tracing(args: argparse.Namespace, node: str = "") -> None:
@@ -325,16 +330,22 @@ def _add_history_args(sub: argparse.ArgumentParser) -> None:
                      "(default: 10x the sample interval with --blackbox-dir; 0 disables)")
 
 
-def _node_refusal(cfg, serving: bool, args: argparse.Namespace) -> str | None:
-    """Why this node cannot run on the port yet (None if it can): the
-    config keys and flags whose features are not ported."""
-    if cfg.agg_interval_s > 0:
-        return ("agg_interval_s > 0 (fleet aggregation) is not supported by the PyTorch port yet "
-                "(see ROADMAP.md, queue A4)")
-    if not serving and args.blackbox_dir:
-        return ("--blackbox-dir on a node without a model (its dump's doctor section) is not "
-                "supported by the PyTorch port yet (see ROADMAP.md, queue A4)")
-    return None
+def _aggregator_peers(cfg, interval: float, log) -> list[tuple[str, str, int]]:
+    """The fleet aggregator's peers, derived from the topology: every ring
+    node with a serving HTTP address, named as its engine labels its series
+    (``prefill0``, ``decode1``) and carrying its rank, which the doctor's
+    ``telemetry_gap`` rule needs to consult gossip health."""
+    if interval <= 0:
+        return []
+    peers = []
+    for r in range(cfg.num_ring):
+        serve = cfg.serve_addr(cfg.addr_of_rank(r))
+        if serve is not None:  # a portless inproc address has no HTTP tier
+            peers.append((f"{cfg.role_of_rank(r).value}{r}", f"http://{serve}", r))
+    if not peers:
+        log.warning("--agg-interval %.1fs set but no ring node has an HTTP serving address: "
+                    "the fleet aggregator stays off", interval)
+    return peers
 
 
 def _node_engine(cfg, args: argparse.Namespace, mesh, name: str, device, log):
@@ -415,9 +426,6 @@ def _run_node(args: argparse.Namespace) -> int:
     role, rank, _ = cfg.local_identity()
     is_router = role is NodeRole.ROUTER
     serving = not is_router and bool(cfg.model)
-    refusal = _node_refusal(cfg, serving, args)
-    if refusal is not None:
-        raise SystemExit(refusal)
     label = f"{role.value}@{rank}"
     configure_logger(label)
     log = get_logger("launch")
@@ -475,6 +483,7 @@ def _run_node(args: argparse.Namespace) -> int:
         tokenizer = load_tokenizer(tok_spec)
 
     engine = frontend = fleet_plane = repair_plane = rebalance_plane = lifecycle_plane = None
+    history_plane = blackbox_plane = None
     if is_router:
         from radixmesh_tpu_torch.router.cache_aware_router import CacheAwareRouter
         from radixmesh_tpu_torch.server.http_frontend import RouterFrontend
@@ -485,9 +494,15 @@ def _run_node(args: argparse.Namespace) -> int:
         if not args.warm_up:
             router.finish_warm_up()
         host = parse_addr(cfg.local_addr)[0] or "127.0.0.1"
+        agg_interval = args.agg_interval if args.agg_interval is not None else cfg.agg_interval_s
+        agg_peers = _aggregator_peers(cfg, agg_interval, log)
         frontend = RouterFrontend(router, host=host, port=args.http_port, tokenizer=tokenizer,
+                                  aggregator_peers=agg_peers, aggregator_interval_s=agg_interval or 2.0,
                                   **_history_kwargs(args, log))
         print(f"routing {label} on http://{host}:{frontend.port}", flush=True)
+        if frontend.aggregator is not None:
+            log.info("fleet aggregator ON: pulling %d peer(s) every %.1fs (GET /cluster/timeseries, "
+                     "/cluster/slo)", len(agg_peers), agg_interval)
     elif serving:
         from radixmesh_tpu_torch.server.http_frontend import ServingFrontend
 
@@ -505,6 +520,29 @@ def _run_node(args: argparse.Namespace) -> int:
                                    port=port + cfg.serve_port_offset, tokenizer=tokenizer,
                                    **_history_kwargs(args, log))
         print(f"serving {label} on http://{host or '127.0.0.1'}:{frontend.port}", flush=True)
+    else:
+        # A cache node has no HTTP surface, so its dump is the only reader
+        # of a history: the sampler runs only when --blackbox-dir arms it.
+        hk = _history_kwargs(args, log)
+        if hk["blackbox_dir"]:
+            from radixmesh_tpu_torch.obs.blackbox import BlackBox
+            from radixmesh_tpu_torch.obs.doctor import MeshDoctor
+            from radixmesh_tpu_torch.obs.timeseries import TelemetryHistory
+            from radixmesh_tpu_torch.obs.trace_plane import get_recorder
+
+            if hk["history_interval_s"] > 0:
+                history_plane = TelemetryHistory(interval_s=hk["history_interval_s"], mesh=node,
+                                                 node=label)
+            blackbox_plane = BlackBox(
+                hk["blackbox_dir"], history=history_plane,
+                doctor=MeshDoctor(mesh=node, history=history_plane), recorder=get_recorder,
+                node=label, watchdog_timeout_s=hk["blackbox_watchdog_s"],
+            )
+            if history_plane is not None:
+                # Started after the black box installed its segment hook.
+                history_plane.start()
+            log.info("black box armed under %s (history every %.1fs)", hk["blackbox_dir"],
+                     hk["history_interval_s"])
     digest_interval = (
         args.fleet_digest_interval if args.fleet_digest_interval is not None
         else cfg.digest_interval_s
@@ -552,7 +590,7 @@ def _run_node(args: argparse.Namespace) -> int:
             node, repair=repair_plane, runner=getattr(frontend, "runner", None),
             fleet_plane=fleet_plane, cfg=LifecycleConfig(drain_timeout_s=args.drain_timeout),
             bootstrap=repair_plane is not None and digest_interval > 0,
-            blackbox=getattr(frontend, "blackbox", None),
+            blackbox=getattr(frontend, "blackbox", None) or blackbox_plane,
         )
         if frontend is not None:
             frontend.lifecycle = lifecycle_plane
@@ -588,6 +626,10 @@ def _run_node(args: argparse.Namespace) -> int:
             fleet_plane.close()
         if frontend is not None:
             frontend.close()
+        if blackbox_plane is not None:
+            blackbox_plane.close(flush_cause="shutdown")
+        if history_plane is not None:
+            history_plane.close()
         if engine is not None:
             engine.close()
         node.close(graceful=True)
@@ -702,6 +744,13 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                       help="router role: demote nodes whose gossiped health score drops below "
                       "0.5 (stall watchdog, replication lag, eviction storm): cache hits shed "
                       "past them and the hash-ring fallback skips them")
+    node.add_argument("--agg-interval", type=float, default=None, metavar="SECONDS",
+                      help="router role: host the fleet telemetry aggregator (obs/aggregator.py), "
+                      "cursor-pulling every ring node's /debug/timeseries at this cadence into one "
+                      "node-labeled store served on GET /cluster/timeseries, with true fleet "
+                      "percentiles on GET /cluster/slo and the doctor's fleet rules "
+                      "(straggler_node, fleet_burn_slope, telemetry_gap); overrides the config's "
+                      "agg_interval_s; 0 disables")
     node.add_argument("--kv-prefetch-hints", action="store_true",
                       help="router role: fire an idempotent PREFETCH oplog at the node a cache "
                       "hit routes to, so a host-tier prefix starts restoring before the request "

@@ -17,8 +17,8 @@ dump directory per node (``launch.py serve --blackbox-dir``):
   artifact carrying the full retained history plus what a post-mortem
   needs: the phase attributor's recent-waterfall ring, the flight
   recorder's raw span export, a doctor's live findings when one is
-  attached (the port has none yet: the dump then has no ``doctor`` key),
-  and the frontend's ``/debug/state`` snapshot. Wired triggers: the
+  attached (both frontends and a model-less node attach their
+  ``obs/doctor.py`` ``MeshDoctor``), and the frontend's ``/debug/state`` snapshot. Wired triggers: the
   frontend's close (SIGTERM in ``serve``), ``POST /admin/blackbox``, and
   the **unclean-death watchdog**, a thread that watches the sampler's
   heartbeat and flushes once if sampling ever stalls past its timeout.

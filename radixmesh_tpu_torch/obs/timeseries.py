@@ -10,8 +10,8 @@ is the history axis:
   same flat series a scraper sees) plus the derived planes a scrape
   cannot reach: the engine's step accounting (MFU, pad fraction), its
   goodput ledger, the SLO controller's per-tenant burn counters, and,
-  through the ``mesh`` seam (the cache mesh is not ported yet; the
-  frontend passes None), fleet health and shard heat.
+  through the ``mesh`` seam (a node's cache-mesh replica), fleet health
+  and shard heat.
 - Storage is **fixed-capacity, change-compressed rings**: one global
   sample sequence, one bounded deque of ``(seq, t, value)`` points per
   series appended ONLY when the value changed since its last point, so

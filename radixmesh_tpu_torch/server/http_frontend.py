@@ -57,8 +57,14 @@ router node's ``RouterFrontend``).
   ``router`` and ``deadline_s``; 404 without a lifecycle plane. While a
   node drains, ``/generate`` answers 503 with the router to retry through
   (and ``Retry-After`` with SLO control on).
-- ``GET /cluster/{health,doctor,timeseries,slo}``: 501, refused by name
-  (fleet aggregation and the doctor are not ported yet).
+- ``GET /cluster/health`` (with a cache mesh: per-node health scores, the
+  convergence summary and the autoscale recommendation), ``GET
+  /cluster/doctor`` (the mesh doctor's ranked findings, ``obs/doctor.py``),
+  ``GET /cluster/timeseries`` (the fleet aggregator's node-labeled store,
+  with ``/debug/timeseries``'s cursor; 404 where no aggregator is hosted)
+  and ``GET /cluster/slo`` (true fleet TTFT and e2e quantiles per tenant
+  from merged bucket counts, ``obs/aggregator.py``; 404 likewise). A
+  router started with aggregator peers hosts the aggregator.
 - ``POST /profile`` ``{"seconds": N}`` and ``GET /debug/profile?seconds=N``:
   one ``torch.profiler`` window (CUDA activity on the card) written as a
   Chrome trace into a fresh numbered directory under the frontend's
@@ -85,8 +91,10 @@ from urllib.parse import parse_qs, urlsplit
 
 from radixmesh_tpu_torch.engine.engine import Engine
 from radixmesh_tpu_torch.engine.request import Request, RequestState, SamplingParams
+from radixmesh_tpu_torch.obs.aggregator import FleetAggregator, HttpPeer
 from radixmesh_tpu_torch.obs.attribution import ensure_attributor
 from radixmesh_tpu_torch.obs.blackbox import BlackBox
+from radixmesh_tpu_torch.obs.doctor import MeshDoctor
 from radixmesh_tpu_torch.obs.metrics import get_registry
 from radixmesh_tpu_torch.obs.timeseries import TelemetryHistory
 from radixmesh_tpu_torch.obs.trace_plane import get_recorder
@@ -407,14 +415,47 @@ def _cluster_telemetry(mesh) -> dict:
     return snap
 
 
-# Fleet endpoints whose planes (obs/aggregator.py, obs/doctor.py) are not
-# ported yet: answered by name, never a bare 404.
-_NOT_PORTED_CLUSTER = ("/cluster/health", "/cluster/doctor", "/cluster/timeseries", "/cluster/slo")
+def _cluster_health(mesh) -> dict:
+    """``GET /cluster/health``: per-node 0..1 health scores with the
+    detector reasons that capped them, the fleet-wide convergence summary
+    and the autoscale recommendation (``policy/lifecycle.py``)."""
+    if mesh is None:
+        return {"nodes": {}, "note": "no cache mesh attached to this node"}
+    from radixmesh_tpu_torch.policy.lifecycle import AutoscalePolicy
+
+    health = mesh.fleet.health()
+    scores = [h["score"] for h in health.values()]
+    return {
+        "nodes": {str(r): h for r, h in sorted(health.items())},
+        "min_score": min(scores, default=1.0),
+        "convergence": mesh.fleet.convergence(),
+        "autoscale": AutoscalePolicy().recommend(mesh.fleet, alive_ring=len(mesh.view.alive)),
+        "self": _membership_state(mesh),
+    }
 
 
-def _cluster_refusal(path: str) -> tuple[int, dict]:
-    return 501, {"error": f"{path} (fleet aggregation and the mesh doctor) is not supported by "
-                          "the PyTorch port yet (see ROADMAP.md, queue A4)"}
+def _cluster_timeseries(aggregator, query: dict) -> tuple[int, dict]:
+    """``GET /cluster/timeseries``: the fleet store, every peer's rings
+    folded into one node-labeled :class:`TelemetryHistory`, with
+    ``/debug/timeseries``'s cursor pagination and the aggregator's
+    ``stats()``; 404 on a node that hosts no aggregator."""
+    if aggregator is None:
+        return 404, {"error": "no fleet aggregator hosted here — query a router started with "
+                              "--agg-interval > 0 (serving nodes export /debug/timeseries only)"}
+    code, body = _debug_timeseries(aggregator.store, query)
+    if code == 200:
+        body["aggregator"] = aggregator.stats()
+    return code, body
+
+
+def _cluster_slo(aggregator) -> tuple[int, dict]:
+    """``GET /cluster/slo``: per-tenant fleet p50/p99 TTFT and e2e from
+    merged histogram bucket counts, each tail quantile with its bucket and
+    exemplar (``FleetAggregator.fleet_slo``); 404 without an aggregator."""
+    if aggregator is None:
+        return 404, {"error": "no fleet aggregator hosted here — query a router started with "
+                              "--agg-interval > 0"}
+    return 200, aggregator.fleet_slo()
 
 
 def _debug_state(engine: Engine, ctl=None, lifecycle=None) -> dict:
@@ -685,14 +726,21 @@ class ServingFrontend:
                 interval_s=history_interval_s, capacity=history_capacity, mesh=engine.mesh,
                 engine=engine, slo=ctl, node=engine.name,
             )
+        # A serving node hosts no fleet aggregator (the router does): the
+        # attribute lets /cluster/{timeseries,slo} answer with a pointer.
+        self.aggregator = None
+        # The mesh doctor persists across GETs: its burn-rate windows need
+        # continuity (the history's sampler feeds them).
+        self.doctor = MeshDoctor(mesh=engine.mesh, engine=engine, slo=ctl,
+                                 attributor=ensure_attributor, history=self.history)
         # The black box: crash-surviving dumps of the history, waterfalls,
-        # spans and state (no doctor: not ported). A segment commits at
-        # every sample, so a kill -9 loses at most one sample interval;
-        # the segments on disk span the ring's own window.
+        # spans, doctor findings and state. A segment commits at every
+        # sample, so a kill -9 loses at most one sample interval; the
+        # segments on disk span the ring's own window.
         self.blackbox = None
         if blackbox_dir:
             self.blackbox = BlackBox(
-                blackbox_dir, history=self.history, doctor=None, recorder=get_recorder,
+                blackbox_dir, history=self.history, doctor=self.doctor, recorder=get_recorder,
                 attributor_fn=ensure_attributor,
                 state_fn=lambda: _debug_state(engine, ctl, self.lifecycle),
                 node=engine.name, segment_every=1, max_segments=history_capacity,
@@ -732,8 +780,14 @@ class ServingFrontend:
                     _json_response(self, *_debug_timeseries(frontend.history, query))
                 elif path == "/debug/waterfall":
                     _json_response(self, 200, ensure_attributor().report())
-                elif path in _NOT_PORTED_CLUSTER:
-                    _json_response(self, *_cluster_refusal(path))
+                elif path == "/cluster/health":
+                    _json_response(self, 200, _cluster_health(engine.mesh))
+                elif path == "/cluster/doctor":
+                    _json_response(self, 200, frontend.doctor.diagnose())
+                elif path == "/cluster/timeseries":
+                    _json_response(self, *_cluster_timeseries(frontend.aggregator, query))
+                elif path == "/cluster/slo":
+                    _json_response(self, *_cluster_slo(frontend.aggregator))
                 elif path == "/debug/profile":
                     try:
                         seconds = float(query.get("seconds", ["3.0"])[-1])
@@ -1016,13 +1070,19 @@ class RouterFrontend:
     ``match_len``. Also ``GET /healthz``, ``/metrics``, ``/debug/{trace,
     requests,state,timeseries,waterfall}``, ``/cluster/telemetry`` and
     ``POST /admin/blackbox``, as the serving frontend answers them; the
-    history samples the router's mesh replica. The black box has no doctor
-    section, and ``/cluster/{health,doctor,timeseries,slo}`` are refused by
-    name (``_NOT_PORTED_CLUSTER``)."""
+    history samples the router's mesh replica. ``/cluster/{health,doctor}``
+    judge the fleet-facing seams (a router holds no engine or SLO
+    controller). With ``aggregator_peers`` (``(name, base_url[, rank])``;
+    the rank lets the doctor's ``telemetry_gap`` rule tell a dead node from
+    a dead sampler) the router hosts the :class:`FleetAggregator`, pulling
+    each peer's ``/debug/timeseries`` every ``aggregator_interval_s`` into
+    the store that ``/cluster/{timeseries,slo}`` serve and the doctor's
+    fleet rules read."""
 
     def __init__(self, router, host: str = "127.0.0.1", port: int = 0, tokenizer=None,
                  history_interval_s: float = 1.0, history_capacity: int = 900,
-                 blackbox_dir: str | None = None, blackbox_watchdog_s: float = 0.0):
+                 blackbox_dir: str | None = None, blackbox_watchdog_s: float = 0.0,
+                 aggregator_peers: Sequence[tuple] = (), aggregator_interval_s: float = 2.0):
         self.router = router
         self.tokenizer = tokenizer
         self.log = get_logger("http.route")
@@ -1034,16 +1094,28 @@ class RouterFrontend:
                 interval_s=history_interval_s, capacity=history_capacity,
                 mesh=router.mesh_cache, node=node_label,
             )
+        self.aggregator = None
+        if aggregator_peers:
+            self.aggregator = FleetAggregator(
+                peers=[HttpPeer(p[0], p[1], rank=p[2] if len(p) > 2 else None)
+                       for p in aggregator_peers],
+                interval_s=aggregator_interval_s, capacity=history_capacity, node=node_label,
+                registry=get_registry(),
+            )
+        self.doctor = MeshDoctor(mesh=router.mesh_cache, attributor=ensure_attributor,
+                                 history=self.history, aggregator=self.aggregator)
         self.blackbox = None
         if blackbox_dir:
             self.blackbox = BlackBox(
-                blackbox_dir, history=self.history, doctor=None, recorder=get_recorder,
+                blackbox_dir, history=self.history, doctor=self.doctor, recorder=get_recorder,
                 attributor_fn=ensure_attributor, state_fn=self._debug_state, node=node_label,
                 segment_every=1, max_segments=history_capacity,
                 watchdog_timeout_s=blackbox_watchdog_s,
             )
         if self.history is not None:
             self.history.start()
+        if self.aggregator is not None:
+            self.aggregator.start()
         frontend = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -1075,8 +1147,14 @@ class RouterFrontend:
                     _json_response(self, 200, ensure_attributor().report())
                 elif path == "/cluster/telemetry":
                     _json_response(self, 200, _cluster_telemetry(frontend.router.mesh_cache))
-                elif path in _NOT_PORTED_CLUSTER:
-                    _json_response(self, *_cluster_refusal(path))
+                elif path == "/cluster/health":
+                    _json_response(self, 200, _cluster_health(frontend.router.mesh_cache))
+                elif path == "/cluster/doctor":
+                    _json_response(self, 200, frontend.doctor.diagnose())
+                elif path == "/cluster/timeseries":
+                    _json_response(self, *_cluster_timeseries(frontend.aggregator, query))
+                elif path == "/cluster/slo":
+                    _json_response(self, *_cluster_slo(frontend.aggregator))
                 else:
                     _json_response(self, 404, {"error": "not found"})
 
@@ -1137,6 +1215,10 @@ class RouterFrontend:
     def close(self) -> None:
         self._server.shutdown()
         self._server.server_close()
+        if self.aggregator is not None:
+            # Before the history: a pull sweep racing the shutdown must not
+            # ingest into a store whose owner is tearing down.
+            self.aggregator.close()
         if self.blackbox is not None:
             self.blackbox.close(flush_cause="shutdown")
         if self.history is not None:

@@ -2,13 +2,14 @@
 against the JAX package's: the doctor-free cases of
 ``tests/test_blackbox.py`` on both packages (atomic segments with disjoint
 sequence ranges, a simulated hard kill leaving complete segments only, the
-prior boot's dump rotated at start, finals with every section and none for
-a doctor the port does not have, each trigger its own final, the watchdog
+prior boot's dump rotated at start, finals with every section, with and
+without a mesh doctor, each trigger its own final, the watchdog
 firing once on a stalled sampler and staying quiet on a live one, the
 loader's refusals); each package's ``load_blackbox`` reads the other
 package's dump with equal results, and the two dump directories of the
 same operations hold the same files; and the port's frontend flushes on
-``POST /admin/blackbox`` and on close, with a segment at every sample."""
+``POST /admin/blackbox`` and on close, with a segment at every sample and
+its doctor's report in the final."""
 
 import json
 import os
@@ -19,9 +20,11 @@ import pytest
 import torch
 
 from radixmesh_tpu.obs import blackbox as jbb
+from radixmesh_tpu.obs import doctor as jdoctor
 from radixmesh_tpu.obs import metrics as jmetrics
 from radixmesh_tpu.obs import timeseries as jts
 from radixmesh_tpu_torch.obs import blackbox as tbb
+from radixmesh_tpu_torch.obs import doctor as tdoctor
 from radixmesh_tpu_torch.obs import metrics as tmetrics
 from radixmesh_tpu_torch.obs import timeseries as tts
 
@@ -119,6 +122,24 @@ class TestBlackBoxCases:
         snap = metrics.get_registry().snapshot()
         assert snap['radixmesh_blackbox_flushes_total{cause="admin"}'] == 1.0
         assert snap["radixmesh_blackbox_bytes_total"] > 0
+
+    def test_final_sections_with_the_mesh_doctor(self, pkg, tmp_path):
+        """Each package's ``MeshDoctor`` over the history: its report is the
+        final's ``doctor`` section, the same in both packages."""
+        bbm = PKGS[pkg][0]
+        doctor_mod = jdoctor if pkg == "jax" else tdoctor
+        _counter(pkg).inc()
+        h = _history(pkg)
+        doc = doctor_mod.MeshDoctor(history=h)
+        bb = bbm.BlackBox(str(tmp_path), history=h, doctor=doc, node="n0")
+        h.sample(t=0.0)
+        with open(bb.flush("admin")["path"]) as fh:
+            final = json.load(fh)
+        assert final["doctor"] == {"findings": [], "healthy": True,
+                                   "rules_checked": ["tier_thrash", "goodput_regression"],
+                                   "inputs": {"mesh": False, "engine": False, "slo": False,
+                                              "attribution": False, "history": True,
+                                              "aggregator": False}}
 
     def test_each_trigger_writes_its_own_final(self, pkg, tmp_path):
         bbm = PKGS[pkg][0]
@@ -261,7 +282,8 @@ def test_frontend_segments_every_sample_and_flushes(tmp_path):
         assert res["flushed"] and res["cause"] == "admin" and os.path.isfile(res["path"])
         with open(res["path"]) as fh:
             final = json.load(fh)
-        assert final["state"]["engine"]["name"] == "bb-http" and "doctor" not in final
+        assert final["state"]["engine"]["name"] == "bb-http" and final["doctor"]["inputs"]["engine"]
+        assert "spec_misconfigured" in final["doctor"]["rules_checked"]
         assert "waterfall" in final and "spans" in final
     finally:
         fe.close(drain_s=0.0)

@@ -67,7 +67,8 @@ def test_port_imports_no_jax_and_no_jax_package():
             "radixmesh_tpu_torch.policy.topology", "radixmesh_tpu_torch.policy.lifecycle",
             "radixmesh_tpu_torch.comm.faults", "radixmesh_tpu_torch.comm.tcp_native",
             "radixmesh_tpu_torch.server.recovery", "radixmesh_tpu_torch.router.front_door",
-            "radixmesh_tpu_torch.cache.repair_plane"} <= walked, r.stdout
+            "radixmesh_tpu_torch.cache.repair_plane", "radixmesh_tpu_torch.obs.aggregator",
+            "radixmesh_tpu_torch.obs.doctor", "radixmesh_tpu_torch.doctor"} <= walked, r.stdout
 
 
 def _code_of(path: pathlib.Path) -> str:
@@ -86,7 +87,8 @@ def _code_of(path: pathlib.Path) -> str:
 
 
 @pytest.mark.parametrize("module", ["policy/retry.py", "server/recovery.py", "router/front_door.py",
-                                    "cache/repair_plane.py", "policy/lifecycle.py"])
+                                    "cache/repair_plane.py", "policy/lifecycle.py", "obs/aggregator.py",
+                                    "obs/doctor.py"])
 def test_copied_fleet_modules_differ_from_the_jax_files_only_in_imports(module):
     assert _code_of(ROOT / "radixmesh_tpu_torch" / module) == _code_of(ROOT / "radixmesh_tpu" / module)
 

@@ -1,10 +1,13 @@
 """``python -m radixmesh_tpu_torch.launch node``: the JAX launcher's
 ``node`` subcommand in the port.
 
-The one ``node`` flag whose feature is not ported yet (``--agg-interval``)
-is refused by name with its ROADMAP.md queue item, and so are the config
-key ``agg_interval_s``, ``--blackbox-dir`` on a node without a model, and
-the router's ``/cluster/{health,doctor,timeseries,slo}``. Two node
+No ``node`` flag is refused since fleet diagnosis was ported:
+``--agg-interval`` and the config key ``agg_interval_s`` give a router a
+fleet aggregator whose peers carry the topology's names, addresses and
+ranks, a serving node with the key starts and answers ``/cluster/doctor``,
+a cache node without a model writes a black box with a ``doctor``
+section, and a router answers ``/cluster/{health,doctor,timeseries,slo}``
+with the JAX package's keys. Two node
 processes, a prefill and a decode node of the tiny model on the CPU over
 the native transport, from JSON configs with a ``model:`` section and
 ``--fleet-digest-interval 0.5``, run ``chip_smoke.py``'s launcher leg:
@@ -14,9 +17,16 @@ the prefill node's own fingerprint. Four node processes (two routers, a
 prefill and a decode node of the tiny model) run ``chip_smoke.py``'s fleet
 leg: route and route back over ``POST /route``, a router's and a serving
 node's ``kill -9`` with the requests resumed on the survivor, a warm
-rejoin and a graceful drain."""
+rejoin and a graceful drain, and the router r1's fleet diagnosis over
+them: the fleet store and fleet SLO, ``telemetry_gap`` naming the killed
+p0 and clearing after its rejoin, d0's engine rules, and the post-mortem
+of r1's black box."""
 
 import json
+import signal
+import subprocess
+import sys
+import time
 import urllib.error
 import urllib.request
 
@@ -27,17 +37,74 @@ from radixmesh_tpu_torch.launch import _NOT_PORTED_NODE, main, parse_args
 
 
 def test_only_fleet_aggregation_is_left_unported():
-    assert _NOT_PORTED_NODE == {"--agg-interval": "A4, fleet aggregation"}
+    """Fleet aggregation was the last piece: nothing is left."""
+    assert _NOT_PORTED_NODE == {}
 
 
-@pytest.mark.parametrize("flag", sorted(_NOT_PORTED_NODE))
-def test_unported_node_flags_are_refused_by_name(flag, capsys):
-    assert flag == "--agg-interval"
-    with pytest.raises(SystemExit) as e:
-        parse_args(["node", "--config-file", "x.json", flag, "1"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert flag in err and f"queue {_NOT_PORTED_NODE[flag]}" in err
+class _Reached(Exception):
+    pass
+
+
+class _FakeMesh:
+    """A router's mesh replica that is ready at once (no ring to join)."""
+
+    def __init__(self, cfg, pool=None):
+        self.cfg, self.rank = cfg, cfg.local_identity()[1]
+        self.view = type("View", (), {"epoch": 1})()
+
+    def start(self):
+        return self
+
+    def wait_ready(self, timeout=None):
+        return True
+
+
+class _FakeRouter:
+    def __init__(self, mesh, cfg, **kw):
+        self.mesh_cache = mesh
+
+    def watch_topology(self):
+        pass
+
+    def finish_warm_up(self):
+        pass
+
+
+def _router_node(monkeypatch, tmp_path, extra: dict, flags: list, frontend):
+    """``main(["node", ...])`` for a router of a tcp topology of three
+    ring nodes, its mesh and router faked, ``frontend`` standing in for
+    ``RouterFrontend``."""
+    import radixmesh_tpu_torch.cache.mesh_cache as mc
+    import radixmesh_tpu_torch.router.cache_aware_router as car
+    import radixmesh_tpu_torch.server.http_frontend as hf
+
+    monkeypatch.setattr(mc, "MeshCache", _FakeMesh)
+    monkeypatch.setattr(car, "CacheAwareRouter", _FakeRouter)
+    monkeypatch.setattr(hf, "RouterFrontend", frontend)
+    path = tmp_path / "router.json"
+    path.write_text(json.dumps({
+        "prefill_nodes": ["127.0.0.1:51710", "127.0.0.1:51711"], "decode_nodes": ["127.0.0.1:51713"],
+        "router_nodes": ["127.0.0.1:51712"], "local_addr": "127.0.0.1:51712", "protocol": "tcp",
+        **extra}))
+    with pytest.raises(_Reached):
+        main(["node", "--config-file", str(path), "--http-port", "0", "--telemetry-history-interval", "0",
+              *flags])
+
+
+@pytest.mark.parametrize("flag", ["--agg-interval"])
+def test_unported_node_flags_are_refused_by_name(flag, monkeypatch, tmp_path):
+    """``--agg-interval 0.5`` parses and reaches ``RouterFrontend``'s
+    ``aggregator_interval_s``, over the config's ``agg_interval_s``."""
+    assert parse_args(["node", "--config-file", "x.json", flag, "0.5"]).agg_interval == 0.5
+    assert parse_args(["node", "--config-file", "x.json"]).agg_interval is None
+    seen = {}
+
+    def frontend(router, **kw):
+        seen.update(kw)
+        raise _Reached
+
+    _router_node(monkeypatch, tmp_path, {"agg_interval_s": 3.0}, [flag, "0.5"], frontend)
+    assert seen["aggregator_interval_s"] == 0.5 and len(seen["aggregator_peers"]) == 3
 
 
 def test_node_parses_the_ported_flags():
@@ -79,28 +146,145 @@ def test_node_has_no_slo_flags(flag):
     assert e.value.code == 2
 
 
-_BASE = {"prefill_nodes": ["127.0.0.1:51710"], "decode_nodes": ["127.0.0.1:51711"],
-         "router_nodes": ["127.0.0.1:51712"], "protocol": "tcp"}
+def _router_aggregation(monkeypatch, tmp_path):
+    """A router's ``agg_interval_s`` gives an aggregator whose peers carry
+    the topology's names, serving addresses and ranks."""
+    from radixmesh_tpu_torch.server.http_frontend import RouterFrontend
+
+    built = []
+
+    class Frontend(RouterFrontend):
+        def __init__(self, router, **kw):
+            super().__init__(router, **kw)
+            built.append(self)
+            raise _Reached
+
+    try:
+        _router_node(monkeypatch, tmp_path, {"agg_interval_s": 1.0}, [], Frontend)
+        (fe,) = built
+        assert fe.aggregator is not None and fe.aggregator.interval_s == 1.0
+        assert [(p.name, p.base_url, p.rank) for p in fe.aggregator.peers()] == [
+            ("prefill0", "http://127.0.0.1:52710", 0), ("prefill1", "http://127.0.0.1:52711", 1),
+            ("decode2", "http://127.0.0.1:52713", 2)]
+        assert fe.doctor.aggregator is fe.aggregator
+        base = f"http://127.0.0.1:{fe.port}"
+        with urllib.request.urlopen(base + "/cluster/timeseries?limit=10", timeout=10) as r:
+            body = json.loads(r.read())
+        assert body["aggregator"]["peers"] == 3 and "series" in body
+        with urllib.request.urlopen(base + "/cluster/slo", timeout=10) as r:
+            assert set(json.loads(r.read())["peers"]) == {"prefill0", "prefill1", "decode2"}
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(base + "/cluster/timeseries?since=junk", timeout=10)
+        assert e.value.code == 400
+    finally:
+        for fe in built:
+            fe.close()
 
 
-@pytest.mark.parametrize("case,extra,flags,match", [
-    ("aggregation", {"local_addr": "127.0.0.1:51710", "agg_interval_s": 1.0}, [],
-     "agg_interval_s.*queue A4"),
-    ("router aggregation", {"local_addr": "127.0.0.1:51712", "agg_interval_s": 1.0}, [],
-     "agg_interval_s.*queue A4"),
-    ("model-less black box", {"local_addr": "127.0.0.1:51712"}, ["--blackbox-dir", "bb"],
-     "--blackbox-dir.*queue A4"),
-])
-def test_unported_roles_and_keys_are_refused_by_name(case, extra, flags, match, tmp_path):
-    path = tmp_path / "node.json"
-    path.write_text(json.dumps({**_BASE, **extra}))
-    with pytest.raises(SystemExit, match=match):
-        main(["node", "--config-file", str(path), "--device", "cpu", *flags])
+def _two_nodes(tmp_path, model: dict | None, flags: tuple[list, list]):
+    """A prefill node (with ``model`` as its ``model:`` section, if any) and
+    a cache-only decode node over ``tcp-py``, as ``launch.py node``
+    processes, each with its own ``flags``; returns the processes, their
+    logs and the prefill node's serving port once both are armed."""
+    base = chip_smoke._port_block(2)
+    addrs = [f"127.0.0.1:{base}", f"127.0.0.1:{base + 1}"]
+    procs, logs = [], []
+    for i, name in enumerate(("p0", "d1")):
+        cfg = {"prefill_nodes": addrs[:1], "decode_nodes": addrs[1:], "router_nodes": [],
+               "local_addr": addrs[i], "protocol": "tcp-py", "tick_interval_s": 0.2, "agg_interval_s": 1.0,
+               "num_kv_slots": 256, "page_size": 4}
+        if i == 0 and model:
+            cfg["model"] = model
+        (tmp_path / f"{name}.json").write_text(json.dumps(cfg))
+        logs.append(tmp_path / f"{name}.log")
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "radixmesh_tpu_torch.launch", "node", "--config-file",
+                 str(tmp_path / f"{name}.json"), "--device", "cpu", "--drain-timeout", "5", *flags[i]],
+                cwd=chip_smoke.ROOT, stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + 180
+    # The signal handlers are installed just after this line.
+    while not all("lifecycle plane armed" in log.read_text() for log in logs):
+        assert all(p.poll() is None for p in procs) and time.monotonic() < deadline, \
+            "\n".join(log.read_text() for log in logs)
+        time.sleep(0.2)
+    time.sleep(0.5)
+    return procs, logs, base + 1000
+
+
+def _stop(procs, logs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    try:
+        rcs = [p.wait(timeout=60) for p in procs]
+        assert rcs == [0, 0], "\n".join(log.read_text() for log in logs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _serving_aggregation(monkeypatch, tmp_path):
+    """A serving node with ``agg_interval_s`` in its config starts (the key
+    is a router's; the JAX node ignores it on a serving node too) and
+    answers ``/cluster/doctor`` over its engine and mesh."""
+    procs, logs, port = _two_nodes(
+        tmp_path, {"preset": "llama3-tiny", "kv_slots": 256, "page_size": 4, "max_batch": 2}, ([], []))
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/cluster/doctor", timeout=30) as r:
+            report = json.loads(r.read())
+    finally:
+        _stop(procs, logs)
+    assert report["inputs"]["engine"] and report["inputs"]["mesh"] and report["inputs"]["history"]
+    assert "decode_stall" in report["rules_checked"] and "replication_lag" in report["rules_checked"]
+    assert not [f for f in report["findings"] if "crashed" in f["summary"]]
+
+
+def _modelless_blackbox(monkeypatch, tmp_path):
+    """A cache node without a model and ``--blackbox-dir`` samples a history
+    of its mesh and, on SIGTERM, writes a final dump with a ``doctor``
+    section (a mesh-only doctor)."""
+    from radixmesh_tpu_torch.obs.blackbox import load_blackbox
+
+    bb = tmp_path / "bb"
+    procs, logs, _ = _two_nodes(tmp_path, None, (
+        [], ["--blackbox-dir", str(bb), "--telemetry-history-interval", "0.1"]))
+    try:
+        deadline = time.monotonic() + 60
+        while not list(bb.glob("*/segment-*.json")):
+            assert time.monotonic() < deadline, logs[1].read_text()
+            time.sleep(0.1)
+    finally:
+        _stop(procs, logs)
+    (node_dir,) = bb.iterdir()
+    finals = sorted(node_dir.glob("final-*.json"))
+    assert finals, sorted(p.name for p in node_dir.iterdir())
+    final = json.loads(finals[-1].read_text())
+    assert final["node"] == "decode@1" and final["doctor"]["inputs"]["mesh"]
+    assert not final["doctor"]["inputs"]["engine"] and "replication_lag" in final["doctor"]["rules_checked"]
+    dump = load_blackbox(str(node_dir))
+    assert not dump["unclean"] and dump["series"]
+
+
+_FEATURES = {"aggregation": _serving_aggregation, "router aggregation": _router_aggregation,
+             "model-less black box": _modelless_blackbox}
+
+
+@pytest.mark.parametrize("case", list(_FEATURES))
+def test_unported_roles_and_keys_are_refused_by_name(case, monkeypatch, tmp_path):
+    """Each role and key that was refused until fleet diagnosis was ported
+    now runs its feature."""
+    _FEATURES[case](monkeypatch, tmp_path)
 
 
 def test_router_frontend_refuses_the_fleet_endpoints_by_name():
-    """A router answers ``POST /route`` with the JAX reply keys and names
-    queue A4 for the fleet endpoints, never a bare 404."""
+    """A router answers ``POST /route`` with the JAX reply keys and
+    ``/cluster/{health,doctor,timeseries,slo}`` with the JAX bodies: health
+    over the gossiped digests, the doctor's report over the router's
+    seams, and a 404 pointer from the two aggregator pages where no
+    aggregator is hosted."""
     from radixmesh_tpu_torch.cache.mesh_cache import MeshCache
     from radixmesh_tpu_torch.comm.inproc import InprocHub
     from radixmesh_tpu_torch.config import MeshConfig
@@ -119,11 +303,20 @@ def test_router_frontend_refuses_the_fleet_endpoints_by_name():
         router.finish_warm_up()
         fe = RouterFrontend(router, port=0, history_interval_s=0)
         base = f"http://127.0.0.1:{fe.port}"
-        for path in ("/cluster/health", "/cluster/doctor", "/cluster/timeseries", "/cluster/slo"):
+        with urllib.request.urlopen(base + "/cluster/health", timeout=10) as r:
+            health = json.loads(r.read())
+        assert set(health) == {"nodes", "min_score", "convergence", "autoscale", "self"}
+        assert health["self"]["role"] == "router" and "action" in health["autoscale"]
+        with urllib.request.urlopen(base + "/cluster/doctor", timeout=10) as r:
+            report = json.loads(r.read())
+        assert {"healthy", "findings", "rules_checked", "inputs"} <= set(report)
+        assert report["inputs"]["mesh"] and not report["inputs"]["engine"]
+        assert report["inputs"]["aggregator"] is False
+        for path in ("/cluster/timeseries", "/cluster/slo"):
             with pytest.raises(urllib.error.HTTPError) as e:
                 urllib.request.urlopen(base + path, timeout=10)
             body = json.loads(e.value.read())
-            assert e.value.code == 501 and path in body["error"] and "queue A4" in body["error"]
+            assert e.value.code == 404 and "no fleet aggregator hosted here" in body["error"]
         req = urllib.request.Request(base + "/route", data=json.dumps({"input_ids": [1, 2, 3]}).encode(),
                                      headers={"Content-Type": "application/json"})
         with urllib.request.urlopen(req, timeout=10) as r:
@@ -165,3 +358,10 @@ def test_fleet_routes_fails_over_resumes_rejoins_and_drains(tmp_path):
     assert e["arrivals"] == [503] * 4 and e["decode_addr_after_left"] is None
     assert e["retry_after"] == [None] * 4
     assert e["drain"]["completed_in_flight"] and e["exit_s"] < 30
+    f = out["f"]
+    assert f["series_per_node"]["prefill0"] > 0 and f["series_per_node"]["decode1"] > 0
+    assert f["fleet_ttft_a"]["n"] == 16 and f["slo_ttft"]["count"] == 20
+    assert f["gap"]["evidence"]["peer"] == "prefill0" and f["gap"]["evidence"]["rank"] == "0"
+    assert f["gap"]["evidence"]["verdict"] == "node_dead" and f["gap"]["cleared_after_active_s"] < 5
+    assert set(chip_smoke.ENGINE_RULES) <= set(f["d0_rules_checked"])
+    assert f["postmortem"]["rc"] in (0, 1) and f["postmortem"]["samples"] > 0
