@@ -129,7 +129,7 @@ Phases (any failure raises and exits non-zero):
    resumed on new card engines at crash points 1 and 5 must continue
    token for token, and greedy seeded rows must give the CPU's tokens.
    Decode-step walls (4 rows of 600 tokens, the median of five 8-step
-   windows, two rounds): unseeded with every plane off, at the defaults
+   windows, one round): unseeded with every plane off, at the defaults
    (the token timeline), with every plane on, and seeded. Llama-3-8B bf16
    over HTTP with the planes on: 4 seeded requests at once (temperature
    0.9, top-p 0.95), each seed alone twice (the same tokens), each resumed
@@ -188,7 +188,7 @@ Phases (any failure raises and exits non-zero):
    (disaggregated equals collocated on the card, card equals CPU).
 15. W8A16 weights: Llama-3-8B quantized on the card (resident bytes bf16
    against int8, the quantize peak); decode step 4 x 600 and prefill step 8
-   x 2000 walls, bf16 against W8A16 interleaved over five kept rounds;
+   x 2000 walls, bf16 against W8A16 in one kept round after a warm-up;
    first-token logits and 32 greedy tokens against bf16 (printed); a
    2-layer float32 W8A16 engine's tokens equal card against CPU; and
    ``launch.py serve --weight-quant int8`` answering ``/generate``. The
@@ -262,6 +262,33 @@ Phases (any failure raises and exits non-zero):
    rules with none crashed, r1's flushed black box holds a ``doctor``
    section, and ``python -m radixmesh_tpu_torch.doctor --blackbox --json``
    over it exits 0 or 1 (its findings printed).
+18. Tensor- and sequence-parallel serving, the ranks as processes on the
+   one card over gloo (NCCL refuses two ranks on one device; gloo's
+   collectives move through host memory). (a) In this process, B1, B2
+   (both bodies) and B3 at a tp = 2 rank's head counts, Llama-3-8B (Hq 16,
+   Hkv 4) and Qwen2-7B (Hq 14, Hkv 2, G 7), against their plain versions
+   with phase 2's limits, timed. (b) Two ranks (this script with
+   ``--parallel-rank``), each drawing phase 3's weights (seed 0) layer by
+   layer and keeping its tp shard: Llama-3-8B at full width, 8 layers deep
+   (``PAR["layers"]``), bf16, through the unchanged ``Engine`` with
+   ``device_mesh`` — a bf16 pool, an int8 pool, the fast schedules
+   (``SCHEDULES``), W8A16 weights with an int8 pool; each leg four prompts
+   (the two long ones one chunk-kernel group) and a prefix hit (cached >=
+   the shared prefix), the decode (B1) and chunk (B2) launches counted per
+   rank, and B3 through its sharded wrapper over the hit's pages. The
+   ranks' tokens and stats must be equal; the bf16 and int8 legs'
+   first-token and first-decode-step logit rows are held row by row
+   against a single-device engine on the same weights (``ROW_RTOL``), and
+   4 layers of the same widths in float32 must give the single device's
+   greedy tokens. (c) sp = 2, the whole model on each rank: a fresh
+   8192-token prompt prefilled with ring attention across the ranks; its
+   last-position logits and the pool's K/V at layers 0, 4 and 7 against
+   the single-device chunked prefill (``ROW_RTOL``), TTFT beside TTFT. (d)
+   The nccl backend at world size 1: ``init_multihost``, one all-reduce,
+   one greedy generate on the mesh equal to the engine's without it.
+   (b)–(d) start beside Qwen2-7B serving (phase 8), the checkpoint round
+   trip and the whole-path checks; each rank's readings land in
+   ``chip_out/par-*.json`` and ``.log``.
 Checkpoints and profiles are written under ``chip_out/`` and removed.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches per path in
@@ -1796,8 +1823,8 @@ def decode_wall_phase(dev, model) -> dict:
     unseeded with every plane off, with the planes at their defaults (the
     token timeline), with every plane on (timeline, step accounting, the
     recorder tracing every request) and seeded with the defaults. Per
-    configuration, the median of five 8-step windows; after one discarded
-    warm-up run, three rounds with the order reversed in the middle one."""
+    configuration, the median of five 8-step windows, one round after a
+    discarded warm-up run."""
     from radixmesh_tpu_torch.obs.trace_plane import FlightRecorder, get_recorder, set_recorder
 
     cfg = model.cfg
@@ -1805,7 +1832,7 @@ def decode_wall_phase(dev, model) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, size=600).tolist() for _ in range(4)]
     out: dict[str, dict] = {name: {"medians_ms": [], "windows_ms": []} for name in WALL_CONFIGS}
     names = list(WALL_CONFIGS)
-    order = [names[:1]] + [names, names[::-1], names]  # warm-up, then three rounds
+    order = [names[:1]] + [names]  # warm-up, then one round
     old = get_recorder()
     try:
         for rnd, round_names in enumerate(order):
@@ -2039,10 +2066,10 @@ EDGE_SCHEDULES = {"legacy": {}, "multi-step k=4": dict(decode_steps_per_launch=4
 # child process runs; ``rate_c`` is tenant c's prompt tokens/s).
 EDGE = dict(model="llama3-8b", device="cuda", kv_slots=65536, vocab=128256,
             sse_prompt=600, sse_tokens=32, sse_prompts=4,
-            light_prompt=600, light_tokens=48, light_rounds=3,
+            light_prompt=600, light_tokens=48, light_rounds=2,
             burst_prompt=2000, calibration=8, per_tenant=24, backlog=16, deadline_ms=1500,
             burst_tokens=16, backlog_tokens=128, rate_c=2000.0,
-            wall_prompt=600, wall_rounds=2, kill_segments=6)
+            wall_prompt=600, wall_rounds=1, kill_segments=6)
 
 
 def _sync(dev) -> None:
@@ -2628,7 +2655,7 @@ def serving_edge_phase(dev, model, E=EDGE) -> dict:
 # float32 legs.
 HANDOFF = dict(n_prompts=8, lengths=(500, 3001), new_tokens=32, tcp_chunk=120, tail_base=2000,
                f32_model="llama3-8b", engine=dict(num_slots=32768, page_size=16, max_batch=8))
-W8 = dict(decode_len=600, prefill_len=2000, rounds=4, decode_slots=4096, prefill_slots=20480,
+W8 = dict(decode_len=600, prefill_len=2000, rounds=2, decode_slots=4096, prefill_slots=20480,
           f32_model="llama3-8b")
 TRANSPORTS = ("direct", "inproc", "tcp-py streamed", "device_kv")
 
@@ -4679,6 +4706,626 @@ def whole_path_check(dev, kv_quant=None, schedules=None, tiers=False, model="lla
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 18: tensor- and sequence-parallel serving, the ranks on the one card
+
+# Sizes of phase 18 (a CPU rehearsal shrinks them). Llama-3-8B at full
+# width and ``layers`` deep (a depth cut: one card holds two ranks' whole-
+# model sp weights beside this process; and at 32 layers the GEMMs'
+# rounding order alone puts tp's bf16 rows 2-3 % from the plain single
+# device's, past ``ROW_RTOL``, while they equal a single device with its
+# products split as tp splits them, PERF.md). ``witness`` reads the rows
+# instead of holding them and adds the rounding witnesses
+# (``--parallel-alone``). The tp legs: four prompts (the two long ones share
+# a chunk bucket: group prefill through the chunk kernel) and a prefix hit;
+# the sp prompt; the float32 leg.
+PAR = dict(model="llama3-8b", layers=8, slots=16384, prompts=(300, 280, 100, 150), new_tokens=8,
+           hit_extra=64, f32_layers=4, f32_prompts=(300, 280), sp_prompt=8192, sp_warm=4096,
+           sp_slots=16384, sp_layers=(0, 4, 7), world=2, nccl_layers=2, nccl_prompt=100, timeout_s=900,
+           collective_timeout_s=600, device="cuda", witness=False)
+# Per-rank head counts of B1, B2 and B3 on phase 18's shapes: Llama-3-8B and
+# Qwen2-7B at tp = 2.
+PAR_HEADS = {"llama3-8b tp=2": (16, 4), "qwen2-7b tp=2": (14, 2)}
+
+
+def sharded_kernel_phase(dev) -> dict:
+    """(a) B1, B2 (both bodies) and B3 at the per-rank head counts of a tp = 2
+    rank, each against its plain version with phase 2's limits (the row
+    check included), timed as phase 2 times them."""
+    results: dict[str, list] = {}
+    run = _runner(results, "kernel tp")
+    f32, bf16 = torch.float32, torch.bfloat16
+    for tag, heads in PAR_HEADS.items():
+        run("paged_decode_fused", decode_case, f"decode B=8 ragged {tag}", RAGGED, bf16, dev, True, 51, heads=heads)
+        run("paged_decode_fused[int8]", decode_case, f"decode B=8 ragged {tag} int8", RAGGED, bf16, dev, False, 52,
+            quant=True, heads=heads)
+        run("paged_attention_pool", pool_case, f"pool B=8 ragged {tag}", RAGGED, bf16, dev, True, 53, heads=heads)
+        run("paged_chunk_attention", chunk_case, f"chunk B=8 ragged {tag}", CHUNK_PRIOR, CHUNK_FILL, bf16, dev,
+            True, 54, heads=heads)
+        run("paged_chunk_attention", chunk_case, f"chunk verify C=5 {tag}", CHUNK_PRIOR, VERIFY_FILL, bf16, dev,
+            False, 55, C=5, heads=heads)
+        run("paged_chunk_attention[int8]", chunk_case, f"chunk B=8 ragged {tag} int8", CHUNK_PRIOR, CHUNK_FILL,
+            bf16, dev, False, 56, quant=True, heads=heads)
+        run("paged_chunk_attention[f32]", chunk_case, f"chunk B=8 ragged {tag}", CHUNK_PRIOR, CHUNK_FILL, f32, dev,
+            True, 57, heads=heads)
+    return results
+
+
+def _par_script(cfg, lengths, seed: int = 18):
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    hit = prompts[0] + rng.integers(0, cfg.vocab_size, PAR["hit_extra"]).tolist()
+    return prompts, hit
+
+
+def _par_leg(engine, prompts, hit, dev, new_tokens) -> dict:
+    """One leg's script on one engine (a rank's, or the single-device
+    reference): a warm-up, the prompts submitted together, then the prefix
+    hit. Records every first-token logit row, the first decode step's fed
+    tokens and logits, each decode step's wall, TTFTs and the launches."""
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=new_tokens)
+    engine.generate([prompts[2][:64]], SamplingParams(temperature=0.0, max_new_tokens=2))
+    firsts, dec = [], {"walls": []}
+    engine.on_first_logits = lambda req, row: firsts.append(row.float().cpu())
+    decode_step = engine.model.decode_step
+
+    def timed_step(tokens, *a, **kw):
+        _sync(dev)
+        t = time.perf_counter()
+        out = decode_step(tokens, *a, **kw)
+        _sync(dev)
+        dec["walls"].append(time.perf_counter() - t)
+        if "logits" not in dec:
+            dec["tokens"], dec["logits"] = tokens.cpu(), out.float().cpu()
+        return out
+
+    engine.model.decode_step = timed_step
+    try:
+        _sync(dev)
+        pa.reset_counters()
+        c0, n0 = _counts(engine), len(engine.stats.ttft_s)
+        t = time.monotonic()
+        out = engine.generate(prompts, greedy)
+        group_wall = time.monotonic() - t
+        cached0 = engine.stats.cached_tokens
+        out_hit = engine.generate([hit], greedy)[0]
+        _sync(dev)
+        counts, plain = pa.launch_counts(), pa.plain_calls()
+        st = {k: v - c0[k] for k, v in _counts(engine).items()}
+    finally:
+        del engine.model.decode_step  # back to the class's method
+    ttft = list(engine.stats.ttft_s[n0:])
+    return {"tokens": out, "hit_tokens": out_hit, "hit_cached": engine.stats.cached_tokens - cached0,
+            "ttft_s": ttft[:-1], "hit_ttft_s": ttft[-1], "group_wall_s": group_wall,
+            "decode_step_ms": float(np.median(dec["walls"]) * 1e3) if dec["walls"] else None,
+            "decode_steps_timed": len(dec["walls"]), "counts": counts, "plain_calls": plain, "stats": st,
+            "firsts": firsts, "dec0": (dec.get("tokens"), dec.get("logits"))}
+
+
+def _par_leg_checks(tag, leg, cfg, quant, dev) -> dict:
+    """A leg's own checks on one rank; returns its JSON-ready summary. The
+    launch checks hold on the card (a CPU rehearsal runs the plain
+    versions)."""
+    sfx = "[int8]" if quant else ""
+    L, st = cfg.n_layers, leg["stats"]
+    b1 = leg["counts"]["paged_decode_fused_kernel" + sfx]
+    b2 = leg["counts"]["paged_chunk_attention_kernel" + sfx]
+    b2_want = sum(_b2_by_schedule(st, L).values())
+    if dev.type == "cuda":
+        check(b1 == L * st["decode_forwards"] > 0, f"tp {tag}: decode kernel launches {b1} != {L} x "
+              f"{st['decode_forwards']} decode passes")
+        check(b2 == b2_want > 0, f"tp {tag}: chunk kernel launches {b2} != {b2_want}")
+        check(leg["plain_calls"] == 0, f"tp {tag}: {leg['plain_calls']} plain attention calls on the card")
+    check(leg["hit_cached"] >= PAR["prompts"][0] // 16 * 16,
+          f"tp {tag}: the prefix hit reused {leg['hit_cached']} tokens")
+    if "schedules" in tag:
+        fused = st["multi_step_launches"] + st["compact_launches"] + st["verify_launches"] + st["mixed_launches"]
+        check(fused > 0, f"tp {tag}: no launch of a fast schedule ({st})")
+    for toks in leg["tokens"] + [leg["hit_tokens"]]:
+        check(len(toks) == PAR["new_tokens"] and all(0 <= t < cfg.vocab_size for t in toks),
+              f"tp {tag}: bad output {toks}")
+    return {k: v for k, v in leg.items() if k not in ("firsts", "dec0")} | {"b1": b1, "b2": b2}
+
+
+def _par_logit_errs(got, want) -> dict:
+    """A leg's first-token logit rows and first decode step's rows against
+    another run's (rows of the decode step only where both fed the same
+    token: a bf16 near-tie may flip a first token)."""
+    check(len(got["firsts"]) == len(want["firsts"]), "first-token rows differ in number")
+    first_err = max(_row_rel_err(a, b) for a, b in zip(got["firsts"], want["firsts"]))
+    (gt, gl), (wt, wl) = got["dec0"], want["dec0"]
+    n = min(len(gt), len(wt))
+    same = (gt[:n] == wt[:n]).nonzero().flatten()
+    check(len(same) > 0, "no decode row fed the same token")
+
+    def rows(a, b):
+        return ((a.float() - b.float()).norm(dim=-1) / (b.float().norm(dim=-1) + 1e-6)).flatten().tolist()
+
+    return {"first_token_row_err": first_err, "decode0_row_err": _row_rel_err(gl[same], wl[same]),
+            "decode0_rows": int(len(same)), "decode0_rows_all": int(n),
+            "first_token_row_errs": [max(rows(a, b)) for a, b in zip(got["firsts"], want["firsts"])],
+            "decode0_row_errs": rows(gl[same], wl[same])}
+
+
+def _par_logit_checks(tag, got, want, hold=True) -> dict:
+    """``_par_logit_errs`` of a tp leg against the single-device engine, each
+    held to ``ROW_RTOL`` (with ``hold``; else only read), with the single
+    device's walls and tokens beside it."""
+    errs = _par_logit_errs(got, want)
+    check(not hold or errs["first_token_row_err"] <= ROW_RTOL,
+          f"tp {tag}: first-token logits row error {errs['first_token_row_err']} > {ROW_RTOL}")
+    check(not hold or errs["decode0_row_err"] <= ROW_RTOL,
+          f"tp {tag}: first decode step logits row error {errs['decode0_row_err']} > {ROW_RTOL}")
+
+    def first_diff(a, b):
+        return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+    diffs = [first_diff(a, b) for a, b in zip(got["tokens"] + [got["hit_tokens"]],
+                                               want["tokens"] + [want["hit_tokens"]])]
+    return {**errs, "first_diff_vs_single": diffs,
+            "single_ttft_s": want["ttft_s"], "single_hit_ttft_s": want["hit_ttft_s"],
+            "single_decode_step_ms": want["decode_step_ms"], "single_group_wall_s": want["group_wall_s"]}
+
+
+def _split_tp(model, parts: int) -> dict:
+    """Every product of a single-device model as tp = ``parts`` takes it:
+    ``_split_reduced`` for ``wo``/``w_down``, the column-parallel ``_proj``
+    products and the LM head each as ``parts`` products over contiguous
+    column slices, concatenated. What is left of tp is the attention kernels
+    at a rank's head counts."""
+    from radixmesh_tpu_torch.models.llama import _head_product
+    from radixmesh_tpu_torch.ops.norm import rms_norm
+
+    def cols(x, w, product):
+        n = w.shape[-1] // parts
+        return torch.cat([product(x, w[..., i * n:(i + 1) * n].contiguous()) for i in range(parts)], dim=-1)
+
+    def proj(x, name, l):
+        return cols(x, model.layers[name][l], torch.matmul)
+
+    def logits(x):
+        x = rms_norm(x, model.final_norm, model.cfg.rms_eps)
+        return cols(x, model.embed.t() if model.cfg.tie_embeddings else model.lm_head, _head_product)
+
+    return {"_proj_reduced": _split_reduced(model, parts), "_proj": proj, "_logits": logits}
+
+
+def _split_reduced(model, parts: int):
+    """``model._proj_reduced`` for a single-device model as tp = ``parts``
+    takes it: the contraction in ``parts`` slices, each product with a
+    float32 result, the partials summed in rank order, the sum cast to the
+    activations' dtype."""
+    from radixmesh_tpu_torch.models.llama import _head_product
+
+    def proj(x, name, l):
+        w = model.layers[name][l]
+        k = w.shape[0] // parts
+        y = _head_product(x[..., :k].contiguous(), w[:k])
+        for i in range(1, parts):
+            y = y + _head_product(x[..., i * k:(i + 1) * k].contiguous(), w[i * k:(i + 1) * k])
+        return y.to(x.dtype)
+
+    return proj
+
+
+def _par_witness(full, tp_leg, single, ref_kw, prompts, hit, dev) -> dict:
+    """Where a tp leg's logit rows part from the single device's, read on the
+    same weights: the single device's own spread (the same engine at
+    ``max_batch`` 4, so other GEMM shapes in decode); a single device whose
+    row-parallel products (``wo``, ``w_down``) are taken as tp's float32
+    partials and summed (``_split_reduced``); and one whose every product is
+    split as tp splits it (``_split_tp``). Each against the single device
+    and against the tp leg."""
+    eng = Engine(full.cfg, full, **{**ref_kw, "max_batch": 4})
+    out = {"own_spread": _par_logit_errs(_par_leg(eng, prompts, hit, dev, PAR["new_tokens"]), single)}
+    del eng
+    _release(dev)
+    for tag, patches in (("split", {"_proj_reduced": _split_reduced(full, PAR["world"])}),
+                         ("split_all", _split_tp(full, PAR["world"]))):
+        leg = _par_patched_leg(full, patches, ref_kw, prompts, hit, dev)
+        out[f"{tag}_vs_single"] = _par_logit_errs(leg, single)
+        out[f"tp_vs_{tag}"] = _par_logit_errs(tp_leg, leg)
+    return out
+
+
+def _par_patched_leg(full, patches, ref_kw, prompts, hit, dev) -> dict:
+    """``_par_leg`` on a single-device engine over ``full`` with some of its
+    methods replaced for the leg."""
+    for k, f in patches.items():
+        setattr(full, k, f)
+    try:
+        eng = Engine(full.cfg, full, **ref_kw)
+        leg = _par_leg(eng, prompts, hit, dev, PAR["new_tokens"])
+        del eng
+    finally:
+        for k in patches:
+            delattr(full, k)  # back to the class's methods
+    _release(dev)
+    return leg
+
+
+def _par_split_check(tag, full, tp_leg, ref_kw, prompts, hit, dev) -> dict:
+    """A tp leg against a single device whose every product is split as tp
+    splits it (``_split_tp``): the same arithmetic in the same order, so
+    the logit rows and tokens must be equal bit for bit (the all-reduce of
+    two float32 partials and the gathers are exact, and the attention
+    kernels round a head the same at any head count)."""
+    split = _par_patched_leg(full, _split_tp(full, PAR["world"]), ref_kw, prompts, hit, dev)
+    errs = _par_logit_errs(tp_leg, split)
+    check(errs["first_token_row_err"] == 0 and errs["decode0_row_err"] == 0,
+          f"tp {tag}: logit rows differ from the split single device's: {errs}")
+    check(tp_leg["tokens"] == split["tokens"] and tp_leg["hit_tokens"] == split["hit_tokens"],
+          f"tp {tag}: tokens differ from the split single device's")
+    return errs
+
+
+def _par_pool_path(engine, seq, dev) -> dict:
+    """B3 through its sharded wrapper over every layer of the pages a tp
+    engine published for ``seq`` (this rank's heads), counted alone and held
+    against its plain version."""
+    from radixmesh_tpu_torch.ops.attention import paged_attention_pool_kernel_sharded
+
+    m = engine.tree.match_prefix(np.asarray(seq, np.int32))
+    check(m.length > 0, "tp pool path: the served sequence is not in the tree")
+    table = engine.pool.page_table(m.indices()[: m.length])
+    pt = torch.as_tensor(np.asarray(table, np.int32)[None], device=dev)
+    ln = torch.as_tensor(np.asarray([m.length], np.int32), device=dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn(1, engine.model.n_heads, engine.cfg.head_dim, generator=g, device=dev).to(engine.cfg.dtype)
+    kv = engine.pool.pages()
+    _sync(dev)
+    pa.reset_counters()
+    outs = [paged_attention_pool_kernel_sharded(q, kv, pt, ln, layer) for layer in range(engine.cfg.n_layers)]
+    _sync(dev)
+    launches = pa.paged_attention_pool_kernel.launches
+    err = max((o.float() - pa.paged_attention_pool_plain(q, kv, pt, ln, layer).float()).abs().max().item()
+              for layer, o in enumerate(outs))
+    if dev.type == "cuda":
+        check(launches == engine.cfg.n_layers, f"tp pool path: {launches} launches")
+    check(err <= ATOL[engine.cfg.dtype], f"tp pool path: max |kernel - plain| = {err}")
+    return {"launches": launches, "max_abs_err": err, "tokens": m.length}
+
+
+def _kv_layers(engine, slots, layers) -> torch.Tensor:
+    """``[2, len(layers), Hkv, n, D]`` of the pool at ``slots``, on the host."""
+    idx = torch.as_tensor(np.asarray(slots, np.int64), device=engine.pool.kv.device)
+    return engine.pool.kv[:, list(layers)][:, :, :, idx].float().cpu()
+
+
+def _par_sp_leg(engine, prompt, warm, dev, layers) -> dict:
+    """One long prompt served alone (one token past it), after a warm-up
+    prompt: its TTFT, first-token logits and the pool's K/V of the checked
+    layers."""
+    engine.generate([warm], SamplingParams(temperature=0.0, max_new_tokens=2))
+    firsts = []
+    engine.on_first_logits = lambda req, row: firsts.append(row.float().cpu())
+    n0 = len(engine.stats.ttft_s)
+    _sync(dev)
+    req = engine.add_request(prompt, SamplingParams(temperature=0.0, max_new_tokens=2))
+    while engine.has_work():
+        engine.step()
+    _sync(dev)
+    check(req.state is RequestState.FINISHED, "sp leg: the request did not finish")
+    kv = _kv_layers(engine, req.token_slots[: len(prompt)], layers)
+    return {"ttft_s": engine.stats.ttft_s[n0], "first": firsts[0], "kv": kv, "tokens": req.generated,
+            "prefill_chunks": engine.stats.prefill_chunks}
+
+
+def parallel_rank(rank: int, world: int, store: str, out: str) -> int:
+    """One rank of phase 18 (b) and (c): every rank runs this same program,
+    gloo between them (they share the card). Writes its readings to
+    ``out``."""
+    from radixmesh_tpu_torch.parallel import (
+        MeshPlan,
+        collective_stats,
+        init_multihost,
+        make_mesh,
+        reset_collective_stats,
+    )
+    import torch.distributed as dist
+
+    dev = torch.device(PAR["device"], 0) if PAR["device"] == "cuda" else torch.device("cpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    info = init_multihost(f"file://{store}", world, rank, backend="gloo", timeout_s=PAR["collective_timeout_s"])
+    tp_mesh = make_mesh(MeshPlan(tp=world))
+    sp_mesh = make_mesh(MeshPlan(sp=world))
+    cfg = get_config(PAR["model"], n_layers=PAR["layers"])
+    prompts, hit = _par_script(cfg, PAR["prompts"])
+    res = {"rank": rank, "world": world, "backend": info.backend, "legs": {}, "collectives": {}}
+    kw = dict(num_slots=PAR["slots"], page_size=16, max_batch=8, device=dev, device_mesh=tp_mesh)
+    keep = {}  # what the references compare with
+
+    def leg(tag, model, **extra):
+        reset_collective_stats()
+        eng = Engine(model.cfg, model, **kw, **extra)
+        r = _par_leg(eng, prompts, hit, dev, PAR["new_tokens"])
+        res["collectives"][tag] = collective_stats()
+        if tag == "bf16":
+            res["pool_path"] = _par_pool_path(eng, hit, dev)
+        keep[tag] = r
+        res["legs"][tag] = _par_leg_checks(tag, r, model.cfg, extra.get("kv_quant"), dev)
+        st = r["stats"]
+        print(f"[tp rank{rank}] {tag}: decode step {r['decode_step_ms']:.2f} ms, TTFT "
+              f"{[round(x, 4) for x in r['ttft_s']]}, hit cached {r['hit_cached']}, launches B1 "
+              f"{res['legs'][tag]['b1']} B2 {res['legs'][tag]['b2']}; multi-step "
+              f"{st['multi_step_launches']}, verify {st['verify_launches']}, mixed {st['mixed_launches']}",
+              flush=True)
+        del eng
+        _release(dev)
+
+    def shards(c, **kw2):
+        with torch.inference_mode():
+            return Llama(c, init_params(c, 0, dev, mesh=tp_mesh, **kw2), mesh=tp_mesh)
+
+    t = time.monotonic()
+    model = shards(cfg)
+    res["init_tp_s"] = time.monotonic() - t
+    leg("bf16", model)
+    leg("int8", model, kv_quant="int8")
+    leg("bf16 schedules", model, **SCHEDULES)
+    del model
+    _release(dev)
+    t = time.monotonic()
+    w8 = shards(cfg, weight_quant="int8")
+    res["init_w8_s"] = time.monotonic() - t
+    leg("w8a16 int8", w8, kv_quant="int8")
+    del w8
+    _release(dev)
+    # 4 layers in float32: greedy tokens exact against the single device.
+    cfg32 = cfg.replace(n_layers=PAR["f32_layers"], dtype=torch.float32)
+    f32_prompts, _ = _par_script(cfg32, PAR["f32_prompts"], seed=19)
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=PAR["new_tokens"])
+    m32 = shards(cfg32)
+    pa.reset_counters()
+    eng = Engine(cfg32, m32, **kw)
+    f32_firsts = []
+    eng.on_first_logits = lambda req, row: f32_firsts.append(row.float().cpu())
+    res["f32_tokens"] = eng.generate(f32_prompts, greedy)
+    res["f32_counts"] = pa.launch_counts()
+    del eng, m32
+    _release(dev)
+    # (c) sp = 2: the whole model on each rank, ring attention between
+    # them; then, on the same weights, the single-device references split
+    # between the ranks: rank 0 the sp prompt's chunked prefill and the bf16
+    # leg, rank 1 the int8 leg and the float32 leg.
+    rng = np.random.default_rng(20)
+    sp_prompt = rng.integers(0, cfg.vocab_size, PAR["sp_prompt"]).tolist()
+    sp_warm = rng.integers(0, cfg.vocab_size, PAR["sp_warm"]).tolist()
+    sp_kw = dict(num_slots=PAR["sp_slots"], page_size=16, max_batch=2, device=dev,
+                 max_seq_len=PAR["sp_prompt"] + 128)
+    t = time.monotonic()
+    with torch.inference_mode():
+        full = Llama(cfg, init_params(cfg, 0, dev))
+    res["init_full_s"] = time.monotonic() - t
+    reset_collective_stats()
+    eng = Engine(cfg, full, device_mesh=sp_mesh, sp_prefill_threshold=PAR["sp_warm"], **sp_kw)
+    sp = _par_sp_leg(eng, sp_prompt, sp_warm, dev, PAR["sp_layers"])
+    res["collectives"]["sp"] = collective_stats()
+    del eng
+    _release(dev)
+    check(sp["prefill_chunks"] == 0, "sp leg: the prompt took the chunked path, not the sp one")
+    res["sp"] = {"ttft_s": sp["ttft_s"], "tokens": sp["tokens"], "kv_abs_sum": float(sp["kv"].double().abs().sum())}
+    refs = {}
+    if rank == 0:
+        eng = Engine(cfg, full, long_prefill_threshold=0, **sp_kw)  # always the chunked prefill
+        want = _par_sp_leg(eng, sp_prompt, sp_warm, dev, PAR["sp_layers"])
+        del eng
+        _release(dev)
+        check(want["prefill_chunks"] > 0, "sp reference: not the chunked prefill")
+        kv_err = [((sp["kv"][:, i] - want["kv"][:, i]).norm() / want["kv"][:, i].norm()).item()
+                  for i in range(len(PAR["sp_layers"]))]
+        refs["sp"] = {"first_row_err": _row_rel_err(sp["first"], want["first"]), "kv_rel_err": kv_err,
+                      "single_ttft_s": want["ttft_s"], "single_tokens": want["tokens"]}
+        hold = not PAR["witness"]
+        check(not hold or refs["sp"]["first_row_err"] <= ROW_RTOL,
+              f"sp: last-position logits row error {refs['sp']['first_row_err']} > {ROW_RTOL}")
+        check(not hold or max(kv_err) <= ROW_RTOL, f"sp: pool K/V relative error {kv_err} > {ROW_RTOL}")
+        del want
+    del sp
+    tag, extra = ("bf16", {}) if rank == 0 else ("int8", dict(kv_quant="int8"))
+    ref_kw = dict(num_slots=PAR["slots"], page_size=16, max_batch=8, device=dev, **extra)
+    eng = Engine(cfg, full, **ref_kw)
+    single = _par_leg(eng, prompts, hit, dev, PAR["new_tokens"])
+    del eng
+    _release(dev)
+    refs[tag] = _par_logit_checks(tag, keep[tag], single, hold=not PAR["witness"])
+    if PAR["witness"]:
+        refs[tag]["witness"] = _par_witness(full, keep[tag], single, ref_kw, prompts, hit, dev)
+    else:
+        refs[tag]["tp_vs_split_all"] = _par_split_check(tag, full, keep[tag], ref_kw, prompts, hit, dev)
+    del full, single
+    _release(dev)
+    if rank != 0:
+        with torch.inference_mode():
+            m32 = Llama(cfg32, init_params(cfg32, 0, dev))
+        eng = Engine(cfg32, m32, num_slots=PAR["slots"], page_size=16, max_batch=8, device=dev)
+        want_firsts = []
+        eng.on_first_logits = lambda req, row: want_firsts.append(row.float().cpu())
+        want32 = eng.generate(f32_prompts, greedy)
+        refs["f32"] = {"single_tokens": want32, "first_token_row_err": max(
+            _row_rel_err(a, b) for a, b in zip(f32_firsts, want_firsts, strict=True))}
+        check(res["f32_tokens"] == want32, f"f32 tp tokens {res['f32_tokens']} != single-device {want32}")
+        del eng, m32
+    if dev.type == "cuda":
+        res["max_reserved_gib"] = torch.cuda.max_memory_reserved(dev) / 2**30
+    res["refs"] = refs
+    dist.barrier()
+    pathlib.Path(out).write_text(json.dumps(res, default=str))
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_nccl(store: str, out: str) -> int:
+    """(d) The nccl backend at world size 1 (the one NCCL group a single card
+    allows): ``init_multihost``, one all-reduce, one greedy generate on the
+    mesh, equal to the same engine without it."""
+    import torch.distributed as dist
+
+    from radixmesh_tpu_torch.parallel import MeshPlan, init_multihost, make_mesh
+
+    info = init_multihost(f"file://{store}", 1, 0, backend="nccl", timeout_s=300)
+    x = torch.arange(4, dtype=torch.float32, device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    check(torch.equal(x.cpu(), torch.arange(4, dtype=torch.float32)), f"nccl all_reduce gave {x}")
+    mesh = make_mesh(MeshPlan())
+    check(mesh.backend == "nccl", f"mesh backend {mesh.backend}")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config(PAR["model"]).replace(n_layers=PAR["nccl_layers"])
+    with torch.inference_mode():
+        model = Llama(cfg, init_params(cfg, 0, dev))
+    prompt = np.random.default_rng(21).integers(0, cfg.vocab_size, PAR["nccl_prompt"]).tolist()
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=8)
+    got = Engine(cfg, model, num_slots=4096, device=dev, device_mesh=mesh).generate([prompt], greedy)
+    want = Engine(cfg, model, num_slots=4096, device=dev).generate([prompt], greedy)
+    check(got == want, f"nccl mesh engine tokens {got} != {want}")
+    pathlib.Path(out).write_text(json.dumps({"backend": info.backend, "world": info.process_count,
+                                             "tokens": got[0]}))
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_phase_start(out_dir=None) -> dict:
+    """Start phase 18's processes: the ``PAR["world"]`` ranks of (b) and (c)
+    and the nccl process of (d), each this script with its role's flags and
+    a log of its own."""
+    out_dir = pathlib.Path(out_dir or OUT_DIR)
+    out_dir.mkdir(exist_ok=True)
+    store_dir = tempfile.mkdtemp(prefix="par-store-", dir=out_dir)
+    procs, logs = {}, {}
+    world = PAR["world"]
+    roles = [(f"rank{r}", ["--parallel-rank", str(r), "--parallel-world", str(world)]) for r in range(world)]
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    if PAR["device"] == "cuda":
+        roles.append(("nccl", ["--parallel-nccl"]))
+    for name, args in roles:
+        store = os.path.join(store_dir, "nccl" if name == "nccl" else "tp")
+        logs[name] = out_dir / f"par-{name}.log"
+        with open(logs[name], "w") as log:
+            procs[name] = subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), *args, "--parallel-store", store,
+                 "--parallel-out", str(out_dir / f"par-{name}.json"), "--parallel-sizes", json.dumps(PAR)],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    return {"procs": procs, "logs": logs, "out_dir": out_dir, "store_dir": store_dir,
+            "t0": time.monotonic(), "memory": _card_memory_sampler() if PAR["device"] == "cuda" else None}
+
+
+def _card_memory_sampler(period_s: float = 0.25) -> dict:
+    """The card's memory in use (every process's: ``cudaMemGetInfo``),
+    sampled on a thread of its own until ``stop`` is set; ``peak`` in bytes."""
+    mem = {"peak": 0, "total": 0, "samples": 0, "stop": threading.Event()}
+
+    def run():
+        while not mem["stop"].wait(period_s):
+            free, total = torch.cuda.mem_get_info()
+            mem["peak"], mem["total"] = max(mem["peak"], total - free), total
+            mem["samples"] += 1
+
+    mem["thread"] = threading.Thread(target=run, name="par-memory", daemon=True)
+    mem["thread"].start()
+    return mem
+
+
+def parallel_phase_stop(handle) -> None:
+    """Kill and join every process of phase 18 still running and stop the
+    memory sampler (idempotent: ``parallel_phase_finish`` and a phase that
+    raises beside the ranks both end here)."""
+    for p in handle["procs"].values():
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    if handle["memory"] is not None:
+        handle["memory"]["stop"].set()
+        handle["memory"]["thread"].join()
+    shutil.rmtree(handle["store_dir"], ignore_errors=True)
+
+
+def parallel_phase_finish(handle) -> dict:
+    """Join every process of phase 18, check each exit code and the checks
+    across ranks, and print the readings."""
+    procs, logs, out_dir = handle["procs"], handle["logs"], handle["out_dir"]
+    deadline = handle["t0"] + PAR["timeout_s"]
+    rcs = {}
+    try:
+        for name, p in procs.items():
+            try:
+                rcs[name] = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rcs[name] = None
+    finally:
+        parallel_phase_stop(handle)
+    wall = time.monotonic() - handle["t0"]
+    for name, rc in rcs.items():
+        if rc != 0:
+            tail = logs[name].read_text()[-4000:]
+            check(False, f"phase 18 {name} {'timed out' if rc is None else f'exited {rc}'}:\n{tail}")
+    ranks = [json.loads((out_dir / f"par-rank{r}.json").read_text()) for r in range(PAR["world"])]
+    nccl = (json.loads((out_dir / "par-nccl.json").read_text()) if "nccl" in procs
+            else {"backend": "nccl", "world": 1, "tokens": None})
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        check(list(r["legs"]) == list(r0["legs"]), "the ranks ran different legs")
+        for tag in r0["legs"]:
+            check(r["legs"][tag]["tokens"] == r0["legs"][tag]["tokens"]
+                  and r["legs"][tag]["hit_tokens"] == r0["legs"][tag]["hit_tokens"],
+                  f"tp {tag}: rank {r['rank']}'s tokens differ from rank 0's")
+            check(r["legs"][tag]["stats"] == r0["legs"][tag]["stats"], f"tp {tag}: ranks' stats differ")
+        check(r["f32_tokens"] == r0["f32_tokens"], "f32 tp: ranks' tokens differ")
+        check(r["sp"]["tokens"] == r0["sp"]["tokens"], "sp: ranks' tokens differ")
+        check(r["sp"]["kv_abs_sum"] == r0["sp"]["kv_abs_sum"], "sp: the ranks' pools hold different K/V")
+    check(nccl["backend"] == "nccl" and nccl["world"] == 1, f"nccl process: {nccl}")
+    refs = {**ranks[0]["refs"], **ranks[1]["refs"]}
+    print(f"[parallel] backend {r0['backend']}, {len(ranks)} ranks on one card; phase wall {wall:.1f}s; "
+          f"weights per rank: tp shards {r0['init_tp_s']:.1f}s, W8A16 shards {r0['init_w8_s']:.1f}s, "
+          f"whole model {r0['init_full_s']:.1f}s", flush=True)
+    for r in ranks:
+        print(f"[parallel] rank {r['rank']} kernel launches: "
+              + "; ".join(f"{tag} B1 {r['legs'][tag]['b1']} B2 {r['legs'][tag]['b2']}" for tag in r["legs"])
+              + f"; pool path B3 {r['pool_path']['launches']}; f32 {PAR['f32_layers']}-layer B1 "
+              f"{r['f32_counts']['paged_decode_fused_kernel']} B2 f32 body "
+              f"{r['f32_counts']['paged_chunk_attention_kernel[f32 body]']}", flush=True)
+    depth = f"{PAR['model']} widths, {PAR['layers']} layers"
+    for tag in ("bf16", "int8"):
+        leg, ref = r0["legs"][tag], refs[tag]
+        print(f"[parallel] tp=2 {tag} vs single device ({depth}): first-token row err "
+              f"{ref['first_token_row_err']:.3e}, first decode step row err {ref['decode0_row_err']:.3e} over "
+              f"{ref['decode0_rows']} of {ref['decode0_rows_all']} rows; decode step {leg['decode_step_ms']:.2f} ms "
+              f"vs {ref['single_decode_step_ms']:.2f} ms; TTFT {[round(x, 4) for x in leg['ttft_s']]} vs "
+              f"{[round(x, 4) for x in ref['single_ttft_s']]}; hit TTFT {leg['hit_ttft_s']:.4f} vs "
+              f"{ref['single_hit_ttft_s']:.4f} s; first differing token per request (None: equal) "
+              f"{ref['first_diff_vs_single']}", flush=True)
+    print(f"[parallel] f32 {PAR['f32_layers']}-layer tp=2 tokens == single device: {r0['f32_tokens']}; "
+          f"first-token row err (rank 1) {refs['f32']['first_token_row_err']:.3e}", flush=True)
+    for tag in ("bf16", "int8"):
+        e = refs[tag].get("tp_vs_split_all")
+        if e is not None:
+            print(f"[parallel] tp=2 {tag} vs a single device with every product split as tp splits it "
+                  f"({depth}): first-token row err {e['first_token_row_err']:.3e}, first decode step row err "
+                  f"{e['decode0_row_err']:.3e} over {e['decode0_rows']} rows (held to 0), tokens equal", flush=True)
+        w = refs[tag].get("witness")
+        if w is not None:
+            print(f"[parallel] witness {tag} ({depth}), first-token / first decode step row err: " + "; ".join(
+                f"{k} {v['first_token_row_err']:.3e} / {v['decode0_row_err']:.3e} ({v['decode0_rows']} rows)"
+                for k, v in w.items()), flush=True)
+    mem = handle["memory"]
+    if mem is not None:
+        print(f"[parallel] card memory in use while phase 18 ran (every process, {mem['samples']} samples "
+              f"0.25 s apart): peak {mem['peak'] / 2**30:.2f} of {mem['total'] / 2**30:.2f} GiB; each rank's "
+              f"own peak reserved {[round(r.get('max_reserved_gib', 0.0), 2) for r in ranks]} GiB", flush=True)
+    sp = refs["sp"]
+    print(f"[parallel] sp=2 prefill of {PAR['sp_prompt']} tokens ({depth}): TTFT {r0['sp']['ttft_s']:.3f} s vs the "
+          f"single-device chunked prefill {sp['single_ttft_s']:.3f} s; last-position logits row err "
+          f"{sp['first_row_err']:.3e}; pool K/V rel err at layers {list(PAR['sp_layers'])}: "
+          f"{[f'{e:.2e}' for e in sp['kv_rel_err']]}", flush=True)
+    for tag, c in r0["collectives"].items():
+        print(f"[parallel] rank 0 gloo collectives, {tag}: " + ", ".join(
+            f"{op} {v['calls']} calls {v['seconds']:.3f}s {v['bytes'] / 2**20:.1f} MiB" for op, v in c.items()),
+            flush=True)
+    print(f"[parallel] nccl at world size 1: all_reduce ok, greedy generate {nccl['tokens']}", flush=True)
+    return {"ranks": ranks, "refs": refs, "nccl": nccl, "wall_s": wall,
+            "card_memory_peak_gib": None if mem is None else mem["peak"] / 2**30}
+
+
 def _parse(argv):
     import argparse
 
@@ -4687,15 +5334,34 @@ def _parse(argv):
                     help="phases 1, 2 and 7 alone (build, SASS, the kernels against their plain "
                          "versions, timed); the readings go to --json")
     ap.add_argument("--json", metavar="FILE", help="where --kernels writes its readings")
+    ap.add_argument("--parallel-alone", metavar="SIZES",
+                    help="the build and phase 18 (b)-(d) alone, with these of its sizes changed (a JSON "
+                         "object, e.g. '{\"layers\": 32, \"f32_layers\": 32, \"witness\": true}': "
+                         "every leg at full depth, the logit rows read, not held, beside the single "
+                         "device's own spread and single devices with tp's rounding: its row-parallel "
+                         "products, and all its products)")
+    # Phase 18's child processes (started by the script itself).
+    ap.add_argument("--parallel-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-nccl", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-store", help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-out", help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-sizes", help=argparse.SUPPRESS)
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> int:
     args = _parse(argv)
+    if args.parallel_sizes:
+        PAR.update(json.loads(args.parallel_sizes))
+    if args.parallel_rank is not None:
+        return parallel_rank(args.parallel_rank, args.parallel_world, args.parallel_store, args.parallel_out)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an "
               "NVIDIA GPU (no result)", file=sys.stderr)
         return 2
+    if args.parallel_nccl:
+        return parallel_nccl(args.parallel_store, args.parallel_out)
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"[env] card: {card}", flush=True)
@@ -4718,6 +5384,14 @@ def main(argv=None) -> int:
     print(f"[env] ptxas: max registers/thread {max(regs) if regs else 'n/a'}; "
           f"{len(spills)} kernel(s) spill" + "".join(f"\n  {x.strip()}" for x in spills), flush=True)
 
+    if args.parallel_alone:
+        PAR.update(json.loads(args.parallel_alone))
+        par = parallel_phase_finish(parallel_phase_start())
+        (OUT_DIR / "parallel_alone.json").write_text(json.dumps({"card": card, "sizes": PAR, "parallel": par},
+                                                                indent=1, default=str))
+        print(f"[time] phase 18 (b)-(d) alone {par['wall_s']:.1f}s", flush=True)
+        print(card, flush=True)
+        return 0
     sass = sass_check()
     sass["f32_body_resources"] = f32_body_resources(log["paged_chunk"]["ptxas"])
     t = time.monotonic()
@@ -4726,12 +5400,16 @@ def main(argv=None) -> int:
     t = time.monotonic()
     groups = group_kernel_phase(dev)
     print(f"[time] kernel phase at GQA groups 3 and 7 {time.monotonic() - t:.1f}s", flush=True)
+    t = time.monotonic()
+    sharded = sharded_kernel_phase(dev)
+    print(f"[time] kernel phase at tp=2 head counts {time.monotonic() - t:.1f}s", flush=True)
     if args.kernels:
         if args.json:
             pathlib.Path(args.json).write_text(json.dumps(
                 {"card": card, "build": {k: v["seconds"] for k, v in log.items()},
                  "ptxas": {k: v["ptxas"] for k, v in log.items()},
-                 "kernels": {"phase 2": kernels, "phase 7": groups}}, indent=1, default=str))
+                 "kernels": {"phase 2": kernels, "phase 7": groups, "phase 18 (a)": sharded}},
+                indent=1, default=str))
         print(card, flush=True)
         return 0
     t = time.monotonic()
@@ -4793,19 +5471,34 @@ def main(argv=None) -> int:
     fleet = fleet_phase(card)
     print(f"[time] fleet phase {time.monotonic() - t:.1f}s", flush=True)
     t = time.monotonic()
-    qwen = qwen2_serving_phase(dev)
-    print(f"[time] qwen2-7b serving phase {time.monotonic() - t:.1f}s", flush=True)
-    t = time.monotonic()
-    ckpt = checkpoint_phase(dev)
-    print(f"[time] checkpoint phase {time.monotonic() - t:.1f}s", flush=True)
-    t = time.monotonic()
-    whole = {tag: whole_path_check(dev, quant, sched, tiered, name) for tag, quant, sched, tiered, name in
-             (("float32", None, None, False, "llama3-8b"), ("int8", "int8", None, False, "llama3-8b"),
-              ("float32 schedules", None, SCHEDULES, False, "llama3-8b"),
-              ("float32 tiers", None, None, True, "llama3-8b"),
-              ("qwen2-7b float32", None, None, False, "qwen2-7b"))}
-    _whole_path_params.cache_clear()
-    print(f"[time] whole-path checks {time.monotonic() - t:.1f}s", flush=True)
+    # Phase 18's ranks run beside the phases below (Qwen2-7B serving, the
+    # checkpoint round trip, the whole-path checks: this process holds at
+    # most ~20 GiB more meanwhile), which keeps the script inside its limit.
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[parallel] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated here as phase 18 starts",
+          flush=True)
+    par_handle = parallel_phase_start()
+    try:
+        t_q = time.monotonic()
+        qwen = qwen2_serving_phase(dev)
+        print(f"[time] qwen2-7b serving phase {time.monotonic() - t_q:.1f}s", flush=True)
+        t_q = time.monotonic()
+        ckpt = checkpoint_phase(dev)
+        print(f"[time] checkpoint phase {time.monotonic() - t_q:.1f}s", flush=True)
+        t_q = time.monotonic()
+        whole = {tag: whole_path_check(dev, quant, sched, tiered, name) for tag, quant, sched, tiered, name in
+                 (("float32", None, None, False, "llama3-8b"), ("int8", "int8", None, False, "llama3-8b"),
+                  ("float32 schedules", None, SCHEDULES, False, "llama3-8b"),
+                  ("float32 tiers", None, None, True, "llama3-8b"),
+                  ("qwen2-7b float32", None, None, False, "qwen2-7b"))}
+        _whole_path_params.cache_clear()
+        print(f"[time] whole-path checks {time.monotonic() - t_q:.1f}s (phase 18 beside them)", flush=True)
+        par = parallel_phase_finish(par_handle)
+    finally:
+        parallel_phase_stop(par_handle)
+    print(f"[time] phase 18 (b)-(d) {par['wall_s']:.1f}s from its start; both together "
+          f"{time.monotonic() - t:.1f}s", flush=True)
 
     # Launches of each kernel entry on each path that ran it (counts zeroed
     # just before each path and read just after); ``launches`` sums them.
@@ -4851,6 +5544,21 @@ def main(argv=None) -> int:
         "paged_attention_pool": {"pool path bf16": serving["bf16"]["pool_path"]["launches"]},
         "paged_attention_pool[int8]": {"pool path int8": serving["int8"]["pool_path"]["launches"]},
     }
+    # Phase 18: each rank's launches on its legs (a rank is a process of
+    # its own, its counts zeroed before each leg and read after it).
+    def par_paths(int8, key):
+        return {f"tp2 {tag} rank{r['rank']}": leg[key] for r in par["ranks"] for tag, leg in r["legs"].items()
+                if ("int8" in tag) == int8}
+
+    by_path["paged_decode_fused"].update(par_paths(False, "b1"))
+    by_path["paged_decode_fused[int8]"].update(par_paths(True, "b1"))
+    by_path["paged_chunk_attention"].update(par_paths(False, "b2"))
+    by_path["paged_chunk_attention[int8]"].update(par_paths(True, "b2"))
+    by_path["paged_chunk_attention[f32]"].update(
+        {f"tp2 f32 rank{r['rank']}": r["f32_counts"]["paged_chunk_attention_kernel[f32 body]"]
+         for r in par["ranks"]})
+    by_path["paged_attention_pool"].update(
+        {f"tp2 pool path rank{r['rank']}": r["pool_path"]["launches"] for r in par["ranks"]})
     launches = {name: sum(paths.values()) for name, paths in by_path.items()}
     # The chunk kernel's launches by chunk length C on each in-process path
     # (both pool kinds): launches x (time - bound) by shape.
@@ -4904,7 +5612,28 @@ def main(argv=None) -> int:
                                       {"serve text llama3.2-3b":
                                        serve_text["kernels"]["paged_chunk_attention_kernel"]}, ("G=3",)),
     }
-    for name, (kernel, case, dtype, paths, tags) in group_meta.items():
+    # The kernels at a tp = 2 rank's head counts (phase 18 (a)): each
+    # entry's main row is its Llama-3-8B case, its launches phase 18's
+    # ranks' of that kernel; its other shapes are the Qwen2-7B and int8 cases.
+    tp_tag = next(iter(PAR_HEADS))
+    for name, kernel, case, dtype in (
+            ("paged_decode_fused tp=2", "paged_decode_fused", f"decode B=8 ragged {tp_tag}", "bfloat16"),
+            ("paged_chunk_attention tp=2", "paged_chunk_attention", f"chunk B=8 ragged {tp_tag}", "bfloat16"),
+            ("paged_chunk_attention[f32] tp=2", "paged_chunk_attention[f32]", f"chunk B=8 ragged {tp_tag}",
+             "float32"),
+            ("paged_attention_pool tp=2", "paged_attention_pool", f"pool B=8 ragged {tp_tag}", "bfloat16")):
+        rows = [r for k in (kernel, kernel + "[int8]") for r in sharded.get(k, [])]
+        main_row = [r for r in rows if r["case"] == case and r["dtype"] == dtype][0]
+        meta[name] = (meta[kernel][0], meta[kernel][1], case, dtype)
+        group_meta[name] = None
+        kernels[name] = [main_row] + [r for r in rows if r is not main_row and "ms" in r]
+        by_path[name] = {k: v for k2 in (kernel, kernel + "[int8]") for k, v in by_path.get(k2, {}).items()
+                         if k.startswith("tp2 ")}
+        launches[name] = sum(by_path[name].values())
+    for name, spec in group_meta.items():
+        if spec is None:
+            continue
+        kernel, case, dtype, paths, tags = spec
         rows = [r for k in (kernel, kernel + "[int8]") for r in groups.get(k, []) if "ms" in r]
         main_row = [r for r in rows if r["case"] == case and r["dtype"] == dtype][0]
         source, replaces = meta[kernel][:2]
@@ -4957,7 +5686,7 @@ def main(argv=None) -> int:
               "groups": groups, "serving": serving, "tiers": tiers, "serve_cli": serve_cli,
               "qwen2_serving": qwen, "checkpoint": ckpt, "serve_text": serve_text, "whole_path": whole,
               "replay": replay, "serving_edge": edge, "handoff": handoff, "w8a16": w8a16,
-              "head": head, "mesh": mesh, "fleet": fleet}
+              "head": head, "mesh": mesh, "fleet": fleet, "sharded_kernels": sharded, "parallel": par}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -128,6 +128,16 @@ def _copy_stream(device: torch.device):
     return torch.cuda.Stream(device=device) if device.type == "cuda" else None
 
 
+def _refuse_tp(engine: Engine) -> None:
+    """A handoff packet carries every kv head of a prefix; a tensor-parallel
+    engine's pool holds a shard of them."""
+    if engine._tp > 1:
+        raise NotImplementedError(
+            f"the disaggregated handoff needs every kv head in one rank's pool; not ported for "
+            f"tp={engine._tp} (ROADMAP.md A5c)"
+        )
+
+
 class PrefillWorker(Engine):
     """A PREFILL-role node: runs prompt prefill with local radix-cache
     reuse, then hands the request off instead of decoding it. It is an
@@ -137,6 +147,7 @@ class PrefillWorker(Engine):
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
+        _refuse_tp(self)
         # The streamed handoff's device→host copies (created at first use).
         self._d2h_stream = None
 
@@ -316,6 +327,7 @@ class DecodeWorker:
 
     def __init__(self, engine: Engine, comm: Communicator | None = None, plane=None,
                  stage_layers: int = 0):
+        _refuse_tp(engine)
         self.engine = engine
         self.log = get_logger("disagg.decode")
         self._pending: list[tuple[Request, list[_StagedKV], int]] = []

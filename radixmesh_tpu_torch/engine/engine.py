@@ -110,8 +110,22 @@ The engine's tree owns slot lifetime; the mesh replica of a serving node
 is advertisement-only (built with ``pool=None``). An eviction that
 destroys KV retracts the prefix ring-wide (``_unadvertise``), and
 ``announce_resurrected`` re-announces a disk tier's grafted prefixes.
-``telemetry()`` carries the signals the fleet digest reads. Not ported
-yet: pp/sp/tp.
+``telemetry()`` carries the signals the fleet digest reads.
+
+Multi-device serving (``device_mesh=`` a ``parallel.sharding.ProcessMesh``):
+one process per device, every rank running this same engine code with the
+same arguments (``generate`` called alike on each), as the JAX engine runs
+one scheduler over its device mesh. The params are quantized (W8A16) and
+then sharded over tp (``param_logical_axes``), each rank's pool holds its
+``n_kv_heads // tp`` heads, and the model gathers the float32 logits over
+tp, so every rank samples the same tokens from the same logits and its
+host state (tree, allocator, waves) evolves identically. A fresh prompt of
+at least ``sp_prefill_threshold`` tokens on a mesh with sp > 1 prefills
+sequence-parallel (``_prefill_sp``: ring attention over sp, the K/V
+all-gathered over sp into every rank's pool), unless the pool is int8.
+Refused by name under tp > 1: the host and disk tiers, the async
+KV-movement plane and a mesh replica bound to the pool (each needs every
+kv head in one pool; ``ROADMAP.md`` A5c), and any pp axis (A5b).
 """
 
 from __future__ import annotations
@@ -132,7 +146,7 @@ from radixmesh_tpu_torch.cache.kv_transfer import KVTransferPlane
 from radixmesh_tpu_torch.cache.radix_tree import RadixTree
 from radixmesh_tpu_torch.engine.request import Request, RequestState, SamplingParams
 from radixmesh_tpu_torch.engine.waves import WaveScheduler
-from radixmesh_tpu_torch.models.llama import Llama, ModelConfig
+from radixmesh_tpu_torch.models.llama import Llama, ModelConfig, param_logical_axes
 from radixmesh_tpu_torch.obs.attribution import shape_bucket
 from radixmesh_tpu_torch.obs.fleet_plane import eviction_counters
 from radixmesh_tpu_torch.obs.metrics import TOKEN_LEN_BUCKETS, get_registry
@@ -143,6 +157,8 @@ from radixmesh_tpu_torch.obs.trace_plane import get_recorder
 from radixmesh_tpu_torch.ops.attention import default_use_kernel, last_dispatch, select_paged
 from radixmesh_tpu_torch.ops.sampling import sample_tokens, spec_verify_sample
 from radixmesh_tpu_torch.ops.wquant import quantize_params
+from radixmesh_tpu_torch.parallel.collectives import all_gather
+from radixmesh_tpu_torch.parallel.sharding import shard_params
 from radixmesh_tpu_torch.utils.device import resolve_device
 from radixmesh_tpu_torch.utils.logging import get_logger
 
@@ -276,6 +292,8 @@ class Engine:
         peak_tflops: float | None = None,
         weight_quant: str | None = None,
         mesh=None,
+        device_mesh=None,
+        sp_prefill_threshold: int = 4096,
     ):
         """``params`` is a param tree (``init_params`` / ``params_from_jax``)
         or a built :class:`Llama`. ``device`` defaults to CUDA and raises
@@ -290,7 +308,13 @@ class Engine:
         full-precision ``Llama`` is quantized before the model is built; a
         ``Llama`` that is already W8A16 is taken as it is. ``mesh`` is this
         node's ``MeshCache`` replica (module docstring); its page size
-        must divide ``page_size``."""
+        must divide ``page_size``. ``device_mesh`` is this rank's
+        ``ProcessMesh`` (module docstring): a full param tree (or a
+        ``Llama`` without a mesh) is quantized, then sharded; a tree of this
+        rank's shards (``init_params(..., mesh=)``) or a ``Llama`` built on
+        the mesh is taken as it is (its shards, W8A16 or not, are the
+        caller's). Fresh prompts of at least ``sp_prefill_threshold``
+        tokens prefill sequence-parallel where the mesh has sp > 1."""
         if page_size & (page_size - 1):
             raise ValueError("page_size must be a power of two")
         if kv_tier_dir is not None and host_cache_slots <= 0:
@@ -302,20 +326,61 @@ class Engine:
         self.name = name or f"engine{next(_engine_seq)}"
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.device_mesh = device_mesh
+        self._tp = 1
+        if device_mesh is not None:
+            if dict(device_mesh.shape).get("pp", 1) > 1:
+                raise NotImplementedError(
+                    "pipeline-parallel serving (a pp mesh axis) is not ported yet (ROADMAP.md A5b)"
+                )
+            self._tp = device_mesh.shape["tp"]
+            if cfg.n_kv_heads % self._tp or cfg.n_heads % self._tp:
+                raise ValueError(
+                    f"n_heads={cfg.n_heads}/n_kv_heads={cfg.n_kv_heads} must divide tp={self._tp}"
+                )
+            if self._tp > 1:
+                for on, what in ((kv_tier_dir is not None, "the disk KV tier (kv_tier_dir)"),
+                                 (host_cache_slots > 0, "the host KV tier (host_cache_slots)"),
+                                 (kv_transfer_async, "the async KV-movement plane (kv_transfer_async)"),
+                                 (getattr(mesh, "pool", None) is not None,
+                                  "a mesh replica bound to the pool (the mesh's page pushes)")):
+                    if on:
+                        raise NotImplementedError(
+                            f"{what} needs every kv head in one rank's pool; not ported for "
+                            f"tp={self._tp} (ROADMAP.md A5c)"
+                        )
+        self.sp_prefill_threshold = sp_prefill_threshold
         self.mesh = mesh
         mesh_page = getattr(mesh, "page", 1) if mesh is not None else 1
         if mesh_page > 1 and page_size % mesh_page:
             # Publishes are aligned at engine pages, so the mesh page must
             # divide the engine page.
             raise ValueError(f"mesh page_size {mesh_page} must divide engine page_size {page_size}")
+        if isinstance(params, Llama) and self._tp > 1 and params.mesh is None:
+            params = params.param_tree()  # full leaves: quantized and sharded below
+        # A tree already holding this rank's shards (init_params(mesh=...),
+        # params_from_jax(mesh=...)) is taken as it is.
+        presharded = (not isinstance(params, Llama) and self._tp > 1
+                      and params["layers"]["wq"].shape[-1] * self._tp == cfg.n_heads * cfg.head_dim)
         if weight_quant is not None:
             if weight_quant != "int8":
                 raise ValueError(f"unknown weight quantization {weight_quant!r}")
-            if not isinstance(params, Llama):
-                params = quantize_params(params)
-            elif params.weight_quant is None:
-                params = quantize_params(params.param_tree())
-        model = params if isinstance(params, Llama) else Llama(cfg, params)
+            is_llama = isinstance(params, Llama)
+            if (params.weight_quant is None if is_llama else params["layers"]["wq"].dtype != torch.int8):
+                # Before sharding: a row-parallel weight's scale spans its
+                # whole contraction axis.
+                if presharded or (is_llama and params._tp):
+                    raise ValueError(
+                        "W8A16 must quantize before sharding: pass a full param tree, or "
+                        "init_params(..., mesh=..., weight_quant='int8')"
+                    )
+                params = quantize_params(params.param_tree() if is_llama else params)
+        if not isinstance(params, Llama) and self._tp > 1 and not presharded:
+            params = shard_params(params, param_logical_axes(cfg, params), device_mesh)
+        model = params if isinstance(params, Llama) else Llama(cfg, params, mesh=device_mesh)
+        if model._tp and (device_mesh is None or model.mesh.shape != device_mesh.shape):
+            raise ValueError(f"the model is sharded over {model.mesh.shape}; device_mesh is "
+                             f"{None if device_mesh is None else device_mesh.shape}")
         self.model = model.to(self.device)
         self.weight_quant = model.weight_quant
         self.page_size = page_size
@@ -348,10 +413,13 @@ class Engine:
         self.paged_min_batch = max(0, paged_min_batch)
         # The last decode dispatch decision (select_paged), for /stats.
         self._last_dispatch: dict | None = None
+        # Under tp each rank's pool holds its kv-head shard of every page
+        # (the head-major layout makes it one slab per layer); the
+        # allocator and slot ids are the same on every rank.
         self.pool = PagedKVPool(
             num_slots=num_slots,
             num_layers=cfg.n_layers,
-            num_kv_heads=cfg.n_kv_heads,
+            num_kv_heads=self.model.n_kv_heads,
             head_dim=cfg.head_dim,
             page_size=page_size,
             dtype=cfg.dtype,
@@ -1078,7 +1146,9 @@ class Engine:
                 acct = self.step_acct
                 t_wave = time.monotonic() if traced or acct is not None else 0.0
                 self._wave_padded = 0
-                if (
+                if self.pool.quant is None and len(sub) == 1 and self._sp_capable(sub[0]):
+                    pending = [self._prefill_sp(*sub[0])]
+                elif (
                     self.pool.quant is None
                     and len(sub) == 1
                     and len(sub[0][0].prompt) - sub[0][2] <= self.long_prefill_threshold
@@ -1362,7 +1432,7 @@ class Engine:
         tokens[0, :n_new] = prompt[reuse:]
         positions = (reuse + np.arange(s_b, dtype=np.int64))[None]
         self._wave_padded = s_b  # launch shape (step accounting)
-        kv_shape = (cfg.n_layers, 1, p_b, cfg.n_kv_heads, cfg.head_dim)
+        kv_shape = (cfg.n_layers, 1, p_b, self.model.n_kv_heads, cfg.head_dim)
         cached_k = torch.zeros(kv_shape, dtype=cfg.dtype, device=self.device)
         cached_v = torch.zeros(kv_shape, dtype=cfg.dtype, device=self.device)
         if reuse:
@@ -1383,6 +1453,48 @@ class Engine:
         req.own_slots = own
         self._install_prefilled(req, row, reuse)
         return (req, logits[0, n_new - 1])
+
+    def _sp_capable(self, member: tuple) -> bool:
+        """A fresh (no cached prefix) long prompt on a mesh with an sp axis
+        prefills sequence-sharded."""
+        req, _, reuse, *_ = member
+        return (
+            self.device_mesh is not None
+            and self.device_mesh.shape["sp"] > 1
+            and reuse == 0
+            and len(req.prompt) >= self.sp_prefill_threshold
+        )
+
+    def _prefill_sp(
+        self, req: Request, row: int, reuse: int, prefix_slots: np.ndarray, own: np.ndarray
+    ) -> tuple:
+        """Sequence-parallel prefill of one fresh prompt: the whole span in
+        one ``prefill_forward_sp`` call, each sp rank running its sequence
+        block, ring attention between them. The blocks' K/V are all-gathered
+        over sp and written into this rank's pool (replicated over sp,
+        sharded over tp). Returns ``(req, final logit row)``."""
+        prompt = req.prompt
+        n = len(prompt)
+        sp = self.device_mesh.shape["sp"]
+        s_b = _pow2_at_least(n, floor=max(16, sp))
+        s_b = -(-s_b // sp) * sp  # the sequence must divide by sp
+        self._wave_padded = s_b  # launch shape (step accounting)
+        tokens = np.zeros((1, s_b), dtype=np.int64)
+        tokens[0, :n] = prompt
+        positions = np.arange(s_b, dtype=np.int64)[None]
+        logits, new_k, new_v = self.model.prefill_forward_sp(
+            self._dev(tokens), self._dev(positions), self.device_mesh,
+            logits_at=torch.tensor([n - 1], device=self.device),
+        )
+        new_k = all_gather(new_k, self.device_mesh, "sp", dim=2)
+        new_v = all_gather(new_v, self.device_mesh, "sp", dim=2)
+        self.pool.write(own[:n], new_k[:, 0, :n], new_v[:, 0, :n])
+        req.output_tokens = []
+        req.kv_len = n
+        req.token_slots = own[:n].copy()
+        req.own_slots = own
+        self._install_prefilled(req, row, reuse)
+        return (req, logits[0, 0])
 
     def _prefill_group(self, group: list[tuple]) -> list[tuple]:
         """Batched chunked-paged prefill: all rows advance through

@@ -18,7 +18,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from radixmesh_tpu_torch.models.llama import ModelConfig, layer_params, param_shapes, w8_scale_shapes
+from radixmesh_tpu_torch.models.llama import (
+    ModelConfig,
+    _scale_axes,
+    layer_params,
+    local_shapes,
+    param_logical_axes,
+    param_shapes,
+    w8_scale_shapes,
+)
+from radixmesh_tpu_torch.parallel.sharding import shard_leaf
 from radixmesh_tpu_torch.utils.device import resolve_device
 
 __all__ = ["params_from_jax", "convert_hf_state_dict", "hf_state_dict"]
@@ -35,30 +44,36 @@ def _leaf(x, shape, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=torch.int8 if np_dtype == np.int8 else dtype)
 
 
-def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
+def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None, mesh=None) -> dict:
     """``np_tree``: the JAX ``init_params``/checkpoint tree with numpy (or
     array-like) leaves, Qwen2's ``bq``/``bk``/``bv`` included. Returns the
     port's param dict in ``cfg.dtype`` on ``device`` (CUDA unless ``"cpu"``
     is asked for). A W8A16 tree (the JAX ``quantize_params`` or
     ``random_w8_params``, or the port's ``ops.wquant.random_w8_params``)
     keeps its int8 leaves int8 and carries their ``<name>_s`` scales across
-    in float32."""
+    in float32. ``mesh`` (a ``ProcessMesh``) keeps this rank's shard of each
+    leaf, sliced on the host before the move (``param_logical_axes``)."""
     device = resolve_device(device)
-    shapes = param_shapes(cfg)
-    scale_shapes = w8_scale_shapes(cfg)
+    shard_mesh = mesh if mesh is not None and mesh.size("tp") > 1 else None
+    axes = param_logical_axes(cfg)
+    shapes = local_shapes(param_shapes(cfg), axes, shard_mesh)
+    scale_axes = _scale_axes(cfg)
+    scale_shapes = local_shapes(w8_scale_shapes(cfg), scale_axes, shard_mesh)
 
-    def convert(tree, shapes, names):
+    def convert(tree, shapes, axes, names):
         out = {}
         for name in names:
-            out[name] = _leaf(tree[name], shapes[name], cfg.dtype, device)
+            x = shard_leaf(np.asarray(tree[name]), axes[name], shard_mesh)
+            out[name] = _leaf(x, shapes[name], cfg.dtype, device)
             if out[name].dtype == torch.int8:
                 if name not in scale_shapes:
                     raise ValueError(f"leaf {name} is int8, but only {sorted(scale_shapes)} quantize")
-                out[name + "_s"] = _leaf(tree[name + "_s"], scale_shapes[name], torch.float32, device)
+                sx = shard_leaf(np.asarray(tree[name + "_s"]), scale_axes[name], shard_mesh)
+                out[name + "_s"] = _leaf(sx, scale_shapes[name], torch.float32, device)
         return out
 
-    out = convert(np_tree, shapes, [name for name in shapes if name != "layers"])
-    out["layers"] = convert(np_tree["layers"], shapes["layers"], layer_params(cfg))
+    out = convert(np_tree, shapes, axes, [name for name in shapes if name != "layers"])
+    out["layers"] = convert(np_tree["layers"], shapes["layers"], axes["layers"], layer_params(cfg))
     return out
 
 

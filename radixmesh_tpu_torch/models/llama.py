@@ -28,6 +28,19 @@
   device and feeding each token to the next step, with no host sync;
   ``decode_multi_compact`` runs it over a sub-pool gathered from the live
   pages and scatters the pages back once.
+- Tensor parallelism (``mesh=`` a ``parallel.sharding.ProcessMesh`` with
+  tp > 1; Megatron layout, every collective written out): the model holds
+  this rank's shards (``param_logical_axes``), Hq/tp query heads and Hkv/tp
+  kv heads. ``_proj`` is column-parallel for ``wq``/``wk``/``wv``/``w_gate``/
+  ``w_up``; ``wo`` and ``w_down`` are row-parallel, their partial products
+  taken in float32 and summed by one all-reduce each per block
+  (``_proj_reduced``); ``_embed`` looks up this rank's vocab rows, zeroes
+  the others and all-reduces; ``_logits`` all-gathers the vocab-sharded
+  float32 logits, so every rank samples from the same logits. The attention
+  calls are the single-device ones on the local heads (no collective). With
+  no tp axis every path is the single-device one.
+- ``prefill_forward_sp``: sequence-parallel prefill over the mesh's sp axis,
+  ring attention between the ranks' sequence blocks.
 - The pool is updated in place where JAX donates it: ``decode_step``'s
   kernel writes each layer's row, and ``prefill_chunk_paged`` writes the
   chunk's K/V into layer ``l`` right after layer ``l``'s attention (the
@@ -58,11 +71,14 @@ from radixmesh_tpu_torch.ops.norm import rms_norm
 from radixmesh_tpu_torch.ops.quant import quantize_for_store
 from radixmesh_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from radixmesh_tpu_torch.ops.sampling import any_stochastic, sample_stochastic, sampling_tensors
-from radixmesh_tpu_torch.ops.wquant import LAYER_QUANT_WEIGHTS
+from radixmesh_tpu_torch.ops.wquant import LAYER_QUANT_WEIGHTS, quantize_weight
+from radixmesh_tpu_torch.parallel.collectives import all_gather, all_reduce
+from radixmesh_tpu_torch.parallel.ring_attention import ring_attention
+from radixmesh_tpu_torch.parallel.sharding import logical_to_spec, shard_leaf
 from radixmesh_tpu_torch.utils.device import resolve_device
 
 __all__ = ["ModelConfig", "Llama", "init_params", "LAYER_PARAMS", "BIAS_PARAMS", "layer_params",
-           "w8_scale_shapes"]
+           "w8_scale_shapes", "param_logical_axes", "local_shapes"]
 
 LAYER_PARAMS = (
     "attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
@@ -197,46 +213,148 @@ def w8_scale_shapes(cfg: ModelConfig) -> dict:
     return out
 
 
+def param_logical_axes(cfg: ModelConfig, params: dict | None = None) -> dict:
+    """Logical axis names per parameter, mapped to mesh axes by
+    ``parallel/sharding.py`` (tp shards "q_heads"/"kv_heads"/"ffn"/"vocab",
+    everything else replicates), the JAX package's. Pass ``params`` to also
+    cover the ``<name>_s`` scale leaves of W8A16 weights: each scale shards
+    like its weight's output (last) axis, the embedding's and the LM head's
+    along the vocabulary."""
+    axes = {
+        "embed": ("vocab", "embed"),
+        "final_norm": ("embed",),
+        "layers": {
+            "attn_norm": ("layer", "embed"),
+            "mlp_norm": ("layer", "embed"),
+            "wq": ("layer", "embed", "q_heads"),
+            "wk": ("layer", "embed", "kv_heads"),
+            "wv": ("layer", "embed", "kv_heads"),
+            "wo": ("layer", "q_heads", "embed"),
+            "w_gate": ("layer", "embed", "ffn"),
+            "w_up": ("layer", "embed", "ffn"),
+            "w_down": ("layer", "ffn", "embed"),
+        },
+    }
+    if cfg.qkv_bias:
+        axes["layers"]["bq"] = ("layer", "q_heads")
+        axes["layers"]["bk"] = ("layer", "kv_heads")
+        axes["layers"]["bv"] = ("layer", "kv_heads")
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    if params is not None:
+        for name in list(axes["layers"]):
+            if name + "_s" in params.get("layers", {}):
+                axes["layers"][name + "_s"] = ("layer", axes["layers"][name][-1])
+        if "embed_s" in params:
+            axes["embed_s"] = ("vocab",)
+        if "lm_head_s" in params:
+            axes["lm_head_s"] = ("vocab",)
+    return axes
+
+
+def _scale_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of every W8A16 scale ``w8_scale_shapes`` names."""
+    la = param_logical_axes(cfg)["layers"]
+    out = {name: ("layer", la[name][-1]) for name in LAYER_QUANT_WEIGHTS}
+    out["embed"] = ("vocab",)
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ("vocab",)
+    return out
+
+
+def local_shapes(shapes: dict, axes: dict, mesh) -> dict:
+    """``shapes`` with every dimension that a mesh axis shards divided by
+    that axis's size: the shapes of one rank's shards. A dimension that does
+    not divide raises, naming it."""
+    if isinstance(shapes, dict):
+        return {k: local_shapes(v, axes[k], mesh) for k, v in shapes.items()}
+    if mesh is None:
+        return tuple(shapes)
+    out = []
+    for n, mesh_axis, name in zip(shapes, logical_to_spec(axes), axes):
+        size = 1 if mesh_axis is None else mesh.size(mesh_axis)
+        if n % size:
+            raise ValueError(f"logical axis {name!r} of size {n} does not divide {mesh_axis}={size}")
+        out.append(n // size)
+    return tuple(out)
+
+
 def init_params(
-    cfg: ModelConfig, seed: int = 0, device: torch.device | str | None = None
+    cfg: ModelConfig, seed: int = 0, device: torch.device | str | None = None, *, mesh=None,
+    weight_quant: str | None = None,
 ) -> dict:
     """Random weights from a seeded ``torch.Generator``: the JAX package's
     ``init_params`` scheme (normal scaled by 1/sqrt(fan_in), norms at one)
     with other random numbers. Stacked tensors are drawn one layer at a
     time, so the float32 scratch stays one layer's worth. QKV biases
     (``qkv_bias``) start at zero, as in the JAX package. ``device``: CUDA
-    unless ``"cpu"`` is asked for (``resolve_device``)."""
-    device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    unless ``"cpu"`` is asked for (``resolve_device``).
 
-    def dense(shape, fan_in):
-        out = torch.empty(shape, dtype=cfg.dtype, device=device)
-        for m in (out,) if len(shape) == 2 else out:  # one layer at a time
-            m.copy_(torch.randn(m.shape, generator=gen, device=device) / math.sqrt(fan_in))
+    ``mesh`` (a ``ProcessMesh``) keeps only this rank's shard of each layer
+    as it is drawn (``param_logical_axes``): every rank draws the same
+    numbers and holds its part, so ranks and a single-device model share
+    weights without any rank holding the whole tree. ``weight_quant="int8"``
+    quantizes each drawn layer whole, before it is sliced (W8A16, equal to
+    ``ops.wquant.quantize_params`` of the unsharded tree, then sharded)."""
+    device = resolve_device(device)
+    if weight_quant not in (None, "int8"):
+        raise ValueError(f"unknown weight quantization {weight_quant!r}")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    axes = param_logical_axes(cfg)
+    scale_axes = _scale_axes(cfg)
+    quant_out: dict = {}
+
+    def dense(name, shape, fan_in, leaf_axes, qaxis):
+        """Draw ``shape`` one layer at a time; keep (and maybe quantize)
+        this rank's shard. ``qaxis``: the contraction axis of one layer."""
+        stacked = len(shape) == 3
+        slab_axes = leaf_axes[1:] if stacked else leaf_axes
+        out = scales = None
+        for i in range(shape[0] if stacked else 1):
+            m = torch.randn(shape[1:] if stacked else shape, generator=gen, device=device)
+            m = (m / math.sqrt(fan_in)).to(cfg.dtype)
+            if weight_quant is not None:
+                m, sc = quantize_weight(m, qaxis)
+                sc = shard_leaf(sc, scale_axes[name][1:] if stacked else scale_axes[name], mesh)
+                if scales is None:
+                    scales = torch.empty(((shape[0],) if stacked else ()) + tuple(sc.shape),
+                                         dtype=torch.float32, device=device)
+                (scales[i] if stacked else scales).copy_(sc)
+            m = shard_leaf(m, slab_axes, mesh)
+            if out is None:
+                out = torch.empty(((shape[0],) if stacked else ()) + tuple(m.shape),
+                                  dtype=m.dtype, device=device)
+            (out[i] if stacked else out).copy_(m)
+            del m
+        if scales is not None:
+            quant_out[name + "_s"] = scales
         return out
 
+    def const(shape, leaf_axes, value):
+        full = torch.full(shape, value, dtype=cfg.dtype, device=device)
+        return shard_leaf(full, leaf_axes, mesh)
+
     shapes = param_shapes(cfg)
-    ls = shapes["layers"]
+    ls, la = shapes["layers"], axes["layers"]
     params = {
-        "embed": dense(shapes["embed"], cfg.hidden),
-        "final_norm": torch.ones(shapes["final_norm"], dtype=cfg.dtype, device=device),
+        "embed": dense("embed", shapes["embed"], cfg.hidden, axes["embed"], 1),
+        "final_norm": const(shapes["final_norm"], axes["final_norm"], 1.0),
         "layers": {
-            "attn_norm": torch.ones(ls["attn_norm"], dtype=cfg.dtype, device=device),
-            "mlp_norm": torch.ones(ls["mlp_norm"], dtype=cfg.dtype, device=device),
-            "wq": dense(ls["wq"], cfg.hidden),
-            "wk": dense(ls["wk"], cfg.hidden),
-            "wv": dense(ls["wv"], cfg.hidden),
-            "wo": dense(ls["wo"], ls["wo"][1]),
-            "w_gate": dense(ls["w_gate"], cfg.hidden),
-            "w_up": dense(ls["w_up"], cfg.hidden),
-            "w_down": dense(ls["w_down"], cfg.intermediate),
+            "attn_norm": const(ls["attn_norm"], la["attn_norm"], 1.0),
+            "mlp_norm": const(ls["mlp_norm"], la["mlp_norm"], 1.0),
         },
     }
+    for name, fan_in in (("wq", cfg.hidden), ("wk", cfg.hidden), ("wv", cfg.hidden),
+                         ("wo", ls["wo"][1]), ("w_gate", cfg.hidden), ("w_up", cfg.hidden),
+                         ("w_down", cfg.intermediate)):
+        params["layers"][name] = dense(name, ls[name], fan_in, la[name], 0)
     if cfg.qkv_bias:
         for name in BIAS_PARAMS:
-            params["layers"][name] = torch.zeros(ls[name], dtype=cfg.dtype, device=device)
+            params["layers"][name] = const(ls[name], la[name], 0.0)
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense(shapes["lm_head"], cfg.hidden)
+        params["lm_head"] = dense("lm_head", shapes["lm_head"], cfg.hidden, axes["lm_head"], 0)
+    for name, sc in quant_out.items():
+        (params["layers"] if name[:-2] in ls else params)[name] = sc
     return params
 
 
@@ -262,11 +380,28 @@ class Llama(nn.Module):
     ``cfg.dtype``. Each product then dequantizes its weight to the
     activations' dtype, as the JAX ``_wmm`` does (module docstring)."""
 
-    def __init__(self, cfg: ModelConfig, params: dict):
+    def __init__(self, cfg: ModelConfig, params: dict, mesh=None):
+        """``mesh``: a ``ProcessMesh``; with tp > 1 ``params`` holds this
+        rank's shards (``parallel.sharding.shard_params`` or
+        ``init_params(mesh=...)``), checked against the local shapes. The
+        sp axis is read by ``prefill_forward_sp``."""
         super().__init__()
         self.cfg = cfg
-        shapes = param_shapes(cfg)
-        scale_shapes = w8_scale_shapes(cfg)
+        self.mesh = mesh
+        tp = 1 if mesh is None else mesh.size("tp")
+        self._tp = tp > 1
+        for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                        ("vocab_size", cfg.vocab_size), ("intermediate", cfg.intermediate)):
+            if n % tp:
+                raise ValueError(f"{what}={n} must divide tp={tp}")
+        # This rank's head counts and vocabulary rows.
+        self.n_heads = cfg.n_heads // tp
+        self.n_kv_heads = cfg.n_kv_heads // tp
+        self.vocab_local = cfg.vocab_size // tp
+        self.vocab_lo = (0 if mesh is None else mesh.index("tp")) * self.vocab_local
+        shard_mesh = mesh if self._tp else None
+        shapes = local_shapes(param_shapes(cfg), param_logical_axes(cfg), shard_mesh)
+        scale_shapes = local_shapes(w8_scale_shapes(cfg), _scale_axes(cfg), shard_mesh)
 
         def frozen(tree, name, shapes, scales):
             """The leaf as a frozen parameter; an int8 leaf's checked
@@ -332,19 +467,36 @@ class Llama(nn.Module):
         v = self._proj(x, "wv", l)
         if cfg.qkv_bias:
             q, k, v = q + lp["bq"][l], k + lp["bk"][l], v + lp["bv"][l]
-        return (q.view(B, S, cfg.n_heads, cfg.head_dim),
-                k.view(B, S, cfg.n_kv_heads, cfg.head_dim),
-                v.view(B, S, cfg.n_kv_heads, cfg.head_dim))
+        return (q.view(B, S, self.n_heads, cfg.head_dim),
+                k.view(B, S, self.n_kv_heads, cfg.head_dim),
+                v.view(B, S, self.n_kv_heads, cfg.head_dim))
 
     def _attn_out_mlp(self, l: int, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
         """Residual ``wo`` projection of ``attn`` [B, S, Hq, D], then the
-        SwiGLU MLP block."""
+        SwiGLU MLP block (under tp: ``wo`` and ``w_down`` row-parallel, one
+        all-reduce each)."""
         B, S = x.shape[:2]
-        x = x + self._proj(attn.reshape(B, S, -1), "wo", l)
+        x = x + self._proj_reduced(attn.reshape(B, S, -1), "wo", l)
         h = rms_norm(x, self.layers["mlp_norm"][l], self.cfg.rms_eps)
         gate = F.silu(self._proj(h, "w_gate", l))
         up = self._proj(h, "w_up", l)
-        return x + self._proj(gate * up, "w_down", l)
+        return x + self._proj_reduced(gate * up, "w_down", l)
+
+    def _proj_reduced(self, x: torch.Tensor, name: str, l: int) -> torch.Tensor:
+        """A row-parallel projection: without tp, ``_proj``. Under tp each
+        rank's partial product (its slice of the contraction) is taken with a
+        float32 result (``_head_product``; a W8A16 weight is widened to
+        ``x.dtype`` and its scale applied in float32), the partials are
+        summed by one all-reduce over tp, and the sum is cast to
+        ``x.dtype``."""
+        if not self._tp:
+            return self._proj(x, name, l)
+        w = self.layers[name][l]
+        if w.dtype != torch.int8:
+            y = _head_product(x, w)
+        else:
+            y = _head_product(x, w.to(x.dtype)) * self.layers[name + "_s"][l]
+        return all_reduce(y, self.mesh, "tp").to(x.dtype)
 
     def _proj(self, x: torch.Tensor, name: str, l: int) -> torch.Tensor:
         """``x @ layers[name][l]``. An int8 weight (W8A16) is widened to
@@ -360,9 +512,19 @@ class Llama(nn.Module):
         """Embedding gather; an int8 table's rows are multiplied by their
         scales in float32, then cast to the model dtype (the JAX
         ``_embed_lookup``)."""
+        if self._tp:
+            # Vocab-parallel: this rank's rows, zeros elsewhere, summed.
+            local = tokens - self.vocab_lo
+            inside = (local >= 0) & (local < self.vocab_local)
+            rows = self._embed_rows(torch.where(inside, local, 0))
+            rows = torch.where(inside[..., None], rows, 0)
+            return all_reduce(rows, self.mesh, "tp")
+        return self._embed_rows(tokens)
+
+    def _embed_rows(self, ids: torch.Tensor) -> torch.Tensor:
         if self.embed_s is None:
-            return F.embedding(tokens, self.embed)
-        rows = self.embed[tokens].float() * self.embed_s[tokens][..., None]
+            return F.embedding(ids, self.embed)
+        rows = self.embed[ids].float() * self.embed_s[ids][..., None]
         return rows.to(self.cfg.dtype)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -375,9 +537,11 @@ class Llama(nn.Module):
             w, s = self.embed.t(), self.embed_s
         else:
             w, s = self.lm_head, self.lm_head_s
-        if s is None:
-            return _head_product(x, w)
-        return _head_product(x, w.to(x.dtype)) * s
+        out = _head_product(x, w) if s is None else _head_product(x, w.to(x.dtype)) * s
+        if self._tp:
+            # Vocab-parallel head: every rank gets the whole float32 row.
+            out = all_gather(out, self.mesh, "tp", dim=-1)
+        return out
 
     def _rope(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         return apply_rope(x, positions, self.inv_freq)
@@ -435,7 +599,7 @@ class Llama(nn.Module):
         K/V (and for int8 pools its scales) lands in the pool at
         ``slots``."""
         cfg = self.cfg
-        L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        L, Hkv, D = cfg.n_layers, self.n_kv_heads, cfg.head_dim
         num_slots = kv_pool.shape[3]
         P = num_slots // page_size
         kv_pages = kv_pool.view(2, L, Hkv, P, page_size, D)
@@ -484,7 +648,7 @@ class Llama(nn.Module):
         pool and attends over the row's pages. Returns ``logits [B, V]``
         (f32)."""
         cfg = self.cfg
-        L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        L, Hkv, D = cfg.n_layers, self.n_kv_heads, cfg.head_dim
         num_slots = kv_pool.shape[3]
         P = num_slots // page_size
         kv_pages = kv_pool.view(2, L, Hkv, P, page_size, D)
@@ -497,9 +661,9 @@ class Llama(nn.Module):
             q, k = self._rope(q, positions), self._rope(k, positions)
             # The raw row in the model dtype: the kernel stores it (int8
             # pools: quantizes it first).
+            qkv = (q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous())
             attn = paged_decode_attention(
-                q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
-                kv_pages, slots, page_table, lengths, l, scale_pages,
+                *qkv, kv_pages, slots, page_table, lengths, l, scale_pages,
             )
             x = self._attn_out_mlp(l, x, attn[:, None])
         return self._logits(x)[:, 0]
@@ -575,7 +739,7 @@ class Llama(nn.Module):
         entirely, to compact indices. Returns the sampled tokens
         ``[k, B]``."""
         cfg = self.cfg
-        L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        L, Hkv, D = cfg.n_layers, self.n_kv_heads, cfg.head_dim
         P = kv_pool.shape[3] // page_size
         n_c = compact_pages.shape[0]
         idx = compact_pages.long()
@@ -593,3 +757,51 @@ class Llama(nn.Module):
         if kv_scale is not None:
             scale_pages[:, :, :, idx] = sub_scale.view(2, L, Hkv, n_c, page_size)
         return sampled
+
+    @torch.inference_mode()
+    def prefill_forward_sp(
+        self,
+        tokens: torch.Tensor,  # [B, S] the whole prompt; S divisible by the sp axis size
+        positions: torch.Tensor,  # [B, S]
+        mesh=None,
+        axis: str = "sp",
+        logits_at: torch.Tensor | None = None,  # [B] one position per row, or None
+    ):
+        """Sequence-parallel prefill (the JAX ``prefill_forward_sp``): rank
+        ``i`` of the ``axis`` ranks runs sequence block ``i`` through every
+        layer, attention by ring attention between the blocks; everything
+        outside attention is token-local. ``mesh`` defaults to the model's
+        (tp composes: each rank holds its heads of its block).
+
+        Returns ``(logits, new_k [L, B, S/n, Hkv, D], new_v)``, K/V this
+        rank's sequence block (the caller gathers them into the pool).
+        Logits are this block's ``[B, S/n, V]`` — unless ``logits_at`` gives
+        one position per row: then only those rows reach the LM head (the
+        row's owner contributes it through one all-reduce over ``axis``) and
+        every rank returns the same ``[B, 1, V]``, so a long prompt never
+        materializes S x vocab."""
+        cfg = self.cfg
+        mesh = self.mesh if mesh is None else mesh
+        n, i = mesh.size(axis), mesh.index(axis)
+        B, S = tokens.shape
+        if S % n:
+            raise ValueError(f"sequence length {S} does not divide {axis}={n}")
+        c = S // n
+        tok, pos = tokens[:, i * c:(i + 1) * c], positions[:, i * c:(i + 1) * c]
+        x = self._embed(tok)
+        new_k, new_v = [], []
+        for l in range(cfg.n_layers):
+            h = rms_norm(x, self.layers["attn_norm"][l], cfg.rms_eps)
+            q, k, v = self._qkv(l, h)
+            q, k = self._rope(q, pos), self._rope(k, pos)
+            attn = ring_attention(q, k, v, mesh, axis)
+            x = self._attn_out_mlp(l, x, attn)
+            new_k.append(k)
+            new_v.append(v)
+        if logits_at is not None:
+            local = logits_at.long() - i * c
+            mine = (local >= 0) & (local < c)
+            rows = x[torch.arange(B, device=x.device), local.clamp(0, c - 1)]
+            rows = all_reduce(torch.where(mine[:, None], rows, 0), mesh, axis)
+            x = rows[:, None]
+        return self._logits(x), torch.stack(new_k), torch.stack(new_v)

@@ -18,6 +18,13 @@ references, and the dispatchers the model calls (the JAX package's
   argument selects the plain version for a CUDA tensor.
 - Every paged entry takes an int8 pool with ``kv_scales [2, L, Hkv, P,
   page]`` float32 (``ops/quant.py``).
+- ``paged_attention_pool_kernel_sharded``,
+  ``paged_chunk_attention_kernel_sharded`` and ``paged_decode_fused_sharded``
+  are the tensor-parallel entries, the unsharded kernel wrappers under the
+  JAX package's names: each rank passes its local shard (Hq/tp query heads,
+  a pool of Hkv/tp heads). Heads are independent in attention, so there is
+  no collective here; the ``wo`` projection's all-reduce follows in the
+  model, and the model calls the dispatchers above on its shards.
 - ``select_paged`` is the engine's per-wave paged-vs-dense crossover for
   decode (``--paged-min-batch``), recorded for ``last_dispatch``. Its dense
   leg is the compact working set (``Llama.decode_multi_compact``), which on
@@ -53,8 +60,11 @@ __all__ = [
     "paged_attention",
     "paged_attention_pool",
     "paged_attention_pool_bucketed",
+    "paged_attention_pool_kernel_sharded",
     "paged_chunk_attention",
+    "paged_chunk_attention_kernel_sharded",
     "paged_decode_attention",
+    "paged_decode_fused_sharded",
     "select_paged",
 ]
 
@@ -272,6 +282,16 @@ def paged_decode_attention(
     return paged_decode_fused_kernel(
         q, k_new, v_new, kv_pages, slots, page_table, lengths, layer, kv_scales
     )
+
+
+# The tensor-parallel entries (the JAX package's ``*_sharded`` wrappers).
+# Each rank passes its local shard (Hq/tp query heads, a pool of Hkv/tp
+# heads) and launches the same kernel on it: heads are independent in
+# attention, so no collective is needed, and the kernels check the GQA
+# group at the head counts they are given.
+paged_attention_pool_kernel_sharded = paged_attention_pool_kernel
+paged_chunk_attention_kernel_sharded = paged_chunk_attention_kernel
+paged_decode_fused_sharded = paged_decode_fused_kernel
 
 
 def batch_bucket(n: int, floor: int = 1) -> int:

@@ -51,7 +51,20 @@ def _post(port, body):
 @pytest.fixture(scope="module")
 def fleet(tmp_path_factory):
     """A JAX and a port serving frontend on the same weights, each having
-    served the same 4 requests; the port's with a black box."""
+    served the same 4 requests; the port's with a black box. Each package's
+    registry is a fresh one for the module: an earlier test file in the same
+    worker process leaves its engines' series (TTFT observations among them)
+    in the process-wide registry, which the frontends' histories would sample
+    and the fleet's merged TTFT count would include."""
+    old_regs = (jmetrics.set_registry(jmetrics.Registry()), tmetrics.set_registry(tmetrics.Registry()))
+    try:
+        yield from _fleet(tmp_path_factory)
+    finally:
+        jmetrics.set_registry(old_regs[0])
+        tmetrics.set_registry(old_regs[1])
+
+
+def _fleet(tmp_path_factory):
     jcfg = jl.ModelConfig.tiny().replace(dtype=jnp.float32)
     jparams = jl.init_params(jcfg, jax.random.PRNGKey(9))
     tcfg = ModelConfig.tiny().replace(dtype=torch.float32)

@@ -68,7 +68,42 @@ def test_port_imports_no_jax_and_no_jax_package():
             "radixmesh_tpu_torch.comm.faults", "radixmesh_tpu_torch.comm.tcp_native",
             "radixmesh_tpu_torch.server.recovery", "radixmesh_tpu_torch.router.front_door",
             "radixmesh_tpu_torch.cache.repair_plane", "radixmesh_tpu_torch.obs.aggregator",
-            "radixmesh_tpu_torch.obs.doctor", "radixmesh_tpu_torch.doctor"} <= walked, r.stdout
+            "radixmesh_tpu_torch.obs.doctor", "radixmesh_tpu_torch.doctor",
+            "radixmesh_tpu_torch.parallel.sharding", "radixmesh_tpu_torch.parallel.multihost",
+            "radixmesh_tpu_torch.parallel.collectives",
+            "radixmesh_tpu_torch.parallel.ring_attention",
+            "radixmesh_tpu_torch.parallel.ulysses"} <= walked, r.stdout
+
+
+_PARALLEL_PROBE = """
+import sys
+import radixmesh_tpu_torch.parallel, radixmesh_tpu_torch.models.llama
+import radixmesh_tpu_torch.ops.attention
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "radixmesh_tpu" or m.startswith("radixmesh_tpu.") or m == "ml_dtypes")
+assert not bad, bad
+"""
+
+
+def test_parallel_package_stands_alone():
+    """``radixmesh_tpu_torch/parallel/`` (with the model's tp seams and the
+    sharded attention wrappers) imports no ``jax``, no JAX package module and
+    no ``ml_dtypes``, in a process of its own and in its source text."""
+    import ast
+
+    r = subprocess.run([sys.executable, "-c", _PARALLEL_PROBE], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    files = sorted((ROOT / "radixmesh_tpu_torch" / "parallel").glob("*.py"))
+    assert {f.stem for f in files} >= {"__init__", "sharding", "multihost", "collectives",
+                                       "ring_attention", "ulysses"}
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            for n in names:
+                top = n.split(".")[0]
+                assert top not in ("jax", "jaxlib", "radixmesh_tpu", "ml_dtypes"), (f.name, n)
 
 
 def _code_of(path: pathlib.Path) -> str:
