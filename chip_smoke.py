@@ -285,8 +285,22 @@ Phases (any failure raises and exits non-zero):
    last-position logits and the pool's K/V at layers 0, 4 and 7 against
    the single-device chunked prefill (``ROW_RTOL``), TTFT beside TTFT. (d)
    The nccl backend at world size 1: ``init_multihost``, one all-reduce,
-   one greedy generate on the mesh equal to the engine's without it.
-   (b)–(d) start beside Qwen2-7B serving (phase 8), the checkpoint round
+   one greedy generate on the mesh equal to the engine's without it. (e)
+   pp = 2 in the same two ranks, each one pipeline stage (4 of the 8
+   layers, drawn from the same seed layer by layer) behind the unchanged
+   ``Engine``: a bf16 pool, an int8 pool, ``decode_steps_per_launch`` = 4
+   (``pp_decode_multi``) and speculative decode (verify through
+   ``pp_forward_chunk``), each leg (b)'s script; the ranks' tokens and stats
+   equal, B1 and B2 launched inside the stages, the bf16 and int8 legs'
+   logit rows held against the single device (``ROW_RTOL``), 4 layers in
+   float32 equal to the single device's greedy tokens; each leg's p2p
+   calls, seconds and bytes printed. (f) ``IciHandoff`` between the two
+   ranks over gloo: rank 0 a ``PrefillWorker`` with ``device_kv=True``,
+   rank 1 a ``DecodeWorker``; the moved block bit-equal to the source's
+   (bf16, and int8 with its scales), the tokens equal to a collocated
+   engine's, the bytes and rate (gloo's host bounce) printed. (a) also
+   times B1 and B2 at a pp stage's microbatch (4 of phase 2's 8 rows).
+   (b)–(f) start beside Qwen2-7B serving (phase 8), the checkpoint round
    trip and the whole-path checks; each rank's readings land in
    ``chip_out/par-*.json`` and ``.log``.
 Checkpoints and profiles are written under ``chip_out/`` and removed.
@@ -4726,12 +4740,16 @@ PAR = dict(model="llama3-8b", layers=8, slots=16384, prompts=(300, 280, 100, 150
 # Per-rank head counts of B1, B2 and B3 on phase 18's shapes: Llama-3-8B and
 # Qwen2-7B at tp = 2.
 PAR_HEADS = {"llama3-8b tp=2": (16, 4), "qwen2-7b tp=2": (14, 2)}
+# (e)'s legs: tag -> Engine arguments, each on a pp = 2 stage.
+PP_LEGS = {"pp bf16": {}, "pp int8": dict(kv_quant="int8"), "pp k=4": dict(decode_steps_per_launch=4),
+           "pp spec": dict(spec_decode_tokens=4)}
 
 
 def sharded_kernel_phase(dev) -> dict:
     """(a) B1, B2 (both bodies) and B3 at the per-rank head counts of a tp = 2
-    rank, each against its plain version with phase 2's limits (the row
-    check included), timed as phase 2 times them."""
+    rank, and B1 and B2 over a pp = 2 stage's microbatch, each against its
+    plain version with phase 2's limits (the row check included), timed as
+    phase 2 times them."""
     results: dict[str, list] = {}
     run = _runner(results, "kernel tp")
     f32, bf16 = torch.float32, torch.bfloat16
@@ -4748,6 +4766,11 @@ def sharded_kernel_phase(dev) -> dict:
             bf16, dev, False, 56, quant=True, heads=heads)
         run("paged_chunk_attention[f32]", chunk_case, f"chunk B=8 ragged {tag}", CHUNK_PRIOR, CHUNK_FILL, f32, dev,
             True, 57, heads=heads)
+    # A pp = 2 stage runs the kernels at every head of its layers over one
+    # microbatch: half the rows (the longer half of phase 2's).
+    run("paged_decode_fused", decode_case, "decode B=4 pp=2 microbatch", RAGGED[4:], bf16, dev, True, 58)
+    run("paged_chunk_attention", chunk_case, "chunk B=4 pp=2 microbatch", CHUNK_PRIOR[4:], CHUNK_FILL[4:], bf16,
+        dev, True, 59)
     return results
 
 
@@ -4767,7 +4790,10 @@ def _par_leg(engine, prompts, hit, dev, new_tokens) -> dict:
     engine.generate([prompts[2][:64]], SamplingParams(temperature=0.0, max_new_tokens=2))
     firsts, dec = [], {"walls": []}
     engine.on_first_logits = lambda req, row: firsts.append(row.float().cpu())
-    decode_step = engine.model.decode_step
+    # One decode step: the model's, or under pp the pipeline's (the engine's
+    # seam; a stage's model runs no whole step).
+    owner, attr = (engine, "_decode_step") if engine._pp else (engine.model, "decode_step")
+    decode_step = getattr(owner, attr)
 
     def timed_step(tokens, *a, **kw):
         _sync(dev)
@@ -4776,10 +4802,11 @@ def _par_leg(engine, prompts, hit, dev, new_tokens) -> dict:
         _sync(dev)
         dec["walls"].append(time.perf_counter() - t)
         if "logits" not in dec:
-            dec["tokens"], dec["logits"] = tokens.cpu(), out.float().cpu()
+            # A copy: under pp ``tokens`` is the engine's live host buffer.
+            dec["tokens"], dec["logits"] = torch.as_tensor(tokens).cpu().clone(), out.float().cpu()
         return out
 
-    engine.model.decode_step = timed_step
+    setattr(owner, attr, timed_step)
     try:
         _sync(dev)
         pa.reset_counters()
@@ -4793,7 +4820,7 @@ def _par_leg(engine, prompts, hit, dev, new_tokens) -> dict:
         counts, plain = pa.launch_counts(), pa.plain_calls()
         st = {k: v - c0[k] for k, v in _counts(engine).items()}
     finally:
-        del engine.model.decode_step  # back to the class's method
+        delattr(owner, attr)  # back to the class's method
     ttft = list(engine.stats.ttft_s[n0:])
     return {"tokens": out, "hit_tokens": out_hit, "hit_cached": engine.stats.cached_tokens - cached0,
             "ttft_s": ttft[:-1], "hit_ttft_s": ttft[-1], "group_wall_s": group_wall,
@@ -4802,10 +4829,12 @@ def _par_leg(engine, prompts, hit, dev, new_tokens) -> dict:
             "firsts": firsts, "dec0": (dec.get("tokens"), dec.get("logits"))}
 
 
-def _par_leg_checks(tag, leg, cfg, quant, dev) -> dict:
+def _par_leg_checks(tag, leg, cfg, quant, dev, pp=1) -> dict:
     """A leg's own checks on one rank; returns its JSON-ready summary. The
     launch checks hold on the card (a CPU rehearsal runs the plain
-    versions)."""
+    versions). A pp stage runs ``L/pp`` layers per microbatch: a decode
+    pass is ``pp`` microbatches (``max_batch`` divides), a chunk one or
+    ``pp`` (``Engine._pp_n_micro``)."""
     sfx = "[int8]" if quant else ""
     L, st = cfg.n_layers, leg["stats"]
     b1 = leg["counts"]["paged_decode_fused_kernel" + sfx]
@@ -4814,13 +4843,16 @@ def _par_leg_checks(tag, leg, cfg, quant, dev) -> dict:
     if dev.type == "cuda":
         check(b1 == L * st["decode_forwards"] > 0, f"tp {tag}: decode kernel launches {b1} != {L} x "
               f"{st['decode_forwards']} decode passes")
-        check(b2 == b2_want > 0, f"tp {tag}: chunk kernel launches {b2} != {b2_want}")
+        check(b2_want // pp <= b2 <= b2_want and b2 > 0,
+              f"tp {tag}: chunk kernel launches {b2}, not in [{b2_want // pp}, {b2_want}]")
         check(leg["plain_calls"] == 0, f"tp {tag}: {leg['plain_calls']} plain attention calls on the card")
     check(leg["hit_cached"] >= PAR["prompts"][0] // 16 * 16,
           f"tp {tag}: the prefix hit reused {leg['hit_cached']} tokens")
     if "schedules" in tag:
         fused = st["multi_step_launches"] + st["compact_launches"] + st["verify_launches"] + st["mixed_launches"]
         check(fused > 0, f"tp {tag}: no launch of a fast schedule ({st})")
+    check(tag != "pp k=4" or st["multi_step_launches"] > 0, f"{tag}: no pp_decode_multi launch ({st})")
+    check(tag != "pp spec" or leg["replay_verify_launches"] > 0, f"{tag}: no verify launch ({st})")
     for toks in leg["tokens"] + [leg["hit_tokens"]]:
         check(len(toks) == PAR["new_tokens"] and all(0 <= t < cfg.vocab_size for t in toks),
               f"tp {tag}: bad output {toks}")
@@ -5011,6 +5043,68 @@ def _par_sp_leg(engine, prompt, warm, dev, layers) -> dict:
             "prefill_chunks": engine.stats.prefill_chunks}
 
 
+def _bits_digest(t) -> str:
+    """sha256 of a tensor's bytes, on the host (bf16 read as its bit
+    patterns)."""
+    import hashlib
+
+    if t is None:
+        return ""
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()
+
+
+def _par_ici_leg(rank, mesh, full, prompt, dev) -> dict:
+    """(f) ``IciHandoff`` between rank 0 (a ``PrefillWorker``, ``device_kv``)
+    and rank 1 (a ``DecodeWorker``) over the mesh's dp axis, gloo, for a bf16
+    and an int8 pool on the whole model: each side's block digest (the
+    source's before the move, the destination's after it), the decode
+    tokens beside a collocated engine's (rank 1), and the p2p bytes and
+    seconds of the move."""
+    from radixmesh_tpu_torch.engine.disagg import DecodeWorker, IciHandoff, PrefillWorker
+    from radixmesh_tpu_torch.parallel import collective_stats, reset_collective_stats
+
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=PAR["new_tokens"])
+    kw = dict(num_slots=4096, page_size=16, max_batch=2, device=dev)
+    out = {}
+    for tag, quant in (("bf16", None), ("int8", "int8")):
+        chan = IciHandoff(mesh, "dp", src_rank=0, dst_rank=1, page_size=16, device=dev)
+        pkt = None
+        if rank == 0:
+            pkt = PrefillWorker(full.cfg, full, kv_quant=quant, **kw).prefill_handoff(prompt, greedy,
+                                                                                      device_kv=True)
+            check(pkt.kv.is_cuda or dev.type != "cuda", "ici: the packet's KV left the device")
+        _sync(dev)
+        reset_collective_stats()
+        t = time.perf_counter()
+        moved = chan.move(pkt)
+        _sync(dev)
+        wall = time.perf_counter() - t
+        p2p = collective_stats().get("p2p", {"calls": 0, "seconds": 0.0, "bytes": 0})
+        r = {"move_wall_s": wall, "p2p": p2p}
+        if rank == 0:
+            check(moved is None, "ici: the source got a packet back")
+            r.update(kv_digest=_bits_digest(pkt.kv), scale_digest=_bits_digest(pkt.kv_scale),
+                     kv_bytes=pkt.kv.numel() * pkt.kv.element_size())
+        else:
+            check(moved is not None and moved.kv.device == torch.device(dev), "ici: no packet on the destination")
+            r.update(kv_digest=_bits_digest(moved.kv), scale_digest=_bits_digest(moved.kv_scale),
+                     kv_bytes=moved.kv.numel() * moved.kv.element_size())
+            dw = DecodeWorker(Engine(full.cfg, full, kv_quant=quant, **kw))
+            req = dw.submit(moved)
+            dw.run_until_drained()
+            want = Engine(full.cfg, full, kv_quant=quant, **kw).generate([prompt], greedy)[0]
+            check(req.generated == want, f"ici {tag}: decode tokens {req.generated} != collocated {want}")
+            r.update(tokens=req.generated, collocated=want)
+            del dw
+        out[tag] = r
+        del pkt, moved
+        _release(dev)
+    return out
+
+
 def parallel_rank(rank: int, world: int, store: str, out: str) -> int:
     """One rank of phase 18 (b) and (c): every rank runs this same program,
     gloo between them (they share the card). Writes its readings to
@@ -5029,23 +5123,34 @@ def parallel_rank(rank: int, world: int, store: str, out: str) -> int:
     info = init_multihost(f"file://{store}", world, rank, backend="gloo", timeout_s=PAR["collective_timeout_s"])
     tp_mesh = make_mesh(MeshPlan(tp=world))
     sp_mesh = make_mesh(MeshPlan(sp=world))
+    pp_mesh = make_mesh(MeshPlan(pp=world))
+    dp_mesh = make_mesh(MeshPlan(dp=world))
     cfg = get_config(PAR["model"], n_layers=PAR["layers"])
     prompts, hit = _par_script(cfg, PAR["prompts"])
     res = {"rank": rank, "world": world, "backend": info.backend, "legs": {}, "collectives": {}}
     kw = dict(num_slots=PAR["slots"], page_size=16, max_batch=8, device=dev, device_mesh=tp_mesh)
     keep = {}  # what the references compare with
 
-    def leg(tag, model, **extra):
+    def leg(tag, model, mesh=tp_mesh, **extra):
         reset_collective_stats()
-        eng = Engine(model.cfg, model, **kw, **extra)
+        eng = Engine(model.cfg, model, **{**kw, "device_mesh": mesh}, **extra)
         r = _par_leg(eng, prompts, hit, dev, PAR["new_tokens"])
         res["collectives"][tag] = collective_stats()
         if tag == "bf16":
             res["pool_path"] = _par_pool_path(eng, hit, dev)
+        if "spec" in tag:
+            # A replay: served twice, a prompt of 16k + 9 tokens leaves its 7
+            # fed generated tokens in whole 16-token pages of the tree, so the
+            # second serve drafts them and verifies (through pp_forward_chunk
+            # under pp).
+            rp = prompts[2][: (len(prompts[2]) - 9) // 16 * 16 + 9]
+            greedy = SamplingParams(temperature=0.0, max_new_tokens=PAR["new_tokens"])
+            r["replay_tokens"] = [eng.generate([rp], greedy)[0] for _ in range(2)]
+            r["replay_verify_launches"] = eng.stats.verify_launches
         keep[tag] = r
-        res["legs"][tag] = _par_leg_checks(tag, r, model.cfg, extra.get("kv_quant"), dev)
+        res["legs"][tag] = _par_leg_checks(tag, r, model.cfg, extra.get("kv_quant"), dev, pp=mesh.size("pp"))
         st = r["stats"]
-        print(f"[tp rank{rank}] {tag}: decode step {r['decode_step_ms']:.2f} ms, TTFT "
+        print(f"[tp rank{rank}] {tag}: decode step {r['decode_step_ms'] or math.nan:.2f} ms, TTFT "
               f"{[round(x, 4) for x in r['ttft_s']]}, hit cached {r['hit_cached']}, launches B1 "
               f"{res['legs'][tag]['b1']} B2 {res['legs'][tag]['b2']}; multi-step "
               f"{st['multi_step_launches']}, verify {st['verify_launches']}, mixed {st['mixed_launches']}",
@@ -5084,6 +5189,26 @@ def parallel_rank(rank: int, world: int, store: str, out: str) -> int:
     res["f32_counts"] = pa.launch_counts()
     del eng, m32
     _release(dev)
+    # (e) pp = world: each rank one pipeline stage (L/pp layers of the same
+    # draw), behind the unchanged Engine.
+    t = time.monotonic()
+    with torch.inference_mode():
+        ppm = Llama(cfg, init_params(cfg, 0, dev, mesh=pp_mesh), mesh=pp_mesh)
+    res["init_pp_s"] = time.monotonic() - t
+    t = time.monotonic()
+    for tag, extra in PP_LEGS.items():
+        leg(tag, ppm, mesh=pp_mesh, **extra)
+    del ppm
+    _release(dev)
+    with torch.inference_mode():
+        m32 = Llama(cfg32, init_params(cfg32, 0, dev, mesh=pp_mesh), mesh=pp_mesh)
+    pa.reset_counters()
+    eng = Engine(cfg32, m32, **{**kw, "device_mesh": pp_mesh})
+    res["pp_f32_tokens"] = eng.generate(f32_prompts, greedy)
+    res["pp_f32_counts"] = pa.launch_counts()
+    res["pp_wall_s"] = time.monotonic() - t
+    del eng, m32
+    _release(dev)
     # (c) sp = 2: the whole model on each rank, ring attention between
     # them; then, on the same weights, the single-device references split
     # between the ranks: rank 0 the sp prompt's chunked prefill and the bf16
@@ -5104,6 +5229,7 @@ def parallel_rank(rank: int, world: int, store: str, out: str) -> int:
     del eng
     _release(dev)
     check(sp["prefill_chunks"] == 0, "sp leg: the prompt took the chunked path, not the sp one")
+    res["ici"] = _par_ici_leg(rank, dp_mesh, full, prompts[0], dev)
     res["sp"] = {"ttft_s": sp["ttft_s"], "tokens": sp["tokens"], "kv_abs_sum": float(sp["kv"].double().abs().sum())}
     refs = {}
     if rank == 0:
@@ -5129,6 +5255,7 @@ def parallel_rank(rank: int, world: int, store: str, out: str) -> int:
     del eng
     _release(dev)
     refs[tag] = _par_logit_checks(tag, keep[tag], single, hold=not PAR["witness"])
+    refs["pp " + tag] = _par_logit_checks("pp " + tag, keep["pp " + tag], single, hold=not PAR["witness"])
     if PAR["witness"]:
         refs[tag]["witness"] = _par_witness(full, keep[tag], single, ref_kw, prompts, hit, dev)
     else:
@@ -5145,6 +5272,7 @@ def parallel_rank(rank: int, world: int, store: str, out: str) -> int:
         refs["f32"] = {"single_tokens": want32, "first_token_row_err": max(
             _row_rel_err(a, b) for a, b in zip(f32_firsts, want_firsts, strict=True))}
         check(res["f32_tokens"] == want32, f"f32 tp tokens {res['f32_tokens']} != single-device {want32}")
+        check(res["pp_f32_tokens"] == want32, f"f32 pp tokens {res['pp_f32_tokens']} != single-device {want32}")
         del eng, m32
     if dev.type == "cuda":
         res["max_reserved_gib"] = torch.cuda.max_memory_reserved(dev) / 2**30
@@ -5271,7 +5399,14 @@ def parallel_phase_finish(handle) -> dict:
                   f"tp {tag}: rank {r['rank']}'s tokens differ from rank 0's")
             check(r["legs"][tag]["stats"] == r0["legs"][tag]["stats"], f"tp {tag}: ranks' stats differ")
         check(r["f32_tokens"] == r0["f32_tokens"], "f32 tp: ranks' tokens differ")
+        check(r["pp_f32_tokens"] == r0["pp_f32_tokens"], "f32 pp: ranks' tokens differ")
+        check(r["legs"]["pp spec"]["replay_tokens"] == r0["legs"]["pp spec"]["replay_tokens"],
+              "pp spec: ranks' replay tokens differ")
         check(r["sp"]["tokens"] == r0["sp"]["tokens"], "sp: ranks' tokens differ")
+    for tag in ("bf16", "int8"):
+        src, dst = ranks[0]["ici"][tag], ranks[1]["ici"][tag]
+        check(src["kv_digest"] == dst["kv_digest"] and src["scale_digest"] == dst["scale_digest"],
+              f"ici {tag}: the moved block differs from the source's")
         check(r["sp"]["kv_abs_sum"] == r0["sp"]["kv_abs_sum"], "sp: the ranks' pools hold different K/V")
     check(nccl["backend"] == "nccl" and nccl["world"] == 1, f"nccl process: {nccl}")
     refs = {**ranks[0]["refs"], **ranks[1]["refs"]}
@@ -5294,6 +5429,30 @@ def parallel_phase_finish(handle) -> dict:
               f"{[round(x, 4) for x in ref['single_ttft_s']]}; hit TTFT {leg['hit_ttft_s']:.4f} vs "
               f"{ref['single_hit_ttft_s']:.4f} s; first differing token per request (None: equal) "
               f"{ref['first_diff_vs_single']}", flush=True)
+    for tag in ("bf16", "int8"):
+        leg, ref = r0["legs"]["pp " + tag], refs["pp " + tag]
+        print(f"[parallel] pp=2 {tag} vs single device ({depth}, {PAR['layers'] // 2} layers a stage): first-token "
+              f"row err {ref['first_token_row_err']:.3e} (per row {[f'{e:.2e}' for e in ref['first_token_row_errs']]})"
+              f", first decode step row err {ref['decode0_row_err']:.3e} over {ref['decode0_rows']} of "
+              f"{ref['decode0_rows_all']} rows; decode step {leg['decode_step_ms']:.2f} ms vs "
+              f"{ref['single_decode_step_ms']:.2f} ms; TTFT {[round(x, 4) for x in leg['ttft_s']]} vs "
+              f"{[round(x, 4) for x in ref['single_ttft_s']]}; hit TTFT {leg['hit_ttft_s']:.4f} vs "
+              f"{ref['single_hit_ttft_s']:.4f} s; first differing token per request {ref['first_diff_vs_single']}",
+              flush=True)
+    for tag in PP_LEGS:
+        leg = r0["legs"][tag]
+        print(f"[parallel] {tag}: decode step {leg['decode_step_ms'] or math.nan:.2f} ms, group wall "
+              f"{leg['group_wall_s']:.3f} s, launches per rank B1 {[r['legs'][tag]['b1'] for r in ranks]} B2 "
+              f"{[r['legs'][tag]['b2'] for r in ranks]}, stats {leg['stats']}", flush=True)
+    print(f"[parallel] pp=2 weights per rank {r0['init_pp_s']:.1f}s; (e) wall {r0['pp_wall_s']:.1f}s; f32 "
+          f"{PAR['f32_layers']}-layer pp=2 tokens == single device: {r0['pp_f32_tokens']}", flush=True)
+    for tag in ("bf16", "int8"):
+        src, dst = ranks[0]["ici"][tag], ranks[1]["ici"][tag]
+        gbps = dst["kv_bytes"] / dst["move_wall_s"] / 1e9
+        print(f"[parallel] ici {tag}: rank 0 -> 1 over gloo (host bounce, not a device-to-device rate): "
+              f"{dst['kv_bytes'] / 2**20:.2f} MiB KV in {dst['move_wall_s'] * 1e3:.2f} ms ({gbps:.3f} GB/s; p2p "
+              f"{dst['p2p']['calls']} call(s) {dst['p2p']['seconds'] * 1e3:.2f} ms {dst['p2p']['bytes']} B); block "
+              f"bit-equal; decode tokens == collocated {dst['tokens']}", flush=True)
     print(f"[parallel] f32 {PAR['f32_layers']}-layer tp=2 tokens == single device: {r0['f32_tokens']}; "
           f"first-token row err (rank 1) {refs['f32']['first_token_row_err']:.3e}", flush=True)
     for tag in ("bf16", "int8"):
@@ -5545,18 +5704,19 @@ def main(argv=None) -> int:
         "paged_attention_pool[int8]": {"pool path int8": serving["int8"]["pool_path"]["launches"]},
     }
     # Phase 18: each rank's launches on its legs (a rank is a process of
-    # its own, its counts zeroed before each leg and read after it).
+    # its own, its counts zeroed before each leg and read after it); the tp
+    # legs' paths are named "tp2 ...", (e)'s pipeline stages' "pp ...".
     def par_paths(int8, key):
-        return {f"tp2 {tag} rank{r['rank']}": leg[key] for r in par["ranks"] for tag, leg in r["legs"].items()
-                if ("int8" in tag) == int8}
+        return {f"{tag if tag.startswith('pp') else 'tp2 ' + tag} rank{r['rank']}": leg[key]
+                for r in par["ranks"] for tag, leg in r["legs"].items() if ("int8" in tag) == int8}
 
     by_path["paged_decode_fused"].update(par_paths(False, "b1"))
     by_path["paged_decode_fused[int8]"].update(par_paths(True, "b1"))
     by_path["paged_chunk_attention"].update(par_paths(False, "b2"))
     by_path["paged_chunk_attention[int8]"].update(par_paths(True, "b2"))
     by_path["paged_chunk_attention[f32]"].update(
-        {f"tp2 f32 rank{r['rank']}": r["f32_counts"]["paged_chunk_attention_kernel[f32 body]"]
-         for r in par["ranks"]})
+        {f"{p} f32 rank{r['rank']}": r[k]["paged_chunk_attention_kernel[f32 body]"]
+         for r in par["ranks"] for p, k in (("tp2", "f32_counts"), ("pp", "pp_f32_counts"))})
     by_path["paged_attention_pool"].update(
         {f"tp2 pool path rank{r['rank']}": r["pool_path"]["launches"] for r in par["ranks"]})
     launches = {name: sum(paths.values()) for name, paths in by_path.items()}
@@ -5612,23 +5772,29 @@ def main(argv=None) -> int:
                                       {"serve text llama3.2-3b":
                                        serve_text["kernels"]["paged_chunk_attention_kernel"]}, ("G=3",)),
     }
-    # The kernels at a tp = 2 rank's head counts (phase 18 (a)): each
-    # entry's main row is its Llama-3-8B case, its launches phase 18's
-    # ranks' of that kernel; its other shapes are the Qwen2-7B and int8 cases.
+    # The kernels at a tp = 2 rank's head counts and at a pp = 2 stage's
+    # microbatch (phase 18 (a)): each entry's main row is its Llama-3-8B
+    # case, its launches phase 18's ranks' of that kernel on the tp or the
+    # pp legs; a tp entry's other shapes are the Qwen2-7B and int8 cases.
     tp_tag = next(iter(PAR_HEADS))
-    for name, kernel, case, dtype in (
-            ("paged_decode_fused tp=2", "paged_decode_fused", f"decode B=8 ragged {tp_tag}", "bfloat16"),
-            ("paged_chunk_attention tp=2", "paged_chunk_attention", f"chunk B=8 ragged {tp_tag}", "bfloat16"),
+    for name, kernel, case, dtype, paths in (
+            ("paged_decode_fused tp=2", "paged_decode_fused", f"decode B=8 ragged {tp_tag}", "bfloat16", "tp2 "),
+            ("paged_chunk_attention tp=2", "paged_chunk_attention", f"chunk B=8 ragged {tp_tag}", "bfloat16",
+             "tp2 "),
             ("paged_chunk_attention[f32] tp=2", "paged_chunk_attention[f32]", f"chunk B=8 ragged {tp_tag}",
-             "float32"),
-            ("paged_attention_pool tp=2", "paged_attention_pool", f"pool B=8 ragged {tp_tag}", "bfloat16")):
-        rows = [r for k in (kernel, kernel + "[int8]") for r in sharded.get(k, [])]
+             "float32", "tp2 "),
+            ("paged_attention_pool tp=2", "paged_attention_pool", f"pool B=8 ragged {tp_tag}", "bfloat16", "tp2 "),
+            ("paged_decode_fused pp=2", "paged_decode_fused", "decode B=4 pp=2 microbatch", "bfloat16", "pp "),
+            ("paged_chunk_attention pp=2", "paged_chunk_attention", "chunk B=4 pp=2 microbatch", "bfloat16",
+             "pp ")):
+        rows = [r for k in (kernel, kernel + "[int8]") for r in sharded.get(k, [])
+                if ("pp=2" in r["case"]) == (paths == "pp ")]
         main_row = [r for r in rows if r["case"] == case and r["dtype"] == dtype][0]
         meta[name] = (meta[kernel][0], meta[kernel][1], case, dtype)
         group_meta[name] = None
         kernels[name] = [main_row] + [r for r in rows if r is not main_row and "ms" in r]
         by_path[name] = {k: v for k2 in (kernel, kernel + "[int8]") for k, v in by_path.get(k2, {}).items()
-                         if k.startswith("tp2 ")}
+                         if k.startswith(paths)}
         launches[name] = sum(by_path[name].values())
     for name, spec in group_meta.items():
         if spec is None:

@@ -63,11 +63,18 @@ can only move an arena write earlier than a dependent arena read.
 
 **Hints.** :meth:`~KVTransferPlane.note_hint` records a prefix to restore
 ahead of its request (no request attached): idempotent (pending nodes are
-joined), never evicting, never splitting nodes, droppable everywhere. The
-router that sends them in the JAX package needs the mesh, not ported yet.
+joined), never evicting, never splitting nodes, droppable everywhere. A
+serving node's mesh replica turns the router's ``PREFETCH`` frames into
+hints (``launch.py node``).
 
-The JAX package's Prometheus series and trace events are plain counters
-here (:meth:`~KVTransferPlane.stats`).
+**Observability.** The JAX package's ``radixmesh_kv_transfer_*`` series
+(bytes and seconds by lane, restored tokens, hints by outcome, and the
+``radixmesh_kv_transfer_inflight_tokens`` gauge of tokens queued or staged
+per lane) on the port's registry, mirrored as plain counters in
+:meth:`~KVTransferPlane.stats`; and, while the flight recorder samples,
+the JAX plane's events on the plane's ``kv:<name>`` lane: ``kv_restore``
+(per restored node), ``kv_spill``, ``kv_handoff_stage`` and
+``kv_writeback``, each with its token count.
 """
 
 from __future__ import annotations
@@ -82,6 +89,7 @@ import numpy as np
 import torch
 
 from radixmesh_tpu_torch.obs.metrics import TRANSFER_SECONDS_BUCKETS, get_registry
+from radixmesh_tpu_torch.obs.trace_plane import get_recorder
 from radixmesh_tpu_torch.utils.logging import get_logger
 
 __all__ = ["KVTransferPlane", "RestoreTicket", "kv_token_bytes"]
@@ -129,6 +137,8 @@ class _RestoreUnit:
     applied: bool = False
     locked: bool = False  # holds an eviction lock until refs drain
     failed: bool = False  # worker staging failed: never install
+    attached: bool = False  # node.value was installed
+    applied_tokens: int = 0  # tokens of staged chunks the pump has taken
     tickets: list = field(default_factory=list)
 
 
@@ -261,8 +271,15 @@ class KVTransferPlane:
             ("plane", "lane"),
             buckets=TRANSFER_SECONDS_BUCKETS,
         )
+        depth = reg.gauge(
+            "radixmesh_kv_transfer_inflight_tokens",
+            "tokens currently queued/staged in the plane, by lane "
+            "(the lane queue-depth signal)",
+            ("plane", "lane"),
+        )
         self._m_bytes = {ln: bytes_total.labels(lane=ln, **lbl) for ln in _LANES}
         self._m_seconds = {ln: seconds.labels(lane=ln, **lbl) for ln in _LANES}
+        self._m_depth = {ln: depth.labels(lane=ln, **lbl) for ln in _LANES}
         self._m_restored = reg.counter(
             "radixmesh_kv_transfer_restored_tokens_total",
             "host-tier tokens restored to HBM by the staged lane",
@@ -278,6 +295,7 @@ class KVTransferPlane:
             ("plane", "outcome"),
         )
         self._m_hint = {o: hints.labels(outcome=o, **lbl) for o in _HINT_OUTCOMES}
+        self._trace_lane = f"kv:{name}"
         self._worker = threading.Thread(target=self._run, daemon=True, name="kv-transfer")
         self._worker.start()
 
@@ -515,6 +533,7 @@ class KVTransferPlane:
             self._tickets.append(ticket)
             for u in new_units:
                 self._data_q.append(("restore", u, tree))
+            self._m_depth["restore"].inc(sum(u.n_tokens for u in new_units))
             if joined_hint:
                 self.hints_joined += 1
                 self.hint_outcomes["joined"] += 1
@@ -547,6 +566,10 @@ class KVTransferPlane:
                 item.tree.pool.write_raw(item.dev_slots, item.kv, item.scales)
             if item.kv is not None:  # a staged chunk, not a failed unit's sentinel
                 self._release_slot(item.buf)
+                item.unit.applied_tokens += len(item.dev_slots)
+                self._m_depth["restore"].dec(len(item.dev_slots))
+            else:  # the failed unit's tokens never staged
+                self._m_depth["restore"].dec(item.unit.n_tokens - item.unit.applied_tokens)
             if item.last:
                 self._apply_unit(item.tree, item.unit)
             progress = True
@@ -621,6 +644,7 @@ class KVTransferPlane:
             # needing it finishes: device residency stays prefix-closed.
             tree.inc_lock_ref(node)
             unit.locked = True
+            unit.attached = True
             n = unit.n_tokens
             with self._lock:
                 self.restored_tokens += n
@@ -638,6 +662,11 @@ class KVTransferPlane:
                 tree.restore_tokens += n
                 tree._m_restore.inc(n)
         unit.applied = True
+        rec = get_recorder()
+        if rec.enabled:
+            rec.event(self._trace_lane, "kv_restore", time.monotonic(), 0.0, cat="kv",
+                      tokens=int(unit.n_tokens), source="disk" if unit.extent is not None else "host",
+                      attached=bool(unit.attached))
         self._progress.set()
 
     def finish_ticket(self, tree, ticket: RestoreTicket) -> None:
@@ -685,6 +714,7 @@ class KVTransferPlane:
         )
         with self._lock:
             self._wb_q.append(ticket)
+            self._m_depth["writeback"].inc(n)
         self._work_evt.set()
         return ticket
 
@@ -731,6 +761,7 @@ class KVTransferPlane:
             self._data_q.append(
                 ("spill", node, np.asarray(prefix_tokens, dtype=np.int32).copy(), seg, slots, tree)
             )
+            self._m_depth["spill"].inc(len(slots))
         self._work_evt.set()
         return True
 
@@ -759,8 +790,14 @@ class KVTransferPlane:
         except Exception:  # noqa: BLE001 — a failed spill must not kill the lane
             self.log.exception("disk spill failed; node stays volatile")
             cause = "error"
-        self._count("spill", 0 if ref is None else ref.nbytes, time.monotonic() - t0)
+        dur = time.monotonic() - t0
+        self._count("spill", 0 if ref is None else ref.nbytes, dur)
+        if ref is not None:
+            rec = get_recorder()
+            if rec.enabled:
+                rec.event(self._trace_lane, "kv_spill", t0, dur, cat="kv", tokens=int(len(slots)))
         with self._lock:
+            self._m_depth["spill"].dec(len(slots))
             self._spilled.append((node, slots, ref, cause))
         tree.disk.drain_retired()
         self._progress.set()
@@ -787,6 +824,10 @@ class KVTransferPlane:
     def note_handoff(self, n_tokens: int, pool, dur: float) -> None:
         """Account one staged handoff block (any thread)."""
         self._count("handoff", n_tokens * kv_token_bytes(pool), dur)
+        rec = get_recorder()
+        if rec.enabled:
+            rec.event(self._trace_lane, "kv_handoff_stage", time.monotonic() - dur, dur, cat="kv",
+                      tokens=int(n_tokens))
 
     # ------------------------------------------------------------------
     # prefetch hints
@@ -834,7 +875,11 @@ class KVTransferPlane:
                     self._write_back(ticket)
                 nbytes = ticket.kv.numel() * ticket.kv.element_size() + (
                     0 if ticket.scales is None else ticket.scales.numel() * 4)
-                self._count("writeback", nbytes, time.monotonic() - t0)
+                dur = time.monotonic() - t0
+                self._count("writeback", nbytes, dur)
+                rec = get_recorder()
+                if rec.enabled:
+                    rec.event(self._trace_lane, "kv_writeback", t0, dur, cat="kv", tokens=int(ticket.n))
             except Exception:  # noqa: BLE001 — one bad sweep must not kill the lane
                 # Retired FAILED (done still fires, so wait_host_ready
                 # callers don't hang); its arena slots are poisoned. Copies
@@ -849,6 +894,7 @@ class KVTransferPlane:
             with self._lock:
                 if self._wb_q and self._wb_q[0] is ticket:
                     self._wb_q.popleft()
+                self._m_depth["writeback"].dec(ticket.n)
             ticket.kv = ticket.scales = None  # the gather's device memory
             ticket.done.set()
             self._progress.set()

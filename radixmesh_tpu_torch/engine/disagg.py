@@ -45,13 +45,17 @@ is built by hand):
   dequantized on the copy stream after the copy.
 - ``device_kv=True`` keeps a packet's KV a CUDA tensor; a decode worker on
   the same card writes it without a host round trip. A block on another
-  device is refused (``_colocate``), never copied quietly. The JAX
-  package's ICI path (``IciHandoff``, ``parallel/kv_transfer.py``) is not
-  ported yet (NCCL point-to-point, ``ROADMAP.md`` queue A item 8).
+  device is refused (``_colocate``), never copied quietly.
+- :class:`IciHandoff` (the JAX package's ICI path) moves a ``device_kv``
+  packet between two ranks of one mesh axis as a point-to-point tensor
+  transfer over the job's process group (``parallel/collectives.p2p``):
+  device to device with nccl across two cards; through pinned host memory
+  with gloo, the one transport two ranks on one card have.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import threading
 import time
@@ -68,12 +72,15 @@ from radixmesh_tpu_torch.engine.engine import Engine
 from radixmesh_tpu_torch.engine.request import Request, RequestState, SamplingParams
 from radixmesh_tpu_torch.obs.trace_plane import get_recorder
 from radixmesh_tpu_torch.ops.quant import dequantize_kv
+from radixmesh_tpu_torch.parallel.collectives import p2p
+from radixmesh_tpu_torch.utils.device import resolve_device
 from radixmesh_tpu_torch.utils.logging import get_logger
 
 __all__ = [
     "HandoffPacket",
     "PrefillWorker",
     "DecodeWorker",
+    "IciHandoff",
     "pack_handoff",
     "unpack_handoff",
 ]
@@ -129,12 +136,18 @@ def _copy_stream(device: torch.device):
 
 
 def _refuse_tp(engine: Engine) -> None:
-    """A handoff packet carries every kv head of a prefix; a tensor-parallel
-    engine's pool holds a shard of them."""
+    """A handoff packet carries every layer and kv head of a prefix; a
+    tensor-parallel engine's pool holds a shard of the heads, a pipeline
+    stage's a block of the layers."""
     if engine._tp > 1:
         raise NotImplementedError(
             f"the disaggregated handoff needs every kv head in one rank's pool; not ported for "
             f"tp={engine._tp} (ROADMAP.md A5c)"
+        )
+    if engine._pp:
+        raise NotImplementedError(
+            "the disaggregated handoff needs every layer in one rank's pool; not ported for "
+            f"pipeline-parallel serving (pp={engine.device_mesh.shape['pp']}) (ROADMAP.md A5c)"
         )
 
 
@@ -582,6 +595,72 @@ def _h2d(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     for i in range(t.shape[0]):
         out[i].copy_(t[i], non_blocking=True)
     return out
+
+
+class IciHandoff:
+    """Prefill→decode KV movement between two ranks of one mesh axis (the
+    JAX package's ``IciHandoff``, which rides a ``ppermute`` over the TPU
+    slice's ICI). When the prefill and the decode worker are ranks of one
+    job, a handoff packet's KV block moves as tensors over the axis's
+    process group, with no wire format and no JSON.
+
+    :meth:`move` is collective over the axis line: every rank of it calls
+    it. The source rank passes its ``device_kv=True`` packet (KV and int8
+    scales); the packet's fields travel in a header broadcast over the
+    axis, the KV and scales by point-to-point from the source to the
+    destination, which gets the packet back with its KV on ``device``,
+    ready for :meth:`DecodeWorker.submit`. Every other rank, the source
+    included, gets None.
+
+    Transport: the mesh's backend. nccl moves the block device to device
+    (one card per rank); two ranks that share one card must run gloo, and
+    the block then goes through pinned host memory on both sides. Nothing
+    falls back quietly: a backend that cannot move it raises. The JAX
+    class pads blocks to power-of-two page counts for ``jit``; a process
+    group moves any shape, so ``page_size`` is kept for the JAX signature
+    only."""
+
+    def __init__(self, mesh, axis_name: str, src_rank: int, dst_rank: int, page_size: int = 16,
+                 device=None):
+        self.mesh = mesh
+        self.axis = axis_name
+        self.src = src_rank
+        self.dst = dst_rank
+        self.page_size = page_size
+        self.n_ranks = mesh.size(axis_name)
+        if not (0 <= src_rank < self.n_ranks and 0 <= dst_rank < self.n_ranks):
+            raise ValueError(
+                f"ranks ({src_rank}->{dst_rank}) outside axis {axis_name} of size {self.n_ranks}"
+            )
+        self.device = resolve_device(device)
+
+    def move(self, pkt: HandoffPacket | None) -> HandoffPacket | None:
+        """Relocate the source's packet to the destination rank (see the
+        class docstring); ``pkt`` is read on the source rank only."""
+        i = self.mesh.index(self.axis)
+        if i == self.src and pkt is None:
+            raise ValueError("the source rank must pass its handoff packet")
+        if self.src == self.dst:
+            return pkt if i == self.src else None
+        head = [None]
+        if i == self.src:
+            scale = pkt.kv_scale
+            head = [(dataclasses.replace(pkt, kv=None, kv_scale=None), tuple(pkt.kv.shape), pkt.kv.dtype,
+                     None if scale is None else (tuple(scale.shape), scale.dtype))]
+        torch.distributed.broadcast_object_list(head, src=self.mesh.peer(self.axis, self.src),
+                                                group=self.mesh.group(self.axis))
+        meta, kv_shape, kv_dtype, scale_meta = head[0]
+        if i == self.src:
+            blocks = [pkt.kv] + ([] if pkt.kv_scale is None else [pkt.kv_scale])
+            p2p(self.mesh, self.axis, blocks, to=self.dst).wait()
+            return None
+        if i != self.dst:
+            return None
+        likes = [torch.empty(kv_shape, dtype=kv_dtype, device=self.device)]
+        if scale_meta is not None:
+            likes.append(torch.empty(scale_meta[0], dtype=scale_meta[1], device=self.device))
+        got = p2p(self.mesh, self.axis, recv_like=likes, frm=self.src).wait()
+        return dataclasses.replace(meta, kv=got[0], kv_scale=got[1] if scale_meta is not None else None)
 
 
 # ----------------------------------------------------------------------

@@ -125,7 +125,27 @@ sequence-parallel (``_prefill_sp``: ring attention over sp, the K/V
 all-gathered over sp into every rank's pool), unless the pool is int8.
 Refused by name under tp > 1: the host and disk tiers, the async
 KV-movement plane and a mesh replica bound to the pool (each needs every
-kv head in one pool; ``ROADMAP.md`` A5c), and any pp axis (A5b).
+kv head in one pool; ``ROADMAP.md`` A5c).
+
+Pipeline parallelism (a mesh with pp > 1, ``parallel/pp_serving.py``): each
+rank holds one stage, its ``L/pp`` layers (tp-sharded where tp > 1) and a
+pool of the same layers, and the scheduler runs unchanged above it, as in
+the JAX engine. Every prefill chunk (group prefill, speculative verify,
+mixed waves) goes through ``pp_forward_chunk`` (``_forward_chunk``, with
+``_pp_n_micro`` microbatches); there is no dense or sequence-parallel
+prefill under pp. A multi-step launch runs ``pp_decode_multi`` (only when
+``max_batch`` divides by pp), and a plain decode step ``pp_decode_step``:
+B1 in each stage, where the JAX engine sends this step through the chunk
+path at C = 1. Every rank gets the same logits, so every rank's host state
+evolves alike. The host KV tier works under pp (each rank's arena holds
+its own layers); the disk tier, the async KV-movement plane and a mesh
+replica bound to the pool are refused by name under pp (A5c).
+
+An external ``pool`` (a :class:`PagedKVPool`) is adopted after the JAX
+engine's checks (page size, layers, kv heads, quantization, dtype when not
+quantized), its geometry that of this rank's shard (``n_layers // pp``
+layers, ``n_kv_heads // tp`` heads); the engine's device defaults to the
+pool's.
 """
 
 from __future__ import annotations
@@ -158,6 +178,7 @@ from radixmesh_tpu_torch.ops.attention import default_use_kernel, last_dispatch,
 from radixmesh_tpu_torch.ops.sampling import sample_tokens, spec_verify_sample
 from radixmesh_tpu_torch.ops.wquant import quantize_params
 from radixmesh_tpu_torch.parallel.collectives import all_gather
+from radixmesh_tpu_torch.parallel.pp_serving import pp_decode_multi, pp_decode_step, pp_forward_chunk
 from radixmesh_tpu_torch.parallel.sharding import shard_params
 from radixmesh_tpu_torch.utils.device import resolve_device
 from radixmesh_tpu_torch.utils.logging import get_logger
@@ -275,6 +296,7 @@ class Engine:
         device: str | torch.device | None = None,
         kv_quant: str | None = None,
         host_cache_slots: int = 0,
+        pool: PagedKVPool | None = None,
         kv_transfer_async: bool = False,
         kv_transfer_chunk_tokens: int = 512,
         kv_transfer_min_restore_tokens: int = 0,
@@ -314,7 +336,10 @@ class Engine:
         rank's shards (``init_params(..., mesh=)``) or a ``Llama`` built on
         the mesh is taken as it is (its shards, W8A16 or not, are the
         caller's). Fresh prompts of at least ``sp_prefill_threshold``
-        tokens prefill sequence-parallel where the mesh has sp > 1."""
+        tokens prefill sequence-parallel where the mesh has sp > 1; a pp
+        axis serves through the pipeline (module docstring). ``pool``: an
+        external pool to adopt instead of building one (module docstring);
+        ``device`` then defaults to its device."""
         if page_size & (page_size - 1):
             raise ValueError("page_size must be a power of two")
         if kv_tier_dir is not None and host_cache_slots <= 0:
@@ -324,20 +349,32 @@ class Engine:
             )
         self.log = get_logger("engine")
         self.name = name or f"engine{next(_engine_seq)}"
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if device is not None or pool is None else pool.device)
         self.cfg = cfg
         self.device_mesh = device_mesh
         self._tp = 1
+        # Pipeline-parallel serving (parallel/pp_serving.py): a pp axis shards
+        # the layer axis of the params and the pool.
+        pp = 1 if device_mesh is None else dict(device_mesh.shape).get("pp", 1)
+        self._pp = pp > 1
         if device_mesh is not None:
-            if dict(device_mesh.shape).get("pp", 1) > 1:
-                raise NotImplementedError(
-                    "pipeline-parallel serving (a pp mesh axis) is not ported yet (ROADMAP.md A5b)"
-                )
             self._tp = device_mesh.shape["tp"]
             if cfg.n_kv_heads % self._tp or cfg.n_heads % self._tp:
                 raise ValueError(
                     f"n_heads={cfg.n_heads}/n_kv_heads={cfg.n_kv_heads} must divide tp={self._tp}"
                 )
+            if cfg.n_layers % pp:
+                raise ValueError(f"n_layers={cfg.n_layers} is not divisible by pp={pp}")
+            if self._pp:
+                for on, what in ((kv_tier_dir is not None, "the disk KV tier (kv_tier_dir)"),
+                                 (kv_transfer_async, "the async KV-movement plane (kv_transfer_async)"),
+                                 (getattr(mesh, "pool", None) is not None,
+                                  "a mesh replica bound to the pool (the mesh's page pushes)")):
+                    if on:
+                        raise NotImplementedError(
+                            f"{what} is not ported for pipeline-parallel serving (pp={pp}) "
+                            "(ROADMAP.md A5c)"
+                        )
             if self._tp > 1:
                 for on, what in ((kv_tier_dir is not None, "the disk KV tier (kv_tier_dir)"),
                                  (host_cache_slots > 0, "the host KV tier (host_cache_slots)"),
@@ -356,12 +393,14 @@ class Engine:
             # Publishes are aligned at engine pages, so the mesh page must
             # divide the engine page.
             raise ValueError(f"mesh page_size {mesh_page} must divide engine page_size {page_size}")
-        if isinstance(params, Llama) and self._tp > 1 and params.mesh is None:
+        sharded = self._tp > 1 or self._pp
+        if isinstance(params, Llama) and sharded and params.mesh is None:
             params = params.param_tree()  # full leaves: quantized and sharded below
         # A tree already holding this rank's shards (init_params(mesh=...),
         # params_from_jax(mesh=...)) is taken as it is.
-        presharded = (not isinstance(params, Llama) and self._tp > 1
-                      and params["layers"]["wq"].shape[-1] * self._tp == cfg.n_heads * cfg.head_dim)
+        presharded = (not isinstance(params, Llama) and sharded
+                      and tuple(params["layers"]["wq"].shape)
+                      == (cfg.n_layers // pp, cfg.hidden, cfg.n_heads * cfg.head_dim // self._tp))
         if weight_quant is not None:
             if weight_quant != "int8":
                 raise ValueError(f"unknown weight quantization {weight_quant!r}")
@@ -369,16 +408,16 @@ class Engine:
             if (params.weight_quant is None if is_llama else params["layers"]["wq"].dtype != torch.int8):
                 # Before sharding: a row-parallel weight's scale spans its
                 # whole contraction axis.
-                if presharded or (is_llama and params._tp):
+                if presharded or (is_llama and (params._tp or params._pp)):
                     raise ValueError(
                         "W8A16 must quantize before sharding: pass a full param tree, or "
                         "init_params(..., mesh=..., weight_quant='int8')"
                     )
                 params = quantize_params(params.param_tree() if is_llama else params)
-        if not isinstance(params, Llama) and self._tp > 1 and not presharded:
+        if not isinstance(params, Llama) and sharded and not presharded:
             params = shard_params(params, param_logical_axes(cfg, params), device_mesh)
         model = params if isinstance(params, Llama) else Llama(cfg, params, mesh=device_mesh)
-        if model._tp and (device_mesh is None or model.mesh.shape != device_mesh.shape):
+        if (model._tp or model._pp) and (device_mesh is None or model.mesh.shape != device_mesh.shape):
             raise ValueError(f"the model is sharded over {model.mesh.shape}; device_mesh is "
                              f"{None if device_mesh is None else device_mesh.shape}")
         self.model = model.to(self.device)
@@ -414,26 +453,42 @@ class Engine:
         # The last decode dispatch decision (select_paged), for /stats.
         self._last_dispatch: dict | None = None
         # Under tp each rank's pool holds its kv-head shard of every page
-        # (the head-major layout makes it one slab per layer); the
-        # allocator and slot ids are the same on every rank.
-        self.pool = PagedKVPool(
-            num_slots=num_slots,
-            num_layers=cfg.n_layers,
-            num_kv_heads=self.model.n_kv_heads,
-            head_dim=cfg.head_dim,
-            page_size=page_size,
-            dtype=cfg.dtype,
-            device=self.device,
-            quant=kv_quant,
-        )
+        # (the head-major layout makes it one slab per layer), under pp its
+        # stage's layers; the allocator and slot ids are the same on every
+        # rank.
+        if pool is not None:
+            expected = dict(page_size=page_size, num_layers=self.model.n_layers,
+                            num_kv_heads=self.model.n_kv_heads, head_dim=cfg.head_dim, quant=kv_quant)
+            if kv_quant is None:
+                expected["dtype"] = cfg.dtype
+            for attr, want in expected.items():
+                got = getattr(pool, attr)
+                if got != want:
+                    raise ValueError(
+                        f"external pool {attr}={got!r} incompatible with model/engine {attr}={want!r}"
+                    )
+            if pool.device != self.device:
+                raise ValueError(f"external pool on {pool.device}, engine on {self.device}")
+            self.pool = pool
+        else:
+            self.pool = PagedKVPool(
+                num_slots=num_slots,
+                num_layers=self.model.n_layers,
+                num_kv_heads=self.model.n_kv_heads,
+                head_dim=cfg.head_dim,
+                page_size=page_size,
+                dtype=cfg.dtype,
+                device=self.device,
+                quant=kv_quant,
+            )
         self._kv_tier = None
         if host_cache_slots > 0:
             # Hierarchical cache: evicted prefixes fall back to a host-RAM
             # arena (pinned behind a CUDA pool) and are restored on a hit.
             host_store = HostKVStore(
                 num_slots=host_cache_slots,
-                num_layers=cfg.n_layers,
-                num_kv_heads=cfg.n_kv_heads,
+                num_layers=self.pool.num_layers,
+                num_kv_heads=self.pool.num_kv_heads,
                 head_dim=cfg.head_dim,
                 page_size=page_size,
                 dtype=self.pool.dtype,
@@ -1146,10 +1201,13 @@ class Engine:
                 acct = self.step_acct
                 t_wave = time.monotonic() if traced or acct is not None else 0.0
                 self._wave_padded = 0
-                if self.pool.quant is None and len(sub) == 1 and self._sp_capable(sub[0]):
+                # A pp engine prefills through the chunk path alone: it is the
+                # pipelined one.
+                if self.pool.quant is None and not self._pp and len(sub) == 1 and self._sp_capable(sub[0]):
                     pending = [self._prefill_sp(*sub[0])]
                 elif (
                     self.pool.quant is None
+                    and not self._pp
                     and len(sub) == 1
                     and len(sub[0][0].prompt) - sub[0][2] <= self.long_prefill_threshold
                 ):
@@ -1545,16 +1603,7 @@ class Engine:
             self.stats.prefill_chunks += 1
             if np.any(np.minimum(poss[:, 0], kvlen) > 0):
                 self.stats.prefill_chunks_with_prior += 1
-            logits = self.model.prefill_chunk_paged(
-                self._dev(toks),
-                self._dev(poss),
-                self.pool.kv,
-                self._dev(sl),
-                pt_dev,
-                self._dev(kvlen),
-                page_size=ps,
-                kv_scale=self.pool.kv_scale,
-            )
+            logits = self._forward_chunk(toks, poss, sl, pt_dev, kvlen)
             for i in range(N):
                 if lastpos[i] >= 0:
                     final_logits[i] = logits[i, lastpos[i]]
@@ -1568,6 +1617,34 @@ class Engine:
             self._install_prefilled(req, row, reuse)
             out.append((req, final_logits[i]))
         return out
+
+    def _pp_n_micro(self, batch: int) -> int:
+        """GPipe microbatches of a pp launch: one per stage when the batch
+        divides, else one (the JAX engine's rule)."""
+        pp = self.device_mesh.shape["pp"]
+        return pp if batch % pp == 0 else 1
+
+    def _forward_chunk(self, toks, poss, sl, pt, kvlen) -> torch.Tensor:
+        """One chunk forward (host arrays, or a device page table ``pt``):
+        ``pp_forward_chunk`` under pp, ``prefill_chunk_paged`` otherwise.
+        Group prefill and the fused verify/mixed launch share it, so their
+        dispatch cannot drift apart."""
+        args = (self._dev(toks), self._dev(poss), self.pool.kv, self._dev(sl), self._dev(pt),
+                self._dev(kvlen))
+        if self._pp:
+            return pp_forward_chunk(self.model, *args, page_size=self.page_size,
+                                    n_micro=self._pp_n_micro(toks.shape[0]), kv_scale=self.pool.kv_scale)
+        return self.model.prefill_chunk_paged(*args, page_size=self.page_size, kv_scale=self.pool.kv_scale)
+
+    def _decode_step(self, tokens, slots, page_table, lengths) -> torch.Tensor:
+        """One decode step's logits ``[max_batch, V]``: ``pp_decode_step``
+        under pp, ``decode_step`` otherwise (B1 either way)."""
+        args = (self._dev(tokens), self.pool.kv, self._dev(slots), self._dev(page_table),
+                self._dev(lengths))
+        if self._pp:
+            return pp_decode_step(self.model, *args, page_size=self.page_size,
+                                  n_micro=self._pp_n_micro(len(tokens)), kv_scale=self.pool.kv_scale)
+        return self.model.decode_step(*args, page_size=self.page_size, kv_scale=self.pool.kv_scale)
 
     # ------------------------------------------------------------------
     # publish / release
@@ -1699,7 +1776,7 @@ class Engine:
             max_len=max((r.kv_len for r in self._rows if r is not None), default=0),
         )
         self._last_dispatch = last_dispatch()
-        if not use_paged and not seeded:
+        if not self._pp and not use_paged and not seeded:
             # The dense leg: one step over the compact working set (the
             # decode kernel over a gathered sub-pool on the card). Seeded
             # batches skip it: its sampler draws inside the fused loop from
@@ -1732,15 +1809,8 @@ class Engine:
         if not active:
             return
         step_t0 = time.monotonic()
-        logits = self.model.decode_step(
-            self._dev(self._tokens),
-            self.pool.kv,
-            self._dev(slots),
-            self._dev(np.ascontiguousarray(self._decode_pt_bucket(1))),
-            self._dev(lengths),
-            page_size=self.page_size,
-            kv_scale=self.pool.kv_scale,
-        )
+        logits = self._decode_step(self._tokens, slots, np.ascontiguousarray(self._decode_pt_bucket(1)),
+                                   lengths)
         if seeded:
             sampled = np.zeros(self.max_batch, dtype=np.int64)
             sampled[[row for row, _ in active]] = self._sample_seeded_rows(
@@ -1776,6 +1846,8 @@ class Engine:
         its tokens from one in-launch stream, not per (seed, position)."""
         if self.waiting and self._free_row() >= 0:
             return 1
+        if self._pp and self.max_batch % self.device_mesh.shape["pp"]:
+            return 1  # pp_decode_multi rotates pp microbatches of rows
         for req in self._rows:
             if req is None:
                 continue
@@ -1828,7 +1900,13 @@ class Engine:
             page_size=self.page_size, k_steps=k, kv_scale=self.pool.kv_scale,
             top_ks=self._top_ks,
         )
-        if force_compact or not default_use_kernel(self.cfg.head_dim, self.device):
+        if self._pp:
+            sampled = pp_decode_multi(
+                self.model, self._dev(self._tokens), self.pool.kv,
+                self._dev(np.ascontiguousarray(self._decode_pt_bucket(k))), self._dev(lengths), **common,
+            )
+            self.stats.multi_step_launches += 1
+        elif force_compact or not default_use_kernel(self.cfg.head_dim, self.device):
             compact, pt_c = self._compact_decode_tables(active, k)
             sampled = self.model.decode_multi_compact(
                 self._dev(self._tokens), self.pool.kv, self._dev(compact), self._dev(pt_c),
@@ -2055,10 +2133,7 @@ class Engine:
             npg = min(-(-job.total // ps), maxp)
             pt[row, :npg] = job.token_slots[::ps][:npg] // ps
 
-        logits = self.model.prefill_chunk_paged(
-            self._dev(toks), self._dev(poss), self.pool.kv, self._dev(sl), self._dev(pt),
-            self._dev(kvlen), page_size=ps, kv_scale=self.pool.kv_scale,
-        )
+        logits = self._forward_chunk(toks, poss, sl, pt, kvlen)
         if active and jobs:
             self.stats.mixed_launches += 1
         elif active:

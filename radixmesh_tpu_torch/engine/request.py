@@ -4,8 +4,9 @@ This package's own copy of the JAX package's ``engine/request.py``, cut to
 the fields the ported schedules use (legacy, mixed waves, multi-step and
 speculative decode), the staged KV restore (``RESTORING``), seeded replay
 and resume admission, and the observability planes (request traces and
-the token timeline): the port imports nothing of the JAX package. The SLO
-fields (deadlines, admission and degradation bookkeeping) are not ported.
+the token timeline), and the SLO control plane's fields (tenant,
+deadlines, admission, shedding and degradation bookkeeping): the port
+imports nothing of the JAX package.
 """
 
 from __future__ import annotations

@@ -52,9 +52,11 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None, mesh=None) -> 
     ``random_w8_params``, or the port's ``ops.wquant.random_w8_params``)
     keeps its int8 leaves int8 and carries their ``<name>_s`` scales across
     in float32. ``mesh`` (a ``ProcessMesh``) keeps this rank's shard of each
-    leaf, sliced on the host before the move (``param_logical_axes``)."""
+    leaf, sliced on the host before the move (``param_logical_axes``): under
+    pp the stacked layers of this rank's stage (``models.llama.stage_layers``),
+    then its tp shard."""
     device = resolve_device(device)
-    shard_mesh = mesh if mesh is not None and mesh.size("tp") > 1 else None
+    shard_mesh = mesh if mesh is not None and (mesh.size("tp") > 1 or mesh.size("pp") > 1) else None
     axes = param_logical_axes(cfg)
     shapes = local_shapes(param_shapes(cfg), axes, shard_mesh)
     scale_axes = _scale_axes(cfg)

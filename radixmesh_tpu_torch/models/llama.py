@@ -41,6 +41,14 @@
   no tp axis every path is the single-device one.
 - ``prefill_forward_sp``: sequence-parallel prefill over the mesh's sp axis,
   ring attention between the ranks' sequence blocks.
+- Pipeline parallelism (a mesh with pp > 1): the model is one stage. It
+  holds the contiguous block of ``n_layers = L/pp`` layers that starts at
+  global layer ``layer0`` (and, under tp, their shards), and the embedding,
+  final norm and LM head like every stage. Its pool holds the same ``L/pp``
+  layers, indexed by the stage-local layer. A stage runs no whole forward
+  alone: ``parallel/pp_serving.py`` and ``parallel/pipeline.py`` drive its
+  layer bodies (``_chunk_layers``, ``_decode_layers``) between the stages,
+  and the whole forwards refuse a stage.
 - The pool is updated in place where JAX donates it: ``decode_step``'s
   kernel writes each layer's row, and ``prefill_chunk_paged`` writes the
   chunk's K/V into layer ``l`` right after layer ``l``'s attention (the
@@ -74,11 +82,11 @@ from radixmesh_tpu_torch.ops.sampling import any_stochastic, sample_stochastic, 
 from radixmesh_tpu_torch.ops.wquant import LAYER_QUANT_WEIGHTS, quantize_weight
 from radixmesh_tpu_torch.parallel.collectives import all_gather, all_reduce
 from radixmesh_tpu_torch.parallel.ring_attention import ring_attention
-from radixmesh_tpu_torch.parallel.sharding import logical_to_spec, shard_leaf
+from radixmesh_tpu_torch.parallel.sharding import SERVING_RULES, logical_to_spec, shard_leaf
 from radixmesh_tpu_torch.utils.device import resolve_device
 
 __all__ = ["ModelConfig", "Llama", "init_params", "LAYER_PARAMS", "BIAS_PARAMS", "layer_params",
-           "w8_scale_shapes", "param_logical_axes", "local_shapes"]
+           "w8_scale_shapes", "param_logical_axes", "local_shapes", "stage_layers"]
 
 LAYER_PARAMS = (
     "attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
@@ -271,12 +279,24 @@ def local_shapes(shapes: dict, axes: dict, mesh) -> dict:
     if mesh is None:
         return tuple(shapes)
     out = []
-    for n, mesh_axis, name in zip(shapes, logical_to_spec(axes), axes):
+    for n, mesh_axis, name in zip(shapes, logical_to_spec(axes, SERVING_RULES), axes):
         size = 1 if mesh_axis is None else mesh.size(mesh_axis)
         if n % size:
             raise ValueError(f"logical axis {name!r} of size {n} does not divide {mesh_axis}={size}")
         out.append(n // size)
     return tuple(out)
+
+
+def stage_layers(cfg: ModelConfig, mesh) -> tuple[int, int]:
+    """``(first, end)``: the global layers this rank's pipeline stage holds,
+    the contiguous block ``[s·L/pp, (s+1)·L/pp)`` of stage ``s`` (all of them
+    without a pp axis)."""
+    pp = 1 if mesh is None else mesh.size("pp")
+    if cfg.n_layers % pp:
+        raise ValueError(f"n_layers={cfg.n_layers} is not divisible by pp={pp}")
+    n = cfg.n_layers // pp
+    s = 0 if mesh is None else mesh.index("pp")
+    return s * n, (s + 1) * n
 
 
 def init_params(
@@ -293,13 +313,17 @@ def init_params(
     ``mesh`` (a ``ProcessMesh``) keeps only this rank's shard of each layer
     as it is drawn (``param_logical_axes``): every rank draws the same
     numbers and holds its part, so ranks and a single-device model share
-    weights without any rank holding the whole tree. ``weight_quant="int8"``
-    quantizes each drawn layer whole, before it is sliced (W8A16, equal to
+    weights without any rank holding the whole tree. Under pp a rank draws
+    every layer (the generator stays in step) and keeps its stage's block
+    (``stage_layers``), so its layers are bit-equal to the same layers of
+    the single-device draw. ``weight_quant="int8"`` quantizes each drawn
+    layer whole, before it is sliced (W8A16, equal to
     ``ops.wquant.quantize_params`` of the unsharded tree, then sharded)."""
     device = resolve_device(device)
     if weight_quant not in (None, "int8"):
         raise ValueError(f"unknown weight quantization {weight_quant!r}")
     gen = torch.Generator(device=device).manual_seed(seed)
+    lo, hi = stage_layers(cfg, mesh)
     axes = param_logical_axes(cfg)
     scale_axes = _scale_axes(cfg)
     quant_out: dict = {}
@@ -309,22 +333,24 @@ def init_params(
         this rank's shard. ``qaxis``: the contraction axis of one layer."""
         stacked = len(shape) == 3
         slab_axes = leaf_axes[1:] if stacked else leaf_axes
+        lead = (hi - lo,) if stacked else ()
         out = scales = None
         for i in range(shape[0] if stacked else 1):
             m = torch.randn(shape[1:] if stacked else shape, generator=gen, device=device)
+            if stacked and not lo <= i < hi:
+                continue  # another stage's layer: drawn, so the stream stays in step
+            j = i - lo
             m = (m / math.sqrt(fan_in)).to(cfg.dtype)
             if weight_quant is not None:
                 m, sc = quantize_weight(m, qaxis)
                 sc = shard_leaf(sc, scale_axes[name][1:] if stacked else scale_axes[name], mesh)
                 if scales is None:
-                    scales = torch.empty(((shape[0],) if stacked else ()) + tuple(sc.shape),
-                                         dtype=torch.float32, device=device)
-                (scales[i] if stacked else scales).copy_(sc)
+                    scales = torch.empty(lead + tuple(sc.shape), dtype=torch.float32, device=device)
+                (scales[j] if stacked else scales).copy_(sc)
             m = shard_leaf(m, slab_axes, mesh)
             if out is None:
-                out = torch.empty(((shape[0],) if stacked else ()) + tuple(m.shape),
-                                  dtype=m.dtype, device=device)
-            (out[i] if stacked else out).copy_(m)
+                out = torch.empty(lead + tuple(m.shape), dtype=m.dtype, device=device)
+            (out[j] if stacked else out).copy_(m)
             del m
         if scales is not None:
             quant_out[name + "_s"] = scales
@@ -381,15 +407,20 @@ class Llama(nn.Module):
     activations' dtype, as the JAX ``_wmm`` does (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, params: dict, mesh=None):
-        """``mesh``: a ``ProcessMesh``; with tp > 1 ``params`` holds this
-        rank's shards (``parallel.sharding.shard_params`` or
-        ``init_params(mesh=...)``), checked against the local shapes. The
+        """``mesh``: a ``ProcessMesh``; with tp > 1 or pp > 1 ``params`` holds
+        this rank's shards (``parallel.sharding.shard_params`` or
+        ``init_params(mesh=...)``), checked against the local shapes: under
+        pp the ``L/pp`` layers of this rank's stage (module docstring). The
         sp axis is read by ``prefill_forward_sp``."""
         super().__init__()
         self.cfg = cfg
         self.mesh = mesh
         tp = 1 if mesh is None else mesh.size("tp")
         self._tp = tp > 1
+        self._pp = mesh is not None and mesh.size("pp") > 1
+        # This stage's layers: global [layer0, layer0 + n_layers).
+        self.layer0, end = stage_layers(cfg, mesh)
+        self.n_layers = end - self.layer0
         for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
                         ("vocab_size", cfg.vocab_size), ("intermediate", cfg.intermediate)):
             if n % tp:
@@ -399,7 +430,7 @@ class Llama(nn.Module):
         self.n_kv_heads = cfg.n_kv_heads // tp
         self.vocab_local = cfg.vocab_size // tp
         self.vocab_lo = (0 if mesh is None else mesh.index("tp")) * self.vocab_local
-        shard_mesh = mesh if self._tp else None
+        shard_mesh = mesh if self._tp or self._pp else None
         shapes = local_shapes(param_shapes(cfg), param_logical_axes(cfg), shard_mesh)
         scale_shapes = local_shapes(w8_scale_shapes(cfg), _scale_axes(cfg), shard_mesh)
 
@@ -455,6 +486,15 @@ class Llama(nn.Module):
         return tree
 
     # -- shared pieces ---------------------------------------------------
+
+    def _whole(self, what: str) -> None:
+        """Refuse a whole-model forward on a pipeline stage."""
+        if self._pp:
+            raise ValueError(
+                f"{what} needs every layer; this model is pipeline stage "
+                f"{self.mesh.index('pp')} of {self.mesh.size('pp')} (layers {self.layer0}.."
+                f"{self.layer0 + self.n_layers - 1}): run it through parallel.pp_serving"
+            )
 
     def _qkv(self, l: int, x: torch.Tensor):
         """x [B, S, H] → q [B, S, Hq, D], k/v [B, S, Hkv, D]; with
@@ -561,6 +601,7 @@ class Llama(nn.Module):
         prefixes right-aligned in the ``P_max`` region (front padding is
         masked). Returns ``(logits [B, S, V] f32, new_k [L, B, S, Hkv, D],
         new_v)``; the caller writes new K/V into the pool."""
+        self._whole("prefill_forward")
         cfg = self.cfg
         x = self._embed(tokens)
         p_max = cached_k.shape[2]
@@ -598,8 +639,19 @@ class Llama(nn.Module):
         K/V rides dense. Returns ``logits [B, C, V]`` (f32); the chunk's
         K/V (and for int8 pools its scales) lands in the pool at
         ``slots``."""
+        self._whole("prefill_chunk_paged")
+        x = self._embed(tokens)
+        return self._logits(self._chunk_layers(x, positions, kv_pool, slots, page_table, kv_lengths,
+                                               page_size, kv_scale))
+
+    def _chunk_layers(self, x, positions, kv_pool, slots, page_table, kv_lengths, page_size, kv_scale):
+        """This model's layers over one chunk's hidden state ``x [B, C, H]``
+        (``prefill_chunk_paged``'s arguments; under pp, a stage's layers over
+        one microbatch): each layer attends through the chunk kernel and
+        writes the chunk's K/V into its pool layer. Returns the hidden
+        state."""
         cfg = self.cfg
-        L, Hkv, D = cfg.n_layers, self.n_kv_heads, cfg.head_dim
+        L, Hkv, D = self.n_layers, self.n_kv_heads, cfg.head_dim
         num_slots = kv_pool.shape[3]
         P = num_slots // page_size
         kv_pages = kv_pool.view(2, L, Hkv, P, page_size, D)
@@ -609,8 +661,7 @@ class Llama(nn.Module):
         prior = torch.minimum(positions[:, 0], kv_lengths).to(torch.int32)
         kv_lengths = kv_lengths.to(torch.int32)
         flat_slots = slots.reshape(-1).long()
-        x = self._embed(tokens)
-        B, C = tokens.shape
+        B, C = x.shape[:2]
         for l in range(L):
             h = rms_norm(x, self.layers["attn_norm"][l], cfg.rms_eps)
             q, k, v = self._qkv(l, h)
@@ -630,7 +681,7 @@ class Llama(nn.Module):
                 kv_scale[0, l][:, flat_slots] = k_sc.reshape(B * C, Hkv).transpose(0, 1)
                 kv_scale[1, l][:, flat_slots] = v_sc.reshape(B * C, Hkv).transpose(0, 1)
             x = self._attn_out_mlp(l, x, attn)
-        return self._logits(x)
+        return x
 
     @torch.inference_mode()
     def decode_step(
@@ -647,14 +698,23 @@ class Llama(nn.Module):
         kernel writes this token's K/V (quantized, for int8 pools) into the
         pool and attends over the row's pages. Returns ``logits [B, V]``
         (f32)."""
+        self._whole("decode_step")
+        x = self._embed(tokens)[:, None, :]  # [B, 1, H]
+        x = self._decode_layers(x, kv_pool, slots, page_table, lengths, page_size, kv_scale)
+        return self._logits(x)[:, 0]
+
+    def _decode_layers(self, x, kv_pool, slots, page_table, lengths, page_size, kv_scale):
+        """This model's layers over one decode token per row, ``x [B, 1, H]``
+        (``decode_step``'s arguments; under pp, a stage's layers over one
+        microbatch): each layer's decode kernel writes the row's K/V into
+        its pool layer and attends. Returns the hidden state."""
         cfg = self.cfg
-        L, Hkv, D = cfg.n_layers, self.n_kv_heads, cfg.head_dim
+        L, Hkv, D = self.n_layers, self.n_kv_heads, cfg.head_dim
         num_slots = kv_pool.shape[3]
         P = num_slots // page_size
         kv_pages = kv_pool.view(2, L, Hkv, P, page_size, D)
         scale_pages = None if kv_scale is None else kv_scale.view(2, L, Hkv, P, page_size)
         positions = (lengths.long() - 1)[:, None]  # [B, 1]
-        x = self._embed(tokens)[:, None, :]  # [B, 1, H]
         for l in range(L):
             h = rms_norm(x, self.layers["attn_norm"][l], cfg.rms_eps)
             q, k, v = self._qkv(l, h)
@@ -666,7 +726,7 @@ class Llama(nn.Module):
                 *qkv, kv_pages, slots, page_table, lengths, l, scale_pages,
             )
             x = self._attn_out_mlp(l, x, attn[:, None])
-        return self._logits(x)[:, 0]
+        return x
 
     @torch.inference_mode()
     def decode_multi(
@@ -692,6 +752,7 @@ class Llama(nn.Module):
         caller's: tokens past a row's stop are surplus. The decode kernel
         runs ``n_layers`` times per step, in stream order, so each step's
         writes land before the next step reads them."""
+        self._whole("decode_multi")
         B = tokens.shape[0]
         rows = torch.arange(B, device=tokens.device)
         lengths = lengths.to(torch.int32)
@@ -738,6 +799,7 @@ class Llama(nn.Module):
         there. ``page_table_c`` maps every row's pages, and inactive rows
         entirely, to compact indices. Returns the sampled tokens
         ``[k, B]``."""
+        self._whole("decode_multi_compact")
         cfg = self.cfg
         L, Hkv, D = cfg.n_layers, self.n_kv_heads, cfg.head_dim
         P = kv_pool.shape[3] // page_size
@@ -780,6 +842,7 @@ class Llama(nn.Module):
         row's owner contributes it through one all-reduce over ``axis``) and
         every rank returns the same ``[B, 1, V]``, so a long prompt never
         materializes S x vocab."""
+        self._whole("prefill_forward_sp")
         cfg = self.cfg
         mesh = self.mesh if mesh is None else mesh
         n, i = mesh.size(axis), mesh.index(axis)

@@ -1,10 +1,10 @@
 """Request-flight tracing plane: span trees + bounded flight recorder.
 
 The port's own copy of the JAX package's ``obs/trace_plane.py`` (its
-recorder is separate from the JAX package's). In the port, the engine,
-the HTTP edge and the KV-movement plane record spans; the cache mesh,
-the repair plane, disaggregated handoff and the SLO queue that the text
-below also names are not ported yet.
+recorder is separate from the JAX package's). In the port, as in the JAX
+package, the engine, the HTTP edge, the KV-movement plane, the cache mesh,
+the repair plane, the disaggregated handoff and the SLO queue record
+spans.
 
 ``obs/metrics.py`` answers "how is the fleet doing" in aggregate;
 nothing in the repo could answer "where did THIS request's 400 ms go?".

@@ -12,24 +12,48 @@ prefill and the multi-process bootstrap).
   over one mesh axis (gloo moves host memory, nccl device memory).
 - ``ring_attention`` and ``ulysses`` — the two sequence-parallel
   attentions.
+- ``pipeline`` — the GPipe schedule over the ``pp`` axis (one process per
+  stage) and the pipelined forward.
+- ``pp_serving`` — pipeline-parallel serving: prefill chunks, decode steps
+  and fused k-step decode over a ``(pp, tp)`` mesh.
+- ``kv_transfer`` — KV-page blocks between the ranks of one axis (the
+  device handoff, ``engine/disagg.IciHandoff``).
 
-Not ported yet (``ROADMAP.md``): the pipeline (``pipeline``,
-``pp_serving``) and the device handoff (``kv_transfer``) wait for A5b,
-training (``train``) for A6.
+Not ported yet (``ROADMAP.md``): training (``train``, and the pipeline's
+``make_pp_train_step``, which raises) waits for A6.
 """
 
 from radixmesh_tpu_torch.parallel.collectives import (
     all_gather,
     all_reduce,
     all_to_all,
+    broadcast,
     collective_stats,
+    p2p,
+    permute,
+    pipe_shift,
     reset_collective_stats,
     ring_shift,
 )
+from radixmesh_tpu_torch.parallel.kv_transfer import make_kv_page_transfer, prefill_to_decode_perm
 from radixmesh_tpu_torch.parallel.multihost import MultihostInfo, global_mesh, init_multihost
+from radixmesh_tpu_torch.parallel.pipeline import (
+    gpipe,
+    make_pp_mesh,
+    make_pp_train_step,
+    pipeline_forward,
+    stage_params,
+)
+from radixmesh_tpu_torch.parallel.pp_serving import (
+    make_pp_serving_mesh,
+    pp_decode_multi,
+    pp_decode_step,
+    pp_forward_chunk,
+)
 from radixmesh_tpu_torch.parallel.ring_attention import ring_attention, ring_self_attention
 from radixmesh_tpu_torch.parallel.sharding import (
     LOGICAL_RULES,
+    SERVING_RULES,
     MeshPlan,
     ProcessMesh,
     batch_sharding,
@@ -42,6 +66,7 @@ from radixmesh_tpu_torch.parallel.ulysses import ulysses_attention, ulysses_self
 
 __all__ = [
     "LOGICAL_RULES",
+    "SERVING_RULES",
     "MeshPlan",
     "ProcessMesh",
     "make_mesh",
@@ -56,10 +81,25 @@ __all__ = [
     "all_gather",
     "all_to_all",
     "ring_shift",
+    "p2p",
+    "pipe_shift",
+    "permute",
+    "broadcast",
     "collective_stats",
     "reset_collective_stats",
     "ring_attention",
     "ring_self_attention",
     "ulysses_attention",
     "ulysses_self_attention",
+    "make_pp_mesh",
+    "stage_params",
+    "gpipe",
+    "pipeline_forward",
+    "make_pp_train_step",
+    "make_pp_serving_mesh",
+    "pp_forward_chunk",
+    "pp_decode_step",
+    "pp_decode_multi",
+    "make_kv_page_transfer",
+    "prefill_to_decode_perm",
 ]

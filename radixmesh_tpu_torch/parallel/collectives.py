@@ -1,7 +1,14 @@
 """The collectives of the port's parallel paths, over one axis of a
 :class:`~radixmesh_tpu_torch.parallel.sharding.ProcessMesh`.
 
-Each is a no-op on an axis of one rank. Two transports:
+Each is a no-op on an axis of one rank. Besides the collectives, the
+point-to-point moves of the pipeline and the device handoff: :func:`p2p`
+(a send to one index and a receive from another, posted together),
+:func:`pipe_shift` (the non-cyclic shift ``i -> i + 1`` of the JAX
+``ppermute`` with ``[(i, i + 1)]``, one send and one receive a rank, so a
+stage may receive without sending and the other way round),
+:func:`permute` (a ``ppermute`` over a whole permutation) and
+:func:`broadcast`. Two transports:
 
 - ``nccl`` moves CUDA tensors device to device.
 - ``gloo`` moves host memory: a CUDA tensor is copied to the host, the
@@ -26,6 +33,10 @@ __all__ = [
     "all_gather",
     "all_to_all",
     "ring_shift",
+    "p2p",
+    "pipe_shift",
+    "permute",
+    "broadcast",
     "collective_stats",
     "reset_collective_stats",
 ]
@@ -108,18 +119,19 @@ def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 
 
 class _Shift:
-    """An in-flight :func:`ring_shift`; ``wait()`` returns the received
-    tensors on the sender's device."""
+    """An in-flight :func:`ring_shift` or :func:`p2p`; ``wait()`` returns the
+    received tensors on ``device`` (sent tensors may be reused only after
+    it)."""
 
-    def __init__(self, works, recvs, device, t0, nbytes):
+    def __init__(self, works, recvs, device, t0, nbytes, op="ring_shift"):
         self._works, self._recvs, self._device = works, recvs, device
-        self._t0, self._nbytes = t0, nbytes
+        self._t0, self._nbytes, self._op = t0, nbytes, op
 
     def wait(self) -> list[torch.Tensor]:
         for w in self._works:
             w.wait()
         out = [r.to(self._device) for r in self._recvs]
-        _note("ring_shift", self._t0, self._nbytes)
+        _note(self._op, self._t0, self._nbytes)
         return out
 
 
@@ -142,3 +154,70 @@ def ring_shift(xs: list[torch.Tensor], mesh, axis: str) -> _Shift:
     works = dist.batch_isend_irecv(ops)
     nbytes = sum(s.numel() * s.element_size() for s in sends)
     return _Shift(works, recvs, xs[0].device, t0, nbytes)
+
+
+def p2p(mesh, axis: str, send=(), to: int | None = None, recv_like=(), frm: int | None = None,
+        device=None) -> _Shift:
+    """Start sending each of ``send`` to index ``to`` of ``axis`` and receiving
+    a tensor shaped like each of ``recv_like`` from index ``frm``, posted
+    together through ``batch_isend_irecv`` (either side may be empty or its
+    index None); ``.wait()`` returns the received tensors on ``device`` (by
+    default that of the first tensor given). Under gloo a CUDA tensor goes
+    through pinned host memory both ways. Tallied as ``p2p``: the bytes this
+    rank sends and receives."""
+    t0 = time.perf_counter()
+    send = list(send) if to is not None else []
+    recv_like = list(recv_like) if frm is not None else []
+    first = (send + recv_like)[0] if send or recv_like else None
+    device = device if device is not None else (first.device if first is not None else None)
+    host = any(_host(mesh, x) for x in send + recv_like)
+    sends = [_to_host(x) if host else x.detach().contiguous() for x in send]
+    recvs = [torch.empty(r.shape, dtype=r.dtype, pin_memory=host) if host else torch.empty_like(r)
+             for r in recv_like]
+    group = mesh.group(axis)
+    ops = [dist.P2POp(dist.isend, s, mesh.peer(axis, to), group) for s in sends]
+    ops += [dist.P2POp(dist.irecv, r, mesh.peer(axis, frm), group) for r in recvs]
+    works = dist.batch_isend_irecv(ops) if ops else []
+    nbytes = sum(x.numel() * x.element_size() for x in sends + recvs)
+    return _Shift(works, recvs, device, t0, nbytes, op="p2p")
+
+
+def pipe_shift(send, mesh, axis: str, recv_like=()) -> _Shift:
+    """The non-cyclic shift along ``axis`` (the JAX ``ppermute`` with
+    ``[(i, i + 1)]``): start sending each of ``send`` to index + 1 (none from
+    the last index) and receiving tensors like ``recv_like`` from index - 1
+    (none at index 0). Pass either side empty to only send or only
+    receive."""
+    n, i = mesh.size(axis), mesh.index(axis)
+    return p2p(mesh, axis, send, i + 1 if i < n - 1 else None, recv_like, i - 1 if i > 0 else None)
+
+
+def permute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
+    """The JAX ``ppermute`` of ``x`` over ``axis``: every rank passes a
+    tensor of one shape; for each ``(src, dst)`` of ``perm`` (indices along
+    ``axis``, destinations unique) the source's ``x`` lands on the
+    destination; a rank that is no destination gets zeros."""
+    i = mesh.index(axis)
+    dst = next((d for s, d in perm if s == i), None)
+    src = next((s for s, d in perm if d == i), None)
+    if len({d for _, d in perm}) != len(perm):
+        raise ValueError(f"permutation {perm} has repeated destinations")
+    if dst == i and src == i:
+        return x.clone()
+    got = p2p(mesh, axis, [x], dst, [x], src).wait()
+    return got[0] if got else torch.zeros_like(x)
+
+
+def broadcast(x: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
+    """Index ``src``'s ``x`` on every rank of ``axis`` (a new tensor on each;
+    the others pass a tensor of the same shape and dtype, whose values are
+    not read)."""
+    if mesh is None or mesh.size(axis) == 1:
+        return x
+    t0 = time.perf_counter()
+    host = _host(mesh, x)
+    buf = _to_host(x) if host else x.detach().clone()
+    dist.broadcast(buf, src=mesh.peer(axis, src), group=mesh.group(axis))
+    out = buf.to(x.device) if host else buf
+    _note("broadcast", t0, x.numel() * x.element_size())
+    return out

@@ -1,5 +1,6 @@
-"""The process mesh over ``(dp, sp, tp)`` and the logical-axis sharding rules
-(the JAX package's ``parallel/sharding.py``).
+"""The process mesh over ``(dp, pp, sp, tp)`` and the logical-axis sharding
+rules (the JAX package's ``parallel/sharding.py``, with the pipeline axis of
+its ``parallel/pp_serving.py``).
 
 The JAX package is single-controller: one process drives every device and
 XLA inserts the collectives. The port runs one process per device over
@@ -7,16 +8,22 @@ XLA inserts the collectives. The port runs one process per device over
 shards, with every collective written out (``parallel/collectives.py``):
 
 - :class:`MeshPlan` factorizes the rank count over ``(dp, sp, tp)`` with the
-  JAX ``auto`` rule (8 → (1, 2, 4), 4 → (1, 1, 4), 16 → (2, 2, 4)).
+  JAX ``auto`` rule (8 → (1, 2, 4), 4 → (1, 1, 4), 16 → (2, 2, 4)); the
+  pipeline axis ``pp`` is a keyword field (default 1) that ``auto`` never
+  picks.
 - :func:`make_mesh` builds a :class:`ProcessMesh`: rank ``r`` sits at
-  ``(dp, sp, tp) = unravel(r, (dp, sp, tp))``, so ``tp`` is innermost (the
-  ranks of one tp group are consecutive, the same host's devices), and the
-  mesh holds one process group per axis through this rank.
+  ``(dp, pp, sp, tp) = unravel(r, (dp, pp, sp, tp))``, so ``tp`` is
+  innermost (the ranks of one tp group are consecutive, the same host's
+  devices), and the mesh holds one process group per axis through this
+  rank.
 - ``LOGICAL_RULES`` and :func:`logical_to_spec` are the JAX package's: tp
   shards ``q_heads``, ``kv_heads``, ``ffn`` and ``vocab`` (Megatron layout:
   column-parallel ``wq``/``wk``/``wv``/``w_gate``/``w_up``, row-parallel
   ``wo``/``w_down``, a vocab-parallel embedding and head), everything else
-  replicates. :func:`shard_params` slices each leaf to this rank's shard.
+  replicates. ``SERVING_RULES`` adds the pipeline's: the ``layer`` axis over
+  pp, each stage a contiguous block of ``L/pp`` layers (the JAX
+  ``pp_layer_specs``). :func:`shard_params` slices each leaf to this rank's
+  shard by ``SERVING_RULES``.
 - :func:`batch_sharding` is the rule for token batches ``[B, S, ...]``:
   batch over dp, sequence over sp; :func:`shard_batch` takes this rank's
   block.
@@ -38,6 +45,7 @@ import torch.distributed as dist
 __all__ = [
     "AXES",
     "LOGICAL_RULES",
+    "SERVING_RULES",
     "MeshPlan",
     "ProcessMesh",
     "make_mesh",
@@ -49,10 +57,10 @@ __all__ = [
 ]
 
 # Mesh axes, outermost first (tp innermost).
-AXES = ("dp", "sp", "tp")
+AXES = ("dp", "pp", "sp", "tp")
 
-# Logical axis name -> mesh axis (None = replicated along that axis). The
-# layer axis stays whole: a pipeline axis is not ported.
+# Logical axis name -> mesh axis (None = replicated along that axis), the
+# JAX package's: the layer axis stays whole.
 LOGICAL_RULES: dict[str, str | None] = {
     "vocab": "tp",
     "q_heads": "tp",
@@ -61,19 +69,23 @@ LOGICAL_RULES: dict[str, str | None] = {
     "embed": None,
     "layer": None,
 }
+# What a rank holds: the layer axis over the pipeline stages as well.
+SERVING_RULES: dict[str, str | None] = {**LOGICAL_RULES, "layer": "pp"}
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshPlan:
-    """Factorization of the rank count over (dp, sp, tp)."""
+    """Factorization of the rank count over (dp, pp, sp, tp); ``pp`` is
+    keyword-only, so ``MeshPlan(1, 2, 4)`` stays (dp, sp, tp)."""
 
     dp: int = 1
     sp: int = 1
     tp: int = 1
+    pp: int = dataclasses.field(default=1, kw_only=True)
 
     @property
     def n_devices(self) -> int:
-        return self.dp * self.sp * self.tp
+        return self.dp * self.pp * self.sp * self.tp
 
     @classmethod
     def auto(cls, n_devices: int, max_tp: int = 4) -> "MeshPlan":
@@ -90,7 +102,7 @@ class MeshPlan:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ProcessMesh:
-    """This rank's view of a ``(dp, sp, tp)`` process mesh: its coordinates,
+    """This rank's view of a ``(dp, pp, sp, tp)`` process mesh: its coordinates,
     and per axis the process group of the ranks that differ from it only
     along that axis (None where the axis has one rank, or where the mesh has
     no process group at all: a one-rank mesh in a process that never called
@@ -98,7 +110,7 @@ class ProcessMesh:
 
     plan: MeshPlan
     rank: int
-    coords: tuple[int, int, int]
+    coords: tuple[int, int, int, int]
     backend: str | None
     groups: dict
     lines: dict  # axis -> global ranks along the axis through this rank
@@ -127,7 +139,7 @@ class ProcessMesh:
 
 
 def make_mesh(plan: MeshPlan | None = None) -> ProcessMesh | None:
-    """A ``(dp, sp, tp)`` mesh over the first ``plan.n_devices`` ranks of the
+    """A ``(dp, pp, sp, tp)`` mesh over the first ``plan.n_devices`` ranks of the
     default process group (all of them when ``plan`` is None: the ``auto``
     factorization). Every rank of the group must call it, in the same order
     as its other group constructions; a rank outside the plan gets None.
@@ -159,21 +171,22 @@ def make_mesh(plan: MeshPlan | None = None) -> ProcessMesh | None:
                        lines=lines)
 
 
-def logical_to_spec(axes: tuple) -> tuple:
+def logical_to_spec(axes: tuple, rules: dict = LOGICAL_RULES) -> tuple:
     """("layer", "embed", "q_heads") -> (None, None, "tp"): the mesh axis of
-    each dimension (the JAX ``PartitionSpec``'s entries)."""
-    return tuple(LOGICAL_RULES.get(name) for name in axes)
+    each dimension (the JAX ``PartitionSpec``'s entries); with
+    ``SERVING_RULES`` the layer axis maps to "pp"."""
+    return tuple(rules.get(name) for name in axes)
 
 
 def shard_leaf(t, axes: tuple, mesh: ProcessMesh | None):
     """This rank's block of one leaf ``t`` (a tensor or a numpy array) whose
     dimensions carry the logical ``axes``: each dimension mapped to a mesh
-    axis of ``n`` ranks is cut into ``n`` equal blocks and this rank's is
-    kept (a copy, so the full leaf can be freed). A dimension that does not
-    divide raises, naming it."""
+    axis of ``n`` ranks (``SERVING_RULES``) is cut into ``n`` equal blocks
+    and this rank's is kept (a copy, so the full leaf can be freed). A
+    dimension that does not divide raises, naming it."""
     if mesh is None:
         return t
-    spec = logical_to_spec(axes)
+    spec = logical_to_spec(axes, SERVING_RULES)
     if len(spec) != t.ndim:
         raise ValueError(f"leaf of shape {tuple(t.shape)} has logical axes {axes}")
     out = t

@@ -3,7 +3,8 @@ of the port's tensor- and sequence-parallel paths. torch, numpy and the port
 only: the JAX references are computed in the test process.
 
 Every function takes plain picklable arguments (numpy arrays, configs, a
-plan as a ``(dp, sp, tp)`` tuple) and returns numpy or plain Python. A rank
+plan as a ``(dp, sp, tp)`` or ``(dp, sp, tp, pp)`` tuple) and returns numpy
+or plain Python. A rank
 outside the plan's mesh returns None. Meshes are built once per plan and
 process (every rank builds them in the same order, as torch requires).
 """
@@ -36,7 +37,7 @@ _MESHES: dict = {}
 
 def mesh_of(plan: tuple):
     if plan not in _MESHES:
-        _MESHES[plan] = make_mesh(MeshPlan(*plan))
+        _MESHES[plan] = make_mesh(MeshPlan(*plan[:3], pp=plan[3] if len(plan) > 3 else 1))
     return _MESHES[plan]
 
 

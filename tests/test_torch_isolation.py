@@ -72,7 +72,9 @@ def test_port_imports_no_jax_and_no_jax_package():
             "radixmesh_tpu_torch.parallel.sharding", "radixmesh_tpu_torch.parallel.multihost",
             "radixmesh_tpu_torch.parallel.collectives",
             "radixmesh_tpu_torch.parallel.ring_attention",
-            "radixmesh_tpu_torch.parallel.ulysses"} <= walked, r.stdout
+            "radixmesh_tpu_torch.parallel.ulysses", "radixmesh_tpu_torch.parallel.pipeline",
+            "radixmesh_tpu_torch.parallel.pp_serving",
+            "radixmesh_tpu_torch.parallel.kv_transfer"} <= walked, r.stdout
 
 
 _PARALLEL_PROBE = """
@@ -96,7 +98,8 @@ def test_parallel_package_stands_alone():
     assert r.returncode == 0, r.stdout + r.stderr
     files = sorted((ROOT / "radixmesh_tpu_torch" / "parallel").glob("*.py"))
     assert {f.stem for f in files} >= {"__init__", "sharding", "multihost", "collectives",
-                                       "ring_attention", "ulysses"}
+                                       "ring_attention", "ulysses", "pipeline", "pp_serving",
+                                       "kv_transfer"}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)

@@ -58,16 +58,16 @@ class TestMeshPlan:
     def test_make_mesh_shape(self, group):
         layouts = group.run(CASES + "mesh_layout", (2, 1, 2))
         for rank, lay in enumerate(layouts):
-            assert lay["shape"] == {"dp": 2, "sp": 1, "tp": 2}
-            # tp innermost: rank = dp * 2 + tp.
-            assert lay["coords"] == (rank // 2, 0, rank % 2)
+            assert lay["shape"] == {"dp": 2, "pp": 1, "sp": 1, "tp": 2}
+            # tp innermost: rank = dp * 2 + tp; (dp, pp, sp, tp).
+            assert lay["coords"] == (rank // 2, 0, 0, rank % 2)
             assert lay["lines"]["tp"] == [rank // 2 * 2, rank // 2 * 2 + 1]
             assert lay["lines"]["dp"] == [rank % 2, rank % 2 + 2]
             assert lay["backend"] == "gloo"
         # A plan over fewer ranks leaves the others out of it.
         part = group.run(CASES + "mesh_layout", (1, 2, 1))
         assert part[2] is None and part[3] is None
-        assert part[0]["coords"] == (0, 0, 0) and part[1]["coords"] == (0, 1, 0)
+        assert part[0]["coords"] == (0, 0, 0, 0) and part[1]["coords"] == (0, 0, 1, 0)
 
     def test_batch_sharding_takes_this_ranks_block(self, group):
         """Token batches: batch over dp, sequence over sp (the JAX
@@ -215,5 +215,5 @@ def test_two_process_init_multihost_global_mesh(tmp_path):
         out = g.run(CASES + "global_mesh_layout")
     finally:
         g.close()
-    assert [o["shape"] for o in out] == [{"dp": 2, "sp": 1, "tp": 1}] * 2
-    assert [o["coords"] for o in out] == [(0, 0, 0), (1, 0, 0)]
+    assert [o["shape"] for o in out] == [{"dp": 2, "pp": 1, "sp": 1, "tp": 1}] * 2
+    assert [o["coords"] for o in out] == [(0, 0, 0, 0), (1, 0, 0, 0)]

@@ -261,14 +261,10 @@ def test_every_rank_reports_its_collectives(group):
 
 def _fake_mesh(**axes) -> ProcessMesh:
     """A mesh object for refusals raised before any collective."""
-    plan = MeshPlan(**{k: v for k, v in axes.items() if k in ("dp", "sp", "tp")})
-    return ProcessMesh(plan=plan, rank=0, coords=(0, 0, 0), backend=None,
-                       groups={"dp": None, "sp": None, "tp": None},
-                       lines={"dp": (0,), "sp": (0,), "tp": (0,)})
-
-
-class _PPMesh:
-    shape = {"dp": 1, "pp": 2, "sp": 1, "tp": 1}
+    plan = MeshPlan(**{k: v for k, v in axes.items() if k in ("dp", "pp", "sp", "tp")})
+    return ProcessMesh(plan=plan, rank=0, coords=(0, 0, 0, 0), backend=None,
+                       groups={"dp": None, "pp": None, "sp": None, "tp": None},
+                       lines={"dp": (0,), "pp": (0,), "sp": (0,), "tp": (0,)})
 
 
 @pytest.mark.parametrize("what,kw,match", [
@@ -291,8 +287,14 @@ def test_refused_handoff_and_pp():
     eng = Engine(TCFG, params, device="cpu", device_mesh=_fake_mesh(tp=2), **KW)
     with pytest.raises(NotImplementedError, match="handoff"):
         DecodeWorker(eng)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        Engine(TCFG, params, device="cpu", device_mesh=_PPMesh(), **KW)
+    # pp is served since the pipeline was ported; what it does not compose
+    # with yet is refused by name (A5c), the handoff included.
+    with pytest.raises(NotImplementedError, match="A5c"):
+        Engine(TCFG, params, device="cpu", device_mesh=_fake_mesh(pp=2), kv_transfer_async=True, **KW)
+    pp_eng = Engine(TCFG, params, device="cpu", device_mesh=_fake_mesh(pp=2), **KW)
+    assert pp_eng.pool.num_layers == TCFG.n_layers // 2
+    with pytest.raises(NotImplementedError, match="pipeline-parallel"):
+        DecodeWorker(pp_eng)
     # A tp=1 mesh (sp only) keeps the tiers: its pool holds every head.
     Engine(TCFG, params, device="cpu", device_mesh=_fake_mesh(sp=1), host_cache_slots=256,
            **KW).close()
