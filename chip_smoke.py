@@ -215,8 +215,8 @@ Phases (any failure raises and exits non-zero):
    per second at r0 and d0, bytes per insert, apply lag, r0's
    ``match_prefix`` time and each replica's RSS growth. (c) The decode
    step wall of 4 x 600 on p0 with the mesh on (d0 advertising 50
-   prefixes a second) and off, one round after a warm-up, over native
-   ``tcp`` and ``tcp-py``. (d)
+   prefixes a second) and off, one round (the first leg after a warm-up),
+   over native ``tcp`` and ``tcp-py``. (d)
    After the weights are freed, two ``python
    -m radixmesh_tpu_torch.launch node`` processes (prefill and decode, a
    16384-slot pool each) over native ``tcp`` from JSON configs with
@@ -300,7 +300,21 @@ Phases (any failure raises and exits non-zero):
    (bf16, and int8 with its scales), the tokens equal to a collocated
    engine's, the bytes and rate (gloo's host bounce) printed. (a) also
    times B1 and B2 at a pp stage's microbatch (4 of phase 2's 8 rows).
-   (b)–(f) start beside Qwen2-7B serving (phase 8), the checkpoint round
+   (g) The KV tiers on the two ranks, at tp = 2 and at pp = 2, bf16 and
+   int8 (``PAR["g"]``: 200-token prompts a, b, a in a pool that holds one):
+   the host tier, host + disk and host + plane, each run's first-token
+   rows and tokens bit-equal to the same mesh without tiers (where the
+   second a is a device hit), the hicache and disk counters > 0 and equal
+   on both ranks, B1 and B2 launched on every rank; the restore, write-back
+   and spill GB/s and the step agreement's calls a pass printed. A
+   ``PrefillWorker`` on each mesh: the leader's packet slices equal each
+   rank's pool shard, and this process decodes the packet on one device
+   (first decode row against the single device's own, ``ROW_RTOL``); a
+   single-device packet decoded by a tp = 2 ``DecodeWorker``. A pool-bound
+   ``MeshCache`` replica on the leader, in a native tcp ring with one in
+   this process: both hold each other's prefix, a free through the
+   replica's proxy lands on both ranks, and both ranks' slots balance.
+   (b)–(g) start beside Qwen2-7B serving (phase 8), the checkpoint round
    trip and the whole-path checks; each rank's readings land in
    ``chip_out/par-*.json`` and ``.log``.
 Checkpoints and profiles are written under ``chip_out/`` and removed.
@@ -3570,14 +3584,15 @@ def _stop_replicas(pipes, procs) -> None:
             p.join()
 
 
-def _mesh_wall_leg(dev, model, protocol: str, remote: bool) -> dict:
+def _mesh_wall_leg(dev, model, protocol: str, remote: bool, warm: bool = True) -> dict:
     """Decode step wall of ``wall_rows`` x ``wall_len`` on p0: the engine
     with its mesh replica while d0 advertises ``traffic_per_s`` prefixes a
     second (p0's replica applies and forwards each), against an engine
     without a mesh and a quiet ring, interleaved. ``remote``: d0 and r0 run
     in their own processes, as a deployment runs them; otherwise all three
     replicas share this process. The median of five 8-step windows per
-    run; a discarded warm-up, then ``wall_rounds`` rounds, the order
+    run; with ``warm`` a discarded warm-up (the first leg: the later legs
+    run the same engine shapes), then ``wall_rounds`` rounds, the order
     reversed in every other one."""
     from radixmesh_tpu_torch.cache.mesh_cache import MeshCache
 
@@ -3596,8 +3611,9 @@ def _mesh_wall_leg(dev, model, protocol: str, remote: bool) -> dict:
     out = {"on": [], "off": [], "protocol": protocol, "remote": remote, "traffic_per_s": MESH["traffic_per_s"],
            "advertised": 0}
     try:
-        order = [["on"]] + [["on", "off"] if r % 2 == 0 else ["off", "on"] for r in range(MESH["wall_rounds"])]
-        for rnd, names in enumerate(order):
+        order = ([["on"]] if warm else []) + [["on", "off"] if r % 2 == 0 else ["off", "on"]
+                                              for r in range(MESH["wall_rounds"])]
+        for rnd, names in enumerate(order, start=0 if warm else 1):
             for name in names:
                 eng = Engine(cfg, model, num_slots=MESH["wall_slots"], page_size=16, max_batch=4, device=dev,
                              mesh=meshes[0] if name == "on" else None, name=f"wall-{protocol}-{rnd}-{name}")
@@ -4583,7 +4599,7 @@ def mesh_phase(dev, model) -> dict:
         for remote in (False, True):
             t = time.monotonic()
             tag = f"{protocol} {'d0 and r0 in other processes' if remote else 'one process'}"
-            w = out["walls"][tag] = _mesh_wall_leg(dev, model, protocol, remote)
+            w = out["walls"][tag] = _mesh_wall_leg(dev, model, protocol, remote, warm=not out["walls"])
             print(f"[mesh walls {tag}] decode step {MESH['wall_rows']} x {MESH['wall_len']}: mesh on "
                   f"({w['traffic_per_s']} inserts/s from d0) {[round(x, 3) for x in w['on']]} ms vs off "
                   f"{[round(x, 3) for x in w['off']]} ms; on/off {[round(x, 3) for x in w['on_over_off']]} "
@@ -4736,7 +4752,14 @@ def whole_path_check(dev, kv_quant=None, schedules=None, tiers=False, model="lla
 PAR = dict(model="llama3-8b", layers=8, slots=16384, prompts=(300, 280, 100, 150), new_tokens=8,
            hit_extra=64, f32_layers=4, f32_prompts=(300, 280), sp_prompt=8192, sp_warm=4096,
            sp_slots=16384, sp_layers=(0, 4, 7), world=2, nccl_layers=2, nccl_prompt=100, timeout_s=900,
-           collective_timeout_s=600, device="cuda", witness=False)
+           collective_timeout_s=600, device="cuda", witness=False,
+           # (g): 200-token prompts in a pool that holds one of them but not
+           # two, so the script a, b, a evicts a to the host tier and restores
+           # it. Short prompts, and one token for a and b: under tp every
+           # chunk all-gathers the logits of every position and every decode
+           # step crosses the ranks twice a layer, which set (g)'s wall.
+           g=dict(prompt=200, slots=384, ref_slots=4096, host_slots=1024, new_tokens=3, handoff_prompt=200,
+                  mesh_prompt=200))
 # Per-rank head counts of B1, B2 and B3 on phase 18's shapes: Llama-3-8B and
 # Qwen2-7B at tp = 2.
 PAR_HEADS = {"llama3-8b tp=2": (16, 4), "qwen2-7b tp=2": (14, 2)}
@@ -5105,6 +5128,269 @@ def _par_ici_leg(rank, mesh, full, prompt, dev) -> dict:
     return out
 
 
+# (g)'s tier setups (its sizes are ``PAR["g"]``); the plane stages 64-token
+# chunks, so a restore of a's 192 tokens lands in three.
+TIER_G_SETUPS = {"host": {},
+                 "host+disk": dict(kv_tier_watermark=0.0, kv_tier_destage_interval_s=0.0,
+                                   kv_transfer_chunk_tokens=64),
+                 "host+plane": dict(kv_transfer_async=True, kv_transfer_chunk_tokens=64)}
+
+
+def _first_decode_row(engine) -> dict:
+    """Record the first decode step's fed tokens and logits of ``engine``
+    (the model's step, or the pipeline's under pp) into the returned dict."""
+    owner, attr = (engine, "_decode_step") if engine._pp else (engine.model, "decode_step")
+    step = getattr(owner, attr)
+    seen = {}
+
+    def first(tokens, *a, **kw):
+        out = step(tokens, *a, **kw)
+        if "logits" not in seen:
+            seen["tokens"], seen["logits"] = torch.as_tensor(tokens).cpu().clone(), out.float().cpu()
+        return out
+
+    setattr(owner, attr, first)
+    return seen
+
+
+def _tier_run(model, mesh, dev, quant, setup, prompts, root) -> dict:
+    """(g) one engine on ``mesh`` over prompts a, b, a: no tier (a pool that
+    holds both, so the second a is a device hit) or a tier setup (a pool
+    that holds one: the second a is a restore). The first-token rows, the
+    tokens, the tier counters and the lanes' rates."""
+    from radixmesh_tpu_torch.parallel import collective_stats, reset_collective_stats
+
+    extra = dict(TIER_G_SETUPS.get(setup, {}))
+    if setup != "none":
+        extra["host_cache_slots"] = PAR["g"]["host_slots"]
+    if "disk" in setup:
+        extra["kv_tier_dir"] = root
+    slots = PAR["g"]["ref_slots"] if setup == "none" else PAR["g"]["slots"]
+    # Every prefill through the chunk kernel (B2), the restored hit's too.
+    eng = Engine(model.cfg, model, num_slots=slots, page_size=16, max_batch=2, device=dev, device_mesh=mesh,
+                 kv_quant=quant, long_prefill_threshold=0, **extra)
+    firsts = []
+    eng.on_first_logits = lambda req, row: firsts.append(row.float().cpu())
+    # a and b only fill the tiers (their first token); the restored a decodes.
+    news = [1] * (len(prompts) - 1) + [PAR["g"]["new_tokens"]]
+    reset_collective_stats()
+    _sync(dev)
+    t = time.perf_counter()
+    tokens = [eng.generate([p], SamplingParams(temperature=0.0, max_new_tokens=k))[0]
+              for p, k in zip(prompts, news)]
+    _sync(dev)
+    wall = time.perf_counter() - t
+    coll = collective_stats()
+    r = {"tokens": tokens, "firsts": firsts, "wall_s": wall, "cached": eng.stats.cached_tokens,
+         "evicted": eng.stats.evicted_tokens}
+    tree = eng.tree
+    if setup != "none":
+        hs = tree.stats()
+        r["hicache"] = {k: hs[k] for k in ("backup_tokens", "restore_tokens", "writeback_sweeps")}
+        per_tok = kv_token_bytes(eng.pool)
+        if eng.kv_transfer is None:  # the synchronous restore: its blocking time
+            r["restore_gbps"] = hs["restore_tokens"] * per_tok / max(hs["restore_stall_s"], 1e-9) / 1e9
+        else:
+            st = eng.kv_transfer.stats()
+            lb, ls = st["lane_bytes"], st["lane_seconds"]
+            r["restore_gbps"] = lb["restore"] / ls["restore"] / 1e9 if ls["restore"] else None
+            r["writeback_gbps"] = lb["writeback"] / ls["writeback"] / 1e9 if ls["writeback"] else None
+            r["spill_gbps"] = lb["spill"] / ls["spill"] / 1e9 if ls["spill"] else None
+            r["plane_restored_tokens"] = st["restored_tokens"]
+        if eng._kv_tier is not None:
+            ds = eng._kv_tier.stats()
+            r["disk"] = {"spilled_tokens": ds["spilled_tokens"], "extents": eng._kv_tier.extents}
+        if eng._sync is not None:
+            a = coll.get("agree", {"calls": 0, "seconds": 0.0})
+            r["agree"] = {"passes": eng._sync.passes, "calls": a["calls"], "seconds": a["seconds"],
+                          "broadcasts": coll.get("agree_broadcast", {"calls": 0})["calls"]}
+    eng.close()
+    del eng
+    return r
+
+
+def _par_tier_leg(rank, meshes: dict, full, dev, out_dir) -> dict:
+    """(g) The KV tiers, the async plane, the disaggregated handoff and a
+    pool-bound mesh replica on tp = 2 and pp = 2 (every rank runs it):
+
+    - per mesh and pool kind, the script without tiers and with each tier
+      setup: the tier runs' first-token rows and tokens bit-equal to the
+      run without tiers (restored KV is the KV that was written), their
+      counters > 0 (and equal across ranks, held by the parent);
+    - a ``PrefillWorker`` per mesh: the leader's packet, whose slices equal
+      each rank's own pool shard (digests held by the parent), written for
+      the parent's single-device decode; a single-device packet decoded by a
+      tp = 2 ``DecodeWorker``, its first decode row against the single
+      device's own decode of it;
+    - a pool-bound ``MeshCache`` replica on the leader, in a ring over the
+      native tcp transport with the parent's replica: the engine serves a
+      prompt, the parent's prompt replicates in, a free through the
+      replica's proxy lands on every rank, and every rank's slots balance.
+    Returns the readings, and each rank's B1/B2 launches over the leg."""
+    from radixmesh_tpu_torch.cache.kv_pool import PagedKVPool
+    from radixmesh_tpu_torch.cache.mesh_cache import MeshCache
+    from radixmesh_tpu_torch.config import MeshConfig
+    from radixmesh_tpu_torch.engine.disagg import DecodeWorker, PrefillWorker, pack_handoff, unpack_handoff
+    from radixmesh_tpu_torch.models.llama import param_logical_axes
+    from radixmesh_tpu_torch.parallel import shard_params
+    import torch.distributed as dist
+
+    cfg = full.cfg
+    rng = np.random.default_rng(22)
+    a, b = (rng.integers(0, cfg.vocab_size, PAR["g"]["prompt"]).tolist() for _ in range(2))
+    script = [a, b, a]
+    hp = rng.integers(0, cfg.vocab_size, PAR["g"]["handoff_prompt"]).tolist()
+    out = {"runs": {}, "handoff": {}, "digests": {}}
+    launches = {}
+    tree = full.param_tree()
+    for mtag, mesh in meshes.items():
+        shards = Llama(cfg, shard_params(tree, param_logical_axes(cfg, tree), mesh), mesh=mesh)
+        pa.reset_counters()
+        for qtag, quant in (("bf16", None), ("int8", "int8")):
+            base = _tier_run(shards, mesh, dev, quant, "none", script, None)
+            for setup in TIER_G_SETUPS:
+                root = str(out_dir / f"kv-tier-g-{mtag.replace('=', '')}-{qtag}")
+                r = _tier_run(shards, mesh, dev, quant, setup, script, root)
+                tag = f"{mtag} {qtag} {setup}"
+                check(r["tokens"] == base["tokens"], f"(g) {tag}: tokens {r['tokens']} != without tiers "
+                      f"{base['tokens']}")
+                check(len(r["firsts"]) == len(base["firsts"]) == 3
+                      and all(torch.equal(x, y) for x, y in zip(r["firsts"], base["firsts"])),
+                      f"(g) {tag}: first-token rows differ from the run without tiers")
+                check(r["cached"] == base["cached"] > 0 and r["evicted"] > 0,
+                      f"(g) {tag}: cached {r['cached']} vs {base['cached']}, evicted {r['evicted']}: the second "
+                      "a did not restore")
+                check(r["hicache"]["backup_tokens"] > 0 and r["hicache"]["restore_tokens"] > 0,
+                      f"(g) {tag}: hicache counters {r['hicache']}")
+                check("disk" not in setup or r["disk"]["spilled_tokens"] > 0, f"(g) {tag}: nothing spilled")
+                out["runs"][tag] = {k: v for k, v in r.items() if k != "firsts"} | {"base_wall_s": base["wall_s"]}
+                dist.barrier()
+                if rank == 0:
+                    shutil.rmtree(root, ignore_errors=True)
+        c = pa.launch_counts()
+        launches[mtag] = {k: c[k] for k in ("paged_decode_fused_kernel", "paged_decode_fused_kernel[int8]",
+                                            "paged_chunk_attention_kernel", "paged_chunk_attention_kernel[int8]")}
+        # The handoff from this mesh: the leader's packet, and each rank's
+        # own shard of the published prefix.
+        greedy = SamplingParams(temperature=0.0, max_new_tokens=PAR["g"]["new_tokens"])
+        pw = PrefillWorker(cfg, shards, num_slots=PAR["g"]["ref_slots"], page_size=16, max_batch=2, device=dev,
+                           device_mesh=mesh, long_prefill_threshold=0)
+        _sync(dev)
+        t = time.perf_counter()
+        pkt = pw.prefill_handoff(hp, greedy)
+        _sync(dev)
+        h = {"wall_s": time.perf_counter() - t, "gather_s": pw.gather_s, "gather_bytes": pw.gather_bytes}
+        m = pw.tree.match_prefix(np.asarray(hp, np.int32))
+        n = len(m.indices())
+        kv_local, _ = pw.pool.gather_raw(np.asarray(m.indices(), np.int32))
+        h["own_digest"] = _bits_digest(kv_local)
+        if pkt is not None:
+            L, H = pw.model.n_layers, pw.model.n_kv_heads
+            h["slice_digests"] = {}
+            for r in range(mesh.engine_size):
+                pp_i, tp_i = (r // mesh.size("tp")) % mesh.size("pp"), r % mesh.size("tp")
+                h["slice_digests"][r] = _bits_digest(pkt.kv[:, pp_i * L:(pp_i + 1) * L, :n, tp_i * H:(tp_i + 1) * H])
+            h["kv_bytes"] = pkt.kv.numel() * pkt.kv.element_size()
+            (out_dir / f"par-g-packet-{mtag.replace('=', '')}.bin").write_bytes(pack_handoff(pkt))
+            h["prompt"] = hp
+        out["handoff"][mtag] = h
+        del pw, pkt
+        if mtag == "tp=2":
+            # A single-device packet (rank 0, the whole model) into a tp = 2
+            # DecodeWorker; rank 0 also decodes it on the single device.
+            data = None
+            ref = {}
+            if rank == 0:
+                spw = PrefillWorker(cfg, full, num_slots=PAR["g"]["ref_slots"], page_size=16, max_batch=2,
+                                    device=dev, long_prefill_threshold=0)
+                data = pack_handoff(spw.prefill_handoff(hp, greedy))
+                del spw
+                one = DecodeWorker(Engine(cfg, full, num_slots=PAR["g"]["ref_slots"], page_size=16, max_batch=2,
+                                          device=dev))
+                ref = _first_decode_row(one.engine)
+                ref_req = one.submit(unpack_handoff(data))
+                one.run_until_drained()
+                ref["generated"] = ref_req.generated
+                del one
+            eng = Engine(cfg, shards, num_slots=PAR["g"]["ref_slots"], page_size=16, max_batch=2, device=dev,
+                         device_mesh=mesh)
+            dw = DecodeWorker(eng)
+            row = _first_decode_row(eng)
+            made = []
+            make = dw._make_request
+            dw._make_request = lambda p: made.append(make(p)) or made[-1]
+            if data is not None:
+                dw._on_packet(data)
+            _sync(dev)
+            t = time.perf_counter()
+            dw.run_until_drained()
+            _sync(dev)
+            d = {"wall_s": time.perf_counter() - t, "tokens": [q.generated for q in made]}
+            if rank == 0:
+                d["single_tokens"] = ref["generated"]
+                same = bool(torch.equal(row["tokens"][:1], ref["tokens"][:1]))
+                d["first_row_err"] = _row_rel_err(row["logits"][0], ref["logits"][0]) if same else None
+                check(PAR["witness"] or d["first_row_err"] is None or d["first_row_err"] <= ROW_RTOL,
+                      f"(g) tp=2 DecodeWorker: first decode row err {d['first_row_err']} > {ROW_RTOL}")
+            check(len(made) == 1 and len(made[0].generated) == PAR["g"]["new_tokens"],
+                  f"(g) tp=2 DecodeWorker decoded {[q.generated for q in made]}")
+            out["handoff"]["single -> tp=2"] = d
+            del dw, eng
+        # A pool-bound mesh replica on the leader (tp = 2 only: one ring).
+        if mtag == "tp=2" and PAR.get("g_addrs"):
+            addrs = PAR["g_addrs"]
+            L, H = shards.n_layers, shards.n_kv_heads
+            pool = PagedKVPool(num_slots=PAR["g"]["slots"], num_layers=L, num_kv_heads=H, head_dim=cfg.head_dim,
+                               page_size=16, dtype=cfg.dtype, device=dev)
+            replica = None
+            if rank == 0:
+                mcfg = MeshConfig(prefill_nodes=[addrs[0]], decode_nodes=[addrs[1]], router_nodes=[],
+                                  local_addr=addrs[0], protocol="tcp", page_size=16, tick_interval_s=0.05,
+                                  gc_interval_s=30.0)
+                replica = MeshCache(mcfg, pool=pool).start()
+                check(replica.wait_ready(timeout=120), "(g) the leader's replica never joined the ring")
+            eng = Engine(cfg, shards, num_slots=PAR["g"]["slots"], page_size=16, max_batch=2, device=dev,
+                         device_mesh=mesh, pool=pool, mesh=replica, long_prefill_threshold=0)
+            mp = rng.integers(0, cfg.vocab_size, PAR["g"]["mesh_prompt"]).tolist()
+            key = mp[: len(mp) // 16 * 16]  # what the replicas hold: whole pages
+            got = eng.generate([mp], greedy)[0]
+            r = {"tokens": got, "bound": eng._mesh_proxy is not None}
+            if rank == 0:
+                r["proxy"] = type(replica.pool).__name__
+                theirs = np.asarray(PAR["g_parent_key"], np.int32)
+                deadline = time.monotonic() + 30
+                while time.monotonic() < deadline and replica.tree.match_prefix(theirs).length < len(theirs):
+                    time.sleep(0.05)
+                r["parent_key_replicated"] = int(replica.tree.match_prefix(theirs).length)
+            taken = pool.alloc(32)
+            if rank == 0:
+                replica.pool.free(taken)
+            before = pool.free_slots
+            eng.has_work()
+            eng.step()
+            held = eng.tree.evictable_size_ + eng.tree.protected_size_
+            r.update(freed=pool.free_slots - before, free_slots=pool.free_slots,
+                     balance=pool.free_slots + held + 16 == PAR["g"]["slots"], key=key)
+            check(r["bound"] and r["freed"] == 32 and r["balance"],
+                  f"(g) pool-bound mesh: {r}")
+            out["mesh"] = r
+            dist.barrier()
+            if replica is not None:
+                # The parent's replica looks for the leader's prefix, then
+                # says so; the leader's replica stays up until then.
+                (out_dir / "par-g-mesh-ready").write_text(json.dumps(key))
+                deadline = time.monotonic() + 60
+                while time.monotonic() < deadline and not (out_dir / "par-g-mesh-done").exists():
+                    time.sleep(0.05)
+                replica.close()
+            dist.barrier()
+            del eng, pool
+        del shards
+        _release(dev)
+    out["launches"] = launches
+    return out
+
+
 def parallel_rank(rank: int, world: int, store: str, out: str) -> int:
     """One rank of phase 18 (b) and (c): every rank runs this same program,
     gloo between them (they share the card). Writes its readings to
@@ -5230,6 +5516,10 @@ def parallel_rank(rank: int, world: int, store: str, out: str) -> int:
     _release(dev)
     check(sp["prefill_chunks"] == 0, "sp leg: the prompt took the chunked path, not the sp one")
     res["ici"] = _par_ici_leg(rank, dp_mesh, full, prompts[0], dev)
+    t = time.monotonic()
+    res["tiers"] = _par_tier_leg(rank, {"tp=2": tp_mesh, "pp=2": pp_mesh}, full, dev, pathlib.Path(out).parent)
+    res["tiers"]["wall_s"] = time.monotonic() - t
+    print(f"[tp rank{rank}] (g) tiers, handoff and pool-bound mesh: {res['tiers']['wall_s']:.1f} s", flush=True)
     res["sp"] = {"ttft_s": sp["ttft_s"], "tokens": sp["tokens"], "kv_abs_sum": float(sp["kv"].double().abs().sum())}
     refs = {}
     if rank == 0:
@@ -5313,12 +5603,53 @@ def parallel_nccl(store: str, out: str) -> int:
     return 0
 
 
+def _g_parent_replica(out_dir) -> dict:
+    """(g)'s second replica, in this process: a model-less ``MeshCache`` on
+    the native tcp transport, in a ring with the leader rank's pool-bound
+    replica. A thread waits for the ring, inserts this replica's key (which
+    the leader must see), then looks for the leader's served prefix and
+    writes ``par-g-mesh-done``."""
+    from radixmesh_tpu_torch.cache.mesh_cache import MeshCache
+    from radixmesh_tpu_torch.config import MeshConfig
+
+    addrs = [f"127.0.0.1:{p}" for p in _free_ports(2)]
+    key = np.random.default_rng(23).integers(0, 128000, 160).tolist()
+    PAR.update(g_addrs=addrs, g_parent_key=key)
+    for name in ("par-g-mesh-ready", "par-g-mesh-done"):
+        (out_dir / name).unlink(missing_ok=True)
+    cfg = MeshConfig(prefill_nodes=[addrs[0]], decode_nodes=[addrs[1]], router_nodes=[], local_addr=addrs[1],
+                     protocol="tcp", page_size=16, tick_interval_s=0.05, gc_interval_s=30.0)
+    replica = MeshCache(cfg, pool=None).start()
+    g = {"replica": replica, "seen": None, "stop": threading.Event()}
+
+    def watch():
+        if not replica.wait_ready(timeout=PAR["timeout_s"]):
+            return
+        replica.insert(np.asarray(key, np.int32), np.arange(len(key), dtype=np.int32))
+        ready = out_dir / "par-g-mesh-ready"
+        while not g["stop"].is_set() and not ready.exists():
+            time.sleep(0.05)
+        if g["stop"].is_set():
+            return
+        theirs = np.asarray(json.loads(ready.read_text()), np.int32)
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and replica.tree.match_prefix(theirs).length < len(theirs):
+            time.sleep(0.05)
+        g["seen"], g["want"] = int(replica.tree.match_prefix(theirs).length), len(theirs)
+        (out_dir / "par-g-mesh-done").write_text(str(g["seen"]))
+
+    g["thread"] = threading.Thread(target=watch, name="g-replica", daemon=True)
+    g["thread"].start()
+    return g
+
+
 def parallel_phase_start(out_dir=None) -> dict:
     """Start phase 18's processes: the ``PAR["world"]`` ranks of (b) and (c)
     and the nccl process of (d), each this script with its role's flags and
-    a log of its own."""
+    a log of its own, and (g)'s replica in this process."""
     out_dir = pathlib.Path(out_dir or OUT_DIR)
     out_dir.mkdir(exist_ok=True)
+    g_mesh = _g_parent_replica(out_dir)
     store_dir = tempfile.mkdtemp(prefix="par-store-", dir=out_dir)
     procs, logs = {}, {}
     world = PAR["world"]
@@ -5334,7 +5665,7 @@ def parallel_phase_start(out_dir=None) -> dict:
                 [sys.executable, str(ROOT / "chip_smoke.py"), *args, "--parallel-store", store,
                  "--parallel-out", str(out_dir / f"par-{name}.json"), "--parallel-sizes", json.dumps(PAR)],
                 cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
-    return {"procs": procs, "logs": logs, "out_dir": out_dir, "store_dir": store_dir,
+    return {"procs": procs, "logs": logs, "out_dir": out_dir, "store_dir": store_dir, "g_mesh": g_mesh,
             "t0": time.monotonic(), "memory": _card_memory_sampler() if PAR["device"] == "cuda" else None}
 
 
@@ -5365,7 +5696,81 @@ def parallel_phase_stop(handle) -> None:
     if handle["memory"] is not None:
         handle["memory"]["stop"].set()
         handle["memory"]["thread"].join()
+    g = handle["g_mesh"]
+    g["stop"].set()
+    g["thread"].join(timeout=60)
+    if not g.get("closed"):
+        g["closed"] = True
+        g["replica"].close()
     shutil.rmtree(handle["store_dir"], ignore_errors=True)
+
+
+def _g_finish(ranks, out_dir, g_mesh) -> dict:
+    """(g) across ranks: the tier counters and tokens equal on every rank,
+    the leader's packet slices equal to each rank's own shard, each mesh's
+    packet decoded here by a single-device engine (its first decode row
+    against the single device's own prefill and decode of the prompt), the
+    pool-bound replica's allocators equal on every rank and the two
+    replicas' prefixes replicated both ways."""
+    from radixmesh_tpu_torch.engine.disagg import DecodeWorker, unpack_handoff
+
+    g0 = ranks[0]["tiers"]
+    for r in ranks[1:]:
+        g = r["tiers"]
+        for tag, run in g0["runs"].items():
+            other = g["runs"][tag]
+            for k in ("tokens", "hicache", "disk", "cached"):
+                check(other.get(k) == run.get(k), f"(g) {tag}: rank {r['rank']}'s {k} {other.get(k)} != rank 0's "
+                      f"{run.get(k)}")
+        check(g["mesh"]["free_slots"] == g0["mesh"]["free_slots"], "(g) pool-bound mesh: free slots differ")
+        check(g["handoff"]["single -> tp=2"]["tokens"] == g0["handoff"]["single -> tp=2"]["tokens"],
+              "(g) tp=2 DecodeWorker: ranks' tokens differ")
+    for mtag in ("tp=2", "pp=2"):
+        lead = g0["handoff"][mtag]["slice_digests"]
+        for i, r in enumerate(ranks):
+            check(lead[str(i)] == r["tiers"]["handoff"][mtag]["own_digest"],
+                  f"(g) {mtag} packet: the leader's slice of engine rank {i} differs from that rank's pool")
+        if PAR["device"] == "cuda":
+            for qtag in ("", "[int8]"):
+                for k in ("paged_decode_fused_kernel", "paged_chunk_attention_kernel"):
+                    n = [r["tiers"]["launches"][mtag][k + qtag] for r in ranks]
+                    check(all(x > 0 for x in n), f"(g) {mtag}: {k}{qtag} launches per rank {n}")
+    check(g0["mesh"]["proxy"] == "MeshPoolProxy", f"(g) the leader's replica sees {g0['mesh']['proxy']}")
+    check(g0["mesh"]["parent_key_replicated"] == len(PAR["g_parent_key"]),
+          f"(g) the parent's key reached the leader's replica as {g0['mesh']['parent_key_replicated']} tokens")
+    check(g_mesh["seen"] is not None and g_mesh["seen"] == g_mesh["want"],
+          f"(g) the leader's prefix reached this process's replica as {g_mesh['seen']} tokens")
+    # Each mesh's packet, decoded here on one device.
+    dev = torch.device("cuda", 0) if PAR["device"] == "cuda" else torch.device("cpu")
+    cfg = get_config(PAR["model"], n_layers=PAR["layers"])
+    with torch.inference_mode():
+        model = Llama(cfg, init_params(cfg, 0, dev))
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=PAR["g"]["new_tokens"])
+    kw = dict(num_slots=PAR["g"]["ref_slots"], page_size=16, max_batch=2, device=dev)
+    prompt = g0["handoff"]["tp=2"]["prompt"]
+    ref = Engine(cfg, model, **kw)
+    want = _first_decode_row(ref)
+    want_tokens = ref.generate([prompt], greedy)[0]
+    out = {}
+    for mtag in ("tp=2", "pp=2"):
+        data = (out_dir / f"par-g-packet-{mtag.replace('=', '')}.bin").read_bytes()
+        dw = DecodeWorker(Engine(cfg, model, **kw))
+        row = _first_decode_row(dw.engine)
+        pkt = unpack_handoff(data, pin_memory=dev.type == "cuda")
+        check(pkt.prompt.tolist() == prompt and tuple(pkt.kv.shape)[1] == cfg.n_layers
+              and pkt.kv.shape[3] == cfg.n_kv_heads, f"(g) {mtag} packet: shape {tuple(pkt.kv.shape)}")
+        req = dw.submit(pkt)
+        dw.run_until_drained()
+        same = bool(torch.equal(row["tokens"][:1], want["tokens"][:1]))
+        err = _row_rel_err(row["logits"][0], want["logits"][0]) if same else None
+        check(PAR["witness"] or err is None or err <= ROW_RTOL,
+              f"(g) {mtag} packet decoded here: first decode row err {err}")
+        out[mtag] = {"tokens": req.generated, "single_tokens": want_tokens, "first_row_err": err,
+                     "bytes": len(data)}
+        del dw
+    del ref, model
+    _release(dev)
+    return out
 
 
 def parallel_phase_finish(handle) -> dict:
@@ -5410,6 +5815,9 @@ def parallel_phase_finish(handle) -> dict:
         check(r["sp"]["kv_abs_sum"] == r0["sp"]["kv_abs_sum"], "sp: the ranks' pools hold different K/V")
     check(nccl["backend"] == "nccl" and nccl["world"] == 1, f"nccl process: {nccl}")
     refs = {**ranks[0]["refs"], **ranks[1]["refs"]}
+    t_g = time.monotonic()
+    g_here = _g_finish(ranks, out_dir, handle["g_mesh"])
+    g_here_s = time.monotonic() - t_g
     print(f"[parallel] backend {r0['backend']}, {len(ranks)} ranks on one card; phase wall {wall:.1f}s; "
           f"weights per rank: tp shards {r0['init_tp_s']:.1f}s, W8A16 shards {r0['init_w8_s']:.1f}s, "
           f"whole model {r0['init_full_s']:.1f}s", flush=True)
@@ -5481,7 +5889,38 @@ def parallel_phase_finish(handle) -> dict:
             f"{op} {v['calls']} calls {v['seconds']:.3f}s {v['bytes'] / 2**20:.1f} MiB" for op, v in c.items()),
             flush=True)
     print(f"[parallel] nccl at world size 1: all_reduce ok, greedy generate {nccl['tokens']}", flush=True)
-    return {"ranks": ranks, "refs": refs, "nccl": nccl, "wall_s": wall,
+    for r in ranks:
+        g = r["tiers"]
+        for tag, run in g["runs"].items():
+            a = run.get("agree")
+            rates = ", ".join(f"{k.split('_')[0]} {run[k]:.2f} GB/s" for k in ("restore_gbps", "writeback_gbps",
+                                                                               "spill_gbps") if run.get(k))
+            print(f"[parallel] (g) rank {r['rank']} {tag}: wall {run['wall_s']:.3f} s (no tiers "
+                  f"{run['base_wall_s']:.3f} s), cached {run['cached']}, hicache {run['hicache']}"
+                  + (f", disk {run['disk']}" if run.get("disk") else "") + (f"; {rates}" if rates else "")
+                  + (f"; agreement {a['calls']} calls over {a['passes']} passes ({a['calls'] / max(1, a['passes']):.2f}"
+                     f" a pass), {a['seconds'] * 1e3:.2f} ms, {a['broadcasts']} broadcasts" if a else ""),
+                  flush=True)
+        for mtag in ("tp=2", "pp=2"):
+            h = g["handoff"][mtag]
+            print(f"[parallel] (g) rank {r['rank']} {mtag} PrefillWorker: gather {h['gather_s'] * 1e3:.2f} ms, "
+                  f"{h['gather_bytes'] / 2**20:.2f} MiB gathered; handoff wall {h['wall_s'] * 1e3:.1f} ms"
+                  + (f"; packet KV {h['kv_bytes'] / 2**20:.2f} MiB" if "kv_bytes" in h else ""), flush=True)
+        d = g["handoff"]["single -> tp=2"]
+        print(f"[parallel] (g) rank {r['rank']} single-device packet -> tp=2 DecodeWorker: tokens {d['tokens']}"
+              + (f" (single device {d['single_tokens']}, first decode row err {d['first_row_err']})"
+                 if "single_tokens" in d else "") + f", wall {d['wall_s'] * 1e3:.1f} ms", flush=True)
+        m = g["mesh"]
+        print(f"[parallel] (g) rank {r['rank']} pool-bound mesh replica (native tcp): tokens {m['tokens']}, "
+              f"proxy free applied {m['freed']} slots, free {m['free_slots']}, balance {m['balance']}", flush=True)
+        print(f"[parallel] (g) rank {r['rank']} leg wall {g['wall_s']:.1f} s; launches {g['launches']}", flush=True)
+    for mtag, d in g_here.items():
+        print(f"[parallel] (g) {mtag} packet ({d['bytes'] / 2**20:.2f} MiB) decoded by a single-device engine here: "
+              f"{d['tokens']} (its own prefill and decode {d['single_tokens']}), first decode row err "
+              f"{d['first_row_err']}", flush=True)
+    print(f"[parallel] (g) this process's replica saw the leader's prefix ({handle['g_mesh']['seen']} tokens); "
+          f"the single-device decodes here {g_here_s:.1f} s", flush=True)
+    return {"ranks": ranks, "refs": refs, "nccl": nccl, "wall_s": wall, "g_here": g_here,
             "card_memory_peak_gib": None if mem is None else mem["peak"] / 2**30}
 
 
@@ -5494,7 +5933,7 @@ def _parse(argv):
                          "versions, timed); the readings go to --json")
     ap.add_argument("--json", metavar="FILE", help="where --kernels writes its readings")
     ap.add_argument("--parallel-alone", metavar="SIZES",
-                    help="the build and phase 18 (b)-(d) alone, with these of its sizes changed (a JSON "
+                    help="the build and phase 18 (b)-(g) alone, with these of its sizes changed (a JSON "
                          "object, e.g. '{\"layers\": 32, \"f32_layers\": 32, \"witness\": true}': "
                          "every leg at full depth, the logit rows read, not held, beside the single "
                          "device's own spread and single devices with tp's rounding: its row-parallel "
@@ -5548,7 +5987,7 @@ def main(argv=None) -> int:
         par = parallel_phase_finish(parallel_phase_start())
         (OUT_DIR / "parallel_alone.json").write_text(json.dumps({"card": card, "sizes": PAR, "parallel": par},
                                                                 indent=1, default=str))
-        print(f"[time] phase 18 (b)-(d) alone {par['wall_s']:.1f}s", flush=True)
+        print(f"[time] phase 18 (b)-(g) alone {par['wall_s']:.1f}s", flush=True)
         print(card, flush=True)
         return 0
     sass = sass_check()
@@ -5656,7 +6095,7 @@ def main(argv=None) -> int:
         par = parallel_phase_finish(par_handle)
     finally:
         parallel_phase_stop(par_handle)
-    print(f"[time] phase 18 (b)-(d) {par['wall_s']:.1f}s from its start; both together "
+    print(f"[time] phase 18 (b)-(g) {par['wall_s']:.1f}s from its start; both together "
           f"{time.monotonic() - t:.1f}s", flush=True)
 
     # Launches of each kernel entry on each path that ran it (counts zeroed
@@ -5719,6 +6158,15 @@ def main(argv=None) -> int:
          for r in par["ranks"] for p, k in (("tp2", "f32_counts"), ("pp", "pp_f32_counts"))})
     by_path["paged_attention_pool"].update(
         {f"tp2 pool path rank{r['rank']}": r["pool_path"]["launches"] for r in par["ranks"]})
+    # (g): each rank's launches over its tier runs, by mesh and pool kind.
+    for r in par["ranks"]:
+        for mtag, c in r["tiers"]["launches"].items():
+            pfx = "tp2" if mtag == "tp=2" else "pp"
+            for sfx, q in (("", "bf16"), ("[int8]", "int8")):
+                by_path["paged_decode_fused" + sfx][f"{pfx} tiers {q} rank{r['rank']}"] = \
+                    c["paged_decode_fused_kernel" + sfx]
+                by_path["paged_chunk_attention" + sfx][f"{pfx} tiers {q} rank{r['rank']}"] = \
+                    c["paged_chunk_attention_kernel" + sfx]
     launches = {name: sum(paths.values()) for name, paths in by_path.items()}
     # The chunk kernel's launches by chunk length C on each in-process path
     # (both pool kinds): launches x (time - bound) by shape.

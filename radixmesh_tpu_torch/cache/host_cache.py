@@ -36,6 +36,7 @@ Prometheus series are plain counters here (``stats()``).
 from __future__ import annotations
 
 import heapq
+import os
 import time
 
 import numpy as np
@@ -436,17 +437,25 @@ class HierarchicalCache(RadixTree):
                 submitted += 1
         return submitted
 
-    def resurrect_from_disk(self) -> dict:
+    def resurrect_from_disk(self, common=None) -> dict:
         """Cold-cell resurrection (COLD PATH: boot-time blocking file I/O):
         scan the extent directory, drop torn or corrupt extents, and graft
         the verified paths back as disk-resident nodes. Extents whose
         ancestor chain is not fully covered are orphans and are retired:
         restore degrades to the longest verified prefix, never serves
-        holes."""
+        holes. ``common(names) -> set`` (an engine over several ranks, each
+        with its shard's extents): only the extents it returns, those that
+        verified on every rank, are grafted; the rest are retired."""
         out = {"extents": 0, "grafted_nodes": 0, "grafted_tokens": 0, "orphaned": 0, "keys": []}
         if self.disk is None:
             return out
         metas = self.disk.scan()
+        if common is not None:
+            keep = common([os.path.basename(m.ref.path) for m in metas])
+            for m in metas:
+                if os.path.basename(m.ref.path) not in keep:
+                    self.disk.retire(m.ref)
+            metas = [m for m in metas if os.path.basename(m.ref.path) in keep]
         out["extents"] = len(metas)
         for meta in metas:
             node = self._graft_extent(meta)

@@ -50,6 +50,7 @@ from radixmesh_tpu_torch.utils.logging import get_logger
 
 __all__ = [
     "EXTENT_SCHEMA_VERSION",
+    "rank_tier_dir",
     "ExtentRef",
     "ExtentMeta",
     "DiskKVTier",
@@ -83,6 +84,66 @@ _KV_DTYPES = {
 _KV_NAMES = {t: name for name, (t, _) in _KV_DTYPES.items()}
 
 _CORRUPT_CAUSES = ("truncated", "checksum", "schema", "io")
+
+
+# The per-rank layout of an engine over several ranks (``rank_tier_dir``).
+TIER_MANIFEST = "manifest.json"
+# What every rank's manifest of one directory must share.
+_MESH_KEYS = ("tp", "pp", "sp", "n_layers", "n_kv_heads", "head_dim", "page_size", "dtype", "quant")
+
+
+def rank_tier_dir(root: str, manifest: dict | None) -> str:
+    """The directory one engine rank's tier reads and writes under the tier
+    root ``root``. A single-device engine (``manifest`` None) uses ``root``
+    itself, laid out as the JAX tier lays it out. A rank of an engine over
+    several ranks (``manifest``: its mesh shape, its ``rank`` among the
+    engine's ranks and the geometry of its shard) uses ``root/rank<i>/``,
+    which holds extents of its own heads and layers beside
+    ``manifest.json``. A root written at another mesh shape or geometry
+    (another rank's manifest differs in ``_MESH_KEYS``), by a single-device
+    engine for a multi-rank one, or the other way round, is refused by
+    name: its extents hold other shards."""
+    root = os.path.abspath(root)
+    names = sorted(os.listdir(root)) if os.path.isdir(root) else []
+    ranks = {}
+    for name in names:
+        path = os.path.join(root, name, TIER_MANIFEST)
+        if name.startswith("rank") and os.path.isfile(path):
+            with open(path) as fh:
+                ranks[name] = json.load(fh)
+    if manifest is None:
+        if ranks:
+            m = next(iter(ranks.values()))
+            raise ValueError(
+                f"kv_tier_dir {root} holds the per-rank extents of an engine over tp={m['tp']}, "
+                f"pp={m['pp']}, sp={m['sp']}; a single-device engine cannot serve them"
+            )
+        return root
+    if any(n.startswith("ext-") and n.endswith(".kv") for n in names):
+        raise ValueError(
+            f"kv_tier_dir {root} holds a single-device engine's extents (every head and layer); "
+            f"an engine over tp={manifest['tp']}, pp={manifest['pp']}, sp={manifest['sp']} cannot "
+            "serve them"
+        )
+    for name, m in ranks.items():
+        theirs = {k: m.get(k) for k in _MESH_KEYS}
+        ours = {k: manifest.get(k) for k in _MESH_KEYS}
+        if theirs != ours:
+            raise ValueError(
+                f"kv_tier_dir {root} was written at another mesh shape or geometry ({name}: {theirs}); "
+                f"this engine is {ours}"
+            )
+    sub = os.path.join(root, f"rank{manifest['rank']}")
+    os.makedirs(sub, exist_ok=True)
+    mine = ranks.get(f"rank{manifest['rank']}")
+    if mine is not None and mine != manifest:
+        raise ValueError(f"kv_tier_dir {sub} holds another shard ({mine}); this rank is {manifest}")
+    if mine is None:
+        tmp = os.path.join(sub, f"{TIER_MANIFEST}.tmp.{os.getpid()}")
+        with open(tmp, "w") as fh:
+            json.dump(manifest, fh, sort_keys=True)
+        os.replace(tmp, os.path.join(sub, TIER_MANIFEST))
+    return sub
 
 
 def node_heat(node, now: float, half_life_s: float = NODE_HEAT_HALF_LIFE_S) -> float:

@@ -67,6 +67,16 @@ joined), never evicting, never splitting nodes, droppable everywhere. A
 serving node's mesh replica turns the router's ``PREFETCH`` frames into
 hints (``launch.py node``).
 
+**Across ranks** (an engine over several ranks, ``parallel/step_sync.py``):
+with ``strict`` set, :meth:`~KVTransferPlane.pump` only scatters the chunks
+that have landed on this rank, and a unit whose last chunk landed waits in
+a local queue. :meth:`~KVTransferPlane.sync_local` reports those units and
+the finished spills (each with a failure code) to the step agreement, and
+:meth:`~KVTransferPlane.apply_agreed` installs exactly the ones every rank
+has, failed where any rank failed. A failed write-back, or a read barrier
+that does not come down, raises under ``strict`` instead of dropping the
+host copy on one rank only.
+
 **Observability.** The JAX package's ``radixmesh_kv_transfer_*`` series
 (bytes and seconds by lane, restored tokens, hints by outcome, and the
 ``radixmesh_kv_transfer_inflight_tokens`` gauge of tokens queued or staged
@@ -97,6 +107,8 @@ __all__ = ["KVTransferPlane", "RestoreTicket", "kv_token_bytes"]
 _LANES = ("restore", "writeback", "handoff", "spill")
 _HINT_OUTCOMES = ("started", "noop", "joined", "dropped", "draining")
 _MAX_HINTS = 64  # queued prefetch hints; the oldest is dropped past it
+# Units and spills one step agreement can settle (the rest wait a pass).
+SYNC_ITEMS = 16
 
 
 def _runs(slots) -> list[tuple[int, int, int]]:
@@ -140,6 +152,8 @@ class _RestoreUnit:
     attached: bool = False  # node.value was installed
     applied_tokens: int = 0  # tokens of staged chunks the pump has taken
     tickets: list = field(default_factory=list)
+    # Under ``strict``: 0 landed, 1 failed, 2 failed and its extent gone.
+    code: int = 0
 
 
 @dataclass
@@ -251,6 +265,11 @@ class KVTransferPlane:
         self.stage_barrier: threading.Event | None = None
         self.hints_seen = 0
         self.hints_joined = 0  # admissions that found a hint's restore in flight
+        # Across ranks (module docstring): units whose last chunk landed
+        # here, waiting for the step agreement, and failed write-backs.
+        self.strict = False
+        self._landed: deque[_RestoreUnit] = deque()
+        self.writeback_failures = 0
         # The JAX package's radixmesh_kv_transfer_* series, on the registry
         # and as plain counters for stats() (/stats).
         self.lane_bytes = {ln: 0 for ln in _LANES}
@@ -441,6 +460,11 @@ class KVTransferPlane:
         open tickets, or uncommitted spills. ``Engine.has_work`` folds it
         in so an otherwise idle scheduler keeps pumping."""
         with self._lock:
+            if self.strict:
+                # What the engine threads of every rank hold alike: open
+                # tickets and uncommitted spills (the hints are the step
+                # agreement's).
+                return bool(self._tickets or self._pending_spills)
             return bool(self._hints or self._staged or self._tickets or self._spilled)
 
     def host_slots_ok(self, slots) -> bool:
@@ -546,7 +570,9 @@ class KVTransferPlane:
         completed into the pool on the compute stream (the only place the
         plane touches ``pool.kv``; it never waits on a copy in flight),
         install fully restored nodes, commit finished spills and release
-        done auto-release tickets. Returns True when anything progressed."""
+        done auto-release tickets. Returns True when anything progressed.
+        Under ``strict`` it only scatters: installs and commits wait for
+        :meth:`apply_agreed`."""
         progress = False
         while True:
             with self._lock:
@@ -571,18 +597,80 @@ class KVTransferPlane:
             else:  # the failed unit's tokens never staged
                 self._m_depth["restore"].dec(item.unit.n_tokens - item.unit.applied_tokens)
             if item.last:
-                self._apply_unit(item.tree, item.unit)
+                if self.strict:
+                    unit = item.unit
+                    if unit.failed:
+                        disk = getattr(item.tree, "disk", None)
+                        gone = unit.extent is not None and (disk is None or not disk.has(unit.extent))
+                        unit.code = 2 if gone else 1
+                    self._landed.append(unit)
+                else:
+                    self._apply_unit(item.tree, item.unit)
             progress = True
+        if not self.strict:
+            progress |= self._commit_spills(tree, None)
+        progress |= self._release_auto(tree)
+        return progress
+
+    def sync_local(self) -> list[int]:
+        """This rank's part of the step agreement (``strict``): the units
+        landed here in order and the spills finished here, at most
+        ``SYNC_ITEMS`` of each, each with its code negated (the agreement's
+        MIN is the largest code), then the failed write-backs, negated."""
+        with self._lock:
+            units = [u.code for u in list(self._landed)[:SYNC_ITEMS]]
+            spills = [int(it[2] is None) for it in list(self._spilled)[:SYNC_ITEMS]]
+        pad = [0] * SYNC_ITEMS
+        return ([len(units)] + [-c for c in units] + pad[len(units):]
+                + [len(spills)] + [-c for c in spills] + pad[len(spills):]
+                + [-self.writeback_failures])
+
+    def apply_agreed(self, tree, agreed: list[int]) -> bool:
+        """Install the units and commit the spills that landed on every rank
+        (``agreed`` is :meth:`sync_local`'s layout after the agreement's
+        MIN), each failed where any rank failed. Raises when a write-back
+        failed on any rank: the ranks' arenas no longer hold the same
+        bytes."""
+        k = SYNC_ITEMS
+        if agreed[2 * k + 2] < 0:
+            raise RuntimeError(
+                f"a KV write-back failed on {-agreed[2 * k + 2]} rank(s) of this engine: the host "
+                "tiers of its ranks differ"
+            )
+        progress = False
+        for i in range(agreed[0]):
+            with self._lock:
+                unit = self._landed.popleft()
+            code = -agreed[1 + i]
+            unit.failed = code > 0
+            self._apply_unit(tree, unit, gone=code == 2 if unit.extent is not None else None)
+            progress = True
+        codes = [-c for c in agreed[k + 2 : k + 2 + agreed[k + 1]]]
+        progress |= self._commit_spills(tree, codes)
+        progress |= self._release_auto(tree)
+        return progress
+
+    def _commit_spills(self, tree, codes: list[int] | None) -> bool:
+        """Commit worker-finished spills: all of them (``codes`` None), or
+        the agreed first ``len(codes)``, failed where a code is set."""
+        progress = False
+        n = 0
         # Commit worker-finished spills (only the engine thread mutates the
         # tree): install the ref when the node is unchanged; a raced node
         # retires the extent instead.
-        while True:
+        while codes is None or n < len(codes):
             with self._lock:
                 if not self._spilled:
                     break
                 node, slots, ref, cause = self._spilled.popleft()
                 self._pending_spills.pop(node.id, None)
             disk = getattr(tree, "disk", None)
+            if codes is not None and codes[n] and ref is not None:
+                # Written here, failed on another rank: no rank keeps it.
+                if disk is not None:
+                    disk.retire(ref)
+                ref, cause = None, "io"
+            n += 1
             unchanged = (
                 node.host_value is not None
                 and len(node.host_value) == len(slots)
@@ -601,6 +689,10 @@ class KVTransferPlane:
                     self._poisoned_host.difference_update(int(s) for s in slots)
                 tree._drop_poisoned_host(node)
             progress = True
+        return progress
+
+    def _release_auto(self, tree) -> bool:
+        progress = False
         done_auto = []
         with self._lock:
             for t in self._tickets:
@@ -611,10 +703,12 @@ class KVTransferPlane:
             progress = True
         return progress
 
-    def _apply_unit(self, tree, unit: _RestoreUnit) -> None:
+    def _apply_unit(self, tree, unit: _RestoreUnit, gone: bool | None = None) -> None:
         """Install one fully scattered unit (engine thread). Nodes split,
         detached or restored since the unit was made are skipped and its
-        slots returned: the waiting request re-matches a shorter hit."""
+        slots returned: the waiting request re-matches a shorter hit.
+        ``gone``: whether a failed extent is gone, as the step agreement
+        says (None: this tier's own view)."""
         node = unit.node
         with self._lock:
             self._pending_nodes.pop(node.id, None)
@@ -622,7 +716,9 @@ class KVTransferPlane:
             raced = unit.failed or node.value is not None or node.disk_value is not unit.extent
             if unit.failed and node.disk_value is unit.extent:
                 disk = getattr(tree, "disk", None)
-                if disk is None or not disk.has(unit.extent):
+                if gone and disk is not None and disk.has(unit.extent):
+                    disk.retire(unit.extent)  # gone on another rank: gone on all
+                if gone or (gone is None and (disk is None or not disk.has(unit.extent))):
                     # The extent failed VERIFICATION (the tier dropped the
                     # file): clear the dangling ref so the node recomputes.
                     # A transient failure keeps the intact extent attached.
@@ -729,10 +825,16 @@ class KVTransferPlane:
             if not pending:
                 return True
             self._work_evt.set()
-            if not pending[-1].done.wait(max(0.0, deadline - time.monotonic())):
-                return False
-            if any(t.failed for t in pending):
-                return False
+            ok = pending[-1].done.wait(max(0.0, deadline - time.monotonic()))
+            if ok and not any(t.failed for t in pending):
+                continue
+            if self.strict:
+                raise RuntimeError(
+                    "the host tier's read barrier failed on this rank (a write-back "
+                    f"{'failed' if ok else f'took over {timeout} s'}): the engine's ranks would "
+                    "restore different prefixes"
+                )
+            return False
 
     # ------------------------------------------------------------------
     # spill lane (host tier → disk extents, cache/kv_tier.py)
@@ -803,8 +905,11 @@ class KVTransferPlane:
         self._progress.set()
 
     def spills_idle(self) -> bool:
-        """True when no spill is queued, in flight, or awaiting its commit."""
+        """True when no spill is queued, in flight, or awaiting its commit
+        (under ``strict``: awaiting its agreed commit)."""
         with self._lock:
+            if self.strict:
+                return not self._pending_spills
             if self._pending_spills or self._spilled:
                 return False
             return not any(it[0] == "spill" for it in self._data_q)
@@ -890,6 +995,7 @@ class KVTransferPlane:
                     self._copy_stream.synchronize()
                 ticket.failed = True
                 with self._lock:
+                    self.writeback_failures += 1
                     self._poisoned_host.update(int(s) for s in ticket.host_slots)
             with self._lock:
                 if self._wb_q and self._wb_q[0] is ticket:

@@ -46,6 +46,14 @@ is built by hand):
 - ``device_kv=True`` keeps a packet's KV a CUDA tensor; a decode worker on
   the same card writes it without a host round trip. A block on another
   device is refused (``_colocate``), never copied quietly.
+- On a mesh (an engine over tp, pp or both): a :class:`PrefillWorker`
+  gathers the prefix's K/V and int8 scales from its ranks (heads over tp,
+  layers over pp) and its leader (engine index 0) ships the JAX wire
+  format, so a decode node of any shape, one device included, takes the
+  packet; the other ranks return None. A :class:`DecodeWorker` receives on
+  the leader only; the step agreement (``parallel/step_sync.py``) hands
+  each packet to every rank at the next pass boundary, and each rank
+  stages and writes (``write_block``) its own heads and layers.
 - :class:`IciHandoff` (the JAX package's ICI path) moves a ``device_kv``
   packet between two ranks of one mesh axis as a point-to-point tensor
   transfer over the job's process group (``parallel/collectives.p2p``):
@@ -72,7 +80,8 @@ from radixmesh_tpu_torch.engine.engine import Engine
 from radixmesh_tpu_torch.engine.request import Request, RequestState, SamplingParams
 from radixmesh_tpu_torch.obs.trace_plane import get_recorder
 from radixmesh_tpu_torch.ops.quant import dequantize_kv
-from radixmesh_tpu_torch.parallel.collectives import p2p
+from radixmesh_tpu_torch.parallel.collectives import all_gather, p2p
+from radixmesh_tpu_torch.parallel.step_sync import Source
 from radixmesh_tpu_torch.utils.device import resolve_device
 from radixmesh_tpu_torch.utils.logging import get_logger
 
@@ -135,20 +144,18 @@ def _copy_stream(device: torch.device):
     return torch.cuda.Stream(device=device) if device.type == "cuda" else None
 
 
-def _refuse_tp(engine: Engine) -> None:
-    """A handoff packet carries every layer and kv head of a prefix; a
-    tensor-parallel engine's pool holds a shard of the heads, a pipeline
-    stage's a block of the layers."""
-    if engine._tp > 1:
-        raise NotImplementedError(
-            f"the disaggregated handoff needs every kv head in one rank's pool; not ported for "
-            f"tp={engine._tp} (ROADMAP.md A5c)"
-        )
-    if engine._pp:
-        raise NotImplementedError(
-            "the disaggregated handoff needs every layer in one rank's pool; not ported for "
-            f"pipeline-parallel serving (pp={engine.device_mesh.shape['pp']}) (ROADMAP.md A5c)"
-        )
+def _shard_of(engine: Engine, kv: torch.Tensor, scale: torch.Tensor | None):
+    """This rank's block of a whole packet's ``kv [2, L, n, Hkv, D]`` and
+    ``scale [2, L, n, Hkv]``: its stage's layers and its tp heads (the
+    whole packet on one rank)."""
+    if engine._ranks == 1:
+        return kv, scale
+    mesh, L, H = engine.device_mesh, engine.model.n_layers, engine.model.n_kv_heads
+    l0, h0 = mesh.index("pp") * L, mesh.index("tp") * H
+    kv = kv[:, l0 : l0 + L, :, h0 : h0 + H].contiguous()
+    if scale is not None:
+        scale = scale[:, l0 : l0 + L, :, h0 : h0 + H].contiguous()
+    return kv, scale
 
 
 class PrefillWorker(Engine):
@@ -160,9 +167,15 @@ class PrefillWorker(Engine):
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
-        _refuse_tp(self)
         # The streamed handoff's device→host copies (created at first use).
         self._d2h_stream = None
+        # The mesh gathers of the last handoff (zero on one rank).
+        self.gather_s = 0.0
+        self.gather_bytes = 0
+
+    @property
+    def _leader(self) -> bool:
+        return self._ranks == 1 or self.device_mesh.engine_index == 0
 
     def _admit_one_prompt(self, prompt, sampling) -> Request:
         """Admit and prefill ``prompt`` alone; its first token is on the
@@ -196,9 +209,20 @@ class PrefillWorker(Engine):
 
     def _gather(self, req: Request, lo: int, hi: int):
         """``gather_raw`` of the request's tokens ``[lo, hi)``, made
-        contiguous in the wire's token-major order, on the compute stream."""
+        contiguous in the wire's token-major order, on the compute stream.
+        On a mesh the ranks' shards are gathered, heads over tp and layers
+        over pp (every rank of the engine takes part)."""
         kv, scale = self.pool.gather_raw(req.token_slots[lo:hi])
-        return kv.contiguous(), None if scale is None else scale.contiguous()
+        kv, scale = kv.contiguous(), None if scale is None else scale.contiguous()
+        if self._ranks > 1:
+            t0 = time.perf_counter()
+            mesh = self.device_mesh
+            kv = all_gather(all_gather(kv, mesh, "tp", dim=3), mesh, "pp", dim=1)
+            if scale is not None:
+                scale = all_gather(all_gather(scale, mesh, "tp", dim=3), mesh, "pp", dim=1)
+            self.gather_s += time.perf_counter() - t0
+            self.gather_bytes += kv.numel() * kv.element_size() + (0 if scale is None else scale.numel() * 4)
+        return kv, scale
 
     def prefill_handoff(
         self,
@@ -211,7 +235,9 @@ class PrefillWorker(Engine):
         omits the first N tokens' KV (page-aligned: the receiver caches
         them, :meth:`DecodeWorker.cached_prefix_len`). With ``device_kv``
         the packet's KV stays on the device; otherwise it is copied to
-        pinned host memory (on the card)."""
+        pinned host memory (on the card). On a mesh every rank calls it and
+        the leader gets the packet, the others None."""
+        self.gather_s, self.gather_bytes = 0.0, 0
         req = self._admit_one_prompt(prompt, sampling)
         tr = req.trace
         t_pack = time.monotonic() if tr is not None else 0.0
@@ -226,7 +252,7 @@ class PrefillWorker(Engine):
                 kv_tokens=int(len(req.token_slots) - skip_prefix),
                 skip_prefix=int(skip_prefix),
             )
-        pkt = self._packet(req, kv, kv_scale, skip_prefix)
+        pkt = self._packet(req, kv, kv_scale, skip_prefix) if self._leader else None
         req.state = RequestState.FINISHED
         self._release(req)
         return pkt
@@ -247,7 +273,8 @@ class PrefillWorker(Engine):
         on the KV plane's handoff lane (``plane.submit_task``), so chunk i's
         send overlaps chunk i+1's copy. With ``plane=None`` the chunks are
         shipped inline (the same packets, no overlap). Returns the number of
-        chunks."""
+        chunks. On a mesh every rank calls it and only the leader sends."""
+        self.gather_s, self.gather_bytes = 0.0, 0
         req = self._admit_one_prompt(prompt, sampling)
         tr = req.trace
         n = len(req.token_slots)
@@ -277,6 +304,8 @@ class PrefillWorker(Engine):
                 if plane is not None:
                     plane.note_handoff(pkt.kv.shape[2], self.pool, time.monotonic() - t0)
 
+            if not self._leader:
+                continue
             if plane is not None:
                 plane.submit_task(_ship)
             else:
@@ -336,11 +365,16 @@ class DecodeWorker:
     Transport callbacks land on reader threads and the engine is single
     threaded, so packets queue under a lock and :meth:`step` admits them on
     the scheduling thread. Host→device copies start on the reader thread,
-    on the worker's copy stream (module docstring)."""
+    on the worker's copy stream (module docstring).
+
+    On an engine over several ranks every rank builds its worker and runs
+    :meth:`step` (or :meth:`run_until_drained`) alike, but only the leader
+    takes packets in (``comm`` and :meth:`submit` there alone): they queue
+    whole, and the step agreement gives each to every rank at the next
+    pass, where each stages its own shard."""
 
     def __init__(self, engine: Engine, comm: Communicator | None = None, plane=None,
                  stage_layers: int = 0):
-        _refuse_tp(engine)
         self.engine = engine
         self.log = get_logger("disagg.decode")
         self._pending: list[tuple[Request, list[_StagedKV], int]] = []
@@ -357,6 +391,19 @@ class DecodeWorker:
         self._chunks: dict[tuple, dict] = {}
         self.chunk_ttl_s = 120.0
         self._h2d_stream = _copy_stream(engine.pool.device)
+        # An engine over several ranks: the leader's inbox of packed packets
+        # (and the Request a submit already returned), handed to every rank
+        # by the step agreement.
+        self._sync = None
+        if engine._ranks > 1:
+            self._leader = engine.device_mesh.engine_index == 0
+            if comm is not None and not self._leader:
+                raise ValueError("only the leader rank of a multi-rank engine receives handoff packets")
+            self._inbox: list[tuple[bytes, Request | None]] = []
+            self._taken: list[Request | None] = []
+            self._sync = engine._bind_step_sync()
+            self._sync.add_source("handoff", Source(
+                pending=lambda: len(self._inbox), take=self._take_inbox, apply=self._apply_inbox))
         self._comm = comm
         if comm is not None:
             comm.register_rcv_callback(self._on_packet)
@@ -364,11 +411,35 @@ class DecodeWorker:
     # -- ingestion ------------------------------------------------------
 
     def _on_packet(self, data: bytes) -> None:
+        if self._sync is not None:
+            with self._lock:
+                self._inbox.append((bytes(data), None))
+            return
         pkt = unpack_handoff(data, pin_memory=self._h2d_stream is not None)
         if pkt.chunk_of > 0:
             self._submit_chunk(pkt)
         else:
             self.submit(pkt)
+
+    def _take_inbox(self) -> list[bytes]:
+        """LEADER, at a pass boundary: the packets received since the last."""
+        with self._lock:
+            taken, self._inbox = self._inbox, []
+        self._taken = [req for _, req in taken]
+        return [data for data, _ in taken]
+
+    def _apply_inbox(self, packets: list[bytes]) -> None:
+        """EVERY RANK, at a pass boundary: stage this rank's shard of each
+        packet the leader received, in its order."""
+        reqs = self._taken if self._leader else [None] * len(packets)
+        self._taken = []
+        for data, req in zip(packets, reqs, strict=True):
+            pkt = unpack_handoff(data, pin_memory=self._h2d_stream is not None)
+            pkt.kv, pkt.kv_scale = _shard_of(self.engine, pkt.kv, pkt.kv_scale)
+            if pkt.chunk_of > 0:
+                self._submit_chunk(pkt, now=self._sync.now)
+            else:
+                self._submit_local(pkt, req)
 
     def _stage(self, kv: torch.Tensor, scale: torch.Tensor | None, layer0: int,
                tok0: int) -> _StagedKV:
@@ -433,23 +504,35 @@ class DecodeWorker:
         return req
 
     def submit(self, pkt: HandoffPacket) -> Request:
-        """Queue a whole packet; its KV starts moving to the device now."""
-        req = self._make_request(pkt)
+        """Queue a whole packet; its KV starts moving to the device now (on
+        a multi-rank engine: on the leader, at the next pass boundary)."""
+        if self._sync is not None:
+            if not self._leader:
+                raise ValueError("only the leader rank of a multi-rank engine takes handoff packets")
+            req = self._make_request(pkt)
+            with self._lock:
+                self._inbox.append((pack_handoff(pkt), req))
+            return req
+        return self._submit_local(pkt, None)
+
+    def _submit_local(self, pkt: HandoffPacket, req: Request | None) -> Request:
+        req = req or self._make_request(pkt)
         blocks = self._stage_blocks(pkt)
         with self._lock:
             self._pending.append((req, blocks, int(pkt.kv_start)))
         return req
 
-    def _submit_chunk(self, pkt: HandoffPacket) -> Request | None:
+    def _submit_chunk(self, pkt: HandoffPacket, now: float | None = None) -> Request | None:
         """One chunk of a streamed handoff: stage it now and queue the
         request when the set is complete. Returns the Request then, None
-        while chunks are outstanding."""
+        while chunks are outstanding. ``now``: the agreed clock (a
+        multi-rank engine), else this host's."""
         t0 = time.monotonic()
         staged = self._stage(pkt.kv, pkt.kv_scale, 0, int(pkt.kv_start))
         if self.plane is not None:
             self.plane.note_handoff(staged.n_tokens, self.engine.pool, time.monotonic() - t0)
         key = (int(pkt.rid), float(pkt.submit_time))
-        now = time.monotonic()
+        now = time.monotonic() if now is None else now
         with self._lock:
             self._prune_stale_chunks_locked(now)
             entry = self._chunks.setdefault(key, {"t": now, "parts": {}})
@@ -477,14 +560,18 @@ class DecodeWorker:
     # -- scheduling -----------------------------------------------------
 
     def step(self) -> None:
+        eng = self.engine
+        if self._sync is not None and eng._agreed is None:
+            eng._agree()  # this pass's packets reach every rank first
         self._admit_pending()
-        self.engine.step()
+        eng.step()
 
     def has_work(self) -> bool:
+        # The engine's answer first: on a mesh it runs the pass's agreement,
+        # which hands the leader's packets to every rank.
+        busy = self.engine.has_work()
         with self._lock:
-            if self._pending:
-                return True
-        return self.engine.has_work()
+            return busy or bool(self._pending)
 
     def run_until_drained(self, max_steps: int = 100_000) -> None:
         for _ in range(max_steps):
@@ -505,7 +592,8 @@ class DecodeWorker:
     def _admit_pending(self) -> None:
         with self._lock:
             if self._chunks:
-                self._prune_stale_chunks_locked(time.monotonic())
+                self._prune_stale_chunks_locked(
+                    time.monotonic() if self._sync is None else self._sync.now)
             pending, self._pending = self._pending, []
         for i, (req, blocks, kv_start) in enumerate(pending):
             if not self._admit_one(req, blocks, kv_start):

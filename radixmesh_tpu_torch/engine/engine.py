@@ -123,9 +123,6 @@ host state (tree, allocator, waves) evolves identically. A fresh prompt of
 at least ``sp_prefill_threshold`` tokens on a mesh with sp > 1 prefills
 sequence-parallel (``_prefill_sp``: ring attention over sp, the K/V
 all-gathered over sp into every rank's pool), unless the pool is int8.
-Refused by name under tp > 1: the host and disk tiers, the async
-KV-movement plane and a mesh replica bound to the pool (each needs every
-kv head in one pool; ``ROADMAP.md`` A5c).
 
 Pipeline parallelism (a mesh with pp > 1, ``parallel/pp_serving.py``): each
 rank holds one stage, its ``L/pp`` layers (tp-sharded where tp > 1) and a
@@ -137,9 +134,36 @@ prefill under pp. A multi-step launch runs ``pp_decode_multi`` (only when
 ``max_batch`` divides by pp), and a plain decode step ``pp_decode_step``:
 B1 in each stage, where the JAX engine sends this step through the chunk
 path at C = 1. Every rank gets the same logits, so every rank's host state
-evolves alike. The host KV tier works under pp (each rank's arena holds
-its own layers); the disk tier, the async KV-movement plane and a mesh
-replica bound to the pool are refused by name under pp (A5c).
+evolves alike.
+
+The KV tiers and a pool-bound mesh replica on a mesh (tp, pp or both):
+
+- Each rank's host arena holds its shard (its heads, its layers), sized
+  from its pool; write-back and restore move only that shard. The
+  synchronous host tier needs nothing more: the scheduler decides it alike
+  on every rank.
+- The async plane, the disk tier, a ``DecodeWorker`` (``engine/disagg.py``)
+  and a mesh replica bound to the pool bring inputs that are not the same
+  on every rank (a copy event, a worker's spill, a packet, a replica's
+  free, a wall-clock cadence). With any of them bound, the ranks agree on
+  them once per scheduler pass (``parallel/step_sync.py``: one small
+  all-reduce at ``has_work`` or at the top of ``_pump_kv_transfer``,
+  whichever comes first): a restore unit or spill counts as done when it
+  is done on every rank, the leader (engine index 0) decides the destage
+  cadence and takes in hints, packets and the replica's frees, and the
+  tree's clock is the leader's. Without them no agreement runs.
+- The disk tier writes each rank's extents under ``kv_tier_dir/rank<i>/``
+  beside a manifest of the mesh shape and the shard
+  (``cache/kv_tier.rank_tier_dir``), each rank with ``1/(pp·sp·tp)`` of
+  ``kv_tier_capacity_bytes``; a directory written at another shape is
+  refused by name, and at boot only the extents that verify on every rank
+  are grafted.
+- Only the leader holds the mesh replica (pass ``mesh=`` there alone: the
+  ring has one node per engine) and only it advertises. A replica bound to
+  the pool (``MeshCache(cfg, pool=pool)`` with ``Engine(pool=pool)`` on
+  every rank) sees a :class:`~radixmesh_tpu_torch.parallel.step_sync.
+  MeshPoolProxy`: its frees apply on every rank's allocator at the next
+  pass.
 
 An external ``pool`` (a :class:`PagedKVPool`) is adopted after the JAX
 engine's checks (page size, layers, kv heads, quantization, dtype when not
@@ -161,7 +185,7 @@ import torch
 
 from radixmesh_tpu_torch.cache.host_cache import HierarchicalCache, HostKVStore
 from radixmesh_tpu_torch.cache.kv_pool import PagedKVPool
-from radixmesh_tpu_torch.cache.kv_tier import DiskKVTier
+from radixmesh_tpu_torch.cache.kv_tier import DiskKVTier, rank_tier_dir
 from radixmesh_tpu_torch.cache.kv_transfer import KVTransferPlane
 from radixmesh_tpu_torch.cache.radix_tree import RadixTree
 from radixmesh_tpu_torch.engine.request import Request, RequestState, SamplingParams
@@ -180,6 +204,7 @@ from radixmesh_tpu_torch.ops.wquant import quantize_params
 from radixmesh_tpu_torch.parallel.collectives import all_gather
 from radixmesh_tpu_torch.parallel.pp_serving import pp_decode_multi, pp_decode_step, pp_forward_chunk
 from radixmesh_tpu_torch.parallel.sharding import shard_params
+from radixmesh_tpu_torch.parallel.step_sync import MeshPoolProxy, Source, StepSync
 from radixmesh_tpu_torch.utils.device import resolve_device
 from radixmesh_tpu_torch.utils.logging import get_logger
 
@@ -365,27 +390,17 @@ class Engine:
                 )
             if cfg.n_layers % pp:
                 raise ValueError(f"n_layers={cfg.n_layers} is not divisible by pp={pp}")
-            if self._pp:
-                for on, what in ((kv_tier_dir is not None, "the disk KV tier (kv_tier_dir)"),
-                                 (kv_transfer_async, "the async KV-movement plane (kv_transfer_async)"),
-                                 (getattr(mesh, "pool", None) is not None,
-                                  "a mesh replica bound to the pool (the mesh's page pushes)")):
-                    if on:
-                        raise NotImplementedError(
-                            f"{what} is not ported for pipeline-parallel serving (pp={pp}) "
-                            "(ROADMAP.md A5c)"
-                        )
-            if self._tp > 1:
-                for on, what in ((kv_tier_dir is not None, "the disk KV tier (kv_tier_dir)"),
-                                 (host_cache_slots > 0, "the host KV tier (host_cache_slots)"),
-                                 (kv_transfer_async, "the async KV-movement plane (kv_transfer_async)"),
-                                 (getattr(mesh, "pool", None) is not None,
-                                  "a mesh replica bound to the pool (the mesh's page pushes)")):
-                    if on:
-                        raise NotImplementedError(
-                            f"{what} needs every kv head in one rank's pool; not ported for "
-                            f"tp={self._tp} (ROADMAP.md A5c)"
-                        )
+        # An engine over several ranks (module docstring): its step agreement,
+        # bound once an asynchronous source is.
+        self._ranks = 1 if device_mesh is None else device_mesh.engine_size
+        self._sync: StepSync | None = None
+        self._agreed = None  # this pass's agreement, until the pump applies it
+        self._sync_hints: list[np.ndarray] = []
+        if mesh is not None and self._ranks > 1 and device_mesh.engine_index != 0:
+            raise ValueError(
+                f"only the leader rank of an engine over {self._ranks} ranks holds the mesh replica "
+                f"(this is rank {device_mesh.engine_index} of the engine): pass mesh=None here"
+            )
         self.sp_prefill_threshold = sp_prefill_threshold
         self.mesh = mesh
         mesh_page = getattr(mesh, "page", 1) if mesh is not None else 1
@@ -496,8 +511,11 @@ class Engine:
                 pin_memory=self.device.type == "cuda",
             )
             if kv_tier_dir is not None:
+                # One directory per rank of a multi-rank engine, its shard's
+                # extents beside a manifest (cache/kv_tier.rank_tier_dir).
                 self._kv_tier = DiskKVTier(
-                    kv_tier_dir, capacity_bytes=kv_tier_capacity_bytes, page_size=page_size,
+                    rank_tier_dir(kv_tier_dir, self._tier_manifest(page_size)),
+                    capacity_bytes=kv_tier_capacity_bytes // self._ranks, page_size=page_size,
                     name=self.name,
                 )
                 # Disk I/O runs only on the plane's worker: a tier without
@@ -533,12 +551,28 @@ class Engine:
             self.kv_transfer.bind(self.pool)
             if isinstance(self.tree, HierarchicalCache):
                 self.tree.plane = self.kv_transfer
+            if self._ranks > 1:
+                self._bind_step_sync()
+        self._mesh_proxy = None
+        if self._ranks > 1 and pool is not None:
+            # An external pool may be the one the leader's mesh replica is
+            # bound to; only the leader knows, so the ranks ask it once.
+            bound = getattr(mesh, "pool", None) is pool
+            if (self._sync or StepSync(device_mesh, self.device)).any_rank(bound):
+                self._bind_step_sync()
+                proxy = MeshPoolProxy(self.pool)
+                if bound:
+                    mesh.pool = proxy
+                self._sync.add_source("mesh_frees", proxy)
+                self._mesh_proxy = proxy
         # Cold-cell resurrection: graft the directory's verified extents
-        # back as disk-resident nodes (boot-time file I/O, a cold path).
+        # back as disk-resident nodes (boot-time file I/O, a cold path),
+        # those that verify on every rank of a multi-rank engine.
         self.resurrected = {"extents": 0, "grafted_nodes": 0, "grafted_tokens": 0,
                             "orphaned": 0, "keys": []}
         if self._kv_tier is not None:
-            self.resurrected = self.tree.resurrect_from_disk()
+            self.resurrected = self.tree.resurrect_from_disk(
+                common=None if self._sync is None else self._sync.common)
         # Reserved scratch page: inactive decode rows write/read here.
         scratch = self.pool.alloc(page_size)
         assert scratch is not None
@@ -629,6 +663,61 @@ class Engine:
                 boost_tokens=self.prefill_wave_tokens,
                 node=self.name,
             )
+
+    def _tier_manifest(self, page_size: int) -> dict | None:
+        """The disk tier's manifest of this rank's shard (None on one rank)."""
+        mesh = self.device_mesh
+        if self._ranks == 1:
+            return None
+        cfg, L, H = self.cfg, self.model.n_layers, self.model.n_kv_heads
+        return {
+            "tp": mesh.size("tp"), "pp": mesh.size("pp"), "sp": mesh.size("sp"),
+            "rank": mesh.engine_index, "n_layers": cfg.n_layers, "n_kv_heads": cfg.n_kv_heads,
+            "head_dim": cfg.head_dim, "page_size": page_size, "dtype": str(self.pool.dtype),
+            "quant": self.pool.quant,
+            "layers": [mesh.index("pp") * L, (mesh.index("pp") + 1) * L],
+            "kv_heads": [mesh.index("tp") * H, (mesh.index("tp") + 1) * H],
+        }
+
+    def _bind_step_sync(self) -> StepSync:
+        """The step agreement of a multi-rank engine (module docstring),
+        built at the first asynchronous source: the tree's clock becomes the
+        agreed one, the plane reports to it and its hints arrive through
+        it. Every rank binds the same sources in the same order."""
+        if self._sync is None:
+            sync = self._sync = StepSync(self.device_mesh, self.device)
+            self.tree._time = sync.clock
+            plane = self.kv_transfer
+            if plane is not None:
+                plane.strict = True
+                sync.add_source("hints", Source(
+                    pending=lambda: len(plane._hints), take=plane.take_hints,
+                    apply=self._sync_hints.extend))
+        return self._sync
+
+    def _agree(self, stop: bool = False) -> tuple[list[int], list[int]]:
+        """One pass of the step agreement: the plane scatters what landed
+        here and reports it, the leader decides the destage cadence (and
+        ``stop``, a drain's deadline), and every source's arrivals apply.
+        Supersedes an agreement not yet applied (its counts only grew)."""
+        plane = self.kv_transfer
+        local = []
+        if plane is not None:
+            plane.pump(self.tree)
+            local = plane.sync_local()
+        self._agreed = self._sync.agree(local, [int(self._destage_due()), int(stop)])
+        return self._agreed
+
+    def _destage_due(self) -> bool:
+        """Whether the write-behind destage runs this pass: at most once per
+        ``kv_tier_destage_interval_s`` (the walk is O(tree nodes))."""
+        if self._kv_tier is None or self.draining:
+            return False
+        now = time.monotonic()
+        if now - self._kv_tier_last_destage < self._kv_tier_destage_interval_s:
+            return False
+        self._kv_tier_last_destage = now
+        return True
 
     def _register_series(self) -> None:
         """The JAX engine's registry series, labeled by this engine's name
@@ -889,6 +978,18 @@ class Engine:
             return 0, True
         submitted = self.tree.destage_cold(force=True, budget=1 << 30)
         deadline = time.monotonic() + timeout_s
+        if self._sync is not None:
+            # Every rank commits the same spills in the same pass; the
+            # leader's clock decides the deadline.
+            while True:
+                local, (_, stop) = self._agree(stop=time.monotonic() >= deadline)
+                self._agreed = None
+                plane.apply_agreed(self.tree, local)
+                if plane.spills_idle():
+                    return submitted, True
+                if stop:
+                    return submitted, False
+                plane.wait_progress(0.02)
         while time.monotonic() < deadline:
             plane.pump(self.tree)  # spill commits land on this thread
             if plane.spills_idle():
@@ -968,8 +1069,15 @@ class Engine:
                 self.kv_transfer.wait_progress()
 
     def has_work(self) -> bool:
+        """Whether anything is queued, running, parked or in the plane.
+        With a step agreement bound it runs a fresh agreement for the pass
+        (superseding one a previous call left unapplied), so every rank
+        answers alike and sees what arrived since."""
+        if self._sync is not None:
+            self._agree()
         return (
-            bool(self.waiting)
+            bool(self._sync_hints)
+            or bool(self.waiting)
             or bool(self._inline)
             or bool(self._restoring)
             or any(r is not None for r in self._rows)
@@ -1234,25 +1342,34 @@ class Engine:
         """The plane's engine-thread service point, at the top of every
         admission pass: apply staged restore chunks whose copies have
         landed, convert prefetch hints, run the write-behind destage, and
-        re-queue parked requests whose pages are in."""
+        re-queue parked requests whose pages are in. With a step agreement
+        bound, this pass's agreement decides what landed, the hints and the
+        destage cadence."""
         plane = self.kv_transfer
-        if plane is None:
-            return
-        plane.pump(self.tree)
-        for key in plane.take_hints():
+        if self._sync is not None:
+            local, (destage, _) = self._agreed or self._agree()
+            self._agreed = None
+            if plane is None:
+                return
+            plane.apply_agreed(self.tree, local)
+            hints, self._sync_hints[:] = list(self._sync_hints), []
+        else:
+            if plane is None:
+                return
+            plane.pump(self.tree)
+            hints = plane.take_hints()
+            destage = self._destage_due()
+        for key in hints:
             self._apply_prefetch_hint(key)
-        if self._kv_tier is not None and not self.draining:
+        if destage and not self.draining:
             # Past the arena watermark, cold host prefixes spill to disk on
             # the worker, so later arena pressure demotes instead of
             # dropping them. Submission only, cadence-throttled.
-            now = time.monotonic()
-            if now - self._kv_tier_last_destage >= self._kv_tier_destage_interval_s:
-                self._kv_tier_last_destage = now
-                self.tree.destage_cold(
-                    watermark=self._kv_tier_watermark,
-                    min_heat=self._kv_tier_min_heat,
-                    budget=self._kv_tier_destage_budget,
-                )
+            self.tree.destage_cold(
+                watermark=self._kv_tier_watermark,
+                min_heat=self._kv_tier_min_heat,
+                budget=self._kv_tier_destage_budget,
+            )
         if not self._restoring:
             return
         still: list[tuple[Request, object]] = []

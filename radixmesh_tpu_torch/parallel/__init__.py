@@ -3,9 +3,9 @@ collectives and the sequence-parallel attention (the JAX package's
 ``parallel/``, its serving half: tensor parallelism, sequence-parallel
 prefill and the multi-process bootstrap).
 
-- ``sharding`` — :class:`MeshPlan`, the ``(dp, sp, tp)`` :class:`ProcessMesh`
-  with one process group per axis, the logical-axis rules and
-  :func:`shard_params`.
+- ``sharding`` — :class:`MeshPlan`, the ``(dp, pp, sp, tp)``
+  :class:`ProcessMesh` with one process group per axis and one per engine,
+  the logical-axis rules and :func:`shard_params`.
 - ``multihost`` — :func:`init_multihost` (``torch.distributed`` with an
   explicit backend) and :func:`global_mesh`.
 - ``collectives`` — all-reduce, all-gather, all-to-all and the ring shift
@@ -18,6 +18,16 @@ prefill and the multi-process bootstrap).
   and fused k-step decode over a ``(pp, tp)`` mesh.
 - ``kv_transfer`` — KV-page blocks between the ranks of one axis (the
   device handoff, ``engine/disagg.IciHandoff``).
+- ``step_sync`` — the step agreement of an engine over several ranks: with
+  the async KV plane, the disk tier, a ``DecodeWorker`` or a pool-bound mesh
+  replica bound, the ranks agree once per scheduler pass (one small
+  all-reduce over the engine's group, ``ProcessMesh.engine_group``) on which
+  copies landed and which spills committed everywhere, on the leader's
+  cadences and clock, and on the packets, hints and replica frees the
+  leader took in; :class:`MeshPoolProxy` is the pool such a replica sees.
+  The disk tier keeps one directory per rank (``cache/kv_tier.
+  rank_tier_dir``: the rank's shard extents beside a manifest of the mesh
+  shape).
 
 Not ported yet (``ROADMAP.md``): training (``train``, and the pipeline's
 ``make_pp_train_step``, which raises) waits for A6.
@@ -51,6 +61,7 @@ from radixmesh_tpu_torch.parallel.pp_serving import (
     pp_forward_chunk,
 )
 from radixmesh_tpu_torch.parallel.ring_attention import ring_attention, ring_self_attention
+from radixmesh_tpu_torch.parallel.step_sync import MeshPoolProxy, StepSync
 from radixmesh_tpu_torch.parallel.sharding import (
     LOGICAL_RULES,
     SERVING_RULES,
@@ -102,4 +113,6 @@ __all__ = [
     "pp_decode_multi",
     "make_kv_page_transfer",
     "prefill_to_decode_perm",
+    "StepSync",
+    "MeshPoolProxy",
 ]

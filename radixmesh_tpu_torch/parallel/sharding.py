@@ -15,7 +15,9 @@ shards, with every collective written out (``parallel/collectives.py``):
   ``(dp, pp, sp, tp) = unravel(r, (dp, pp, sp, tp))``, so ``tp`` is
   innermost (the ranks of one tp group are consecutive, the same host's
   devices), and the mesh holds one process group per axis through this
-  rank.
+  rank, and one over the ranks of this rank's engine: those that share its
+  dp index (``pp × sp × tp`` ranks, which run one engine between them; the
+  step agreement of ``parallel/step_sync.py`` runs over it).
 - ``LOGICAL_RULES`` and :func:`logical_to_spec` are the JAX package's: tp
   shards ``q_heads``, ``kv_heads``, ``ffn`` and ``vocab`` (Megatron layout:
   column-parallel ``wq``/``wk``/``wv``/``w_gate``/``w_up``, row-parallel
@@ -133,6 +135,26 @@ class ProcessMesh:
         """Global rank of index ``i`` along ``axis`` through this rank."""
         return self.lines[axis][i % self.size(axis)]
 
+    @property
+    def engine_size(self) -> int:
+        """Ranks that run one engine: every rank with this rank's dp index."""
+        return self.plan.pp * self.plan.sp * self.plan.tp
+
+    @property
+    def engine_index(self) -> int:
+        """This rank's place among its engine's ranks (0 is the leader)."""
+        _, pp, sp, tp = self.coords
+        return (pp * self.plan.sp + sp) * self.plan.tp + tp
+
+    def engine_group(self):
+        """The process group of this rank's engine (None for one rank, or
+        without a process group)."""
+        return self.groups.get("engine")
+
+    def engine_leader(self) -> int:
+        """Global rank of this engine's leader (pp, sp and tp index 0)."""
+        return self.lines["engine"][0] if self.lines.get("engine") else self.rank
+
     def __repr__(self) -> str:
         return (f"ProcessMesh({self.shape}, rank={self.rank}, coords={self.coords}, "
                 f"backend={self.backend})")
@@ -164,6 +186,13 @@ def make_mesh(plan: MeshPlan | None = None) -> ProcessMesh | None:
             # Every rank creates every group, in one order (torch requires it).
             group, _ = dist.new_subgroups_by_enumeration(all_lines)
         groups[axis] = group
+    # The ranks of one engine: one line per dp index over (pp, sp, tp).
+    engine_lines = grid.reshape(sizes[0], -1).tolist()
+    mine = next((ln for ln in engine_lines if rank in ln), None)
+    lines["engine"] = tuple(mine) if mine is not None else ()
+    groups["engine"] = None
+    if backend is not None and len(engine_lines[0]) > 1:
+        groups["engine"], _ = dist.new_subgroups_by_enumeration(engine_lines)
     if rank >= plan.n_devices:
         return None
     coords = tuple(int(c) for c in np.unravel_index(rank, sizes))

@@ -126,20 +126,55 @@ def test_pp_engine_matches_single_device_and_prefix_hit(group, jmesh):
     assert got["collectives"]["p2p"]["calls"] > 0 and got["collectives"]["broadcast"]["calls"] > 0
 
 
+# The disk tier and the plane, once refused under pp, are served since the
+# step agreement (parallel/step_sync.py): those cases serve the tier script
+# (prompts a, b, a in a pool that holds one) on the pp = 2 x tp = 2 mesh to
+# the JAX pp engine's tokens with the same tier. "tier dir shape" is the
+# refusal that came with the per-rank disk layout.
+TIER_KW = dict(num_slots=128, page_size=4, max_batch=4)
+_TA = np.random.default_rng(0).integers(1, JCFG.vocab_size, 64).tolist()
+_TB = np.random.default_rng(1).integers(1, JCFG.vocab_size, 64).tolist()
+TIER_RUNS = [([_TA], dict(GREEDY, max_new_tokens=4)), ([_TB], dict(GREEDY, max_new_tokens=4)),
+             ([_TA], dict(GREEDY, max_new_tokens=4))]
+
+
 @pytest.mark.parametrize("what,cfg,plan,match", [
     ("layers", TCFG.replace(n_layers=3), PLAN, "not divisible by"),
     ("disk tier", TCFG, PLAN, "disk KV tier"),
     ("kv plane", TCFG, PLAN, "KV-movement plane"),
+    ("tier dir shape", TCFG, PLAN, "another mesh shape"),
 ])
-def test_pp_validations(group, what, cfg, plan, match):
-    kw = dict(KW)
-    if what == "disk tier":
-        kw.update(host_cache_slots=256, kv_tier_dir="unused")
-    if what == "kv plane":
-        kw.update(kv_transfer_async=True)
-    for msg in _live(group.run(CASES + "serve_refused", cfg, plan, kw)):
-        assert match in msg, msg
-        assert what == "layers" or "A5c" in msg
+def test_pp_validations(group, jmesh, tmp_path, what, cfg, plan, match):
+    from tests._torch_tier_cases import tier_kw
+
+    if what == "layers":
+        for msg in _live(group.run(CASES + "serve_refused", cfg, plan, dict(KW))):
+            assert match in msg, msg
+        return
+    if what == "tier dir shape":
+        # Extents written by a pp = 2 engine (two ranks) refuse the pp = 2 x
+        # tp = 2 engine by name.
+        root = str(tmp_path / "tier")
+        two = _live(group.run("tests._torch_tier_cases:serve_tiers", NP_PARAMS, TCFG, (1, 1, 1, 2),
+                              TIER_RUNS[:1], TIER_KW, "disk", root))
+        assert len(two) == 2
+        kw = dict(TIER_KW, **tier_kw("disk", root))
+        for msg in _live(group.run("tests._torch_tier_cases:refused", NP_PARAMS, cfg, plan, kw)):
+            assert match in msg and "pp" in msg, msg
+        return
+    tier = "disk" if what == "disk tier" else "plane"
+    jkw = tier_kw(tier, str(tmp_path / "jax"))
+    jeng = JEngine(JCFG, JPARAMS, device_mesh=jmesh, **TIER_KW, **jkw)
+    want = [jeng.generate(p, JSampling(**sk)) for p, sk in TIER_RUNS]
+    jeng.kv_transfer.close()
+    res = _live(group.run("tests._torch_tier_cases:serve_tiers", NP_PARAMS, cfg, plan, TIER_RUNS, TIER_KW,
+                          tier, str(tmp_path / "port")))
+    assert len(res) == 4
+    for r in res:
+        assert r["tokens"] == want
+        assert r["stats"] == res[0]["stats"] and r["counters"] == res[0]["counters"]
+        assert r["stats"]["cached_tokens"] == jeng.stats.cached_tokens > 0
+        assert r["passes"] == res[0]["passes"] > 0
 
 
 def test_pp_int8_matches_jax_int8_and_hits(group, jmesh):

@@ -27,7 +27,6 @@ from radixmesh_tpu.ops.attention import paged_chunk_attention_kernel_sharded as 
 from radixmesh_tpu.ops.attention import paged_decode_fused_sharded as j_decode_sharded
 from radixmesh_tpu.parallel.sharding import MeshPlan as JPlan
 from radixmesh_tpu.parallel.sharding import make_mesh as j_make_mesh
-from radixmesh_tpu_torch.engine.disagg import DecodeWorker, PrefillWorker
 from radixmesh_tpu_torch.engine.engine import Engine
 from radixmesh_tpu_torch.models.llama import ModelConfig, init_params
 from radixmesh_tpu_torch.parallel.sharding import MeshPlan, ProcessMesh
@@ -267,35 +266,80 @@ def _fake_mesh(**axes) -> ProcessMesh:
                        lines={"dp": (0,), "pp": (0,), "sp": (0,), "tp": (0,)})
 
 
+# The combinations these tests once pinned as refused under tp are served
+# since the step agreement (parallel/step_sync.py): each case now builds the
+# same combination on a tp = 2 mesh and serves it. The tier script: prompts
+# a, b, a in a pool that holds one, so b evicts a and the second a restores.
+TIER_KW = dict(num_slots=128, page_size=4, max_batch=4)
+TIER_A = np.random.default_rng(0).integers(1, JCFG.vocab_size, 64).tolist()
+TIER_B = np.random.default_rng(1).integers(1, JCFG.vocab_size, 64).tolist()
+TIER_RUNS = [([TIER_A], dict(GREEDY, max_new_tokens=4)), ([TIER_B], dict(GREEDY, max_new_tokens=4)),
+             ([TIER_A], dict(GREEDY, max_new_tokens=4))]
+TIERS = "tests._torch_tier_cases:"
+
+
 @pytest.mark.parametrize("what,kw,match", [
     ("host tier", dict(host_cache_slots=256), "host KV tier"),
     ("disk tier", dict(host_cache_slots=256, kv_tier_dir="unused"), "disk KV tier"),
     ("kv plane", dict(kv_transfer_async=True), "KV-movement plane"),
     ("mesh pool", dict(mesh=type("M", (), {"pool": object(), "page": 1})()), "page pushes"),
 ])
-def test_refused_under_tp(what, kw, match):
-    with pytest.raises(NotImplementedError, match=match) as e:
-        Engine(TCFG, init_params(TCFG, 0, "cpu"), device="cpu", device_mesh=_fake_mesh(tp=2),
-               **KW, **kw)
-    assert "A5c" in str(e.value)
+def test_refused_under_tp(group, tmp_path, what, kw, match):
+    """(Named for when tp refused these.) The combination serves on a tp = 2
+    mesh: every rank gives the JAX engine's tokens and ``cached_tokens`` on
+    the same mesh with the same tier, and the tiers' counters agree across
+    ranks; a pool-bound mesh replica on the leader frees through its proxy
+    on every rank."""
+    plan = (1, 1, 2)
+    if what == "mesh pool":
+        want = JEngine(JCFG, JPARAMS, **TIER_KW).generate([TIER_A], JSampling(**GREEDY))
+        res = [r for r in group.run(TIERS + "mesh_pool", NP_PARAMS, TCFG, plan, TIER_A, GREEDY, TIER_KW,
+                                    ["tp-refusal-p0", "tp-refusal-d0"]) if r]
+        assert len(res) == 2 and res[0]["proxy"] == "MeshPoolProxy"
+        assert all(r["tokens"] == want and r["balance"] for r in res)
+        assert res[0]["free_slots"] == res[1]["free_slots"]
+        return
+    tier = {"host tier": "host", "disk tier": "disk", "kv plane": "plane"}[what]
+    from tests._torch_tier_cases import tier_kw
+
+    jkw = tier_kw(tier, str(tmp_path / "jax"))
+    jeng = JEngine(JCFG, JPARAMS, device_mesh=j_make_mesh(JPlan(tp=2)), **TIER_KW, **jkw)
+    want = [jeng.generate(p, JSampling(**sk)) for p, sk in TIER_RUNS]
+    if getattr(jeng, "kv_transfer", None) is not None:
+        jeng.kv_transfer.close()
+    res = [r for r in group.run(TIERS + "serve_tiers", NP_PARAMS, TCFG, plan, TIER_RUNS, TIER_KW, tier,
+                                str(tmp_path / "port")) if r]
+    assert len(res) == 2
+    for r in res:
+        assert r["tokens"] == want
+        assert r["stats"] == res[0]["stats"] and r["counters"] == res[0]["counters"]
+        assert r["stats"]["cached_tokens"] == jeng.stats.cached_tokens > 0
+        assert r["counters"]["restore_tokens"] > 0
 
 
-def test_refused_handoff_and_pp():
+def test_refused_handoff_and_pp(group):
+    """(Named for when the handoff and the pp tiers were refused.) A tp = 2
+    ``PrefillWorker``'s leader ships the single device's packet (the other
+    rank None), a pp = 2 ``DecodeWorker`` decodes it to the single device's
+    tokens, a pp = 2 engine serves the async plane, and a tp = 1 mesh (sp
+    only) still serves the host tier."""
+    from radixmesh_tpu_torch.engine.disagg import unpack_handoff
+
+    prompt = _prompts()[0]
+    got = group.run(TIERS + "prefill_packet", NP_PARAMS, TCFG, (1, 1, 2), prompt, GREEDY, KW)
+    assert got[0]["packet"] is not None and got[1]["packet"] is None and got[2] is None
+    single = group.run(TIERS + "prefill_packet", NP_PARAMS, TCFG, None, prompt, GREEDY, KW)[0]["packet"]
+    a, b = unpack_handoff(got[0]["packet"]), unpack_handoff(single)
+    assert a.first_token == b.first_token
+    np.testing.assert_allclose(a.kv.numpy(), b.kv.numpy(), rtol=0, atol=1e-4)
+    want = JEngine(JCFG, JPARAMS, **KW).generate([prompt], JSampling(**GREEDY))
+    res = [r for r in group.run(TIERS + "decode_packets", NP_PARAMS, TCFG, (1, 1, 1, 2), [single], KW) if r]
+    assert len(res) == 2 and all(r["tokens"] == want for r in res)
+    plane = [r for r in group.run(TIERS + "serve_tiers", NP_PARAMS, TCFG, (1, 1, 1, 2), TIER_RUNS, TIER_KW,
+                                  "plane") if r]
+    assert len(plane) == 2 and plane[0]["tokens"] == plane[1]["tokens"]
+    assert plane[0]["counters"]["plane_restored_tokens"] > 0
     params = init_params(TCFG, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="handoff"):
-        PrefillWorker(TCFG, params, device="cpu", device_mesh=_fake_mesh(tp=2), **KW)
-    eng = Engine(TCFG, params, device="cpu", device_mesh=_fake_mesh(tp=2), **KW)
-    with pytest.raises(NotImplementedError, match="handoff"):
-        DecodeWorker(eng)
-    # pp is served since the pipeline was ported; what it does not compose
-    # with yet is refused by name (A5c), the handoff included.
-    with pytest.raises(NotImplementedError, match="A5c"):
-        Engine(TCFG, params, device="cpu", device_mesh=_fake_mesh(pp=2), kv_transfer_async=True, **KW)
-    pp_eng = Engine(TCFG, params, device="cpu", device_mesh=_fake_mesh(pp=2), **KW)
-    assert pp_eng.pool.num_layers == TCFG.n_layers // 2
-    with pytest.raises(NotImplementedError, match="pipeline-parallel"):
-        DecodeWorker(pp_eng)
-    # A tp=1 mesh (sp only) keeps the tiers: its pool holds every head.
     Engine(TCFG, params, device="cpu", device_mesh=_fake_mesh(sp=1), host_cache_slots=256,
            **KW).close()
 
