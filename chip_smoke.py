@@ -314,9 +314,32 @@ Phases (any failure raises and exits non-zero):
    ``MeshCache`` replica on the leader, in a native tcp ring with one in
    this process: both hold each other's prefix, a free through the
    replica's proxy lands on both ranks, and both ranks' slots balance.
-   (b)–(g) start beside Qwen2-7B serving (phase 8), the checkpoint round
+   (h) Training and checkpoints on the two ranks, (a)–(g) freed
+   (``TRAIN``): two AdamW steps of Llama-3-8B's widths, 2 layers, bf16,
+   2 x 513 tokens on each of tp = 2, sp = 2, dp = 2 and pp = 2 (two
+   microbatches): the losses and global gradient norms equal on both ranks
+   and held against phase 19's step 1 (loss within 5e-3, norm within 2 %),
+   the replicated leaves' fingerprints equal on both ranks; a
+   ``save_params`` checkpoint of the whole tree loaded with
+   ``load_params(mesh=)`` bit-equal to ``shard_params`` on tp = 2 and pp =
+   2; a pp engine's tree snapshot (``save_tree(..., mesh=)``) restored into
+   a fresh pp engine on both ranks: the prompt grown by two tokens hits,
+   the prompt replays its tokens.
+   (b)–(h) start beside Qwen2-7B serving (phase 8), the checkpoint round
    trip and the whole-path checks; each rank's readings land in
    ``chip_out/par-*.json`` and ``.log``.
+19. Training and checkpoints on one device, after phase 18 (``TRAIN``):
+   three AdamW steps of Llama-3-8B's widths, 2 layers, bf16, 2 x 513
+   tokens: finite losses, the third below the first, no B1, B2 or B3 launch
+   (training attends with the plain attention), the LM head's bf16
+   product's backward through ``_MmF32``; step wall, tokens/s, the card's
+   peak memory and an analytic MFU printed. ``tiny()`` in float32: one SGD
+   step on the card equal to the CPU's within 1e-5 (loss, every leaf).
+   ``save_params`` / ``load_params`` of the trained tree bit-equal, write
+   and read GB/s. (c), before phase 16 frees phase 3's serving model: a
+   256-token prompt served, ``save_tree`` / ``load_tree`` with the pool
+   into a second engine over the same weights: a hit of at least 240
+   tokens, the same greedy continuation.
 Checkpoints and profiles are written under ``chip_out/`` and removed.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches per path in
@@ -333,6 +356,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import gc
+import importlib
 import json
 import math
 import os
@@ -5391,6 +5415,230 @@ def _par_tier_leg(rank, meshes: dict, full, dev, out_dir) -> dict:
     return out
 
 
+# phase 19 and phase 18 (h): training and checkpoints
+
+# Sizes of the training legs (a CPU rehearsal shrinks them): Llama-3-8B at
+# full width, ``layers`` deep (a depth cut: phase 19 holds the bf16 weights,
+# their gradients and AdamW's two moments, ~12 GB at 2 layers), a batch of
+# ``batch`` x ``seq`` tokens; phase 19 takes ``steps`` AdamW steps, each leg
+# of (h) ``h_steps`` (pp with ``n_micro`` microbatches). ``prompt``: the
+# tree snapshot legs' prompt; ``loss_atol`` and ``norm_rtol``: (h) against
+# phase 19's step 1 (the JAX multihost test's pin, and the global gradient
+# norm).
+# Phase 19 (e): the bf16 LM head's output and gradients against float32
+# autograd, relative (Frobenius). Rounding the cotangent and each result to
+# bf16 once costs about 2^-9 each; a wrong gradient costs about 1.
+HEAD_GRAD_RTOL = 1e-2
+TRAIN = dict(model="llama3-8b", layers=2, batch=2, seq=513, steps=3, h_steps=2, n_micro=2, prompt=256,
+             slots=4096, tiny_batch=(4, 17), loss_atol=5e-3, norm_rtol=0.02, peak_tflops=989.0)
+
+
+def _train_tokens(cfg) -> torch.Tensor:
+    """The training batch of phase 19 and (h): the same on every rank."""
+    rng = np.random.default_rng(24)
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size, (TRAIN["batch"], TRAIN["seq"])))
+
+
+def _fingerprint(t) -> list[int]:
+    """Two 64-bit sums of a tensor's bit patterns, the plain one and one
+    weighted by a fixed pseudo-random draw, computed on its device in slices
+    (a bit-level comparison of gigabytes across ranks without moving them)."""
+    bits = t.detach().contiguous().reshape(-1)
+    bits = bits.view({2: torch.int16, 4: torch.int32}[bits.element_size()])
+    g = torch.Generator(device=bits.device).manual_seed(0)
+    s1 = s2 = 0
+    for i in range(0, bits.numel(), 1 << 26):
+        c = bits[i:i + (1 << 26)].long()
+        w = torch.randint(1, 1 << 20, c.shape, generator=g, device=bits.device)
+        s1 += int(c.sum())
+        s2 += int((c * w).sum())
+    return [s1, s2]
+
+
+def _replicated_fingerprints(model) -> dict:
+    """The fingerprint of every leaf that no mesh axis of ``model``'s mesh
+    shards (the norms; the embedding and head where tp = 1; everything under
+    dp or sp)."""
+    from radixmesh_tpu_torch.models.llama import param_logical_axes
+    from radixmesh_tpu_torch.parallel.sharding import SERVING_RULES, logical_to_spec
+
+    mesh, tree = model.mesh, model.param_tree()
+    axes = param_logical_axes(model.cfg, tree)
+    out = {}
+    for name, t in _leaves(tree):
+        ax = axes["layers"][name.split(".", 1)[1]] if name.startswith("layers.") else axes[name]
+        if all(a is None or mesh.size(a) == 1 for a in logical_to_spec(ax, SERVING_RULES)):
+            out[name] = _fingerprint(t)
+    return out
+
+
+def _train_steps(state, step, tokens, n: int, dev) -> dict:
+    """``n`` steps: each step's loss, wall (to a synchronize) and the global
+    gradient norm after it; the serving kernels' launches meanwhile."""
+    from radixmesh_tpu_torch.parallel.train import global_grad_norm
+
+    pa.reset_counters()
+    losses, walls, norms = [], [], []
+    for _ in range(n):
+        _sync(state.params.embed.device)
+        t = time.monotonic()
+        state, loss = step(state, tokens)
+        losses.append(float(loss))
+        walls.append(time.monotonic() - t)
+        norms.append(global_grad_norm(state.params))
+    counts = pa.launch_counts()
+    check(all(math.isfinite(x) for x in losses), f"training: a loss is not finite: {losses}")
+    check(sum(counts.values()) == 0, f"training launched serving kernels: {counts}")
+    return {"state": state, "losses": losses, "step_walls_s": walls, "grad_norms": norms,
+            "kernel_launches": sum(counts.values())}
+
+
+def _pp_tree_leg(cfg, mesh, dev, path) -> dict:
+    """(h)'s twin of ``test_pp_engine_tree_snapshot_restore`` on both ranks: a
+    pp engine serves a prompt, the leader writes the snapshot of its
+    gathered pool, a fresh engine over the same stage restores it, the
+    prompt grown by two tokens is a hit and the prompt replays its first
+    continuation."""
+    from radixmesh_tpu_torch.checkpoint import load_tree, save_tree
+
+    with torch.inference_mode():
+        model = Llama(cfg, init_params(cfg, 0, dev, mesh=mesh), mesh=mesh)
+    kw = dict(num_slots=TRAIN["slots"], page_size=16, max_batch=2, device=dev, device_mesh=mesh)
+    prompt = np.random.default_rng(26).integers(0, cfg.vocab_size, TRAIN["prompt"]).tolist()
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=8)
+    eng = Engine(cfg, model, **kw)
+    out1 = eng.generate([prompt], greedy)[0]
+    t = time.monotonic()
+    save_tree(str(path), eng.tree, pool=eng.pool, mesh=mesh)
+    save_s = time.monotonic() - t
+    del eng
+    eng2 = Engine(cfg, model, **kw)
+    t = time.monotonic()
+    restored = load_tree(str(path), eng2.tree, pool=eng2.pool, mesh=mesh)
+    load_s = time.monotonic() - t
+    c0 = eng2.stats.cached_tokens
+    out2 = eng2.generate([prompt + [7, 8]], greedy)[0]
+    cached = eng2.stats.cached_tokens - c0
+    out3 = eng2.generate([prompt], greedy)[0]
+    check(restored > 0 and cached >= TRAIN["prompt"] - 16,
+          f"(h) pp tree snapshot: {restored} nodes restored, the grown prompt hit {cached} tokens")
+    check(out3 == out1, f"(h) pp tree snapshot: the restored engine's tokens {out3} != {out1}")
+    return {"restored": restored, "cached": cached, "tokens": out1, "grown_tokens": out2, "save_s": save_s,
+            "load_s": load_s}
+
+
+H_GATE = "par-h-go"
+
+
+def _wait_h_gate(out_dir) -> float:
+    """Wait for this process to finish the phases it runs beside phase 18
+    and return its cached memory (``parallel_phase_finish`` writes
+    ``H_GATE``): (h)'s training legs hold ~12 GiB a rank, which beside the
+    whole-path checks would take the card past its budget. Returns the
+    seconds waited."""
+    t = time.monotonic()
+    while not (out_dir / H_GATE).exists():
+        check(time.monotonic() - t < PAR["timeout_s"], "(h): this process never opened the gate")
+        time.sleep(0.1)
+    return time.monotonic() - t
+
+
+def _par_train_leg(rank, meshes: dict, dev, out_dir, mark) -> dict:
+    """(h) on the ranks. First what needs little memory: ``load_params(mesh=)``
+    of a checkpoint of the whole tree against ``shard_params`` on the tp and
+    pp meshes, bit for bit, and the pp engine's tree snapshot. Then, once
+    this process has opened the gate (``_wait_h_gate``), two AdamW steps of
+    Llama-3-8B's widths on each of the tp, sp, dp and pp meshes (phase 19's
+    batch; the pipeline with ``n_micro`` microbatches): losses, gradient
+    norms, walls and the replicated leaves' fingerprints (held across the
+    ranks and against phase 19 by ``parallel_phase_finish``)."""
+    import torch.distributed as dist
+
+    from radixmesh_tpu_torch.checkpoint import load_params, save_params
+    from radixmesh_tpu_torch.models.llama import param_logical_axes
+    from radixmesh_tpu_torch.parallel import collective_stats, reset_collective_stats, shard_params
+    from radixmesh_tpu_torch.parallel.pipeline import make_pp_train_step
+    from radixmesh_tpu_torch.parallel.train import adamw, make_train_state, make_train_step
+
+    cfg = get_config(TRAIN["model"], n_layers=TRAIN["layers"])
+    tokens = _train_tokens(cfg)
+    out = {"legs": {}}
+    mark("(h) load_params")
+    whole = init_params(cfg, 0, dev)
+    path = out_dir / "h-params"
+    if rank == 0:
+        save_params(str(path), whole)
+    dist.barrier()
+    axes = param_logical_axes(cfg)
+    out["load_params"] = {}
+    for tag in ("tp=2", "pp=2"):
+        got = dict(_leaves(load_params(str(path), mesh=meshes[tag], device=dev)))
+        want = dict(_leaves(shard_params(whole, axes, meshes[tag])))
+        check(got.keys() == want.keys() and all(
+            got[k].dtype == v.dtype and torch.equal(got[k].view(torch.int16), v.view(torch.int16))
+            for k, v in want.items()), f"(h) load_params(mesh={tag}) on rank {rank} != shard_params")
+        out["load_params"][tag] = {k: list(v.shape) for k, v in got.items()}
+        del got, want
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(path, ignore_errors=True)
+    del whole
+    _release(dev)
+    mark("(h) pp tree")
+    out["pp_tree"] = _pp_tree_leg(cfg, meshes["pp=2"], dev, out_dir / "h-pp-tree.json")
+    dist.barrier()
+    if rank == 0:
+        for f in ("h-pp-tree.json", "h-pp-tree.json.kv.npz"):
+            (out_dir / f).unlink(missing_ok=True)
+    _release(dev)
+    # torch.optim's first optimizer imports torch._dynamo (seconds of host
+    # time): paid here, before the gate.
+    importlib.import_module("torch._dynamo")
+
+    mark("(h) gate")
+    out["gate_wait_s"] = _wait_h_gate(out_dir)
+    for tag, mesh in meshes.items():
+        mark(f"(h) {tag}")
+        t = time.monotonic()
+        state = make_train_state(cfg, 0, mesh, adamw, device=dev)
+        init_s = time.monotonic() - t
+        if mesh.size("pp") > 1:
+            step = make_pp_train_step(cfg, mesh, adamw, TRAIN["n_micro"])
+        else:
+            step = make_train_step(cfg, mesh, adamw)
+        reset_collective_stats()
+        run = _train_steps(state, step, tokens, TRAIN["h_steps"], dev)
+        leg = {k: v for k, v in run.items() if k != "state"}
+        leg.update(init_s=init_s, collectives=collective_stats(),
+                   replicated=_replicated_fingerprints(run["state"].params))
+        out["legs"][tag] = leg
+        print(f"[train rank{rank}] (h) {tag}: losses {leg['losses']}, grad norms {leg['grad_norms']}, step walls "
+              f"{[round(w, 3) for w in leg['step_walls_s']]} s, {len(leg['replicated'])} replicated leaves",
+              flush=True)
+        del state, step, run
+        _release(dev)
+    _release(dev)
+    return out
+
+
+def _h_finish(ranks) -> dict:
+    """(h) across the ranks: each leg's losses and gradient norms equal on
+    both ranks (every rank reports the global values), the replicated
+    leaves' fingerprints equal."""
+    legs = ranks[0]["train"]["legs"]
+    for r in ranks[1:]:
+        for tag, leg in legs.items():
+            other = r["train"]["legs"][tag]
+            check(other["losses"] == leg["losses"], f"(h) {tag}: ranks' losses differ: {leg['losses']} "
+                                                    f"{other['losses']}")
+            check(other["replicated"] == leg["replicated"],
+                  f"(h) {tag}: replicated leaves differ across ranks: " + str(
+                      [k for k in leg["replicated"] if other["replicated"].get(k) != leg["replicated"][k]]))
+        check(r["train"]["pp_tree"]["tokens"] == ranks[0]["train"]["pp_tree"]["tokens"],
+              "(h) pp tree snapshot: ranks' tokens differ")
+    return legs
+
+
 def parallel_rank(rank: int, world: int, store: str, out: str) -> int:
     """One rank of phase 18 (b) and (c): every rank runs this same program,
     gloo between them (they share the card). Writes its readings to
@@ -5413,11 +5661,16 @@ def parallel_rank(rank: int, world: int, store: str, out: str) -> int:
     dp_mesh = make_mesh(MeshPlan(dp=world))
     cfg = get_config(PAR["model"], n_layers=PAR["layers"])
     prompts, hit = _par_script(cfg, PAR["prompts"])
-    res = {"rank": rank, "world": world, "backend": info.backend, "legs": {}, "collectives": {}}
+    res = {"rank": rank, "world": world, "backend": info.backend, "legs": {}, "collectives": {}, "marks": []}
     kw = dict(num_slots=PAR["slots"], page_size=16, max_batch=8, device=dev, device_mesh=tp_mesh)
     keep = {}  # what the references compare with
 
+    def mark(name):
+        """Where this rank is from now on (wall clock), for the card's peak."""
+        res["marks"].append([name, time.time()])
+
     def leg(tag, model, mesh=tp_mesh, **extra):
+        mark(tag)
         reset_collective_stats()
         eng = Engine(model.cfg, model, **{**kw, "device_mesh": mesh}, **extra)
         r = _par_leg(eng, prompts, hit, dev, PAR["new_tokens"])
@@ -5448,6 +5701,7 @@ def parallel_rank(rank: int, world: int, store: str, out: str) -> int:
         with torch.inference_mode():
             return Llama(c, init_params(c, 0, dev, mesh=tp_mesh, **kw2), mesh=tp_mesh)
 
+    mark("init")
     t = time.monotonic()
     model = shards(cfg)
     res["init_tp_s"] = time.monotonic() - t
@@ -5463,6 +5717,7 @@ def parallel_rank(rank: int, world: int, store: str, out: str) -> int:
     del w8
     _release(dev)
     # 4 layers in float32: greedy tokens exact against the single device.
+    mark("f32 tp")
     cfg32 = cfg.replace(n_layers=PAR["f32_layers"], dtype=torch.float32)
     f32_prompts, _ = _par_script(cfg32, PAR["f32_prompts"], seed=19)
     greedy = SamplingParams(temperature=0.0, max_new_tokens=PAR["new_tokens"])
@@ -5486,6 +5741,7 @@ def parallel_rank(rank: int, world: int, store: str, out: str) -> int:
         leg(tag, ppm, mesh=pp_mesh, **extra)
     del ppm
     _release(dev)
+    mark("f32 pp")
     with torch.inference_mode():
         m32 = Llama(cfg32, init_params(cfg32, 0, dev, mesh=pp_mesh), mesh=pp_mesh)
     pa.reset_counters()
@@ -5504,6 +5760,7 @@ def parallel_rank(rank: int, world: int, store: str, out: str) -> int:
     sp_warm = rng.integers(0, cfg.vocab_size, PAR["sp_warm"]).tolist()
     sp_kw = dict(num_slots=PAR["sp_slots"], page_size=16, max_batch=2, device=dev,
                  max_seq_len=PAR["sp_prompt"] + 128)
+    mark("(c) sp")
     t = time.monotonic()
     with torch.inference_mode():
         full = Llama(cfg, init_params(cfg, 0, dev))
@@ -5515,12 +5772,15 @@ def parallel_rank(rank: int, world: int, store: str, out: str) -> int:
     del eng
     _release(dev)
     check(sp["prefill_chunks"] == 0, "sp leg: the prompt took the chunked path, not the sp one")
+    mark("(f) ici")
     res["ici"] = _par_ici_leg(rank, dp_mesh, full, prompts[0], dev)
+    mark("(g) tiers")
     t = time.monotonic()
     res["tiers"] = _par_tier_leg(rank, {"tp=2": tp_mesh, "pp=2": pp_mesh}, full, dev, pathlib.Path(out).parent)
     res["tiers"]["wall_s"] = time.monotonic() - t
     print(f"[tp rank{rank}] (g) tiers, handoff and pool-bound mesh: {res['tiers']['wall_s']:.1f} s", flush=True)
     res["sp"] = {"ttft_s": sp["ttft_s"], "tokens": sp["tokens"], "kv_abs_sum": float(sp["kv"].double().abs().sum())}
+    mark("references")
     refs = {}
     if rank == 0:
         eng = Engine(cfg, full, long_prefill_threshold=0, **sp_kw)  # always the chunked prefill
@@ -5564,6 +5824,14 @@ def parallel_rank(rank: int, world: int, store: str, out: str) -> int:
         check(res["f32_tokens"] == want32, f"f32 tp tokens {res['f32_tokens']} != single-device {want32}")
         check(res["pp_f32_tokens"] == want32, f"f32 pp tokens {res['pp_f32_tokens']} != single-device {want32}")
         del eng, m32
+    _release(dev)
+    # (h) training and checkpoints, with (a)-(g) freed.
+    t = time.monotonic()
+    res["train"] = _par_train_leg(rank, {"tp=2": tp_mesh, "sp=2": sp_mesh, "dp=2": dp_mesh, "pp=2": pp_mesh}, dev,
+                                  pathlib.Path(out).parent, mark)
+    mark("done")
+    res["train"]["wall_s"] = time.monotonic() - t
+    print(f"[train rank{rank}] (h) training and checkpoints: {res['train']['wall_s']:.1f} s", flush=True)
     if dev.type == "cuda":
         res["max_reserved_gib"] = torch.cuda.max_memory_reserved(dev) / 2**30
     res["refs"] = refs
@@ -5615,7 +5883,7 @@ def _g_parent_replica(out_dir) -> dict:
     addrs = [f"127.0.0.1:{p}" for p in _free_ports(2)]
     key = np.random.default_rng(23).integers(0, 128000, 160).tolist()
     PAR.update(g_addrs=addrs, g_parent_key=key)
-    for name in ("par-g-mesh-ready", "par-g-mesh-done"):
+    for name in ("par-g-mesh-ready", "par-g-mesh-done", H_GATE):
         (out_dir / name).unlink(missing_ok=True)
     cfg = MeshConfig(prefill_nodes=[addrs[0]], decode_nodes=[addrs[1]], router_nodes=[], local_addr=addrs[1],
                      protocol="tcp", page_size=16, tick_interval_s=0.05, gc_interval_s=30.0)
@@ -5663,21 +5931,26 @@ def parallel_phase_start(out_dir=None) -> dict:
         with open(logs[name], "w") as log:
             procs[name] = subprocess.Popen(
                 [sys.executable, str(ROOT / "chip_smoke.py"), *args, "--parallel-store", store,
-                 "--parallel-out", str(out_dir / f"par-{name}.json"), "--parallel-sizes", json.dumps(PAR)],
+                 "--parallel-out", str(out_dir / f"par-{name}.json"), "--parallel-sizes", json.dumps(PAR),
+                 "--train-sizes", json.dumps(TRAIN)],
                 cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
     return {"procs": procs, "logs": logs, "out_dir": out_dir, "store_dir": store_dir, "g_mesh": g_mesh,
-            "t0": time.monotonic(), "memory": _card_memory_sampler() if PAR["device"] == "cuda" else None}
+            "t0": time.monotonic(), "marks": [["start", time.time()]],
+            "memory": _card_memory_sampler() if PAR["device"] == "cuda" else None}
 
 
 def _card_memory_sampler(period_s: float = 0.25) -> dict:
     """The card's memory in use (every process's: ``cudaMemGetInfo``),
-    sampled on a thread of its own until ``stop`` is set; ``peak`` in bytes."""
-    mem = {"peak": 0, "total": 0, "samples": 0, "stop": threading.Event()}
+    sampled on a thread of its own until ``stop`` is set; ``peak`` in bytes,
+    ``peak_t`` its wall-clock time."""
+    mem = {"peak": 0, "peak_t": None, "total": 0, "samples": 0, "stop": threading.Event()}
 
     def run():
         while not mem["stop"].wait(period_s):
             free, total = torch.cuda.mem_get_info()
-            mem["peak"], mem["total"] = max(mem["peak"], total - free), total
+            if total - free > mem["peak"]:
+                mem["peak"], mem["peak_t"] = total - free, time.time()
+            mem["total"] = total
             mem["samples"] += 1
 
     mem["thread"] = threading.Thread(target=run, name="par-memory", daemon=True)
@@ -5777,6 +6050,7 @@ def parallel_phase_finish(handle) -> dict:
     """Join every process of phase 18, check each exit code and the checks
     across ranks, and print the readings."""
     procs, logs, out_dir = handle["procs"], handle["logs"], handle["out_dir"]
+    (out_dir / H_GATE).touch()  # (h)'s training legs may start
     deadline = handle["t0"] + PAR["timeout_s"]
     rcs = {}
     try:
@@ -5815,6 +6089,7 @@ def parallel_phase_finish(handle) -> dict:
         check(r["sp"]["kv_abs_sum"] == r0["sp"]["kv_abs_sum"], "sp: the ranks' pools hold different K/V")
     check(nccl["backend"] == "nccl" and nccl["world"] == 1, f"nccl process: {nccl}")
     refs = {**ranks[0]["refs"], **ranks[1]["refs"]}
+    h_legs = _h_finish(ranks)
     t_g = time.monotonic()
     g_here = _g_finish(ranks, out_dir, handle["g_mesh"])
     g_here_s = time.monotonic() - t_g
@@ -5879,6 +6154,13 @@ def parallel_phase_finish(handle) -> dict:
         print(f"[parallel] card memory in use while phase 18 ran (every process, {mem['samples']} samples "
               f"0.25 s apart): peak {mem['peak'] / 2**30:.2f} of {mem['total'] / 2**30:.2f} GiB; each rank's "
               f"own peak reserved {[round(r.get('max_reserved_gib', 0.0), 2) for r in ranks]} GiB", flush=True)
+        if mem["peak_t"] is not None:
+            def at(marks):
+                return ([n for n, t in marks if t <= mem["peak_t"]] or ["-"])[-1]
+
+            print(f"[parallel] the peak came {mem['peak_t'] - handle['marks'][0][1]:.1f} s into phase 18, with this "
+                  f"process in {at(handle['marks'])!r} and the ranks in {[at(r['marks']) for r in ranks]}",
+                  flush=True)
     sp = refs["sp"]
     print(f"[parallel] sp=2 prefill of {PAR['sp_prompt']} tokens ({depth}): TTFT {r0['sp']['ttft_s']:.3f} s vs the "
           f"single-device chunked prefill {sp['single_ttft_s']:.3f} s; last-position logits row err "
@@ -5920,8 +6202,224 @@ def parallel_phase_finish(handle) -> dict:
               f"{d['first_row_err']}", flush=True)
     print(f"[parallel] (g) this process's replica saw the leader's prefix ({handle['g_mesh']['seen']} tokens); "
           f"the single-device decodes here {g_here_s:.1f} s", flush=True)
+    for tag, leg in h_legs.items():
+        c = ", ".join(f"{op} {v['calls']} calls {v['seconds']:.3f}s {v['bytes'] / 2**20:.1f} MiB"
+                      for op, v in leg["collectives"].items())
+        print(f"[parallel] (h) {tag} ({TRAIN['h_steps']} AdamW steps, {TRAIN['model']} widths, {TRAIN['layers']} "
+              f"layers, {TRAIN['batch']} x {TRAIN['seq']} tokens): losses {leg['losses']}, global grad norms "
+              f"{leg['grad_norms']}, step walls {[round(w, 3) for w in leg['step_walls_s']]} s (rank 0), init "
+              f"{leg['init_s']:.1f}s; {len(leg['replicated'])} replicated leaves equal on both ranks; rank 0 "
+              f"gloo: {c}", flush=True)
+    pt = r0["train"]["pp_tree"]
+    print(f"[parallel] (h) load_params(mesh=) == shard_params on tp=2 and pp=2, both ranks; pp engine tree snapshot: "
+          f"{pt['restored']} nodes restored on both ranks, grown prompt hit {pt['cached']} tokens, tokens equal; "
+          f"save {pt['save_s'] * 1e3:.1f} ms, load {pt['load_s'] * 1e3:.1f} ms; (h) wall "
+          f"{[round(r['train']['wall_s'], 1) for r in ranks]} s, of which waiting at the gate "
+          f"{[round(r['train']['gate_wait_s'], 1) for r in ranks]} s", flush=True)
     return {"ranks": ranks, "refs": refs, "nccl": nccl, "wall_s": wall, "g_here": g_here,
             "card_memory_peak_gib": None if mem is None else mem["peak"] / 2**30}
+
+
+def tree_checkpoint_leg(dev, model) -> dict:
+    """Phase 19 (c), on the serving model phase 3 holds: an engine serves a
+    prompt, ``save_tree`` writes its tree and pool, a second engine over the
+    same weights restores them; the prompt is then a hit of at least
+    ``prompt - 16`` tokens and its greedy continuation is the first
+    engine's."""
+    from radixmesh_tpu_torch.checkpoint import load_tree, save_tree
+
+    cfg = model.cfg
+    prompt = np.random.default_rng(27).integers(0, cfg.vocab_size, TRAIN["prompt"]).tolist()
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=16)
+    kw = dict(num_slots=TRAIN["slots"], page_size=16, max_batch=2, device=dev)
+    path = OUT_DIR / "tree-ckpt.json"
+    eng = Engine(cfg, model, **kw)
+    out1 = eng.generate([prompt], greedy)[0]
+    t = time.monotonic()
+    save_tree(str(path), eng.tree, pool=eng.pool)
+    save_s = time.monotonic() - t
+    nbytes = os.path.getsize(path) + os.path.getsize(str(path) + ".kv.npz")
+    del eng
+    _release(dev)
+    eng2 = Engine(cfg, model, **kw)
+    try:
+        t = time.monotonic()
+        restored = load_tree(str(path), eng2.tree, pool=eng2.pool)
+        _sync(dev)
+        load_s = time.monotonic() - t
+    finally:
+        for f in (path, pathlib.Path(str(path) + ".kv.npz")):
+            f.unlink(missing_ok=True)
+    c0 = eng2.stats.cached_tokens
+    out2 = eng2.generate([prompt], greedy)[0]
+    cached = eng2.stats.cached_tokens - c0
+    del eng2
+    _release(dev)
+    check(cached >= TRAIN["prompt"] - 16, f"tree checkpoint: the restored prefix hit {cached} tokens")
+    check(out2 == out1, f"tree checkpoint: restored engine's tokens {out2} != {out1}")
+    print(f"[train] (c) save_tree/load_tree, {cfg.n_layers}-layer serving model, a {len(prompt)}-token prompt: "
+          f"{restored} nodes, {nbytes} B written in {save_s:.3f}s, restored in {load_s:.3f}s; hit {cached} tokens, "
+          f"greedy continuation equal {out2}", flush=True)
+    return {"restored": restored, "bytes": nbytes, "save_s": save_s, "load_s": load_s, "cached": cached,
+            "tokens": out2}
+
+
+def _head_grad_check(model, n_tok: int, dev) -> dict:
+    """Phase 19 (e): the LM head's bf16 product under autograd
+    (``_head_product`` through ``_MmF32``, a float32 output of bf16
+    operands) at the training step's head shapes, ``x [n_tok, hidden]``
+    against the trained head ``w [hidden, vocab]``, under a seeded float32
+    cotangent: the output and both gradients against autograd of the same
+    product of the operands widened to float32. The backward rounds the
+    cotangent to bf16 once, and each gradient once: each relative error
+    (Frobenius) must be at most ``HEAD_GRAD_RTOL``, which a zeroed, scaled
+    or misplaced gradient exceeds by far."""
+    from radixmesh_tpu_torch.models.llama import _head_product
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    w = model.lm_head.detach().requires_grad_(True)
+    x = torch.randn(n_tok, w.shape[0], generator=gen, device=dev, dtype=torch.float32)
+    x = x.to(w.dtype).requires_grad_(True)
+    g = torch.randn(n_tok, w.shape[1], generator=gen, device=dev, dtype=torch.float32)
+    out = _head_product(x, w)
+    nodes, seen = [out.grad_fn], []
+    for _ in range(3):  # the product's node, under at most two views
+        seen += [type(n).__name__ for n in nodes if n is not None]
+        nodes = [f for n in nodes if n is not None for f, _ in n.next_functions]
+    check(out.dtype == torch.float32 and any("MmF32" in n for n in seen),
+          f"(e) the bf16 head product under autograd did not go through _MmF32: {seen}")
+    out.backward(g)
+    xf = x.detach().float().requires_grad_(True)
+    wf = w.detach().float().requires_grad_(True)
+    ref = torch.matmul(xf, wf)
+    ref.backward(g)
+
+    def rel(a, b):
+        return float((a.float() - b).norm() / b.norm())
+
+    errs = {"out": rel(out.detach(), ref.detach()), "gx": rel(x.grad, xf.grad), "gw": rel(w.grad, wf.grad)}
+    del out, ref, g, xf, wf, x, w
+    _release(dev)
+    check(all(e <= HEAD_GRAD_RTOL for e in errs.values()),
+          f"(e) the bf16 LM head's product or gradients vs float32 autograd: relative errors {errs} "
+          f"(> {HEAD_GRAD_RTOL})")
+    print(f"[train] (e) _MmF32 (bf16 LM head under autograd) at x [{n_tok}, {model.cfg.hidden}], w "
+          f"[{model.cfg.hidden}, {model.cfg.vocab_size}] vs autograd of the float32 product: relative errors "
+          f"(Frobenius) out {errs['out']:.3e}, gx {errs['gx']:.3e}, gw {errs['gw']:.3e} (<= {HEAD_GRAD_RTOL})",
+          flush=True)
+    return errs
+
+
+def train_phase(dev, par, tree_leg) -> dict:
+    """Phase 19, in this process after phase 18 released its memory: (a)
+    ``TRAIN["steps"]`` AdamW steps of Llama-3-8B's widths at ``layers`` deep
+    on one device: finite losses, the last below the first, no serving
+    kernel launched (training attends with the plain attention); step wall,
+    tokens/s, the card's peak memory and an analytic MFU printed; phase 18
+    (h)'s first losses within ``loss_atol`` and gradient norms within
+    ``norm_rtol`` of this step 1's. (b) ``tiny()`` in float32, one SGD step
+    on the card equal to the same step on the CPU within 1e-5 (the loss and
+    every updated leaf). (d) ``save_params`` / ``load_params`` of the
+    trained tree, bit-equal, write and read GB/s. ``tree_leg``: (c), run
+    while phase 3's model was held (``tree_checkpoint_leg``)."""
+    from radixmesh_tpu_torch.checkpoint import load_params, save_params
+    from radixmesh_tpu_torch.models.llama import ModelConfig
+    from radixmesh_tpu_torch.parallel.train import adamw, make_train_state, make_train_step
+
+    cfg = get_config(TRAIN["model"], n_layers=TRAIN["layers"])
+    tokens = _train_tokens(cfg)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t = time.monotonic()
+    state = make_train_state(cfg, 0, None, adamw, device=dev)
+    _sync(dev)
+    init_s = time.monotonic() - t
+    n_params = sum(p.numel() for p in state.params.parameters())
+    run = _train_steps(state, make_train_step(cfg, None, adamw), tokens, TRAIN["steps"], dev)
+    state = run.pop("state")
+    losses, walls = run["losses"], run["step_walls_s"]
+    check(losses[-1] < losses[0], f"training: step {len(losses)}'s loss {losses[-1]} is not below step 1's "
+                                  f"{losses[0]}")
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    wall = float(np.median(walls[1:]))
+    n_tok = TRAIN["batch"] * (TRAIN["seq"] - 1)
+    # The analytic MFU counts the params that take part in a product: the
+    # input embedding is a lookup, the head (a tied head once) a product.
+    model = state.params
+    n_embed = model.embed.numel() if model.lm_head is not None else 0
+    n_mm = n_params - n_embed
+    flops = 6 * n_mm * n_tok
+    mfu = flops / wall / (TRAIN["peak_tflops"] * 1e12)
+    print(f"[train] (a) {TRAIN['model']} widths, {TRAIN['layers']} layers, bf16, {n_params} params, "
+          f"{TRAIN['batch']} x {TRAIN['seq']} tokens, AdamW: losses {losses}; step walls "
+          f"{[round(w, 4) for w in walls]} s (median of steps 2-{len(walls)} {wall:.4f} s), {n_tok / wall:.0f} "
+          f"tokens/s; analytic MFU 6 * (params - input embedding) * tokens / wall / {TRAIN['peak_tflops']:.0f} "
+          f"TFLOP/s = 6 * ({n_params} - {n_embed}) * {n_tok} / {wall:.4f} / {TRAIN['peak_tflops']:.0f}e12 = "
+          f"{mfu:.4f} (attention's S^2 products not counted); card peak "
+          f"{peak / 2**30:.2f} GiB; init {init_s:.1f}s; B1/B2/B3 launches during the steps: "
+          f"{run['kernel_launches']}; global grad norm after step 1 {run['grad_norms'][0]:.6g}", flush=True)
+    head_grad = _head_grad_check(model, n_tok, dev) if dev.type == "cuda" else None
+    del model
+    h = {}
+    for r in par["ranks"]:
+        for tag, leg in r["train"]["legs"].items():
+            dl = abs(leg["losses"][0] - losses[0])
+            dn = abs(leg["grad_norms"][0] - run["grad_norms"][0]) / run["grad_norms"][0]
+            h[tag] = {"loss_diff": dl, "norm_rel_diff": dn}
+            check(dl <= TRAIN["loss_atol"], f"(h) {tag} rank {r['rank']}: step 1 loss {leg['losses'][0]} vs one "
+                                            f"device {losses[0]} (|diff| {dl} > {TRAIN['loss_atol']})")
+            check(dn <= TRAIN["norm_rtol"], f"(h) {tag} rank {r['rank']}: grad norm {leg['grad_norms'][0]} vs one "
+                                            f"device {run['grad_norms'][0]} (rel {dn} > {TRAIN['norm_rtol']})")
+    print("[train] (h) against this step 1, |loss diff| / grad norm rel diff: "
+          + "; ".join(f"{tag} {v['loss_diff']:.3e} / {v['norm_rel_diff']:.3e}" for tag, v in h.items()), flush=True)
+    # (d) the trained tree through save_params / load_params.
+    tree = state.params.param_tree()
+    nbytes = sum(t.numel() * t.element_size() for _, t in _leaves(tree))
+    path = OUT_DIR / "train-params"
+    try:
+        _sync(dev)
+        t = time.monotonic()
+        save_params(str(path), tree)
+        write_s = time.monotonic() - t
+        t = time.monotonic()
+        got = load_params(str(path), device=dev)
+        _sync(dev)
+        read_s = time.monotonic() - t
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    got = dict(_leaves(got))
+    check(got.keys() == dict(_leaves(tree)).keys() and all(
+        got[k].dtype == v.dtype and torch.equal(got[k].view(torch.int16), v.detach().view(torch.int16))
+        for k, v in _leaves(tree)), "save_params/load_params: the trained tree is not bit-equal after the round trip")
+    print(f"[train] (d) save_params / load_params of the trained tree: {nbytes} B, written in {write_s:.2f}s "
+          f"({nbytes / write_s / 1e9:.2f} GB/s, to the page cache: no fsync), read onto the card in {read_s:.2f}s "
+          f"({nbytes / read_s / 1e9:.2f} GB/s, a warm read: the file was just written); bit-equal", flush=True)
+    del state, tree, got
+    _release(dev)
+    # (b) tiny() float32: one SGD step on the card and on the CPU.
+    tcfg = ModelConfig.tiny().replace(dtype=torch.float32)
+    params = init_params(tcfg, 0, "cpu")
+    toks = torch.as_tensor(np.random.default_rng(25).integers(0, tcfg.vocab_size, TRAIN["tiny_batch"]))
+    sgd = lambda ps: torch.optim.SGD(ps, lr=1e-2)  # noqa: E731
+    f32 = {}
+    for where in (dev, torch.device("cpu")):
+        st = make_train_state(tcfg, optimizer=sgd, device=where, params=params)
+        st, loss = make_train_step(tcfg, None, sgd)(st, toks)
+        f32[where.type] = (float(loss), {k: v.detach().cpu() for k, v in _leaves(st.params.param_tree())})
+    loss_diff = abs(f32[dev.type][0] - f32["cpu"][0])
+    leaf_diff = max(float((f32[dev.type][1][k] - v).abs().max()) for k, v in f32["cpu"][1].items())
+    check(loss_diff <= 1e-5 and leaf_diff <= 1e-5,
+          f"tiny float32 SGD step, card vs CPU: loss diff {loss_diff}, max leaf diff {leaf_diff} (> 1e-5)")
+    print(f"[train] (b) tiny() float32 SGD step, {dev.type} vs CPU: loss {f32[dev.type][0]:.7f} vs "
+          f"{f32['cpu'][0]:.7f} (diff {loss_diff:.2e}), max updated-leaf diff {leaf_diff:.2e}", flush=True)
+    return {"n_params": n_params, "losses": losses, "step_walls_s": walls, "step_wall_s": wall,
+            "tokens_per_s": n_tok / wall, "mfu": mfu, "mfu_params": n_mm,
+            "mfu_formula": "6 * (params - input embedding) * tokens / wall / peak", "head_grad": head_grad,
+            "peak_gib": peak / 2**30, "init_s": init_s, "grad_norms": run["grad_norms"],
+            "kernel_launches": run["kernel_launches"], "h_vs_one_device": h,
+            "params_ckpt": {"bytes": nbytes, "write_s": write_s, "read_s": read_s},
+            "tiny_f32": {"loss_diff": loss_diff, "leaf_diff": leaf_diff}, "tree_ckpt": tree_leg}
 
 
 def _parse(argv):
@@ -5933,7 +6431,8 @@ def _parse(argv):
                          "versions, timed); the readings go to --json")
     ap.add_argument("--json", metavar="FILE", help="where --kernels writes its readings")
     ap.add_argument("--parallel-alone", metavar="SIZES",
-                    help="the build and phase 18 (b)-(g) alone, with these of its sizes changed (a JSON "
+                    help="the build, phase 18 (b)-(h) and phase 19 alone, with these of phase 18's sizes "
+                         "changed (a JSON "
                          "object, e.g. '{\"layers\": 32, \"f32_layers\": 32, \"witness\": true}': "
                          "every leg at full depth, the logit rows read, not held, beside the single "
                          "device's own spread and single devices with tp's rounding: its row-parallel "
@@ -5945,6 +6444,7 @@ def _parse(argv):
     ap.add_argument("--parallel-store", help=argparse.SUPPRESS)
     ap.add_argument("--parallel-out", help=argparse.SUPPRESS)
     ap.add_argument("--parallel-sizes", help=argparse.SUPPRESS)
+    ap.add_argument("--train-sizes", help=argparse.SUPPRESS)
     return ap.parse_args(argv)
 
 
@@ -5952,6 +6452,8 @@ def main(argv=None) -> int:
     args = _parse(argv)
     if args.parallel_sizes:
         PAR.update(json.loads(args.parallel_sizes))
+    if args.train_sizes:
+        TRAIN.update(json.loads(args.train_sizes))
     if args.parallel_rank is not None:
         return parallel_rank(args.parallel_rank, args.parallel_world, args.parallel_store, args.parallel_out)
     if not torch.cuda.is_available():
@@ -5985,9 +6487,18 @@ def main(argv=None) -> int:
     if args.parallel_alone:
         PAR.update(json.loads(args.parallel_alone))
         par = parallel_phase_finish(parallel_phase_start())
-        (OUT_DIR / "parallel_alone.json").write_text(json.dumps({"card": card, "sizes": PAR, "parallel": par},
-                                                                indent=1, default=str))
-        print(f"[time] phase 18 (b)-(g) alone {par['wall_s']:.1f}s", flush=True)
+        print(f"[time] phase 18 (b)-(h) alone {par['wall_s']:.1f}s", flush=True)
+        t = time.monotonic()
+        with torch.inference_mode():
+            model = Llama(get_config("llama3-8b"), init_params(get_config("llama3-8b"), seed=0, device=dev))
+        tree_leg = tree_checkpoint_leg(dev, model)
+        del model
+        _release(dev)
+        train = train_phase(dev, par, tree_leg)
+        print(f"[time] phase 19 {time.monotonic() - t:.1f}s (with phase 3's weights drawn for (c))", flush=True)
+        (OUT_DIR / "parallel_alone.json").write_text(json.dumps(
+            {"card": card, "sizes": PAR, "train_sizes": TRAIN, "parallel": par, "train": train}, indent=1,
+            default=str))
         print(card, flush=True)
         return 0
     sass = sass_check()
@@ -6042,6 +6553,9 @@ def main(argv=None) -> int:
     t = time.monotonic()
     mesh = mesh_phase(dev, model)
     print(f"[time] mesh phase (a)-(c) {time.monotonic() - t:.1f}s", flush=True)
+    t = time.monotonic()
+    tree_leg = tree_checkpoint_leg(dev, model)
+    print(f"[time] phase 19 (c) tree checkpoint {time.monotonic() - t:.1f}s", flush=True)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -6079,24 +6593,33 @@ def main(argv=None) -> int:
     par_handle = parallel_phase_start()
     try:
         t_q = time.monotonic()
+        par_handle["marks"].append(["qwen2-7b serving", time.time()])
         qwen = qwen2_serving_phase(dev)
         print(f"[time] qwen2-7b serving phase {time.monotonic() - t_q:.1f}s", flush=True)
         t_q = time.monotonic()
+        par_handle["marks"].append(["checkpoint", time.time()])
         ckpt = checkpoint_phase(dev)
         print(f"[time] checkpoint phase {time.monotonic() - t_q:.1f}s", flush=True)
         t_q = time.monotonic()
+        par_handle["marks"].append(["whole-path checks", time.time()])
         whole = {tag: whole_path_check(dev, quant, sched, tiered, name) for tag, quant, sched, tiered, name in
                  (("float32", None, None, False, "llama3-8b"), ("int8", "int8", None, False, "llama3-8b"),
                   ("float32 schedules", None, SCHEDULES, False, "llama3-8b"),
                   ("float32 tiers", None, None, True, "llama3-8b"),
                   ("qwen2-7b float32", None, None, False, "qwen2-7b"))}
         _whole_path_params.cache_clear()
+        _release(dev)  # the cached blocks back to the card: (h)'s ranks train beside this process
+        par_handle["marks"].append(["waiting for the ranks", time.time()])
         print(f"[time] whole-path checks {time.monotonic() - t_q:.1f}s (phase 18 beside them)", flush=True)
         par = parallel_phase_finish(par_handle)
     finally:
         parallel_phase_stop(par_handle)
-    print(f"[time] phase 18 (b)-(g) {par['wall_s']:.1f}s from its start; both together "
+    print(f"[time] phase 18 (b)-(h) {par['wall_s']:.1f}s from its start; both together "
           f"{time.monotonic() - t:.1f}s", flush=True)
+    _release(dev)
+    t = time.monotonic()
+    train = train_phase(dev, par, tree_leg)
+    print(f"[time] phase 19 training and checkpoints {time.monotonic() - t:.1f}s", flush=True)
 
     # Launches of each kernel entry on each path that ran it (counts zeroed
     # just before each path and read just after); ``launches`` sums them.
@@ -6300,7 +6823,8 @@ def main(argv=None) -> int:
               "groups": groups, "serving": serving, "tiers": tiers, "serve_cli": serve_cli,
               "qwen2_serving": qwen, "checkpoint": ckpt, "serve_text": serve_text, "whole_path": whole,
               "replay": replay, "serving_edge": edge, "handoff": handoff, "w8a16": w8a16,
-              "head": head, "mesh": mesh, "fleet": fleet, "sharded_kernels": sharded, "parallel": par}
+              "head": head, "mesh": mesh, "fleet": fleet, "sharded_kernels": sharded, "parallel": par,
+              "train": train}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -87,6 +87,21 @@ them.
 
     python -m radixmesh_tpu_torch.launch node --config-file router0.json --http-port 8100 \
         --fleet-digest-interval 0.5 --repair-interval 1.0 --agg-interval 2
+
+``multihost-dryrun`` joins one ``torch.distributed`` job and runs ONE sharded
+train step (``parallel/train.run_dryrun_train_step``) over the global mesh,
+printing the JAX launcher's line (``multihost-dryrun: proc i/n devices L
+local / G global mesh={...} loss=...``). The port runs one process per
+device, so ``--local-devices`` is the number of ranks per host (the JAX
+launcher's virtual devices per process), and ``--backend`` is required:
+``init_multihost`` never picks one silently (``nccl`` where each rank has a
+card of its own, ``gloo`` on the CPU or for ranks that share a card).
+``--mesh DP,SP,TP`` pins the plan (default: the host-aligned
+``global_mesh`` plan). Every process of the job runs the same command with
+its own ``--process-id``:
+
+    python -m radixmesh_tpu_torch.launch multihost-dryrun --coordinator 127.0.0.1:29500 \
+        --num-processes 4 --process-id 0 --local-devices 4 --mesh 1,2,2 --backend gloo --device cpu
 """
 
 from __future__ import annotations
@@ -637,6 +652,39 @@ def _run_node(args: argparse.Namespace) -> int:
     return 0
 
 
+def _run_multihost_dryrun(args: argparse.Namespace) -> int:
+    """One sharded train step with every process of the job in one mesh:
+    the same step as the in-process dryrun, the collectives across
+    processes."""
+    import math
+
+    from radixmesh_tpu_torch.parallel import MeshPlan, global_mesh, init_multihost
+    from radixmesh_tpu_torch.parallel.train import run_dryrun_train_step
+    from radixmesh_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    if device.type == "cuda" and args.backend == "nccl":
+        device = None  # init_multihost picks this rank's card
+    info = init_multihost(args.coordinator, args.num_processes, args.process_id,
+                          local_device_count=args.local_devices, backend=args.backend)
+    plan = None
+    if args.mesh:
+        dp, sp, tp = (int(x) for x in args.mesh.split(","))
+        plan = MeshPlan(dp=dp, sp=sp, tp=tp)
+    mesh = global_mesh(plan)
+    loss = run_dryrun_train_step(mesh, device=device)
+    print(
+        f"multihost-dryrun: proc {info.process_index}/{info.process_count} "
+        f"devices {info.local_devices} local / {info.global_devices} global "
+        f"mesh={dict(mesh.shape)} loss={loss:.4f}",
+        flush=True,
+    )
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0 if math.isfinite(loss) else 1
+
+
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     """Parse the launcher's command line; exits (status 2) on a flag of a
     feature that is not ported yet (``_NOT_PORTED_FLAGS`` for ``serve``,
@@ -770,6 +818,22 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     _add_trace_args(node)
     _add_history_args(node)
     node.set_defaults(fn=_run_node)
+
+    mh = sub.add_parser("multihost-dryrun",
+                        help="join a torch.distributed job and run ONE sharded train step over the "
+                        "global mesh (the multi-process compute proof)")
+    mh.add_argument("--coordinator", required=True,
+                    help="host:port (or tcp://host:port, file:///path) of the job's rendezvous")
+    mh.add_argument("--num-processes", type=int, required=True)
+    mh.add_argument("--process-id", type=int, required=True)
+    mh.add_argument("--local-devices", type=int, default=None,
+                    help="ranks per host (one process is one device; default: every rank on one host)")
+    mh.add_argument("--mesh", default=None, metavar="DP,SP,TP",
+                    help="explicit global mesh plan (default: host-aligned auto)")
+    mh.add_argument("--backend", choices=("nccl", "gloo"), required=True,
+                    help="collective backend: nccl (a card per rank) or gloo (CPU, or ranks sharing a card)")
+    mh.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    mh.set_defaults(fn=_run_multihost_dryrun)
 
     argv = sys.argv[1:] if argv is None else argv
     refused = _NOT_PORTED_NODE if argv[:1] == ["node"] else dict.fromkeys(_NOT_PORTED_FLAGS, "A")

@@ -49,6 +49,19 @@
   alone: ``parallel/pp_serving.py`` and ``parallel/pipeline.py`` drive its
   layer bodies (``_chunk_layers``, ``_decode_layers``) between the stages,
   and the whole forwards refuse a stage.
+- Training (``parallel/train.py``): ``train_forward`` is causal
+  self-attention over a batch with no cached prefix (the JAX
+  ``prefill_forward`` with an empty prefix), through the plain
+  ``attend_prefill``, as the JAX training path attends; ``train_layers`` is
+  its layer loop, which a pipeline stage runs alone. Under autograd the
+  tp seams are the differentiable collectives of
+  ``parallel/collectives.py``: ``copy_to`` before every column-parallel
+  product and the vocab-parallel head (identity forward, all-reduce
+  backward), ``reduce_from`` in ``_proj_reduced`` and ``_embed``,
+  ``gather_from`` in ``_logits``; under sp each layer gathers K and V over
+  the sequence (``gather_seq``). With autograd off (every serving forward
+  runs under ``inference_mode``) they are the plain collectives. The
+  trainer makes the leaves trainable (``train.trainable``).
 - The pool is updated in place where JAX donates it: ``decode_step``'s
   kernel writes each layer's row, and ``prefill_chunk_paged`` writes the
   chunk's K/V into layer ``l`` right after layer ``l``'s attention (the
@@ -80,7 +93,13 @@ from radixmesh_tpu_torch.ops.quant import quantize_for_store
 from radixmesh_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from radixmesh_tpu_torch.ops.sampling import any_stochastic, sample_stochastic, sampling_tensors
 from radixmesh_tpu_torch.ops.wquant import LAYER_QUANT_WEIGHTS, quantize_weight
-from radixmesh_tpu_torch.parallel.collectives import all_gather, all_reduce
+from radixmesh_tpu_torch.parallel.collectives import (
+    all_reduce,
+    copy_to,
+    gather_from,
+    gather_seq,
+    reduce_from,
+)
 from radixmesh_tpu_torch.parallel.ring_attention import ring_attention
 from radixmesh_tpu_torch.parallel.sharding import SERVING_RULES, logical_to_spec, shard_leaf
 from radixmesh_tpu_torch.utils.device import resolve_device
@@ -384,21 +403,51 @@ def init_params(
     return params
 
 
+class _MmF32(torch.autograd.Function):
+    """``torch.mm(x, w, out_dtype=torch.float32)`` of two operands of one
+    lower-precision dtype, with a backward (autograd has no derivative for
+    ``mm.dtype``): the float32 gradient is rounded once to the operands'
+    dtype, and each operand's gradient is a product in that dtype (float32
+    accumulation, rounded once), so no float32 copy of the LM head's
+    gradient is made."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = torch.mm(g, w.t()) if ctx.needs_input_grad[0] else None
+        gw = torch.mm(x.t(), g) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
 def _head_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x [..., H] @ w [H, V]`` with a float32 result that was never
     rounded to ``x.dtype``. On CUDA a bf16 product goes through cuBLAS with
-    a float32 output (``torch.mm(..., out_dtype=torch.float32)``); on the
-    CPU, and for float32 operands, the operands are widened first (exact:
-    every bf16 value is a float32 value)."""
+    a float32 output (``torch.mm(..., out_dtype=torch.float32)``, under
+    autograd through :class:`_MmF32`); on the CPU, and for float32 operands,
+    the operands are widened first (exact: every bf16 value is a float32
+    value)."""
     if x.is_cuda and x.dtype != torch.float32:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        x2 = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            out = _MmF32.apply(x2, w)
+        else:
+            out = torch.mm(x2, w, out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
 
 
 class Llama(nn.Module):
-    """Llama over a JAX-oriented param tree (no autograd: weights are
-    frozen parameters and every forward runs under ``inference_mode``).
+    """Llama over a JAX-oriented param tree. Its weights are frozen
+    parameters and every serving forward runs under ``inference_mode``;
+    ``parallel/train.py`` makes the leaves trainable and runs
+    ``train_forward`` (or, on a pipeline stage, ``train_layers``) under
+    autograd.
 
     A W8A16 tree (``ops/wquant.py``) is taken as it is: its int8 leaves
     stay int8 and their float32 ``<name>_s`` scales stay float32 (each
@@ -502,6 +551,7 @@ class Llama(nn.Module):
         through here)."""
         cfg, lp = self.cfg, self.layers
         B, S = x.shape[:2]
+        x = copy_to(x, self.mesh, "tp")
         q = self._proj(x, "wq", l)
         k = self._proj(x, "wk", l)
         v = self._proj(x, "wv", l)
@@ -517,7 +567,7 @@ class Llama(nn.Module):
         all-reduce each)."""
         B, S = x.shape[:2]
         x = x + self._proj_reduced(attn.reshape(B, S, -1), "wo", l)
-        h = rms_norm(x, self.layers["mlp_norm"][l], self.cfg.rms_eps)
+        h = copy_to(rms_norm(x, self.layers["mlp_norm"][l], self.cfg.rms_eps), self.mesh, "tp")
         gate = F.silu(self._proj(h, "w_gate", l))
         up = self._proj(h, "w_up", l)
         return x + self._proj_reduced(gate * up, "w_down", l)
@@ -536,7 +586,7 @@ class Llama(nn.Module):
             y = _head_product(x, w)
         else:
             y = _head_product(x, w.to(x.dtype)) * self.layers[name + "_s"][l]
-        return all_reduce(y, self.mesh, "tp").to(x.dtype)
+        return reduce_from(y, self.mesh, "tp").to(x.dtype)
 
     def _proj(self, x: torch.Tensor, name: str, l: int) -> torch.Tensor:
         """``x @ layers[name][l]``. An int8 weight (W8A16) is widened to
@@ -558,7 +608,7 @@ class Llama(nn.Module):
             inside = (local >= 0) & (local < self.vocab_local)
             rows = self._embed_rows(torch.where(inside, local, 0))
             rows = torch.where(inside[..., None], rows, 0)
-            return all_reduce(rows, self.mesh, "tp")
+            return reduce_from(rows, self.mesh, "tp")
         return self._embed_rows(tokens)
 
     def _embed_rows(self, ids: torch.Tensor) -> torch.Tensor:
@@ -572,7 +622,7 @@ class Llama(nn.Module):
         product (``_head_product``). A W8A16 head widens its int8 weight to
         the model dtype for the product and multiplies by its float32
         scale, as the JAX ``_wmm`` does with ``preferred_element_type``."""
-        x = rms_norm(x, self.final_norm, self.cfg.rms_eps)
+        x = copy_to(rms_norm(x, self.final_norm, self.cfg.rms_eps), self.mesh, "tp")
         if self.cfg.tie_embeddings:
             w, s = self.embed.t(), self.embed_s
         else:
@@ -580,13 +630,42 @@ class Llama(nn.Module):
         out = _head_product(x, w) if s is None else _head_product(x, w.to(x.dtype)) * s
         if self._tp:
             # Vocab-parallel head: every rank gets the whole float32 row.
-            out = all_gather(out, self.mesh, "tp", dim=-1)
+            out = gather_from(out, self.mesh, "tp", dim=-1)
         return out
 
     def _rope(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         return apply_rope(x, positions, self.inv_freq)
 
     # -- forwards --------------------------------------------------------
+
+    def train_forward(self, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """The training forward: float32 logits ``[B, S, V]`` of ``tokens
+        [B, S]`` at absolute ``positions [B, S]``, causal self-attention
+        with no cached prefix (the JAX ``causal_lm_loss``'s
+        ``prefill_forward`` over an empty prefix). Under sp the tokens are
+        this rank's block of the sequence (``train_layers``)."""
+        self._whole("train_forward")
+        return self._logits(self.train_layers(self._embed(tokens), positions))
+
+    def train_layers(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """This model's layers (a pipeline stage's ``L/pp``) over ``x [B, S,
+        H]`` at ``positions``, causal self-attention through the plain
+        ``attend_prefill`` with no KV cache. Under sp ``x`` is this rank's
+        block of the sequence: each layer gathers K and V over sp
+        (``gather_seq``, whose backward reduce-scatters their gradients) and
+        the block's queries attend over every position up to their own.
+        Returns the hidden state."""
+        cfg = self.cfg
+        sp = self.mesh is not None and self.mesh.size("sp") > 1
+        for l in range(self.n_layers):
+            h = rms_norm(x, self.layers["attn_norm"][l], cfg.rms_eps)
+            q, k, v = self._qkv(l, h)
+            q, k = self._rope(q, positions), self._rope(k, positions)
+            if sp:
+                k, v = gather_seq(k, self.mesh, "sp", 1), gather_seq(v, self.mesh, "sp", 1)
+            kv_end = torch.full((x.shape[0],), k.shape[1], dtype=torch.long, device=x.device)
+            x = self._attn_out_mlp(l, x, attend_prefill(q, k, v, positions, kv_end))
+        return x
 
     @torch.inference_mode()
     def prefill_forward(

@@ -9,11 +9,18 @@ prefill and the multi-process bootstrap).
 - ``multihost`` — :func:`init_multihost` (``torch.distributed`` with an
   explicit backend) and :func:`global_mesh`.
 - ``collectives`` — all-reduce, all-gather, all-to-all and the ring shift
-  over one mesh axis (gloo moves host memory, nccl device memory).
+  over one mesh axis (gloo moves host memory, nccl device memory), and their
+  differentiable counterparts for training (``copy_to``, ``reduce_from``,
+  ``gather_from``, ``gather_seq``, ``broadcast_from``).
 - ``ring_attention`` and ``ulysses`` — the two sequence-parallel
   attentions.
 - ``pipeline`` — the GPipe schedule over the ``pp`` axis (one process per
-  stage) and the pipelined forward.
+  stage), the pipelined forward and ``make_pp_train_step``, training through
+  the schedule and back.
+- ``train`` — the causal-LM train step over the ``(dp, sp, tp)`` mesh
+  (``make_train_state``, ``make_train_step``, ``run_dryrun_train_step``;
+  import it as ``parallel.train``: it imports the model, which imports this
+  package).
 - ``pp_serving`` — pipeline-parallel serving: prefill chunks, decode steps
   and fused k-step decode over a ``(pp, tp)`` mesh.
 - ``kv_transfer`` — KV-page blocks between the ranks of one axis (the
@@ -28,9 +35,6 @@ prefill and the multi-process bootstrap).
   The disk tier keeps one directory per rank (``cache/kv_tier.
   rank_tier_dir``: the rank's shard extents beside a manifest of the mesh
   shape).
-
-Not ported yet (``ROADMAP.md``): training (``train``, and the pipeline's
-``make_pp_train_step``, which raises) waits for A6.
 """
 
 from radixmesh_tpu_torch.parallel.collectives import (
@@ -38,10 +42,15 @@ from radixmesh_tpu_torch.parallel.collectives import (
     all_reduce,
     all_to_all,
     broadcast,
+    broadcast_from,
     collective_stats,
+    copy_to,
+    gather_from,
+    gather_seq,
     p2p,
     permute,
     pipe_shift,
+    reduce_from,
     reset_collective_stats,
     ring_shift,
 )
@@ -96,6 +105,11 @@ __all__ = [
     "pipe_shift",
     "permute",
     "broadcast",
+    "copy_to",
+    "reduce_from",
+    "gather_from",
+    "gather_seq",
+    "broadcast_from",
     "collective_stats",
     "reset_collective_stats",
     "ring_attention",

@@ -19,6 +19,30 @@ stage may receive without sending and the other way round),
 
 Every call adds its wall time and payload bytes to :func:`collective_stats`
 (a per-process tally, reset by :func:`reset_collective_stats`).
+
+The collectives above detach their inputs: no gradient crosses a rank. The
+training path (``parallel/train.py``, the pipeline's train step) calls their
+differentiable counterparts, each an ``autograd.Function`` over the same
+call, which under ``torch.is_grad_enabled()`` false (the serving forwards
+run under ``inference_mode``) are the plain call:
+
+- :func:`copy_to` — identity forward, all-reduce backward (Megatron's ``f``:
+  before a column-parallel product, whose replicated input gets only a
+  partial gradient on each rank);
+- :func:`reduce_from` — all-reduce forward, identity backward (Megatron's
+  ``g``: after a row-parallel product, a vocab-parallel embedding, a loss
+  summed over the data ranks);
+- :func:`gather_from` — all-gather forward, this rank's slice of the
+  gradient backward (the vocab-parallel LM head: every rank computes the
+  same loss from the whole row);
+- :func:`gather_seq` — all-gather forward, reduce-scatter (sum) backward
+  (K and V over sp: every rank's queries read every block);
+- :func:`broadcast_from` — broadcast forward; backward, the source keeps
+  one copy of its gradient and the others pass none (the pipeline's last
+  stage: every rank computes the same loss from the broadcast state).
+
+:func:`all_reduce_coalesced` sums a list of tensors in place in buckets (a
+step's gradients over the data ranks).
 """
 
 from __future__ import annotations
@@ -37,6 +61,12 @@ __all__ = [
     "pipe_shift",
     "permute",
     "broadcast",
+    "copy_to",
+    "reduce_from",
+    "gather_from",
+    "gather_seq",
+    "broadcast_from",
+    "all_reduce_coalesced",
     "collective_stats",
     "reset_collective_stats",
 ]
@@ -221,3 +251,125 @@ def broadcast(x: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
     out = buf.to(x.device) if host else buf
     _note("broadcast", t0, x.numel() * x.element_size())
     return out
+
+
+# The largest bucket :func:`all_reduce_coalesced` flattens into one buffer.
+_BUCKET_BYTES = 256 << 20
+
+
+def all_reduce_coalesced(tensors, mesh, axis: str) -> None:
+    """Sum each of ``tensors`` over ``axis`` in place, as few all-reduces as
+    buckets of at most ``_BUCKET_BYTES`` (one dtype a bucket; a larger tensor
+    is a bucket of its own): each bucket is flattened into one buffer,
+    reduced and copied back, so the transient memory is one bucket."""
+    if mesh is None or mesh.size(axis) == 1:
+        return
+    bucket: list = []
+    size = 0
+
+    def flush():
+        nonlocal bucket, size
+        if bucket:
+            flat = torch.cat([t.reshape(-1) for t in bucket])
+            out = all_reduce(flat, mesh, axis)
+            off = 0
+            for t in bucket:
+                t.copy_(out[off:off + t.numel()].view_as(t))
+                off += t.numel()
+        bucket, size = [], 0
+
+    for t in tensors:
+        nbytes = t.numel() * t.element_size()
+        if bucket and (size + nbytes > _BUCKET_BYTES or t.dtype != bucket[0].dtype):
+            flush()
+        bucket.append(t)
+        size += nbytes
+    flush()
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(x.contiguous(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, reduce_back):
+        ctx.slice = (dim, mesh.index(axis) * x.shape[dim], x.shape[dim])
+        ctx.mesh, ctx.axis, ctx.reduce_back = mesh, axis, reduce_back
+        return all_gather(x.contiguous(), mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce_back:
+            g = all_reduce(g.contiguous(), ctx.mesh, ctx.axis)
+        return g.narrow(*ctx.slice), None, None, None, None
+
+
+class _BroadcastFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, src):
+        ctx.source = mesh.index(axis) == src
+        return broadcast(x, mesh, axis, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.source else torch.zeros_like(g)), None, None, None
+
+
+def _trains(mesh, axis: str) -> bool:
+    """Whether a collective over ``axis`` moves anything and autograd is on."""
+    return mesh is not None and mesh.size(axis) > 1 and torch.is_grad_enabled()
+
+
+def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x`` itself; under autograd its gradient is summed over ``axis``."""
+    return _CopyTo.apply(x, mesh, axis) if _trains(mesh, axis) else x
+
+
+def reduce_from(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """:func:`all_reduce`; under autograd the gradient passes through as it
+    is (every rank holds the same gradient of the sum)."""
+    return _ReduceFrom.apply(x, mesh, axis) if _trains(mesh, axis) else all_reduce(x, mesh, axis)
+
+
+def gather_from(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """:func:`all_gather`; under autograd each rank keeps its own slice of
+    the gradient (every rank computes the same function of the whole)."""
+    if not _trains(mesh, axis):
+        return all_gather(x, mesh, axis, dim)
+    return _GatherFrom.apply(x, mesh, axis, dim, False)
+
+
+def gather_seq(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """:func:`all_gather`; under autograd the gradient is reduce-scattered:
+    summed over ``axis`` (an all-reduce: gloo has no reduce-scatter) and
+    this rank's slice kept (each rank's block is read by every rank)."""
+    if not _trains(mesh, axis):
+        return all_gather(x, mesh, axis, dim)
+    return _GatherFrom.apply(x, mesh, axis, dim, True)
+
+
+def broadcast_from(x: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
+    """:func:`broadcast`; under autograd the source keeps one copy of its
+    gradient (not the sum over ``axis``) and the other ranks' ``x``, whose
+    values were never read, get zeros."""
+    if not _trains(mesh, axis):
+        return broadcast(x, mesh, axis, src)
+    return _BroadcastFrom.apply(x, mesh, axis, src)

@@ -20,21 +20,30 @@ program of its own and the schedule is real:
 
 :func:`pipeline_forward` is the training-shaped forward the JAX module
 holds: causal self-attention without a KV cache, by the plain attention
-(``ops.attention.attend_prefill``, as the JAX body is ``jnp``), so it runs
-no kernel. :func:`gpipe` is also the schedule of the serving path
-(``parallel/pp_serving.py``).
+(``Llama.train_layers``: ``ops.attention.attend_prefill``, as the JAX body
+is ``jnp``), so it runs no kernel. :func:`gpipe` is also the schedule of the
+serving path (``parallel/pp_serving.py``).
 
-Not ported yet: ``make_pp_train_step`` (training, ``ROADMAP.md`` A6).
+:func:`make_pp_train_step` trains through the same schedule. Where JAX
+differentiates its ``shard_map`` (the transpose of a ``ppermute`` is the
+opposite shift), the port runs the backward schedule itself: the loss is
+computed on every rank from the broadcast hidden state, so the last stage
+keeps one copy of its gradient (``collectives.broadcast_from``), runs the
+backward of its layers and sends each microbatch's input gradient to the
+previous stage, last microbatch first; every other stage receives its
+output gradient from the next, runs its backward and sends on. The
+embedding's lookup gradient exists on stage 0 only and the LM head's (the
+tied head's too) on every stage alike, so the lookup part is summed over pp
+and the head's part added once: the replicated leaves stay equal on every
+stage.
 """
 
 from __future__ import annotations
 
 import torch
 
-from radixmesh_tpu_torch.ops.attention import attend_prefill
-from radixmesh_tpu_torch.ops.norm import rms_norm
-from radixmesh_tpu_torch.parallel.collectives import broadcast, pipe_shift
-from radixmesh_tpu_torch.parallel.sharding import MeshPlan, ProcessMesh, make_mesh
+from radixmesh_tpu_torch.parallel.collectives import all_reduce, broadcast_from, p2p, pipe_shift
+from radixmesh_tpu_torch.parallel.sharding import MeshPlan, ProcessMesh, make_mesh, shard_batch
 
 __all__ = [
     "make_pp_mesh",
@@ -80,7 +89,8 @@ def gpipe(mesh: ProcessMesh, n_micro: int, batch: int, like: torch.Tensor, first
     ``like [mb, ...]``, and runs ``stage`` on it; each stage sends its
     output on. Returns the last stage's outputs ``[batch, ...]``
     concatenated, broadcast from the last stage to every rank of the pp
-    line."""
+    line (under autograd, the last stage's copy carries the gradient:
+    ``broadcast_from``)."""
     pp, s = mesh.size("pp"), mesh.index("pp")
     if batch % n_micro:
         raise ValueError(f"batch {batch} not divisible by n_micro={n_micro}")
@@ -97,20 +107,7 @@ def gpipe(mesh: ProcessMesh, n_micro: int, batch: int, like: torch.Tensor, first
     for x in sends:
         x.wait()
     hidden = torch.cat(outs) if outs else like.new_empty((batch, *like.shape[1:]))
-    return broadcast(hidden, mesh, "pp", pp - 1)
-
-
-def _block(model, l: int, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """One transformer block of ``model`` (stage-local layer ``l``), causal
-    self-attention with no KV cache: ``prefill_forward``'s layer with an
-    empty prefix."""
-    cfg = model.cfg
-    h = rms_norm(x, model.layers["attn_norm"][l], cfg.rms_eps)
-    q, k, v = model._qkv(l, h)
-    q, k = model._rope(q, positions), model._rope(k, positions)
-    kv_end = torch.full((x.shape[0],), x.shape[1], dtype=torch.long, device=x.device)
-    attn = attend_prefill(q, k, v, positions, kv_end)
-    return model._attn_out_mlp(l, x, attn)
+    return broadcast_from(hidden, mesh, "pp", pp - 1)
 
 
 @torch.inference_mode()
@@ -130,9 +127,7 @@ def pipeline_forward(params_pp: dict, cfg, tokens: torch.Tensor, mesh: ProcessMe
     positions = torch.arange(S, device=tokens.device)[None].expand(B // n_micro, S)
 
     def stage(h, rows):
-        for l in range(model.n_layers):
-            h = _block(model, l, h, positions)
-        return h
+        return model.train_layers(h, positions)
 
     like = torch.empty((B // n_micro, S, cfg.hidden), dtype=cfg.dtype, device=model.embed.device)
     hidden = gpipe(mesh, n_micro, B, like, lambda rows: model._embed(tokens[rows]), stage)
@@ -140,6 +135,68 @@ def pipeline_forward(params_pp: dict, cfg, tokens: torch.Tensor, mesh: ProcessMe
 
 
 def make_pp_train_step(cfg, mesh: ProcessMesh, optimizer, n_micro: int):
-    """Training through the pipeline: not ported yet (``ROADMAP.md`` A6)."""
-    raise NotImplementedError("make_pp_train_step (training through the pipeline) is not ported yet "
-                              "(ROADMAP.md A6)")
+    """``step(state, tokens) -> (state, loss)`` training through the
+    pipeline (the JAX ``make_pp_train_step``): ``state`` is a
+    ``parallel.train.TrainState`` whose model is this rank's stage
+    (``make_train_state(cfg, seed, mesh, optimizer)``, or its ``params=``
+    of the whole tree), ``tokens [B, S]`` the same on every rank; the
+    loss is the mean next-token NLL over ``tokens[:, 1:]``, on every rank.
+    ``optimizer`` (a callable from parameters to a ``torch.optim``
+    optimizer) builds the state's optimizer when it has none. The forward
+    is :func:`gpipe` over ``n_micro`` microbatches, the backward the reverse
+    schedule (module docstring). tp composes (each stage's ranks hold their
+    shards); dp splits the batch and sums the gradients; sp is refused: the
+    stage layers attend over whole sequences, as the JAX pipeline does."""
+    from radixmesh_tpu_torch.parallel.train import mean_nll, sync_grads  # train imports this module
+
+    if mesh.size("sp") > 1:
+        raise ValueError(f"make_pp_train_step: sp={mesh.size('sp')} under pp is not supported (the stage "
+                         "layers attend over whole sequences)")
+    pp, s = mesh.size("pp"), mesh.index("pp")
+
+    def step(state, tokens):
+        model = state.params
+        if model.cfg != cfg:
+            raise ValueError("the train state's model has another config than this step's")
+        opt = state.opt_state if state.opt_state is not None else optimizer(list(model.parameters()))
+        opt.zero_grad(set_to_none=True)
+        dev = model.embed.device
+        tokens = torch.as_tensor(tokens, device=dev)
+        inputs, targets = shard_batch(tokens[:, :-1], mesh), shard_batch(tokens[:, 1:], mesh)
+        count = (tokens.shape[0]) * (tokens.shape[1] - 1)
+        B, S = inputs.shape
+        if B % n_micro:
+            raise ValueError(f"batch {B} not divisible by n_micro={n_micro}")
+        positions = torch.arange(S, device=dev)[None].expand(B // n_micro, S)
+        ins, outs = [], []
+
+        def stage(h, rows):
+            if s > 0:
+                h.requires_grad_(True)  # a received activation: its gradient goes back
+            ins.append(h)
+            outs.append(model.train_layers(h, positions))
+            return outs[-1]
+
+        like = torch.empty((B // n_micro, S, cfg.hidden), dtype=cfg.dtype, device=dev)
+        hidden = gpipe(mesh, n_micro, B, like, lambda rows: model._embed(inputs[rows]), stage)
+        loss = mean_nll(model._logits(hidden), targets, count, mesh)
+        loss.backward()  # the head's gradients on every stage; the last stage's layers too
+        head = model.embed.grad  # the tied head's part (None without a tie), equal on every stage
+        model.embed.grad = None
+        sends = []
+        for m in reversed(range(n_micro)):
+            if s < pp - 1:
+                g = p2p(mesh, "pp", recv_like=[outs[m]], frm=s + 1).wait()[0]
+                torch.autograd.backward(outs[m], g)
+            if s > 0:
+                sends.append(p2p(mesh, "pp", [ins[m].grad], s - 1))
+        for x in sends:
+            x.wait()
+        lookup = model.embed.grad if model.embed.grad is not None else torch.zeros_like(model.embed)
+        lookup = all_reduce(lookup, mesh, "pp")
+        model.embed.grad = lookup if head is None else lookup + head
+        sync_grads(model, mesh, ("dp",))
+        opt.step()
+        return state._replace(opt_state=opt, step=state.step + 1), loss.detach()
+
+    return step

@@ -74,13 +74,15 @@ def test_port_imports_no_jax_and_no_jax_package():
             "radixmesh_tpu_torch.parallel.ring_attention",
             "radixmesh_tpu_torch.parallel.ulysses", "radixmesh_tpu_torch.parallel.pipeline",
             "radixmesh_tpu_torch.parallel.pp_serving",
-            "radixmesh_tpu_torch.parallel.kv_transfer"} <= walked, r.stdout
+            "radixmesh_tpu_torch.parallel.kv_transfer", "radixmesh_tpu_torch.parallel.train",
+            "radixmesh_tpu_torch.checkpoint"} <= walked, r.stdout
 
 
 _PARALLEL_PROBE = """
 import sys
 import radixmesh_tpu_torch.parallel, radixmesh_tpu_torch.models.llama
-import radixmesh_tpu_torch.ops.attention
+import radixmesh_tpu_torch.ops.attention, radixmesh_tpu_torch.parallel.train
+import radixmesh_tpu_torch.checkpoint
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "radixmesh_tpu" or m.startswith("radixmesh_tpu.") or m == "ml_dtypes")
 assert not bad, bad
@@ -88,8 +90,9 @@ assert not bad, bad
 
 
 def test_parallel_package_stands_alone():
-    """``radixmesh_tpu_torch/parallel/`` (with the model's tp seams and the
-    sharded attention wrappers) imports no ``jax``, no JAX package module and
+    """``radixmesh_tpu_torch/parallel/`` (with the model's tp seams, the
+    sharded attention wrappers, the train step and the checkpoint module)
+    imports no ``jax``, no JAX package module and
     no ``ml_dtypes``, in a process of its own and in its source text."""
     import ast
 
@@ -99,7 +102,7 @@ def test_parallel_package_stands_alone():
     files = sorted((ROOT / "radixmesh_tpu_torch" / "parallel").glob("*.py"))
     assert {f.stem for f in files} >= {"__init__", "sharding", "multihost", "collectives",
                                        "ring_attention", "ulysses", "pipeline", "pp_serving",
-                                       "kv_transfer"}
+                                       "kv_transfer", "train"}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
@@ -342,3 +345,20 @@ def test_launcher_serves_a_checkpoint_with_text(tmp_path):
         log.close()
     assert isinstance(first["text"], str) and len(first["output_ids"]) == 4
     assert again["cached_tokens"] > 0 and again["output_ids"] == first["output_ids"]
+
+
+def test_launcher_multihost_dryrun_needs_a_backend_and_the_card(monkeypatch, capsys):
+    """``multihost-dryrun`` takes the JAX launcher's flags plus a required
+    ``--backend`` (never chosen silently) and runs on the card unless
+    ``--device cpu`` is given: without CUDA it raises before joining a job."""
+    from radixmesh_tpu_torch.launch import main, parse_args
+
+    base = ["multihost-dryrun", "--coordinator", "127.0.0.1:1", "--num-processes", "2", "--process-id", "0"]
+    with pytest.raises(SystemExit):
+        parse_args(base)
+    assert "--backend" in capsys.readouterr().err
+    args = parse_args(base + ["--local-devices", "2", "--mesh", "1,1,2", "--backend", "gloo"])
+    assert (args.local_devices, args.mesh, args.backend, args.device) == (2, "1,1,2", "gloo", "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        main(base + ["--backend", "nccl"])

@@ -1,6 +1,7 @@
 """Pipeline-parallel serving in the port, against the JAX package: twins of
-``tests/test_pp_serving.py`` (the tree snapshot case waits for the
-checkpoint module, ``ROADMAP.md`` A6), of
+``tests/test_pp_serving.py`` (the tree snapshot case through the port's
+``checkpoint.py``: the leader gathers the stages' pools into the one
+JAX-format file, every rank restores its slice), of
 ``tests/test_wquant.py::TestWQuantEngine::test_pp_matches_single_device``
 and of the PP-serving and kernel-engaged pp decode legs of
 ``dryrun_multichip``.
@@ -340,3 +341,29 @@ def test_dryrun_pp_serving_leg(group):
     got = _serve(group, runs, np_params=jax.tree_util.tree_map(np.asarray, params), page_size=8,
                  decode_steps_per_launch=2)
     assert got["tokens"] == want
+
+
+def test_pp_engine_tree_snapshot_restore(group, jmesh, tmp_path):
+    """Serve, snapshot the tree and the pool (``save_tree(..., mesh=)``),
+    restore into a fresh pp = 2 x tp = 2 engine: the restored prefix is a
+    cache hit and a plain re-serve of the prompt replays the first
+    continuation; the tokens equal the JAX pp engine's, and the file the
+    ranks wrote restores into that JAX engine too."""
+    from radixmesh_tpu.checkpoint import load_tree as j_load_tree
+
+    prompt = list(range(1, 30))
+    path = str(tmp_path / "pp-tree.json")
+    kw = dict(num_slots=1024, page_size=4, max_batch=2)
+    res = _live(group.run("tests._torch_train_cases:pp_tree_snapshot", NP_PARAMS, TCFG, PLAN, prompt, path, kw))
+    assert len(res) == 4
+    jeng = JEngine(JCFG, JPARAMS, device_mesh=jmesh, **kw)
+    want1 = jeng.generate([prompt], JSampling(**GREEDY))[0]
+    for r in res:
+        assert r == res[0]
+        assert r["out1"] == want1 and r["out3"] == r["out1"]
+        assert len(r["out2"]) == 6 and r["cached"] >= 24
+    jeng2 = JEngine(JCFG, JPARAMS, device_mesh=jmesh, **kw)
+    assert j_load_tree(path, jeng2.tree, pool=jeng2.pool) == res[0]["restored"]
+    cached0 = jeng2.stats.cached_tokens
+    assert jeng2.generate([prompt + [7, 8]], JSampling(**GREEDY))[0] == res[0]["out2"]
+    assert jeng2.stats.cached_tokens - cached0 >= 24
