@@ -340,6 +340,30 @@ Phases (any failure raises and exits non-zero):
    256-token prompt served, ``save_tree`` / ``load_tree`` with the pool
    into a second engine over the same weights: a hit of at least 240
    tokens, the same greedy continuation.
+20. The engine-driven workloads (``radixmesh_tpu_torch/workload.py``,
+   ``WL``). (a) and (b) on phase 3's model before phase 16 frees it, one
+   engine (page 16, 65536 slots, 16 rows): (a) the north-star multi-turn
+   traffic (16 conversations x 4 turns, a 1024-token system prompt, 64-token
+   turns, 32 new tokens) through ``run_engine_workload``: hit rate >= 0.70
+   and <= the ceiling + 0.02, TTFT p50 and p99 printed; (b) open-loop
+   overload across two tenants through an ``SLORunner`` over the same
+   engine (1024-token prompts, half shared, 16 new; offered at twice the
+   prompt-token capacity a 2 s deadline-free run measures, a TTFT deadline
+   of ten times the unloaded TTFT, 4 s of arrivals): every arrival
+   admitted, shed or timed out, none timed out. (d)-(h) while phase 18
+   (h)'s ranks train, at Llama-3-8B's widths, 2 layers: (d) speculative
+   decoding (drafts conserved, the seeded stall found), (e) the prefill
+   convoy in float32 (both arms' tokens equal, the carrier's starvation
+   bounded, the small-batch dispatch, B3 in the crossover sweep at D 64
+   within 1e-4 of the dense leg in float32), (f) the
+   async KV plane (decode steps while a restore is parked, none without the
+   plane, one gather per write-back sweep, every restore parked), (g) the
+   disk tier (extents in a temporary directory, removed: resumed streams
+   byte-identical, both corrupt extents detected and none served), (h) the
+   mesh doctor (no finding when healthy; hot shard, prefill convoy and
+   parked restore lane each named with the seeded evidence; the
+   attributor's sums exact). Each leg's B1, B2 and B3 launches; no plain
+   version runs.
 Checkpoints and profiles are written under ``chip_out/`` and removed.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches per path in
@@ -6046,11 +6070,18 @@ def _g_finish(ranks, out_dir, g_mesh) -> dict:
     return out
 
 
-def parallel_phase_finish(handle) -> dict:
+def parallel_phase_finish(handle, beside=None) -> dict:
     """Join every process of phase 18, check each exit code and the checks
-    across ranks, and print the readings."""
+    across ranks, and print the readings. ``beside`` (a callable), if
+    given, runs in this process once (h)'s gate is open, while the ranks
+    train; what it returns is the result's ``beside``."""
     procs, logs, out_dir = handle["procs"], handle["logs"], handle["out_dir"]
     (out_dir / H_GATE).touch()  # (h)'s training legs may start
+    beside_out = None
+    if beside is not None:
+        handle["marks"].append(["beside (h)", time.time()])
+        beside_out = beside()
+        handle["marks"].append(["waiting for the ranks", time.time()])
     deadline = handle["t0"] + PAR["timeout_s"]
     rcs = {}
     try:
@@ -6217,7 +6248,7 @@ def parallel_phase_finish(handle) -> dict:
           f"{[round(r['train']['wall_s'], 1) for r in ranks]} s, of which waiting at the gate "
           f"{[round(r['train']['gate_wait_s'], 1) for r in ranks]} s", flush=True)
     return {"ranks": ranks, "refs": refs, "nccl": nccl, "wall_s": wall, "g_here": g_here,
-            "card_memory_peak_gib": None if mem is None else mem["peak"] / 2**30}
+            "card_memory_peak_gib": None if mem is None else mem["peak"] / 2**30, "beside": beside_out}
 
 
 def tree_checkpoint_leg(dev, model) -> dict:
@@ -6422,6 +6453,302 @@ def train_phase(dev, par, tree_leg) -> dict:
             "tiny_f32": {"loss_diff": loss_diff, "leaf_diff": leaf_diff}, "tree_ckpt": tree_leg}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the engine-driven workloads (``radixmesh_tpu_torch/workload.py``)
+# ---------------------------------------------------------------------------
+
+# Sizes of phase 20 (a CPU rehearsal shrinks them). (a) and (b) serve phase
+# 3's model (``model``, full depth) on one engine of ``slots`` slots: (a) the
+# north-star multi-turn traffic ``mt``; (b) open-loop overload ``ol`` through
+# an ``SLORunner``, offered at ``offered_x`` times the prompt-token capacity
+# that a deadline-free run of ``calib_s`` measures at the same shape (offered
+# there at ``offered_x`` times the closed-loop rate of ``calib_prompts``
+# prompts), with a TTFT deadline of ``deadline_x`` times the unloaded TTFT.
+# (d)-(h) run the self-contained scenarios at ``scenario_model``'s widths,
+# ``layers`` deep, with their default arguments but ``doctor``'s; (e) in
+# float32.
+WL = dict(model="llama3-8b", slots=65536, page=16, max_batch=16,
+          mt=dict(n_conversations=16, n_turns=4, system_len=1024, user_len=64, gen_len=32),
+          ol=dict(tenants={"free": 1.0, "pro": 2.0}, prompt_len=1024, shared_frac=0.5, gen_len=16,
+                  duration_s=4.0, calib_s=2.0, calib_prompts=8, offered_x=2.0, deadline_x=10.0),
+          scenario_model="llama3-8b", layers=2,
+          # The doctor's convoy rule wants the long shape's e2e 1.5x the
+          # fleet's: at 2 layers a 1536-token prefill (the scenario's
+          # default) is too quick for that on the card. Three 4608-token
+          # prompts would push the default 512-token restore prefixes out of
+          # the scenario's 8192-slot host arena before the restore lane is
+          # seeded, so those are 128 tokens, staged 16 at a time (8 chunks
+          # each, as the defaults give).
+          doctor={"long_prompt": 4608, "restore_prompt": 128, "restore_chunk_tokens": 16})
+
+
+def _wl_counts(dev) -> dict:
+    """The kernels' launches since the last reset, the plain versions' calls
+    (none may run on the card), and the chunk kernel's tensor-core and
+    CUDA-core bodies apart."""
+    c = pa.launch_counts()
+    f32 = c["paged_chunk_attention_kernel[f32 body]"]
+    out = {"b1": c["paged_decode_fused_kernel"], "b2": c["paged_chunk_attention_kernel"] - f32, "b2_f32": f32,
+           "b3": c["paged_attention_pool_kernel"], "plain": pa.plain_calls()}
+    if torch.device(dev).type == "cuda":
+        check(out["plain"] == 0, f"[workloads] plain versions ran on the card: {c}")
+    return out
+
+
+def workload_engine_phase(dev, model, card) -> dict:
+    """Phase 20 (a) and (b) on phase 3's model. (a) ``MultiTurnWorkload``
+    through ``run_engine_workload``: hit rate at least the north star's 0.70
+    and at most the ceiling + 0.02, B1 and B2 launched; TTFT p50 and p99
+    printed beside the north star's p50 < 200 ms. (b) ``OverloadWorkload``
+    through ``run_overload_workload`` on an ``SLORunner`` over the same engine,
+    priced as ``bench.py``'s overload sweep prices its points: every arrival
+    offered, admitted, shed or timed out, none timed out."""
+    from radixmesh_tpu_torch.slo.control import SLOConfig, TenantConfig
+    from radixmesh_tpu_torch.slo.runner import SLORunner
+    from radixmesh_tpu_torch.workload import (MultiTurnWorkload, OverloadWorkload, run_engine_workload,
+                                              run_overload_workload)
+
+    on_card = torch.device(dev).type == "cuda"
+    cfg = model.cfg
+    engine = Engine(cfg, model, num_slots=WL["slots"], page_size=WL["page"], max_batch=WL["max_batch"],
+                    device=dev, name="wl-engine")
+    out = {}
+    try:
+        # Warm-up outside the counted window (cuBLAS handles, allocator): a
+        # prompt that shares no page with the workload's.
+        warm = np.random.default_rng(20).integers(1, cfg.vocab_size, size=64).tolist()
+        engine.generate([warm], SamplingParams(temperature=0.0, max_new_tokens=4))
+        _sync(dev)
+        wl = MultiTurnWorkload(vocab_size=cfg.vocab_size, seed=0, **WL["mt"])
+        pa.reset_counters()
+        t = time.monotonic()
+        rep = run_engine_workload(engine, wl)
+        _sync(dev)
+        wall = time.monotonic() - t
+        launches = _wl_counts(dev)
+        check(rep["hit_rate"] >= 0.70, f"(a) hit rate {rep['hit_rate']:.4f} below the north star's 0.70")
+        check(rep["hit_rate"] <= rep["ceiling_hit_rate"] + 0.02,
+              f"(a) hit rate {rep['hit_rate']:.4f} past the ceiling {rep['ceiling_hit_rate']:.4f} + 0.02")
+        if on_card:
+            check(launches["b1"] > 0 and launches["b2"] > 0, f"(a) B1 or B2 not launched: {launches}")
+        print(f"[workloads a] ({card}) north-star multi-turn {WL['mt']}: {rep['requests']} requests, "
+              f"hit rate {rep['hit_rate']:.4f} (ceiling {rep['ceiling_hit_rate']:.4f}, reuse efficiency "
+              f"{rep['reuse_efficiency']:.4f}, not gated: turn 0's siblings share one wave), prompt tokens "
+              f"{rep['prompt_tokens']}, cached {rep['cached_tokens']}; TTFT p50 {rep['p50_ttft_s'] * 1e3:.1f} ms "
+              f"(north star < 200 ms), p99 {rep['p99_ttft_s'] * 1e3:.1f} ms; wall {wall:.2f}s; launches {launches}",
+              flush=True)
+        out["a"] = {"report": {k: v for k, v in rep.items() if k != "ttft_s"}, "ttft_s": rep["ttft_s"],
+                    "wall_s": wall, "launches": launches}
+
+        ol = WL["ol"]
+        samp = SamplingParams(temperature=0.0, max_new_tokens=ol["gen_len"])
+        rng = np.random.default_rng(21)
+        n = ol["calib_prompts"]
+        prompts = [rng.integers(1, cfg.vocab_size, ol["prompt_len"]).tolist() for _ in range(n)]
+        t_b = time.monotonic()
+        pa.reset_counters()
+        # Closed loop (the engine is warm from (a)): the unloaded TTFT and
+        # the rate the cap run is offered at.
+        n_ttft = len(engine.stats.ttft_s)
+        t = time.monotonic()
+        engine.generate(prompts, samp)
+        _sync(dev)
+        closed_tok_s = n * (ol["prompt_len"] + ol["gen_len"]) / (time.monotonic() - t)
+        ttft_unloaded = float(np.median(engine.stats.ttft_s[n_ttft:]))
+        deadline_s = ol["deadline_x"] * ttft_unloaded
+
+        def slo_runner():
+            return SLORunner(engine, SLOConfig(
+                tenants={k: TenantConfig(weight=w) for k, w in ol["tenants"].items()})).start()
+
+        def overload(offered, duration_s, seed, ttft_deadline_s):
+            wl = OverloadWorkload(tenants=ol["tenants"], duration_s=duration_s, offered_tokens_per_s=offered,
+                                  prompt_len=ol["prompt_len"], shared_frac=ol["shared_frac"],
+                                  gen_len=ol["gen_len"], vocab_size=cfg.vocab_size, seed=seed)
+            runner = slo_runner()
+            try:
+                rep = run_overload_workload(runner, wl, ttft_deadline_s=ttft_deadline_s)
+            finally:
+                runner.close()
+            check(rep["offered_requests"] == len(wl.arrivals), f"(b) offered {rep['offered_requests']} "
+                  f"of {len(wl.arrivals)} arrivals")
+            check(rep["admitted_requests"] + rep["shed_requests"] + rep["timed_out_requests"]
+                  == rep["offered_requests"], f"(b) the accounting does not close: {rep}")
+            check(rep["timed_out_requests"] == 0, f"(b) {rep['timed_out_requests']} request(s) timed out")
+            return rep
+
+        # Open loop, no deadline: what the SLO path moves is its capacity.
+        cap = overload(ol["offered_x"] * closed_tok_s, ol["calib_s"], 99, None)
+        capacity = cap["served_requests"] * ol["prompt_len"] / cap["elapsed_s"]
+        offered = ol["offered_x"] * capacity
+        rep = overload(offered, ol["duration_s"], 0, deadline_s)
+        _sync(dev)
+        launches = _wl_counts(dev)
+        if on_card:
+            check(launches["b1"] > 0 and launches["b2"] > 0, f"(b) B1 or B2 not launched: {launches}")
+        adm = rep["admitted_tokens_by_tenant"]
+        share = {k: round(v / max(1, sum(adm.values())), 4) for k, v in sorted(adm.items())}
+        weights = {k: round(w / sum(ol["tenants"].values()), 4) for k, w in sorted(ol["tenants"].items())}
+        print(f"[workloads b] ({card}) open-loop overload, {ol['prompt_len']}-token prompts (shared "
+              f"{ol['shared_frac']}), {ol['gen_len']} new: closed loop {closed_tok_s:.0f} tok/s, unloaded TTFT "
+              f"{ttft_unloaded * 1e3:.1f} ms; capacity {capacity:.0f} prompt tok/s ({cap['served_requests']} "
+              f"served in {cap['elapsed_s']:.2f}s); offered {offered:.0f} prompt tok/s for {ol['duration_s']}s, "
+              f"TTFT deadline {deadline_s * 1e3:.0f} ms: offered {rep['offered_requests']}, admitted "
+              f"{rep['admitted_requests']}, shed {rep['shed_requests']} {rep['shed_by_reason']}, timed out "
+              f"{rep['timed_out_requests']}, deadline met {rep['deadline_met']}; goodput "
+              f"{rep['goodput_tok_s']:.0f} tok/s, served {rep['served_tok_s']:.0f} tok/s; admitted share by "
+              f"tenant {share} (weights {weights}); TTFT p50 {rep['p50_ttft_s'] * 1e3:.1f} ms, p99 "
+              f"{rep['p99_ttft_s'] * 1e3:.1f} ms; wall {time.monotonic() - t_b:.2f}s; launches {launches}",
+              flush=True)
+        out["b"] = {"calibration": {"closed_loop_tok_s": closed_tok_s, "ttft_unloaded_s": ttft_unloaded,
+                                    "capacity_tok_s": capacity, "run": cap},
+                    "offered_tok_s": offered, "ttft_deadline_s": deadline_s, "report": rep,
+                    "admitted_share": share, "wall_s": time.monotonic() - t_b, "launches": launches}
+    finally:
+        engine.close()
+        del engine
+        _release(dev)
+    return out
+
+
+def workload_scenario_phase(dev, card) -> dict:
+    """Phase 20 (d)-(h): the self-contained scenarios of ``workload.py`` at
+    ``WL["scenario_model"]``'s widths, ``WL["layers"]`` deep (bf16; (e) in
+    float32), each leg's launches counted from just before it to just after
+    and its wall printed; the checks read nothing that depends on the wall
+    clock."""
+    from radixmesh_tpu_torch import workload as wlm
+
+    on_card = torch.device(dev).type == "cuda"
+    cfg = get_config(WL["scenario_model"]).replace(n_layers=WL["layers"])
+    out = {}
+    t0 = time.monotonic()
+
+    def leg(tag, fn, cfg, **kw):
+        _release(dev)
+        pa.reset_counters()
+        t = time.monotonic()
+        rep = fn(cfg=cfg, device=dev, **kw)
+        _sync(dev)
+        wall = time.monotonic() - t
+        launches = _wl_counts(dev)
+        out[tag] = {"wall_s": wall, "launches": launches, "report": rep}
+        return rep, launches, wall
+
+    # (d) speculative decoding: acceptance and conservation, ITL with a
+    # seeded stall, the adaptive-gamma A-B, the timeline's overhead.
+    rep, n, wall = leg("d spec", wlm.run_spec_workload, cfg)
+    acc, itl, ab, ovh = rep["acceptance"], rep["itl"], rep["adaptive"], rep["overhead"]
+    check(acc["conserved"], f"(d) drafts not conserved: {acc}")
+    check(itl["seeded_detected"], f"(d) the seeded scheduler_wait stall was not detected: {itl['stalls']}")
+    if on_card:
+        check(n["b1"] > 0 and n["b2"] > 0, f"(d) B1 or B2 not launched: {n}")
+    print(f"[workloads d] ({card}) spec: proposed {acc['proposed']} = accepted {acc['accepted']} + rejected "
+          f"{acc['rejected']} over {acc['waves']} waves; by shape "
+          f"{ {k: v['acceptance'] for k, v in acc['by_shape'].items()} }, by source "
+          f"{ {k: v['acceptance'] for k, v in acc['by_source'].items()} }; ITL p50 {itl['p50_s']} p99 "
+          f"{itl['p99_s']} s, stalls {itl['stalls']}; adaptive goodput ratio {ab['goodput_ratio']} (no_worse "
+          f"{ab['no_worse']}); timeline overhead fraction {ovh['fraction']} (under budget "
+          f"{ovh['under_budget']}); wall {wall:.2f}s; launches {n}", flush=True)
+
+    # (e) the prefill convoy, in float32 (token equality across schedules).
+    rep, n, wall = leg("e convoy", wlm.run_convoy_workload, cfg.replace(dtype=torch.float32))
+    inter, stalls, starv, cross = rep["interleave"], rep["stalls"], rep["starvation"], rep["crossover"]
+    check(inter["outputs_match"], "(e) the legacy and mixed-wave arms emitted other tokens (float32)")
+    check(starv["bounded"], f"(e) the carrier starved past the bound: {starv}")
+    check(cross["small_batch_ok"], f"(e) the small-batch dispatch failed: {cross['sweep']}")
+    check(cross["outputs_agree"], f"(e) the sweep's B3 leg (D 64, float32) disagrees with the dense leg past "
+          f"{wlm.SWEEP_ATOL}: {[(e['batch'], e['max_abs_err']) for e in cross['sweep']]}")
+    if on_card:
+        check(n["b3"] > 0, f"(e) the crossover sweep launched no B3: {n}")
+        check(n["b2_f32"] > 0 and n["b1"] > 0, f"(e) the float32 chunk body or B1 not launched: {n}")
+    sweep = {e["batch"]: (e["dense_t_s"] * 1e3, e["bucketed_t_s"] * 1e3) for e in cross["sweep"]}
+    print(f"[workloads e] ({card}) convoy (float32, reps {inter['reps']}): outputs match "
+          f"{inter['outputs_match']}; late TTFT p50 base {inter['base_ttft_p50_s'] * 1e3:.2f} ms vs mixed "
+          f"{inter['mixed_ttft_p50_s'] * 1e3:.2f} ms (ttft_ratio {inter['ttft_ratio']}); convoy_drop_ratio "
+          f"{stalls['convoy_drop_ratio']} (causes base {stalls['base_causes']}, mixed {stalls['mixed_causes']}); "
+          f"starvation max step gap {starv['max_step_gap']} <= {starv['max_defer_bound']}, boost waves "
+          f"{starv['boost_waves']}; sweep ms (dense leg, B3 bucketed) by batch "
+          f"{ {b: (round(d, 4), round(p, 4)) for b, (d, p) in sweep.items()} }, B3 against the dense leg max abs "
+          f"{ {e['batch']: e['max_abs_err'] for e in cross['sweep']} } (<= {wlm.SWEEP_ATOL}), paged selected "
+          f"{[e['paged_selected'] for e in cross['sweep']]}, large_batch_ok {cross['large_batch_ok']}; "
+          f"wall {wall:.2f}s; launches {n}", flush=True)
+
+    # (f) the async KV plane against the synchronous baseline.
+    rep, n, wall = leg("f kvflow", wlm.run_kvflow_workload, cfg)
+    rs, wb, pf = rep["restore"], rep["writeback"], rep["prefetch"]
+    check(rs["decode_steps_during_restore"] > 0, f"(f) no decode step while a restore was parked: {rs}")
+    check(rs["sync_decode_steps_during_restore"] == 0, f"(f) the synchronous path decoded during a restore: {rs}")
+    check(wb["gathers_per_sweep"] == 1 and wb["sync_gathers_per_sweep"] == 1,
+          f"(f) write-back gathers per sweep: {wb}")
+    check(rs["parked_requests"] == rs["requests"], f"(f) parked {rs['parked_requests']} of {rs['requests']}")
+    if on_card:
+        check(n["b1"] > 0 and n["b2"] > 0, f"(f) B1 or B2 not launched: {n}")
+    print(f"[workloads f] ({card}) kvflow: burst mean TTFT sync {rs['sync_ttft_s'] * 1e3:.2f} ms vs plane "
+          f"{rs['overlapped_ttft_s'] * 1e3:.2f} ms (overlap_ratio {rs['overlap_ratio']}, restore sub-means "
+          f"{rs['sync_restore_ttft_s'] * 1e3:.2f} / {rs['overlapped_restore_ttft_s'] * 1e3:.2f} ms, fresh "
+          f"{rs['sync_fresh_ttft_s'] * 1e3:.2f} / {rs['overlapped_fresh_ttft_s'] * 1e3:.2f} ms); decode steps "
+          f"during restore {rs['decode_steps_during_restore']} (sync {rs['sync_decode_steps_during_restore']}), "
+          f"max decode gap {rs['max_decode_gap_s'] * 1e3:.2f} ms (sync {rs['sync_max_decode_gap_s'] * 1e3:.2f}); "
+          f"parked {rs['parked_requests']}/{rs['requests']}; gathers per sweep {wb['gathers_per_sweep']}; "
+          f"hit_ahead_rate {pf['hit_ahead_rate']} ({pf['hints_sent']} hints, {pf['hints_joined']} joined); "
+          f"wall {wall:.2f}s; launches {n}", flush=True)
+
+    # (g) the disk tier: capacity, restore overlap, the cold cell. Its
+    # extents live in the scenario's mkdtemp directory, which it removes.
+    tmp = pathlib.Path(tempfile.gettempdir())
+    before = set(tmp.glob("tierwl-*"))
+    rep, n, wall = leg("g tier", wlm.run_tier_workload, cfg)
+    check(set(tmp.glob("tierwl-*")) <= before, "(g) the tier's extent directory was left behind")
+    cap, ro, cs, cor = rep["capacity"], rep["restore_overlap"], rep["cold_start"], rep["corruption"]
+    check(cs["byte_identical"], f"(g) the resumed streams are not byte-identical: {cs}")
+    check(cs["corrupt_served"] == 0 and cor["served_corrupt"] == 0, f"(g) corrupt KV served: {cor}")
+    check(cor["detected"] == cor["extents_attacked"] == 2, f"(g) corrupt extents detected: {cor}")
+    check(cs["resumed"] == cs["interrupted"], f"(g) resumed {cs['resumed']} of {cs['interrupted']}")
+    if on_card:
+        check(n["b1"] > 0 and n["b2"] > 0, f"(g) B1 or B2 not launched: {n}")
+    print(f"[workloads g] ({card}) tier: hit rate with the tier {cap['tier_hit_rate']} vs host only "
+          f"{cap['baseline_hit_rate']} (gain {cap['hit_rate_gain']}, working set {cap['working_set_ratio']}x the "
+          f"arena); restore overlap: parked {ro['parked_requests']}, decode steps during restore "
+          f"{ro['decode_steps_during_restore']}, max decode gap {ro['max_decode_gap_s'] * 1e3:.2f} ms; cold cell "
+          f"resumed {cs['resumed']}/{cs['interrupted']} byte-identical {cs['byte_identical']}, disk hit tokens "
+          f"{cs['disk_hit_tokens']}, corrupt detected {cor['detected']} of {cor['extents_attacked']}, served "
+          f"{cor['served_corrupt']}; restart {cs['restart_s']}s; wall {wall:.2f}s; launches {n}", flush=True)
+
+    # (h) the mesh doctor: healthy, then three seeded pathologies.
+    rep, n, wall = leg("h doctor", wlm.run_doctor_workload, cfg, **WL["doctor"])
+    hl, path, att = rep["healthy"], rep["pathologies"], rep["attribution"]
+    check(hl["findings"] == [], f"(h) the healthy phase has findings: {hl['findings']}")
+    for rule in ("hot_shard", "prefill_convoy", "restore_park_stall"):
+        check(path[rule]["detected"] and path[rule]["evidence_correct"],
+              f"(h) {rule} not named with the seeded evidence: {path[rule]}")
+    check(att["sums_ok"], f"(h) the attributor's phase sums are off: {att}")
+    if on_card:
+        check(n["b1"] > 0 and n["b2"] > 0, f"(h) B1 or B2 not launched: {n}")
+    print(f"[workloads h] ({card}) doctor: healthy {len(hl['rules_checked'])} rules, {len(hl['findings'])} "
+          f"findings; " + "; ".join(f"{r} score {p['score']} evidence {p['evidence']}" for r, p in path.items())
+          + f"; attribution audited {att['audited']}, max sum error {att['max_sum_error_s']}; wall {wall:.2f}s; "
+          f"launches {n}", flush=True)
+    _release(dev)
+    print(f"[time] phase 20 (d)-(h) {time.monotonic() - t0:.1f}s", flush=True)
+    return out
+
+
+def workload_phase(dev, card) -> dict:
+    """Phase 20 alone: phase 3's model drawn again from its seed (the same
+    weights) for (a) and (b), freed, then (d)-(h)."""
+    t = time.monotonic()
+    cfg = get_config(WL["model"])
+    with torch.inference_mode():
+        model = Llama(cfg, init_params(cfg, seed=0, device=dev))
+    out = workload_engine_phase(dev, model, card)
+    del model
+    _release(dev)
+    print(f"[time] phase 20 (a), (b) {time.monotonic() - t:.1f}s (phase 3's weights drawn again)", flush=True)
+    out.update(workload_scenario_phase(dev, card))
+    return out
+
+
 def _parse(argv):
     import argparse
 
@@ -6437,6 +6764,9 @@ def _parse(argv):
                          "every leg at full depth, the logit rows read, not held, beside the single "
                          "device's own spread and single devices with tp's rounding: its row-parallel "
                          "products, and all its products)")
+    ap.add_argument("--workloads-alone", action="store_true",
+                    help="the build and phase 20 alone (phase 3's weights drawn for (a) and (b)); the "
+                         "readings go to chip_out/workloads_alone.json")
     # Phase 18's child processes (started by the script itself).
     ap.add_argument("--parallel-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--parallel-world", type=int, help=argparse.SUPPRESS)
@@ -6501,6 +6831,15 @@ def main(argv=None) -> int:
             default=str))
         print(card, flush=True)
         return 0
+    if args.workloads_alone:
+        torch.cuda.reset_peak_memory_stats()
+        workloads = workload_phase(dev, card)
+        print(f"[workloads] this process's peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated",
+              flush=True)
+        (OUT_DIR / "workloads_alone.json").write_text(json.dumps(
+            {"card": card, "sizes": WL, "workloads": workloads}, indent=1, default=str))
+        print(card, flush=True)
+        return 0
     sass = sass_check()
     sass["f32_body_resources"] = f32_body_resources(log["paged_chunk"]["ptxas"])
     t = time.monotonic()
@@ -6556,6 +6895,9 @@ def main(argv=None) -> int:
     t = time.monotonic()
     tree_leg = tree_checkpoint_leg(dev, model)
     print(f"[time] phase 19 (c) tree checkpoint {time.monotonic() - t:.1f}s", flush=True)
+    t = time.monotonic()
+    workloads = workload_engine_phase(dev, model, card)
+    print(f"[time] phase 20 (a), (b) {time.monotonic() - t:.1f}s", flush=True)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -6609,9 +6951,10 @@ def main(argv=None) -> int:
                   ("qwen2-7b float32", None, None, False, "qwen2-7b"))}
         _whole_path_params.cache_clear()
         _release(dev)  # the cached blocks back to the card: (h)'s ranks train beside this process
-        par_handle["marks"].append(["waiting for the ranks", time.time()])
         print(f"[time] whole-path checks {time.monotonic() - t_q:.1f}s (phase 18 beside them)", flush=True)
-        par = parallel_phase_finish(par_handle)
+        # Phase 20 (d)-(h) runs while (h)'s ranks train (their gate open).
+        par = parallel_phase_finish(par_handle, beside=lambda: workload_scenario_phase(dev, card))
+        workloads.update(par.pop("beside"))
     finally:
         parallel_phase_stop(par_handle)
     print(f"[time] phase 18 (b)-(h) {par['wall_s']:.1f}s from its start; both together "
@@ -6690,6 +7033,18 @@ def main(argv=None) -> int:
                     c["paged_decode_fused_kernel" + sfx]
                 by_path["paged_chunk_attention" + sfx][f"{pfx} tiers {q} rank{r['rank']}"] = \
                     c["paged_chunk_attention_kernel" + sfx]
+    # Phase 20: each workload leg's launches (B1 with float32 queries in
+    # (e); B3 in (e)'s crossover sweep alone).
+    for key, label in (("a", "(a) north star"), ("b", "(b) overload"), ("d spec", "(d) spec"),
+                       ("e convoy", "(e) convoy float32"), ("f kvflow", "(f) kvflow"), ("g tier", "(g) tier"),
+                       ("h doctor", "(h) doctor")):
+        n = workloads[key]["launches"]
+        by_path["paged_decode_fused"][f"workloads {label}"] = n["b1"]
+        if key == "e convoy":
+            by_path["paged_chunk_attention[f32]"][f"workloads {label}"] = n["b2_f32"]
+            by_path["paged_attention_pool"]["workloads (e) crossover sweep"] = n["b3"]
+        else:
+            by_path["paged_chunk_attention"][f"workloads {label}"] = n["b2"]
     launches = {name: sum(paths.values()) for name, paths in by_path.items()}
     # The chunk kernel's launches by chunk length C on each in-process path
     # (both pool kinds): launches x (time - bound) by shape.
@@ -6824,7 +7179,7 @@ def main(argv=None) -> int:
               "qwen2_serving": qwen, "checkpoint": ckpt, "serve_text": serve_text, "whole_path": whole,
               "replay": replay, "serving_edge": edge, "handoff": handoff, "w8a16": w8a16,
               "head": head, "mesh": mesh, "fleet": fleet, "sharded_kernels": sharded, "parallel": par,
-              "train": train}
+              "train": train, "workloads": workloads}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -34,7 +34,7 @@ __all__ = ["main"]
 
 # Modes of the JAX package's doctor command whose pieces are not ported yet,
 # with the ROADMAP.md queue item that brings each.
-_NOT_PORTED = {"--workload": "A7, the seeded workloads (workload.run_doctor_workload)"}
+_NOT_PORTED = {"--workload": "A7b, the artifact command lines (scripts/doctor.py --workload)"}
 
 
 def _render(report: dict) -> None:

@@ -311,6 +311,15 @@ def _read_json(handler: BaseHTTPRequestHandler) -> dict:
     return obj
 
 
+def _discard_body(handler: BaseHTTPRequestHandler) -> None:
+    """Read a request body the endpoint does not use: closing the socket
+    with unread bytes resets the connection, and the reset can drop the
+    response before the client has read it."""
+    length = int(handler.headers.get("Content-Length", 0) or 0)
+    if 0 < length <= 64 * 1024 * 1024:
+        handler.rfile.read(length)
+
+
 def _int_list(x, what: str) -> list[int]:
     if not isinstance(x, list) or not all(
         isinstance(t, int) and not isinstance(t, bool) for t in x
@@ -800,6 +809,7 @@ class ServingFrontend:
 
             def do_POST(self):
                 if self.path == "/admin/blackbox":
+                    _discard_body(self)
                     _json_response(self, *_admin_blackbox(frontend.blackbox))
                     return
                 if self.path == "/admin/drain":
@@ -1160,6 +1170,7 @@ class RouterFrontend:
 
             def do_POST(self):
                 if self.path == "/admin/blackbox":
+                    _discard_body(self)
                     _json_response(self, *_admin_blackbox(frontend.blackbox))
                     return
                 if self.path != "/route":

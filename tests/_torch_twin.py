@@ -15,6 +15,7 @@ JAX package's are, so each twinned test gets fresh ones, as
 
 from __future__ import annotations
 
+import contextlib
 import re
 from pathlib import Path
 
@@ -25,7 +26,7 @@ from radixmesh_tpu_torch.obs import metrics, trace_plane
 
 TESTS = Path(__file__).resolve().parent
 
-__all__ = ["CpuPagedKVPool", "load_twin"]
+__all__ = ["CpuPagedKVPool", "fresh_port_globals", "load_twin", "missing_artifact_fields"]
 
 
 def CpuPagedKVPool(*args, **kwargs) -> PagedKVPool:
@@ -34,14 +35,24 @@ def CpuPagedKVPool(*args, **kwargs) -> PagedKVPool:
     return PagedKVPool(*args, **kwargs)
 
 
-@pytest.fixture(autouse=True)
-def _fresh_port_registry_and_recorder():
+@contextlib.contextmanager
+def fresh_port_globals():
+    """A fresh port metric registry and flight recorder for the block (a
+    module-scoped fixture's, say), the old ones put back after it."""
     old_reg, old_rec = metrics.get_registry(), trace_plane.get_recorder()
     metrics.set_registry(metrics.Registry())
     trace_plane.set_recorder(trace_plane.FlightRecorder())
-    yield
-    metrics.set_registry(old_reg)
-    trace_plane.set_recorder(old_rec)
+    try:
+        yield
+    finally:
+        metrics.set_registry(old_reg)
+        trace_plane.set_recorder(old_rec)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_port_registry_and_recorder():
+    with fresh_port_globals():
+        yield
 
 
 def load_twin(name: str, namespace: dict, *, drop: tuple[str, ...] = (),
@@ -70,3 +81,20 @@ def load_twin(name: str, namespace: dict, *, drop: tuple[str, ...] = (),
             delattr(namespace[owner], attr)
         else:
             del namespace[owner]
+
+
+def missing_artifact_fields(report: dict, prefix: str, sections: dict[str, str], jax_report: dict) -> list:
+    """The fields of the JAX package's artifact schema that a port scenario's
+    report lacks: each ``bench.<prefix>_<SECTION>_FIELDS`` in its section, and
+    each ``bench.<prefix>_TOP_FIELDS`` entry that the JAX report has
+    (``bench.build_*_report`` adds the rest). ``sections`` maps section to
+    SECTION; a dotted section (``pathologies.hot_shard``) is a nested one."""
+    import functools
+
+    import bench
+
+    missing = [f for f in getattr(bench, f"{prefix}_TOP_FIELDS") if f in jax_report and f not in report]
+    for section, const in sections.items():
+        sub = functools.reduce(dict.__getitem__, section.split("."), report)
+        missing += [f"{section}.{f}" for f in getattr(bench, f"{prefix}_{const}_FIELDS") if f not in sub]
+    return missing

@@ -186,4 +186,4 @@ def test_the_ports_doctor_refuses_the_workload_by_name(capsys):
         cli.main(["--workload"])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "--workload" in err and "queue A7" in err
+    assert "--workload" in err and "queue A7b" in err and "scripts/doctor.py --workload" in err

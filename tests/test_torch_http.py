@@ -8,7 +8,8 @@ tokenizer and with ``text`` by a frontend that has one. A
 frontend over an engine with speculative decode and mixed waves answers
 the JAX engine's greedy tokens and reports both in ``/stats``. A frontend
 over an engine with the three KV tiers serves a prefix evicted under pool
-pressure as a host hit and reports the tiers in ``/stats``."""
+pressure as a host hit and reports the tiers in ``/stats``. ``POST
+/admin/blackbox`` reads the request body it does not use."""
 
 import json
 import time
@@ -392,3 +393,19 @@ def test_slo_frontend_sheds_and_reports():
         assert code == 200 and "slo_queue" in wf["phases"]
     finally:
         fe.close(drain_s=0.0)
+
+
+def test_admin_blackbox_reads_the_body_it_ignores():
+    """``POST /admin/blackbox`` consumes its request body before answering:
+    a socket closed with unread bytes resets the connection, which can drop
+    the reply before the client reads it."""
+    import io
+    import types
+
+    from radixmesh_tpu_torch.server.http_frontend import _discard_body
+
+    body = io.BytesIO(b"{}next")
+    _discard_body(types.SimpleNamespace(headers={"Content-Length": "2"}, rfile=body))
+    assert body.tell() == 2
+    _discard_body(types.SimpleNamespace(headers={}, rfile=body))
+    assert body.tell() == 2

@@ -75,7 +75,7 @@ def test_port_imports_no_jax_and_no_jax_package():
             "radixmesh_tpu_torch.parallel.ulysses", "radixmesh_tpu_torch.parallel.pipeline",
             "radixmesh_tpu_torch.parallel.pp_serving",
             "radixmesh_tpu_torch.parallel.kv_transfer", "radixmesh_tpu_torch.parallel.train",
-            "radixmesh_tpu_torch.checkpoint"} <= walked, r.stdout
+            "radixmesh_tpu_torch.checkpoint", "radixmesh_tpu_torch.workload"} <= walked, r.stdout
 
 
 _PARALLEL_PROBE = """
@@ -112,13 +112,17 @@ def test_parallel_package_stands_alone():
                 assert top not in ("jax", "jaxlib", "radixmesh_tpu", "ml_dtypes"), (f.name, n)
 
 
-def _code_of(path: pathlib.Path) -> str:
+def _code_of(path: pathlib.Path, names: tuple[str, ...] | None = None) -> str:
     """The module's AST without docstrings, with every ``radixmesh_tpu``
-    name read as ``radixmesh_tpu_torch``: the code, not its prose."""
+    name read as ``radixmesh_tpu_torch``: the code, not its prose. With
+    ``names``, only those top-level definitions, in that order."""
     import ast
     import re
 
     tree = ast.parse(re.sub(r"\bradixmesh_tpu\b", "radixmesh_tpu_torch", path.read_text()))
+    if names is not None:
+        defs = {getattr(n, "name", None): n for n in tree.body}
+        tree.body = [defs[n] for n in names]
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
@@ -132,6 +136,32 @@ def _code_of(path: pathlib.Path) -> str:
                                     "obs/doctor.py"])
 def test_copied_fleet_modules_differ_from_the_jax_files_only_in_imports(module):
     assert _code_of(ROOT / "radixmesh_tpu_torch" / module) == _code_of(ROOT / "radixmesh_tpu" / module)
+
+
+_GENERATORS = ("synth_text", "_Conversation", "MultiTurnWorkload", "TextMultiTurnWorkload",
+               "OverloadWorkload")
+
+
+def test_workload_generators_are_the_jax_code():
+    """The traffic generators are the JAX package's numpy code, unchanged (and
+    their word stock the same words): the same seed gives the same prompts
+    and arrivals in both packages."""
+    from radixmesh_tpu import workload as jw
+    from radixmesh_tpu_torch import workload as pw
+
+    assert _code_of(ROOT / "radixmesh_tpu_torch" / "workload.py", _GENERATORS) == \
+        _code_of(ROOT / "radixmesh_tpu" / "workload.py", _GENERATORS)
+    assert pw._WORDS == jw._WORDS
+
+
+@pytest.mark.parametrize("scenario", ["run_spec_workload", "run_convoy_workload", "run_kvflow_workload",
+                                      "run_tier_workload", "run_doctor_workload"])
+def test_workload_scenarios_default_to_cuda_and_raise_without_it(scenario, monkeypatch):
+    from radixmesh_tpu_torch import workload
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        getattr(workload, scenario)()
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

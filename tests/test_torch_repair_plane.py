@@ -3,7 +3,7 @@
 
 Dropped: ``TestChaosAcceptance``. It drives ``workload.run_chaos_workload``,
 the JAX package's bench harness, which the port has not taken over yet
-(ROADMAP.md, queue A7), and its "resumed ... served" gate fails now and
+(ROADMAP.md, queue A7b), and its "resumed ... served" gate fails now and
 then on the JAX package alone."""
 
 from _torch_twin import load_twin

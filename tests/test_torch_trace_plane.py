@@ -3,8 +3,9 @@
 (``obs/step_plane.py``): twins of ``tests/test_trace_plane.py`` —
 flight-recorder semantics (bounded, drop-oldest, one-branch no-op when
 off), the span instrumentation of the port's engine, the launcher's trace
-flags, cross-node stitching and step accounting — without its mesh, SLO,
-disaggregated-handoff and workload-harness legs (not ported). The port's
+flags, cross-node stitching, step accounting and the workload harness
+(``workload.run_engine_workload`` over a mesh-bound engine, and its trace
+artifact) — without its SLO and disaggregated-handoff legs. The port's
 Chrome trace passes the JAX package's artifact contract
 (``bench.validate_trace``); the step plane's card rows and FLOPs model are
 checked too."""
@@ -386,6 +387,82 @@ class TestEngineTrace:
             assert {"kv_restore", "prefix_match", "request_done"} <= names
         finally:
             eng.close()
+
+
+class TestEngineWorkloadTrace:
+    def test_workload_trace_has_request_span_tree_and_ring_lag(self, tmp_path):
+        """A traced multi-turn workload through an engine bound to an
+        inproc mesh node: the Chrome trace validates, at least one request
+        carries admission, prefill, decode and publish spans, and the ring
+        recorded replication-lag spans."""
+        import time
+
+        from radixmesh_tpu_torch.cache.mesh_cache import MeshCache
+        from radixmesh_tpu_torch.comm.inproc import InprocHub
+        from radixmesh_tpu_torch.config import MeshConfig
+        from radixmesh_tpu_torch.workload import MultiTurnWorkload, run_engine_workload
+
+        set_recorder(FlightRecorder(capacity=1 << 15, sample=1.0))
+        InprocHub.reset_default()
+        prefill, decode = ["p0"], ["d0"]
+        nodes = []
+        try:
+            for addr in prefill + decode:
+                cfg = MeshConfig(prefill_nodes=prefill, decode_nodes=decode, router_nodes=[],
+                                 local_addr=addr, protocol="inproc", tick_interval_s=0.05,
+                                 gc_interval_s=30.0)
+                nodes.append(MeshCache(cfg, pool=None).start())
+            for n in nodes:
+                assert n.wait_ready(timeout=10)
+            eng = _tiny_engine("trace-mesh", mesh=nodes[0])
+            wl = MultiTurnWorkload(n_conversations=2, n_turns=2, system_len=8, user_len=4, gen_len=4,
+                                   vocab_size=256)
+            report = run_engine_workload(eng, wl)
+            assert report["requests"] == 4
+            # Replication lag is recorded on d0's receive path: give the
+            # ring a moment to lap.
+            deadline = time.monotonic() + 10
+            while time.monotonic() < deadline:
+                if any(s.name == "replication_lag" for s in get_recorder().snapshot()):
+                    break
+                time.sleep(0.02)
+            path = str(tmp_path / "trace.json")
+            assert write_trace(path) > 0
+        finally:
+            for n in nodes:
+                n.close()
+            InprocHub.reset_default()
+        with open(path) as fh:
+            obj = json.load(fh)
+        assert bench.validate_trace(obj) == []
+        by_trace: dict[int, set] = {}
+        lag_spans = []
+        for ev in obj["traceEvents"]:
+            if ev.get("ph") != "X":
+                continue
+            tid = (ev.get("args") or {}).get("trace_id")
+            if tid:
+                by_trace.setdefault(tid, set()).add(ev["name"])
+            if ev["name"] == "replication_lag":
+                lag_spans.append(ev)
+        want = {"admission_wait", "prefill_wave", "decode_chunk", "publish"}
+        assert any(want <= names for names in by_trace.values()), by_trace
+        assert lag_spans, "no ring replication-lag spans recorded"
+        assert all(ev["dur"] >= 0 for ev in lag_spans)
+
+    def test_workload_emits_trace_artifact_inline(self, tmp_path):
+        from radixmesh_tpu_torch.workload import MultiTurnWorkload, run_engine_workload
+
+        set_recorder(FlightRecorder(capacity=4096, sample=1.0))
+        eng = _tiny_engine("trace-artifact")
+        wl = MultiTurnWorkload(n_conversations=1, n_turns=2, system_len=8, user_len=4, gen_len=4,
+                               vocab_size=256)
+        path = str(tmp_path / "wl_trace.json")
+        report = run_engine_workload(eng, wl, trace_path=path)
+        assert report["trace_artifact"] == path
+        assert report["trace_spans"] > 0
+        with open(path) as fh:
+            assert bench.validate_trace(json.load(fh)) == []
 
 
 class TestStepPlaneCards:
