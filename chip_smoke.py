@@ -364,6 +364,26 @@ Phases (any failure raises and exits non-zero):
    parked restore lane each named with the seeded evidence; the
    attributor's sums exact). Each leg's B1, B2 and B3 launches; no plain
    version runs.
+21. The mesh-only and fleet workloads (``workload.py``, ``FLEET_WL``). (i)
+   fleet churn (digest fan-in, convergence under churn and after an
+   injected divergence, a stalled node demoted) and (j) chaos, sharded (rf
+   2), with its four phases (loss and a partition repaired, a drain and a
+   cold rejoin, a decode node killed mid-stream, a rebalance under a zipf
+   storm, a router killed) run in a child process of this script that
+   never touches the card, started with phase 18's ranks and joined with
+   them: no request lost or failed, every stream resumed byte-identical
+   from a replicated cache (hit ratio >= 0.8), the storm's skew dropped.
+   (k) the observability scenario with its step-attribution engine, (l)
+   the black box and (m) the fleet aggregator, each with an engine at
+   Llama-3-8B's widths, 2 layers, bf16, in a second child process started
+   with phase 18's ranks, which waits for (h)'s gate and runs beside (d)-(h)
+   while the ranks train: the stitched trace on >= 3 node tracks, the hot shard named from
+   gossip and by the post-mortem from the dumps, the victim's drop (its
+   window holding the kill) and truncation named, the straggler by rank,
+   the p99 exemplar stitched to the straggler's span, the killed node as
+   a gap. (k)'s three short prompts each prefill alone, on the engine's
+   dense route as in the JAX engine: (k) launches B1, (l) and (m) B1 and
+   B2; no plain version runs. Wall-clock verdicts are printed, not held.
 Checkpoints and profiles are written under ``chip_out/`` and removed.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches per path in
@@ -5935,10 +5955,12 @@ def _g_parent_replica(out_dir) -> dict:
     return g
 
 
-def parallel_phase_start(out_dir=None) -> dict:
+def parallel_phase_start(out_dir=None, fleet=False) -> dict:
     """Start phase 18's processes: the ``PAR["world"]`` ranks of (b) and (c)
     and the nccl process of (d), each this script with its role's flags and
-    a log of its own, and (g)'s replica in this process."""
+    a log of its own, and (g)'s replica in this process; with ``fleet``,
+    also phase 21's two processes, (i) and (j)'s and (k)-(m)'s, joined with
+    them."""
     out_dir = pathlib.Path(out_dir or OUT_DIR)
     out_dir.mkdir(exist_ok=True)
     g_mesh = _g_parent_replica(out_dir)
@@ -5958,6 +5980,10 @@ def parallel_phase_start(out_dir=None) -> dict:
                  "--parallel-out", str(out_dir / f"par-{name}.json"), "--parallel-sizes", json.dumps(PAR),
                  "--train-sizes", json.dumps(TRAIN)],
                 cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    if fleet:
+        procs["fleet"], logs["fleet"] = _start_fleet_child(out_dir)
+        procs["fleet-engines"], logs["fleet-engines"] = _start_phase21_child(
+            out_dir, "--fleet-engines", FLEET_ENGINES_JSON.removesuffix(".json"))
     return {"procs": procs, "logs": logs, "out_dir": out_dir, "store_dir": store_dir, "g_mesh": g_mesh,
             "t0": time.monotonic(), "marks": [["start", time.time()]],
             "memory": _card_memory_sampler() if PAR["device"] == "cuda" else None}
@@ -6096,7 +6122,11 @@ def parallel_phase_finish(handle, beside=None) -> dict:
     for name, rc in rcs.items():
         if rc != 0:
             tail = logs[name].read_text()[-4000:]
-            check(False, f"phase 18 {name} {'timed out' if rc is None else f'exited {rc}'}:\n{tail}")
+            phase = {"fleet": "phase 21 (i), (j)", "fleet-engines": "phase 21 (k)-(m)"}.get(name,
+                                                                                           f"phase 18 {name}")
+            check(False, f"{phase} {'timed out' if rc is None else f'exited {rc}'}:\n{tail}")
+    fleet = ({**_fleet_child_report(out_dir), **_fleet_engine_report(out_dir, logs["fleet-engines"])}
+             if "fleet" in procs else None)
     ranks = [json.loads((out_dir / f"par-rank{r}.json").read_text()) for r in range(PAR["world"])]
     nccl = (json.loads((out_dir / "par-nccl.json").read_text()) if "nccl" in procs
             else {"backend": "nccl", "world": 1, "tokens": None})
@@ -6248,7 +6278,8 @@ def parallel_phase_finish(handle, beside=None) -> dict:
           f"{[round(r['train']['wall_s'], 1) for r in ranks]} s, of which waiting at the gate "
           f"{[round(r['train']['gate_wait_s'], 1) for r in ranks]} s", flush=True)
     return {"ranks": ranks, "refs": refs, "nccl": nccl, "wall_s": wall, "g_here": g_here,
-            "card_memory_peak_gib": None if mem is None else mem["peak"] / 2**30, "beside": beside_out}
+            "card_memory_peak_gib": None if mem is None else mem["peak"] / 2**30, "beside": beside_out,
+            "fleet": fleet}
 
 
 def tree_checkpoint_leg(dev, model) -> dict:
@@ -6611,6 +6642,21 @@ def workload_engine_phase(dev, model, card) -> dict:
     return out
 
 
+def _wl_leg(out: dict, dev, tag: str, fn, cfg, **kw):
+    """One scenario leg of phases 20 and 21: ``fn(cfg=cfg, device=dev,
+    **kw)`` with the launch counts zeroed just before it and read just after
+    it; its wall, launches and report land in ``out[tag]``."""
+    _release(dev)
+    pa.reset_counters()
+    t = time.monotonic()
+    rep = fn(cfg=cfg, device=dev, **kw)
+    _sync(dev)
+    wall = time.monotonic() - t
+    launches = _wl_counts(dev)
+    out[tag] = {"wall_s": wall, "launches": launches, "report": rep}
+    return rep, launches, wall
+
+
 def workload_scenario_phase(dev, card) -> dict:
     """Phase 20 (d)-(h): the self-contained scenarios of ``workload.py`` at
     ``WL["scenario_model"]``'s widths, ``WL["layers"]`` deep (bf16; (e) in
@@ -6623,17 +6669,7 @@ def workload_scenario_phase(dev, card) -> dict:
     cfg = get_config(WL["scenario_model"]).replace(n_layers=WL["layers"])
     out = {}
     t0 = time.monotonic()
-
-    def leg(tag, fn, cfg, **kw):
-        _release(dev)
-        pa.reset_counters()
-        t = time.monotonic()
-        rep = fn(cfg=cfg, device=dev, **kw)
-        _sync(dev)
-        wall = time.monotonic() - t
-        launches = _wl_counts(dev)
-        out[tag] = {"wall_s": wall, "launches": launches, "report": rep}
-        return rep, launches, wall
+    leg = functools.partial(_wl_leg, out, dev)
 
     # (d) speculative decoding: acceptance and conservation, ITL with a
     # seeded stall, the adaptive-gamma A-B, the timeline's overhead.
@@ -6749,6 +6785,259 @@ def workload_phase(dev, card) -> dict:
     return out
 
 
+# Phase 21. (i) and (j) are host code over the in-process mesh: the JAX
+# acceptance test's reduced chaos arguments, sharded (rf 2) so that the
+# rebalance phase runs too. (k)-(m) run each scenario at its defaults.
+FLEET_WL = dict(chaos=dict(partition_s=1.2, partition_delay_s=0.3, n_requests=60, quiesce_window_s=0.8,
+                           timeout_s=45.0, join_partition_s=1.0, drain_requests=25, crash_streams=8,
+                           crash_tokens=16, replication_factor=2),
+                model="llama3-8b", layers=2, timeout_s=300)
+FLEET_JSON = "fleet-workloads.json"
+FLEET_ENGINES_JSON = "fleet-engines.json"
+
+
+def fleet_workload_child(out: str) -> int:
+    """Phase 21 (i) and (j), in a child process of this script that never
+    touches the card (``_start_fleet_child`` hides it): each holds its
+    wall-clock-free verdicts here; the reports go to ``out``."""
+    from radixmesh_tpu_torch import workload as wlm
+
+    res = {}
+    t = time.monotonic()
+    rep = wlm.run_fleet_churn_workload()
+    res["i churn"] = {"wall_s": time.monotonic() - t, "report": rep}
+    conv, stall = rep["convergence"], rep["stall_reaction"]
+    check(conv["converged"] and conv["injected_divergence_detected"] and conv["healed"],
+          f"(i) the replicas did not converge, or the injected divergence was missed or not healed: {conv}")
+    check(stall["detected"] and rep["health_aware_demotion"], f"(i) the stalled node was not demoted: {stall}")
+    print(f"[workloads i] churn: {json.dumps(rep)}", flush=True)
+
+    t = time.monotonic()
+    rep = wlm.run_chaos_workload(**FLEET_WL["chaos"])
+    res["j chaos"] = {"wall_s": time.monotonic() - t, "report": rep}
+    print(f"[workloads j] chaos: {json.dumps(rep)}", flush=True)
+    check(rep["served"]["ok_rate_during_fault"] >= 0.9, f"(j) served through the fault: {rep['served']}")
+    check(rep["divergence"]["detected"] and rep["repair"]["converged"],
+          f"(j) divergence {rep['divergence']}, repair {rep['repair']}")
+    dr, jn, cr, rb, rk = (rep[k] for k in ("drain", "join", "crash", "rebalance", "router_kill"))
+    check(dr["performed"] and dr["zero_failed"] and dr["requeued_served"] == dr["requeued"]
+          and dr["left_without_failure_detection"] and dr["writeback_flushed"], f"(j) drain: {dr}")
+    check(jn["performed"] and jn["converged_with_donor"] and jn["hits_to_bootstrapping"] == 0
+          and jn["fleet_converged_after_join"], f"(j) join: {jn}")
+    check(cr["performed"] and cr["failed"] == 0 and cr["interrupted"] > 0 and cr["resumed"] == cr["interrupted"]
+          and cr["prefix_identical"] and cr["copies_before_kill"] and cr["resurrection_hit_ratio"] >= 0.8
+          and cr["hedge"]["first_writer_wins"] and cr["hedge"]["loser_cancelled"], f"(j) crash: {cr}")
+    check(rb["performed"] and rb["skew_dropped"] and rb["failed_mid_move"] == 0 and rb["moves_bounded"]
+          and rb["overrides_converged"], f"(j) rebalance: {rb}")
+    check(rk["performed"] and rk["failed"] == 0 and rk["completed"] == rk["streams"] and rk["survivor_served"],
+          f"(j) router kill: {rk}")
+    pathlib.Path(out).write_text(json.dumps(res, default=str))
+    return 0
+
+
+def _start_phase21_child(out_dir, flag: str, name: str, env=None) -> tuple:
+    """Start a phase 21 child process of this script (``flag`` OUT, with
+    ``PAR`` and ``FLEET_WL`` as they stand); its readings go to
+    ``<name>.json``, its output to ``<name>.log``."""
+    out_dir = pathlib.Path(out_dir)
+    log_path = out_dir / f"{name}.log"
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), flag, str(out_dir / f"{name}.json"),
+                                 "--parallel-sizes", json.dumps(PAR), "--fleet-sizes", json.dumps(FLEET_WL)],
+                                cwd=ROOT, env=env or os.environ, stdout=log, stderr=subprocess.STDOUT)
+    return proc, log_path
+
+
+def _start_fleet_child(out_dir) -> tuple:
+    """Start phase 21 (i) and (j) as a child process of this script, with no
+    card visible to it."""
+    return _start_phase21_child(out_dir, "--fleet-workloads", FLEET_JSON.removesuffix(".json"),
+                                env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def fleet_engine_child(out: str) -> int:
+    """Phase 21 (k)-(m) in a child process of this script, started with phase
+    18's ranks: it waits for (h)'s gate, then runs ``fleet_engine_phase``
+    while this script's main process runs phase 20 (d)-(h) and the ranks
+    train. Its launch counts and metric registry are its own. The readings
+    go to ``out``."""
+    out = pathlib.Path(out)
+    _wait_h_gate(out.parent)
+    dev = torch.device(PAR["device"], 0) if PAR["device"] == "cuda" else torch.device("cpu")
+    out.write_text(json.dumps(fleet_engine_phase(dev, card_line() if dev.type == "cuda" else "cpu"),
+                              default=str))
+    return 0
+
+
+def _fleet_engine_report(out_dir, log_path) -> dict:
+    """Phase 21 (k)-(m)'s readings, once their process exited 0; their
+    lines, printed in that process's log, printed here too."""
+    for line in pathlib.Path(log_path).read_text().splitlines():
+        if line.startswith(("[workloads k]", "[workloads l]", "[workloads m]", "[time] phase 21")):
+            print(line, flush=True)
+    return json.loads((pathlib.Path(out_dir) / FLEET_ENGINES_JSON).read_text())
+
+
+def _fleet_child_report(out_dir) -> dict:
+    """Phase 21 (i) and (j)'s readings, once their process exited 0."""
+    res = json.loads((pathlib.Path(out_dir) / FLEET_JSON).read_text())
+    rep = res["i churn"]["report"]
+    conv, stall, fan = rep["convergence"], rep["stall_reaction"], rep["fan_in"]
+    print(f"[workloads i] (host CPU, no card) fleet churn, {rep['topology']}: digest fan-in p50 "
+          f"{fan['p50_s'] * 1e3:.2f} ms, max {fan['max_s'] * 1e3:.2f} ms ({fan['rounds']} rounds, "
+          f"{rep['digest_bytes']} B a digest); {conv['inserts']} inserts by {conv['writers']} writers converged "
+          f"{conv['quiesce_to_converged_s']} s after quiescing; an injected divergence detected (age "
+          f"{conv['age_while_diverged_s']} s) and healed in {conv['heal_s']} s; a stalled node scored "
+          f"{stall['score_after']} < {stall['threshold']} after {stall['reaction_s']} s and demoted; digest frames "
+          f"per publish {rep['digest_frames_per_publish']}; wall {res['i churn']['wall_s']:.2f}s", flush=True)
+    rep = res["j chaos"]["report"]
+    rp, q, dr, jn, cr, rb, rk = (rep[k] for k in ("repair", "quiescence", "drain", "join", "crash", "rebalance",
+                                                  "router_kill"))
+    print(f"[workloads j] (host CPU, no card) chaos, {rep['topology']}, rf {rep['replication_factor']}: served "
+          f"{rep['served']['ok']}/{rep['served']['attempted']} through {rep['fault_plan']['drop_p']} loss and a "
+          f"{rep['fault_plan']['partition_s']} s partition ({rep['fault_plan']['frames_dropped']} frames dropped); "
+          f"repair converged in {rp['converge_s']} s, {rp['max_episode_rounds']} rounds (budget "
+          f"{rep['round_budget']}, within {rp['within_round_budget']}); quiet {q['quiet']}; drain: requeued "
+          f"{dr['requeued_served']}/{dr['requeued']}, {dr['ok_during_drain']}/{dr['attempted_during_drain']} served; "
+          f"join under a partition: converged with the donor in {jn['bootstrap_converge_s']} s, "
+          f"{jn['bootstrap_rounds']} rounds, hits to the joiner while bootstrapping {jn['hits_to_bootstrapping']}; "
+          f"crash of {cr['node']}: the survivors held the interrupted streams before the kill "
+          f"{cr['copies_before_kill']}, {cr['resumed']}/{cr['interrupted']} streams resumed byte-identical "
+          f"{cr['prefix_identical']}, failed {cr['failed']}, resurrection hit ratio {cr['resurrection_hit_ratio']}, "
+          f"detection {cr['detection']['detect_s']} s, within one backoff {cr['budget']['within_one_backoff']}; "
+          f"rebalance: skew {rb['skew_before']} -> {rb['skew_after']}, {rb['moves']} moves, "
+          f"{rb['ok_mid_move']}/{rb['attempted_mid_move']} served mid-move; router kill of {rk['killed']}: "
+          f"{rk['completed']}/{rk['streams']} completed through {rk['survivor']}, {rk['failovers']} failovers; "
+          f"wall {res['j chaos']['wall_s']:.2f}s", flush=True)
+    return res
+
+
+def _join_fleet_child(proc, log_path, out_dir) -> dict:
+    """Wait for phase 21 (i) and (j)'s process (``FLEET_WL["timeout_s"]``),
+    fail with its log's tail unless it exited 0, and read its reports."""
+    try:
+        rc = proc.wait(timeout=FLEET_WL["timeout_s"])
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    check(rc == 0, f"phase 21 (i), (j) {'timed out' if rc is None else f'exited {rc}'}:\n"
+          + pathlib.Path(log_path).read_text()[-4000:])
+    return _fleet_child_report(out_dir)
+
+
+def fleet_engine_phase(dev, card) -> dict:
+    """Phase 21 (k)-(m): the observability, black-box and fleet-aggregation
+    scenarios of ``workload.py``, their engines at ``FLEET_WL["model"]``'s
+    widths, ``FLEET_WL["layers"]`` deep (bf16), each with a fresh metric
+    registry (the aggregator's merged TTFT reads the process registry, which
+    every earlier phase of this process fed) and its launches counted from
+    just before it to just after; the checks read nothing that depends on
+    the wall clock. (k)'s engine prefills its three lone short prompts on
+    the dense route, as the JAX engine does: the leg launches B1 and no B2,
+    which (l) and (m) launch."""
+    from radixmesh_tpu_torch import workload as wlm
+    from radixmesh_tpu_torch.obs.metrics import Registry, get_registry, set_registry
+
+    on_card = torch.device(dev).type == "cuda"
+    cfg = get_config(FLEET_WL["model"]).replace(n_layers=FLEET_WL["layers"])
+    out = {}
+    t0 = time.monotonic()
+    old_registry = get_registry()
+    registries = {}
+
+    def leg(tag, fn, **kw):
+        registries[tag] = set_registry(Registry())
+        try:
+            return _wl_leg(out, dev, tag, fn, cfg, **kw)
+        finally:
+            set_registry(old_registry)
+
+    def launched(tag, n, kernels=("b1", "b2")):
+        if on_card:
+            check(all(n[k] > 0 for k in kernels), f"({tag}) {' or '.join(kernels)} not launched: {n}")
+
+    # (k) the stitched trace, the heat storm, the wire, the step accounting.
+    rep, n, wall = leg("k obs steps", wlm.run_obs_workload, engine_steps=True)
+    st, heat, steps, wire = rep["stitch"], rep["heat"], rep["steps"], rep["wire"]
+    check(st["failed"] == 0 and st["interrupted"] > 0 and st["resumed"] == st["interrupted"], f"(k) stitch: {st}")
+    check(st["copies_before_kill"] and st["node_tracks"] >= 3 and st["replication_edges"] > 0
+          and st["publish_edges"] > 0, f"(k) the stitched trace: {st}")
+    check(heat["hot_shard"] == heat["expected_hot_shard"] and heat["owner_set_correct"]
+          and heat["skew_score"] >= 2.0, f"(k) heat: {heat}")
+    check(wire["rf0_traceless_unchanged"] and wire["trace_trailer_roundtrip"] and wire["trailer_bytes"] == 8,
+          f"(k) wire: {wire}")
+    check(steps["performed"] and steps["prefill"]["waves"] > 0 and steps["decode"]["waves"] > 0,
+          f"(k) step accounting: {steps}")
+    launched("k", n, ("b1",))
+    print(f"[workloads k] ({card}) obs: interrupted {st['interrupted']} (the survivors held them before the kill "
+          f"{st['copies_before_kill']}) resumed {st['resumed']}, the stitched "
+          f"trace {st['trace_id']} on {st['node_tracks']} node tracks {st['nodes_on_track']}, replication edges "
+          f"{st['replication_edges']}, publish edges {st['publish_edges']}; hot shard {heat['hot_shard']} (expected "
+          f"{heat['expected_hot_shard']}), owners {heat['hot_owners']}, skew {heat['skew_score']}; wire trailer "
+          f"{wire['trailer_bytes']} B; steps (peak {steps['peak_tflops']} TFLOP/s, {steps['n_params']} params): "
+          f"prefill {steps['prefill']}, decode {steps['decode']}; wall {wall:.2f}s; launches {n}", flush=True)
+
+    # (l) the black box: healthy, storm, a hard kill, the post-mortem.
+    bb_dir = tempfile.mkdtemp(prefix="bb-l-", dir=OUT_DIR)
+    try:
+        rep, n, wall = leg("l blackbox", wlm.run_blackbox_workload, blackbox_dir=bb_dir)
+        victim_dir = pathlib.Path(bb_dir) / "victim"
+        names = [p.name for d in victim_dir.iterdir() for p in d.iterdir()]
+    finally:
+        shutil.rmtree(bb_dir, ignore_errors=True)
+    pm, storm, hist = rep["postmortem"], rep["storm"], rep["history"]
+    check(rep["healthy"]["findings"] == [], f"(l) the healthy phase has findings: {rep['healthy']['findings']}")
+    check(storm["hot_shard"] == storm["expected_hot_shard"] and storm["owner_set_correct"], f"(l) storm: {storm}")
+    crash_ev = pm["observer"]["crash_evidence"]
+    check(rep["crash"]["digests_fresh_at_kill"] and rep["named"] == 3
+          and pm["observer"]["hot_shard_evidence"].get("shard") == pm["expected"]["hot_shard"]
+          and crash_ev.get("rank") == str(rep["crash"]["victim_rank"]) and pm["observer"]["crash_window_named"]
+          and pm["victim"]["truncation_named"],
+          f"(l) the post-mortem: hot shard {pm['observer']['hot_shard_evidence']}, the victim's drop {crash_ev}, "
+          f"truncation {pm['victim']['truncation_evidence']}")
+    check(pm["victim"]["unclean"] and any(x.startswith("segment-") for x in names)
+          and not any(x.startswith("final-") for x in names), f"(l) the victim's directory: {names}")
+    launched("l", n)
+    print(f"[workloads l] ({card}) blackbox: healthy {len(rep['healthy']['rules_checked'])} rules, 0 findings; "
+          f"storm hot shard {storm['hot_shard']}, victim rank {rep['crash']['victim_rank']} killed; post-mortem "
+          f"from the dumps: hot shard {pm['observer']['hot_shard_evidence']}, the victim's crash window "
+          f"{crash_ev.get('window')} holds t_kill {pm['expected']['t_kill']} (named {rep['named']} of 3), the "
+          f"victim's truncation "
+          f"{pm['victim']['truncation_evidence']}; {len(names)} victim files, segments only; "
+          f"sampler overhead {hist['self_overhead']['fraction']} of the wall (budget 0.01, under "
+          f"{hist['self_overhead']['under_budget']}); wall {wall:.2f}s; launches {n}", flush=True)
+
+    # (m) the fleet aggregator: merged p99, straggler, exemplar, gap.
+    rep, n, wall = leg("m agg", wlm.run_agg_workload)
+    pc, sg, ex, gap, fan, ovh = (rep[k] for k in ("percentiles", "straggler", "exemplar", "gap", "fan_in",
+                                                   "overhead"))
+    check(sg["detected"] and str(sg["named_rank"]) == str(sg["seeded_rank"]), f"(m) straggler: {sg}")
+    check(ex["trace_id"] and ex["stitched"] and ex["has_straggler_span"], f"(m) the p99 exemplar: {ex}")
+    check(gap["detected"] and gap["verdict"] in ("node_dead", "sampler_dead"), f"(m) gap: {gap}")
+    check(fan["errors"] == 0 and fan["peers"] == 200, f"(m) fan-in: {fan}")
+    launched("m", n)
+    # Where the p99 tail sits: the leg's TTFTs by bucket (cumulative), the
+    # first batch being its first 4 requests.
+    family = "radixmesh_request_ttft_seconds"
+    snap = registries["m agg"].snapshot(bucket_families=(family,))
+    ttft_le = {re.search(r'le="([^"]+)"', k).group(1): int(v) for k, v in snap.items()
+               if k.startswith(family + "_bucket") and 'tenant="default"' in k}
+    out["m agg"]["ttft_cumulative_by_le"] = ttft_le
+    print(f"[workloads m] ({card}) agg: TTFT p99 merged {pc['fleet_p99_s']} s (bucket {pc['bucket_lo_s']}-"
+          f"{pc['bucket_hi_s']}) vs the raw records' {pc['truth_p99_s']} s over {pc['raw_requests']} requests, "
+          f"within one bucket {pc['within_one_bucket']} (count {pc['count']} over {len(pc['nodes'])} nodes); "
+          f"straggler rank {sg['named_rank']} (seeded {sg['seeded_rank']}, ratio {sg['ratio']}); p99 exemplar "
+          f"{ex['trace_id']} le {ex['le']} on {ex['node']}, stitched to the straggler's span "
+          f"{ex['has_straggler_span']}; gap {gap['killed_peer']} {gap['verdict']} after {gap['stalled_s']} s; "
+          f"fan-in sweep of {fan['peers']} peers {fan['sweep_s'] * 1e3:.2f} ms; pull overhead {ovh['fraction']} "
+          f"(under budget {ovh['under_budget']}); TTFTs by bucket (cumulative, le: count) {ttft_le}; wall "
+          f"{wall:.2f}s; launches {n}", flush=True)
+    _release(dev)
+    print(f"[time] phase 21 (k)-(m) {time.monotonic() - t0:.1f}s", flush=True)
+    return out
+
+
 def _parse(argv):
     import argparse
 
@@ -6765,8 +7054,8 @@ def _parse(argv):
                          "device's own spread and single devices with tp's rounding: its row-parallel "
                          "products, and all its products)")
     ap.add_argument("--workloads-alone", action="store_true",
-                    help="the build and phase 20 alone (phase 3's weights drawn for (a) and (b)); the "
-                         "readings go to chip_out/workloads_alone.json")
+                    help="the build and phases 20 and 21 alone (phase 3's weights drawn for (a) and (b)); "
+                         "the readings go to chip_out/workloads_alone.json")
     # Phase 18's child processes (started by the script itself).
     ap.add_argument("--parallel-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--parallel-world", type=int, help=argparse.SUPPRESS)
@@ -6775,6 +7064,10 @@ def _parse(argv):
     ap.add_argument("--parallel-out", help=argparse.SUPPRESS)
     ap.add_argument("--parallel-sizes", help=argparse.SUPPRESS)
     ap.add_argument("--train-sizes", help=argparse.SUPPRESS)
+    # Phase 21 (i) and (j)'s child process.
+    ap.add_argument("--fleet-workloads", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--fleet-engines", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--fleet-sizes", help=argparse.SUPPRESS)
     return ap.parse_args(argv)
 
 
@@ -6784,8 +7077,14 @@ def main(argv=None) -> int:
         PAR.update(json.loads(args.parallel_sizes))
     if args.train_sizes:
         TRAIN.update(json.loads(args.train_sizes))
+    if args.fleet_sizes:
+        FLEET_WL.update(json.loads(args.fleet_sizes))
     if args.parallel_rank is not None:
         return parallel_rank(args.parallel_rank, args.parallel_world, args.parallel_store, args.parallel_out)
+    if args.fleet_workloads:
+        return fleet_workload_child(args.fleet_workloads)
+    if args.fleet_engines:
+        return fleet_engine_child(args.fleet_engines)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an "
               "NVIDIA GPU (no result)", file=sys.stderr)
@@ -6833,7 +7132,15 @@ def main(argv=None) -> int:
         return 0
     if args.workloads_alone:
         torch.cuda.reset_peak_memory_stats()
-        workloads = workload_phase(dev, card)
+        fleet_proc, fleet_log = _start_fleet_child(OUT_DIR)
+        try:
+            workloads = workload_phase(dev, card)
+            workloads.update(fleet_engine_phase(dev, card))
+            workloads.update(_join_fleet_child(fleet_proc, fleet_log, OUT_DIR))
+        finally:
+            if fleet_proc.poll() is None:
+                fleet_proc.kill()
+            fleet_proc.wait()
         print(f"[workloads] this process's peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated",
               flush=True)
         (OUT_DIR / "workloads_alone.json").write_text(json.dumps(
@@ -6932,7 +7239,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"[parallel] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated here as phase 18 starts",
           flush=True)
-    par_handle = parallel_phase_start()
+    par_handle = parallel_phase_start(fleet=True)
     try:
         t_q = time.monotonic()
         par_handle["marks"].append(["qwen2-7b serving", time.time()])
@@ -6952,9 +7259,11 @@ def main(argv=None) -> int:
         _whole_path_params.cache_clear()
         _release(dev)  # the cached blocks back to the card: (h)'s ranks train beside this process
         print(f"[time] whole-path checks {time.monotonic() - t_q:.1f}s (phase 18 beside them)", flush=True)
-        # Phase 20 (d)-(h) runs while (h)'s ranks train (their gate open).
+        # Phase 20 (d)-(h) runs while (h)'s ranks train (their gate open),
+        # and phase 21 (k)-(m) in a process of its own beside them.
         par = parallel_phase_finish(par_handle, beside=lambda: workload_scenario_phase(dev, card))
         workloads.update(par.pop("beside"))
+        workloads.update(par.pop("fleet"))
     finally:
         parallel_phase_stop(par_handle)
     print(f"[time] phase 18 (b)-(h) {par['wall_s']:.1f}s from its start; both together "
@@ -7037,7 +7346,8 @@ def main(argv=None) -> int:
     # (e); B3 in (e)'s crossover sweep alone).
     for key, label in (("a", "(a) north star"), ("b", "(b) overload"), ("d spec", "(d) spec"),
                        ("e convoy", "(e) convoy float32"), ("f kvflow", "(f) kvflow"), ("g tier", "(g) tier"),
-                       ("h doctor", "(h) doctor")):
+                       ("h doctor", "(h) doctor"), ("k obs steps", "(k) obs steps"), ("l blackbox", "(l) blackbox"),
+                       ("m agg", "(m) agg")):
         n = workloads[key]["launches"]
         by_path["paged_decode_fused"][f"workloads {label}"] = n["b1"]
         if key == "e convoy":

@@ -77,8 +77,8 @@ SHED_DEADLINE = "deadline_unmeetable"
 SHED_DISPATCH_DEADLINE = "deadline_unmeetable_at_dispatch"
 SHED_E2E_EXPIRED = "e2e_deadline_expired_in_queue"
 SHED_SHUTDOWN = "shutdown"
-# Graceful drain (the lifecycle plane, not ported yet): the node is
-# leaving the fleet on purpose. Retriable 503 + Retry-After — the client re-routes via the
+# Graceful drain (policy/lifecycle.py): the node is leaving the fleet on
+# purpose. Retriable 503 + Retry-After — the client re-routes via the
 # router, which stopped selecting this node when the DRAINING state
 # gossiped; the shed body names the router to retry through.
 SHED_DRAINING = "draining"

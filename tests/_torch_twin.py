@@ -26,7 +26,7 @@ from radixmesh_tpu_torch.obs import metrics, trace_plane
 
 TESTS = Path(__file__).resolve().parent
 
-__all__ = ["CpuPagedKVPool", "fresh_port_globals", "load_twin", "missing_artifact_fields"]
+__all__ = ["CpuPagedKVPool", "fresh_jax_globals", "fresh_port_globals", "load_twin", "missing_artifact_fields"]
 
 
 def CpuPagedKVPool(*args, **kwargs) -> PagedKVPool:
@@ -47,6 +47,24 @@ def fresh_port_globals():
     finally:
         metrics.set_registry(old_reg)
         trace_plane.set_recorder(old_rec)
+
+
+@contextlib.contextmanager
+def fresh_jax_globals():
+    """The same for the JAX package's registry and recorder: a JAX scenario
+    run in a module-scoped fixture runs before ``conftest.py``'s per-test
+    fresh ones, on whatever earlier modules of the worker left behind."""
+    from radixmesh_tpu.obs import metrics as jmetrics
+    from radixmesh_tpu.obs import trace_plane as jtrace
+
+    old_reg, old_rec = jmetrics.get_registry(), jtrace.get_recorder()
+    jmetrics.set_registry(jmetrics.Registry())
+    jtrace.set_recorder(jtrace.FlightRecorder())
+    try:
+        yield
+    finally:
+        jmetrics.set_registry(old_reg)
+        jtrace.set_recorder(old_rec)
 
 
 @pytest.fixture(autouse=True)

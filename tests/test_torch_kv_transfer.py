@@ -228,8 +228,8 @@ class TestStagedRestore:
 
 
 class TestPrefetchHints:
-    """Hints called on the plane directly (the router that sends them needs
-    the mesh, not ported)."""
+    """Hints called on the plane directly, without the router that sends
+    them over the mesh."""
 
     def test_hint_restores_ahead_and_is_idempotent(self, tiny):
         eng = make_engine(tiny)

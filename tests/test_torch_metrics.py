@@ -1,9 +1,9 @@
 """The port's metrics registry (``radixmesh_tpu_torch/obs/metrics.py``):
 twins of ``tests/test_metrics.py`` (metric semantics, the exposition
-format, the profiler helpers, the engine's series), without its oplog and
-mesh classes (the cache mesh is not ported). Plus: the same observations
-render the same exposition text from the JAX package's registry and the
-port's, and the engine's registry counters agree with its ``EngineStats``.
+format, the profiler helpers, the oplog's send timestamp, the engine's
+series and the cache mesh's). Plus: the same observations render the same
+exposition text from the JAX package's registry and the port's, and the
+engine's registry counters agree with its ``EngineStats``.
 """
 
 import threading
@@ -179,6 +179,23 @@ class TestTracing:
         assert h.count == 1
 
 
+class TestOplogTimestamp:
+    def test_ts_round_trips(self):
+        from radixmesh_tpu_torch.cache.oplog import Oplog, OplogType, deserialize, serialize
+
+        op = Oplog(
+            op_type=OplogType.INSERT,
+            origin_rank=1,
+            logic_id=7,
+            ttl=3,
+            key=np.arange(4, dtype=np.int32),
+            value=np.arange(4, dtype=np.int32),
+            value_rank=1,
+            ts=1234.5,
+        )
+        assert deserialize(serialize(op)).ts == 1234.5
+
+
 class TestEngineMetrics:
     def test_engine_populates_registry(self, fresh_registry):
         from radixmesh_tpu_torch.engine.engine import Engine
@@ -227,6 +244,57 @@ class TestEngineMetrics:
                       for c in ("capacity", "preempt"))
         assert evicted == eng.stats.evicted_tokens > 0
         assert snap['radixmesh_engine_preemptions_total{engine="tight"}'] == eng.stats.preemptions
+
+
+class TestMeshMetrics:
+    def test_ring_populates_lag_and_counters(self, fresh_registry):
+        """``tests/test_mesh_cache.py``'s cluster (3 prefill + 2 decode + 1
+        router, in process) with the port's nodes and pools: one insert
+        replicates everywhere, and the ring's lag histogram and oplog
+        counters land on the registry."""
+        import time
+
+        from radixmesh_tpu_torch.cache.kv_pool import PagedKVPool
+        from radixmesh_tpu_torch.cache.mesh_cache import MeshCache
+        from radixmesh_tpu_torch.comm.inproc import InprocHub
+        from radixmesh_tpu_torch.config import MeshConfig, NodeRole
+
+        def wait_for(pred, timeout=10.0):
+            deadline = time.monotonic() + timeout
+            while time.monotonic() < deadline and not pred():
+                time.sleep(0.01)
+            return pred()
+
+        prefill, decode, router = ["p0", "p1", "p2"], ["d0", "d1"], ["r0"]
+        InprocHub.reset_default()
+        nodes = []
+        try:
+            for addr in prefill + decode + router:
+                cfg = MeshConfig(prefill_nodes=prefill, decode_nodes=decode, router_nodes=router,
+                                 local_addr=addr, protocol="inproc", tick_interval_s=0.05, gc_interval_s=30.0)
+                pool = None if cfg.local_role is NodeRole.ROUTER else PagedKVPool(
+                    num_slots=256, num_layers=1, num_kv_heads=1, head_dim=2, device="cpu")
+                nodes.append(MeshCache(cfg, pool=pool))
+            for n in nodes:
+                n.start()
+            for n in nodes:
+                assert n.wait_ready(timeout=10), f"node {n.rank} never became ready"
+            ring = [n for n in nodes if n.role is not NodeRole.ROUTER]
+            prefill_node = nodes[1]
+            prefill_node.insert([1, 2, 3], prefill_node.pool.alloc(3))
+            assert wait_for(lambda: all(n.match_prefix([1, 2, 3]).length == 3 for n in ring))
+            snap = fresh_registry.snapshot()
+            lag = [v for k, v in snap.items()
+                   if k.startswith("radixmesh_mesh_oplog_lag_seconds") and k.endswith("_count")]
+            assert sum(lag) > 0
+            sent = [v for k, v in snap.items() if k.startswith("radixmesh_mesh_oplogs_sent")]
+            assert sum(sent) > 0
+            assert prefill_node.metrics["oplogs_sent"] > 0
+            assert [k for k in snap if k.startswith("radixmesh_mesh_oplogs_received_total") and "INSERT" in k]
+        finally:
+            for n in nodes:
+                n.close()
+            InprocHub.reset_default()
 
 
 class TestAgainstJaxRegistry:

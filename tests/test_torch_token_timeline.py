@@ -4,7 +4,8 @@ twins of ``tests/test_token_timeline.py`` — the bounded change-compressed
 ITL ring with stall-cause attribution, the speculation ledger with its
 adaptive-γ controller, the goodput decomposition, and the engine wiring
 (draft-token conservation on every verify path, one-branch no-op when
-off) — without the SLO tier seam (``note_tier``, not ported). Plus the
+off) and the SLO tier seam (``note_tier``, which the port's
+``slo/runner.py`` calls). Plus the
 stall taxonomy and bucket bounds equal to the JAX module's, the
 registry series of the ledger, and the engine's stall attribution."""
 
@@ -201,6 +202,12 @@ class TestAdaptiveGamma:
         led = SpecLedger(adaptive=True, node="t")
         led.note_wave("default", "p32", "tree", 4, 4, 4)
         assert led.gamma_for("default", "p32", 0) == 0
+
+    def test_note_tier_recorded(self):
+        led = SpecLedger(node="t")
+        assert led.last_tier == 0
+        led.note_tier(2)
+        assert led.last_tier == 2
 
 
 class TestGoodputLedger:
