@@ -219,7 +219,7 @@ class DiskKVTier:
         self.bytes_read = 0
         self.io_seconds = {"write": 0.0, "read": 0.0}
         self.corrupt_by = {c: 0 for c in _CORRUPT_CAUSES}
-        self.moves = {"demote": 0, "promote": 0, "drop": 0}
+        self.tier_moves = {"demote": 0, "promote": 0, "drop": 0}
         reg = get_registry()
         lbl = {"tier": name}
         self._m_spilled = reg.counter(
@@ -271,7 +271,7 @@ class DiskKVTier:
 
     def _note_move(self, direction: str, shard: int) -> None:
         with self._lock:
-            self.moves[direction] += 1
+            self.tier_moves[direction] += 1
             self.recent_moves.append((time.monotonic(), int(shard), direction))
         self._m_moves.labels(dir=direction, shard=str(int(shard)), **self._m_moves_lbl).inc()
 
@@ -309,7 +309,7 @@ class DiskKVTier:
                 "bytes_read": self.bytes_read,
                 "io_seconds": dict(self.io_seconds),
                 "corrupt_extents": dict(self.corrupt_by),
-                "moves": dict(self.moves),
+                "moves": dict(self.tier_moves),
             }
 
     @property

@@ -345,14 +345,18 @@ class KVTransferPlane:
                                                     pin_memory=cuda)
         if cuda and not all(t.is_pinned() for t in (kv, sc) if t is not None):
             raise RuntimeError("the KV-transfer staging buffers could not be pinned")
-        self._ring = [(kv.narrow(0, i * c * 2 * L * H * D, c * 2 * L * H * D),
-                       None if sc is None else sc.narrow(0, i * c * 2 * L * H, c * 2 * L * H))
-                      for i in range(n)]
-        self._free_bufs = deque(range(self.stage_depth))
-        if cuda:
-            self._copy_stream = torch.cuda.Stream(device=pool.device)
-        self._device = pool.device
-        self._layout = layout
+        ring = [(kv.narrow(0, i * c * 2 * L * H * D, c * 2 * L * H * D),
+                 None if sc is None else sc.narrow(0, i * c * 2 * L * H, c * 2 * L * H))
+                for i in range(n)]
+        stream = torch.cuda.Stream(device=pool.device) if cuda else None
+        # Published under the lock: stats() reads the ring from caller
+        # threads while a lane binds lazily.
+        with self._lock:
+            self._ring = ring
+            self._free_bufs = deque(range(self.stage_depth))
+            self._copy_stream = stream
+            self._device = pool.device
+            self._layout = layout
 
     @property
     def pinned(self) -> bool:

@@ -61,7 +61,9 @@ class InprocHub:
 
     def _run(self) -> None:
         while True:
-            # Blocks on the hub's own queue; a None sentinel stops it.
+            # meshcheck: ok[timeout-audit] the hub's delivery pump blocks
+            # on its OWN queue and is woken by a None shutdown sentinel —
+            # no peer is involved, so there is nothing to deadline.
             item = self._q.get()
             if item is None:
                 return
@@ -102,7 +104,9 @@ class InprocCommunicator(Communicator):
                 return True
             if time.monotonic() >= deadline:
                 return False
-            time.sleep(0.005)  # the hub has no registration event to wait on
+            # meshcheck: ok[sleep-audit] bounded listener-appearance poll
+            # inside a deadline loop; the hub has no registration event.
+            time.sleep(0.005)
         raise RuntimeError("communicator closed")
 
     def retarget(self, target_addr: str | None) -> None:

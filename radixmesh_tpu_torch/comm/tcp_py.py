@@ -117,7 +117,9 @@ class PyTcpCommunicator(Communicator):
                 s.settimeout(None)
                 return s
             except OSError:
-                time.sleep(0.1)  # reconnect backoff: the peer is not up yet
+                # meshcheck: ok[sleep-audit] reconnect backoff between
+                # bounded create_connection attempts (peer not up yet).
+                time.sleep(0.1)
         raise RuntimeError("communicator closed while connecting")
 
     def send(self, data: bytes) -> None:
@@ -153,7 +155,9 @@ class PyTcpCommunicator(Communicator):
                     if self._send_sock is not None:
                         self._send_sock.close()
                         self._send_sock = None
-                    time.sleep(0.05)  # reconnect backoff after a failed send
+                    # meshcheck: ok[sleep-audit] reconnect backoff after a
+                    # send failure; the outer loop is deadline-bounded.
+                    time.sleep(0.05)
             if deadline is None:
                 raise RuntimeError("communicator closed while sending")
             return False

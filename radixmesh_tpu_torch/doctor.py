@@ -68,6 +68,9 @@ def _live(url: str, watch: float | None) -> int:
             return 0 if report.get("healthy") else 1
         print(f"\n=== {time.strftime('%H:%M:%S')} ===", flush=True)
         _render(report)
+        # meshcheck: ok[sleep-audit] the --watch cadence: the sleep IS the
+        # requested polling interval of an operator's CLI loop, on no
+        # serving thread.
         time.sleep(watch)
 
 

@@ -740,6 +740,10 @@ class IciHandoff:
         meta, kv_shape, kv_dtype, scale_meta = head[0]
         if i == self.src:
             blocks = [pkt.kv] + ([] if pkt.kv_scale is None else [pkt.kv_scale])
+            # meshcheck: ok[timeout-audit] the handoff's p2p send is bounded by the process
+            # group's timeout (init_multihost(timeout_s=), parallel/multihost.py): an unmatched
+            # collective ends in an error, never a hang. No timeout= here: on NCCL it would turn
+            # the stream-side wait into a host-blocking one.
             p2p(self.mesh, self.axis, blocks, to=self.dst).wait()
             return None
         if i != self.dst:
@@ -747,6 +751,10 @@ class IciHandoff:
         likes = [torch.empty(kv_shape, dtype=kv_dtype, device=self.device)]
         if scale_meta is not None:
             likes.append(torch.empty(scale_meta[0], dtype=scale_meta[1], device=self.device))
+        # meshcheck: ok[timeout-audit] the handoff's p2p receive is bounded by the process
+        # group's timeout (init_multihost(timeout_s=), parallel/multihost.py): an unmatched
+        # collective ends in an error, never a hang. No timeout= here: on NCCL it would turn the
+        # stream-side wait into a host-blocking one.
         got = p2p(self.mesh, self.axis, recv_like=likes, frm=self.src).wait()
         return dataclasses.replace(meta, kv=got[0], kv_scale=got[1] if scale_meta is not None else None)
 

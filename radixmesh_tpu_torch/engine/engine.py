@@ -724,33 +724,36 @@ class Engine:
         (the per-tenant request histograms by tenant)."""
         reg = get_registry()
         lbl = {"engine": self.name}
-
-        def counter(name, help):
-            return reg.counter(name, help, ("engine",)).labels(**lbl)
-
-        self._m_prompt = counter("radixmesh_engine_prompt_tokens_total", "prompt tokens admitted")
-        self._m_cached = counter(
-            "radixmesh_engine_cached_tokens_total", "prompt tokens served from the radix cache"
-        )
-        self._m_generated = counter(
-            "radixmesh_engine_generated_tokens_total", "tokens produced by decode"
-        )
-        self._m_preempt = counter(
-            "radixmesh_engine_preemptions_total", "requests preempted under pool pressure"
-        )
-        self._m_spec_proposed = counter(
+        self._m_prompt = reg.counter(
+            "radixmesh_engine_prompt_tokens_total", "prompt tokens admitted", ("engine",)
+        ).labels(**lbl)
+        self._m_cached = reg.counter(
+            "radixmesh_engine_cached_tokens_total", "prompt tokens served from the radix cache",
+            ("engine",),
+        ).labels(**lbl)
+        self._m_generated = reg.counter(
+            "radixmesh_engine_generated_tokens_total", "tokens produced by decode", ("engine",)
+        ).labels(**lbl)
+        self._m_preempt = reg.counter(
+            "radixmesh_engine_preemptions_total", "requests preempted under pool pressure",
+            ("engine",),
+        ).labels(**lbl)
+        self._m_spec_proposed = reg.counter(
             "radixmesh_engine_spec_proposed_tokens_total",
             "draft tokens offered to speculative verification",
-        )
-        self._m_spec_accepted = counter(
+            ("engine",),
+        ).labels(**lbl)
+        self._m_spec_accepted = reg.counter(
             "radixmesh_engine_spec_accepted_tokens_total",
             "draft tokens accepted by speculative verification",
-        )
-        self._m_spec_rejected = counter(
+            ("engine",),
+        ).labels(**lbl)
+        self._m_spec_rejected = reg.counter(
             "radixmesh_engine_spec_rejected_tokens_total",
             "draft tokens rejected by speculative verification "
             "(conservation: proposed == accepted + rejected)",
-        )
+            ("engine",),
+        ).labels(**lbl)
         self._m_ttft = reg.histogram(
             "radixmesh_engine_ttft_seconds", "submit-to-first-token latency", ("engine",)
         ).labels(**lbl)

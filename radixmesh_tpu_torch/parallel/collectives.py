@@ -159,6 +159,10 @@ class _Shift:
 
     def wait(self) -> list[torch.Tensor]:
         for w in self._works:
+            # meshcheck: ok[timeout-audit] a process-group Work is bounded by the process
+            # group's timeout (init_multihost(timeout_s=), parallel/multihost.py): an unmatched
+            # collective ends in an error, never a hang. No timeout= here: on NCCL it would turn
+            # the stream-side wait into a host-blocking one.
             w.wait()
         out = [r.to(self._device) for r in self._recvs]
         _note(self._op, self._t0, self._nbytes)
@@ -234,6 +238,10 @@ def permute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
         raise ValueError(f"permutation {perm} has repeated destinations")
     if dst == i and src == i:
         return x.clone()
+    # meshcheck: ok[timeout-audit] the permutation's p2p is bounded by the process group's
+    # timeout (init_multihost(timeout_s=), parallel/multihost.py): an unmatched collective ends
+    # in an error, never a hang. No timeout= here: on NCCL it would turn the stream-side wait
+    # into a host-blocking one.
     got = p2p(mesh, axis, [x], dst, [x], src).wait()
     return got[0] if got else torch.zeros_like(x)
 

@@ -98,6 +98,11 @@ def gpipe(mesh: ProcessMesh, n_micro: int, batch: int, like: torch.Tensor, first
     outs, sends = [], []
     for m in range(n_micro):
         rows = slice(m * mb, (m + 1) * mb)
+        # meshcheck: ok[hotpath-blocking] under pp the stage-to-stage shift IS the engine's step
+        # (Engine.step reaches it through pp_forward_chunk and pp_decode_step); the wait is
+        # bounded by the process group's timeout (init_multihost(timeout_s=),
+        # parallel/multihost.py): an unmatched collective ends in an error, never a hang. No
+        # timeout= here: on NCCL it would turn the stream-side wait into a host-blocking one.
         h = first(rows) if s == 0 else pipe_shift([], mesh, "pp", [like]).wait()[0]
         h = stage(h, rows)
         if s < pp - 1:
@@ -105,6 +110,10 @@ def gpipe(mesh: ProcessMesh, n_micro: int, batch: int, like: torch.Tensor, first
         else:
             outs.append(h)
     for x in sends:
+        # meshcheck: ok[hotpath-blocking] the microbatches' sends, waited once per pipeline
+        # step; each wait is bounded by the process group's timeout (init_multihost(timeout_s=),
+        # parallel/multihost.py): an unmatched collective ends in an error, never a hang. No
+        # timeout= here: on NCCL it would turn the stream-side wait into a host-blocking one.
         x.wait()
     hidden = torch.cat(outs) if outs else like.new_empty((batch, *like.shape[1:]))
     return broadcast_from(hidden, mesh, "pp", pp - 1)
@@ -186,11 +195,20 @@ def make_pp_train_step(cfg, mesh: ProcessMesh, optimizer, n_micro: int):
         sends = []
         for m in reversed(range(n_micro)):
             if s < pp - 1:
+                # meshcheck: ok[timeout-audit] the backward pass's gradient receive is bounded
+                # by the process group's timeout (init_multihost(timeout_s=),
+                # parallel/multihost.py): an unmatched collective ends in an error, never a
+                # hang. No timeout= here: on NCCL it would turn the stream-side wait into a
+                # host-blocking one.
                 g = p2p(mesh, "pp", recv_like=[outs[m]], frm=s + 1).wait()[0]
                 torch.autograd.backward(outs[m], g)
             if s > 0:
                 sends.append(p2p(mesh, "pp", [ins[m].grad], s - 1))
         for x in sends:
+            # meshcheck: ok[timeout-audit] the backward pass's gradient sends are bounded by the
+            # process group's timeout (init_multihost(timeout_s=), parallel/multihost.py): an
+            # unmatched collective ends in an error, never a hang. No timeout= here: on NCCL it
+            # would turn the stream-side wait into a host-blocking one.
             x.wait()
         lookup = model.embed.grad if model.embed.grad is not None else torch.zeros_like(model.embed)
         lookup = all_reduce(lookup, mesh, "pp")

@@ -182,8 +182,18 @@ def pp_decode_multi(
             pos = (lens - 1).long()
             slots = (pt[r][rows, pos // page_size] * page_size + pos % page_size).to(torch.int32)
             if s > 0:
+                # meshcheck: ok[hotpath-blocking] under pp this shift IS the engine's multi-step
+                # decode (Engine.step -> pp_decode_multi); the wait is bounded by the process
+                # group's timeout (init_multihost(timeout_s=), parallel/multihost.py): an
+                # unmatched collective ends in an error, never a hang. No timeout= here: on NCCL
+                # it would turn the stream-side wait into a host-blocking one.
                 x = pipe_shift([], mesh, "pp", [act_like]).wait()[0]
             else:
+                # meshcheck: ok[hotpath-blocking] the sampled token's return to stage 0 is part
+                # of the pipelined decode step; the wait is bounded by the process group's
+                # timeout (init_multihost(timeout_s=), parallel/multihost.py): an unmatched
+                # collective ends in an error, never a hang. No timeout= here: on NCCL it would
+                # turn the stream-side wait into a host-blocking one.
                 # Step 0 feeds the caller's token; later steps the token the
                 # last stage sampled for this microbatch.
                 tok = tokens[r] if i == 0 else p2p(mesh, "pp", recv_like=[tok_like], frm=last).wait()[0]
@@ -199,5 +209,9 @@ def pp_decode_multi(
             if i < k_steps - 1:
                 sends.append(p2p(mesh, "pp", [tok], to=0))
     for x in sends:
+        # meshcheck: ok[hotpath-blocking] the step's sends, waited once per multi-step decode;
+        # each wait is bounded by the process group's timeout (init_multihost(timeout_s=),
+        # parallel/multihost.py): an unmatched collective ends in an error, never a hang. No
+        # timeout= here: on NCCL it would turn the stream-side wait into a host-blocking one.
         x.wait()
     return broadcast(out, mesh, "pp", last)

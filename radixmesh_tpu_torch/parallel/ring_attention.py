@@ -70,6 +70,10 @@ def ring_attention(
             m[:, hs] = m_new
             del s, p
         if shift is not None:
+            # meshcheck: ok[timeout-audit] the ring's K/V shift is bounded by the process
+            # group's timeout (init_multihost(timeout_s=), parallel/multihost.py): an unmatched
+            # collective ends in an error, never a hang. No timeout= here: on NCCL it would turn
+            # the stream-side wait into a host-blocking one.
             k_cur, v_cur = shift.wait()
     out = acc / l.clamp_min(1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, c, hq, d).to(q.dtype)

@@ -34,9 +34,9 @@ Weights are ``init_params(cfg, seed, device)``: the JAX scheme drawn with
 other random numbers, so the tokens generated differ from the JAX run's.
 """
 
-# The generators and scenario runners pace traffic, settle gossip and hold
-# windows by the wall clock by design: nothing here runs on a serving
-# thread.
+# meshcheck: file-ok[sleep-audit] workload generators and scenario
+# drivers pace traffic, settle gossip, and hold chaos windows by wall
+# clock BY DESIGN — nothing here runs on a serving thread.
 
 from __future__ import annotations
 

@@ -75,7 +75,14 @@ def test_port_imports_no_jax_and_no_jax_package():
             "radixmesh_tpu_torch.parallel.ulysses", "radixmesh_tpu_torch.parallel.pipeline",
             "radixmesh_tpu_torch.parallel.pp_serving",
             "radixmesh_tpu_torch.parallel.kv_transfer", "radixmesh_tpu_torch.parallel.train",
-            "radixmesh_tpu_torch.checkpoint", "radixmesh_tpu_torch.workload"} <= walked, r.stdout
+            "radixmesh_tpu_torch.checkpoint", "radixmesh_tpu_torch.workload",
+            "radixmesh_tpu_torch.analysis", "radixmesh_tpu_torch.analysis.core",
+            "radixmesh_tpu_torch.analysis.callgraph", "radixmesh_tpu_torch.analysis.lock_order",
+            "radixmesh_tpu_torch.analysis.single_writer", "radixmesh_tpu_torch.analysis.hot_path",
+            "radixmesh_tpu_torch.analysis.wire_kinds", "radixmesh_tpu_torch.analysis.metrics_vocab",
+            "radixmesh_tpu_torch.analysis.thread_roots", "radixmesh_tpu_torch.analysis.guarded_by",
+            "radixmesh_tpu_torch.analysis.protocol", "radixmesh_tpu_torch.analysis.controls",
+            "radixmesh_tpu_torch.analysis.report", "radixmesh_tpu_torch.meshcheck"} <= walked, r.stdout
 
 
 _PARALLEL_PROBE = """
@@ -133,7 +140,10 @@ def _code_of(path: pathlib.Path, names: tuple[str, ...] | None = None) -> str:
 
 @pytest.mark.parametrize("module", ["policy/retry.py", "server/recovery.py", "router/front_door.py",
                                     "cache/repair_plane.py", "policy/lifecycle.py", "obs/aggregator.py",
-                                    "obs/doctor.py"])
+                                    "obs/doctor.py", "analysis/lock_order.py",
+                                    "analysis/single_writer.py", "analysis/wire_kinds.py",
+                                    "analysis/metrics_vocab.py", "analysis/guarded_by.py",
+                                    "analysis/protocol.py"])
 def test_copied_fleet_modules_differ_from_the_jax_files_only_in_imports(module):
     assert _code_of(ROOT / "radixmesh_tpu_torch" / module) == _code_of(ROOT / "radixmesh_tpu" / module)
 

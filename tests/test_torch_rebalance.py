@@ -1,10 +1,9 @@
 """``cache/rebalance.py`` in the port: the cases of ``tests/test_rebalance.py``,
 run against ``radixmesh_tpu_torch``, ``TestRebalanceStormQuick`` included (it
-drives the port's ``workload._chaos_rebalance_phase``). Dropped:
-``TestMeshcheckOnPlane``, which runs the JAX package's ``analysis/``
-(meshcheck) over the module; the port's meshcheck is the next item of
-ROADMAP.md's queue A7b."""
+drives the port's ``workload._chaos_rebalance_phase``) and
+``TestMeshcheckOnPlane``, which runs the port's meshcheck
+(``radixmesh_tpu_torch.analysis``) over the plane's files."""
 
 from _torch_twin import load_twin
 
-load_twin("test_rebalance", globals(), drop=("TestMeshcheckOnPlane",))
+load_twin("test_rebalance", globals())
