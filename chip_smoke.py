@@ -10,7 +10,9 @@ Phases (any failure raises and exits non-zero):
 1. Environment: the card's name and power limit, torch/CUDA versions, the
    build of every CUDA kernel from ``radixmesh_tpu_torch/ops/csrc`` (one
    ``nvcc`` per source, all started together; ``ptxas`` reports to
-   ``chip_out/ptxas.txt``), and ``cuobjdump -sass`` of the tensor-core
+   ``chip_out/ptxas.txt``; phase 16 (b) and the port's meshcheck over its
+   tree run on the host meanwhile), and ``cuobjdump -sass`` (beside phase
+   2) of the tensor-core
    chunk library, which must hold HGMMA (wgmma) instructions, and of the
    CUDA-core chunk body's, which must hold LDGSTS (cp.async) and LDS.128.
    The CUDA-core body's registers, spill bytes and shared memory are
@@ -128,7 +130,7 @@ Phases (any failure raises and exits non-zero):
    phase 5's configuration (2-layer float32): a seeded stochastic stream
    resumed on new card engines at crash points 1 and 5 must continue
    token for token, and greedy seeded rows must give the CPU's tokens.
-   Decode-step walls (4 rows of 600 tokens, the median of five 8-step
+   Decode-step walls (4 rows of 600 tokens, the median of three 8-step
    windows, one round): unseeded with every plane off, at the defaults
    (the token timeline), with every plane on, and seeded. Llama-3-8B bf16
    over HTTP with the planes on: 4 seeded requests at once (temperature
@@ -159,8 +161,9 @@ Phases (any failure raises and exits non-zero):
    back after the hold, requests dispatched at tier >= 2 capped at 64
    tokens; tenant c's burst shed with 429 and ``Retry-After``;
    ``/debug/timeseries`` serving the engine's series and ``POST
-   /admin/blackbox`` a dump ``load_blackbox`` reads. Decode step wall with
-   the history off, sampling at 1.0 s and at 0.1 s (interleaved), and the
+   /admin/blackbox`` a dump ``load_blackbox`` reads. Decode step wall (the
+   median of three 8-step windows) with the history off, sampling at 1.0 s
+   and at 0.1 s (interleaved), and the
    sampler's ``radixmesh_history_sample_seconds`` p50 / p99. The decode
    and chunk kernels' launches are counted and no plain attention version
    may run. Last, ``launch.py serve --blackbox-dir D`` in a child process,
@@ -209,14 +212,15 @@ Phases (any failure raises and exits non-zero):
    served there alone, then served alone on d0 as misses: TTFT of each,
    ``cached_tokens``, the share of equal greedy tokens; the decode and
    chunk kernels must run on both engines and no plain version. A 2-layer
-   float32 leg (inproc) must give equal hit and miss tokens. (b) p0, d0
+   float32 leg (inproc) must give equal hit and miss tokens. (b) While the
+   kernels build (phase 1), p0, d0
    and r0 in three processes, over native ``tcp`` and ``tcp-py``: p0
    advertises 800 prefixes of 2000 tokens (1.6M tokens): inserts applied
    per second at r0 and d0, bytes per insert, apply lag, r0's
    ``match_prefix`` time and each replica's RSS growth. (c) The decode
    step wall of 4 x 600 on p0 with the mesh on (d0 advertising 50
-   prefixes a second) and off, one round (the first leg after a warm-up),
-   over native ``tcp`` and ``tcp-py``. (d)
+   prefixes a second) and off, one round, the median of three 8-step
+   windows each, over native ``tcp`` and ``tcp-py``. (d)
    After the weights are freed, two ``python
    -m radixmesh_tpu_torch.launch node`` processes (prefill and decode, a
    16384-slot pool each) over native ``tcp`` from JSON configs with
@@ -351,7 +355,12 @@ Phases (any failure raises and exits non-zero):
    prompt-token capacity a 2 s deadline-free run measures, a TTFT deadline
    of ten times the unloaded TTFT, 4 s of arrivals): every arrival
    admitted, shed or timed out, none timed out. (d)-(h) while phase 18
-   (h)'s ranks train, at Llama-3-8B's widths, 2 layers: (d) speculative
+   (h)'s ranks train, each through its command line in this process
+   (``radixmesh_tpu_torch/scripts/``: ``specbench``, ``convoybench``,
+   ``kvflowbench``, ``tierbench``; ``python -m radixmesh_tpu_torch.doctor
+   --workload``), at their default Llama-3-8B widths, 2 layers, each
+   writing ``chip_out/<KIND>_torch.json``, read back and held to its
+   schema (``reports.validate_<kind>``): (d) speculative
    decoding (drafts conserved, the seeded stall found), (e) the prefill
    convoy in float32 (both arms' tokens equal, the carrier's starvation
    bounded, the small-batch dispatch, B3 in the crossover sweep at D 64
@@ -362,8 +371,10 @@ Phases (any failure raises and exits non-zero):
    byte-identical, both corrupt extents detected and none served), (h) the
    mesh doctor (no finding when healthy; hot shard, prefill convoy and
    parked restore lane each named with the seeded evidence; the
-   attributor's sums exact). Each leg's B1, B2 and B3 launches; no plain
-   version runs.
+   attributor's sums exact; the benchdiff sentinel's self-check proven).
+   Then the HTTP soak (``scripts.soak``, ``WL["soak_s"]`` seconds of
+   multi-turn clients at the same widths): no failed request, B1 and B2
+   launched. Each leg's B1, B2 and B3 launches; no plain version runs.
 21. The mesh-only and fleet workloads (``workload.py``, ``FLEET_WL``). (i)
    fleet churn (digest fan-in, convergence under churn and after an
    injected divergence, a stalled node demoted) and (j) chaos, sharded (rf
@@ -371,7 +382,9 @@ Phases (any failure raises and exits non-zero):
    cold rejoin, a decode node killed mid-stream, a rebalance under a zipf
    storm, a router killed) run in a child process of this script that
    never touches the card, started with phase 18's ranks and joined with
-   them: no request lost or failed, every stream resumed byte-identical
+   them ((i) through ``scripts.fleetbench``; (j) at reduced sizes the JAX
+   script's flags cannot express, its report built by ``reports.py``):
+   no request lost or failed, every stream resumed byte-identical
    from a replicated cache (hit ratio >= 0.8), the storm's skew dropped.
    (k) the observability scenario with its step-attribution engine, (l)
    the black box and (m) the fleet aggregator, each with an engine at
@@ -381,9 +394,15 @@ Phases (any failure raises and exits non-zero):
    gossip and by the post-mortem from the dumps, the victim's drop (its
    window holding the kill) and truncation named, the straggler by rank,
    the p99 exemplar stitched to the straggler's span, the killed node as
-   a gap. (k)'s three short prompts each prefill alone, on the engine's
-   dense route as in the JAX engine: (k) launches B1, (l) and (m) B1 and
-   B2; no plain version runs. Wall-clock verdicts are printed, not held.
+   a gap; each through its command line (``obsbench``, ``blackboxbench``,
+   ``aggbench``). (k)'s three short prompts each prefill alone, on the
+   engine's dense route as in the JAX engine: (k) launches B1, (l) and (m)
+   B1 and B2; no plain version runs. Every report of phases 20 and 21
+   passes its validator but for the verdicts that read the wall clock
+   (BLACKBOX's sampler and AGG's pull overhead budgets, SPEC's adaptive
+   goodput ratio), which are printed; the command line's exit code is the
+   validator's; and the port's benchdiff compares each report with itself
+   clean (exit 0).
 Checkpoints and profiles are written under ``chip_out/`` and removed.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches per path in
@@ -397,6 +416,8 @@ Exits 2 without printing a result where torch has no CUDA device.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import ctypes
 import functools
 import gc
@@ -420,6 +441,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from radixmesh_tpu_torch import reports
+from radixmesh_tpu_torch.scripts import _cli
 from radixmesh_tpu_torch.cache.kv_transfer import kv_token_bytes
 from radixmesh_tpu_torch.engine.engine import Engine
 from radixmesh_tpu_torch.engine.request import Request, RequestState, SamplingParams
@@ -1919,8 +1942,8 @@ def decode_wall_phase(dev, model) -> dict:
     unseeded with every plane off, with the planes at their defaults (the
     token timeline), with every plane on (timeline, step accounting, the
     recorder tracing every request) and seeded with the defaults. Per
-    configuration, the median of five 8-step windows, one round after a
-    discarded warm-up run."""
+    configuration, the median of three 8-step windows, one round (the
+    serving phases before it warmed the same model's shapes)."""
     from radixmesh_tpu_torch.obs.trace_plane import FlightRecorder, get_recorder, set_recorder
 
     cfg = model.cfg
@@ -1928,37 +1951,34 @@ def decode_wall_phase(dev, model) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, size=600).tolist() for _ in range(4)]
     out: dict[str, dict] = {name: {"medians_ms": [], "windows_ms": []} for name in WALL_CONFIGS}
     names = list(WALL_CONFIGS)
-    order = [names[:1]] + [names]  # warm-up, then one round
     old = get_recorder()
     try:
-        for rnd, round_names in enumerate(order):
-            for name in round_names:
-                kw, sample, seeded = WALL_CONFIGS[name]
-                set_recorder(FlightRecorder(capacity=1 << 16, sample=sample))
-                eng = Engine(cfg, model, num_slots=8192, page_size=16, max_batch=4, device=dev,
-                             name=f"wall-{rnd}-{name}", **kw)
-                for i, p in enumerate(prompts):
-                    eng.add_request(p, SamplingParams(max_new_tokens=48, seed=100 + i if seeded else None,
-                                                      **REPLAY_SAMPLING))
-                eng.step()  # admission, the group prefill, a first decode step
-                eng.step()
-                walls = []
-                for _ in range(5):
-                    torch.cuda.synchronize()
-                    t = time.perf_counter()
-                    for _ in range(8):
-                        eng.step()
-                    walls.append((time.perf_counter() - t) / 8 * 1e3)
-                check(sum(r is not None for r in eng._rows) == 4, f"decode walls {name}: a row finished early")
-                mfu = None if eng.step_acct is None else eng.step_acct.report()["decode"]
-                _drain(eng)
-                if rnd > 0:
-                    out[name]["medians_ms"].append(float(np.median(walls)))
-                    out[name]["windows_ms"].append(walls)
-                if mfu is not None:
-                    out[name]["step_accounting_decode"] = mfu
-                del eng
-                torch.cuda.empty_cache()
+        for name in names:
+            kw, sample, seeded = WALL_CONFIGS[name]
+            set_recorder(FlightRecorder(capacity=1 << 16, sample=sample))
+            eng = Engine(cfg, model, num_slots=8192, page_size=16, max_batch=4, device=dev, name=f"wall-{name}",
+                         **kw)
+            for i, p in enumerate(prompts):
+                eng.add_request(p, SamplingParams(max_new_tokens=48, seed=100 + i if seeded else None,
+                                                  **REPLAY_SAMPLING))
+            eng.step()  # admission, the group prefill, a first decode step
+            eng.step()
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(8):
+                    eng.step()
+                walls.append((time.perf_counter() - t) / 8 * 1e3)
+            check(sum(r is not None for r in eng._rows) == 4, f"decode walls {name}: a row finished early")
+            mfu = None if eng.step_acct is None else eng.step_acct.report()["decode"]
+            _drain(eng)
+            out[name]["medians_ms"].append(float(np.median(walls)))
+            out[name]["windows_ms"].append(walls)
+            if mfu is not None:
+                out[name]["step_accounting_decode"] = mfu
+            del eng
+            torch.cuda.empty_cache()
     finally:
         set_recorder(old)
     base = out["unseeded, planes off"]["medians_ms"]
@@ -2165,7 +2185,7 @@ EDGE = dict(model="llama3-8b", device="cuda", kv_slots=65536, vocab=128256,
             light_prompt=600, light_tokens=48, light_rounds=2,
             burst_prompt=2000, calibration=8, per_tenant=24, backlog=16, deadline_ms=1500,
             burst_tokens=16, backlog_tokens=128, rate_c=2000.0,
-            wall_prompt=600, wall_rounds=1, kill_segments=6)
+            wall_prompt=600, wall_rounds=1, wall_windows=3, kill_segments=6)
 
 
 def _sync(dev) -> None:
@@ -2547,10 +2567,11 @@ HISTORY_CONFIGS = {"history off": 0.0, "history 1.0 s": 1.0, "history 0.1 s": 0.
 
 def _edge_history_walls(dev, model, E, rng) -> dict:
     """Decode step wall of 4 rows (greedy) with the history off, sampling
-    every 1.0 s and every 0.1 s over the engine: the median of five 8-step
-    windows per configuration, interleaved rounds (reversed every other
-    one); the sampler's own cost from ``radixmesh_history_sample_seconds``
-    (in a registry of its own for these runs)."""
+    every 1.0 s and every 0.1 s over the engine: the median of
+    ``wall_windows`` 8-step windows per configuration, interleaved rounds
+    (reversed every other one); the sampler's own cost from
+    ``radixmesh_history_sample_seconds`` (in a registry of its own for these
+    runs)."""
     from radixmesh_tpu_torch.obs.metrics import TRANSFER_SECONDS_BUCKETS, Registry, get_registry, set_registry
     from radixmesh_tpu_torch.obs.timeseries import TelemetryHistory
 
@@ -2572,7 +2593,7 @@ def _edge_history_walls(dev, model, E, rng) -> dict:
                 eng.step()
                 eng.step()
                 walls = []
-                for _ in range(5):
+                for _ in range(E["wall_windows"]):
                     _sync(dev)
                     t = time.perf_counter()
                     for _ in range(8):
@@ -3285,7 +3306,7 @@ def w8a16_phase(dev, model) -> dict:
 MESH = dict(prompts=8, prompt_len=2000, extra=64, new_tokens=8, f32_prompts=4, f32_layers=2,
             engine=dict(num_slots=65536, page_size=16, max_batch=8),
             scale_prefixes=800, scale_len=2000, match_samples=2000,
-            wall_rows=4, wall_len=600, wall_rounds=1, wall_slots=8192, traffic_per_s=50,
+            wall_rows=4, wall_len=600, wall_rounds=1, wall_windows=3, wall_slots=8192, traffic_per_s=50,
             node_model="llama3-8b", node_slots=16384, head_rows=(4, 8), head_prompts=4, head_len=600,
             head_tokens=32)
 MESH_PAGE = 16
@@ -3652,16 +3673,15 @@ def _stop_replicas(pipes, procs) -> None:
             p.join()
 
 
-def _mesh_wall_leg(dev, model, protocol: str, remote: bool, warm: bool = True) -> dict:
+def _mesh_wall_leg(dev, model, protocol: str, remote: bool) -> dict:
     """Decode step wall of ``wall_rows`` x ``wall_len`` on p0: the engine
     with its mesh replica while d0 advertises ``traffic_per_s`` prefixes a
     second (p0's replica applies and forwards each), against an engine
     without a mesh and a quiet ring, interleaved. ``remote``: d0 and r0 run
     in their own processes, as a deployment runs them; otherwise all three
-    replicas share this process. The median of five 8-step windows per
-    run; with ``warm`` a discarded warm-up (the first leg: the later legs
-    run the same engine shapes), then ``wall_rounds`` rounds, the order
-    reversed in every other one."""
+    replicas share this process. The median of ``wall_windows`` 8-step
+    windows per run, ``wall_rounds`` rounds, the order reversed in every
+    other one (the serving legs before it warmed the same model)."""
     from radixmesh_tpu_torch.cache.mesh_cache import MeshCache
 
     cfg = model.cfg
@@ -3679,9 +3699,8 @@ def _mesh_wall_leg(dev, model, protocol: str, remote: bool, warm: bool = True) -
     out = {"on": [], "off": [], "protocol": protocol, "remote": remote, "traffic_per_s": MESH["traffic_per_s"],
            "advertised": 0}
     try:
-        order = ([["on"]] if warm else []) + [["on", "off"] if r % 2 == 0 else ["off", "on"]
-                                              for r in range(MESH["wall_rounds"])]
-        for rnd, names in enumerate(order, start=0 if warm else 1):
+        order = [["on", "off"] if r % 2 == 0 else ["off", "on"] for r in range(MESH["wall_rounds"])]
+        for rnd, names in enumerate(order, start=1):
             for name in names:
                 eng = Engine(cfg, model, num_slots=MESH["wall_slots"], page_size=16, max_batch=4, device=dev,
                              mesh=meshes[0] if name == "on" else None, name=f"wall-{protocol}-{rnd}-{name}")
@@ -3700,7 +3719,7 @@ def _mesh_wall_leg(dev, model, protocol: str, remote: bool, warm: bool = True) -
                         th.start()
                 walls = []
                 try:
-                    for _ in range(5):
+                    for _ in range(MESH["wall_windows"]):
                         torch.cuda.synchronize()
                         t = time.perf_counter()
                         for _ in range(8):
@@ -3716,8 +3735,7 @@ def _mesh_wall_leg(dev, model, protocol: str, remote: bool, warm: bool = True) -
                 check(sum(r is not None for r in eng._rows) == MESH["wall_rows"],
                       f"mesh walls {protocol}: a row finished early")
                 _drain(eng)
-                if rnd > 0:
-                    out[name].append(float(np.median(walls)))
+                out[name].append(float(np.median(walls)))
                 del eng
         out["on_over_off"] = [a / b for a, b in zip(out["on"], out["off"])]
         return out
@@ -4621,12 +4639,41 @@ def fleet_phase(card: str) -> dict:
     return f
 
 
-def mesh_phase(dev, model) -> dict:
+def build_shadow_phase() -> dict:
+    """Host work that needs neither the card nor a kernel, run in a thread
+    while ``nvcc`` builds the kernels: phase 16 (b), the ring at scale over
+    native ``tcp`` and ``tcp-py`` (replica processes), and the port's
+    meshcheck over its tree (``analysis.check_tree``, cached for the
+    process), which phase 20 (g)'s TIER report embeds."""
+    from radixmesh_tpu_torch.analysis import check_tree
+
+    out = {"scale": {}}
+    for protocol in ("tcp", "tcp-py"):
+        t = time.monotonic()
+        s = out["scale"][protocol] = _ring_scale_leg(protocol)
+        print(f"[mesh scale {protocol}] {s['prefixes']} x {MESH['scale_len']} = {s['tokens']} tokens advertised "
+              f"from p0 in {s['insert_s_at_p0']:.3f}s; applied/s r0 {s['inserts_per_s']['r0']:.1f} d0 "
+              f"{s['inserts_per_s']['d0']:.1f}; bytes/insert {s['bytes_per_insert']:.1f}; apply lag p99 r0 "
+              f"{s['apply_lag_p99_s']['r0'] * 1e3:.3f} ms d0 {s['apply_lag_p99_s']['d0'] * 1e3:.3f} ms; "
+              f"router match_prefix p50 {s['router_match_us']['p50']:.2f} us p99 "
+              f"{s['router_match_us']['p99']:.2f} us; RSS growth MB {s['rss_growth_mb']} "
+              f"({time.monotonic() - t:.1f}s, beside the kernel build)", flush=True)
+    t = time.monotonic()
+    res = check_tree()
+    out["meshcheck"] = {"findings": len(res.findings), "suppressed": len(res.suppressed),
+                        "wall_s": time.monotonic() - t}
+    print(f"[meshcheck] the port's tree: {len(res.findings)} finding(s), {len(res.suppressed)} suppressed "
+          f"({out['meshcheck']['wall_s']:.1f}s, beside the kernel build)", flush=True)
+    return out
+
+
+def mesh_phase(dev, model, scale: dict) -> dict:
     """Phase 16: (a) serve → publish → replicate → route back on each
     transport at full width, and a 2-layer float32 leg whose hit and miss
-    tokens must be equal; (b) the ring at scale over native ``tcp`` and
-    ``tcp-py``; (c) the decode wall with the mesh on and off."""
-    out: dict = {"legs": {}, "scale": {}, "walls": {}}
+    tokens must be equal; (b) the ring at scale (``scale``: run beside the
+    kernel build by :func:`build_shadow_phase`); (c) the decode wall with
+    the mesh on and off."""
+    out: dict = {"legs": {}, "scale": scale, "walls": {}}
     for protocol in MESH_PROTOCOLS:
         t = time.monotonic()
         leg = out["legs"][protocol] = _mesh_serving_leg(dev, model, protocol, MESH["prompts"], f"mesh-{protocol}")
@@ -4654,20 +4701,10 @@ def mesh_phase(dev, model) -> dict:
     del f32_model
     torch.cuda.empty_cache()
     for protocol in ("tcp", "tcp-py"):
-        t = time.monotonic()
-        s = out["scale"][protocol] = _ring_scale_leg(protocol)
-        print(f"[mesh scale {protocol}] {s['prefixes']} x {MESH['scale_len']} = {s['tokens']} tokens advertised "
-              f"from p0 in {s['insert_s_at_p0']:.3f}s; applied/s r0 {s['inserts_per_s']['r0']:.1f} d0 "
-              f"{s['inserts_per_s']['d0']:.1f}; bytes/insert {s['bytes_per_insert']:.1f}; apply lag p99 r0 "
-              f"{s['apply_lag_p99_s']['r0'] * 1e3:.3f} ms d0 {s['apply_lag_p99_s']['d0'] * 1e3:.3f} ms; "
-              f"router match_prefix p50 {s['router_match_us']['p50']:.2f} us p99 "
-              f"{s['router_match_us']['p99']:.2f} us; RSS growth MB {s['rss_growth_mb']} "
-              f"({time.monotonic() - t:.1f}s)", flush=True)
-    for protocol in ("tcp", "tcp-py"):
         for remote in (False, True):
             t = time.monotonic()
             tag = f"{protocol} {'d0 and r0 in other processes' if remote else 'one process'}"
-            w = out["walls"][tag] = _mesh_wall_leg(dev, model, protocol, remote, warm=not out["walls"])
+            w = out["walls"][tag] = _mesh_wall_leg(dev, model, protocol, remote)
             print(f"[mesh walls {tag}] decode step {MESH['wall_rows']} x {MESH['wall_len']}: mesh on "
                   f"({w['traffic_per_s']} inserts/s from d0) {[round(x, 3) for x in w['on']]} ms vs off "
                   f"{[round(x, 3) for x in w['off']]} ms; on/off {[round(x, 3) for x in w['on_over_off']]} "
@@ -6495,22 +6532,17 @@ def train_phase(dev, par, tree_leg) -> dict:
 # that a deadline-free run of ``calib_s`` measures at the same shape (offered
 # there at ``offered_x`` times the closed-loop rate of ``calib_prompts``
 # prompts), with a TTFT deadline of ``deadline_x`` times the unloaded TTFT.
-# (d)-(h) run the self-contained scenarios at ``scenario_model``'s widths,
-# ``layers`` deep, with their default arguments but ``doctor``'s; (e) in
-# float32.
+# (d)-(h) run the self-contained scenarios through their command lines
+# (``radixmesh_tpu_torch/scripts/``, ``doctor --workload``) at
+# their default model, ``scenario_model``'s widths ``layers`` deep, with
+# the scenarios' default arguments (and the doctor's sizes for that model,
+# ``scripts._cli.DOCTOR_KW``); (e) in float32. Then the HTTP soak for
+# ``soak_s`` seconds at the same widths.
 WL = dict(model="llama3-8b", slots=65536, page=16, max_batch=16,
           mt=dict(n_conversations=16, n_turns=4, system_len=1024, user_len=64, gen_len=32),
           ol=dict(tenants={"free": 1.0, "pro": 2.0}, prompt_len=1024, shared_frac=0.5, gen_len=16,
                   duration_s=4.0, calib_s=2.0, calib_prompts=8, offered_x=2.0, deadline_x=10.0),
-          scenario_model="llama3-8b", layers=2,
-          # The doctor's convoy rule wants the long shape's e2e 1.5x the
-          # fleet's: at 2 layers a 1536-token prefill (the scenario's
-          # default) is too quick for that on the card. Three 4608-token
-          # prompts would push the default 512-token restore prefixes out of
-          # the scenario's 8192-slot host arena before the restore lane is
-          # seeded, so those are 128 tokens, staged 16 at a time (8 chunks
-          # each, as the defaults give).
-          doctor={"long_prompt": 4608, "restore_prompt": 128, "restore_chunk_tokens": 16})
+          scenario_model=_cli.MODEL, layers=_cli.LAYERS, soak_s=12.0)
 
 
 def _wl_counts(dev) -> dict:
@@ -6642,38 +6674,94 @@ def workload_engine_phase(dev, model, card) -> dict:
     return out
 
 
-def _wl_leg(out: dict, dev, tag: str, fn, cfg, **kw):
-    """One scenario leg of phases 20 and 21: ``fn(cfg=cfg, device=dev,
-    **kw)`` with the launch counts zeroed just before it and read just after
-    it; its wall, launches and report land in ``out[tag]``."""
+# The DOCTOR report's benchdiff sentinel self-check: an identical pair
+# clean, a regressed copy flagged, a cross-kind pair refused.
+BENCHDIFF_PROOFS = ("identical_clean", "regression_flagged", "mismatch_detected")
+
+
+def _model_args(model: str, dev) -> list[str]:
+    """The engine-building command lines' device and model flags: on the
+    card ``_cli.MODEL`` (Llama-3-8B's widths, ``_cli.LAYERS`` deep); a CPU
+    rehearsal passes ``_cli.TOY``."""
+    return ["--device", str(dev), "--model", model]
+
+
+# The validators' verdicts that read the wall clock, by KIND and the start
+# of their message; every other verdict is held. BLACKBOX: the history
+# sampler's share of the wall and AGG: the pulls' share (the same seconds
+# as the JAX runs, over a 2 s scenario instead of 6-24 s); SPEC: the
+# adaptive controller's goodput ratio (one A-B pair of a short run).
+WALL_CLOCK_VERDICTS = {
+    "BLACKBOX": ("history: sampler overhead ",),
+    "AGG": ("overhead: aggregation cost ",),
+    "SPEC": ("adaptive: goodput ratio ",),
+}
+
+
+def _held_report(kind: str, path, tag: str, rc: int | None = None) -> dict:
+    """The report a command line wrote to ``path`` (exiting ``rc``; None:
+    written here), read back and held to its schema: the port's validator
+    of its KIND (where the kind has a pinned schema) finds nothing but
+    ``WALL_CLOCK_VERDICTS``' verdicts of the kind, which are printed; the
+    file records as many in ``schema_violation``, and the command line
+    exited 1 on them, else 0."""
+    report = json.loads(pathlib.Path(path).read_text())
+    validate = getattr(reports, f"validate_{kind.lower()}", None)  # SOAK has no pinned schema
+    problems = [] if validate is None else validate(report)
+    exempt = WALL_CLOCK_VERDICTS.get(kind, ())
+    held = [p for p in problems if not p.startswith(exempt)]
+    recorded = report.get("schema_violation", [])
+    check(not held and len(recorded) == len(problems) and all(p.startswith(exempt) for p in recorded)
+          and rc in (None, 1 if problems else 0),
+          f"({tag}) the {kind} command line exited {rc}; its validator finds {held} (and the wall-clock "
+          f"verdicts {[p for p in problems if p.startswith(exempt)]}); the report records {recorded}")
+    if problems:
+        print(f"[schema {kind}] ({tag}) wall-clock verdicts of this run, printed: {problems}", flush=True)
+    return report
+
+
+def _cli_leg(out: dict, dev, tag: str, kind: str, main, argv: list[str]):
+    """One leg of phases 20 and 21 through its command line: ``main(argv)``
+    in this process, writing ``chip_out/<KIND>_torch.json`` (its printed
+    line to ``<KIND>_torch.stdout``), with the launch counts zeroed just
+    before it and read just after it; the report read back and held to its
+    schema (:func:`_held_report`). Its wall, launches and report land in
+    ``out[tag]``."""
+    path = OUT_DIR / f"{kind}_torch.json"
     _release(dev)
     pa.reset_counters()
     t = time.monotonic()
-    rep = fn(cfg=cfg, device=dev, **kw)
+    with open(OUT_DIR / f"{kind}_torch.stdout", "w") as fh, contextlib.redirect_stdout(fh):
+        rc = main([*argv, "--out", str(path)])
     _sync(dev)
     wall = time.monotonic() - t
     launches = _wl_counts(dev)
+    rep = _held_report(kind, path, tag, rc)
     out[tag] = {"wall_s": wall, "launches": launches, "report": rep}
     return rep, launches, wall
 
 
 def workload_scenario_phase(dev, card) -> dict:
-    """Phase 20 (d)-(h): the self-contained scenarios of ``workload.py`` at
-    ``WL["scenario_model"]``'s widths, ``WL["layers"]`` deep (bf16; (e) in
-    float32), each leg's launches counted from just before it to just after
-    and its wall printed; the checks read nothing that depends on the wall
-    clock."""
+    """Phase 20 (d)-(h): the self-contained scenarios of ``workload.py``
+    through their command lines at ``WL["scenario_model"]``'s widths,
+    ``WL["layers"]`` deep (the command lines' default model; bf16, (e) in
+    float32), each leg's launches
+    counted from just before it to just after, its report held to its
+    schema and its wall printed; then the HTTP soak. The checks read
+    nothing that depends on the wall clock."""
+    from radixmesh_tpu_torch import doctor
     from radixmesh_tpu_torch import workload as wlm
+    from radixmesh_tpu_torch.scripts import convoybench, kvflowbench, soak, specbench, tierbench
 
     on_card = torch.device(dev).type == "cuda"
-    cfg = get_config(WL["scenario_model"]).replace(n_layers=WL["layers"])
+    model = _model_args(WL["scenario_model"], dev)
     out = {}
     t0 = time.monotonic()
-    leg = functools.partial(_wl_leg, out, dev)
+    leg = functools.partial(_cli_leg, out, dev)
 
     # (d) speculative decoding: acceptance and conservation, ITL with a
     # seeded stall, the adaptive-gamma A-B, the timeline's overhead.
-    rep, n, wall = leg("d spec", wlm.run_spec_workload, cfg)
+    rep, n, wall = leg("d spec", "SPEC", specbench.main, model)
     acc, itl, ab, ovh = rep["acceptance"], rep["itl"], rep["adaptive"], rep["overhead"]
     check(acc["conserved"], f"(d) drafts not conserved: {acc}")
     check(itl["seeded_detected"], f"(d) the seeded scheduler_wait stall was not detected: {itl['stalls']}")
@@ -6687,8 +6775,9 @@ def workload_scenario_phase(dev, card) -> dict:
           f"{ab['no_worse']}); timeline overhead fraction {ovh['fraction']} (under budget "
           f"{ovh['under_budget']}); wall {wall:.2f}s; launches {n}", flush=True)
 
-    # (e) the prefill convoy, in float32 (token equality across schedules).
-    rep, n, wall = leg("e convoy", wlm.run_convoy_workload, cfg.replace(dtype=torch.float32))
+    # (e) the prefill convoy, in float32 (token equality across schedules;
+    # the command line runs a preset model in float32).
+    rep, n, wall = leg("e convoy", "CONVOY", convoybench.main, model)
     inter, stalls, starv, cross = rep["interleave"], rep["stalls"], rep["starvation"], rep["crossover"]
     check(inter["outputs_match"], "(e) the legacy and mixed-wave arms emitted other tokens (float32)")
     check(starv["bounded"], f"(e) the carrier starved past the bound: {starv}")
@@ -6710,8 +6799,11 @@ def workload_scenario_phase(dev, card) -> dict:
           f"{[e['paged_selected'] for e in cross['sweep']]}, large_batch_ok {cross['large_batch_ok']}; "
           f"wall {wall:.2f}s; launches {n}", flush=True)
 
-    # (f) the async KV plane against the synchronous baseline.
-    rep, n, wall = leg("f kvflow", wlm.run_kvflow_workload, cfg)
+    # (f) the async KV plane against the synchronous baseline, at the
+    # scenario's own sizes (the command line's defaults are the JAX
+    # script's 4 x 768 tokens).
+    rep, n, wall = leg("f kvflow", "KVFLOW", kvflowbench.main,
+                       model + ["--requests", "3", "--prompt-tokens", "1536"])
     rs, wb, pf = rep["restore"], rep["writeback"], rep["prefetch"]
     check(rs["decode_steps_during_restore"] > 0, f"(f) no decode step while a restore was parked: {rs}")
     check(rs["sync_decode_steps_during_restore"] == 0, f"(f) the synchronous path decoded during a restore: {rs}")
@@ -6734,13 +6826,14 @@ def workload_scenario_phase(dev, card) -> dict:
     # extents live in the scenario's mkdtemp directory, which it removes.
     tmp = pathlib.Path(tempfile.gettempdir())
     before = set(tmp.glob("tierwl-*"))
-    rep, n, wall = leg("g tier", wlm.run_tier_workload, cfg)
+    rep, n, wall = leg("g tier", "TIER", tierbench.main, model)
     check(set(tmp.glob("tierwl-*")) <= before, "(g) the tier's extent directory was left behind")
     cap, ro, cs, cor = rep["capacity"], rep["restore_overlap"], rep["cold_start"], rep["corruption"]
     check(cs["byte_identical"], f"(g) the resumed streams are not byte-identical: {cs}")
     check(cs["corrupt_served"] == 0 and cor["served_corrupt"] == 0, f"(g) corrupt KV served: {cor}")
     check(cor["detected"] == cor["extents_attacked"] == 2, f"(g) corrupt extents detected: {cor}")
     check(cs["resumed"] == cs["interrupted"], f"(g) resumed {cs['resumed']} of {cs['interrupted']}")
+    check(rep["meshcheck"]["clean"], f"(g) the port's meshcheck over the tier plane: {rep['meshcheck']}")
     if on_card:
         check(n["b1"] > 0 and n["b2"] > 0, f"(g) B1 or B2 not launched: {n}")
     print(f"[workloads g] ({card}) tier: hit rate with the tier {cap['tier_hit_rate']} vs host only "
@@ -6751,8 +6844,9 @@ def workload_scenario_phase(dev, card) -> dict:
           f"{cs['disk_hit_tokens']}, corrupt detected {cor['detected']} of {cor['extents_attacked']}, served "
           f"{cor['served_corrupt']}; restart {cs['restart_s']}s; wall {wall:.2f}s; launches {n}", flush=True)
 
-    # (h) the mesh doctor: healthy, then three seeded pathologies.
-    rep, n, wall = leg("h doctor", wlm.run_doctor_workload, cfg, **WL["doctor"])
+    # (h) the mesh doctor: healthy, then three seeded pathologies, through
+    # ``python -m radixmesh_tpu_torch.doctor --workload``.
+    rep, n, wall = leg("h doctor", "DOCTOR", doctor.main, ["--workload"] + model)
     hl, path, att = rep["healthy"], rep["pathologies"], rep["attribution"]
     check(hl["findings"] == [], f"(h) the healthy phase has findings: {hl['findings']}")
     for rule in ("hot_shard", "prefill_convoy", "restore_park_stall"):
@@ -6763,10 +6857,21 @@ def workload_scenario_phase(dev, card) -> dict:
         check(n["b1"] > 0 and n["b2"] > 0, f"(h) B1 or B2 not launched: {n}")
     print(f"[workloads h] ({card}) doctor: healthy {len(hl['rules_checked'])} rules, {len(hl['findings'])} "
           f"findings; " + "; ".join(f"{r} score {p['score']} evidence {p['evidence']}" for r, p in path.items())
-          + f"; attribution audited {att['audited']}, max sum error {att['max_sum_error_s']}; wall {wall:.2f}s; "
-          f"launches {n}", flush=True)
+          + f"; attribution audited {att['audited']}, max sum error {att['max_sum_error_s']}; benchdiff "
+          f"self-check { {k: rep['benchdiff'][k] for k in BENCHDIFF_PROOFS} }; wall {wall:.2f}s; launches {n}",
+          flush=True)
+    check(all(rep["benchdiff"][k] for k in BENCHDIFF_PROOFS), f"(h) the benchdiff self-check: {rep['benchdiff']}")
+
+    # The HTTP soak: multi-turn clients against a ServingFrontend.
+    rep, n, wall = leg("soak", "SOAK", soak.main, model + ["--seconds", str(WL["soak_s"])])
+    check(rep["errors"] == 0 and rep["value"] > 0, f"(soak) {rep['value']} requests, {rep['errors']} errors")
+    if on_card:
+        check(n["b1"] > 0 and n["b2"] > 0, f"(soak) B1 or B2 not launched: {n}")
+    print(f"[workloads soak] ({card}) {rep['value']} requests in {rep['wall_s']} s ({rep['requests_per_s']}/s), "
+          f"errors {rep['errors']}, hit rate {rep['hit_rate']}, server TTFT p50 {rep['server_p50_ttft_ms']} ms, "
+          f"client latency {rep['client_latency_ms']}; wall {wall:.2f}s; launches {n}", flush=True)
     _release(dev)
-    print(f"[time] phase 20 (d)-(h) {time.monotonic() - t0:.1f}s", flush=True)
+    print(f"[time] phase 20 (d)-(h) and the soak {time.monotonic() - t0:.1f}s", flush=True)
     return out
 
 
@@ -6791,20 +6896,30 @@ def workload_phase(dev, card) -> dict:
 FLEET_WL = dict(chaos=dict(partition_s=1.2, partition_delay_s=0.3, n_requests=60, quiesce_window_s=0.8,
                            timeout_s=45.0, join_partition_s=1.0, drain_requests=25, crash_streams=8,
                            crash_tokens=16, replication_factor=2),
-                model="llama3-8b", layers=2, timeout_s=300)
+                model=_cli.MODEL, layers=_cli.LAYERS, timeout_s=300)
 FLEET_JSON = "fleet-workloads.json"
 FLEET_ENGINES_JSON = "fleet-engines.json"
 
 
 def fleet_workload_child(out: str) -> int:
     """Phase 21 (i) and (j), in a child process of this script that never
-    touches the card (``_start_fleet_child`` hides it): each holds its
-    wall-clock-free verdicts here; the reports go to ``out``."""
+    touches the card (``_start_fleet_child`` hides it): (i) through its
+    command line (``scripts.fleetbench``), (j) through ``run_chaos_workload``
+    at ``FLEET_WL["chaos"]``'s reduced sizes (which the JAX script's flags
+    cannot all express), its CHAOS report built and validated by
+    ``reports.py`` beside it; each report is written beside ``out`` and held
+    to its schema, and each leg holds its wall-clock-free verdicts here; the
+    readings go to ``out``."""
     from radixmesh_tpu_torch import workload as wlm
+    from radixmesh_tpu_torch.scripts import fleetbench
 
+    out_dir = pathlib.Path(out).parent
     res = {}
     t = time.monotonic()
-    rep = wlm.run_fleet_churn_workload()
+    path = out_dir / "FLEET_torch.json"
+    with open(out_dir / "FLEET_torch.stdout", "w") as fh, contextlib.redirect_stdout(fh):
+        rc = fleetbench.main(["--out", str(path)])
+    rep = _held_report("FLEET", path, "i", rc)
     res["i churn"] = {"wall_s": time.monotonic() - t, "report": rep}
     conv, stall = rep["convergence"], rep["stall_reaction"]
     check(conv["converged"] and conv["injected_divergence_detected"] and conv["healed"],
@@ -6813,7 +6928,10 @@ def fleet_workload_child(out: str) -> int:
     print(f"[workloads i] churn: {json.dumps(rep)}", flush=True)
 
     t = time.monotonic()
-    rep = wlm.run_chaos_workload(**FLEET_WL["chaos"])
+    rep = reports.checked(reports.build_chaos_report(wlm.run_chaos_workload(**FLEET_WL["chaos"])),
+                          reports.validate_chaos)
+    (out_dir / "CHAOS_torch.json").write_text(json.dumps(rep, indent=1, sort_keys=True) + "\n")
+    rep = _held_report("CHAOS", out_dir / "CHAOS_torch.json", "j")
     res["j chaos"] = {"wall_s": time.monotonic() - t, "report": rep}
     print(f"[workloads j] chaos: {json.dumps(rep)}", flush=True)
     check(rep["served"]["ok_rate_during_fault"] >= 0.9, f"(j) served through the fault: {rep['served']}")
@@ -6873,7 +6991,7 @@ def _fleet_engine_report(out_dir, log_path) -> dict:
     """Phase 21 (k)-(m)'s readings, once their process exited 0; their
     lines, printed in that process's log, printed here too."""
     for line in pathlib.Path(log_path).read_text().splitlines():
-        if line.startswith(("[workloads k]", "[workloads l]", "[workloads m]", "[time] phase 21")):
+        if line.startswith(("[workloads k]", "[workloads l]", "[workloads m]", "[schema ", "[time] phase 21")):
             print(line, flush=True)
     return json.loads((pathlib.Path(out_dir) / FLEET_ENGINES_JSON).read_text())
 
@@ -6928,28 +7046,30 @@ def _join_fleet_child(proc, log_path, out_dir) -> dict:
 
 def fleet_engine_phase(dev, card) -> dict:
     """Phase 21 (k)-(m): the observability, black-box and fleet-aggregation
-    scenarios of ``workload.py``, their engines at ``FLEET_WL["model"]``'s
-    widths, ``FLEET_WL["layers"]`` deep (bf16), each with a fresh metric
-    registry (the aggregator's merged TTFT reads the process registry, which
-    every earlier phase of this process fed) and its launches counted from
-    just before it to just after; the checks read nothing that depends on
-    the wall clock. (k)'s engine prefills its three lone short prompts on
-    the dense route, as the JAX engine does: the leg launches B1 and no B2,
-    which (l) and (m) launch."""
-    from radixmesh_tpu_torch import workload as wlm
+    scenarios of ``workload.py`` through their command lines, their engines
+    at ``FLEET_WL["model"]``'s widths, ``FLEET_WL["layers"]`` deep (the
+    command lines' default model, bf16),
+    each with a fresh metric registry (the aggregator's merged TTFT reads
+    the process registry, which every earlier phase of this process fed),
+    its launches counted from just before it to just after and its report
+    held to its schema; the checks read nothing that depends on the wall
+    clock. (k)'s engine prefills its three lone short prompts on the dense
+    route, as the JAX engine does: the leg launches B1 and no B2, which (l)
+    and (m) launch."""
     from radixmesh_tpu_torch.obs.metrics import Registry, get_registry, set_registry
+    from radixmesh_tpu_torch.scripts import aggbench, blackboxbench, obsbench
 
     on_card = torch.device(dev).type == "cuda"
-    cfg = get_config(FLEET_WL["model"]).replace(n_layers=FLEET_WL["layers"])
+    model = _model_args(FLEET_WL["model"], dev)
     out = {}
     t0 = time.monotonic()
     old_registry = get_registry()
     registries = {}
 
-    def leg(tag, fn, **kw):
+    def leg(tag, kind, main, argv=()):
         registries[tag] = set_registry(Registry())
         try:
-            return _wl_leg(out, dev, tag, fn, cfg, **kw)
+            return _cli_leg(out, dev, tag, kind, main, model + list(argv))
         finally:
             set_registry(old_registry)
 
@@ -6958,7 +7078,7 @@ def fleet_engine_phase(dev, card) -> dict:
             check(all(n[k] > 0 for k in kernels), f"({tag}) {' or '.join(kernels)} not launched: {n}")
 
     # (k) the stitched trace, the heat storm, the wire, the step accounting.
-    rep, n, wall = leg("k obs steps", wlm.run_obs_workload, engine_steps=True)
+    rep, n, wall = leg("k obs steps", "OBS", obsbench.main)
     st, heat, steps, wire = rep["stitch"], rep["heat"], rep["steps"], rep["wire"]
     check(st["failed"] == 0 and st["interrupted"] > 0 and st["resumed"] == st["interrupted"], f"(k) stitch: {st}")
     check(st["copies_before_kill"] and st["node_tracks"] >= 3 and st["replication_edges"] > 0
@@ -6981,7 +7101,7 @@ def fleet_engine_phase(dev, card) -> dict:
     # (l) the black box: healthy, storm, a hard kill, the post-mortem.
     bb_dir = tempfile.mkdtemp(prefix="bb-l-", dir=OUT_DIR)
     try:
-        rep, n, wall = leg("l blackbox", wlm.run_blackbox_workload, blackbox_dir=bb_dir)
+        rep, n, wall = leg("l blackbox", "BLACKBOX", blackboxbench.main, ["--keep-dumps", bb_dir])
         victim_dir = pathlib.Path(bb_dir) / "victim"
         names = [p.name for d in victim_dir.iterdir() for p in d.iterdir()]
     finally:
@@ -7009,7 +7129,7 @@ def fleet_engine_phase(dev, card) -> dict:
           f"{hist['self_overhead']['under_budget']}); wall {wall:.2f}s; launches {n}", flush=True)
 
     # (m) the fleet aggregator: merged p99, straggler, exemplar, gap.
-    rep, n, wall = leg("m agg", wlm.run_agg_workload)
+    rep, n, wall = leg("m agg", "AGG", aggbench.main)
     pc, sg, ex, gap, fan, ovh = (rep[k] for k in ("percentiles", "straggler", "exemplar", "gap", "fan_in",
                                                    "overhead"))
     check(sg["detected"] and str(sg["named_rank"]) == str(sg["seeded_rank"]), f"(m) straggler: {sg}")
@@ -7036,6 +7156,28 @@ def fleet_engine_phase(dev, card) -> dict:
     _release(dev)
     print(f"[time] phase 21 (k)-(m) {time.monotonic() - t0:.1f}s", flush=True)
     return out
+
+
+# The reports phases 20 and 21 write through the command lines.
+WORKLOAD_REPORTS = ("SPEC", "CONVOY", "KVFLOW", "TIER", "DOCTOR", "SOAK", "FLEET", "CHAOS", "OBS", "BLACKBOX",
+                    "AGG")
+
+
+def benchdiff_phase() -> dict:
+    """Phase 21's last leg, on the host: the port's benchdiff
+    (``scripts.benchdiff``) over each report phases 20 and 21 wrote, against
+    itself: each kind is recognised from its metric and compares clean
+    (exit 0)."""
+    from radixmesh_tpu_torch.scripts import benchdiff
+
+    rcs = {}
+    for kind in WORKLOAD_REPORTS:
+        path = str(OUT_DIR / f"{kind}_torch.json")
+        with open(OUT_DIR / f"benchdiff-{kind}.txt", "w") as fh, contextlib.redirect_stdout(fh):
+            rcs[kind] = benchdiff.main([path, path])
+    print(f"[benchdiff] each report against itself (exit codes): {rcs}", flush=True)
+    check(all(rc == reports.BENCHDIFF_EXIT_CLEAN for rc in rcs.values()), f"benchdiff: {rcs}")
+    return rcs
 
 
 def _parse(argv):
@@ -7097,9 +7239,16 @@ def main(argv=None) -> int:
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.monotonic()
+    host = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="chip-smoke-host")
+    whole_script = not (args.kernels or args.parallel_alone or args.workloads_alone)
+    shadow = host.submit(build_shadow_phase) if whole_script else None
     log = _build.build_all()
     print(f"[env] kernel build {time.monotonic() - t0:.1f}s wall: "
           + ", ".join(f"{k} {v['seconds']:.1f}s" for k, v in log.items()), flush=True)
+    if shadow is not None:
+        shadow = shadow.result()
+        print(f"[time] kernel build {time.monotonic() - t0:.1f}s, with phase 16 (b) and the port's meshcheck "
+              f"beside it", flush=True)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "ptxas.txt").write_text("\n".join(f"== {k}\n{v['ptxas']}" for k, v in log.items()))
     lines = [line for v in log.values() for line in v["ptxas"].splitlines()]
@@ -7137,6 +7286,7 @@ def main(argv=None) -> int:
             workloads = workload_phase(dev, card)
             workloads.update(fleet_engine_phase(dev, card))
             workloads.update(_join_fleet_child(fleet_proc, fleet_log, OUT_DIR))
+            workloads["benchdiff"] = benchdiff_phase()
         finally:
             if fleet_proc.poll() is None:
                 fleet_proc.kill()
@@ -7147,11 +7297,12 @@ def main(argv=None) -> int:
             {"card": card, "sizes": WL, "workloads": workloads}, indent=1, default=str))
         print(card, flush=True)
         return 0
-    sass = sass_check()
-    sass["f32_body_resources"] = f32_body_resources(log["paged_chunk"]["ptxas"])
+    sass = host.submit(sass_check)  # cuobjdump on the host, beside the kernel phase
     t = time.monotonic()
     kernels = kernel_phase(dev)
-    print(f"[time] kernel phase {time.monotonic() - t:.1f}s", flush=True)
+    sass = sass.result()
+    sass["f32_body_resources"] = f32_body_resources(log["paged_chunk"]["ptxas"])
+    print(f"[time] kernel phase {time.monotonic() - t:.1f}s (cuobjdump beside it)", flush=True)
     t = time.monotonic()
     groups = group_kernel_phase(dev)
     print(f"[time] kernel phase at GQA groups 3 and 7 {time.monotonic() - t:.1f}s", flush=True)
@@ -7197,7 +7348,7 @@ def main(argv=None) -> int:
     head = head_phase(dev, model)
     print(f"[time] LM head phase {time.monotonic() - t:.1f}s", flush=True)
     t = time.monotonic()
-    mesh = mesh_phase(dev, model)
+    mesh = mesh_phase(dev, model, shadow["scale"])
     print(f"[time] mesh phase (a)-(c) {time.monotonic() - t:.1f}s", flush=True)
     t = time.monotonic()
     tree_leg = tree_checkpoint_leg(dev, model)
@@ -7264,6 +7415,7 @@ def main(argv=None) -> int:
         par = parallel_phase_finish(par_handle, beside=lambda: workload_scenario_phase(dev, card))
         workloads.update(par.pop("beside"))
         workloads.update(par.pop("fleet"))
+        workloads["benchdiff"] = benchdiff_phase()
     finally:
         parallel_phase_stop(par_handle)
     print(f"[time] phase 18 (b)-(h) {par['wall_s']:.1f}s from its start; both together "
@@ -7342,12 +7494,12 @@ def main(argv=None) -> int:
                     c["paged_decode_fused_kernel" + sfx]
                 by_path["paged_chunk_attention" + sfx][f"{pfx} tiers {q} rank{r['rank']}"] = \
                     c["paged_chunk_attention_kernel" + sfx]
-    # Phase 20: each workload leg's launches (B1 with float32 queries in
-    # (e); B3 in (e)'s crossover sweep alone).
+    # Phases 20 and 21: each workload leg's launches, the soak's too (B1
+    # with float32 queries in (e); B3 in (e)'s crossover sweep alone).
     for key, label in (("a", "(a) north star"), ("b", "(b) overload"), ("d spec", "(d) spec"),
                        ("e convoy", "(e) convoy float32"), ("f kvflow", "(f) kvflow"), ("g tier", "(g) tier"),
-                       ("h doctor", "(h) doctor"), ("k obs steps", "(k) obs steps"), ("l blackbox", "(l) blackbox"),
-                       ("m agg", "(m) agg")):
+                       ("h doctor", "(h) doctor"), ("soak", "soak"), ("k obs steps", "(k) obs steps"),
+                       ("l blackbox", "(l) blackbox"), ("m agg", "(m) agg")):
         n = workloads[key]["launches"]
         by_path["paged_decode_fused"][f"workloads {label}"] = n["b1"]
         if key == "e convoy":

@@ -2517,6 +2517,16 @@ class MeshCache:
         with self._lock:
             return self.heat.loads()
 
+    def set_heat_clock(self, now=time.monotonic) -> None:
+        """Run this node's heat cells on ``now`` (monotonic seconds, which
+        at the swap must not read behind the clock it replaces: the
+        cells' stamps came from that one); ``time.monotonic`` restores
+        the wall clock."""
+        if self.heat is None:
+            return
+        with self._lock:
+            self.heat.set_clock(now)
+
     def base_owners_of(self, sid: int) -> tuple[int, ...]:
         """The shard's BASE RF-successor walk under the current view —
         the owner set with no overrides applied (the rebalancer's boost

@@ -414,6 +414,11 @@ class ShardHeat:
         # sid → kind → [decayed value, last-update monotonic stamp]
         self._cells: dict[int, dict[str, list[float]]] = {}
 
+    def set_clock(self, now=time.monotonic) -> None:
+        """Decay on ``now`` (monotonic seconds) from here on; at the swap
+        it must not read behind the clock it replaces."""
+        self._now = now
+
     def _bump(self, sid: int, kind: str, amount: float) -> None:
         now = self._now()
         cell = self._cells.setdefault(int(sid), {})

@@ -15,26 +15,38 @@ rates at their in-window peaks, tier thrash, and the crash itself
 (``node_crash``: health-collapse windows, an unclean end). A router's dump
 judges the serving nodes it watched. ``--json`` prints the whole report.
 
-Exit codes: 0 healthy, 1 findings, 2 unreachable, unreadable or a bad
-response.
+Workload mode (``--workload``) runs the seeded acceptance scenario
+(``workload.run_doctor_workload``: a healthy phase, then a hot shard, a
+prefill convoy and a parked restore lane, each to be named with its
+evidence), attaches the benchdiff sentinel's self-check
+(``reports.benchdiff_selfcheck``), and writes the DOCTOR artifact,
+validated against ``reports.validate_doctor``: ``DOCTOR_torch_r{N}.json``
+in the repo root, or ``--out`` (which may not name a JAX artifact). Its
+engines run on the card unless ``--device cpu``, at Llama-3-8B's widths 2
+layers deep with the scenario sizes tuned for them, or with ``--model toy``
+on the scenario's own model at its own sizes.
+
+Exit codes: 0 healthy (workload mode: all three pathologies named, no
+schema violation), 1 findings (or not), 2 unreachable, unreadable, a bad
+response or a refused ``--out``.
 
     python -m radixmesh_tpu_torch.doctor [--url http://HOST:PORT] [--watch SECONDS]
     python -m radixmesh_tpu_torch.doctor --blackbox /var/dumps/router@3 [--json]
+    python -m radixmesh_tpu_torch.doctor --workload [--seed 0] [--device cpu --model toy] [--out FILE]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 import urllib.request
 
-__all__ = ["main"]
+from radixmesh_tpu_torch.scripts._cli import add_engine_args
 
-# Modes of the JAX package's doctor command whose pieces are not ported yet,
-# with the ROADMAP.md queue item that brings each.
-_NOT_PORTED = {"--workload": "A7b, the artifact command lines (scripts/doctor.py --workload)"}
+__all__ = ["main"]
 
 
 def _render(report: dict) -> None:
@@ -96,6 +108,38 @@ def _postmortem(path: str, as_json: bool) -> int:
     return 0 if report.get("healthy") else 1
 
 
+def _workload(args) -> int:
+    from radixmesh_tpu_torch import reports
+    from radixmesh_tpu_torch.scripts._cli import DOCTOR_KW, TOY, refuse_jax_out, scenario_cfg
+    from radixmesh_tpu_torch.workload import run_doctor_workload
+
+    if refuse_jax_out("doctor", "DOCTOR", args.out):
+        return 2
+    sizes = {} if args.model == TOY else DOCTOR_KW
+    res = run_doctor_workload(seed=args.seed, cfg=scenario_cfg(args), device=args.device, **sizes)
+    res["benchdiff"] = reports.benchdiff_selfcheck()
+    report = reports.build_doctor_report(res)
+    problems = reports.validate_doctor(report)
+    if problems:
+        report["schema_violation"] = problems
+    path = args.out or reports.artifact_path("DOCTOR")
+    with open(path, "w") as fh:
+        json.dump(report, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+    named = report["value"]
+    print(json.dumps({
+        "metric": report["metric"],
+        "value": named,
+        "healthy_findings": len(report["healthy"]["findings"]),
+        "audited": report["attribution"]["audited"],
+        "max_sum_error_s": report["attribution"]["max_sum_error_s"],
+        "benchdiff": report["benchdiff"],
+        "schema_violation": problems or None,
+        "artifact": os.path.basename(path),
+    }))
+    return 0 if named == len(reports.DOCTOR_PATHOLOGIES) and not problems else 1
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m radixmesh_tpu_torch.doctor")
     ap.add_argument("--url", default="http://127.0.0.1:8000",
@@ -107,15 +151,18 @@ def main(argv: list[str] | None = None) -> int:
                     "directory instead of a live node (segment-only dumps of a hard kill too)")
     ap.add_argument("--json", action="store_true",
                     help="print the whole post-mortem report as JSON (--blackbox mode)")
-    argv = sys.argv[1:] if argv is None else argv
-    for arg in argv:
-        flag = arg.split("=", 1)[0]
-        if flag in _NOT_PORTED:
-            ap.error(f"{flag} is not supported by the PyTorch port yet "
-                     f"(see ROADMAP.md, queue {_NOT_PORTED[flag]})")
+    ap.add_argument("--workload", action="store_true",
+                    help="run the seeded acceptance workload and write DOCTOR_torch_r{N}.json instead of "
+                    "querying a live node")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None, metavar="FILE",
+                    help="workload-mode artifact path (default DOCTOR_torch_r{N}.json)")
+    add_engine_args(ap)
     args = ap.parse_args(argv)
     if args.blackbox:
         return _postmortem(args.blackbox, args.json)
+    if args.workload:
+        return _workload(args)
     return _live(args.url, args.watch)
 
 

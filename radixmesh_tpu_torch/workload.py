@@ -1395,7 +1395,8 @@ def _chaos_rebalance_phase(
     override version — a second storm wave's reads fan out across the
     boosted replicas until the router-observed skew score STRICTLY
     drops. Deterministic: zipf counts (not samples), manual decider
-    ticks, deadline-bounded waits."""
+    ticks, deadline-bounded waits, and heat decayed on a clock that the
+    requests' pacing advances (below)."""
     import time as _time
 
     from radixmesh_tpu_torch.cache.rebalance import RebalanceConfig, RebalancePlane
@@ -1415,6 +1416,17 @@ def _chaos_rebalance_phase(
     # One plane per ring node; decisions are manual ticks (the thread
     # cadence is a production concern, not a phase invariant) and only
     # the view master's plane ever acts.
+    # The ring's heat cells decay on a clock that each request advances
+    # by its pace (``wave_s`` over a wave, ``settle_s`` over the mid-move
+    # trickle) and that stands still between them, not on the wall: on
+    # the wall a loaded host stretched a wave past the heat's half-life
+    # (0.15 s in the quick gate), so each skew read sampled only the
+    # wave's last requests, and the reads, taken later still, decayed
+    # further while they waited for gossip. It starts at the wall's
+    # reading and stays behind it, so the wall can take over again.
+    clock = [_time.monotonic()]
+    for n in ring:
+        n.set_heat_clock(lambda: clock[0])
     planes = [
         RebalancePlane(
             n,
@@ -1486,30 +1498,33 @@ def _chaos_rebalance_phase(
             t0 = _time.monotonic()
             for i, key in enumerate(reqs):
                 serve(key)
+                clock[0] += pace
                 left = t0 + (i + 1) * pace - _time.monotonic()
                 if left > 0:
                     _time.sleep(left)
 
-        def _skew_at(mesh) -> dict:
-            # Only ranks with nonzero OWNED-shard load ride the heat
-            # trailer (cold reporters clear themselves) — wait for
-            # exactly the set that just published something.
-            expected = set()
-            for n in ring:
-                if n.ownership is not None:
-                    owned = set(n.ownership.owned_shards(n.rank))
-                    # heat_loads() snapshots under the mesh lock — the
-                    # transport reader threads are still applying storm
-                    # oplogs and mutating the heat cells.
-                    if set(n.heat_loads()) & owned:
-                        expected.add(n.rank)
-                n.broadcast_shard_summary()
+        def _holds_heat_of(mesh, n) -> bool:
+            # ``n``'s loads as ``mesh`` folded them against the ones ``n``
+            # folded itself when it sent them (the wire carries float32).
+            seen = mesh.fleet.shard_heat()["by_rank"].get(str(n.rank), {})
+            own = n.fleet.shard_heat()["by_rank"].get(str(n.rank), {})
+            return seen.keys() == own.keys() and all(
+                abs(seen[s] - v) <= 1e-5 * max(1.0, v) for s, v in own.items()
+            )
+
+        def _skew_at(*meshes) -> list[dict]:
+            # Every rank publishes now, folding its loads into its own
+            # view as it sends them. The heat clock stands still, so the
+            # loads stay put: wait until each of ``meshes`` holds each
+            # rank's, not merely some summary of each rank (a loaded
+            # host delivers the wave's periodic summaries late). Cold
+            # reporters clear themselves on both sides.
+            sent = [n for n in ring if n.broadcast_shard_summary()]
             wait_for(
-                lambda m=mesh, e=expected: e
-                <= {int(r) for r in m.fleet.shard_heat()["by_rank"]},
+                lambda: all(_holds_heat_of(m, n) for m in meshes for n in sent),
                 timeout=timeout_s,
             )
-            return mesh.fleet.shard_heat()
+            return [m.fleet.shard_heat() for m in meshes]
 
         decider = next((p for p in planes if p.is_decider()), None)
         if decider is None:
@@ -1519,8 +1534,7 @@ def _chaos_rebalance_phase(
         # -- wave 1: concentrate ---------------------------------------
         _wave(_serve_primary)
         # Both the observer router AND the decider need the heat folds.
-        heat_before = _skew_at(router_mesh)
-        _skew_at(decider_mesh)
+        heat_before, _ = _skew_at(router_mesh, decider_mesh)
         skew_before = float(heat_before["skew_score"])
         attempted_wave1 = counters["attempted"]
 
@@ -1538,6 +1552,7 @@ def _chaos_rebalance_phase(
         t_mid = _time.monotonic()
         for i, key in enumerate(reqs[:mid_requests]):
             _serve_routed(key)
+            clock[0] += settle_s / max(1, mid_requests)
             left = (
                 t_mid + (i + 1) * settle_s / max(1, mid_requests)
             ) - _time.monotonic()
@@ -1581,7 +1596,7 @@ def _chaos_rebalance_phase(
 
         # -- wave 2: fan out under the adopted overrides ---------------
         _wave(_serve_routed)
-        heat_after = _skew_at(router_mesh)
+        (heat_after,) = _skew_at(router_mesh)
         skew_after = float(heat_after["skew_score"])
         mid_attempted = counters["attempted"] - mid0_attempted
         mid_ok = counters["ok"] - mid0_ok
@@ -1608,6 +1623,8 @@ def _chaos_rebalance_phase(
     finally:
         for p in planes:
             p.close()
+        for n in ring:
+            n.set_heat_clock()
 
 
 def _chaos_router_kill_phase(

@@ -7,7 +7,8 @@ command lines across packages: the untouched ``scripts/doctor.py --url``
 against the port's frontend, ``python -m radixmesh_tpu_torch.doctor --url``
 against the JAX one, and the port's post-mortem reader over a flushed dump,
 a hard kill's segments and a missing directory (exit codes 0 or 1, 1 with
-``node_crash``, 2), with ``--workload`` refused by name."""
+``node_crash``, 2), and the port's ``--workload`` artifact, read by both
+packages' validators."""
 
 import json
 import subprocess
@@ -181,9 +182,25 @@ def test_the_ports_postmortem_reader_names_a_hard_kill(tmp_path, capsys):
     assert "cannot load black box" in capsys.readouterr().err
 
 
-def test_the_ports_doctor_refuses_the_workload_by_name(capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--workload"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "--workload" in err and "queue A7b" in err and "scripts/doctor.py --workload" in err
+def test_the_ports_doctor_workload_writes_the_doctor_artifact(tmp_path, capsys):
+    """``python -m radixmesh_tpu_torch.doctor --workload --device cpu --model
+    toy --out FILE``: the seeded acceptance scenario on the toy model names
+    all three pathologies, and the DOCTOR report it writes passes the port's
+    validator and the JAX package's and carries a proven benchdiff
+    self-check. An ``--out`` naming a JAX artifact is refused (exit 2)
+    before anything runs."""
+    import bench
+
+    from radixmesh_tpu_torch import reports
+
+    assert cli.main(["--workload", "--out", str(tmp_path / "DOCTOR_r12.json")]) == 2
+    assert "JAX package's DOCTOR artifact" in capsys.readouterr().err
+    out = tmp_path / "DOCTOR_torch_r22.json"
+    assert cli.main(["--workload", "--device", "cpu", "--model", "toy", "--out", str(out)]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    report = json.loads(out.read_text())
+    assert line["artifact"] == out.name and line["value"] == report["value"] == 3
+    assert reports.validate_doctor(report) == [] == bench.validate_doctor(report)
+    assert "schema_violation" not in report
+    bd = report["benchdiff"]
+    assert bd["identical_clean"] and bd["regression_flagged"] and bd["mismatch_detected"]

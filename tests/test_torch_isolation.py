@@ -82,7 +82,15 @@ def test_port_imports_no_jax_and_no_jax_package():
             "radixmesh_tpu_torch.analysis.wire_kinds", "radixmesh_tpu_torch.analysis.metrics_vocab",
             "radixmesh_tpu_torch.analysis.thread_roots", "radixmesh_tpu_torch.analysis.guarded_by",
             "radixmesh_tpu_torch.analysis.protocol", "radixmesh_tpu_torch.analysis.controls",
-            "radixmesh_tpu_torch.analysis.report", "radixmesh_tpu_torch.meshcheck"} <= walked, r.stdout
+            "radixmesh_tpu_torch.analysis.report", "radixmesh_tpu_torch.meshcheck",
+            "radixmesh_tpu_torch.reports", "radixmesh_tpu_torch.scripts.specbench",
+            "radixmesh_tpu_torch.scripts.convoybench", "radixmesh_tpu_torch.scripts.kvflowbench",
+            "radixmesh_tpu_torch.scripts.tierbench", "radixmesh_tpu_torch.scripts.obsbench",
+            "radixmesh_tpu_torch.scripts.blackboxbench", "radixmesh_tpu_torch.scripts.aggbench",
+            "radixmesh_tpu_torch.scripts.fleetbench", "radixmesh_tpu_torch.scripts.chaosbench",
+            "radixmesh_tpu_torch.scripts.rebalancebench", "radixmesh_tpu_torch.scripts.benchdiff",
+            "radixmesh_tpu_torch.scripts.soak", "radixmesh_tpu_torch.scripts.ringbench",
+            "radixmesh_tpu_torch.scripts.ringscale"} <= walked, r.stdout
 
 
 _PARALLEL_PROBE = """
@@ -119,6 +127,23 @@ def test_parallel_package_stands_alone():
                 assert top not in ("jax", "jaxlib", "radixmesh_tpu", "ml_dtypes"), (f.name, n)
 
 
+def test_report_plane_and_command_lines_import_no_jax_and_no_bench():
+    """``reports.py`` and every module under ``scripts/`` import neither
+    ``jax``, the JAX package, ``ml_dtypes`` nor ``bench.py`` (whose builders
+    import the JAX package), in their source text."""
+    import ast
+
+    files = [ROOT / "radixmesh_tpu_torch" / "reports.py",
+             *sorted((ROOT / "radixmesh_tpu_torch" / "scripts").glob("*.py"))]
+    assert len(files) >= 15, files
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            for n in names:
+                assert n.split(".")[0] not in ("jax", "jaxlib", "radixmesh_tpu", "ml_dtypes", "bench"), (f.name, n)
+
+
 def _code_of(path: pathlib.Path, names: tuple[str, ...] | None = None) -> str:
     """The module's AST without docstrings, with every ``radixmesh_tpu``
     name read as ``radixmesh_tpu_torch``: the code, not its prose. With
@@ -146,6 +171,49 @@ def _code_of(path: pathlib.Path, names: tuple[str, ...] | None = None) -> str:
                                     "analysis/protocol.py"])
 def test_copied_fleet_modules_differ_from_the_jax_files_only_in_imports(module):
     assert _code_of(ROOT / "radixmesh_tpu_torch" / module) == _code_of(ROOT / "radixmesh_tpu" / module)
+
+
+def _shared_top_level(kind):
+    import ast
+
+    def names(path):
+        return {getattr(n, "name", None) for n in ast.parse(path.read_text()).body if isinstance(n, kind)}
+
+    return sorted(names(ROOT / "radixmesh_tpu_torch" / "reports.py") & names(ROOT / "bench.py"))
+
+
+def test_report_plane_functions_are_bench_py_code():
+    """Every function ``reports.py`` shares with ``bench.py`` (the validators,
+    builders and the benchdiff sentinel) is ``bench.py``'s code but for its
+    imports (``radixmesh_tpu`` read as ``radixmesh_tpu_torch``)."""
+    import ast
+
+    shared = tuple(_shared_top_level(ast.FunctionDef))
+    assert len(shared) >= 33 and {"validate_doctor", "build_tier_report", "compare_rounds",
+                                  "benchdiff_selfcheck", "artifact_kind"} <= set(shared), shared
+    assert _code_of(ROOT / "radixmesh_tpu_torch" / "reports.py", shared) == _code_of(ROOT / "bench.py", shared)
+
+
+def test_report_plane_constants_equal_bench_py():
+    """Every schema constant of ``bench.py`` (field tuples, versions, floors,
+    the benchdiff rule tables) is in ``reports.py`` with ``bench.py``'s
+    value; the ANALYSIS ones in ``analysis/report.py``, whose schema
+    ``reports.py`` re-exports."""
+    import bench
+
+    from radixmesh_tpu_torch import reports
+    from radixmesh_tpu_torch.analysis import report as analysis_report
+
+    consts = [n for n in vars(bench) if n.isupper() and not n.startswith("_")
+              and n.split("_")[0] in ("RINGBENCH", "RINGSCALE", "FLEET", "CHAOS", "OBS", "KVFLOW", "ANALYSIS",
+                                      "DOCTOR", "BLACKBOX", "REBALANCE", "TIER", "AGG", "SPEC", "CONVOY",
+                                      "BENCHDIFF", "COMPARE")]
+    assert len(consts) > 100
+    for name in consts:
+        home = analysis_report if name.startswith("ANALYSIS_") else reports
+        assert getattr(home, name) == getattr(bench, name), name
+    assert reports._METRIC_KINDS == bench._METRIC_KINDS
+    assert reports._ZERO_BASELINE_FLOOR == bench._ZERO_BASELINE_FLOOR
 
 
 _GENERATORS = ("synth_text", "_Conversation", "MultiTurnWorkload", "TextMultiTurnWorkload",

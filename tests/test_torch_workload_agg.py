@@ -12,6 +12,7 @@ overhead budget and ``within_cadence``."""
 
 import pytest
 import torch
+from _torch_cli import hold_report, run_cli
 from _torch_twin import fresh_jax_globals, fresh_port_globals, missing_artifact_fields
 
 from radixmesh_tpu_torch import workload as pw
@@ -69,3 +70,17 @@ def test_agg_report_has_the_artifact_fields(agg):
     sections = {"percentiles": "PERCENTILE", "straggler": "STRAGGLER", "exemplar": "EXEMPLAR", "gap": "GAP",
                 "overhead": "OVERHEAD", "fan_in": "FANIN"}
     assert not missing_artifact_fields(agg["port"], "AGG", sections, agg["jax"])
+
+
+def test_aggbench_builds_and_validates_the_agg_report(agg, monkeypatch, tmp_path, capsys):
+    """``radixmesh_tpu_torch.scripts.aggbench`` over the fixture's run: both
+    validators read the AGG report alike (its pull-overhead budget is the
+    run's own wall-clock verdict)."""
+    from radixmesh_tpu_torch.scripts import aggbench
+
+    rc, report, kw = run_cli(monkeypatch, tmp_path, capsys, aggbench, "run_agg_workload", agg["port"],
+                             ["--device", "cpu", "--model", "toy"])
+    assert kw == dict(seed=0, replication_factor=3, history_interval_s=0.2, agg_interval_s=0.25, sim_peers=200,
+                      cfg=None, device="cpu")
+    assert report["metric"] == "agg_fleet_verdicts_named"
+    hold_report("agg", rc, report)

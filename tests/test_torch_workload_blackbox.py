@@ -20,6 +20,7 @@ import os
 
 import pytest
 import torch
+from _torch_cli import hold_report, run_cli
 from _torch_twin import fresh_jax_globals, fresh_port_globals, missing_artifact_fields
 
 from radixmesh_tpu_torch import workload as pw
@@ -93,3 +94,19 @@ def test_blackbox_victim_dir_holds_segments_only(bb):
 def test_blackbox_report_has_the_artifact_fields(bb):
     sections = {"healthy": "HEALTHY", "crash": "CRASH", "history.self_overhead": "OVERHEAD"}
     assert not missing_artifact_fields(bb["port"], "BLACKBOX", sections, bb["jax"])
+
+
+def test_blackboxbench_builds_and_validates_the_blackbox_report(bb, monkeypatch, tmp_path, capsys):
+    """``radixmesh_tpu_torch.scripts.blackboxbench`` over the fixture's run:
+    ``--keep-dumps`` reaches the scenario's ``blackbox_dir``; both
+    validators read the report alike (the sampler's overhead budget is
+    the run's own wall-clock verdict)."""
+    from radixmesh_tpu_torch.scripts import blackboxbench
+
+    keep = str(tmp_path / "dumps")
+    rc, report, kw = run_cli(monkeypatch, tmp_path, capsys, blackboxbench, "run_blackbox_workload", bb["port"],
+                             ["--device", "cpu", "--model", "toy", "--keep-dumps", keep])
+    assert kw == dict(seed=0, replication_factor=3, history_interval_s=0.25, blackbox_dir=keep, cfg=None,
+                      device="cpu")
+    assert report["metric"] == "blackbox_postmortem_named"
+    hold_report("blackbox", rc, report)

@@ -14,6 +14,7 @@ survivor, and then reads 0.0 now and then; the port waits for that delivery
 (ROADMAP.md, C, deliberate differences)."""
 
 import pytest
+from _torch_cli import hold_report, run_cli
 from _torch_twin import fresh_jax_globals, fresh_port_globals, missing_artifact_fields
 
 from radixmesh_tpu_torch import workload as pw
@@ -57,12 +58,15 @@ def test_chaos_serves_diverges_and_repairs(chaos):
 
 
 def test_chaos_drain_and_join_lose_nothing(chaos):
+    """The JAX run's ``left_without_failure_detection`` is read, not held:
+    its drain races its failure detector under a loaded host (a starved
+    node reads as dead now and then); the port's must be True."""
     port, ref = chaos["port"], chaos["jax"]
     drain, rdrain = port["drain"], ref["drain"]
-    for key in ("performed", "node", "zero_failed", "left_without_failure_detection", "writeback_flushed"):
+    for key in ("performed", "node", "zero_failed", "writeback_flushed"):
         assert drain[key] == rdrain[key], key
     assert drain["zero_failed"] is True and drain["writeback_flushed"] is True
-    assert drain["left_without_failure_detection"] is True
+    assert drain["left_without_failure_detection"] is True, rdrain["left_without_failure_detection"]
     assert drain["requeued_served"] == drain["requeued"] == rdrain["requeued"]
     assert drain["attempted_during_drain"] == drain["ok_during_drain"] == CHAOS_KW["drain_requests"]
     join, rjoin = port["join"], ref["join"]
@@ -128,3 +132,31 @@ def test_fleet_churn_converges_heals_and_demotes_the_stall(churn):
 def test_fleet_churn_report_has_the_artifact_fields(churn):
     sections = {"fan_in": "FAN_IN", "convergence": "CONVERGENCE", "stall_reaction": "STALL"}
     assert not missing_artifact_fields(churn["port"], "FLEET", sections, churn["jax"])
+
+
+def test_chaosbench_builds_and_validates_the_chaos_report(chaos, monkeypatch, tmp_path, capsys):
+    """``radixmesh_tpu_torch.scripts.chaosbench`` over the fixture's run: the
+    JAX script's flags reach the scenario; the CHAOS report is valid for
+    both validators."""
+    from radixmesh_tpu_torch.scripts import chaosbench
+
+    rc, report, kw = run_cli(monkeypatch, tmp_path, capsys, chaosbench, "run_chaos_workload", chaos["port"],
+                             ["--partition", "1.2", "--requests", "60", "--join-partition", "1.0",
+                              "--crash-streams", "8"])
+    assert kw == dict(drop_p=0.2, partition_s=1.2, n_requests=60, round_budget=8, seed=0, join_drain=True,
+                      join_partition_s=1.0, crash=True, crash_streams=8, replication_factor=0, rebalance=True,
+                      router_kill=True)
+    assert report["metric"] == "chaos_heal_converge_s"
+    hold_report("chaos", rc, report)
+
+
+def test_fleetbench_builds_and_validates_the_fleet_report(churn, monkeypatch, tmp_path, capsys):
+    """``radixmesh_tpu_torch.scripts.fleetbench`` over the fixture's run:
+    the FLEET report is valid for both validators."""
+    from radixmesh_tpu_torch.scripts import fleetbench
+
+    rc, report, kw = run_cli(monkeypatch, tmp_path, capsys, fleetbench, "run_fleet_churn_workload", churn["port"],
+                             [])
+    assert kw == dict(n_inserts=120, digest_interval_s=0.1, fan_in_rounds=5, seed=0)
+    assert report["metric"] == "fleet_digest_fan_in_p50_s"
+    hold_report("fleet", rc, report)

@@ -11,11 +11,14 @@ per module. ``prefill_convoy`` is not asserted: whether a long prompt's
 prefill dominates its e2e is a wall-clock reading (the JAX run at these
 sizes does not fire it)."""
 
+import json
+
 import pytest
 import torch
 from _torch_twin import fresh_port_globals, missing_artifact_fields
 
 import bench
+from radixmesh_tpu_torch import reports
 from radixmesh_tpu_torch import workload as pw
 
 torch.set_num_threads(1)  # the suite runs in parallel worker processes
@@ -68,3 +71,36 @@ def test_doctor_report_has_the_artifact_fields(doctor):
                 **{f"pathologies.{name}": "PATHOLOGY" for name in bench.DOCTOR_PATHOLOGIES}}
     missing = missing_artifact_fields(doctor["port"], "DOCTOR", sections, doctor["jax"])
     assert not missing, missing
+
+
+def test_doctor_workload_command_line_builds_the_doctor_report(doctor, monkeypatch, tmp_path, capsys):
+    """``python -m radixmesh_tpu_torch.doctor --workload`` over the fixture's
+    run: the default model (Llama-3-8B's widths, 2 layers) brings the card's
+    scenario sizes (``scripts._cli.DOCTOR_KW``), the report carries a proven
+    benchdiff self-check, and both validators read it alike (the reduced
+    run's prefill convoy is its own wall-clock verdict)."""
+    from _torch_cli import hold_report
+
+    from radixmesh_tpu_torch import doctor as doctor_cli
+    from radixmesh_tpu_torch import workload
+    from radixmesh_tpu_torch.scripts._cli import DOCTOR_KW
+
+    seen = {}
+
+    def scenario(**kw):
+        seen.update(kw)
+        return dict(doctor["port"])
+
+    monkeypatch.setattr(workload, "run_doctor_workload", scenario)
+    out = tmp_path / "DOCTOR_torch_r99.json"
+    rc = doctor_cli.main(["--workload", "--device", "cpu", "--seed", "0", "--out", str(out)])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cfg = seen.pop("cfg")
+    assert (cfg.n_layers, cfg.hidden, cfg.head_dim) == (2, 4096, 128)
+    assert seen == dict(DOCTOR_KW, seed=0, device="cpu")
+    report = json.loads(out.read_text())
+    assert line["artifact"] == out.name and line["value"] == report["value"]
+    bd = report["benchdiff"]
+    assert bd["identical_clean"] and bd["regression_flagged"] and bd["mismatch_detected"]
+    problems = hold_report("doctor", rc, report)
+    assert rc == (0 if report["value"] == len(reports.DOCTOR_PATHOLOGIES) and not problems else 1)

@@ -18,6 +18,7 @@ import json
 import bench
 import pytest
 import torch
+from _torch_cli import hold_report, run_cli
 from _torch_twin import fresh_jax_globals, fresh_port_globals, missing_artifact_fields
 
 from radixmesh_tpu_torch import workload as pw
@@ -109,3 +110,16 @@ def test_obs_report_has_the_artifact_fields(which, obs, steps):
     if which == "steps":
         sections.update({"steps": "STEP", "steps.prefill": "WAVE", "steps.decode": "WAVE"})
     assert not missing_artifact_fields(run["port"], "OBS", sections, run["jax"])
+
+
+def test_obsbench_builds_and_validates_the_obs_report(steps, monkeypatch, tmp_path, capsys):
+    """``radixmesh_tpu_torch.scripts.obsbench`` over the fixture's run with
+    the step leg: the OBS report valid for both validators."""
+    from radixmesh_tpu_torch.scripts import obsbench
+
+    rc, report, kw = run_cli(monkeypatch, tmp_path, capsys, obsbench, "run_obs_workload", steps["port"],
+                             ["--device", "cpu", "--model", "toy", "--streams", "6", "--zipf-inserts", "250"])
+    assert kw == dict(seed=0, replication_factor=3, streams=6, zipf_inserts=250, engine_steps=True,
+                      stitched_trace_path=None, cfg=None, device="cpu")
+    assert report["metric"] == "obs_stitched_node_tracks"
+    hold_report("obs", rc, report)

@@ -12,6 +12,7 @@ compared only within the port (``outputs_match`` in float32)."""
 
 import pytest
 import torch
+from _torch_cli import hold_report, run_cli
 from _torch_twin import fresh_port_globals, missing_artifact_fields
 
 from radixmesh_tpu_torch import workload as pw
@@ -99,3 +100,32 @@ def test_convoy_report_has_the_artifact_fields(convoy):
                 "crossover": "CROSSOVER"}
     for tag in ("port", "port f32"):
         assert not missing_artifact_fields(convoy[tag], "CONVOY", sections, convoy["jax"]), tag
+
+
+def test_specbench_builds_and_validates_the_spec_report(spec, monkeypatch, tmp_path, capsys):
+    """``radixmesh_tpu_torch.scripts.specbench`` over the fixture's run:
+    the toy model on the CPU, its flags passed through, the SPEC report
+    valid for both packages' validators."""
+    from radixmesh_tpu_torch.scripts import specbench
+
+    rc, report, kw = run_cli(monkeypatch, tmp_path, capsys, specbench, "run_spec_workload", spec["port"],
+                             ["--device", "cpu", "--model", "toy", "--gamma", "3"])
+    assert kw == dict(seed=0, gamma=3, overhead_tokens=1000, cfg=None, device="cpu")
+    assert report["metric"] == "spec_accepted_tokens_per_step"
+    hold_report("spec", rc, report)
+
+
+def test_convoybench_builds_and_validates_the_convoy_report(convoy, monkeypatch, tmp_path, capsys):
+    """``radixmesh_tpu_torch.scripts.convoybench`` over the fixture's float32
+    run: the default model (Llama-3-8B's widths, 2 layers) is float32; the
+    CONVOY report is complete for both validators (its crossover timings
+    are the run's own wall-clock verdicts, not held on the CPU)."""
+    from radixmesh_tpu_torch.scripts import convoybench
+
+    rc, report, kw = run_cli(monkeypatch, tmp_path, capsys, convoybench, "run_convoy_workload", convoy["port f32"],
+                             ["--device", "cpu", "--reps", "1"])
+    cfg = kw.pop("cfg")
+    assert (cfg.n_layers, cfg.dtype, cfg.hidden, cfg.head_dim) == (2, torch.float32, 4096, 128)
+    assert kw == dict(seed=0, inline_budget=32, max_defer=2, reps=1, device="cpu")
+    assert report["metric"] == "convoy_ttft_speedup"
+    hold_report("convoy", rc, report)

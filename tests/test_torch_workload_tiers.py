@@ -13,6 +13,7 @@ not asserted."""
 
 import pytest
 import torch
+from _torch_cli import hold_report, run_cli
 from _torch_twin import fresh_port_globals, missing_artifact_fields
 
 from radixmesh_tpu_torch import workload as pw
@@ -83,3 +84,33 @@ def test_tier_report_has_the_artifact_fields(tier):
     sections = {"capacity": "CAPACITY", "spill": "SPILL", "restore_overlap": "RESTORE",
                 "cold_start": "COLD_START", "corruption": "CORRUPTION"}
     assert not missing_artifact_fields(tier["port"], "TIER", sections, tier["jax"])
+
+
+def test_kvflowbench_builds_and_validates_the_kvflow_report(kvflow, monkeypatch, tmp_path, capsys):
+    """``radixmesh_tpu_torch.scripts.kvflowbench`` over the fixture's run:
+    the toy model on the CPU, the JAX script's flags mapped to the
+    scenario's arguments, the KVFLOW report valid for both validators."""
+    from radixmesh_tpu_torch.scripts import kvflowbench
+
+    rc, report, kw = run_cli(monkeypatch, tmp_path, capsys, kvflowbench, "run_kvflow_workload", kvflow["port"],
+                             ["--device", "cpu", "--model", "toy", "--requests", "2", "--prompt-tokens", "256",
+                              "--chunk-tokens", "128", "--repeats", "1"])
+    assert kw == dict(KVFLOW_KW, cfg=None, device="cpu")
+    assert report["metric"] == "kv_restore_overlapped_ttft_ratio"
+    hold_report("kvflow", rc, report)
+
+
+def test_tierbench_embeds_the_ports_meshcheck_and_validates(tier, monkeypatch, tmp_path, capsys):
+    """``radixmesh_tpu_torch.scripts.tierbench`` over the fixture's run: the
+    TIER report embeds the port's meshcheck over the tier plane (0
+    findings, the ``hotpath-file-io`` controls tripped) and is valid for
+    both validators."""
+    from radixmesh_tpu_torch.scripts import tierbench
+
+    rc, report, kw = run_cli(monkeypatch, tmp_path, capsys, tierbench, "run_tier_workload", tier["port"],
+                             ["--device", "cpu", "--model", "toy", "--seed", "1"])
+    assert kw == dict(seed=1, cfg=None, device="cpu")
+    mc = report["meshcheck"]
+    assert mc["clean"] is True and mc["findings"] == 0, mc
+    assert mc["file_io_controls"] == mc["file_io_controls_tripped"] > 0
+    assert hold_report("tier", rc, report) == [] and rc == 0
